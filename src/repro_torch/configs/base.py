@@ -1,0 +1,180 @@
+"""Config system: frozen dataclasses describing every architecture.
+
+The PyTorch port keeps its own copy of the JAX package's config dataclasses
+(``repro/configs/base.py``): that module imports ``repro.core.remat`` and,
+through it, JAX. Field names, defaults and ``reduced()`` are the same, so
+``dataclasses.asdict`` of a config is equal across the two packages, apart
+from the two backend-name fields, whose names follow this package's
+registry (``repro_torch/models/backends.py``: ``"torch"`` | ``"cuda"`` |
+``"auto"``).
+"""
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass, replace
+from typing import Optional, Union
+
+# Activation-remat policies of the layer loop (the JAX package's
+# core/remat.py). Serving never checkpoints; the training slice reads this.
+REMAT_POLICIES = ("none", "full", "codes")
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 Multi-head Latent Attention dims."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536          # 0 = no query compression
+    nope_head_dim: int = 128
+    rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    sfa_k: Optional[int] = None      # None = dense; else paper's Top-k budget
+    window: Optional[int] = None     # sliding-window size (local layers)
+    local_global_pattern: Optional[int] = None  # gemma3: N local then 1 global
+    mla: Optional[MLAConfig] = None
+    rope: bool = True
+    rope_theta: float = 10_000.0
+    causal: bool = True
+    qk_norm: bool = False            # qwen3/gemma3-style per-head RMSNorm
+    # Attention-backend registry names (repro_torch/models/backends.py):
+    # "cuda" = the hand-written kernels, "torch" = the plain oracle, "auto"
+    # = "cuda" wherever it can serve the layer, else "torch". ``backend``
+    # drives prefill full-sequence attention, ``decode_backend`` serving
+    # decode. An explicit "cuda" that cannot serve a layer falls back to
+    # "torch" with a structured FallbackReport.
+    backend: str = "auto"            # "torch" | "cuda" | "auto"
+    decode_backend: str = "auto"     # "torch" | "cuda" | "auto"
+    # Training-side axes, carried for config parity with the JAX package;
+    # the serving slice does not read them.
+    bwd_emit: str = "dense"          # "dense" | "compact" | "compact2"
+    fwd_fuse: bool = True
+    ring: bool = False
+    # SFA-on-RoPE handling (paper A.1): keep a few leading dims dense so
+    # position info survives sparsification; 0 = sparsify everything.
+    sfa_rope_protect: int = 0
+    # Speculative drafting with the top-k' sub-code (later slice).
+    sfa_draft_k: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    expert_dim: int                  # per-expert FFN hidden
+    num_shared: int = 0
+    every: int = 1                   # MoE replaces MLP every Nth layer
+    first_dense: int = 0             # leading dense layers (deepseek-style)
+    capacity_factor: float = 1.25    # GShard capacity (tokens may drop above)
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 dims (jamba)."""
+    state_dim: int = 16
+    conv_dim: int = 4
+    expand: int = 2
+    dt_rank: int = 0                 # 0 -> ceil(d_model/16)
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV-6 'Finch' dims."""
+    head_dim: int = 64
+    decay_lora: int = 64             # data-dependent decay LoRA rank
+    gate_lora: int = 64
+
+
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Modality stub: precomputed embeddings in."""
+    kind: str                        # "patch" (vlm) | "frame" (audio)
+    input_dim: int                   # raw embedding dim provided by stub
+    prefix_len: int                  # tokens contributed to the sequence
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense|moe|hybrid|vlm|ssm|audio
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attention: Optional[AttentionConfig]
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
+    frontend: Optional[FrontendConfig] = None
+    hybrid_period: Optional[int] = None
+    hybrid_attn_index: Optional[int] = None
+    norm: str = "rmsnorm"            # rmsnorm|layernorm
+    act: str = "silu"                # silu|gelu
+    glu: bool = True                 # gated MLP (SwiGLU/GeGLU)
+    tie_embeddings: bool = True
+    causal: bool = True              # False: encoder-only
+    pos_embedding: str = "rope"      # rope|learned|none
+    max_seq_len: int = 131072
+    dtype: str = "bfloat16"
+    # Activation-remat policy of the layer loop: "none" | "full" | "codes".
+    # Booleans are the deprecated pre-policy axis (True -> "full").
+    remat: Union[str, bool] = "full"
+    loss_chunk: int = 512
+    # paper Eq. 8: λ for the SFA->dense attention-output MSE regularizer
+    sfa_distill: float = 0.0
+
+    def __post_init__(self):
+        if isinstance(self.remat, bool):
+            warnings.warn(
+                "ModelConfig.remat as a bool is deprecated; use "
+                'remat="none"|"full"|"codes" (bool maps True->"full", '
+                'False->"none")', DeprecationWarning, stacklevel=3)
+            object.__setattr__(self, "remat",
+                               "full" if self.remat else "none")
+        elif self.remat not in REMAT_POLICIES:
+            raise ValueError(f"remat={self.remat!r}; expected one of "
+                             f"{REMAT_POLICIES}")
+
+    def reduced(self) -> "ModelConfig":
+        """Tiny same-family config for CPU tests (same rule as the JAX
+        package's ``ModelConfig.reduced``)."""
+        att = self.attention
+        if att is not None:
+            att = replace(
+                att,
+                num_heads=min(att.num_heads, 4),
+                num_kv_heads=min(att.num_kv_heads, min(att.num_heads, 4)),
+                head_dim=min(att.head_dim, 32),
+                window=min(att.window, 16) if att.window else None,
+                sfa_k=min(att.sfa_k, 4) if att.sfa_k else None,
+                mla=MLAConfig(kv_lora_rank=16, q_lora_rank=24,
+                              nope_head_dim=16, rope_head_dim=8,
+                              v_head_dim=16) if att.mla else None,
+            )
+        moe = self.moe
+        if moe is not None:
+            moe = replace(moe, num_experts=min(moe.num_experts, 4),
+                          top_k=min(moe.top_k, 2), expert_dim=32)
+        ssm = self.ssm
+        if ssm is not None:
+            ssm = replace(ssm, state_dim=4, conv_dim=4, expand=2)
+        rwkv = self.rwkv
+        if rwkv is not None:
+            rwkv = replace(rwkv, head_dim=16, decay_lora=8, gate_lora=8)
+        fe = self.frontend
+        if fe is not None:
+            fe = replace(fe, input_dim=16, prefix_len=4)
+        period = self.hybrid_period
+        layers = (2 * period) if period else 2
+        return replace(
+            self, name=self.name + "-smoke",
+            num_layers=layers, d_model=64,
+            d_ff=128, vocab_size=256, attention=att, moe=moe, ssm=ssm,
+            rwkv=rwkv, frontend=fe, max_seq_len=128, remat="none",
+            loss_chunk=64,
+        )

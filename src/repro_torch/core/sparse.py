@@ -1,0 +1,120 @@
+"""Sparse feature codes — the paper's core data structure (plain PyTorch).
+
+Fixed-k token-major form, as in the JAX package's ``repro/core/sparse.py``:
+``values (..., k)`` + ``indices (..., k)`` (int64 in compute here, int32 in
+the kernels; the at-rest KV cache packs indices to uint8/uint16 — see
+``core/kv_cache.py``). Indices ascend per row and ties keep the lowest
+index, so the codes are bit-for-bit those of the JAX package.
+
+These functions are the plain oracle (the ``"torch"`` backend). On the card
+the serving path makes its codes with the rtopk kernel instead
+(``kernels/ops.py``), under the same contract on NaN-free rows.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class SparseCode(NamedTuple):
+    """Fixed-k sparse rows of a (..., d) tensor.
+
+    values:  (..., k)  original entries at the top-k |.| coordinates
+    indices: (..., k)  coordinate ids, ascending per row (deterministic)
+    dim:     d, the dense feature dimension
+    """
+
+    values: torch.Tensor
+    indices: torch.Tensor
+    dim: int
+
+    @property
+    def k(self) -> int:
+        return self.values.shape[-1]
+
+
+# above the bit pattern of +inf: no finite magnitude counts as >= it
+_BISECT_HI = 0x7F800001
+
+
+def bisect_threshold(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact k-th largest of non-negative int32 float bit patterns, per row.
+
+    The 32-step integer bisection of the paper's RTopK idea, made exact on
+    IEEE-754 bit patterns: for non-negative floats the int32 pattern is
+    order-isomorphic to the value. Returns ``(..., 1)`` int32 thresholds
+    with ``count(bits >= theta) >= k`` and ``count(bits > theta) < k``.
+    """
+    lo = torch.zeros(bits.shape[:-1] + (1,), dtype=torch.int32,
+                     device=bits.device)
+    hi = torch.full_like(lo, _BISECT_HI)
+    for _ in range(32):
+        mid = lo + (hi - lo) // 2
+        cnt = (bits >= mid).sum(-1, keepdim=True)
+        take_lo = cnt >= k
+        lo = torch.where(take_lo, mid, lo)
+        hi = torch.where(take_lo, hi, mid)
+    return lo
+
+
+def select_mask(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k selection mask on bit patterns: everything strictly above the
+    threshold, then ties in ascending index order until k are kept."""
+    theta = bisect_threshold(bits, k)
+    sel_hi = bits > theta
+    sel_tie = bits == theta
+    n_hi = sel_hi.sum(-1, keepdim=True)
+    rank_tie = torch.cumsum(sel_tie.to(torch.int32), dim=-1)
+    return sel_hi | (sel_tie & (rank_tie <= (k - n_hi)))
+
+
+def magnitude_bits(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns of |x| in float32 (order-isomorphic to |x|)."""
+    return x.float().abs().view(torch.int32)
+
+
+def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Boolean mask selecting the k largest-|x| coords per row (Eq. 4).
+
+    Same bisection as the JAX package's ``topk_mask`` (core/sparse.py:36-64),
+    not ``torch.topk``, which promises neither its output order nor how it
+    breaks ties. The lowest index wins a tie.
+    """
+    d = x.shape[-1]
+    if k >= d:
+        return torch.ones_like(x, dtype=torch.bool)
+    return select_mask(magnitude_bits(x), k)
+
+
+def mask_to_indices(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., d) mask with exactly k set per row -> (..., k) int64 ascending
+    indices (``nonzero`` walks in row-major order)."""
+    lead = mask.shape[:-1]
+    cols = mask.reshape(-1, mask.shape[-1]).nonzero()[:, 1]
+    return cols.reshape(lead + (k,))
+
+
+def sparsify(x: torch.Tensor, k: int) -> SparseCode:
+    """Row-wise Top-k by magnitude, keeping original values (Eq. 3-4).
+    Indices come out ascending."""
+    d = x.shape[-1]
+    k = min(k, d)
+    idx = mask_to_indices(topk_mask(x, k), k)
+    return SparseCode(values=x.gather(-1, idx), indices=idx, dim=d)
+
+
+def densify(code: SparseCode) -> torch.Tensor:
+    """Scatter a SparseCode back to its dense (..., d) form. Duplicate
+    indices sum, as the JAX one-hot contraction does."""
+    vals = code.values
+    out = torch.zeros(vals.shape[:-1] + (code.dim,), dtype=vals.dtype,
+                      device=vals.device)
+    return out.scatter_add_(-1, code.indices.long(), vals)
+
+
+def topk_st(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k by magnitude with the other coordinates zeroed (paper Eq. 6's
+    forward; the straight-through backward belongs to the training
+    slice)."""
+    return x * topk_mask(x, k).to(x.dtype)

@@ -1,0 +1,207 @@
+// flash_sfa.cu — FlashSFA forward (prefill attention) for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/flash_sfa.py::flash_sfa with
+// block_skip=False (Pallas body _flash_sfa_kernel, helpers _tile_update,
+// _finalize_tile, _densify_block). It computes
+//   out = softmax(densify(Q~) . densify(K~)^T * scale + mask) . V
+// from top-k codes (bh, n, k) (values + int32 indices) and V (bh, nk, dv),
+// with online softmax over key tiles, never forming the (n, n) matrix;
+// optionally it also writes the per-row LSE = m + log(l) that the training
+// slice's backward needs. Keys >= nk and, when causal, keys j > i are
+// masked. Duplicate indices sum on densify, so padding rows (idx 0, val 0)
+// densify to zero; indices outside [0, d) contribute nothing.
+//
+// Design: one block of 256 threads per (bh, 64-row query tile), looping
+// over 64-key tiles up to the causal edge. Each key tile's codes are
+// densified into shared memory as a (64 x d) f32 tile (one thread per key
+// row adds its k entries in order), and V is staged as f32. Each query row
+// is served by 4 threads; a thread scores its row against the tile by
+// gathering the row's own k coordinates from the dense K tile,
+//   s_ij = scale * sum_t qv[i,t] * Kd[j, qi[i,t]],
+// which is k multiply-adds per score instead of d — the paper's
+// Theta(n^2 k^2 / d) point, where the TPU kernel ran a dense d-wide matmul
+// on its matrix unit. The 4 threads of a row compute the same scores and
+// softmax state and split the dv output columns between them (columns
+// c*4 + sub, so the V tile is read without bank conflicts). Softmax and
+// accumulation run in f32; out is written in v's dtype.
+//
+// Bound on the H100: operations. Per (query, key) pair the kernel does 2k
+// flops of score and 2dv of P.V, against O(n k + n dv) bytes moved; the
+// P.V product runs on CUDA cores in f32 here, where a faster kernel would
+// put it on the tensor cores (wgmma) — work for a later change.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBQ = 64;       // query rows per block
+constexpr int kBK = 64;       // keys per tile
+constexpr int kThreads = 256; // 4 threads per query row
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
+__device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
+
+template <int DV, typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_sfa_fwd_kernel(const T* __restrict__ qv, const int32_t* __restrict__ qi,
+                     const T* __restrict__ kv, const int32_t* __restrict__ ki,
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, int nq, int nk, int kq, int kk,
+                     int d, float scale, int causal) {
+  constexpr int DVT = DV / 4;
+  extern __shared__ float smem[];
+  float* kd = smem;                   // (kBK, d)   densified key tile
+  float* vs = kd + kBK * d;           // (kBK, DV)  value tile
+  float* qvs = vs + kBK * DV;         // (kBQ, kq)  query code values
+  int* qis = reinterpret_cast<int*>(qvs + kBQ * kq);  // (kBQ, kq) indices
+
+  const int tid = threadIdx.x;
+  const int r = tid >> 2;
+  const int sub = tid & 3;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBQ;
+  const int row = q0 + r;
+
+  for (int t = tid; t < kBQ * kq; t += kThreads) {
+    const int qr = q0 + t / kq;
+    float val = 0.0f;
+    int id = -1;
+    if (qr < nq) {
+      const size_t o = (static_cast<size_t>(bh) * nq + qr) * kq + t % kq;
+      val = to_f(qv[o]);
+      id = qi[o];
+    }
+    qvs[t] = val;
+    qis[t] = (id >= 0 && id < d) ? id : -1;
+  }
+
+  float m = kNegInf;
+  float l = 0.0f;
+  float acc[DVT];
+#pragma unroll
+  for (int c = 0; c < DVT; ++c) acc[c] = 0.0f;
+
+  const int k_end = causal ? min(nk, q0 + kBQ) : nk;
+  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+    __syncthreads();  // the previous tile is consumed (and q codes staged)
+    for (int t = tid; t < kBK * d; t += kThreads) kd[t] = 0.0f;
+    for (int t = tid; t < kBK * DV; t += kThreads) {
+      const int kr = k0 + t / DV;
+      vs[t] = kr < nk ? to_f(v[(static_cast<size_t>(bh) * nk + kr) * DV + t % DV]) : 0.0f;
+    }
+    __syncthreads();
+    if (tid < kBK && k0 + tid < nk) {
+      const size_t base = (static_cast<size_t>(bh) * nk + k0 + tid) * kk;
+      float* dst = kd + tid * d;
+      for (int t = 0; t < kk; ++t) {
+        const int id = ki[base + t];
+        if (id >= 0 && id < d) dst[id] += to_f(kv[base + t]);
+      }
+    }
+    __syncthreads();
+
+    // scores: the row's k code entries, each times one column of the tile
+    float s[kBK];
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) s[j] = 0.0f;
+    for (int t = 0; t < kq; ++t) {
+      const int id = qis[r * kq + t];
+      if (id < 0) continue;
+      const float qval = qvs[r * kq + t];
+      const float* col = kd + id;
+#pragma unroll
+      for (int j = 0; j < kBK; ++j) s[j] += qval * col[j * d];
+    }
+    float mt = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) {
+      const int col = k0 + j;
+      const bool ok = col < nk && (!causal || col <= row);
+      s[j] = ok ? s[j] * scale : kNegInf;
+      mt = fmaxf(mt, s[j]);
+    }
+    const float m_new = fmaxf(m, mt);
+    const float corr = expf(m - m_new);
+#pragma unroll
+    for (int c = 0; c < DVT; ++c) acc[c] *= corr;
+    float psum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) {
+      const float p = expf(s[j] - m_new);
+      psum += p;
+      const float* vrow = vs + j * DV + sub;
+#pragma unroll
+      for (int c = 0; c < DVT; ++c) acc[c] += p * vrow[c * 4];
+    }
+    l = l * corr + psum;
+    m = m_new;
+  }
+
+  if (row < nq) {
+    const float denom = fmaxf(l, 1e-30f);
+    T* orow = out + (static_cast<size_t>(bh) * nq + row) * DV + sub;
+#pragma unroll
+    for (int c = 0; c < DVT; ++c) from_f(acc[c] / denom, orow + c * 4);
+    if (lse != nullptr && sub == 0) lse[static_cast<size_t>(bh) * nq + row] = m + logf(denom);
+  }
+}
+
+template <int DV, typename T>
+int launch(const void* qv, const void* qi, const void* kv, const void* ki,
+           const void* v, void* out, void* lse, int bh, int nq, int nk,
+           int kq, int kk, int d, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (static_cast<size_t>(kBK) * d + kBK * DV + kBQ * kq)
+                      + sizeof(int) * kBQ * kq;
+  auto kernel = flash_sfa_fwd_kernel<DV, T>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((nq + kBQ - 1) / kBQ, bh);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qv), static_cast<const int32_t*>(qi),
+      static_cast<const T*>(kv), static_cast<const int32_t*>(ki),
+      static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(lse),
+      nq, nk, kq, kk, d, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" const char* sfa_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// q codes (bh, nq, kq), k codes (bh, nk, kk): values f32|bf16 + int32 ids;
+// v (bh, nk, dv) and out (bh, nq, dv) in the codes' dtype; lse (bh, nq) f32
+// or null. All contiguous. Returns the launch's cudaGetLastError().
+extern "C" int flash_sfa_fwd_launch(const void* qv, const void* qi, const void* kv,
+                                    const void* ki, const void* v, void* out,
+                                    void* lse, int bh, int nq, int nk, int kq,
+                                    int kk, int d, int dv, float scale,
+                                    int causal, int is_bf16, void* stream) {
+  cudaGetLastError();
+  if (bh <= 0 || nq <= 0) return 0;
+  if (bh > 65535 || d <= 0 || d > 256 || kq <= 0 || kk <= 0 || nk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dv == 32) {
+    return is_bf16 ? launch<32, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s)
+                   : launch<32, float>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s);
+  }
+  if (dv == 64) {
+    return is_bf16 ? launch<64, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s)
+                   : launch<64, float>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s);
+  }
+  if (dv == 128) {
+    return is_bf16 ? launch<128, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s)
+                   : launch<128, float>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

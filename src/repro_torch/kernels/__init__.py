@@ -1,0 +1,36 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
+
+rtopk            — exact row top-|k| (warp ballot bisection on bit patterns)
+flash_sfa        — FlashSFA forward (prefill attention over top-k codes)
+flash_sfa_decode — one query against the token-major sparse KV cache
+ops              — head folding, the fused SFA forward, top-k helpers
+ref              — the plain PyTorch versions of the kernels
+_build           — nvcc build of csrc/*.cu and ctypes binding
+
+Each kernel wrapper runs its CUDA kernel for a CUDA tensor and its plain
+version for a CPU tensor, and counts its kernel launches in
+``<wrapper>.launches``.
+"""
+from repro_torch.kernels.flash_sfa import flash_sfa
+from repro_torch.kernels.flash_sfa_decode import flash_sfa_decode
+from repro_torch.kernels.ops import (
+    fold_heads, sfa_attention_op, sfa_code, topk_dense, unfold_heads,
+)
+from repro_torch.kernels.rtopk import rtopk
+
+KERNELS = {"rtopk": rtopk, "flash_sfa": flash_sfa,
+           "flash_sfa_decode": flash_sfa_decode}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+__all__ = ["KERNELS", "flash_sfa", "flash_sfa_decode", "fold_heads",
+           "launch_counts", "reset_launches", "rtopk", "sfa_attention_op",
+           "sfa_code", "topk_dense", "unfold_heads"]

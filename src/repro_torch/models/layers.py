@@ -1,0 +1,149 @@
+"""Shared model layers: dense, norms, MLPs, RoPE, embeddings.
+
+Ported from the JAX package's ``repro/models/layers.py``. Parameters live in
+``ParamTree`` modules that mirror the JAX param tree name for name (so a
+state-dict key such as ``segments.0.attn.w_qkv.w`` is the JAX path
+``["segments"][0]["attn"]["w_qkv"]["w"]``); the layer functions take the
+plain nested dict of tensors (``ParamTree.tree()``) and an activation. Each
+layer is a pair ``<layer>_init(gen, ...) -> dict`` / ``<layer>(p, x, ...)``.
+Parameters are f32 and cast to the activation dtype at use.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class ParamTree(nn.Module):
+    """An ``nn.Module`` holding a nested dict/list of tensors as parameters,
+    under the same names as the JAX param tree."""
+
+    def __init__(self, tree):
+        super().__init__()
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        self._keys = []
+        for key, sub in items:
+            name = str(key)
+            self._keys.append(key)
+            if isinstance(sub, (dict, list)):
+                self.add_module(name, ParamTree(sub))
+            else:
+                self.register_parameter(name, nn.Parameter(sub, requires_grad=False))
+        self._is_list = isinstance(tree, list)
+
+    def __getitem__(self, key):
+        return getattr(self, str(key))
+
+    def tree(self):
+        """The nested dict (or list) of parameter tensors."""
+        out = {}
+        for key in self._keys:
+            name = str(key)
+            sub = self._modules.get(name)
+            out[key] = sub.tree() if sub is not None else self._parameters[name]
+        return list(out.values()) if self._is_list else out
+
+
+def tree_index(tree, i):
+    """Slice every leaf of a nested dict of stacked tensors at index i."""
+    if isinstance(tree, dict):
+        return {k: tree_index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def normal(gen, shape, std, device):
+    """N(0, std²) f32 tensor from ``gen`` (empty on the meta device)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device) * std
+
+
+def dense_init(gen, in_dim: int, out_dim: int, *, scale=None, device="cpu"):
+    scale = scale if scale is not None else in_dim ** -0.5
+    return {"w": normal(gen, (in_dim, out_dim), scale, device)}
+
+
+def dense(params, x, dtype=None):
+    w = params["w"]
+    if dtype is not None:
+        w = w.to(dtype)
+    return x @ w
+
+
+def norm_init(dim: int, kind: str = "rmsnorm", device="cpu"):
+    p = {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(params, x, kind: str = "rmsnorm", eps: float = 1e-6):
+    """Norms with f32 statistics and activation-dtype elementwise math, in
+    the JAX package's op order (not ``nn.LayerNorm``'s)."""
+    dt = x.dtype
+    xf = x.float()
+    if kind == "rmsnorm":
+        r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return x * r.to(dt) * params["scale"].to(dt)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    return ((x - mu.to(dt)) * r.to(dt) * params["scale"].to(dt)
+            + params["bias"].to(dt))
+
+
+_ACTS = {
+    "silu": F.silu,
+    # jax.nn.gelu's default is the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
+
+
+def mlp_init(gen, d_model: int, d_ff: int, *, glu: bool = True, device="cpu"):
+    if glu:
+        return {"up_gate": dense_init(gen, d_model, 2 * d_ff, device=device),
+                "down": dense_init(gen, d_ff, d_model, device=device)}
+    return {"up": dense_init(gen, d_model, d_ff, device=device),
+            "down": dense_init(gen, d_ff, d_model, device=device)}
+
+
+def mlp(params, x, *, act: str = "silu", glu: bool = True):
+    dt = x.dtype
+    if glu:
+        h, g = dense(params["up_gate"], x, dt).chunk(2, dim=-1)
+        h = h * _ACTS[act](g)
+    else:
+        h = _ACTS[act](dense(params["up"], x, dt))
+    return dense(params["down"], h, dt)
+
+
+def embed_init(gen, vocab: int, d_model: int, device="cpu"):
+    return {"w": normal(gen, (vocab, d_model), 0.02, device)}
+
+
+def embed(params, tokens, dtype=torch.bfloat16):
+    return params["w"][tokens].to(dtype)
+
+
+def rope(x, positions, *, theta: float = 10_000.0, rot_dim: int | None = None):
+    """Rotary embedding on (..., seq, heads, head_dim); positions (..., seq).
+    If rot_dim < head_dim only the leading rot_dim dims rotate."""
+    d = x.shape[-1]
+    rot = rot_dim or d
+    freqs = theta ** (-torch.arange(0, rot, 2, dtype=torch.float32,
+                                    device=x.device) / rot)
+    ang = positions[..., None].float() * freqs                 # (..., s, rot/2)
+    cos = torch.cos(ang)[..., None, :]                          # (..., s, 1, rot/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1 = x[..., 0:rot:2].float()
+    x2 = x[..., 1:rot:2].float()
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    rotated = torch.stack([r1, r2], dim=-1).reshape(*x.shape[:-1], rot)
+    if rot < d:
+        rotated = torch.cat([rotated, x[..., rot:].float()], dim=-1)
+    return rotated.to(x.dtype)

@@ -1,0 +1,213 @@
+"""Model assembly for the dense family: init, prefill, decode, logits.
+
+Ported from the JAX package's ``repro/models/model.py``. Parameters keep the
+JAX tree's layout, including the stacked per-segment layer axis
+(``params.segments[si]`` leaves are ``(count, ...)``); the JAX layer scan
+becomes a Python loop over that axis. Decode caches are lists (one per
+segment) of layer-stacked typed ``KVCache``s, updated in place.
+
+Entry points take the ``Model`` (a ``ParamTree``) where the JAX functions
+take the param pytree. Other families (MoE, hybrid, SSM, frontends) come
+with later slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.kv_cache import KVCache
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+
+
+def segments(cfg: ModelConfig):
+    if cfg.family not in ("dense",) or cfg.moe is not None or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"family {cfg.family!r} (arch {cfg.name!r}) comes with a later slice")
+    return [("block_dense", cfg.num_layers)]
+
+
+def _dtype(cfg: ModelConfig):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def default_device(device):
+    """Entry points run on the card unless the caller asks for the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("repro_torch runs on a CUDA device by default and "
+                               "none is available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class Model(L.ParamTree):
+    """The model's parameters, under the JAX param tree's names."""
+
+    def __init__(self, tree: dict, cfg: ModelConfig):
+        super().__init__(tree)
+        self.cfg = cfg
+
+    @property
+    def device(self):
+        return self.embed.w.device
+
+
+def param_tree(cfg: ModelConfig, *, generator=None, device="cpu") -> dict:
+    """The parameter tree with fresh values (shapes and scales of the JAX
+    ``init``; its RNG's values are not reproduced)."""
+    def block():
+        return {"ln1": L.norm_init(cfg.d_model, cfg.norm, device),
+                "attn": attn.attention_init(generator, cfg, device),
+                "ln2": L.norm_init(cfg.d_model, cfg.norm, device),
+                "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff, glu=cfg.glu,
+                                  device=device)}
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    params = {"embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, device)}
+    if cfg.pos_embedding == "learned":
+        params["pos"] = {"w": L.normal(generator, (min(cfg.max_seq_len, 65536),
+                                                   cfg.d_model), 0.01, device)}
+    params["final_norm"] = L.norm_init(cfg.d_model, cfg.norm, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.vocab_size,
+                                         device=device)
+    params["segments"] = [stack([block() for _ in range(count)])
+                          for _, count in segments(cfg)]
+    return params
+
+
+def init(cfg: ModelConfig, *, generator=None, device=None, seed: int = 0) -> Model:
+    """Random weights from ``generator`` (or a new one seeded with ``seed``)
+    on ``device`` (default: the card)."""
+    device = default_device(device)
+    if generator is None and device.type != "meta":
+        generator = torch.Generator(device=device).manual_seed(seed)
+    return Model(param_tree(cfg, generator=generator, device=device), cfg)
+
+
+# ==========================================================================
+# block + stack
+# ==========================================================================
+
+def _tx_block(p, x, cfg: ModelConfig, *, positions=None, mode="train",
+              cache=None, cache_len=None):
+    h = L.apply_norm(p["ln1"], x, cfg.norm)
+    ao = attn.attention_apply(p["attn"], h, cfg=cfg, positions=positions,
+                              mode=mode, cache=cache, cache_len=cache_len)
+    x = x + ao.out
+    h = L.apply_norm(p["ln2"], x, cfg.norm)
+    x = x + L.mlp(p["mlp"], h, act=cfg.act, glu=cfg.glu)
+    return x, ao.cache
+
+
+def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
+                 caches=None, cache_len=None):
+    """The layer loop over each segment's stacked axis (the JAX scan)."""
+    tree = params.tree()
+    new_caches = []
+    for si, (_, count) in enumerate(segments(cfg)):
+        seg = tree["segments"][si]
+        layer_caches = []
+        for i in range(count):
+            c = caches[si].layer(i) if caches is not None else None
+            x, nc = _tx_block(L.tree_index(seg, i), x, cfg, positions=positions,
+                              mode=mode, cache=c, cache_len=cache_len)
+            layer_caches.append(nc)
+        if mode == "prefill":
+            new_caches.append(type(layer_caches[0]).stack(layer_caches))
+        elif mode == "decode":
+            new_caches.append(caches[si])
+    return x, (new_caches if mode in ("prefill", "decode") else None)
+
+
+# ==========================================================================
+# embedding / head
+# ==========================================================================
+
+def _embed_tokens(params: Model, tokens, cfg: ModelConfig, dtype):
+    h = L.embed(params.embed.tree(), tokens, dtype)
+    if cfg.norm == "rmsnorm":
+        h = h * cfg.d_model ** 0.5
+    return h
+
+
+def _embed_inputs(params: Model, tokens, cfg: ModelConfig, dtype):
+    """(b, n) tokens -> (b, n, d) hidden with learned positions 0..n-1."""
+    h = _embed_tokens(params, tokens, cfg, dtype)
+    if cfg.pos_embedding == "learned":
+        h = h + params.pos.w[:h.shape[1]].to(dtype)[None]
+    return h
+
+
+def _head(params: Model, h, cfg: ModelConfig):
+    """Final norm, then f32 logits against the tied embedding (or the LM
+    head)."""
+    h = L.apply_norm(params.final_norm.tree(), h, cfg.norm)
+    w = params.embed.w if cfg.tie_embeddings else params.lm_head.w.T
+    return h.float() @ w.float().T
+
+
+# ==========================================================================
+# public API
+# ==========================================================================
+
+def forward_logits(params: Model, batch, cfg: ModelConfig, *, mode="train"):
+    """Full-sequence logits (b, n, vocab) f32."""
+    h = _embed_inputs(params, batch["tokens"], cfg, _dtype(cfg))
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    h, _ = _apply_stack(params, h, cfg, positions=positions, mode=mode)
+    return _head(params, h, cfg)
+
+
+@torch.no_grad()
+def prefill(params: Model, batch, cfg: ModelConfig):
+    """Prefill: last-position logits (b, vocab) + layer-stacked caches."""
+    h = _embed_inputs(params, batch["tokens"], cfg, _dtype(cfg))
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    h, caches = _apply_stack(params, h, cfg, positions=positions, mode="prefill")
+    return _head(params, h[:, -1], cfg), caches
+
+
+@torch.no_grad()
+def decode_step(params: Model, token, caches, cache_len, cfg: ModelConfig):
+    """One decode step. token: (b,) int; cache_len: (b,) int — tokens
+    already in the cache. Writes the caches in place and returns
+    (logits (b, vocab) f32, caches)."""
+    dtype = _dtype(cfg)
+    dev = params.device
+    token = torch.as_tensor(token, device=dev).long()
+    cache_len = torch.as_tensor(cache_len, device=dev).long()
+    h = _embed_tokens(params, token[:, None], cfg, dtype)
+    if cfg.pos_embedding == "learned":
+        # JAX clamps an out-of-range gather; clamp explicitly here
+        rows = params.pos.w.shape[0]
+        h = h + params.pos.w[cache_len.clamp(0, rows - 1)].to(dtype)[:, None]
+    h, caches = _apply_stack(params, h, cfg, positions=cache_len[:, None],
+                             mode="decode", caches=caches, cache_len=cache_len)
+    return _head(params, h[:, 0], cfg), caches
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
+                       dtype=torch.bfloat16, device=None) -> list:
+    """Layer-stacked decode caches, one per segment. bf16 by default, also
+    for a float32 model, as in the JAX package."""
+    device = default_device(device)
+    out = []
+    for _, count in segments(cfg):
+        one = attn.init_cache(cfg, batch, max_len, dtype, device)
+        out.append(type(one).stack([one] * count))
+    return out
+
+
+def insert_slot(caches: list, one_caches: list, *, slot: int, max_len: int):
+    """Land batch-1 prefill caches in ``slot`` of the batched caches."""
+    for dst, src in zip(caches, one_caches):
+        if not isinstance(dst, KVCache):
+            raise TypeError(f"expected a KVCache, got {type(dst).__name__}")
+        dst.insert_slot(src, slot=slot, max_len=max_len)
+    return caches

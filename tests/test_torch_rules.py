@@ -1,0 +1,73 @@
+"""Rules of the port: no JAX and nothing of ``repro`` in ``repro_torch`` or
+``chip_smoke.py``; the package imports without JAX; entry points default
+to the card and say so when there is none."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro\.|"
+    r"from\s+repro\s+import\b)", re.MULTILINE)
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def test_rule_pattern_tells_repro_from_repro_torch():
+    for line in ("import jax", "from jax import numpy", "import jax.numpy as jnp",
+                 "import repro", "from repro.core import sparse",
+                 "from repro import kernels", "  import repro.models"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.core import sparse",
+                 "import jaxlike", "# import jax", "import torch"):
+        assert not FORBIDDEN.search(line), line
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    assert path.exists(), path
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+def test_package_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+            "import repro_torch, repro_torch.kernels, repro_torch.serve, "
+            "repro_torch.interop, repro_torch.launch.serve\n"
+            "from repro_torch.kernels import _build\n"
+            "assert not _build._LIBS\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_engine_without_device_needs_a_card():
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init
+    from repro_torch.serve import DecodeEngine, EngineConfig
+    cfg = get_config("gpt2-small-sfa8").reduced()
+    model = init(cfg, device="cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(model, cfg, EngineConfig(max_slots=2, max_len=32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init(cfg)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from repro_torch.kernels import flash_sfa_decode, rtopk
+    x = torch.zeros(2, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rtopk(x, 2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_sfa_decode(x, x, x, x, x, d=8)

@@ -9,10 +9,12 @@ Phases; any failure raises and the script exits non-zero:
   2. build   — nvcc builds every kernel source under src/repro_torch/csrc,
                one process per source, all started together;
   3. kernels — each kernel against its plain PyTorch version on the card at
-               the main path's shapes, with the tolerance stated beside the
-               check; kernel, plain and library-call device times (a
-               torch.profiler trace; CUDA-event times per call beside them)
-               and the bound (least time the card could take);
+               the main paths' shapes (the training ones at bh 96 = batch
+               8 x 12 heads, n 1024 and a ragged 1000, f32 and bf16), with
+               the tolerance stated beside the check; kernel, plain and
+               library-call device times (a torch.profiler trace;
+               CUDA-event times per call beside them) and the bound (least
+               time the card could take);
   4. engine  — the serving main path at full width: gpt2-small-sfa8
                (12 layers, d_model 768, 12 heads of 64, SFA k=8, vocab
                50,257), bf16, random weights from a seed, through
@@ -25,7 +27,20 @@ Phases; any failure raises and the script exits non-zero:
                teacher-forced decode steps through the "cuda" (kernels) and
                "torch" (plain) backends, held to a stated tolerance with the
                argmax equal at every step;
-  6. a ``kernels`` JSON line, then the result line.
+  6. train   — the training main path at full width: gpt2-small-sfa8 in
+               bf16 through ``Trainer`` (AdamW, remat="full", Markov data),
+               batch 8 x seq 1024, 1 warm-up and 5 timed steps; step ms,
+               tokens/s, peak memory; losses finite, no backend fallback,
+               and the launches of rtopk, flash_sfa and flash_sfa_bwd equal
+               to the count predicted from the layer count; then one traced
+               step gives the device's busy share;
+  7. dense train — the dense baseline gpt2-small the same way (1 warm-up,
+               2 timed steps), through flash_attention and its backward;
+  8. gradients end to end — float32 gpt2-small-sfa8 at full width, batch 1
+               x seq 512: the loss and every parameter gradient through the
+               "cuda" backend (remat="full") against the "torch" oracle
+               (remat="none"), to a stated tolerance;
+  9. a ``kernels`` JSON line, then the result line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -318,6 +333,126 @@ def phase_decode(rs):
     return r
 
 
+TRAIN_BH, TRAIN_N = 96, 1024              # batch 8 x 12 heads, seq 1024
+
+
+def _pairs(bh, n):
+    """(query, key) pairs under the causal mask."""
+    return bh * n * (n + 1) // 2
+
+
+def _sdpa_bwd(q, k, v, g, scale):
+    """Library yardstick for a backward: SDPA's own backward through
+    autograd on (bh, n, d) inputs viewed as (8, bh / 8, n, d)."""
+    q, k, v = (t.detach().reshape(8, -1, *t.shape[1:]).requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale)
+    g = g.reshape(out.shape)
+    return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+
+def _close(got, want, dtype, what):
+    """Tolerance: f32 — sums in another order, 1e-4 absolute and relative;
+    bf16 — both accumulate in f32 and round once, one bf16 ulp (2^-7
+    relative) plus 1e-4 absolute. Returns (max |error|, max |want|)."""
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-4, msg=what)
+    check(want.abs().max().item() > 0, f"{what}: the plain version is all zero")
+    return (got.float() - want.float()).abs().max().item(), want.abs().max().item()
+
+
+def phase_flash_sfa_bwd(rs):
+    from repro_torch.kernels import flash_sfa, flash_sfa_bwd, rtopk
+    from repro_torch.kernels.ref import _support, flash_sfa_bwd_ref
+    bh, d, k, dv = TRAIN_BH, 64, 8, 64
+    scale = d ** -0.5
+    errs = []
+    for n in (TRAIN_N, 1000):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kk = (torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().to(dtype)
+                     for _ in range(2))
+            v, g = (torch.from_numpy(rs.randn(bh, n, dv).astype(np.float32)).cuda().to(dtype)
+                    for _ in range(2))
+            qv, qi = rtopk(q, k)
+            kv, ki = rtopk(kk, k)
+            o, lse = flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True)
+            args = (qv, qi, kv, ki, v, o, lse, g)
+            got = flash_sfa_bwd(*args, d=d, scale=scale)
+            want = flash_sfa_bwd_ref(*args, d=d, scale=scale)
+            torch.cuda.synchronize()
+            errs_mags = [_close(a, b, dtype, f"flash_sfa_bwd {name} n={n} {dtype}")
+                         for name, a, b in zip(("dq", "dk", "dv"), got, want)]
+            err = max(e for e, _ in errs_mags)
+            # the straight-through support: exactly zero off the stored coordinates
+            for grad, idx in ((got[0], qi), (got[1], ki)):
+                check(bool((grad[_support(idx, d) == 0] == 0).all()),
+                      f"flash_sfa_bwd n={n} {dtype}: gradient off the stored support")
+            print(f"[flash_sfa_bwd] bh={bh} n={n} k={k} dv={dv} {dtype}: max|err| {err:.3g} "
+                  f"(max |dq|, |dk|, |dv| {', '.join(f'{m:.3g}' for _, m in errs_mags)}), "
+                  f"dQ/dK zero off the support")
+            errs.append(err)
+            if n == TRAIN_N and dtype == torch.bfloat16:
+                main = (args, _densify(qv, qi, d), _densify(kv, ki, d), v, g)
+    args, qd, kd, v, g = main
+    es, pairs = 2, _pairs(bh, TRAIN_N)
+    n = TRAIN_N
+    b_ms, b_by = bound(2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
+                       + 2 * bh * n * d * es + bh * n * dv * es,
+                       6 * k * pairs / F32_FLOPS + 4 * dv * pairs / BF16_TC_FLOPS)
+    r = dict(max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by, **timings(
+        lambda: flash_sfa_bwd(*args, d=d, scale=scale),
+        lambda: flash_sfa_bwd_ref(*args, d=d, scale=scale),
+        _sdpa_bwd(qd, kd, v, g, scale)))
+    print(f"[flash_sfa_bwd] bf16 n={n}: library = SDPA backward (autograd) on densified "
+          f"Q/K; {fmt(r)}")
+    return r
+
+
+def phase_flash_attention(rs):
+    """The dense forward and backward kernels; returns (fwd, bwd) results."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+    bh, d = TRAIN_BH, 64
+    scale = d ** -0.5
+    fwd_errs, bwd_errs = [], []
+    for n in (TRAIN_N, 1000):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().to(dtype)
+                          for _ in range(4))
+            ko, kl = flash_attention(q, k, v, scale=scale, return_residuals=True)
+            po, pl = flash_attention_ref(q, k, v, scale=scale, return_residuals=True)
+            got = flash_attention_bwd(q, k, v, po, pl, g, scale=scale)
+            want = flash_attention_bwd_ref(q, k, v, po, pl, g, scale=scale)
+            torch.cuda.synchronize()
+            fwd_errs.append(_close(ko, po, dtype, f"flash_attention n={n} {dtype}")[0])
+            # the LSE is f32 in both: 1e-4
+            torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+            errs_mags = [_close(a, b, dtype, f"flash_attention_bwd {name} n={n} {dtype}")
+                         for name, a, b in zip(("dq", "dk", "dv"), got, want)]
+            bwd_errs.append(max(e for e, _ in errs_mags))
+            print(f"[flash_attention] bh={bh} n={n} d={d} {dtype}: forward max|err| "
+                  f"{fwd_errs[-1]:.3g} (lse {(kl - pl).abs().max().item():.3g}), backward "
+                  f"max|err| {bwd_errs[-1]:.3g} (max |dq|, |dk|, |dv| "
+                  f"{', '.join(f'{m:.3g}' for _, m in errs_mags)})")
+            if n == TRAIN_N and dtype == torch.bfloat16:
+                main = (q, k, v, g, po, pl)
+    q, k, v, g, po, pl = main
+    n, es, pairs = TRAIN_N, 2, _pairs(bh, TRAIN_N)
+    qb, kb, vb = (t.reshape(8, -1, n, d) for t in (q, k, v))
+    b_ms, b_by = bound(4 * bh * n * d * es + bh * n * 4, 4 * d * pairs / BF16_TC_FLOPS)
+    fwd = dict(max_abs_err=max(fwd_errs), bound_ms=b_ms, bound_by=b_by, **timings(
+        lambda: flash_attention(q, k, v, scale=scale, return_residuals=True),
+        lambda: flash_attention_ref(q, k, v, scale=scale, return_residuals=True),
+        lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True, scale=scale)))
+    print(f"[flash_attention] bf16 n={n}: library = SDPA; {fmt(fwd)}")
+    b_ms, b_by = bound(8 * bh * n * d * es + bh * n * 4, 10 * d * pairs / BF16_TC_FLOPS)
+    bwd = dict(max_abs_err=max(bwd_errs), bound_ms=b_ms, bound_by=b_by, **timings(
+        lambda: flash_attention_bwd(q, k, v, po, pl, g, scale=scale),
+        lambda: flash_attention_bwd_ref(q, k, v, po, pl, g, scale=scale),
+        _sdpa_bwd(q, k, v, g, scale)))
+    print(f"[flash_attention_bwd] bf16 n={n}: library = SDPA backward (autograd); {fmt(bwd)}")
+    return fwd, bwd
+
+
 # --------------------------------------------------------------------------
 # phase 4-5: the serving main path
 # --------------------------------------------------------------------------
@@ -361,7 +496,8 @@ def phase_engine(model, cfg):
     check(all(0 <= t < cfg.vocab_size for o in outputs for t in o),
           "engine: token out of vocabulary")
     check(not reports, f"engine: backend fallbacks recorded: {reports}")
-    check(all(c > 0 for c in counts.values()), f"engine: a kernel never launched: {counts}")
+    serving = ("rtopk", "flash_sfa", "flash_sfa_decode")
+    check(all(counts[k] > 0 for k in serving), f"engine: a kernel never launched: {counts}")
     # a separate traced window: the same prompts again, 4 decode steps
     for p in prompts:
         eng.add_request(p, max_new_tokens=5)
@@ -424,6 +560,105 @@ def phase_end_to_end(model, cfg):
           f"argmax equal at all {a.shape[0]} steps")
 
 
+# --------------------------------------------------------------------------
+# phase 6-8: the training main path
+# --------------------------------------------------------------------------
+
+def phase_train(arch, timed_steps, predicted):
+    """Train full-width ``arch`` in bf16 through ``Trainer``: 1 warm-up and
+    ``timed_steps`` timed steps with the launch counts read over all of
+    them, then one traced step. ``predicted`` maps kernel -> launches per
+    step (every other kernel: none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainPolicy
+    from repro_torch.data import DataConfig, markov_batch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.backends import clear_fallback_reports, fallback_reports
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = get_config(arch)
+    batch, seq = 8, TRAIN_N
+    steps = 1 + timed_steps
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=SEED)
+    tr = Trainer(cfg, OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=steps + 1), dcfg,
+                 TrainerConfig(total_steps=steps + 1, seed=SEED,
+                               policy=TrainPolicy.from_model(cfg, remat="full")),
+                 device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clear_fallback_reports()
+    reset_launches()
+    hist, step_ms = [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        hist.append(tr.run_step(s))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    reports = fallback_reports()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: predicted.get(name, 0) * steps for name in counts}
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+          f"train {arch}: non-finite loss or gradient norm: {hist}")
+    check(not reports, f"train {arch}: backend fallbacks recorded: {reports}")
+    check(counts == want, f"train {arch}: launches {counts}, predicted {want}")
+    t0 = time.perf_counter()
+    markov_batch(dcfg, 0)
+    data_ms = (time.perf_counter() - t0) * 1e3
+    kernels, traced_ms = trace_kernels(lambda: tr.run_step(steps))
+    busy_ms = sum(kernels.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    timed = step_ms[1:]
+    tokens = batch * seq
+    print(f"[train] {arch} full width bf16, batch {batch} x seq {seq}, remat full, AdamW; "
+          f"losses {[round(h['loss'], 4) for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 3) for h in hist]}")
+    print(f"[train] {arch}: warm-up step {step_ms[0]:.1f} ms; timed steps ms "
+          f"{[round(x, 2) for x in timed]} (mean {np.mean(timed):.2f}, median "
+          f"{np.median(timed):.2f}); {tokens / (np.mean(timed) / 1e3):.1f} tokens/s; "
+          f"host data generation {data_ms:.1f} ms of each step; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {counts} (predicted {want}); fallbacks none")
+    print(f"[train] {arch}: traced step (profiler on): wall {traced_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / traced_ms:.1f}%, idle "
+          f"{100 - 100 * busy_ms / traced_ms:.1f}%); top kernels by device time: "
+          + "; ".join(f"{name[:48]} {us / 1e3:.2f} ms" for name, us in top))
+    return counts
+
+
+def phase_grad_end_to_end():
+    """Loss and every parameter gradient, kernels against plain, float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, markov_batch
+    from repro_torch.models import init, loss_fn
+    from repro_torch.train.train_step import to_batch
+    cfg = dataclasses.replace(get_config("gpt2-small-sfa8"), dtype="float32")
+    model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
+    named = dict(model.named_parameters())
+    batch = to_batch(markov_batch(DataConfig(cfg.vocab_size, 512, 1, seed=SEED + 2), 0), "cuda")
+    runs = {}
+    for backend, remat in (("cuda", "full"), ("torch", "none")):
+        c = dataclasses.replace(cfg, remat=remat, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        loss, _ = loss_fn(model, batch, c)
+        runs[backend] = (loss.item(), torch.autograd.grad(loss, list(named.values())))
+    (la, ga), (lb, gb) = runs["cuda"], runs["torch"]
+    check(np.isfinite(la), "gradients end to end: non-finite loss")
+    # tolerance: f32, sums in another order (1e-6 relative expected); a
+    # top-k tie that the two orders break apart moves one coordinate of one
+    # row, so 1e-4 on the loss and 1e-3 relative (L2) on each gradient leaf
+    check(abs(la - lb) <= 1e-4, f"gradients end to end: loss {la} vs {lb}")
+    worst = (0.0, "")
+    for name, a, b in zip(named, ga, gb):
+        check(bool(torch.isfinite(a).all()), f"gradients end to end: non-finite d{name}")
+        rel = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+        check(rel <= 1e-3, f"gradients end to end: d{name} relative error {rel:.3g} > 1e-3")
+        worst = max(worst, (rel, name))
+    print(f"[grad end-to-end] f32 {cfg.name} full width, batch 1 x seq 512: loss cuda "
+          f"{la:.6f} vs torch {lb:.6f} (|diff| {abs(la - lb):.3g}, tol 1e-4); all "
+          f"{len(named)} parameter gradients within 1e-3 relative L2, worst "
+          f"{worst[0]:.3g} ({worst[1]})")
+
+
 def main():
     t_start = time.perf_counter()
     name, count = phase_device()
@@ -434,23 +669,39 @@ def main():
     from repro_torch.models import init
     rs = np.random.RandomState(SEED)
     results = {"rtopk": phase_rtopk(rs), "flash_sfa": phase_flash_sfa(rs),
-               "flash_sfa_decode": phase_decode(rs)}
+               "flash_sfa_decode": phase_decode(rs), "flash_sfa_bwd": phase_flash_sfa_bwd(rs)}
+    results["flash_attention"], results["flash_attention_bwd"] = phase_flash_attention(rs)
     cfg = get_config("gpt2-small-sfa8")
     model = init(cfg, device="cuda", seed=SEED)
     counts = phase_engine(model, cfg)
     phase_end_to_end(model, cfg)
+    del model
+    layers = cfg.num_layers
+    # remat="full": each layer's forward runs twice per step (rtopk for Q
+    # and K each time), its backward once
+    train = phase_train("gpt2-small-sfa8", 5, {"rtopk": 4 * layers, "flash_sfa": 2 * layers,
+                                               "flash_sfa_bwd": layers})
+    dense = phase_train("gpt2-small", 2, {"flash_attention": 2 * layers,
+                                          "flash_attention_bwd": layers})
+    phase_grad_end_to_end()
     meta = {
-        "rtopk": ("src/repro_torch/csrc/rtopk.cu", "src/repro/kernels/rtopk.py:112"),
+        "rtopk": ("src/repro_torch/csrc/rtopk.cu", "src/repro/kernels/rtopk.py:112", counts),
         "flash_sfa": ("src/repro_torch/csrc/flash_sfa.cu",
-                      "src/repro/kernels/flash_sfa.py:297"),
+                      "src/repro/kernels/flash_sfa.py:297", counts),
         "flash_sfa_decode": ("src/repro_torch/csrc/flash_sfa_decode.cu",
-                             "src/repro/kernels/flash_sfa_decode.py:110"),
+                             "src/repro/kernels/flash_sfa_decode.py:110", counts),
+        "flash_sfa_bwd": ("src/repro_torch/csrc/flash_sfa_bwd.cu",
+                          "src/repro/kernels/flash_sfa_bwd.py:342", train),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:155", dense),
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_sfa_bwd.cu",
+                                "src/repro/kernels/flash_sfa_bwd.py:380", dense),
     }
     kernels = []
     for kname, r in results.items():
-        src, replaces = meta[kname]
+        src, replaces, path_counts = meta[kname]
         kernels.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
-                            launches=counts[kname], max_abs_err=r["max_abs_err"],
+                            launches=path_counts[kname], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

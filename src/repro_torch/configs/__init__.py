@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from repro_torch.configs.base import (
     AttentionConfig, FrontendConfig, MLAConfig, MoEConfig, ModelConfig,
-    REMAT_POLICIES, RWKVConfig, SSMConfig,
+    REMAT_POLICIES, RWKVConfig, SSMConfig, TrainPolicy,
 )
 from repro_torch.configs import paper_models
 
@@ -51,5 +51,5 @@ def get_config(name: str) -> ModelConfig:
 __all__ = [
     "AttentionConfig", "FrontendConfig", "MLAConfig", "MoEConfig",
     "ModelConfig", "NOT_YET_PORTED", "REMAT_POLICIES", "RWKVConfig",
-    "SSMConfig", "get_config", "paper_models",
+    "SSMConfig", "TrainPolicy", "get_config", "paper_models",
 ]

@@ -50,8 +50,8 @@ class AttentionConfig:
     # "torch" with a structured FallbackReport.
     backend: str = "auto"            # "torch" | "cuda" | "auto"
     decode_backend: str = "auto"     # "torch" | "cuda" | "auto"
-    # Training-side axes, carried for config parity with the JAX package;
-    # the serving slice does not read them.
+    # Training-side axes (TrainPolicy below). The port runs bwd_emit="dense";
+    # the compact emits, fwd_fuse and ring belong to later slices.
     bwd_emit: str = "dense"          # "dense" | "compact" | "compact2"
     fwd_fuse: bool = True
     ring: bool = False
@@ -178,3 +178,100 @@ class ModelConfig:
             rwkv=rwkv, frontend=fe, max_seq_len=128, remat="none",
             loss_chunk=64,
         )
+
+
+@dataclass(frozen=True)
+class TrainPolicy:
+    """One validated bundle for every train-time execution-policy axis, as
+    the JAX package's ``TrainPolicy``: build one, ``validate()`` it against
+    the model's attention geometry (incoherent combinations fail at config
+    time), and ``apply()`` it to a ``ModelConfig``.
+
+    Fields:
+      * ``remat``    — "none" | "full" | "codes" (the layer loop's
+                       checkpointing; "codes" is ROADMAP A.3).
+      * ``bwd_emit`` — FlashSFA backward emit layout, "dense" | "compact" |
+                       "compact2" (the compact ones are ROADMAP A.3).
+      * ``fwd_fuse`` — fused projection -> top-k forward (ROADMAP A.3).
+      * ``ring``     — Ring-SFA context parallelism (ROADMAP A.6).
+      * ``tp``       — intended tensor-parallel degree (ROADMAP A.6), for
+                       the divisibility check.
+      * ``backend``  — optional attention-backend override in this
+                       package's registry names: "torch" | "cuda" | "auto"
+                       (None = keep ``cfg.attention.backend``).
+    """
+    remat: Union[str, bool] = "full"
+    bwd_emit: str = "dense"
+    fwd_fuse: bool = True
+    ring: bool = False
+    tp: int = 1
+    backend: Optional[str] = None
+
+    @classmethod
+    def from_model(cls, cfg: ModelConfig, **overrides) -> "TrainPolicy":
+        """The policy a ``ModelConfig`` already encodes, with overrides."""
+        a = cfg.attention
+        base = dict(remat=cfg.remat,
+                    bwd_emit=a.bwd_emit if a is not None else "dense",
+                    fwd_fuse=a.fwd_fuse if a is not None else True,
+                    ring=a.ring if a is not None else False)
+        base.update(overrides)
+        return cls(**base)
+
+    def validate(self, attention: Optional[AttentionConfig] = None) -> "TrainPolicy":
+        """Reject incoherent combinations; returns a normalized policy."""
+        remat = self.remat
+        if isinstance(remat, bool):
+            warnings.warn('TrainPolicy.remat as a bool is deprecated; use '
+                          'remat="none"|"full"|"codes"', DeprecationWarning,
+                          stacklevel=2)
+            remat = "full" if remat else "none"
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"TrainPolicy.remat={self.remat!r}; expected "
+                             f"one of {REMAT_POLICIES}")
+        if self.bwd_emit not in ("dense", "compact", "compact2"):
+            raise ValueError(f"TrainPolicy.bwd_emit={self.bwd_emit!r}; "
+                             f'expected "dense" | "compact" | "compact2"')
+        if self.tp < 1:
+            raise ValueError(f"TrainPolicy.tp={self.tp}; expected >= 1")
+        if self.backend not in (None, "torch", "cuda", "auto"):
+            raise ValueError(f"TrainPolicy.backend={self.backend!r}; expected "
+                             f'"torch" | "cuda" | "auto" or None')
+        backend = self.backend if self.backend is not None else (
+            attention.backend if attention is not None else None)
+        if remat == "codes":
+            if attention is None or attention.sfa_k is None:
+                raise ValueError(
+                    'remat="codes" saves the SFA top-k codes as checkpoint '
+                    "residuals; the model has no SFA attention (sfa_k unset)")
+            if backend == "torch":
+                raise ValueError(
+                    'remat="codes" requires the cuda backend: only its '
+                    "kernel path produces the codes it would save")
+        if self.ring and attention is not None:
+            if attention.sfa_k is None:
+                raise ValueError("ring=True needs an SFA layer (sfa_k unset)")
+            if not attention.causal:
+                raise ValueError("ring=True: the ring hop schedule is the "
+                                 "causal triangle; attention is bidirectional")
+            if attention.mla is not None:
+                raise ValueError("ring=True: MLA latent attention has no "
+                                 "ring path")
+        if self.tp > 1 and attention is not None:
+            if attention.num_heads % self.tp or attention.num_kv_heads % self.tp:
+                raise ValueError(
+                    f"tp={self.tp} does not divide heads "
+                    f"{attention.num_heads}/{attention.num_kv_heads}")
+        return self if remat == self.remat else replace(self, remat=remat)
+
+    def apply(self, cfg: ModelConfig) -> ModelConfig:
+        """Validate against ``cfg`` and return the configured model."""
+        pol = self.validate(cfg.attention)
+        updates = {"remat": pol.remat}
+        if cfg.attention is not None:
+            att_updates = {"bwd_emit": pol.bwd_emit, "fwd_fuse": pol.fwd_fuse,
+                           "ring": pol.ring}
+            if pol.backend is not None:
+                att_updates["backend"] = pol.backend
+            updates["attention"] = replace(cfg.attention, **att_updates)
+        return replace(cfg, **updates)

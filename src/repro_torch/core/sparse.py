@@ -114,7 +114,10 @@ def densify(code: SparseCode) -> torch.Tensor:
 
 
 def topk_st(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Top-k by magnitude with the other coordinates zeroed (paper Eq. 6's
-    forward; the straight-through backward belongs to the training
-    slice)."""
+    """Top-k by magnitude with the other coordinates zeroed (paper Eq. 6).
+
+    The mask is a constant of the product, so autograd gives the
+    straight-through gradient of Eq. 6 as it is: the incoming gradient on
+    the k selected coordinates and zero elsewhere (``topk_st`` of the JAX
+    package, core/sparse.py:139)."""
     return x * topk_mask(x, k).to(x.dtype)

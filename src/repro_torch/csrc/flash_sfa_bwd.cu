@@ -1,0 +1,444 @@
+// flash_sfa_bwd.cu — FlashSFA backward (dense emit) and the dense
+// FlashAttention backward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels repro/kernels/flash_sfa_bwd.py::flash_sfa_bwd
+// (emit="dense") and ::flash_attention_bwd: both run _bwd_impl, whose two
+// Pallas kernels _bwd_dq_kernel and _bwd_dkv_kernel recompute each tile's
+// probabilities from the saved LSE and accumulate
+//   dV_j  = sum_i P_ij dO_i
+//   dS_ij = P_ij (dO_i . V_j - D_i) * scale,   D_i = sum(dO_i * O_i)
+//   dQ_i  = sum_j dS_ij K_j,   dK_j = sum_i dS_ij Q_i.
+// The template flag SPARSE selects the two forms from one source, as the
+// TPU's `sparse` parameter does: SPARSE=true takes top-k codes (values +
+// int32 indices, (bh, n, k)) and emits dQ/dK as dense (n, d) rows that are
+// zero off each row's stored coordinates (the straight-through gradient of
+// paper Eq. 6, _support_mask's "dense" emit); SPARSE=false takes dense
+// (bh, n, d) q/k with d == dv and emits plain dQ/dK. D_i comes in from the
+// caller (the JAX package computes it in XLA outside the kernel too).
+//
+// Design: two kernels, each output tile owned by one block, so there are no
+// atomics and the result is deterministic.
+//  * dQ: one block of 256 threads per (bh, 64-query tile), looping over the
+//    64-key tiles up to the causal edge. Each key tile is densified into
+//    shared memory (duplicate indices sum, indices outside [0, d) add
+//    nothing, as in the forward). Phase A: 4 threads per query row, each
+//    scoring a quarter of the tile's keys (the query's k stored coordinates
+//    gathered from the dense K tile: k multiply-adds per score, not d),
+//    and writing dS to shared memory. Phase B: each thread accumulates
+//    dQ_i[c] = sum_j dS_ij K_j[c] only on its share of the query's k stored
+//    coordinates, gathering from the same K tile — k multiply-adds per pair
+//    where the TPU ran a d-wide matmul (the backward half of the paper's
+//    Theta(n^2 k^2 / d)).
+//  * dK/dV: one block per (bh, 64-key tile), looping over the query tiles
+//    from the causal diagonal to the end. Each query tile is densified into
+//    shared memory; 4 threads per key row score a quarter of its queries
+//    (the key's own k coordinates gathered from the dense Q tile) and write
+//    P and dS; then each thread accumulates its quarter of dV_j (dv-wide)
+//    and of dK_j on the key's k stored coordinates.
+// Ragged n is masked inside the kernels. All sums run in f32; dQ/dK come
+// out in the code values' dtype and dV in v's dtype.
+//
+// Bound on the H100: operations. Per (query, key) pair the two kernels do
+// about 2 * (2k + 2dv) + 2k + 2dv flops (scores twice, dO.V twice, dQ, dK,
+// dV) on CUDA cores against O(n (k + dv)) bytes; a faster kernel would run
+// the dv-wide products on the tensor cores (wgmma) — work for a later
+// change.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kB = 64;         // query rows per tile == keys per tile
+constexpr int kThreads = 256;  // 4 threads per row
+constexpr int kMaxK = 32;      // largest code width the kernels take
+constexpr int kSlots = kMaxK / 4;  // code slots per thread
+constexpr int kP = kB + 1;     // padded row stride of the (64 x 64) tiles
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
+__device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
+
+// Stage one 64-row tile of one side (queries or keys) into shared memory as
+// dense f32 rows of stride dp: the densified codes (SPARSE) or the dense
+// rows. Rows >= n are zero. Call between two __syncthreads(); the densify
+// needs a second barrier, which this function takes itself.
+template <bool SPARSE, typename T>
+__device__ void stage_dense(float* dst, int dp, const T* a, const int32_t* idx,
+                            size_t row0, int rows_left, int kw, int d) {
+  const int tid = threadIdx.x;
+  if (SPARSE) {
+    for (int t = tid; t < kB * dp; t += kThreads) dst[t] = 0.0f;
+    __syncthreads();
+    if (tid < kB && tid < rows_left) {
+      const size_t base = (row0 + tid) * kw;
+      float* row = dst + tid * dp;
+      for (int u = 0; u < kw; ++u) {
+        const int id = idx[base + u];
+        if (id >= 0 && id < d) row[id] += to_f(a[base + u]);
+      }
+    }
+  } else {
+    for (int t = tid; t < kB * d; t += kThreads) {
+      const int r = t / d;
+      dst[r * dp + t % d] = r < rows_left ? to_f(a[(row0 + r) * d + t % d]) : 0.0f;
+    }
+  }
+}
+
+// Stage a (64 x DV) tile of dv-wide rows (V or dO) at stride DV + 1.
+template <int DV, typename T>
+__device__ void stage_rows(float* dst, const T* src, size_t row0, int rows_left) {
+  for (int t = threadIdx.x; t < kB * DV; t += kThreads) {
+    const int r = t / DV;
+    dst[r * (DV + 1) + t % DV] = r < rows_left ? to_f(src[(row0 + r) * DV + t % DV]) : 0.0f;
+  }
+}
+
+// The columns a thread owns in a dQ/dK row: SPARSE — the row's stored
+// coordinates u = sub, sub + 4, ... (-1 where none); dense — c = sub + 4a.
+template <bool SPARSE, int DV>
+struct Cols {
+  static constexpr int N = SPARSE ? kSlots : DV / 4;
+  int c[N];
+  __device__ void load(const int* ids, int kw, int d, int sub) {
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+      if (SPARSE) {
+        const int u = sub + 4 * a;
+        const int id = u < kw ? ids[u] : -1;
+        c[a] = (id >= 0 && id < d) ? id : -1;
+      } else {
+        c[a] = sub + 4 * a;
+      }
+    }
+  }
+};
+
+// Write a block's 64 rows of dQ or dK: scatter each thread's accumulators
+// into a zeroed (64 x d) shared tile (duplicate coordinates write the same
+// value), then store the rows < rows_left coalesced.
+template <bool SPARSE, int DV, typename T>
+__device__ void emit_rows(float* tile, int dp, const Cols<SPARSE, DV>& cols,
+                          const float* acc, int r, T* out, size_t row0,
+                          int rows_left, int d) {
+  const int tid = threadIdx.x;
+  __syncthreads();  // the tile's previous contents are consumed
+  for (int t = tid; t < kB * dp; t += kThreads) tile[t] = 0.0f;
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < Cols<SPARSE, DV>::N; ++a)
+    if (cols.c[a] >= 0) tile[r * dp + cols.c[a]] = acc[a];
+  __syncthreads();
+  for (int t = tid; t < kB * d; t += kThreads) {
+    const int rr = t / d;
+    if (rr < rows_left) from_f(tile[rr * dp + t % d], out + (row0 + rr) * d + t % d);
+  }
+}
+
+template <bool SPARSE, int DV, typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_dq_kernel(const T* __restrict__ qa, const int32_t* __restrict__ qi,
+              const T* __restrict__ ka, const int32_t* __restrict__ ki,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dq, int nq, int nk, int kq, int kk, int d,
+              float scale, int causal) {
+  constexpr int DVP = DV + 1;
+  const int dp = d + 1;
+  extern __shared__ float smem[];
+  float* kd = smem;                  // (kB, dp)  K tile, dense f32
+  float* vs = kd + kB * dp;          // (kB, DVP) V tile
+  float* dos = vs + kB * DVP;        // (kB, DVP) dO of this query tile
+  float* dss = dos + kB * DVP;       // (kB, kP)  dS[i][j] of the tile pair
+  float* qs = dss + kB * kP;         // SPARSE: (kB, kq) values; dense: (kB, dp)
+  int* qis = reinterpret_cast<int*>(qs + kB * kq);  // SPARSE: (kB, kq) ids
+
+  const int tid = threadIdx.x;
+  const int r = tid >> 2;
+  const int sub = tid & 3;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kB;
+  const int row = q0 + r;
+  const bool row_ok = row < nq;
+  const size_t qrow0 = static_cast<size_t>(bh) * nq + q0;
+
+  if (SPARSE) {
+    for (int t = tid; t < kB * kq; t += kThreads) {
+      const bool ok = t / kq < nq - q0;
+      const int id = ok ? qi[qrow0 * kq + t] : -1;
+      qs[t] = ok ? to_f(qa[qrow0 * kq + t]) : 0.0f;
+      qis[t] = (id >= 0 && id < d) ? id : -1;
+    }
+  } else {
+    stage_dense<false>(qs, dp, qa, qi, qrow0, nq - q0, 0, d);
+  }
+  stage_rows<DV>(dos, dout, qrow0, nq - q0);
+  const float lse_r = row_ok ? lse[qrow0 + r] : 0.0f;
+  const float delta_r = row_ok ? delta[qrow0 + r] : 0.0f;
+  __syncthreads();
+  Cols<SPARSE, DV> cols;
+  cols.load(qis + r * kq, kq, d, sub);
+  float acc[Cols<SPARSE, DV>::N];
+#pragma unroll
+  for (int a = 0; a < Cols<SPARSE, DV>::N; ++a) acc[a] = 0.0f;
+
+  const int k_end = causal ? min(nk, q0 + kB) : nk;
+  for (int k0 = 0; k0 < k_end; k0 += kB) {
+    __syncthreads();  // the previous K/V tile is consumed
+    const size_t krow0 = static_cast<size_t>(bh) * nk + k0;
+    stage_dense<SPARSE>(kd, dp, ka, ki, krow0, nk - k0, kk, d);
+    stage_rows<DV>(vs, v, krow0, nk - k0);
+    __syncthreads();
+
+    // phase A: dS for this thread's quarter of the keys
+    for (int t = 0; t < kB / 4; ++t) {
+      const int j = sub + 4 * t;
+      const int key = k0 + j;
+      const float* krow = kd + j * dp;
+      float ds = 0.0f;
+      if (row_ok && key < nk && (!causal || key <= row)) {
+        float s = 0.0f;
+        if (SPARSE) {
+          for (int u = 0; u < kq; ++u) {
+            const int id = qis[r * kq + u];
+            if (id >= 0) s += qs[r * kq + u] * krow[id];
+          }
+        } else {
+          for (int c = 0; c < d; ++c) s += qs[r * dp + c] * krow[c];
+        }
+        const float p = expf(s * scale - lse_r);
+        float dpv = 0.0f;
+#pragma unroll 16
+        for (int c = 0; c < DV; ++c) dpv += dos[r * DVP + c] * vs[j * DVP + c];
+        ds = p * (dpv - delta_r) * scale;
+      }
+      dss[r * kP + j] = ds;
+    }
+    __syncwarp();  // a row's 4 threads are 4 lanes of one warp
+
+    // phase B: dQ on this thread's columns, gathered from the K tile
+    for (int j = 0; j < kB; ++j) {
+      const float ds = dss[r * kP + j];
+      const float* krow = kd + j * dp;
+#pragma unroll
+      for (int a = 0; a < Cols<SPARSE, DV>::N; ++a)
+        if (cols.c[a] >= 0) acc[a] += ds * krow[cols.c[a]];
+    }
+  }
+  emit_rows<SPARSE, DV>(kd, dp, cols, acc, r, dq, qrow0, nq - q0, d);
+}
+
+template <bool SPARSE, int DV, typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_dkv_kernel(const T* __restrict__ qa, const int32_t* __restrict__ qi,
+               const T* __restrict__ ka, const int32_t* __restrict__ ki,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dk, T* __restrict__ dvout, int nq, int nk,
+               int kq, int kk, int d, float scale, int causal) {
+  constexpr int DVP = DV + 1;
+  const int dp = d + 1;
+  extern __shared__ float smem[];
+  float* qd = smem;                  // (kB, dp)  Q tile, dense f32
+  float* dos = qd + kB * dp;         // (kB, DVP) dO tile
+  float* lses = dos + kB * DVP;      // (kB)
+  float* deltas = lses + kB;         // (kB)
+  float* vs = deltas + kB;           // (kB, DVP) this block's V rows
+  float* ps = vs + kB * DVP;         // (kB, kP)  P[j][i]
+  float* dss = ps + kB * kP;         // (kB, kP)  dS[j][i]
+  float* ks = dss + kB * kP;         // SPARSE: (kB, kk) values; dense: (kB, dp)
+  int* kis = reinterpret_cast<int*>(ks + kB * kk);  // SPARSE: (kB, kk) ids
+
+  const int tid = threadIdx.x;
+  const int j = tid >> 2;            // this thread's key row in the tile
+  const int sub = tid & 3;
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kB;
+  const int key = k0 + j;
+  const size_t krow0 = static_cast<size_t>(bh) * nk + k0;
+
+  if (SPARSE) {
+    for (int t = tid; t < kB * kk; t += kThreads) {
+      const bool ok = t / kk < nk - k0;
+      const int id = ok ? ki[krow0 * kk + t] : -1;
+      ks[t] = ok ? to_f(ka[krow0 * kk + t]) : 0.0f;
+      kis[t] = (id >= 0 && id < d) ? id : -1;
+    }
+  } else {
+    stage_dense<false>(ks, dp, ka, ki, krow0, nk - k0, 0, d);
+  }
+  stage_rows<DV>(vs, v, krow0, nk - k0);
+  __syncthreads();
+  Cols<SPARSE, DV> cols;
+  cols.load(kis + j * kk, kk, d, sub);
+  float dkacc[Cols<SPARSE, DV>::N];
+  float dvacc[DV / 4];
+#pragma unroll
+  for (int a = 0; a < Cols<SPARSE, DV>::N; ++a) dkacc[a] = 0.0f;
+#pragma unroll
+  for (int a = 0; a < DV / 4; ++a) dvacc[a] = 0.0f;
+
+  // kB rows per query tile as per key tile: the tile holding key k0 is the
+  // first one with a query at or past the causal diagonal
+  for (int q0 = causal ? k0 : 0; q0 < nq; q0 += kB) {
+    __syncthreads();  // the previous query tile is consumed
+    const size_t qrow0 = static_cast<size_t>(bh) * nq + q0;
+    stage_dense<SPARSE>(qd, dp, qa, qi, qrow0, nq - q0, kq, d);
+    stage_rows<DV>(dos, dout, qrow0, nq - q0);
+    if (tid < kB) {
+      const bool ok = tid < nq - q0;
+      lses[tid] = ok ? lse[qrow0 + tid] : 0.0f;
+      deltas[tid] = ok ? delta[qrow0 + tid] : 0.0f;
+    }
+    __syncthreads();
+
+    // phase A: P and dS for this thread's quarter of the queries
+    for (int t = 0; t < kB / 4; ++t) {
+      const int i = sub + 4 * t;
+      const int qrow = q0 + i;
+      const float* qrowp = qd + i * dp;
+      float p = 0.0f, ds = 0.0f;
+      if (key < nk && qrow < nq && (!causal || key <= qrow)) {
+        float s = 0.0f;
+        if (SPARSE) {
+          for (int u = 0; u < kk; ++u) {
+            const int id = kis[j * kk + u];
+            if (id >= 0) s += ks[j * kk + u] * qrowp[id];
+          }
+        } else {
+          for (int c = 0; c < d; ++c) s += ks[j * dp + c] * qrowp[c];
+        }
+        p = expf(s * scale - lses[i]);
+        float dpv = 0.0f;
+#pragma unroll 16
+        for (int c = 0; c < DV; ++c) dpv += dos[i * DVP + c] * vs[j * DVP + c];
+        ds = p * (dpv - deltas[i]) * scale;
+      }
+      ps[j * kP + i] = p;
+      dss[j * kP + i] = ds;
+    }
+    __syncwarp();
+
+    // phase B: dV on columns sub + 4a, dK on this thread's columns
+    for (int i = 0; i < kB; ++i) {
+      const float p = ps[j * kP + i];
+      const float ds = dss[j * kP + i];
+      const float* dorow = dos + i * DVP;
+      const float* qrowp = qd + i * dp;
+#pragma unroll
+      for (int a = 0; a < DV / 4; ++a) dvacc[a] += p * dorow[sub + 4 * a];
+#pragma unroll
+      for (int a = 0; a < Cols<SPARSE, DV>::N; ++a)
+        if (cols.c[a] >= 0) dkacc[a] += ds * qrowp[cols.c[a]];
+    }
+  }
+  if (key < nk) {
+    T* dvrow = dvout + (krow0 + j) * DV;
+#pragma unroll
+    for (int a = 0; a < DV / 4; ++a) from_f(dvacc[a], dvrow + sub + 4 * a);
+  }
+  emit_rows<SPARSE, DV>(qd, dp, cols, dkacc, j, dk, krow0, nk - k0, d);
+}
+
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <bool SPARSE, int DV, typename T>
+int launch(const void* qa, const void* qi, const void* ka, const void* ki,
+           const void* v, const void* dout, const void* lse, const void* delta,
+           void* dq, void* dk, void* dv, int bh, int nq, int nk, int kq, int kk,
+           int d, float scale, int causal, cudaStream_t stream) {
+  const size_t dp = d + 1, dvp = DV + 1;
+  const size_t q_side = SPARSE ? 2 * kB * kq : kB * dp;
+  const size_t k_side = SPARSE ? 2 * kB * kk : kB * dp;
+  const size_t smem_dq = sizeof(float) * (kB * dp + 2 * kB * dvp + kB * kP + q_side);
+  const size_t smem_dkv = sizeof(float) * (kB * dp + 2 * kB * dvp + 2 * kB + 2 * kB * kP + k_side);
+  auto kdq = bwd_dq_kernel<SPARSE, DV, T>;
+  auto kdkv = bwd_dkv_kernel<SPARSE, DV, T>;
+  cudaError_t e = prepare(kdq, smem_dq);
+  if (e == cudaSuccess) e = prepare(kdkv, smem_dkv);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const T* qa_ = static_cast<const T*>(qa);
+  const T* ka_ = static_cast<const T*>(ka);
+  const int32_t* qi_ = static_cast<const int32_t*>(qi);
+  const int32_t* ki_ = static_cast<const int32_t*>(ki);
+  const T* v_ = static_cast<const T*>(v);
+  const T* do_ = static_cast<const T*>(dout);
+  const float* lse_ = static_cast<const float*>(lse);
+  const float* delta_ = static_cast<const float*>(delta);
+  kdq<<<dim3((nq + kB - 1) / kB, bh), kThreads, smem_dq, stream>>>(
+      qa_, qi_, ka_, ki_, v_, do_, lse_, delta_, static_cast<T*>(dq), nq, nk,
+      kq, kk, d, scale, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kdkv<<<dim3((nk + kB - 1) / kB, bh), kThreads, smem_dkv, stream>>>(
+      qa_, qi_, ka_, ki_, v_, do_, lse_, delta_, static_cast<T*>(dk),
+      static_cast<T*>(dv), nq, nk, kq, kk, d, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SPARSE>
+int dispatch(const void* qa, const void* qi, const void* ka, const void* ki,
+             const void* v, const void* dout, const void* lse, const void* delta,
+             void* dq, void* dk, void* dv, int bh, int nq, int nk, int kq, int kk,
+             int d, int dvdim, float scale, int causal, int is_bf16, void* stream) {
+  cudaGetLastError();
+  if (bh <= 0 || nq <= 0 || nk <= 0) return 0;
+  if (bh > 65535 || d <= 0 || d > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (SPARSE && (kq <= 0 || kk <= 0 || kq > kMaxK || kk > kMaxK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!SPARSE && d != dvdim) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SFA_BWD_CASE(DVV)                                                          \
+  if (dvdim == DVV)                                                                \
+    return is_bf16 ? launch<SPARSE, DVV, __nv_bfloat16>(qa, qi, ka, ki, v, dout, lse, \
+                                                        delta, dq, dk, dv, bh, nq, nk, \
+                                                        kq, kk, d, scale, causal, s) \
+                   : launch<SPARSE, DVV, float>(qa, qi, ka, ki, v, dout, lse, delta, \
+                                                dq, dk, dv, bh, nq, nk, kq, kk, d,  \
+                                                scale, causal, s);
+  SFA_BWD_CASE(32)
+  SFA_BWD_CASE(64)
+  SFA_BWD_CASE(128)
+#undef SFA_BWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" const char* sfa_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Codes (bh, nq, kq) / (bh, nk, kk): values f32|bf16 + int32 ids; v (bh, nk,
+// dv), dout (bh, nq, dv) in the values' dtype; lse, delta (bh, nq) f32. Out:
+// dq (bh, nq, d), dk (bh, nk, d), dv (bh, nk, dv) in the same dtype. All
+// contiguous; kq, kk <= 32. Returns the last launch's cudaGetLastError().
+extern "C" int flash_sfa_bwd_launch(const void* qv, const void* qi, const void* kv,
+                                    const void* ki, const void* v, const void* dout,
+                                    const void* lse, const void* delta, void* dq,
+                                    void* dk, void* dv, int bh, int nq, int nk,
+                                    int kq, int kk, int d, int dvdim, float scale,
+                                    int causal, int is_bf16, void* stream) {
+  return dispatch<true>(qv, qi, kv, ki, v, dout, lse, delta, dq, dk, dv, bh, nq, nk,
+                        kq, kk, d, dvdim, scale, causal, is_bf16, stream);
+}
+
+// Dense q (bh, nq, d), k (bh, nk, d), v (bh, nk, d), dout (bh, nq, d) with
+// d == dv, in f32|bf16; lse, delta (bh, nq) f32. Out: dq, dk, dv alike.
+extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse,
+                                          const void* delta, void* dq, void* dk,
+                                          void* dv, int bh, int nq, int nk, int d,
+                                          float scale, int causal, int is_bf16,
+                                          void* stream) {
+  return dispatch<false>(q, nullptr, k, nullptr, v, dout, lse, delta, dq, dk, dv, bh,
+                         nq, nk, 0, 0, d, d, scale, causal, is_bf16, stream);
+}

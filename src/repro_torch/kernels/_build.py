@@ -9,7 +9,8 @@ source is rebuilt and an unchanged one is reused. ``build_all`` starts one
 ``nvcc`` per source, all at once.
 
 Nothing here runs at import: the package imports with neither ``nvcc`` nor
-a GPU, and the CPU paths never reach this module's functions.
+a GPU, and the CPU paths never reach the build. ``refuse_grad`` is the one
+check here that every wrapper runs on either device.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("rtopk", "flash_sfa", "flash_sfa_decode")
+SOURCES = ("rtopk", "flash_sfa", "flash_sfa_decode", "flash_sfa_bwd",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
@@ -121,6 +123,20 @@ def check(name: str, err: int, what: str) -> None:
     if err != 0:
         msg = library(name).sfa_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if a wrapper is asked to differentiate: its output has no
+    ``grad_fn``, so a gradient would be dropped without a word. The
+    differentiable entry points are the autograd Functions of
+    ``kernels/ops.py``, inside which grad mode is off."""
+    import torch
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{what} is not differentiable by itself: call it through "
+            f"kernels.ops (sfa_attention_op / dense_attention_op) or under "
+            f"torch.no_grad()")
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

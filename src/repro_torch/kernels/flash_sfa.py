@@ -50,6 +50,7 @@ def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
     d <= 256 and dv is 32, 64 or 128.
     """
     scale = float(scale if scale is not None else d ** -0.5)
+    _build.refuse_grad("flash_sfa", q_vals, k_vals, v)
     if v.device.type == "cpu":
         return flash_sfa_plain(q_vals, q_idx, k_vals, k_idx, v, d=d,
                                causal=causal, scale=scale,

@@ -62,6 +62,7 @@ def flash_sfa_decode(q, k_vals, k_idx, v, lengths, *, d: int,
     reading kv head j // (h // hkv). Indices may be uint8, uint16 or int32.
     """
     scale = float(scale if scale is not None else d ** -0.5)
+    _build.refuse_grad("flash_sfa_decode", q, k_vals, v)
     if q.device.type == "cpu":
         return flash_sfa_decode_plain(q, k_vals, k_idx, v, lengths, d=d,
                                       scale=scale)

@@ -54,14 +54,91 @@ def flash_sfa_ref(q_vals, q_idx, k_vals, k_idx, v, *, d: int,
     kd = _densify(k_vals, k_idx, d)
     s = torch.einsum("bqd,bkd->bqk", qd, kd) * scale
     if causal:
-        nq, nk = s.shape[-2], s.shape[-1]
-        ok = (torch.arange(nk, device=s.device)[None, :]
-              <= torch.arange(nq, device=s.device)[:, None])
+        ok = _causal_ok(s.shape[-2], s.shape[-1], s.device)
         s = torch.where(ok[None], s, torch.full_like(s, NEG_INF))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bqk,bkd->bqd", p, v.float()).to(v.dtype)
     return (out, lse) if return_residuals else out
+
+
+def _causal_ok(nq, nk, device):
+    """(nq, nk) bool: key j visible to query i (j <= i)."""
+    return (torch.arange(nk, device=device)[None, :]
+            <= torch.arange(nq, device=device)[:, None])
+
+
+def _support(idx, d):
+    """(..., k) indices -> (..., d) f32 {0, 1} mask of the stored
+    coordinates (``_support_mask`` of the JAX backward); indices outside
+    [0, d) mark nothing."""
+    idx = idx.long()
+    ok = (idx >= 0) & (idx < d)
+    out = torch.zeros(idx.shape[:-1] + (d,), dtype=torch.float32,
+                      device=idx.device)
+    return out.scatter_add_(-1, torch.where(ok, idx, 0), ok.float()).clamp_(max=1.0)
+
+
+def _attention_bwd(q, k, v, o, lse, g, *, causal, scale):
+    """Shared backward math on f32 (bh, n, d) q/k: recompute P from the
+    LSE, dS = P·(dO·Vᵀ − D)·scale with D = Σ(dO ∘ O), then dQ = dS·K,
+    dK = dSᵀ·Q and dV = Pᵀ·dO, all f32."""
+    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+    if causal:
+        ok = _causal_ok(s.shape[-2], s.shape[-1], s.device)[None]
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = torch.where(ok, p, torch.zeros_like(p))
+    gf = g.float()
+    dp = torch.einsum("bqe,bke->bqk", gf, v.float())
+    delta = (gf * o.float()).sum(-1)
+    ds = p * (dp - delta[..., None]) * scale
+    return (torch.einsum("bqk,bkd->bqd", ds, k),
+            torch.einsum("bqk,bqd->bkd", ds, q),
+            torch.einsum("bqk,bqe->bke", p, gf))
+
+
+def flash_sfa_bwd_ref(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
+                      causal: bool = True, scale: float | None = None):
+    """FlashSFA backward, dense emit: codes (bh, n, k), v/o/g (bh, n, dv),
+    lse (bh, n) f32 -> dQ, dK (bh, n, d) in the code values' dtypes, zero
+    off each row's stored coordinates (paper Eq. 6's straight-through
+    gradient), and dV (bh, n, dv) in v.dtype. Densify, recompute P from the
+    LSE, dS, then dQ/dK masked to the stored support, and dV."""
+    scale = scale if scale is not None else d ** -0.5
+    qd = _densify(q_vals, q_idx, d)
+    kd = _densify(k_vals, k_idx, d)
+    dq, dk, dv = _attention_bwd(qd, kd, v, o, lse, g, causal=causal, scale=scale)
+    return ((dq * _support(q_idx, d)).to(q_vals.dtype),
+            (dk * _support(k_idx, d)).to(k_vals.dtype), dv.to(v.dtype))
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        scale: float | None = None,
+                        return_residuals: bool = False):
+    """Dense attention: q/k (bh, n, d), v (bh, nk, dv) -> (bh, nq, dv) in
+    v.dtype = softmax(Q·Kᵀ·scale + causal)·V in f32; with
+    ``return_residuals`` also the per-row LSE (bh, nq) f32."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        ok = _causal_ok(s.shape[-2], s.shape[-1], s.device)[None]
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = torch.einsum("bqk,bkd->bqd", p, v.float()).to(v.dtype)
+    return (out, lse) if return_residuals else out
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, g, *, causal: bool = True,
+                            scale: float | None = None):
+    """Dense attention backward: q/k/v/o/g (bh, n, d), lse (bh, n) f32 ->
+    dQ, dK, dV in q's, k's and v's dtypes."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    dq, dk, dv = _attention_bwd(q.float(), k.float(), v, o, lse, g,
+                                causal=causal, scale=scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_cache_views(q, k_vals, k_idx, v):

@@ -33,6 +33,7 @@ def rtopk(x: torch.Tensor, k: int):
     """Row-wise top-k by magnitude. x: (..., d) f32|bf16 -> (values (..., k)
     in x.dtype, indices (..., k) int32 ascending). d <= 256 on the card."""
     d = x.shape[-1]
+    _build.refuse_grad("rtopk", x)
     if x.device.type == "cpu":
         return rtopk_plain(x, k)
     if x.device.type != "cuda":

@@ -1,8 +1,9 @@
-"""Model zoo: configs -> (init, prefill, decode_step, forward_logits)."""
+"""Model zoo: configs -> (init, loss_fn, prefill, decode_step,
+forward_logits)."""
 from repro_torch.models.model import (
-    Model, decode_step, forward_logits, init, init_decode_caches, prefill,
-    segments,
+    Model, decode_step, forward_logits, init, init_decode_caches, loss_fn,
+    prefill, segments,
 )
 
 __all__ = ["Model", "decode_step", "forward_logits", "init",
-           "init_decode_caches", "prefill", "segments"]
+           "init_decode_caches", "loss_fn", "prefill", "segments"]

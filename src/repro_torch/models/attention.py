@@ -1,17 +1,19 @@
 """Model-level attention: GQA, qk-norm, RoPE, SFA, KV caches.
 
-Ported from the JAX package's ``repro/models/attention.py`` (non-MLA, the
-serving modes). Call modes sharing the parameters:
+Ported from the JAX package's ``repro/models/attention.py`` (non-MLA).
+Call modes sharing the parameters:
 
-  * ``mode="train"`` / ``"eval"`` — full-sequence attention (forward only
-                         in this slice);
+  * ``mode="train"`` / ``"eval"`` — full-sequence attention, differentiable
+                         through the selected backend (the ``cuda``
+                         backend's kernels backward included);
   * ``mode="prefill"`` — the same, additionally returning the layer's KV
                          cache (a typed ``KVCache``, sparse for SFA layers);
   * ``mode="decode"``  — one new token: its K code and V are written into
                          the cache at ``cache_len`` (in place), then the
                          query is scored against the cache.
 
-``cfg.attention.backend`` selects the full-sequence path and
+``cfg.attention.backend`` selects the full-sequence path (train, eval and
+prefill) and
 ``cfg.attention.decode_backend`` the decode path through the registry
 (``repro_torch/models/backends.py``); the cache codes come from the
 selected backend's own top-k (the rtopk kernel on the card).
@@ -97,6 +99,8 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
         raise NotImplementedError(f"attention mode {mode!r} comes with a later slice")
     if a.sfa_rope_protect or a.sfa_draft_k:
         raise NotImplementedError("sfa_rope_protect / sfa_draft_k come with a later slice")
+    if a.ring and mode in ("train", "eval"):
+        raise NotImplementedError("Ring-SFA context parallelism is ROADMAP A.6")
     b, n, _ = x.shape
     h, hkv, hd = a.num_heads, a.num_kv_heads, a.head_dim
     dt = x.dtype
@@ -130,7 +134,7 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
     sel = select_backend(a.backend, _request(a, mode="full", window=window),
                          where=f"{cfg.name}/attention")
     o = sel.backend.full(q, k, v, num_heads=h, sfa_k=a.sfa_k, causal=a.causal,
-                         window=window, scale=scale)
+                         window=window, scale=scale, bwd_emit=a.bwd_emit)
     out = dense(params["w_o"], o.reshape(b, n, h * hd), dt)
     new_cache = None
     if mode == "prefill":

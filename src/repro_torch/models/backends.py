@@ -14,15 +14,20 @@ Registered backends:
   * ``torch`` — the plain oracle (chunked online softmax, gather-scoring
                 decode, bisection top-k); runs on either device and
                 supports every layer this port serves.
-  * ``cuda``  — the hand-written kernels: rtopk -> FlashSFA for prefill,
-                the token-major sparse-cache decode kernel, rtopk for every
-                top-k. On CPU tensors the kernel wrappers run their plain
-                versions, so the same routing is testable without a card.
+  * ``cuda``  — the hand-written kernels: rtopk -> FlashSFA forward and
+                backward for SFA layers and FlashAttention forward and
+                backward for dense ones (train and prefill, differentiable
+                through the autograd Functions of ``kernels/ops.py``), the
+                token-major sparse-cache decode kernel, rtopk for every
+                top-k. Dense decode has no kernel (as in the JAX package)
+                and goes to ``torch``. On CPU tensors the kernel wrappers
+                run their plain versions, so the same routing and the same
+                backward seam are testable without a card.
   * ``auto``  — not a backend but a policy: ``cuda`` where it can serve
                 the request, else ``torch``, with nothing recorded.
 
 An explicitly requested backend that cannot serve a layer (window, MLA,
-dense attention) falls back to ``torch`` with a structured
+dense decode) falls back to ``torch`` with a structured
 ``FallbackReport``, recorded once per (backend, request, site) and queryable
 through ``fallback_reports()``.
 """
@@ -38,7 +43,9 @@ from repro_torch.core.attention import NEG_INF, chunked_attention
 from repro_torch.core.kv_cache import KVCache, SparseKV, unpack_indices
 from repro_torch.core.sparse import sparsify, topk_st
 from repro_torch.kernels.flash_sfa_decode import flash_sfa_decode
-from repro_torch.kernels.ops import sfa_attention_op, sfa_code, topk_dense
+from repro_torch.kernels.ops import (
+    dense_attention_op, sfa_attention_op, sfa_code, topk_dense,
+)
 
 _LOG = logging.getLogger(__name__)
 
@@ -100,9 +107,10 @@ class AttentionBackend:
             return "dense attention not supported"
         return None
 
-    def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale):
+    def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale,
+             bwd_emit="dense"):
         """q: (b, n, h, d); k/v: (b, n, hkv, d) — the backend expands KV
-        heads itself, after sparsifying, so top-k runs at hkv heads."""
+        heads itself. Differentiable in q, k and v."""
         raise NotImplementedError(self.name)
 
     def decode(self, query: DecodeQuery, cache: KVCache, lengths, *,
@@ -160,7 +168,8 @@ class TorchBackend(AttentionBackend):
                         bidirectional=True, window=True, mla=False,
                         sparse=True, dense=True)
 
-    def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale):
+    def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale,
+             bwd_emit="dense"):
         if sfa_k is not None:
             q = topk_st(q, sfa_k)
             k = topk_st(k, sfa_k)
@@ -201,17 +210,28 @@ class TorchBackend(AttentionBackend):
 # --------------------------------------------------------------------------
 
 class CudaBackend(AttentionBackend):
-    """rtopk -> FlashSFA for prefill, the sparse-cache decode kernel."""
+    """rtopk -> FlashSFA (or FlashAttention) forward and backward for full
+    sequences, the sparse-cache decode kernel."""
     name = "cuda"
     caps = Capabilities(full=True, decode=True, causal=True,
                         bidirectional=True, window=False, mla=False,
-                        sparse=True, dense=False)
+                        sparse=True, dense=True)
 
-    def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale):
+    def unsupported_reason(self, req):
+        r = super().unsupported_reason(req)
+        if r is None and req.mode == "decode" and not req.sparse:
+            return "dense KV cache: no CUDA dense-decode kernel"
+        return r
+
+    def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale,
+             bwd_emit="dense"):
+        # GQA expands before rtopk, so group members carry identical codes
         k = expand_kv(k, num_heads)
         v = expand_kv(v, num_heads)
+        if sfa_k is None:
+            return dense_attention_op(q, k, v, causal=causal, scale=scale)
         return sfa_attention_op(q, k, v, sfa_k=sfa_k, causal=causal,
-                                scale=scale)
+                                scale=scale, bwd_emit=bwd_emit)
 
     def decode(self, query: DecodeQuery, cache: SparseKV, lengths, *,
                scale, window, sfa_k):

@@ -6,18 +6,22 @@ state-dict key such as ``segments.0.attn.w_qkv.w`` is the JAX path
 ``["segments"][0]["attn"]["w_qkv"]["w"]``); the layer functions take the
 plain nested dict of tensors (``ParamTree.tree()``) and an activation. Each
 layer is a pair ``<layer>_init(gen, ...) -> dict`` / ``<layer>(p, x, ...)``.
-Parameters are f32 and cast to the activation dtype at use.
+Parameters are f32 and cast to the activation dtype at use. The
+training loss ``chunked_cross_entropy`` is here too.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class ParamTree(nn.Module):
     """An ``nn.Module`` holding a nested dict/list of tensors as parameters,
-    under the same names as the JAX param tree."""
+    under the same names as the JAX param tree. The parameters are frozen,
+    as serving needs them; ``requires_grad_(True)`` makes them trainable,
+    as the trainer does."""
 
     def __init__(self, tree):
         super().__init__()
@@ -147,3 +151,33 @@ def rope(x, positions, *, theta: float = 10_000.0, rot_dim: int | None = None):
     if rot < d:
         rotated = torch.cat([rotated, x[..., rot:].float()], dim=-1)
     return rotated.to(x.dtype)
+
+
+def _chunk_nll(h, emb_w, labels, mask):
+    """Summed masked NLL of one sequence chunk: f32 logits (b, chunk,
+    vocab) against the tied head, logsumexp minus the gold logit."""
+    logits = h.float() @ emb_w.float().T
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return ((lse - gold) * mask).sum()
+
+
+def chunked_cross_entropy(hidden, emb_w, labels, *, chunk: int = 512):
+    """Sequence-chunked CE loss, the JAX package's ``chunked_cross_entropy``.
+
+    hidden: (b, n, d); emb_w: (vocab, d) (the tied LM head); labels (b, n),
+    -1 where there is no target. Logits exist only per chunk: each chunk
+    runs under ``torch.utils.checkpoint``, so the backward recomputes its
+    (b, chunk, vocab) logits instead of keeping all of them (1.65 GB in f32
+    at batch 8 × 1024 × 50,257). A last chunk shorter than ``chunk`` equals
+    the JAX package's padded one: padding carries label -1. Returns (mean
+    loss over the labelled tokens, token count) as f32 scalars.
+    """
+    mask = (labels >= 0).float()
+    loss_sum = hidden.new_zeros((), dtype=torch.float32)
+    for s in range(0, hidden.shape[1], chunk):
+        loss_sum = loss_sum + checkpoint(
+            _chunk_nll, hidden[:, s:s + chunk], emb_w, labels[:, s:s + chunk],
+            mask[:, s:s + chunk], use_reentrant=False)
+    cnt = mask.sum()
+    return loss_sum / cnt.clamp(min=1.0), cnt

@@ -1,10 +1,13 @@
-"""Model assembly for the dense family: init, prefill, decode, logits.
+"""Model assembly for the dense family: init, loss, prefill, decode, logits.
 
 Ported from the JAX package's ``repro/models/model.py``. Parameters keep the
 JAX tree's layout, including the stacked per-segment layer axis
 (``params.segments[si]`` leaves are ``(count, ...)``); the JAX layer scan
 becomes a Python loop over that axis. Decode caches are lists (one per
-segment) of layer-stacked typed ``KVCache``s, updated in place.
+segment) of layer-stacked typed ``KVCache``s, updated in place. In ``train``
+and ``eval`` mode, ``cfg.remat="full"`` wraps each layer in
+``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of the scan body):
+its activations are recomputed in the backward, kernels included.
 
 Entry points take the ``Model`` (a ``ParamTree``) where the JAX functions
 take the param pytree. Other families (MoE, hybrid, SSM, frontends) come
@@ -13,6 +16,7 @@ with later slices.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_cache import KVCache
@@ -105,18 +109,36 @@ def _tx_block(p, x, cfg: ModelConfig, *, positions=None, mode="train",
     return x, ao.cache
 
 
+def _remat(cfg: ModelConfig, mode: str) -> bool:
+    """Whether the layer loop checkpoints each layer: ``remat="full"`` on
+    the train and eval forwards; the serving modes never checkpoint."""
+    if mode not in ("train", "eval") or cfg.remat == "none":
+        return False
+    if cfg.remat == "codes":
+        raise NotImplementedError('remat="codes" (save only the SFA codes) is '
+                                  "the compact training seam, ROADMAP A.3")
+    return True
+
+
 def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
                  caches=None, cache_len=None):
     """The layer loop over each segment's stacked axis (the JAX scan)."""
     tree = params.tree()
+    remat = _remat(cfg, mode)
     new_caches = []
     for si, (_, count) in enumerate(segments(cfg)):
         seg = tree["segments"][si]
         layer_caches = []
         for i in range(count):
+            p = L.tree_index(seg, i)
+            if remat:
+                x = checkpoint(lambda x, p=p: _tx_block(
+                    p, x, cfg, positions=positions, mode=mode)[0], x,
+                    use_reentrant=False)
+                continue
             c = caches[si].layer(i) if caches is not None else None
-            x, nc = _tx_block(L.tree_index(seg, i), x, cfg, positions=positions,
-                              mode=mode, cache=c, cache_len=cache_len)
+            x, nc = _tx_block(p, x, cfg, positions=positions, mode=mode,
+                              cache=c, cache_len=cache_len)
             layer_caches.append(nc)
         if mode == "prefill":
             new_caches.append(type(layer_caches[0]).stack(layer_caches))
@@ -144,17 +166,39 @@ def _embed_inputs(params: Model, tokens, cfg: ModelConfig, dtype):
     return h
 
 
+def _head_weights(params: Model, cfg: ModelConfig):
+    """(vocab, d): the tied embedding, or the LM head transposed."""
+    return params.embed.w if cfg.tie_embeddings else params.lm_head.w.T
+
+
 def _head(params: Model, h, cfg: ModelConfig):
     """Final norm, then f32 logits against the tied embedding (or the LM
     head)."""
     h = L.apply_norm(params.final_norm.tree(), h, cfg.norm)
-    w = params.embed.w if cfg.tie_embeddings else params.lm_head.w.T
-    return h.float() @ w.float().T
+    return h.float() @ _head_weights(params, cfg).float().T
 
 
 # ==========================================================================
 # public API
 # ==========================================================================
+
+def loss_fn(params: Model, batch, cfg: ModelConfig, *, aux_weight: float = 1.0):
+    """Training loss: sequence-chunked CE over ``batch["labels"]`` (-1 = no
+    target), as the JAX package's ``loss_fn``. Returns (loss, {"ce", "aux",
+    "tokens"}). The aux term is zero on the dense family; the SFA
+    distillation term (``cfg.sfa_distill``, paper Eq. 8) comes with a later
+    slice."""
+    if cfg.sfa_distill:
+        raise NotImplementedError("sfa_distill (paper Eq. 8) comes with a later slice")
+    h = _embed_inputs(params, batch["tokens"], cfg, _dtype(cfg))
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    h, _ = _apply_stack(params, h, cfg, positions=positions, mode="train")
+    h = L.apply_norm(params.final_norm.tree(), h, cfg.norm)
+    ce, cnt = L.chunked_cross_entropy(h, _head_weights(params, cfg),
+                                      batch["labels"], chunk=cfg.loss_chunk)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux, "tokens": cnt}
+
 
 def forward_logits(params: Model, batch, cfg: ModelConfig, *, mode="train"):
     """Full-sequence logits (b, n, vocab) f32."""

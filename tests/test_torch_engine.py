@@ -24,7 +24,9 @@ from repro_torch.configs import get_config
 from repro_torch.interop import from_jax
 from repro_torch.kernels import launch_counts, reset_launches
 from repro_torch.models import decode_step, init_decode_caches, prefill
-from repro_torch.models.backends import clear_fallback_reports, fallback_reports
+from repro_torch.models.backends import (
+    AttentionRequest, clear_fallback_reports, fallback_reports, select_backend,
+)
 from repro_torch.models.model import insert_slot
 from repro_torch.serve import DecodeEngine, EngineConfig
 
@@ -117,7 +119,9 @@ def test_decode_goes_through_every_kernel_wrapper(sfa):
                        device="cpu")
     eng.generate(_prompt(3, 9, tc.vocab_size), max_new_tokens=3)
     # on the CPU the wrappers run their plain versions: nothing launches
-    assert launch_counts() == {"rtopk": 0, "flash_sfa": 0, "flash_sfa_decode": 0}
+    assert launch_counts() == {"rtopk": 0, "flash_sfa": 0, "flash_sfa_decode": 0,
+                               "flash_sfa_bwd": 0, "flash_attention": 0,
+                               "flash_attention_bwd": 0}
     assert fallback_reports() == ()
 
 
@@ -176,14 +180,22 @@ def test_dense_gpt2_small_path_matches():
 
 
 def test_auto_routes_a_dense_model_to_the_oracle_without_a_report():
+    """A dense model's full-sequence attention goes to the kernels (the
+    dense FlashAttention forward and backward), its decode to the torch
+    oracle: there is no dense-decode kernel. "auto" records nothing; an
+    explicit "cuda" records the decode fallback."""
     jc, tc, jp, model = _setup("gpt2-small", "auto")
+    full = select_backend("auto", AttentionRequest(mode="full"))
+    decode = select_backend("auto", AttentionRequest(mode="decode"))
+    assert (full.backend.name, decode.backend.name) == ("cuda", "torch")
     clear_fallback_reports()
     _torch_stream(tc, model, [_prompt(8, 5, tc.vocab_size)], 3)
     assert fallback_reports() == ()
     jc, tc, jp, model = _setup("gpt2-small", "cuda")
     _torch_stream(tc, model, [_prompt(8, 5, tc.vocab_size)], 3)
-    reasons = {r.reason for r in fallback_reports()}
-    assert reasons == {"dense attention not supported"}
+    reports = fallback_reports()
+    assert {(r.request.mode, r.reason) for r in reports} == {
+        ("decode", "dense KV cache: no CUDA dense-decode kernel")}
     clear_fallback_reports()
 
 

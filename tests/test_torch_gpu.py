@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import flash_sfa, flash_sfa_decode, launch_counts, reset_launches, rtopk
+from repro_torch.kernels import (
+    flash_attention, flash_attention_bwd, flash_sfa, flash_sfa_bwd, flash_sfa_decode,
+    launch_counts, reset_launches, rtopk,
+)
 from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.gpu
@@ -90,6 +93,81 @@ def test_flash_sfa_decode_kernel_on_card(cuda, h, hkv, idx_dtype, dtype):
     torch.testing.assert_close(ko.cpu() * live, po * live, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n,dv,k,dtype", [(1024, 64, 8, torch.float32), (1000, 64, 8, torch.float32),
+                                          (333, 128, 32, torch.float32), (200, 32, 4, torch.float32),
+                                          (1000, 64, 8, torch.bfloat16)])
+def test_flash_sfa_bwd_kernel_on_card(cuda, n, dv, k, dtype, causal):
+    rs = np.random.RandomState(10)
+    d = 64
+    qv, qi = _codes(rs, 12, n, k, d)
+    kv, ki = _codes(rs, 12, n, k, d)
+    kv[:, 3], ki[:, 3] = 0.0, 0                  # padding row: duplicates of index 0
+    v, g = (rs.randn(12, n, dv).astype(np.float32) for _ in range(2))
+    qv_, qi_, kv_, ki_, v_, g_ = (torch.from_numpy(a).to(cuda) for a in (qv, qi, kv, ki, v, g))
+    qv_, kv_, v_, g_ = (t.to(dtype) for t in (qv_, kv_, v_, g_))
+    o, lse = ref.flash_sfa_ref(qv_, qi_, kv_, ki_, v_, d=d, causal=causal, return_residuals=True)
+    got = flash_sfa_bwd(qv_, qi_, kv_, ki_, v_, o, lse, g_, d=d, causal=causal)
+    want = ref.flash_sfa_bwd_ref(qv_, qi_, kv_, ki_, v_, o, lse, g_, d=d, causal=causal)
+    # f32: sums in another order, 1e-4; bf16 outputs: one bf16 ulp (2^-7 rel)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == dtype, name
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-4, msg=name)
+    # dQ/dK exactly zero off the stored coordinates (Eq. 6's support)
+    for grad, idx in ((got[0], qi_), (got[1], ki_)):
+        off = ref._support(idx, d) == 0
+        assert bool((grad[off] == 0).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n,d,dtype", [(1024, 64, torch.float32), (1000, 64, torch.float32),
+                                       (333, 128, torch.float32), (200, 32, torch.float32),
+                                       (1000, 64, torch.bfloat16)])
+def test_flash_attention_fwd_bwd_kernels_on_card(cuda, n, d, dtype, causal):
+    rs = np.random.RandomState(11)
+    q, k, v, g = (torch.from_numpy(rs.randn(12, n, d).astype(np.float32)).to(cuda).to(dtype)
+                  for _ in range(4))
+    ko, kl = flash_attention(q, k, v, causal=causal, return_residuals=True)
+    po, pl = ref.flash_attention_ref(q, k, v, causal=causal, return_residuals=True)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 0
+    torch.testing.assert_close(ko.float(), po.float(), rtol=rtol, atol=1e-4)
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+    got = flash_attention_bwd(q, k, v, po, pl, g, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, po, pl, g, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-4, msg=name)
+
+
+def test_wrappers_refuse_grad_outside_their_function(cuda):
+    q = torch.randn(2, 64, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        rtopk(q, 8)
+
+
+@pytest.mark.parametrize("arch", ["gpt2-small-sfa8", "gpt2-small"])
+def test_trainer_runs_the_backward_kernels(cuda, arch):
+    from repro_torch.configs.base import TrainPolicy
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = get_config(arch).reduced()
+    tr = Trainer(cfg, OptimizerConfig(warmup_steps=2, total_steps=4),
+                 DataConfig(vocab_size=cfg.vocab_size, seq_len=100, global_batch=2),
+                 TrainerConfig(total_steps=3, policy=TrainPolicy.from_model(
+                     cfg, remat="full", backend="cuda")), device=cuda)
+    reset_launches()
+    hist = tr.train()
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    counts = launch_counts()
+    fwd, bwd = (("flash_sfa", "flash_sfa_bwd") if cfg.attention.sfa_k
+                else ("flash_attention", "flash_attention_bwd"))
+    # remat="full": each layer's forward runs twice per step, its backward once
+    assert counts[fwd] == 2 * counts[bwd] == 2 * 3 * cfg.num_layers
+
+
 def test_engine_launches_every_kernel(cuda):
     from repro_torch.models.model import init
     from repro_torch.serve import DecodeEngine, EngineConfig
@@ -99,4 +177,5 @@ def test_engine_launches_every_kernel(cuda):
     reset_launches()
     out = eng.generate(np.arange(1, 9), max_new_tokens=4)
     assert len(out) == 4
-    assert all(c > 0 for c in launch_counts().values())
+    serving = ("rtopk", "flash_sfa", "flash_sfa_decode")
+    assert all(launch_counts()[name] > 0 for name in serving)

@@ -41,7 +41,8 @@ def test_no_jax_or_repro_imports(path):
 def test_package_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.kernels, repro_torch.serve, "
-            "repro_torch.interop, repro_torch.launch.serve\n"
+            "repro_torch.interop, repro_torch.launch.serve, repro_torch.train, "
+            "repro_torch.optim, repro_torch.data, repro_torch.launch.train\n"
             "from repro_torch.kernels import _build\n"
             "assert not _build._LIBS\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -62,6 +63,41 @@ def test_engine_without_device_needs_a_card():
         DecodeEngine(model, cfg, EngineConfig(max_slots=2, max_len=32))
     with pytest.raises(RuntimeError, match="CUDA"):
         init(cfg)
+
+
+def test_trainer_without_device_needs_a_card():
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    cfg = get_config("gpt2-small-sfa8").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, OptimizerConfig(), DataConfig(cfg.vocab_size, 16, 2), TrainerConfig())
+
+
+def test_kernel_wrappers_refuse_grad_outside_their_function():
+    """A wrapper's output has no grad_fn: given a tensor that requires grad
+    it raises, on either device, instead of dropping the gradient; the
+    autograd Functions of kernels.ops are the way to differentiate."""
+    from repro_torch.kernels import (
+        flash_attention, flash_attention_bwd, flash_sfa, flash_sfa_bwd, flash_sfa_decode,
+        rtopk,
+    )
+    x = torch.randn(2, 8, 16, requires_grad=True)
+    idx = torch.zeros(2, 8, 4, dtype=torch.int32)
+    lse = torch.zeros(2, 8)
+    calls = [lambda: rtopk(x, 4), lambda: flash_attention(x, x, x),
+             lambda: flash_attention_bwd(x, x, x, x, lse, x),
+             lambda: flash_sfa(x[..., :4], idx, x[..., :4], idx, x, d=16),
+             lambda: flash_sfa_bwd(x[..., :4], idx, x[..., :4], idx, x, x, lse, x, d=16),
+             lambda: flash_sfa_decode(x[:, 0], x[..., :4], idx, x, torch.ones(2), d=16)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="not differentiable"):
+            call()
+    with torch.no_grad():
+        rtopk(x, 4)
 
 
 def test_kernel_wrappers_refuse_other_devices():

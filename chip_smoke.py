@@ -36,11 +36,35 @@ Phases; any failure raises and the script exits non-zero:
                step gives the device's busy share;
   7. dense train — the dense baseline gpt2-small the same way (1 warm-up,
                2 timed steps), through flash_attention and its backward;
-  8. gradients end to end — float32 gpt2-small-sfa8 at full width, batch 1
+  8. compact train — the compact code-gradient seam at full width:
+               gpt2-small-sfa8, bf16, batch 8 x seq 1024, through
+               ``Trainer`` under TrainPolicy(bwd_emit="compact",
+               fwd_fuse=True, remat="codes"), 1 warm-up and 5 timed steps;
+               the launches of proj_rtopk, block-skip flash_sfa, the
+               compact flash_sfa_bwd and code_grad_dx/dw equal to the
+               prediction (and no rtopk or plain-schedule flash_sfa), no
+               fallback, the seam taken on every layer, "codes" applied;
+               then the launcher ``python -m repro_torch.launch.train
+               --no-reduced --bwd-emit compact --remat codes`` for 2 steps;
+  9. gradients end to end — float32 gpt2-small-sfa8 at full width, batch 1
                x seq 512: the loss and every parameter gradient through the
-               "cuda" backend (remat="full") against the "torch" oracle
+               "cuda" backend, dense emit with remat="full" and the compact
+               seam with remat="codes", against the "torch" oracle
                (remat="none"), to a stated tolerance;
-  9. a ``kernels`` JSON line, then the result line.
+ 10. a ``kernels`` JSON line, then the result line.
+
+Phase 3 also holds the compact seam's kernels at the training path's
+shapes: proj_rtopk (x 8 x 1024 x 768, 12 heads of 64, k 8) in f32 on
+dyadic inputs (every sum exact: indices equal, values bit-equal), and in
+bf16 and f32 on random inputs (rows whose index sets differ must have a
+near-tie), with RoPE at full width; code_grad_dx/dw (12 heads x 8,192
+tokens, k 8 and the 2k pair closure; code_grad_dw also with one token
+split, which must agree and is timed beside the default); block-skip flash_sfa on the training
+path's codes and on a planted banded input (tile t on features 8(t mod 8)
+.. +7) that sends most tile pairs down the closed form, with
+``block_skip_stats`` of both; the compact and compact2 backward emits
+against their plain versions and against the dense emit gathered at the
+stored indices.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -48,6 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -88,21 +113,27 @@ def event_ms(fn, iters=50, warmup=5):
 def device_ms(fn, iters=20, attempts=3):
     """Mean device time per call of fn() in ms: the CUDA kernels' own time,
     summed from a torch.profiler trace of ``iters`` calls (host overhead
-    between launches excluded). A trace that comes back without device
-    events is taken again, up to ``attempts`` times; None if none had any."""
+    between launches excluded). fn() launches the same kernels on every
+    call, so a whole trace holds each kernel a multiple of ``iters`` times;
+    one that does not (the profiler lost events) or has no device events
+    is taken again, up to ``attempts`` times; None if none was whole."""
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
-        kernels, _ = trace_kernels(lambda: [fn() for _ in range(iters)])
+        counts = {}
+        kernels, _ = trace_kernels(lambda: [fn() for _ in range(iters)], counts)
         total_us = sum(kernels.values())
-        if total_us > 0:
+        if total_us > 0 and all(c % iters == 0 for c in counts.values()):
             return total_us / 1e3 / iters
+        print(f"[timing] retake: traced launches per kernel {sorted(counts.values())} "
+              f"over {iters} calls")
     return None
 
 
-def trace_kernels(fn):
+def trace_kernels(fn, counts=None):
     """Run fn() under torch.profiler (CUDA activity only) and return
-    ({kernel name: summed device us}, host wall ms)."""
+    ({kernel name: summed device us}, host wall ms); ``counts``, if given,
+    receives {kernel name: launches traced}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -114,6 +145,8 @@ def trace_kernels(fn):
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
     return kernels, wall_ms
 
 
@@ -125,9 +158,11 @@ def timings(kernel, plain, library):
                            ("library_ms", library, 50)):
         out[key.replace("ms", "call_ms")] = event_ms(fn, iters=iters)
         out[key] = device_ms(fn, iters=min(iters, 20))
-    if any(out[k] is None for k in ("ms", "plain_ms", "library_ms")):
+    missing = [k for k in ("ms", "plain_ms", "library_ms") if out[k] is None]
+    if missing:
         out.update(ms=out["call_ms"], plain_ms=out["plain_call_ms"],
-                   library_ms=out["library_call_ms"], timing="cuda events")
+                   library_ms=out["library_call_ms"],
+                   timing=f"cuda events: no device events traced for {', '.join(missing)}")
     else:
         out["timing"] = "profiler device time"
     return out
@@ -147,6 +182,13 @@ def bound(bytes_moved, op_seconds):
     if byte_s >= op_seconds:
         return byte_s * 1e3, "bytes"
     return op_seconds * 1e3, "operations"
+
+
+def code_product_s(k_flops, d_flops):
+    """Least seconds of a product over top-k codes: the lesser of its
+    gathered form (k-wide, CUDA cores at the f32 rate) and its densified
+    form (d-wide, bf16 tensor cores), the same function either way."""
+    return min(k_flops / F32_FLOPS, d_flops / BF16_TC_FLOPS)
 
 
 def check(ok, what):
@@ -265,7 +307,8 @@ def phase_flash_sfa(rs):
         pairs = bh * n * (n + 1) // 2
         es = 2
         b_ms, b_by = bound(2 * bh * n * k * (es + 4) + 2 * bh * n * dv * es + bh * n * 4,
-                           2 * k * pairs / F32_FLOPS + 2 * dv * pairs / BF16_TC_FLOPS)
+                           code_product_s(2 * k * pairs, 2 * d * pairs)
+                           + 2 * dv * pairs / BF16_TC_FLOPS)
         r = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **timings(
             lambda: flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True),
             lambda: flash_sfa_ref(qv, qi, kv, ki, v, d=d, scale=scale,
@@ -324,7 +367,8 @@ def phase_decode(rs):
         qb, dense[i][0], dense[i][1], attn_mask=mask, scale=scale))
     tokens = int(lengths.sum())
     b_ms, b_by = bound(tokens * h * (k * (2 + 1) + dv * 2) + b * h * (d + dv) * 4,
-                       tokens * h * (2 * k + 2 * dv) / F32_FLOPS)
+                       code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
+                       + tokens * h * 2 * dv / F32_FLOPS)
     r = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
              **timings(run_kernel, run_plain, run_lib))
     print(f"[flash_sfa_decode] b={b} h={h} n_max={n_max} lengths={lengths.tolist()} "
@@ -365,7 +409,7 @@ def phase_flash_sfa_bwd(rs):
     from repro_torch.kernels.ref import _support, flash_sfa_bwd_ref
     bh, d, k, dv = TRAIN_BH, 64, 8, 64
     scale = d ** -0.5
-    errs = []
+    errs, compact_errs = [], []
     for n in (TRAIN_N, 1000):
         for dtype in (torch.float32, torch.bfloat16):
             q, kk = (torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().to(dtype)
@@ -390,6 +434,24 @@ def phase_flash_sfa_bwd(rs):
                   f"(max |dq|, |dk|, |dv| {', '.join(f'{m:.3g}' for _, m in errs_mags)}), "
                   f"dQ/dK zero off the support")
             errs.append(err)
+            # the compact emits: against their plain versions, and compact
+            # against the kernel's dense emit gathered at the stored indices
+            # (the same accumulators: equal bit for bit)
+            for emit, rot in (("compact", d), ("compact2", d), ("compact2", d // 2)):
+                cgot = flash_sfa_bwd(*args, d=d, scale=scale, emit=emit, rot_dim=rot)
+                cwant = flash_sfa_bwd_ref(*args, d=d, scale=scale, emit=emit, rot_dim=rot)
+                torch.cuda.synchronize()
+                cerr = max(_close(a, b, dtype, f"flash_sfa_bwd {emit}/{rot} {name} n={n} {dtype}")[0]
+                           for name, a, b in zip(("dq", "dk", "dv"), cgot, cwant))
+                check(torch.equal(cgot[2], got[2]), f"{emit}: dV differs from the dense emit's")
+                if emit == "compact":
+                    for a, dense, idx in ((cgot[0], got[0], qi), (cgot[1], got[1], ki)):
+                        check(torch.equal(a, dense.gather(-1, idx.long())),
+                              f"compact emit n={n} {dtype}: not the gathered dense emit")
+                compact_errs.append(cerr)
+                print(f"[flash_sfa_bwd] {emit} (rot_dim {rot}) n={n} {dtype}: max|err| vs plain "
+                      f"{cerr:.3g}" + ("; equal to the dense emit gathered at the stored "
+                                       "indices" if emit == "compact" else ""))
             if n == TRAIN_N and dtype == torch.bfloat16:
                 main = (args, _densify(qv, qi, d), _densify(kv, ki, d), v, g)
     args, qd, kd, v, g = main
@@ -397,14 +459,26 @@ def phase_flash_sfa_bwd(rs):
     n = TRAIN_N
     b_ms, b_by = bound(2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
                        + 2 * bh * n * d * es + bh * n * dv * es,
-                       6 * k * pairs / F32_FLOPS + 4 * dv * pairs / BF16_TC_FLOPS)
+                       code_product_s(6 * k * pairs, 6 * d * pairs)
+                       + 4 * dv * pairs / BF16_TC_FLOPS)
     r = dict(max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by, **timings(
         lambda: flash_sfa_bwd(*args, d=d, scale=scale),
         lambda: flash_sfa_bwd_ref(*args, d=d, scale=scale),
         _sdpa_bwd(qd, kd, v, g, scale)))
     print(f"[flash_sfa_bwd] bf16 n={n}: library = SDPA backward (autograd) on densified "
           f"Q/K; {fmt(r)}")
-    return r
+    # the compact emit writes k-wide dQ/dK rows where the dense one writes d
+    b_ms, b_by = bound(2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
+                       + 2 * bh * n * k * es + bh * n * dv * es,
+                       code_product_s(6 * k * pairs, 6 * d * pairs)
+                       + 4 * dv * pairs / BF16_TC_FLOPS)
+    rc = dict(max_abs_err=max(compact_errs), bound_ms=b_ms, bound_by=b_by, **timings(
+        lambda: flash_sfa_bwd(*args, d=d, scale=scale, emit="compact"),
+        lambda: flash_sfa_bwd_ref(*args, d=d, scale=scale, emit="compact"),
+        _sdpa_bwd(qd, kd, v, g, scale)))
+    print(f"[flash_sfa_bwd] compact emit bf16 n={n}: library = SDPA backward (autograd) on "
+          f"densified Q/K; {fmt(rc)}")
+    return r, rc
 
 
 def phase_flash_attention(rs):
@@ -451,6 +525,255 @@ def phase_flash_attention(rs):
         _sdpa_bwd(q, k, v, g, scale)))
     print(f"[flash_attention_bwd] bf16 n={n}: library = SDPA backward (autograd); {fmt(bwd)}")
     return fwd, bwd
+
+
+# --------------------------------------------------------------------------
+# phase 3, the compact seam's kernels
+# --------------------------------------------------------------------------
+
+TRAIN_B, D_MODEL, HEADS, HD, SFA_K = 8, 768, 12, 64, 8
+
+
+def near_ties(y, got_idx, want_idx, k, rel):
+    """(rows whose top-k index sets differ, their count, and how many of
+    them have their k-th and (k+1)-th magnitudes of y within ``rel`` of
+    each other, relative to the k-th)."""
+    diff = (got_idx.sort(-1).values != want_idx.sort(-1).values).any(-1)
+    mags = y.float().abs().sort(-1, descending=True).values
+    kth, nxt = mags[..., k - 1], mags[..., k]
+    tie = (kth - nxt) <= rel * kth
+    return diff, int(diff.sum()), int((diff & tie).sum())
+
+
+def phase_proj_rtopk(rs):
+    """proj_rtopk at the training path's shapes: the 12 query heads' view of
+    a packed (768, 2304) f32 w_qkv, x (8, 1024, 768)."""
+    from repro_torch.kernels import proj_rtopk
+    from repro_torch.kernels.ops import head_blocks
+    from repro_torch.kernels.ref import proj_rtopk_ref
+    from repro_torch.models.layers import rope
+    b, n, m, h, d, k = TRAIN_B, TRAIN_N, D_MODEL, HEADS, HD, SFA_K
+    # f32, dyadic inputs: products are multiples of 2^-6 and |sums| <= 384,
+    # exact in f32 in any order — indices equal, values bit-equal (and the
+    # coarse grid plants many ties at the threshold)
+    x = torch.from_numpy(rs.randint(-4, 5, size=(b, n, m)).astype(np.float32) / 4).cuda()
+    w = torch.from_numpy(rs.randint(-8, 9, size=(m, 3 * h * d)).astype(np.float32) / 16).cuda()
+    wq = head_blocks(w, 0, h, d)
+    kv, ki = proj_rtopk(x, wq, k=k)
+    pv, pi = proj_rtopk_ref(x, wq, k=k)
+    torch.cuda.synchronize()
+    check(torch.equal(ki, pi), "proj_rtopk f32 dyadic: indices differ")
+    check(torch.equal(kv.view(torch.int32), pv.view(torch.int32)),
+          "proj_rtopk f32 dyadic: values not bit-equal")
+    print(f"[proj_rtopk] f32 dyadic x {tuple(x.shape)}, w heads {tuple(wq.shape)} "
+          f"(strided view), k={k}: indices equal, values bit-equal")
+    # random inputs: the kernel's f32 sum runs in another order than the
+    # plain einsum's, so a row may keep another index only where its k-th
+    # and (k+1)-th magnitudes are within the two results' difference of
+    # each other: bf16 — a rounding each side, 2 ulps (2^-6 relative),
+    # with or without RoPE; f32 — the sums' own error, which grows with
+    # sqrt(m): 64 ulps (2^-17)
+    w = (0.04 * torch.from_numpy(rs.randn(m, 3 * h * d).astype(np.float32))).cuda()
+    wq = head_blocks(w, 0, h, d)
+    xr = torch.from_numpy(rs.randn(b, n, m).astype(np.float32)).cuda()
+    pos = torch.arange(n, device="cuda")[None, :].expand(b, n)
+    errs = []
+    for dtype, rope_on in ((torch.float32, False), (torch.bfloat16, False),
+                           (torch.bfloat16, True)):
+        xx = xr.to(dtype)
+        spec = (10_000.0, d) if rope_on else None
+        kv, ki = proj_rtopk(xx, wq, pos if rope_on else None, k=k, rope_spec=spec)
+        pv, pi = proj_rtopk_ref(xx, wq, pos if rope_on else None, k=k, rope_spec=spec)
+        y = torch.einsum("bnm,hmd->bnhd", xx.float(), wq.to(dtype).float()).to(dtype)
+        if rope_on:
+            y = rope(y, pos, theta=10_000.0, rot_dim=d)
+        y = y.transpose(1, 2)
+        rel = 2.0 ** -17 if dtype == torch.float32 else 2.0 ** -6
+        diff, n_diff, n_tie = near_ties(y, ki, pi, k, rel)
+        check(n_diff == n_tie, f"proj_rtopk {dtype} rope={rope_on}: {n_diff - n_tie} rows "
+                               f"differ without a near-tie")
+        same = ~diff
+        _close(kv[same], pv[same], dtype, f"proj_rtopk {dtype} rope={rope_on} values")
+        err = (kv[same].float() - pv[same].float()).abs().max().item()
+        errs.append(err)
+        print(f"[proj_rtopk] {dtype} random, rope={rope_on}: {n_diff} of {diff.numel()} rows "
+              f"pick another index set, each at a near-tie (gap <= {rel:.3g} relative); "
+              f"max|err| on the others {err:.3g}")
+    xb = xr.bfloat16()
+    rows = b * h * n
+
+    def library():
+        y = torch.matmul(xb, w[:, :h * d].bfloat16()).reshape(b, n, h, d)
+        _, i = torch.topk(y.abs(), k, dim=-1)
+        return i
+
+    b_ms, b_by = bound(b * n * m * 2 + m * h * d * 4 + rows * k * (2 + 4),
+                       2 * b * n * m * h * d / BF16_TC_FLOPS + 32 * rows * d / F32_FLOPS)
+    r = dict(max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by, **timings(
+        lambda: proj_rtopk(xb, wq, k=k), lambda: proj_rtopk_ref(xb, wq, k=k), library))
+    print(f"[proj_rtopk] bf16 x {tuple(xb.shape)}, {h} heads of {d}, k={k}: library = "
+          f"torch.matmul + torch.topk; {fmt(r)}")
+    return r
+
+
+def phase_code_grad(rs):
+    """code_grad_dx/dw at the training path's shapes: 12 heads x 8,192
+    tokens of bf16 codes, k 8 (and the pair closure's 2k), m 768."""
+    from repro_torch.kernels import code_grad_dw, code_grad_dx
+    from repro_torch.kernels.ops import head_blocks
+    from repro_torch.kernels.ref import code_grad_dw_ref, code_grad_dx_ref, scatter_code_grads
+    h, ntok, m, d = HEADS, TRAIN_B * TRAIN_N, D_MODEL, HD
+    w = torch.from_numpy((0.04 * rs.randn(m, 3 * h * d)).astype(np.float32)).cuda()
+    wq = head_blocks(w, 0, h, d)
+    x = torch.from_numpy(rs.randn(ntok, m).astype(np.float32)).cuda()
+    errs = {"dx": [], "dw": []}
+    for kw, dtype in ((SFA_K, torch.bfloat16), (SFA_K, torch.float32),
+                      (2 * SFA_K, torch.bfloat16)):
+        vals = torch.from_numpy(rs.randn(h, ntok, kw).astype(np.float32)).cuda().to(dtype)
+        idx = torch.from_numpy(np.sort(np.argsort(rs.rand(h, ntok, d), -1)[..., :kw], -1)
+                               .astype(np.int32)).cuda()
+        idx[:, 3::7, 1] = idx[:, 3::7, 0]          # duplicates sum (pair closures)
+        xx = x.to(dtype)
+        got = (code_grad_dx(vals, idx, wq, d=d), code_grad_dw(xx, vals, idx, d=d))
+        want = (code_grad_dx_ref(vals, idx, wq, d=d), code_grad_dw_ref(xx, vals, idx, d=d))
+        torch.cuda.synchronize()
+        # f32 outputs, sums of up to 12·16 (dx) or 8,192·16 (dW) terms in
+        # another order: 1e-4 of the output's largest magnitude
+        for name, a, bb in zip(("dx", "dw"), got, want):
+            scale_ = bb.abs().max().item()
+            torch.testing.assert_close(a, bb, rtol=1e-4, atol=1e-4 * scale_,
+                                       msg=f"code_grad {name} kw={kw} {dtype}")
+            errs[name].append((a - bb).abs().max().item())
+        print(f"[code_grad] kw={kw} {dtype}: max|err| dx {errs['dx'][-1]:.3g}, dW "
+              f"{errs['dw'][-1]:.3g} (max |dx| {want[0].abs().max().item():.3g}, |dW| "
+              f"{want[1].abs().max().item():.3g})")
+        if kw == SFA_K and dtype == torch.bfloat16:
+            main = (vals, idx, xx)
+    vals, idx, xx = main
+    kw, es = SFA_K, 2
+    ops_s = code_product_s(2 * ntok * m * h * kw, 2 * ntok * m * h * d)
+    codes = h * ntok * kw * (es + 4)
+    res = {}
+    for name, kern, plain, lib, out_bytes, in_bytes in (
+            ("code_grad_dx", lambda: code_grad_dx(vals, idx, wq, d=d),
+             lambda: code_grad_dx_ref(vals, idx, wq, d=d),
+             lambda: torch.einsum("hnd,hmd->nm", scatter_code_grads(vals, idx, d).float(), wq),
+             ntok * m * 4, h * m * d * 4),
+            ("code_grad_dw", lambda: code_grad_dw(xx, vals, idx, d=d),
+             lambda: code_grad_dw_ref(xx, vals, idx, d=d),
+             lambda: torch.einsum("nm,hnd->hmd", xx.float(), scatter_code_grads(vals, idx, d).float()),
+             h * m * d * 4, ntok * m * es)):
+        b_ms, b_by = bound(codes + in_bytes + out_bytes, ops_s)
+        r = dict(max_abs_err=max(errs[name[-2:]]), bound_ms=b_ms, bound_by=b_by,
+                 **timings(kern, plain, lib))
+        print(f"[{name}] bf16 codes {h} x {ntok} x {kw}, m {m}: library = scatter_code_grads + "
+              f"torch.einsum; {fmt(r)}")
+        res[name] = r
+    # dW's token split (up to 8 splits of >= 1,024 tokens and an ordered
+    # sum) against one block per (head, column tile) walking all tokens
+    cg = sys.modules["repro_torch.kernels.code_grad"]
+    split_ms = res["code_grad_dw"]["ms"]
+    want = code_grad_dw(xx, vals, idx, d=d)
+    saved, cg._DW_MAX_SPLITS = cg._DW_MAX_SPLITS, 1
+    try:
+        one = code_grad_dw(xx, vals, idx, d=d)
+        torch.testing.assert_close(one, want, rtol=1e-4, atol=1e-4 * want.abs().max().item(),
+                                   msg="code_grad_dw with one token split")
+        one_ms = device_ms(lambda: code_grad_dw(xx, vals, idx, d=d))
+    finally:
+        cg._DW_MAX_SPLITS = saved
+    print(f"[code_grad_dw] token splits: {min(saved, ntok // cg._DW_SPLIT_TOKENS)} splits "
+          f"{split_ms:.4f} ms, one split {one_ms:.4f} ms (device time per call)")
+    return res["code_grad_dx"], res["code_grad_dw"]
+
+
+def banded(rs, bh, n, k, band_of):
+    """Codes whose row i stores the k features of band ``band_of(i)``."""
+    band = band_of(np.arange(n))
+    idx = np.broadcast_to((band[:, None] * k + np.arange(k)).astype(np.int32), (bh, n, k))
+    return (torch.from_numpy(rs.randn(bh, n, k).astype(np.float32)).cuda(),
+            torch.from_numpy(np.ascontiguousarray(idx)).cuda())
+
+
+def _skip_work(level, causal=True):
+    """(query, key) pairs that the level map sends to the tile update, and
+    the level-1 tiles (closed form)."""
+    lv = level.long()
+    nqb, nkb = lv.shape[1:]
+    diag = torch.eye(nqb, nkb, dtype=torch.bool, device=lv.device)[None]
+    per = torch.where(diag & causal, 64 * 65 // 2, 64 * 64)
+    return int(((lv == 2) * per).sum()), int((lv == 1).sum())
+
+
+def phase_block_skip(rs):
+    """Block-skip FlashSFA at the training path's shapes (bh 96, n 1024,
+    k 8, dv 64, bf16, causal) on rtopk codes of random rows (the training
+    path's kind) and on a planted banded input (tile t on features
+    8·(t mod 8)..+7) whose off-band tile pairs take the closed form."""
+    from repro_torch.kernels import block_skip_stats, flash_sfa, rtopk
+    from repro_torch.kernels.flash_sfa import BLOCK, _skip_schedule
+    from repro_torch.kernels.ref import flash_sfa_ref
+    bh, n, d, k, dv = TRAIN_BH, TRAIN_N, HD, SFA_K, 64
+    scale = d ** -0.5
+    errs = []
+    inputs = {}
+    q = torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
+    kk = torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
+    inputs["random"] = (*rtopk(q, k), *rtopk(kk, k))
+    qv, qi = banded(rs, bh, n, k, lambda i: (i // BLOCK) % 8)
+    kv, ki = banded(rs, bh, n, k, lambda i: (i // BLOCK) % 8)
+    inputs["banded"] = (qv.bfloat16(), qi, kv.bfloat16(), ki)
+    v = torch.from_numpy(rs.randn(bh, n, dv).astype(np.float32)).cuda().bfloat16()
+    for name, codes in inputs.items():
+        for nn in (n, 1000):
+            c = [t[:, :nn] for t in codes]
+            vv = v[:, :nn]
+            stats = block_skip_stats(*c, d=d)
+            ko, kl = flash_sfa(*c, vv, d=d, scale=scale, return_residuals=True, block_skip=True)
+            po, pl = flash_sfa_ref(*c, vv, d=d, scale=scale, return_residuals=True)
+            torch.cuda.synchronize()
+            err = _close(ko, po, torch.bfloat16, f"flash_sfa block_skip {name} n={nn}")[0]
+            torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+            errs.append(err)
+            print(f"[flash_sfa block_skip] {name} codes bh={bh} n={nn} bf16: block_skip_stats "
+                  f"(dead, closed form, compute) = ({stats[0]:.4f}, {stats[1]:.4f}, "
+                  f"{stats[2]:.4f}); max|err| {err:.3g} (lse "
+                  f"{(kl - pl).abs().max().item():.3g})")
+            if name == "banded" and nn == n:
+                check(stats[1] > 0.5 * (1 - stats[0]),
+                      f"banded input: closed-form share {stats[1]} of the live steps "
+                      f"{1 - stats[0]}")
+    qv, qi, kv, ki = inputs["random"]
+    level = _skip_schedule(qv, qi, kv, ki, d=d, causal=True, block_q=BLOCK, block_k=BLOCK)
+    pairs, closed = _skip_work(level)
+    es = 2
+    b_ms, b_by = bound(2 * bh * n * k * (es + 4) + 2 * bh * n * dv * es + bh * n * 4,
+                       code_product_s(2 * k * pairs, 2 * d * pairs)
+                       + 2 * dv * pairs / BF16_TC_FLOPS + 2 * dv * BLOCK * closed / F32_FLOPS)
+    qd = _densify(qv, qi, d)[None]
+    kd = _densify(kv, ki, d)[None]
+    r = dict(max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by, **timings(
+        lambda: flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True,
+                          block_skip=True),
+        lambda: flash_sfa_ref(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True),
+        lambda: F.scaled_dot_product_attention(qd, kd, v[None], is_causal=True, scale=scale)))
+    print(f"[flash_sfa block_skip] random codes bh={bh} n={n}: {pairs} computed pairs, "
+          f"{closed} closed-form tiles; library = SDPA on densified Q/K; {fmt(r)}")
+    kernels, _ = trace_kernels(lambda: [flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale,
+                                                  return_residuals=True, block_skip=True)
+                                        for _ in range(20)])
+    fwd_us = sum(us for name, us in kernels.items() if "flash_sfa_fwd_kernel" in name)
+    print(f"[flash_sfa block_skip] of the wrapper's device time per call, the kernel "
+          f"{fwd_us / 20e3:.4f} ms, the level map and V row sums (torch) "
+          f"{(sum(kernels.values()) - fwd_us) / 20e3:.4f} ms")
+    qv, qi, kv, ki = inputs["banded"]
+    skip_ms = device_ms(lambda: flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale,
+                                          return_residuals=True, block_skip=True))
+    full_ms = device_ms(lambda: flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale,
+                                          return_residuals=True))
+    print(f"[flash_sfa block_skip] banded codes: device ms per call, block skip {skip_ms} "
+          f"against the plain schedule {full_ms}")
+    return r
 
 
 # --------------------------------------------------------------------------
@@ -564,29 +887,35 @@ def phase_end_to_end(model, cfg):
 # phase 6-8: the training main path
 # --------------------------------------------------------------------------
 
-def phase_train(arch, timed_steps, predicted):
+def phase_train(arch, timed_steps, predicted, **policy):
     """Train full-width ``arch`` in bf16 through ``Trainer``: 1 warm-up and
     ``timed_steps`` timed steps with the launch counts read over all of
     them, then one traced step. ``predicted`` maps kernel -> launches per
-    step (every other kernel: none)."""
+    step (every other kernel: none); ``policy`` overrides the TrainPolicy
+    (default remat="full"). Returns (launch counts, step summary)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainPolicy
+    from repro_torch.core.remat import clear_remat_reports, remat_reports
     from repro_torch.data import DataConfig, markov_batch
     from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.attention import clear_compact_seam_reports, compact_seam_reports
     from repro_torch.models.backends import clear_fallback_reports, fallback_reports
     from repro_torch.optim import OptimizerConfig
     from repro_torch.train import Trainer, TrainerConfig
     cfg = get_config(arch)
+    policy = dict({"remat": "full"}, **policy)
     batch, seq = 8, TRAIN_N
     steps = 1 + timed_steps
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=SEED)
     tr = Trainer(cfg, OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=steps + 1), dcfg,
                  TrainerConfig(total_steps=steps + 1, seed=SEED,
-                               policy=TrainPolicy.from_model(cfg, remat="full")),
+                               policy=TrainPolicy.from_model(cfg, **policy)),
                  device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     clear_fallback_reports()
+    clear_compact_seam_reports()
+    clear_remat_reports()
     reset_launches()
     hist, step_ms = [], []
     for s in range(steps):
@@ -596,12 +925,16 @@ def phase_train(arch, timed_steps, predicted):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = launch_counts()
     reports = fallback_reports()
+    seams, remats = compact_seam_reports(), remat_reports()
     peak = torch.cuda.max_memory_allocated()
     want = {name: predicted.get(name, 0) * steps for name in counts}
     check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
           f"train {arch}: non-finite loss or gradient norm: {hist}")
     check(not reports, f"train {arch}: backend fallbacks recorded: {reports}")
     check(counts == want, f"train {arch}: launches {counts}, predicted {want}")
+    if policy.get("bwd_emit") in ("compact", "compact2"):
+        check(len(seams) == 1 and seams[0].taken, f"train {arch}: compact seam {seams}")
+    check(all(r.eligible for r in remats), f"train {arch}: remat degraded: {remats}")
     t0 = time.perf_counter()
     markov_batch(dcfg, 0)
     data_ms = (time.perf_counter() - t0) * 1e3
@@ -610,7 +943,8 @@ def phase_train(arch, timed_steps, predicted):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     timed = step_ms[1:]
     tokens = batch * seq
-    print(f"[train] {arch} full width bf16, batch {batch} x seq {seq}, remat full, AdamW; "
+    label = ", ".join(f"{k} {v}" for k, v in policy.items())
+    print(f"[train] {arch} full width bf16, batch {batch} x seq {seq}, {label}, AdamW; "
           f"losses {[round(h['loss'], 4) for h in hist]}, grad norms "
           f"{[round(h['grad_norm'], 3) for h in hist]}")
     print(f"[train] {arch}: warm-up step {step_ms[0]:.1f} ms; timed steps ms "
@@ -622,13 +956,18 @@ def phase_train(arch, timed_steps, predicted):
           f"{busy_ms:.1f} ms ({100 * busy_ms / traced_ms:.1f}%, idle "
           f"{100 - 100 * busy_ms / traced_ms:.1f}%); top kernels by device time: "
           + "; ".join(f"{name[:48]} {us / 1e3:.2f} ms" for name, us in top))
-    return counts
+    if seams:
+        print(f"[train] {arch}: compact seam taken (fused forward {seams[0].fused_fwd}); "
+              f"remat {[(r.requested, r.applied) for r in remats]}")
+    return counts, dict(step_ms=float(np.mean(timed)), tokens_s=tokens / (np.mean(timed) / 1e3),
+                        peak_gib=peak / 2**30, busy=busy_ms / traced_ms)
 
 
 def phase_grad_end_to_end():
     """Loss and every parameter gradient, kernels against plain, float32."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, markov_batch
+    from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models import init, loss_fn
     from repro_torch.train.train_step import to_batch
     cfg = dataclasses.replace(get_config("gpt2-small-sfa8"), dtype="float32")
@@ -636,27 +975,58 @@ def phase_grad_end_to_end():
     named = dict(model.named_parameters())
     batch = to_batch(markov_batch(DataConfig(cfg.vocab_size, 512, 1, seed=SEED + 2), 0), "cuda")
     runs = {}
-    for backend, remat in (("cuda", "full"), ("torch", "none")):
+    for label, backend, remat, emit in (("torch", "torch", "none", "dense"),
+                                        ("cuda dense emit, remat full", "cuda", "full", "dense"),
+                                        ("cuda compact seam, remat codes", "cuda", "codes",
+                                         "compact")):
         c = dataclasses.replace(cfg, remat=remat, attention=dataclasses.replace(
-            cfg.attention, backend=backend))
+            cfg.attention, backend=backend, bwd_emit=emit, fwd_fuse=True))
+        reset_launches()
         loss, _ = loss_fn(model, batch, c)
-        runs[backend] = (loss.item(), torch.autograd.grad(loss, list(named.values())))
-    (la, ga), (lb, gb) = runs["cuda"], runs["torch"]
-    check(np.isfinite(la), "gradients end to end: non-finite loss")
-    # tolerance: f32, sums in another order (1e-6 relative expected); a
-    # top-k tie that the two orders break apart moves one coordinate of one
-    # row, so 1e-4 on the loss and 1e-3 relative (L2) on each gradient leaf
-    check(abs(la - lb) <= 1e-4, f"gradients end to end: loss {la} vs {lb}")
-    worst = (0.0, "")
-    for name, a, b in zip(named, ga, gb):
-        check(bool(torch.isfinite(a).all()), f"gradients end to end: non-finite d{name}")
-        rel = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
-        check(rel <= 1e-3, f"gradients end to end: d{name} relative error {rel:.3g} > 1e-3")
-        worst = max(worst, (rel, name))
-    print(f"[grad end-to-end] f32 {cfg.name} full width, batch 1 x seq 512: loss cuda "
-          f"{la:.6f} vs torch {lb:.6f} (|diff| {abs(la - lb):.3g}, tol 1e-4); all "
-          f"{len(named)} parameter gradients within 1e-3 relative L2, worst "
-          f"{worst[0]:.3g} ({worst[1]})")
+        runs[label] = (loss.item(), torch.autograd.grad(loss, list(named.values())))
+        counts = launch_counts()
+        if emit == "compact":
+            check(all(counts[k] > 0 for k in ("proj_rtopk", "flash_sfa_block_skip",
+                                              "flash_sfa_bwd_compact", "code_grad_dx",
+                                              "code_grad_dw")),
+                  f"gradients end to end: the compact seam did not run its kernels {counts}")
+    lb, gb = runs.pop("torch")
+    for label, (la, ga) in runs.items():
+        check(np.isfinite(la), f"gradients end to end ({label}): non-finite loss")
+        # tolerance: f32, sums in another order (1e-6 relative expected); a
+        # top-k tie that the two orders break apart moves one coordinate of
+        # one row, so 1e-4 on the loss and 1e-3 relative (L2) on each leaf
+        check(abs(la - lb) <= 1e-4, f"gradients end to end ({label}): loss {la} vs {lb}")
+        worst = (0.0, "")
+        for name, a, b in zip(named, ga, gb):
+            check(bool(torch.isfinite(a).all()),
+                  f"gradients end to end ({label}): non-finite d{name}")
+            rel = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+            check(rel <= 1e-3,
+                  f"gradients end to end ({label}): d{name} relative error {rel:.3g} > 1e-3")
+            worst = max(worst, (rel, name))
+        print(f"[grad end-to-end] f32 {cfg.name} full width, batch 1 x seq 512, {label}: "
+              f"loss {la:.6f} vs torch {lb:.6f} (|diff| {abs(la - lb):.3g}, tol 1e-4); all "
+              f"{len(named)} parameter gradients within 1e-3 relative L2, worst "
+              f"{worst[0]:.3g} ({worst[1]})")
+
+
+def phase_launcher():
+    """The slice's launcher command at full width for 2 steps."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gpt2-small-sfa8",
+           "--no-reduced", "--batch", "8", "--seq-len", str(TRAIN_N), "--steps", "2",
+           "--bwd-emit", "compact", "--remat", "codes"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    out = res.stdout.strip().splitlines()
+    check(res.returncode == 0, f"launcher exit {res.returncode}: {res.stderr[-2000:]}")
+    check(any("compact seam" in line and "taken" in line for line in out),
+          f"launcher: compact seam not reported taken: {out}")
+    check(not any(("fallback" in line or "applied as" in line) for line in out),
+          f"launcher: fallback or remat degrade reported: {out}")
+    print(f"[launcher] {' '.join(cmd[1:])}: exit 0 in {time.perf_counter() - t0:.1f} s; "
+          + " | ".join(out[-3:]))
 
 
 def main():
@@ -668,9 +1038,12 @@ def main():
     from repro_torch.configs import get_config
     from repro_torch.models import init
     rs = np.random.RandomState(SEED)
-    results = {"rtopk": phase_rtopk(rs), "flash_sfa": phase_flash_sfa(rs),
-               "flash_sfa_decode": phase_decode(rs), "flash_sfa_bwd": phase_flash_sfa_bwd(rs)}
+    results = {"rtopk": phase_rtopk(rs), "proj_rtopk": phase_proj_rtopk(rs),
+               "flash_sfa": phase_flash_sfa(rs), "flash_sfa_block_skip": phase_block_skip(rs),
+               "flash_sfa_decode": phase_decode(rs)}
+    results["flash_sfa_bwd"], results["flash_sfa_bwd_compact"] = phase_flash_sfa_bwd(rs)
     results["flash_attention"], results["flash_attention_bwd"] = phase_flash_attention(rs)
+    results["code_grad_dx"], results["code_grad_dw"] = phase_code_grad(rs)
     cfg = get_config("gpt2-small-sfa8")
     model = init(cfg, device="cuda", seed=SEED)
     counts = phase_engine(model, cfg)
@@ -679,15 +1052,35 @@ def main():
     layers = cfg.num_layers
     # remat="full": each layer's forward runs twice per step (rtopk for Q
     # and K each time), its backward once
-    train = phase_train("gpt2-small-sfa8", 5, {"rtopk": 4 * layers, "flash_sfa": 2 * layers,
-                                               "flash_sfa_bwd": layers})
-    dense = phase_train("gpt2-small", 2, {"flash_attention": 2 * layers,
-                                          "flash_attention_bwd": layers})
+    train, _ = phase_train("gpt2-small-sfa8", 5, {"rtopk": 4 * layers, "flash_sfa": 2 * layers,
+                                                  "flash_sfa_bwd": layers})
+    dense, _ = phase_train("gpt2-small", 2, {"flash_attention": 2 * layers,
+                                             "flash_attention_bwd": layers})
+    # the compact seam under remat="codes": per layer and step proj_rtopk
+    # for q and k once (the backward's rerun takes the kept codes),
+    # block-skip FlashSFA twice (forward and rerun), the compact backward
+    # once, code_grad dx and dW for q and k
+    compact, _ = phase_train(
+        "gpt2-small-sfa8", 5, {"proj_rtopk": 2 * layers, "flash_sfa_block_skip": 2 * layers,
+                               "flash_sfa_bwd_compact": layers, "code_grad_dx": 2 * layers,
+                               "code_grad_dw": 2 * layers},
+        bwd_emit="compact", fwd_fuse=True, remat="codes")
+    phase_launcher()
     phase_grad_end_to_end()
     meta = {
         "rtopk": ("src/repro_torch/csrc/rtopk.cu", "src/repro/kernels/rtopk.py:112", counts),
+        "proj_rtopk": ("src/repro_torch/csrc/proj_rtopk.cu",
+                       "src/repro/kernels/rtopk.py:202", compact),
         "flash_sfa": ("src/repro_torch/csrc/flash_sfa.cu",
                       "src/repro/kernels/flash_sfa.py:297", counts),
+        "flash_sfa_block_skip": ("src/repro_torch/csrc/flash_sfa.cu",
+                                 "src/repro/kernels/flash_sfa.py:387", compact),
+        "flash_sfa_bwd_compact": ("src/repro_torch/csrc/flash_sfa_bwd.cu",
+                                  "src/repro/kernels/flash_sfa_bwd.py:342", compact),
+        "code_grad_dx": ("src/repro_torch/csrc/code_grad.cu",
+                         "src/repro/kernels/code_grad.py:81", compact),
+        "code_grad_dw": ("src/repro_torch/csrc/code_grad.cu",
+                         "src/repro/kernels/code_grad.py:140", compact),
         "flash_sfa_decode": ("src/repro_torch/csrc/flash_sfa_decode.cu",
                              "src/repro/kernels/flash_sfa_decode.py:110", counts),
         "flash_sfa_bwd": ("src/repro_torch/csrc/flash_sfa_bwd.cu",

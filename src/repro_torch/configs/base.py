@@ -14,9 +14,7 @@ import warnings
 from dataclasses import dataclass, replace
 from typing import Optional, Union
 
-# Activation-remat policies of the layer loop (the JAX package's
-# core/remat.py). Serving never checkpoints; the training slice reads this.
-REMAT_POLICIES = ("none", "full", "codes")
+from repro_torch.core.remat import REMAT_POLICIES
 
 
 @dataclass(frozen=True)
@@ -50,8 +48,14 @@ class AttentionConfig:
     # "torch" with a structured FallbackReport.
     backend: str = "auto"            # "torch" | "cuda" | "auto"
     decode_backend: str = "auto"     # "torch" | "cuda" | "auto"
-    # Training-side axes (TrainPolicy below). The port runs bwd_emit="dense";
-    # the compact emits, fwd_fuse and ring belong to later slices.
+    # Training-side axes (TrainPolicy below). ``bwd_emit`` "compact" /
+    # "compact2" route seam-eligible layers (cuda backend, no qk-norm /
+    # window / rope-protect / MLA / distill) through the fused projection +
+    # attention Function of models/attention.py, whose backward feeds the
+    # (n, k) code gradients straight into the code_grad kernels; elsewhere
+    # the compact emit runs at the op level (kernels/ops.py scatters once).
+    # ``fwd_fuse`` runs the seam's forward as proj_rtopk -> block-skip
+    # FlashSFA. ``ring`` is distribution work (ROADMAP A.6).
     bwd_emit: str = "dense"          # "dense" | "compact" | "compact2"
     fwd_fuse: bool = True
     ring: bool = False
@@ -189,10 +193,11 @@ class TrainPolicy:
 
     Fields:
       * ``remat``    — "none" | "full" | "codes" (the layer loop's
-                       checkpointing; "codes" is ROADMAP A.3).
+                       checkpointing, core/remat.py).
       * ``bwd_emit`` — FlashSFA backward emit layout, "dense" | "compact" |
-                       "compact2" (the compact ones are ROADMAP A.3).
-      * ``fwd_fuse`` — fused projection -> top-k forward (ROADMAP A.3).
+                       "compact2".
+      * ``fwd_fuse`` — fused projection -> top-k forward with block-skip
+                       FlashSFA on seam-eligible layers.
       * ``ring``     — Ring-SFA context parallelism (ROADMAP A.6).
       * ``tp``       — intended tensor-parallel degree (ROADMAP A.6), for
                        the divisibility check.

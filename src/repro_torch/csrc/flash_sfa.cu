@@ -1,8 +1,9 @@
 // flash_sfa.cu — FlashSFA forward (prefill attention) for Hopper (sm_90a).
 //
-// Replaces the TPU kernel repro/kernels/flash_sfa.py::flash_sfa with
-// block_skip=False (Pallas body _flash_sfa_kernel, helpers _tile_update,
-// _finalize_tile, _densify_block). It computes
+// Replaces the TPU kernel repro/kernels/flash_sfa.py::flash_sfa, both
+// schedules: block_skip=False (Pallas body _flash_sfa_kernel, helpers
+// _tile_update, _finalize_tile, _densify_block) and block_skip=True (body
+// _flash_sfa_skip_kernel). It computes
 //   out = softmax(densify(Q~) . densify(K~)^T * scale + mask) . V
 // from top-k codes (bh, n, k) (values + int32 indices) and V (bh, nk, dv),
 // with online softmax over key tiles, never forming the (n, n) matrix;
@@ -24,6 +25,19 @@
 // softmax state and split the dv output columns between them (columns
 // c*4 + sub, so the V tile is read without bank conflicts). Softmax and
 // accumulation run in f32; out is written in v's dtype.
+//
+// Block skip: given a level map (bh, nq/64, nk/64) int32 built at this
+// kernel's own 64 x 64 tile (kernels/flash_sfa.py::_block_maps) and the
+// per-tile V row sums vsum (bh, nk/64, dv) f32, each (query tile, key tile)
+// step reads its level, uniform across the block: 0 = dead, nothing; 1 =
+// the tiles' feature occupancies do not overlap on a fully visible tile, so
+// every score is exactly 0 and the online-softmax update has the closed
+// form m' = max(m, 0), acc' = acc e^(m - m') + e^(-m') vsum,
+// l' = l e^(m - m') + 64 e^(-m') (flash_sfa.py:181-194) — no K codes or V
+// tile are read; 2 = the tile update below. The TPU's "fetch" map has no
+// counterpart: it only keeps the TPU pipeline from copying a skipped K/V
+// block, and a CUDA block reads only the tiles it computes. With a null
+// level map every tile is level 2 (block_skip=False).
 //
 // Bound on the H100: operations. Per (query, key) pair the kernel does 2k
 // flops of score and 2dv of P.V, against O(n k + n dv) bytes moved; the
@@ -51,7 +65,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_sfa_fwd_kernel(const T* __restrict__ qv, const int32_t* __restrict__ qi,
                      const T* __restrict__ kv, const int32_t* __restrict__ ki,
                      const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int nq, int nk, int kq, int kk,
+                     float* __restrict__ lse, const int32_t* __restrict__ level,
+                     const float* __restrict__ vsum, int nq, int nk, int kq, int kk,
                      int d, float scale, int causal) {
   constexpr int DVT = DV / 4;
   extern __shared__ float smem[];
@@ -87,7 +102,23 @@ flash_sfa_fwd_kernel(const T* __restrict__ qv, const int32_t* __restrict__ qi,
   for (int c = 0; c < DVT; ++c) acc[c] = 0.0f;
 
   const int k_end = causal ? min(nk, q0 + kBQ) : nk;
+  const int nkb = (nk + kBK - 1) / kBK;
+  const int32_t* lvl_row =
+      level ? level + (static_cast<size_t>(bh) * gridDim.x + blockIdx.x) * nkb : nullptr;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
+    const int lvl = lvl_row ? lvl_row[k0 / kBK] : 2;
+    if (lvl == 0) continue;
+    if (lvl == 1) {  // zero feature overlap on a fully visible tile
+      const float m_new = fmaxf(m, 0.0f);
+      const float corr = expf(m - m_new);
+      const float e = expf(-m_new);
+      const float* vs_row = vsum + (static_cast<size_t>(bh) * nkb + k0 / kBK) * DV + sub;
+#pragma unroll
+      for (int c = 0; c < DVT; ++c) acc[c] = acc[c] * corr + e * vs_row[c * 4];
+      l = l * corr + kBK * e;
+      m = m_new;
+      continue;
+    }
     __syncthreads();  // the previous tile is consumed (and q codes staged)
     for (int t = tid; t < kBK * d; t += kThreads) kd[t] = 0.0f;
     for (int t = tid; t < kBK * DV; t += kThreads) {
@@ -153,8 +184,9 @@ flash_sfa_fwd_kernel(const T* __restrict__ qv, const int32_t* __restrict__ qi,
 
 template <int DV, typename T>
 int launch(const void* qv, const void* qi, const void* kv, const void* ki,
-           const void* v, void* out, void* lse, int bh, int nq, int nk,
-           int kq, int kk, int d, float scale, int causal, cudaStream_t stream) {
+           const void* v, void* out, void* lse, const void* level, const void* vsum,
+           int bh, int nq, int nk, int kq, int kk, int d, float scale, int causal,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(kBK) * d + kBK * DV + kBQ * kq)
                       + sizeof(int) * kBQ * kq;
   auto kernel = flash_sfa_fwd_kernel<DV, T>;
@@ -168,6 +200,7 @@ int launch(const void* qv, const void* qi, const void* kv, const void* ki,
       static_cast<const T*>(qv), static_cast<const int32_t*>(qi),
       static_cast<const T*>(kv), static_cast<const int32_t*>(ki),
       static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(lse),
+      static_cast<const int32_t*>(level), static_cast<const float*>(vsum),
       nq, nk, kq, kk, d, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -180,28 +213,32 @@ extern "C" const char* sfa_error_string(int err) {
 
 // q codes (bh, nq, kq), k codes (bh, nk, kk): values f32|bf16 + int32 ids;
 // v (bh, nk, dv) and out (bh, nq, dv) in the codes' dtype; lse (bh, nq) f32
-// or null. All contiguous. Returns the launch's cudaGetLastError().
+// or null; level (bh, ceil(nq/64), ceil(nk/64)) int32 and vsum
+// (bh, ceil(nk/64), dv) f32, both null without block skip. All contiguous.
+// Returns the launch's cudaGetLastError().
 extern "C" int flash_sfa_fwd_launch(const void* qv, const void* qi, const void* kv,
                                     const void* ki, const void* v, void* out,
-                                    void* lse, int bh, int nq, int nk, int kq,
+                                    void* lse, const void* level, const void* vsum,
+                                    int bh, int nq, int nk, int kq,
                                     int kk, int d, int dv, float scale,
                                     int causal, int is_bf16, void* stream) {
   cudaGetLastError();
   if (bh <= 0 || nq <= 0) return 0;
   if (bh > 65535 || d <= 0 || d > 256 || kq <= 0 || kk <= 0 || nk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((level == nullptr) != (vsum == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dv == 32) {
-    return is_bf16 ? launch<32, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s)
-                   : launch<32, float>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s);
+    return is_bf16 ? launch<32, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s)
+                   : launch<32, float>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s);
   }
   if (dv == 64) {
-    return is_bf16 ? launch<64, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s)
-                   : launch<64, float>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s);
+    return is_bf16 ? launch<64, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s)
+                   : launch<64, float>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s);
   }
   if (dv == 128) {
-    return is_bf16 ? launch<128, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s)
-                   : launch<128, float>(qv, qi, kv, ki, v, out, lse, bh, nq, nk, kq, kk, d, scale, causal, s);
+    return is_bf16 ? launch<128, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s)
+                   : launch<128, float>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,8 @@
-// flash_sfa_bwd.cu — FlashSFA backward (dense emit) and the dense
-// FlashAttention backward, for Hopper (sm_90a).
+// flash_sfa_bwd.cu — FlashSFA backward (dense, compact and compact2 emits)
+// and the dense FlashAttention backward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels repro/kernels/flash_sfa_bwd.py::flash_sfa_bwd
-// (emit="dense") and ::flash_attention_bwd: both run _bwd_impl, whose two
+// (every emit) and ::flash_attention_bwd: both run _bwd_impl, whose two
 // Pallas kernels _bwd_dq_kernel and _bwd_dkv_kernel recompute each tile's
 // probabilities from the saved LSE and accumulate
 //   dV_j  = sum_i P_ij dO_i
@@ -10,11 +10,21 @@
 //   dQ_i  = sum_j dS_ij K_j,   dK_j = sum_i dS_ij Q_i.
 // The template flag SPARSE selects the two forms from one source, as the
 // TPU's `sparse` parameter does: SPARSE=true takes top-k codes (values +
-// int32 indices, (bh, n, k)) and emits dQ/dK as dense (n, d) rows that are
-// zero off each row's stored coordinates (the straight-through gradient of
-// paper Eq. 6, _support_mask's "dense" emit); SPARSE=false takes dense
+// int32 indices, (bh, n, k)); SPARSE=false takes dense
 // (bh, n, d) q/k with d == dv and emits plain dQ/dK. D_i comes in from the
 // caller (the JAX package computes it in XLA outside the kernel too).
+// The SPARSE form writes dQ/dK in one of three emits, a launch parameter:
+//  0 dense    (n, d) rows, zero off each row's stored coordinates (the
+//             straight-through gradient of paper Eq. 6, _support_mask);
+//  1 compact  (n, k): slot t holds the gradient at stored index idx[t]
+//             (_gather_support; 0 where idx[t] is outside [0, d); a
+//             duplicate index gets the full value in each of its slots);
+//  2 compact2 (n, 2k) on the RoPE pair closure (_pair_closure_gather):
+//             slot t holds the value if idx[t] is even or >= rot_dim, slot
+//             k + t if it is odd and < rot_dim; the other slot holds 0.
+// The k-wide accumulators below are exactly the compact values, so the
+// compact emits write them straight from registers: no dense tile, k (2k)
+// values per row where the dense emit writes d.
 //
 // Design: two kernels, each output tile owned by one block, so there are no
 // atomics and the result is deterministic.
@@ -117,14 +127,38 @@ struct Cols {
   }
 };
 
-// Write a block's 64 rows of dQ or dK: scatter each thread's accumulators
-// into a zeroed (64 x d) shared tile (duplicate coordinates write the same
-// value), then store the rows < rows_left coalesced.
+// Write a block's 64 rows of dQ or dK. Compact emits (SPARSE only): each
+// thread writes its own slots u = sub + 4a of its row from registers.
+// Dense: scatter each thread's accumulators into a zeroed (64 x d) shared
+// tile (duplicate coordinates write the same value), then store the rows
+// < rows_left coalesced. ids are the row's stored indices as given (kw of
+// them), for the compact2 parity test.
 template <bool SPARSE, int DV, typename T>
 __device__ void emit_rows(float* tile, int dp, const Cols<SPARSE, DV>& cols,
                           const float* acc, int r, T* out, size_t row0,
-                          int rows_left, int d) {
+                          int rows_left, int d, const int32_t* ids, int kw,
+                          int emit, int rot_dim) {
   const int tid = threadIdx.x;
+  if (SPARSE && emit != 0) {  // uniform across the block
+    if (r >= rows_left) return;
+    const int sub = tid & 3;
+    T* orow = out + (row0 + r) * static_cast<size_t>(emit == 1 ? kw : 2 * kw);
+#pragma unroll
+    for (int a = 0; a < Cols<SPARSE, DV>::N; ++a) {
+      const int u = sub + 4 * a;
+      if (u >= kw) continue;
+      const float g = cols.c[a] >= 0 ? acc[a] : 0.0f;
+      if (emit == 1) {
+        from_f(g, orow + u);
+      } else {
+        const int id = ids[u];
+        const bool odd = id >= 0 && id < rot_dim && (id & 1);
+        from_f(odd ? 0.0f : g, orow + u);
+        from_f(odd ? g : 0.0f, orow + kw + u);
+      }
+    }
+    return;
+  }
   __syncthreads();  // the tile's previous contents are consumed
   for (int t = tid; t < kB * dp; t += kThreads) tile[t] = 0.0f;
   __syncthreads();
@@ -145,7 +179,7 @@ bwd_dq_kernel(const T* __restrict__ qa, const int32_t* __restrict__ qi,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int nq, int nk, int kq, int kk, int d,
-              float scale, int causal) {
+              float scale, int causal, int emit, int rot_dim) {
   constexpr int DVP = DV + 1;
   const int dp = d + 1;
   extern __shared__ float smem[];
@@ -228,7 +262,8 @@ bwd_dq_kernel(const T* __restrict__ qa, const int32_t* __restrict__ qi,
         if (cols.c[a] >= 0) acc[a] += ds * krow[cols.c[a]];
     }
   }
-  emit_rows<SPARSE, DV>(kd, dp, cols, acc, r, dq, qrow0, nq - q0, d);
+  emit_rows<SPARSE, DV>(kd, dp, cols, acc, r, dq, qrow0, nq - q0, d,
+                        SPARSE ? qi + (qrow0 + r) * kq : nullptr, kq, emit, rot_dim);
 }
 
 template <bool SPARSE, int DV, typename T>
@@ -238,7 +273,8 @@ bwd_dkv_kernel(const T* __restrict__ qa, const int32_t* __restrict__ qi,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                T* __restrict__ dk, T* __restrict__ dvout, int nq, int nk,
-               int kq, int kk, int d, float scale, int causal) {
+               int kq, int kk, int d, float scale, int causal, int emit,
+               int rot_dim) {
   constexpr int DVP = DV + 1;
   const int dp = d + 1;
   extern __shared__ float smem[];
@@ -340,7 +376,8 @@ bwd_dkv_kernel(const T* __restrict__ qa, const int32_t* __restrict__ qi,
 #pragma unroll
     for (int a = 0; a < DV / 4; ++a) from_f(dvacc[a], dvrow + sub + 4 * a);
   }
-  emit_rows<SPARSE, DV>(qd, dp, cols, dkacc, j, dk, krow0, nk - k0, d);
+  emit_rows<SPARSE, DV>(qd, dp, cols, dkacc, j, dk, krow0, nk - k0, d,
+                        SPARSE ? ki + (krow0 + j) * kk : nullptr, kk, emit, rot_dim);
 }
 
 template <typename K>
@@ -354,7 +391,8 @@ template <bool SPARSE, int DV, typename T>
 int launch(const void* qa, const void* qi, const void* ka, const void* ki,
            const void* v, const void* dout, const void* lse, const void* delta,
            void* dq, void* dk, void* dv, int bh, int nq, int nk, int kq, int kk,
-           int d, float scale, int causal, cudaStream_t stream) {
+           int d, float scale, int causal, int emit, int rot_dim,
+           cudaStream_t stream) {
   const size_t dp = d + 1, dvp = DV + 1;
   const size_t q_side = SPARSE ? 2 * kB * kq : kB * dp;
   const size_t k_side = SPARSE ? 2 * kB * kk : kB * dp;
@@ -375,12 +413,12 @@ int launch(const void* qa, const void* qi, const void* ka, const void* ki,
   const float* delta_ = static_cast<const float*>(delta);
   kdq<<<dim3((nq + kB - 1) / kB, bh), kThreads, smem_dq, stream>>>(
       qa_, qi_, ka_, ki_, v_, do_, lse_, delta_, static_cast<T*>(dq), nq, nk,
-      kq, kk, d, scale, causal);
+      kq, kk, d, scale, causal, emit, rot_dim);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   kdkv<<<dim3((nk + kB - 1) / kB, bh), kThreads, smem_dkv, stream>>>(
       qa_, qi_, ka_, ki_, v_, do_, lse_, delta_, static_cast<T*>(dk),
-      static_cast<T*>(dv), nq, nk, kq, kk, d, scale, causal);
+      static_cast<T*>(dv), nq, nk, kq, kk, d, scale, causal, emit, rot_dim);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -388,22 +426,25 @@ template <bool SPARSE>
 int dispatch(const void* qa, const void* qi, const void* ka, const void* ki,
              const void* v, const void* dout, const void* lse, const void* delta,
              void* dq, void* dk, void* dv, int bh, int nq, int nk, int kq, int kk,
-             int d, int dvdim, float scale, int causal, int is_bf16, void* stream) {
+             int d, int dvdim, float scale, int causal, int is_bf16, int emit,
+             int rot_dim, void* stream) {
   cudaGetLastError();
   if (bh <= 0 || nq <= 0 || nk <= 0) return 0;
   if (bh > 65535 || d <= 0 || d > 256) return static_cast<int>(cudaErrorInvalidValue);
   if (SPARSE && (kq <= 0 || kk <= 0 || kq > kMaxK || kk > kMaxK))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!SPARSE && d != dvdim) return static_cast<int>(cudaErrorInvalidValue);
+  if (!SPARSE && (d != dvdim || emit != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (emit < 0 || emit > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SFA_BWD_CASE(DVV)                                                          \
   if (dvdim == DVV)                                                                \
     return is_bf16 ? launch<SPARSE, DVV, __nv_bfloat16>(qa, qi, ka, ki, v, dout, lse, \
                                                         delta, dq, dk, dv, bh, nq, nk, \
-                                                        kq, kk, d, scale, causal, s) \
+                                                        kq, kk, d, scale, causal, emit, \
+                                                        rot_dim, s)                    \
                    : launch<SPARSE, DVV, float>(qa, qi, ka, ki, v, dout, lse, delta, \
                                                 dq, dk, dv, bh, nq, nk, kq, kk, d,  \
-                                                scale, causal, s);
+                                                scale, causal, emit, rot_dim, s);
   SFA_BWD_CASE(32)
   SFA_BWD_CASE(64)
   SFA_BWD_CASE(128)
@@ -419,16 +460,18 @@ extern "C" const char* sfa_error_string(int err) {
 
 // Codes (bh, nq, kq) / (bh, nk, kk): values f32|bf16 + int32 ids; v (bh, nk,
 // dv), dout (bh, nq, dv) in the values' dtype; lse, delta (bh, nq) f32. Out:
-// dq (bh, nq, d), dk (bh, nk, d), dv (bh, nk, dv) in the same dtype. All
+// dq, dk in the same dtype — (bh, n, d) for emit 0, (bh, n, k) for emit 1,
+// (bh, n, 2k) for emit 2 (pairs below rot_dim) — and dv (bh, nk, dv). All
 // contiguous; kq, kk <= 32. Returns the last launch's cudaGetLastError().
 extern "C" int flash_sfa_bwd_launch(const void* qv, const void* qi, const void* kv,
                                     const void* ki, const void* v, const void* dout,
                                     const void* lse, const void* delta, void* dq,
                                     void* dk, void* dv, int bh, int nq, int nk,
                                     int kq, int kk, int d, int dvdim, float scale,
-                                    int causal, int is_bf16, void* stream) {
+                                    int causal, int is_bf16, int emit, int rot_dim,
+                                    void* stream) {
   return dispatch<true>(qv, qi, kv, ki, v, dout, lse, delta, dq, dk, dv, bh, nq, nk,
-                        kq, kk, d, dvdim, scale, causal, is_bf16, stream);
+                        kq, kk, d, dvdim, scale, causal, is_bf16, emit, rot_dim, stream);
 }
 
 // Dense q (bh, nq, d), k (bh, nk, d), v (bh, nk, d), dout (bh, nq, d) with
@@ -440,5 +483,5 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                                           float scale, int causal, int is_bf16,
                                           void* stream) {
   return dispatch<false>(q, nullptr, k, nullptr, v, dout, lse, delta, dq, dk, dv, bh,
-                         nq, nk, 0, 0, d, d, scale, causal, is_bf16, stream);
+                         nq, nk, 0, 0, d, d, scale, causal, is_bf16, 0, 0, stream);
 }

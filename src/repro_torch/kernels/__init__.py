@@ -1,49 +1,72 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
-rtopk            — exact row top-|k| (warp ballot bisection on bit patterns)
-flash_sfa        — FlashSFA forward (prefill attention over top-k codes)
+rtopk            — exact row top-|k| (warp ballot bisection on bit patterns);
+                   proj_rtopk: the fused head projection -> [RoPE] -> top-k
+flash_sfa        — FlashSFA forward (prefill attention over top-k codes),
+                   with or without the block-skip level map
 flash_sfa_decode — one query against the token-major sparse KV cache
-flash_sfa_bwd    — FlashSFA backward (dense emit) and the dense
-                   FlashAttention backward, one templated source
+flash_sfa_bwd    — FlashSFA backward (dense, compact and compact2 emits)
+                   and the dense FlashAttention backward, one templated
+                   source
 flash_attention  — dense FlashAttention forward (the paper's baseline)
+code_grad        — dx and dW of the Q/K projection from compact code
+                   gradients
 ops              — head folding, the SFA and dense attention autograd
-                   Functions, top-k helpers
+                   Functions, the fused q/k codes, top-k helpers
 ref              — the plain PyTorch versions of the kernels
 _build           — nvcc build of csrc/*.cu and ctypes binding
 
 Each kernel wrapper runs its CUDA kernel for a CUDA tensor and its plain
 version for a CPU tensor, and counts its kernel launches in
-``<wrapper>.launches``. A wrapper's output has no ``grad_fn``: it refuses
-inputs that require grad, and gradients go through the autograd Functions
-of ``ops`` on either device.
+``<wrapper>.launches`` (``flash_sfa.block_skip_launches`` for the block-skip
+schedule, ``flash_sfa_bwd.compact_launches`` for the compact emits).
+``launch_counts()`` reads them all under one name per kernel. A wrapper's
+output has no ``grad_fn``: it refuses inputs that require grad, and
+gradients go through the autograd Functions of ``ops`` and of
+``models/attention.py`` on either device.
 """
+from repro_torch.kernels.code_grad import code_grad_dw, code_grad_dx, scatter_code_grads
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_sfa import flash_sfa
-from repro_torch.kernels.flash_sfa_bwd import flash_attention_bwd, flash_sfa_bwd
+from repro_torch.kernels.flash_sfa import block_skip_stats, flash_sfa
+from repro_torch.kernels.flash_sfa_bwd import (
+    flash_attention_bwd, flash_sfa_bwd, pair_closure_indices,
+)
 from repro_torch.kernels.flash_sfa_decode import flash_sfa_decode
 from repro_torch.kernels.ops import (
-    dense_attention_op, fold_heads, sfa_attention_op, sfa_code, topk_dense,
-    unfold_heads,
+    dense_attention_op, fold_heads, fused_qk_codes, sfa_attention_op, sfa_code,
+    topk_dense, unfold_heads,
 )
-from repro_torch.kernels.rtopk import rtopk
+from repro_torch.kernels.rtopk import proj_rtopk, rtopk
 
-KERNELS = {"rtopk": rtopk, "flash_sfa": flash_sfa,
-           "flash_sfa_decode": flash_sfa_decode, "flash_sfa_bwd": flash_sfa_bwd,
-           "flash_attention": flash_attention,
-           "flash_attention_bwd": flash_attention_bwd}
+# name -> (wrapper, counter attribute): one launch count per kernel of the
+# PERF.md table, row 5's dense and compact emits apart
+COUNTERS = {
+    "rtopk": (rtopk, "launches"),
+    "proj_rtopk": (proj_rtopk, "launches"),
+    "flash_sfa": (flash_sfa, "launches"),
+    "flash_sfa_block_skip": (flash_sfa, "block_skip_launches"),
+    "flash_sfa_decode": (flash_sfa_decode, "launches"),
+    "flash_sfa_bwd": (flash_sfa_bwd, "launches"),
+    "flash_sfa_bwd_compact": (flash_sfa_bwd, "compact_launches"),
+    "flash_attention": (flash_attention, "launches"),
+    "flash_attention_bwd": (flash_attention_bwd, "launches"),
+    "code_grad_dx": (code_grad_dx, "launches"),
+    "code_grad_dw": (code_grad_dw, "launches"),
+}
 
 
 def reset_launches() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
-__all__ = ["KERNELS", "dense_attention_op", "flash_attention",
-           "flash_attention_bwd", "flash_sfa", "flash_sfa_bwd",
-           "flash_sfa_decode", "fold_heads", "launch_counts", "reset_launches",
-           "rtopk", "sfa_attention_op", "sfa_code", "topk_dense",
-           "unfold_heads"]
+__all__ = ["COUNTERS", "block_skip_stats", "code_grad_dw", "code_grad_dx",
+           "dense_attention_op", "flash_attention", "flash_attention_bwd",
+           "flash_sfa", "flash_sfa_bwd", "flash_sfa_decode", "fold_heads",
+           "fused_qk_codes", "launch_counts", "pair_closure_indices",
+           "proj_rtopk", "reset_launches", "rtopk", "scatter_code_grads",
+           "sfa_attention_op", "sfa_code", "topk_dense", "unfold_heads"]

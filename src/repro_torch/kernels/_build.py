@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("rtopk", "flash_sfa", "flash_sfa_decode", "flash_sfa_bwd",
-           "flash_attention")
+           "flash_attention", "proj_rtopk", "code_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
@@ -129,14 +129,15 @@ def refuse_grad(what: str, *tensors) -> None:
     """Raise if a wrapper is asked to differentiate: its output has no
     ``grad_fn``, so a gradient would be dropped without a word. The
     differentiable entry points are the autograd Functions of
-    ``kernels/ops.py``, inside which grad mode is off."""
+    ``kernels/ops.py`` and ``models/attention.py``, inside which grad mode
+    is off."""
     import torch
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in tensors):
         raise RuntimeError(
             f"{what} is not differentiable by itself: call it through "
-            f"kernels.ops (sfa_attention_op / dense_attention_op) or under "
-            f"torch.no_grad()")
+            f"kernels.ops (sfa_attention_op / dense_attention_op), the compact "
+            f"seam of models.attention, or under torch.no_grad()")
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

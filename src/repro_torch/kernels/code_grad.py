@@ -1,0 +1,139 @@
+"""Compact code-gradient consumers: the projection backward of the seam.
+
+The FlashSFA backward with ``emit="compact"`` writes dQ̃/dK̃ as (n, k)
+values aligned to the stored (n, k) indices (``"compact2"``: (n, 2k) on the
+RoPE pair closure). The Q/K input-projection backward consumes them as they
+are:
+
+    dx   = Σ_h scatter(vals_h, idx_h) @ w_hᵀ     (n, m)
+    dW_h = xᵀ @ scatter(vals_h, idx_h)           (m, d)
+
+Replaces the TPU kernels ``repro/kernels/code_grad.py::code_grad_dx``
+(Pallas body ``_dx_kernel``) and ``::code_grad_dw`` (``_dw_kernel``) with the
+CUDA kernels in ``csrc/code_grad.cu``. Where the TPU densified each
+(block_n, d) code tile in VMEM and fed a d-wide matmul to its matrix unit,
+the CUDA kernels gather each product at the kw stored coordinates (kw
+multiply-adds per output element and head instead of d): each code entry
+adds its own term, so duplicate indices sum, as ``_densify_block`` makes
+them, and an index outside [0, d) adds nothing. The dense (n, d) gradient
+is never formed. dx: one block per (128-token tile, 64-column tile), the
+heads summed inside the block. dW: one block per (head, 128-column tile,
+token split), each thread owning one row of an f32 accumulator in shared
+memory, then a fixed-order sum of the splits. Every output has one owner
+and one summation order: no atomics, a deterministic result.
+
+Bound on the H100: operations, 2·kw flops per (token, column, head) for
+each of dx and dW on CUDA cores in f32; the bytes are x, w and the codes
+once each plus the f32 outputs.
+
+The weight blocks are read in place through their strides (unit stride on
+d), so a per-head view of the packed ``w_qkv`` needs no copy.
+
+The plain versions are ``kernels/ref.py::code_grad_dx_ref`` and
+``::code_grad_dw_ref`` (densify, then the matrix product); the wrappers run
+them for CPU tensors only. ``scatter_code_grads`` is the exact (…, k) ->
+(…, d) inverse of the compact emit, for callers that need dense rows.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import code_grad_dw_ref as code_grad_dw_plain
+from repro_torch.kernels.ref import code_grad_dx_ref as code_grad_dx_plain
+from repro_torch.kernels.ref import scatter_code_grads
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_KW = 64
+_DX_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_DW_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_DW_SPLIT_TOKENS = 1024     # tokens per split of dW's contraction
+_DW_MAX_SPLITS = 8
+
+
+def _check_codes(what, vals, idx, d):
+    nh, n, kw = vals.shape
+    if tuple(idx.shape) != (nh, n, kw) or idx.dtype != torch.int32:
+        raise ValueError(f"{what}: idx is {tuple(idx.shape)} {idx.dtype}, expected "
+                         f"{(nh, n, kw)} int32")
+    if vals.dtype not in _DTYPES or not 0 < kw <= _MAX_KW or not 0 < d <= 256:
+        raise ValueError(f"{what} kernel takes f32/bf16 codes with 0 < kw <= {_MAX_KW} "
+                         f"and d <= 256; got {vals.dtype}, kw={kw}, d={d}")
+
+
+def _weight_strides(what, w, d):
+    if w.dtype not in _DTYPES or w.shape[-1] != d or w.stride(-1) != 1:
+        raise ValueError(f"{what}: w must be (H, m, {d}) f32/bf16 with unit stride on "
+                         f"d, got {tuple(w.shape)} {w.dtype} strides {w.stride()}")
+    return w.stride(0), w.stride(1)
+
+
+def code_grad_dx(vals, idx, w, *, d: int):
+    """dx = Σ_h scatter(vals_h, idx_h) @ w_hᵀ. vals/idx (H, n, kw) at any
+    code width; w (H, m, d) per-head weight blocks, any strides with unit
+    stride on d. Returns (n, m) f32."""
+    _build.refuse_grad("code_grad_dx", vals, w)
+    if vals.device.type == "cpu":
+        return code_grad_dx_plain(vals, idx, w, d=d)
+    if vals.device.type != "cuda":
+        raise ValueError(f"code_grad_dx runs on cuda or cpu tensors, got {vals.device}")
+    _check_codes("code_grad_dx", vals, idx, d)
+    nh, n, kw = vals.shape
+    if w.shape[0] != nh or w.device != vals.device:
+        raise ValueError(f"code_grad_dx: w is {tuple(w.shape)} on {w.device}, codes "
+                         f"{tuple(vals.shape)} on {vals.device}")
+    w_sh, w_sm = _weight_strides("code_grad_dx", w, d)
+    m = w.shape[1]
+    vals, idx = vals.contiguous(), idx.contiguous()
+    out = torch.empty((n, m), dtype=torch.float32, device=vals.device)
+    fn = _build.entry("code_grad", "code_grad_dx_launch", _DX_ARGS)
+    with torch.cuda.device(vals.device):
+        err = fn(vals.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 nh, n, kw, m, d, w_sh, w_sm, _DTYPES[vals.dtype], _DTYPES[w.dtype],
+                 _build.stream_ptr(vals))
+    _build.check("code_grad", err, "code_grad_dx launch")
+    code_grad_dx.launches += 1
+    return out
+
+
+code_grad_dx.launches = 0
+
+
+def code_grad_dw(x, vals, idx, *, d: int):
+    """dW_h = xᵀ @ scatter(vals_h, idx_h). x (n, m) projection input (the
+    tokens flattened over the batch); vals/idx (H, n, kw) at any code
+    width, in x's dtype on the card. Returns (H, m, d) f32."""
+    _build.refuse_grad("code_grad_dw", x, vals)
+    if vals.device.type == "cpu":
+        return code_grad_dw_plain(x, vals, idx, d=d)
+    if vals.device.type != "cuda":
+        raise ValueError(f"code_grad_dw runs on cuda or cpu tensors, got {vals.device}")
+    _check_codes("code_grad_dw", vals, idx, d)
+    nh, n, kw = vals.shape
+    if x.dim() != 2 or x.shape[0] != n or x.dtype != vals.dtype or x.device != vals.device:
+        raise ValueError(f"code_grad_dw: x is {tuple(x.shape)} {x.dtype} on {x.device}, "
+                         f"expected ({n}, m) {vals.dtype} on {vals.device}")
+    m = x.shape[1]
+    x, vals, idx = x.contiguous(), vals.contiguous(), idx.contiguous()
+    out = torch.empty((nh, m, d), dtype=torch.float32, device=vals.device)
+    if n == 0:
+        return out.zero_()
+    splits = max(1, min(_DW_MAX_SPLITS, n // _DW_SPLIT_TOKENS))
+    part = (torch.empty((splits, nh, m, d), dtype=torch.float32, device=vals.device)
+            if splits > 1 else None)
+    fn = _build.entry("code_grad", "code_grad_dw_launch", _DW_ARGS)
+    with torch.cuda.device(vals.device):
+        err = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                 part.data_ptr() if part is not None else None, nh, n, kw, m, d,
+                 splits, _DTYPES[vals.dtype], _build.stream_ptr(vals))
+    _build.check("code_grad", err, "code_grad_dw launch")
+    code_grad_dw.launches += 1
+    return out
+
+
+code_grad_dw.launches = 0
+
+__all__ = ["code_grad_dw", "code_grad_dx", "scatter_code_grads"]

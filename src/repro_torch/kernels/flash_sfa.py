@@ -1,8 +1,10 @@
 """FlashSFA forward: tiled online-softmax attention over top-k codes.
 
-Replaces the TPU kernel ``repro/kernels/flash_sfa.py::flash_sfa`` with
-``block_skip=False`` (Pallas body ``_flash_sfa_kernel``, helpers
-``_tile_update``, ``_finalize_tile``, ``_densify_block``) with the CUDA kernel
+Replaces the TPU kernel ``repro/kernels/flash_sfa.py::flash_sfa``, both
+schedules (``block_skip=False``: Pallas body ``_flash_sfa_kernel``, helpers
+``_tile_update``, ``_finalize_tile``, ``_densify_block``; ``block_skip=True``:
+``_flash_sfa_skip_kernel`` with its XLA pre-pass ``_tile_occupancy`` /
+``_block_maps``) with the CUDA kernel
 in ``csrc/flash_sfa.cu``: one block per (bh, 64-query tile), a loop over
 64-key tiles up to the causal edge, each key tile densified into shared
 memory as (64 × d) f32, scores gathered at each query's own k coordinates
@@ -14,9 +16,22 @@ Bound on the H100: operations (2k flops of score and 2·dv of P·V per
 work from d to k per pair; P·V still runs on CUDA cores, and moving it onto
 the tensor cores is work for a later change.
 
+Block skip (``block_skip=True``): ``_block_maps`` builds, in torch outside
+the kernel as the JAX package does in XLA, a level map per (query tile, key
+tile) at the kernel's own 64 × 64 tile: 0 = causally dead, 1 = the two
+tiles' feature occupancies (``_tile_occupancy``, value-zero entries
+excluded) do not intersect on a fully visible tile, so every score is 0 and
+the kernel applies the closed-form online-softmax update from the tile's V
+row sum without reading its K codes or V; 2 = compute. The TPU's ``fetch``
+map (which K/V block to DMA at each grid step) has no counterpart: it only
+keeps the TPU pipeline from copying skipped blocks, and a CUDA block reads
+only the tiles it computes. The level map does not change the function, so
+the plain version of both schedules is the same ``flash_sfa_ref``. At d 64
+and k 8 a 64-row tile occupies nearly all 64 features, so level 1 is rare
+on real codes; ``block_skip_stats`` reports the map's shares.
+
 The plain version is ``kernels/ref.py::flash_sfa_ref`` (densify, matmul,
-mask, softmax); the wrapper runs it for CPU tensors only. The block-skip
-schedule (``block_skip=True`` in the JAX package) is not ported yet.
+mask, softmax); the wrapper runs it for CPU tensors only.
 """
 from __future__ import annotations
 
@@ -30,8 +45,72 @@ from repro_torch.kernels.ref import flash_sfa_ref as flash_sfa_plain
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
+_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+BLOCK = 64          # the kernel's query and key tile (csrc/flash_sfa.cu kBQ = kBK)
+
+
+def _tile_occupancy(vals, idx, d: int, nblocks: int, block: int):
+    """(bh, nblocks·block, k) codes -> (bh, nblocks, d) f32 0/1 feature
+    occupancy of each tile. Entries with value 0 are left out: they add
+    nothing to any score, and padded rows (idx 0 × k, val 0) would
+    otherwise pin feature 0. Indices outside [0, d) are dropped."""
+    bh, _, kq = idx.shape
+    flat = idx.reshape(bh, nblocks, block * kq).long()
+    live = (vals.reshape(bh, nblocks, block * kq) != 0).float()
+    ok = (flat >= 0) & (flat < d)
+    occ = torch.zeros((bh, nblocks, d), dtype=torch.float32, device=idx.device)
+    return occ.scatter_reduce_(-1, torch.where(ok, flat, 0),
+                               torch.where(ok, live, 0.0), reduce="amax")
+
+
+def _block_maps(q_vals, q_idx, k_vals, k_idx, *, d: int, causal: bool,
+                block_q: int, block_k: int, nq_real: int, nk_real: int):
+    """Level map (bh, nqb, nkb) int32 of the block-skip schedule, on codes
+    padded to whole tiles: 0 dead (a query tile wholly past nq_real, or
+    wholly in the causal future), 1 zero feature overlap on a tile with no
+    padded key that every row sees (closed form), 2 compute. The JAX
+    version also returns a DMA ``fetch`` map, which has no use here."""
+    nqb = q_idx.shape[1] // block_q
+    nkb = k_idx.shape[1] // block_k
+    occ_q = _tile_occupancy(q_vals, q_idx, d, nqb, block_q)
+    occ_k = _tile_occupancy(k_vals, k_idx, d, nkb, block_k)
+    overlap = torch.einsum("bqd,bkd->bqk", occ_q, occ_k) > 0.5
+    dev = q_idx.device
+    qs = torch.arange(nqb, device=dev)[:, None] * block_q
+    ks = torch.arange(nkb, device=dev)[None, :] * block_k
+    dead = (qs >= nq_real).expand(nqb, nkb)
+    full = (ks + block_k <= nk_real).expand(nqb, nkb)
+    if causal:
+        dead = dead | (ks > qs + block_q - 1)
+        full = full & (ks + block_k - 1 <= qs)
+    level = torch.where(dead[None], 0, torch.where(full[None] & ~overlap, 1, 2))
+    return level.to(torch.int32)
+
+
+def _pad_rows(t, block):
+    pad = (-t.shape[1]) % block
+    return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
+
+
+def _skip_schedule(q_vals, q_idx, k_vals, k_idx, *, d, causal, block_q, block_k):
+    nq, nk = q_vals.shape[1], k_vals.shape[1]
+    return _block_maps(_pad_rows(q_vals, block_q), _pad_rows(q_idx, block_q),
+                       _pad_rows(k_vals, block_k), _pad_rows(k_idx, block_k),
+                       d=d, causal=causal, block_q=block_q, block_k=block_k,
+                       nq_real=nq, nk_real=nk)
+
+
+def block_skip_stats(q_vals, q_idx, k_vals, k_idx, *, d: int,
+                     causal: bool = True, block_q: int = BLOCK,
+                     block_k: int = BLOCK):
+    """Shares of the (query tile, key tile) steps that are dead (level 0),
+    closed-form zero overlap (level 1) and computed (level 2), on unpadded
+    codes; the kernel's map is the one at 64 × 64."""
+    level = _skip_schedule(q_vals, q_idx, k_vals, k_idx, d=d, causal=causal,
+                           block_q=block_q, block_k=block_k)
+    total = level.numel()
+    return tuple(float((level == lv).sum()) / total for lv in (0, 1, 2))
 
 
 def _check(name, t, shape, dtype):
@@ -41,11 +120,13 @@ def _check(name, t, shape, dtype):
 
 
 def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
-              scale: float | None = None, return_residuals: bool = False):
+              scale: float | None = None, return_residuals: bool = False,
+              block_skip: bool = False):
     """FlashSFA forward. Codes (bh, n, k) values + indices; v (bh, nk, dv)
     -> out (bh, nq, dv) in v.dtype [, lse (bh, nq) f32].
 
-    Exactly softmax(densify(Q̃)·densify(K̃)ᵀ·scale + causal)·V. On the card
+    Exactly softmax(densify(Q̃)·densify(K̃)ᵀ·scale + causal)·V, with either
+    schedule (``block_skip``: skip dead and zero-overlap tiles). On the card
     the code values and v share one dtype (f32 or bf16), indices are int32,
     d <= 256 and dv is 32, 64 or 128.
     """
@@ -77,16 +158,27 @@ def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
     out = torch.empty((bh, nq, dv), dtype=dt, device=v.device)
     lse = (torch.empty((bh, nq), dtype=torch.float32, device=v.device)
            if return_residuals else None)
+    level = vsum = None
+    if block_skip:
+        level = _skip_schedule(q_vals, q_idx, k_vals, k_idx, d=d, causal=causal,
+                               block_q=BLOCK, block_k=BLOCK).contiguous()
+        vsum = _pad_rows(v, BLOCK).float().reshape(bh, -1, BLOCK, dv).sum(2)
     fn = _build.entry("flash_sfa", "flash_sfa_fwd_launch", _ARGS)
     with torch.cuda.device(v.device):
         err = fn(q_vals.data_ptr(), q_idx.data_ptr(), k_vals.data_ptr(),
                  k_idx.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if lse is not None else None,
+                 level.data_ptr() if level is not None else None,
+                 vsum.data_ptr() if vsum is not None else None,
                  bh, nq, nk, kq, kk, d, dv, scale, int(causal), _DTYPES[dt],
                  _build.stream_ptr(v))
     _build.check("flash_sfa", err, "flash_sfa launch")
-    flash_sfa.launches += 1
+    if block_skip:
+        flash_sfa.block_skip_launches += 1
+    else:
+        flash_sfa.launches += 1
     return (out, lse) if return_residuals else out
 
 
-flash_sfa.launches = 0
+flash_sfa.launches = 0              # block_skip=False
+flash_sfa.block_skip_launches = 0   # block_skip=True

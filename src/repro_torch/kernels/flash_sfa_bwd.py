@@ -1,19 +1,28 @@
-"""FlashSFA backward (dense emit) and the dense FlashAttention backward.
+"""FlashSFA backward (dense and compact emits) and the dense FlashAttention
+backward.
 
 Replaces the TPU kernels ``repro/kernels/flash_sfa_bwd.py::flash_sfa_bwd``
-with ``emit="dense"`` and ``::flash_attention_bwd`` (both ``_bwd_impl``:
-Pallas bodies ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) with the CUDA
-kernels in ``csrc/flash_sfa_bwd.cu``, one source templated on sparse/dense.
-Each call launches two kernels: dQ (one block per 64-query tile, walking the
-key tiles up to the causal edge) and dK/dV (one block per 64-key tile,
-walking the query tiles from the diagonal). Each output tile has one owner:
-no atomics, a deterministic result. Probabilities are recomputed from the
-forward's LSE; D_i = Σ(dO_i ∘ O_i) is one torch reduction outside the
-kernels, as the JAX package computes it in XLA. In the sparse form each
-densified tile lives in shared memory and dQ/dK are accumulated only on each
-row's k stored coordinates (k multiply-adds per pair, gathered from the
-dense tile), then written as dense rows that are zero elsewhere — the
-straight-through gradient of paper Eq. 6.
+(every emit: ``"dense"``, ``"compact"``, ``"compact2"``) and
+``::flash_attention_bwd`` (both ``_bwd_impl``: Pallas bodies
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, emits ``_support_mask``,
+``_gather_support`` and ``_pair_closure_gather``) with the CUDA kernels in
+``csrc/flash_sfa_bwd.cu``, one source templated on sparse/dense with the
+emit as a launch parameter. Each call launches two kernels: dQ (one block
+per 64-query tile, walking the key tiles up to the causal edge) and dK/dV
+(one block per 64-key tile, walking the query tiles from the diagonal).
+Each output tile has one owner: no atomics, a deterministic result.
+Probabilities are recomputed from the forward's LSE; D_i = Σ(dO_i ∘ O_i) is
+one torch reduction outside the kernels, as the JAX package computes it in
+XLA. In the sparse form each densified tile lives in shared memory and
+dQ/dK are accumulated only on each row's k stored coordinates (k
+multiply-adds per pair, gathered from the dense tile). The emit decides
+what is written: dense rows that are zero off the support (the
+straight-through gradient of paper Eq. 6), the k accumulators themselves
+as (n, k) values aligned to the stored indices (``"compact"``: 0 where an
+index falls outside [0, d)), or those values laid out on the RoPE pair
+closure as (n, 2k) (``"compact2"``: even or unrotated first, odd second).
+The compact emits write k (or 2k) values per row where the dense one
+writes d.
 
 Bound on the H100: operations (scores and dO·V are recomputed in both
 kernels, on CUDA cores in f32). Moving the dv-wide products onto the tensor
@@ -21,8 +30,6 @@ cores is work for a later change.
 
 The plain versions are ``kernels/ref.py::flash_sfa_bwd_ref`` and
 ``::flash_attention_bwd_ref``; the wrappers run them for CPU tensors only.
-The compact emits (``"compact"``, ``"compact2"``) belong to the compact
-training seam, ROADMAP A.3.
 """
 from __future__ import annotations
 
@@ -38,7 +45,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_K = 32
 
 _SFA_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_EMITS = {"dense": 0, "compact": 1, "compact2": 2}
 _DENSE_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float]
                + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
@@ -54,27 +62,42 @@ def _delta(o, g):
     return (g.float() * o.float()).sum(-1).contiguous()
 
 
+def pair_closure_indices(idx, rot_dim: int):
+    """(..., k) stored indices -> (..., 2k) RoPE pair-closure indices, the
+    layout of ``emit="compact2"``: ``out[..., t]`` is the even member
+    2⌊i_t/2⌋ of stored index i_t's rotation pair and ``out[..., k + t]``
+    the odd member. Indices at or beyond ``rot_dim`` have no partner and
+    pass through unwidened (both slots i_t; the emit gives the second a 0).
+    Not deduped: a pair whose two members are both stored appears twice,
+    each copy carrying its own share, and every consumer sums duplicates."""
+    rotated = idx < rot_dim
+    even = torch.where(rotated, torch.div(idx, 2, rounding_mode="floor") * 2, idx)
+    odd = torch.where(rotated, even + 1, idx)
+    return torch.cat([even, odd], dim=-1)
+
+
 def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
                   causal: bool = True, scale: float | None = None,
-                  emit: str = "dense"):
+                  emit: str = "dense", rot_dim: int | None = None):
     """FlashSFA backward. Codes (bh, n, k); v/o/g (bh, n, dv); lse (bh, n)
-    f32 -> (dq, dk) (bh, n, d) in the code values' dtypes, zero off each
-    row's stored coordinates, and dv (bh, n, dv) in v.dtype.
+    f32 -> (dq, dk) in the code values' dtypes and dv (bh, n, dv) in
+    v.dtype. dq/dk follow ``emit``: "dense" (bh, n, d) rows, zero off each
+    row's stored coordinates; "compact" (bh, n, k) values aligned to
+    q_idx/k_idx; "compact2" (bh, n, 2k) values on
+    ``pair_closure_indices(idx, rot_dim)`` (default rot_dim = d).
 
     On the card the code values, v, o and g share one dtype (f32 or bf16),
     indices are int32, k <= 32, d <= 256 and dv is 32, 64 or 128.
     """
-    if emit in ("compact", "compact2"):
-        raise NotImplementedError(
-            f"flash_sfa_bwd emit={emit!r} belongs to the compact training "
-            f"seam, ROADMAP A.3; this port emits dense rows")
-    if emit != "dense":
+    if emit not in _EMITS:
         raise ValueError(f"emit={emit!r}; expected 'dense', 'compact' or 'compact2'")
+    rot = d if rot_dim is None else int(rot_dim)
     scale = float(scale if scale is not None else d ** -0.5)
     _build.refuse_grad("flash_sfa_bwd", q_vals, k_vals, v, o, g)
     if v.device.type == "cpu":
         return flash_sfa_bwd_plain(q_vals, q_idx, k_vals, k_idx, v, o, lse, g,
-                                   d=d, causal=causal, scale=scale)
+                                   d=d, causal=causal, scale=scale, emit=emit,
+                                   rot_dim=rot)
     if v.device.type != "cuda":
         raise ValueError(f"flash_sfa_bwd runs on cuda or cpu tensors, got {v.device}")
     bh, nq, kq = q_vals.shape
@@ -97,8 +120,9 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
     q_vals, q_idx, k_vals, k_idx, v, g, lse = (
         t.contiguous() for t in (q_vals, q_idx, k_vals, k_idx, v, g, lse))
     delta = _delta(o, g)
-    dq = torch.empty((bh, nq, d), dtype=dt, device=dev)
-    dk = torch.empty((bh, nk, d), dtype=dt, device=dev)
+    wq, wk = {"dense": (d, d), "compact": (kq, kk), "compact2": (2 * kq, 2 * kk)}[emit]
+    dq = torch.empty((bh, nq, wq), dtype=dt, device=dev)
+    dk = torch.empty((bh, nk, wk), dtype=dt, device=dev)
     dvo = torch.empty((bh, nk, dv), dtype=dt, device=dev)
     fn = _build.entry("flash_sfa_bwd", "flash_sfa_bwd_launch", _SFA_ARGS)
     with torch.cuda.device(dev):
@@ -106,13 +130,17 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
                  k_idx.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvo.data_ptr(),
                  bh, nq, nk, kq, kk, d, dv, scale, int(causal), _DTYPES[dt],
-                 _build.stream_ptr(v))
+                 _EMITS[emit], rot, _build.stream_ptr(v))
     _build.check("flash_sfa_bwd", err, "flash_sfa_bwd launch")
-    flash_sfa_bwd.launches += 1
+    if emit == "dense":
+        flash_sfa_bwd.launches += 1
+    else:
+        flash_sfa_bwd.compact_launches += 1
     return dq, dk, dvo
 
 
-flash_sfa_bwd.launches = 0
+flash_sfa_bwd.launches = 0           # emit="dense"
+flash_sfa_bwd.compact_launches = 0   # emit="compact" | "compact2"
 
 
 def flash_attention_bwd(q, k, v, o, lse, g, *, causal: bool = True,

@@ -99,19 +99,53 @@ def _attention_bwd(q, k, v, o, lse, g, *, causal, scale):
             torch.einsum("bqk,bqe->bke", p, gf))
 
 
+def gather_support(acc, idx):
+    """(..., d) dense rows -> (..., k) their values at the stored
+    coordinates (``_gather_support`` of the JAX backward): a duplicate
+    index gathers the full value once per copy, and an index outside
+    [0, d) gathers 0."""
+    d = acc.shape[-1]
+    idx = idx.long()
+    ok = (idx >= 0) & (idx < d)
+    got = acc.gather(-1, torch.where(ok, idx, 0))
+    return torch.where(ok, got, torch.zeros_like(got))
+
+
+def pair_closure_gather(acc, idx, rot_dim: int):
+    """(..., d) dense rows -> (..., 2k) values on the RoPE pair closure
+    (``_pair_closure_gather``): each stored value lands in the even half if
+    its index is even or unrotated (>= rot_dim), in the odd half if it is
+    odd and rotated; the partner slot is 0."""
+    g = gather_support(acc, idx)
+    odd = ((idx.long() < rot_dim) & (idx.long() % 2 == 1)).to(g.dtype)
+    return torch.cat([g * (1.0 - odd), g * odd], dim=-1)
+
+
 def flash_sfa_bwd_ref(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
-                      causal: bool = True, scale: float | None = None):
-    """FlashSFA backward, dense emit: codes (bh, n, k), v/o/g (bh, n, dv),
-    lse (bh, n) f32 -> dQ, dK (bh, n, d) in the code values' dtypes, zero
-    off each row's stored coordinates (paper Eq. 6's straight-through
-    gradient), and dV (bh, n, dv) in v.dtype. Densify, recompute P from the
-    LSE, dS, then dQ/dK masked to the stored support, and dV."""
+                      causal: bool = True, scale: float | None = None,
+                      emit: str = "dense", rot_dim: int | None = None):
+    """FlashSFA backward: codes (bh, n, k), v/o/g (bh, n, dv), lse (bh, n)
+    f32 -> dQ, dK in the code values' dtypes and dV (bh, n, dv) in v.dtype.
+    Densify, recompute P from the LSE, dS, dQ/dK/dV in f32, then emit dQ/dK
+    as ``emit`` says: "dense" (bh, n, d) rows, zero off each row's stored
+    coordinates (paper Eq. 6's straight-through gradient); "compact"
+    (bh, n, k) values aligned to the stored indices; "compact2" (bh, n, 2k)
+    values on the RoPE pair closure of the stored indices (``rot_dim``,
+    default d, bounds the rotated dims)."""
     scale = scale if scale is not None else d ** -0.5
     qd = _densify(q_vals, q_idx, d)
     kd = _densify(k_vals, k_idx, d)
     dq, dk, dv = _attention_bwd(qd, kd, v, o, lse, g, causal=causal, scale=scale)
-    return ((dq * _support(q_idx, d)).to(q_vals.dtype),
-            (dk * _support(k_idx, d)).to(k_vals.dtype), dv.to(v.dtype))
+    if emit == "dense":
+        dq, dk = dq * _support(q_idx, d), dk * _support(k_idx, d)
+    elif emit == "compact":
+        dq, dk = gather_support(dq, q_idx), gather_support(dk, k_idx)
+    elif emit == "compact2":
+        rot = d if rot_dim is None else rot_dim
+        dq, dk = pair_closure_gather(dq, q_idx, rot), pair_closure_gather(dk, k_idx, rot)
+    else:
+        raise ValueError(f"emit={emit!r}; expected 'dense', 'compact' or 'compact2'")
+    return dq.to(q_vals.dtype), dk.to(k_vals.dtype), dv.to(v.dtype)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
@@ -175,3 +209,45 @@ def flash_sfa_decode_ref(q, k_vals, k_idx, v, lengths, *, d: int,
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bn,bnd->bd", p, vv.float())
+
+
+def scatter_code_grads(vals, idx, d: int):
+    """(..., k) code values -> their dense (..., d) rows in vals.dtype: the
+    exact inverse of the compact emit's gather. Duplicate indices sum (pair
+    closures repeat an index, each copy carrying its own share) and indices
+    outside [0, d) add nothing, as the JAX one-hot contraction does."""
+    return _densify(vals, idx, d).to(vals.dtype)
+
+
+def code_grad_dx_ref(vals, idx, w, *, d: int):
+    """dx = Σ_h scatter(vals_h, idx_h) @ w_hᵀ: codes (H, n, kw) at any code
+    width, w (H, m, d) per-head weight blocks -> (n, m) f32."""
+    s = _densify(vals, idx, d)                              # (H, n, d)
+    return torch.einsum("hnd,hmd->nm", s, w.float())
+
+
+def code_grad_dw_ref(x, vals, idx, *, d: int):
+    """dW_h = xᵀ @ scatter(vals_h, idx_h): x (n, m), codes (H, n, kw) ->
+    (H, m, d) f32."""
+    s = _densify(vals, idx, d)                              # (H, n, d)
+    return torch.einsum("nm,hnd->hmd", x.float(), s)
+
+
+def proj_rtopk_ref(x, w_heads, positions=None, *, k: int, rope_spec=None):
+    """Fused head projection -> [RoPE] -> top-k: x (b, n, m), w_heads
+    (H, m, d) -> (values (b, H, n, k) in x.dtype, int32 indices ascending).
+
+    y_h = x @ w_h with w rounded to x.dtype and the sum in f32, rounded to
+    x.dtype (the unfused ``x @ w.astype(x.dtype)``); then, when
+    ``rope_spec = (theta, rot_dim)``, RoPE at ``positions`` (b, n); then
+    ``rtopk_ref`` on each row, with its tie order and NaN rule."""
+    dt = x.dtype
+    y = torch.einsum("bnm,hmd->bnhd", x.float(), w_heads.to(dt).float()).to(dt)
+    if rope_spec is not None:
+        if positions is None:
+            raise ValueError("proj_rtopk: rope_spec needs positions")
+        from repro_torch.models.layers import rope     # models import kernels
+        theta, rot = rope_spec
+        pos = torch.as_tensor(positions, device=x.device).expand(x.shape[0], x.shape[1])
+        y = rope(y, pos, theta=theta, rot_dim=rot)
+    return rtopk_ref(y.transpose(1, 2), k)

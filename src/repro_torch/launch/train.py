@@ -10,17 +10,30 @@ default) trains the tiny same-family config; ``--no-reduced`` (or
 registry (``repro_torch/models/backends.py``): ``cuda`` = the hand-written
 kernels forward and backward, ``torch`` = the plain oracle, ``auto`` =
 ``cuda`` wherever it can serve the layer. ``--remat full`` recomputes each
-layer in the backward. Backend fallbacks are printed at exit.
+layer in the backward; ``--remat codes`` keeps each SFA layer's top-k codes
+and LSE besides its input and recomputes the rest. ``--bwd-emit compact``
+(or ``compact2``) trains seam-eligible SFA layers through the compact
+code-gradient seam: FlashSFA's backward writes (n, k) code gradients that
+the code_grad kernels turn into dx and dW, no dense dQ/dK anywhere;
+``--fwd-fuse`` (the default) runs that seam's forward as proj_rtopk ->
+block-skip FlashSFA. The slice's policy:
+
+    python -m repro_torch.launch.train --arch gpt2-small-sfa8 --no-reduced \
+        --batch 8 --seq-len 1024 --bwd-emit compact --remat codes
+
+Backend fallbacks, compact-seam routing and remat degrades are printed at
+exit.
 
 Not ported yet, and refused with the ROADMAP item that brings them: the
-production meshes and ``--tp``/``--ring`` > 1 (A.6), the compact backward
-emits and ``--remat codes`` (A.3).
+production meshes and ``--tp``/``--ring`` > 1 (A.6).
 """
 import argparse
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import TrainPolicy
+from repro_torch.core.remat import remat_reports
 from repro_torch.data import DataConfig
+from repro_torch.models.attention import compact_seam_reports
 from repro_torch.models.backends import fallback_reports
 from repro_torch.optim import OptimizerConfig
 from repro_torch.train import Trainer, TrainerConfig
@@ -43,29 +56,30 @@ def main(argv=None):
     ap.add_argument("--ring", type=int, default=1)
     ap.add_argument("--attn-backend", default=None, choices=["torch", "cuda", "auto"],
                     help="override cfg.attention.backend for the step")
-    ap.add_argument("--bwd-emit", default=None, choices=["dense", "compact", "compact2"])
+    ap.add_argument("--bwd-emit", default=None, choices=["dense", "compact", "compact2"],
+                    help="FlashSFA backward emit: compact/compact2 train SFA layers "
+                         "through the compact code-gradient seam")
+    ap.add_argument("--fwd-fuse", action=argparse.BooleanOptionalAction, default=None,
+                    help="the seam's forward as proj_rtopk -> block-skip FlashSFA "
+                         "(default: the config's, on)")
     ap.add_argument("--remat", default=None, choices=["none", "full", "codes"],
                     help="per-layer checkpointing: none = keep every "
-                         "activation; full = recompute each layer in the backward")
+                         "activation; full = recompute each layer in the backward; "
+                         "codes = keep the SFA codes too and recompute the rest")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.mesh != "debug" or args.tp > 1 or args.ring > 1:
         raise NotImplementedError("production meshes and --tp/--ring > 1 are "
                                   "distribution work, ROADMAP A.6")
-    if args.bwd_emit in ("compact", "compact2"):
-        raise NotImplementedError(f"--bwd-emit {args.bwd_emit} is the compact "
-                                  f"training seam, ROADMAP A.3")
-    if args.remat == "codes":
-        raise NotImplementedError("--remat codes is the compact training seam, "
-                                  "ROADMAP A.3")
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     overrides = {"backend": args.attn_backend}
-    if args.remat is not None:
-        overrides["remat"] = args.remat
+    for key in ("remat", "bwd_emit", "fwd_fuse"):
+        if getattr(args, key) is not None:
+            overrides[key] = getattr(args, key)
     policy = TrainPolicy.from_model(cfg, **overrides)
     ocfg = OptimizerConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 2),
                            total_steps=args.steps)
@@ -79,6 +93,14 @@ def main(argv=None):
     for rep in fallback_reports():
         print(f"backend fallback: {rep.requested} -> {rep.selected} "
               f"({rep.reason}) at {rep.where}")
+    for rep in compact_seam_reports():
+        print(f"compact seam at {rep.where}: "
+              + (f"taken (fused forward: {rep.fused_fwd})" if rep.taken
+                 else f"not taken ({rep.reason})"))
+    for rep in remat_reports():
+        if not rep.eligible:
+            print(f"remat {rep.requested} applied as {rep.applied} at {rep.where} "
+                  f"({rep.reason})")
 
 
 if __name__ == "__main__":

@@ -17,17 +17,40 @@ prefill) and
 ``cfg.attention.decode_backend`` the decode path through the registry
 (``repro_torch/models/backends.py``); the cache codes come from the
 selected backend's own top-k (the rtopk kernel on the card).
+
+The compact training seam: a train/eval-mode SFA layer with
+``bwd_emit="compact"|"compact2"`` that ``compact_seam_ineligible_reason``
+admits, on the ``cuda`` backend, runs its QKV projection [+ RoPE] and
+attention as one autograd Function (``_SFAProjAttendCompact``, the JAX
+custom_vjp ``_sfa_proj_attend_compact``). Its backward takes the FlashSFA
+backward's compact code gradients through [the pair closure and
+``rope_code_vjp``] into ``sparse_proj_bwd`` (the code_grad kernels): no
+dense dQ/dK exists anywhere on it. Each routing decision is recorded once
+as a ``CompactSeamReport``. The port's ``cuda`` backend is the counterpart
+of the JAX ``pallas`` one, on either device: on CPU tensors the kernel
+wrappers run their plain versions.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import AttentionConfig, ModelConfig
 from repro_torch.core.kv_cache import DenseKV, KVCache, SparseKV, idx_dtype, pack_indices
-from repro_torch.models.backends import AttentionRequest, DecodeQuery, select_backend
-from repro_torch.models.layers import apply_norm, dense, dense_init, norm_init, rope
+from repro_torch.core.remat import active_stash
+from repro_torch.kernels.flash_sfa import flash_sfa
+from repro_torch.kernels.flash_sfa_bwd import flash_sfa_bwd, pair_closure_indices
+from repro_torch.kernels.ops import (
+    fold_heads, fused_qk_codes, head_blocks, repeat_heads, sfa_code, unfold_heads,
+)
+from repro_torch.models.backends import (
+    AttentionRequest, DecodeQuery, expand_kv, resolve_backend_name, select_backend,
+)
+from repro_torch.models.layers import (
+    apply_norm, dense, dense_init, norm_init, rope, rope_code_vjp, sparse_proj_bwd,
+)
 
 
 def attention_init(gen, cfg: ModelConfig, device="cpu"):
@@ -84,6 +107,202 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return DenseKV(k=zeros(batch, max_len, hkv, hd), v=zeros(batch, max_len, hkv, hd))
 
 
+# --------------------------------------------------------------------------
+# the fused projection + attention seam for compact code gradients
+# --------------------------------------------------------------------------
+
+def compact_seam_ineligible_reason(cfg: ModelConfig, window=None) -> Optional[str]:
+    """None when a train-mode layer can take the compact seam, else why
+    not. RoPE is admitted (the pair-closure emit and ``rope_code_vjp`` keep
+    the backward compact); everything else between the projection and the
+    kernels must be the identity: qk-norm rescales the cotangent by per-row
+    statistics off the stored support, and windows, rope-protect, MLA and
+    distillation need the dense q/k/v outside the seam. Ring and tensor
+    parallelism (the JAX package's other two reasons) are not ported."""
+    a = cfg.attention
+    if a is None or a.sfa_k is None:
+        return "not an SFA layer (sfa_k unset)"
+    if a.bwd_emit not in ("compact", "compact2"):
+        return "bwd_emit is dense"
+    if a.mla is not None:
+        return "MLA projects through the latent space outside the seam"
+    if a.qk_norm:
+        return ("qk-norm rescales the cotangent by per-row statistics, "
+                "off the stored support")
+    if window is not None or a.window is not None:
+        return "windowed layers need the dense q/k for the mask fallback"
+    if a.sfa_rope_protect > 0:
+        return "sfa_rope_protect keeps leading dims dense outside the codes"
+    if cfg.sfa_distill > 0:
+        return "distill needs the dense q/k/v for the stop-grad teacher"
+    return None
+
+
+def compact_train_eligible(cfg: ModelConfig, window=None) -> bool:
+    """True when a train-mode layer takes the compact seam."""
+    return compact_seam_ineligible_reason(cfg, window) is None
+
+
+def remat_codes_ineligible_reason(cfg: ModelConfig) -> Optional[str]:
+    """None when the stack can honour ``remat="codes"``, else why not:
+    only the kernels' autograd Functions (the seam's and
+    ``kernels/ops.py::_SFAAttention``) record codes, so a stack whose
+    forward goes elsewhere would keep nothing, and the layer loop degrades
+    it to "full" explicitly (``core.remat.record_remat``)."""
+    a = cfg.attention
+    if a is None or a.sfa_k is None:
+        return "not an SFA stack (sfa_k unset): no codes to keep"
+    if a.mla is not None:
+        return "MLA latent attention bypasses the code-keeping q/k paths"
+    resolved = resolve_backend_name(a.backend, _request(a, mode="full", window=None))
+    if resolved != "cuda":
+        return (f"backend {a.backend!r} resolves to {resolved!r} for train "
+                f"forwards: only the cuda kernel paths keep the codes")
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactSeamReport:
+    """One compact-seam routing decision of a train-mode layer that asked
+    for a compact emit: whether it took the seam, and if not, why."""
+    where: str
+    taken: bool
+    reason: Optional[str] = None
+    fused_fwd: bool = False          # a taken seam ran the fused forward
+
+
+_SEAM_REPORTS: dict = {}
+
+
+def compact_seam_reports() -> tuple:
+    return tuple(_SEAM_REPORTS.values())
+
+
+def clear_compact_seam_reports() -> None:
+    _SEAM_REPORTS.clear()
+
+
+def _record_seam(where: str, taken: bool, reason: Optional[str],
+                 fused_fwd: bool = False) -> None:
+    key = (where, taken, reason, fused_fwd)
+    if key not in _SEAM_REPORTS:
+        _SEAM_REPORTS[key] = CompactSeamReport(where, taken, reason, fused_fwd)
+
+
+def _sfa_proj_attend_fwd_impl(w, x, positions, h, hkv, hd, sfa_k, causal,
+                              scale, rope_spec, fwd_fuse):
+    """The seam's forward: -> (out (b·h, n, hd), residuals). Codes come
+    from ``fused_qk_codes`` (projection -> RoPE -> top-k inside proj_rtopk,
+    then block-skip FlashSFA) or from the unfused projection -> RoPE ->
+    GQA expand -> rtopk -> FlashSFA; the residuals are the same either way:
+    the codes (keys repeated to h heads), folded V, out and LSE. Under
+    remat="codes" the codes (keys at their narrowest head count) and the
+    LSE are recorded in the active stash on the first pass and taken from
+    it on the backward's rerun."""
+    b, n, _ = x.shape
+    dt = x.dtype
+    stash = active_stash()
+    wv = w[:, (h + hkv) * hd:].to(dt)
+    vf = fold_heads(expand_kv((x @ wv).reshape(b, n, hkv, hd), h)).contiguous()
+    if stash is not None and stash.replay:
+        qv, qi, kv, ki = stash.take("sfa_q_code_vals", "sfa_q_code_idx",
+                                    "sfa_k_code_vals", "sfa_k_code_idx")
+    elif fwd_fuse:
+        qv, qi, kv, ki = fused_qk_codes(x, w, positions, h=h, hkv=hkv, hd=hd,
+                                        sfa_k=sfa_k, rope_spec=rope_spec)
+    else:
+        q, k = (x @ w[:, :(h + hkv) * hd].to(dt)).split([h * hd, hkv * hd], dim=-1)
+        q, k = q.reshape(b, n, h, hd), k.reshape(b, n, hkv, hd)
+        if rope_spec is not None:
+            theta, rot = rope_spec
+            q = rope(q, positions, theta=theta, rot_dim=rot)
+            k = rope(k, positions, theta=theta, rot_dim=rot)
+        qv, qi = sfa_code(fold_heads(q), sfa_k)
+        kv, ki = sfa_code(fold_heads(expand_kv(k, h)), sfa_k)
+    kv_h, ki_h = repeat_heads(kv, b, h), repeat_heads(ki, b, h)
+    if stash is not None and stash.replay:
+        out = flash_sfa(qv, qi, kv_h, ki_h, vf, d=hd, causal=causal, scale=scale,
+                        block_skip=fwd_fuse)
+        lse, = stash.take("sfa_lse")
+    else:
+        out, lse = flash_sfa(qv, qi, kv_h, ki_h, vf, d=hd, causal=causal,
+                             scale=scale, return_residuals=True, block_skip=fwd_fuse)
+        if stash is not None:
+            stash.put(sfa_q_code_vals=qv, sfa_q_code_idx=qi, sfa_k_code_vals=kv,
+                      sfa_k_code_idx=ki, sfa_lse=lse)
+    return out, (qv, qi, kv_h, ki_h, vf, out, lse)
+
+
+class _SFAProjAttendCompact(torch.autograd.Function):
+    """QKV projection [+ RoPE] + SFA attention with the compact-code
+    backward (the JAX custom_vjp ``_sfa_proj_attend_compact``).
+
+    Backward: the FlashSFA backward emits "compact" (n, k) codes on
+    RoPE-free layers, or "compact2" (n, 2k) pair closures on RoPE'd ones
+    (and where "compact2" is asked for), which ``rope_code_vjp`` turns back
+    through RoPE in place; ``sparse_proj_bwd`` (the code_grad kernels)
+    takes them to dx and the q/k blocks of dW; V's part is a dense product.
+    GQA: group members carry identical key indices, so their code
+    gradients sum slot by slot. dW and dx come back in w's and x's dtypes.
+    """
+
+    @staticmethod
+    def forward(ctx, w, x, positions, h, hkv, hd, sfa_k, causal, scale,
+                rope_spec, req_emit, fwd_fuse):
+        out, res = _sfa_proj_attend_fwd_impl(w, x, positions, h, hkv, hd, sfa_k,
+                                             causal, scale, rope_spec, fwd_fuse)
+        ctx.save_for_backward(x, w, positions, *res)
+        ctx.meta = (h, hkv, hd, causal, scale, rope_spec, req_emit)
+        return unfold_heads(out, x.shape[0], h)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, positions, qv, qi, kv, ki, vf, out, lse = ctx.saved_tensors
+        h, hkv, hd, causal, scale, rope_spec, req_emit = ctx.meta
+        b, n, m = x.shape
+        group = h // hkv
+        pair_widen = rope_spec is not None or req_emit == "compact2"
+        rot = hd if rope_spec is None else rope_spec[1]
+        dqc, dkc, dvf = flash_sfa_bwd(
+            qv, qi, kv, ki, vf, out, lse, fold_heads(g.to(vf.dtype)).contiguous(),
+            d=hd, causal=causal, scale=scale,
+            emit="compact2" if pair_widen else "compact", rot_dim=rot)
+        if pair_widen:
+            qi, ki = pair_closure_indices(qi, rot), pair_closure_indices(ki, rot)
+            if rope_spec is not None:
+                posf = positions.expand(b, n)[:, None, :].expand(b, h, n).reshape(b * h, n)
+                dqc = rope_code_vjp(dqc, qi, posf, theta=rope_spec[0], rot_dim=rot)
+                dkc = rope_code_vjp(dkc, ki, posf, theta=rope_spec[0], rot_dim=rot)
+        kw = dqc.shape[-1]
+
+        def by_head(t, heads):                   # (b·heads, n, kw) -> (heads, b·n, kw)
+            return t.reshape(b, heads, n, kw).transpose(0, 1).reshape(heads, b * n, kw)
+
+        dk_vals = dkc.reshape(b, hkv, group, n, kw).sum(2).reshape(b * hkv, n, kw)
+        dk_idx = ki.reshape(b, hkv, group, n, kw)[:, :, 0].reshape(b * hkv, n, kw)
+        x_flat = x.reshape(b * n, m)
+        dx_q, dwq = sparse_proj_bwd(x_flat, head_blocks(w, 0, h, hd), by_head(dqc, h),
+                                    by_head(qi, h), d=hd)
+        dx_k, dwk = sparse_proj_bwd(x_flat, head_blocks(w, h, hkv, hd),
+                                    by_head(dk_vals, hkv), by_head(dk_idx, hkv), d=hd)
+        dv = dvf.reshape(b, hkv, group, n, hd).sum(2)
+        dv_flat = dv.permute(0, 2, 1, 3).reshape(b * n, hkv * hd).float()
+        dx_v = dv_flat @ w[:, (h + hkv) * hd:].float().T
+        dwv = x_flat.float().T @ dv_flat
+        dw = torch.cat([dwq.permute(1, 0, 2).reshape(m, h * hd),
+                        dwk.permute(1, 0, 2).reshape(m, hkv * hd), dwv], dim=1)
+        dx = (dx_q + dx_k + dx_v).reshape(b, n, m)
+        return (dw.to(w.dtype), dx.to(x.dtype)) + (None,) * 10
+
+
+def sfa_proj_attend_compact(w, x, positions, *, h, hkv, hd, sfa_k, causal, scale,
+                            rope_spec=None, req_emit="compact", fwd_fuse=True):
+    """The compact seam on x (b, n, m) and the packed qkv weight w
+    (m, (h + 2·hkv)·hd): -> attention output (b, n, h, hd)."""
+    return _SFAProjAttendCompact.apply(w, x, positions, h, hkv, hd, sfa_k, causal,
+                                       scale, rope_spec, req_emit, fwd_fuse)
+
+
 class AttentionOut(NamedTuple):
     out: torch.Tensor
     cache: Optional[KVCache]
@@ -104,6 +323,32 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
     b, n, _ = x.shape
     h, hkv, hd = a.num_heads, a.num_kv_heads, a.head_dim
     dt = x.dtype
+    if (mode in ("train", "eval") and a.sfa_k is not None
+            and a.bwd_emit in ("compact", "compact2")):
+        where = f"{cfg.name}/attention"
+        reason = compact_seam_ineligible_reason(cfg, window)
+        if reason is None:
+            sel = select_backend(a.backend, _request(a, mode="full", window=window),
+                                 where=where)
+            if sel.backend.name != "cuda":
+                reason = (f"backend resolved to {sel.backend.name!r}; the seam "
+                          f"wraps the cuda kernels")
+        if reason is None:
+            _record_seam(where, True, None, fused_fwd=a.fwd_fuse)
+            if a.rope:
+                pos = (positions if positions is not None
+                       else torch.arange(n, device=x.device)[None, :])
+                rope_spec = (a.rope_theta, hd)
+            else:
+                pos = torch.zeros((1, 1), dtype=torch.long, device=x.device)
+                rope_spec = None
+            o = sfa_proj_attend_compact(
+                params["w_qkv"]["w"], x, pos, h=h, hkv=hkv, hd=hd, sfa_k=a.sfa_k,
+                causal=a.causal, scale=hd ** -0.5, rope_spec=rope_spec,
+                req_emit=a.bwd_emit, fwd_fuse=a.fwd_fuse)
+            out = dense(params["w_o"], o.reshape(b, n, h * hd).to(dt), dt)
+            return AttentionOut(out, None)
+        _record_seam(where, False, reason)
     q, k, v = split_qkv(dense(params["w_qkv"], x, dt), h, hkv, hd)
     if a.qk_norm:
         q = apply_norm(params["q_norm"], q)

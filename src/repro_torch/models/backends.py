@@ -307,6 +307,17 @@ def clear_fallback_reports() -> None:
     _FALLBACKS.clear()
 
 
+def resolve_backend_name(name: str, req: AttentionRequest) -> str:
+    """Which backend ``select_backend`` would pick for ``req`` under
+    ``name``, with nothing recorded or logged (for eligibility probes)."""
+    if name == "auto":
+        for nm in _AUTO_ORDER:
+            if _REGISTRY[nm].unsupported_reason(req) is None:
+                return nm
+        return "torch"
+    return name if get_backend(name).unsupported_reason(req) is None else "torch"
+
+
 def select_backend(name: str, req: AttentionRequest, *,
                    where: str = "") -> BackendSelection:
     """Resolve a backend name (or "auto") against a request. An explicitly

@@ -7,7 +7,10 @@ state-dict key such as ``segments.0.attn.w_qkv.w`` is the JAX path
 plain nested dict of tensors (``ParamTree.tree()``) and an activation. Each
 layer is a pair ``<layer>_init(gen, ...) -> dict`` / ``<layer>(p, x, ...)``.
 Parameters are f32 and cast to the activation dtype at use. The
-training loss ``chunked_cross_entropy`` is here too.
+training loss ``chunked_cross_entropy`` is here too, and the two compact
+backward pieces of the SFA seam: ``sparse_proj_bwd`` (the projection
+backward from code gradients) and ``rope_code_vjp`` (RoPE's vjp on
+pair-closure codes).
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.code_grad import code_grad_dw, code_grad_dx
 
 
 class ParamTree(nn.Module):
@@ -74,6 +79,16 @@ def dense(params, x, dtype=None):
     if dtype is not None:
         w = w.to(dtype)
     return x @ w
+
+
+def sparse_proj_bwd(x, w_heads, g_vals, g_idx, *, d: int):
+    """Backward of the head-blocked projection y_h = x @ w_h whose upstream
+    cotangent arrives as compact code gradients: x (n, m), w_heads
+    (H, m, d), g_vals/g_idx (H, n, kw) -> dx = Σ_h scatter(g_h) @ w_hᵀ
+    (n, m) and dw_h = xᵀ @ scatter(g_h) (H, m, d), both f32, through the
+    code_grad kernels: the dense (n, d) gradient is never formed."""
+    return (code_grad_dx(g_vals, g_idx, w_heads, d=d),
+            code_grad_dw(x, g_vals, g_idx, d=d))
 
 
 def norm_init(dim: int, kind: str = "rmsnorm", device="cpu"):
@@ -151,6 +166,33 @@ def rope(x, positions, *, theta: float = 10_000.0, rot_dim: int | None = None):
     if rot < d:
         rotated = torch.cat([rotated, x[..., rot:].float()], dim=-1)
     return rotated.to(x.dtype)
+
+
+def rope_code_vjp(vals, idx, positions, *, theta: float = 10_000.0, rot_dim: int):
+    """RoPE's vjp on (…, 2k) pair-closure code cotangents (the
+    ``emit="compact2"`` layout: the even members' half, then the odd
+    members'; ``pair_closure_indices``). RoPE turns each (2j, 2j + 1) pair,
+    so a k-sparse cotangent after RoPE is 2k-sparse before it, on the known
+    closure; per closure entry the inverse rotation of the pair's angle
+    mixes the two halves in place:
+
+        d_even = cos·g_even + sin·g_odd      d_odd = cos·g_odd − sin·g_even
+
+    Entries whose index is at or beyond ``rot_dim`` never turned and pass
+    through. vals/idx (…, 2k); positions broadcast to vals.shape[:-1].
+    Returns the pre-RoPE code cotangents, same indices and dtype."""
+    kw = vals.shape[-1] // 2
+    ge = vals[..., :kw].float()
+    go = vals[..., kw:].float()
+    base = idx[..., :kw]
+    rotated = base < rot_dim
+    # pair j's frequency theta^(-2j/rot_dim): rope()'s table
+    freqs = theta ** (-(torch.div(base, 2, rounding_mode="floor") * 2).float() / rot_dim)
+    ang = positions[..., None].float() * freqs
+    c, s = torch.cos(ang), torch.sin(ang)
+    de = torch.where(rotated, c * ge + s * go, ge)
+    do = torch.where(rotated, c * go - s * ge, go)
+    return torch.cat([de, do], dim=-1).to(vals.dtype)
 
 
 def _chunk_nll(h, emb_w, labels, mask):

@@ -8,6 +8,10 @@ segment) of layer-stacked typed ``KVCache``s, updated in place. In ``train``
 and ``eval`` mode, ``cfg.remat="full"`` wraps each layer in
 ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of the scan body):
 its activations are recomputed in the backward, kernels included.
+``cfg.remat="codes"`` wraps it in ``core.remat.checkpoint_codes``, which
+keeps the layer input and the SFA codes + LSE and reruns the rest; a stack
+whose forward keeps no codes runs "full" instead, and the loop records why
+(``core.remat.remat_reports``).
 
 Entry points take the ``Model`` (a ``ParamTree``) where the JAX functions
 take the param pytree. Other families (MoE, hybrid, SSM, frontends) come
@@ -20,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_cache import KVCache
+from repro_torch.core.remat import checkpoint_codes, normalize_remat, record_remat
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 
@@ -109,15 +114,19 @@ def _tx_block(p, x, cfg: ModelConfig, *, positions=None, mode="train",
     return x, ao.cache
 
 
-def _remat(cfg: ModelConfig, mode: str) -> bool:
-    """Whether the layer loop checkpoints each layer: ``remat="full"`` on
-    the train and eval forwards; the serving modes never checkpoint."""
-    if mode not in ("train", "eval") or cfg.remat == "none":
-        return False
-    if cfg.remat == "codes":
-        raise NotImplementedError('remat="codes" (save only the SFA codes) is '
-                                  "the compact training seam, ROADMAP A.3")
-    return True
+def _remat(cfg: ModelConfig, mode: str) -> str:
+    """The policy the layer loop applies: ``cfg.remat`` on the train and
+    eval forwards ("none" in the serving modes). "codes" on a stack that
+    keeps no codes is applied as "full", and recorded with the reason."""
+    rm = normalize_remat(cfg.remat)
+    if mode not in ("train", "eval") or rm == "none":
+        return "none"
+    if rm == "codes":
+        reason = attn.remat_codes_ineligible_reason(cfg)
+        applied = "full" if reason is not None else "codes"
+        record_remat(f"{cfg.name}/layers", rm, applied, reason)
+        return applied
+    return rm
 
 
 def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
@@ -131,10 +140,14 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
         layer_caches = []
         for i in range(count):
             p = L.tree_index(seg, i)
-            if remat:
+            if remat == "full":
                 x = checkpoint(lambda x, p=p: _tx_block(
                     p, x, cfg, positions=positions, mode=mode)[0], x,
                     use_reentrant=False)
+                continue
+            if remat == "codes":
+                x = checkpoint_codes(lambda x, p: _tx_block(
+                    p, x, cfg, positions=positions, mode=mode)[0], x, p)
                 continue
             c = caches[si].layer(i) if caches is not None else None
             x, nc = _tx_block(p, x, cfg, positions=positions, mode=mode,

@@ -119,9 +119,10 @@ def test_decode_goes_through_every_kernel_wrapper(sfa):
                        device="cpu")
     eng.generate(_prompt(3, 9, tc.vocab_size), max_new_tokens=3)
     # on the CPU the wrappers run their plain versions: nothing launches
-    assert launch_counts() == {"rtopk": 0, "flash_sfa": 0, "flash_sfa_decode": 0,
-                               "flash_sfa_bwd": 0, "flash_attention": 0,
-                               "flash_attention_bwd": 0}
+    counts = launch_counts()
+    assert set(counts) >= {"rtopk", "flash_sfa", "flash_sfa_decode", "flash_sfa_bwd",
+                           "flash_attention", "flash_attention_bwd"}
+    assert counts == dict.fromkeys(counts, 0)
     assert fallback_reports() == ()
 
 

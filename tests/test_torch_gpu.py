@@ -12,10 +12,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import (
-    flash_attention, flash_attention_bwd, flash_sfa, flash_sfa_bwd, flash_sfa_decode,
-    launch_counts, reset_launches, rtopk,
+    code_grad_dw, code_grad_dx, flash_attention, flash_attention_bwd, flash_sfa,
+    flash_sfa_bwd, flash_sfa_decode, launch_counts, proj_rtopk, reset_launches, rtopk,
 )
 from repro_torch.kernels import ref
+from repro_torch.models.layers import rope
 
 pytestmark = pytest.mark.gpu
 
@@ -179,3 +180,167 @@ def test_engine_launches_every_kernel(cuda):
     assert len(out) == 4
     serving = ("rtopk", "flash_sfa", "flash_sfa_decode")
     assert all(launch_counts()[name] > 0 for name in serving)
+
+
+# --------------------------------------------------------------------------
+# the compact training seam's kernels
+# --------------------------------------------------------------------------
+
+def near_tie_rows(y, idx_a, idx_b, k, rel):
+    """Rows of y (..., d) whose top-k index sets differ between idx_a and
+    idx_b, and whether each has its k-th and (k+1)-th magnitudes within
+    ``rel`` of each other (relative to the k-th)."""
+    diff = (idx_a.sort(-1).values != idx_b.sort(-1).values).any(-1)
+    mags = y.float().abs().sort(-1, descending=True).values
+    kth, nxt = mags[..., k - 1], mags[..., k]
+    return diff, (kth - nxt) <= rel * kth
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("rope_on", [False, True])
+def test_proj_rtopk_kernel_on_card_exact_inputs(cuda, d, rope_on):
+    """Dyadic f32 inputs: every sum is exact in any order, so indices are
+    equal and values bit-equal (ties planted by the small integer grid).
+    With RoPE the angle pos·θ^(-2j/d) carries about one ulp of itself
+    (pos·2^-24) from the card's powf against the CPU's pow, so rotated
+    values may differ by about n·2^-23 relative, and rows may change index
+    only at a near-tie of that size."""
+    rs = np.random.RandomState(12)
+    b, n, m, nh, k = 2, 200, 96, 3, 8
+    x = torch.from_numpy(rs.randint(-4, 5, size=(b, n, m)).astype(np.float32) / 4)
+    w = torch.from_numpy(rs.randint(-8, 9, size=(m, nh * d)).astype(np.float32) / 16)
+    wh = w.reshape(m, nh, d).permute(1, 0, 2)          # strided per-head view
+    pos = torch.arange(n)[None, :].expand(b, n)
+    spec = (10_000.0, d) if rope_on else None
+    kv, ki = proj_rtopk(x.to(cuda), wh.to(cuda), pos.to(cuda) if rope_on else None, k=k,
+                        rope_spec=spec)
+    pv, pi = ref.proj_rtopk_ref(x, wh, pos if rope_on else None, k=k, rope_spec=spec)
+    if not rope_on:
+        assert torch.equal(ki.cpu(), pi)
+        assert torch.equal(kv.cpu(), pv)
+    else:
+        y = rope(torch.einsum("bnm,hmd->bnhd", x, wh), pos, theta=1e4,
+                 rot_dim=d).transpose(1, 2)
+        rel = n * 2.0 ** -22
+        diff, tie = near_tie_rows(y, ki.cpu(), pi, k, rel)
+        assert bool((tie | ~diff).all())
+        same = ~diff
+        torch.testing.assert_close(kv.cpu()[same], pv[same], rtol=rel,
+                                   atol=rel * float(pv.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_proj_rtopk_kernel_on_card_random(cuda, dtype):
+    """Random inputs: the f32 sum order differs from the plain einsum's, so
+    a row may pick another index only where its k-th and (k+1)-th
+    magnitudes are within two roundings (bf16: 2 ulps; f32: the sums' own
+    error, up to sqrt(m) ulps — 64)."""
+    rs = np.random.RandomState(13)
+    b, n, m, nh, d, k = 2, 512, 768, 4, 64, 8
+    x = torch.from_numpy(rs.randn(b, n, m).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((0.04 * rs.randn(nh, m, d)).astype(np.float32))
+    kv, ki = proj_rtopk(x.to(cuda), w.to(cuda), k=k)
+    pv, pi = ref.proj_rtopk_ref(x, w, k=k)
+    y = torch.einsum("bnm,hmd->bhnd", x.float(), w.to(dtype).float()).to(dtype)
+    rel = 2 * 2.0 ** -7 if dtype == torch.bfloat16 else 64 * 2.0 ** -23
+    diff, tie = near_tie_rows(y, ki.cpu(), pi, k, rel)
+    assert bool((tie | ~diff).all()), int(diff.sum())
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(kv.cpu()[~diff].float(), pv[~diff].float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("nh,n,m,d,kw,dtype", [
+    (12, 8192 // 4, 768, 64, 8, torch.bfloat16), (3, 200, 96, 64, 16, torch.float32),
+    (2, 70, 130, 32, 4, torch.float32), (4, 300, 256, 128, 64, torch.float32)])
+def test_code_grad_kernels_on_card(cuda, nh, n, m, d, kw, dtype):
+    rs = np.random.RandomState(14)
+    vals, idx = _codes(rs, nh, n, kw, d)
+    idx[:, 3::7, 1] = idx[:, 3::7, 0]                 # duplicates sum
+    idx[:, 9::11, -1] = d                             # outside [0, d): nothing
+    tv = torch.from_numpy(vals).to(dtype)
+    ti = torch.from_numpy(idx)
+    w = torch.from_numpy(rs.randn(m, nh * d).astype(np.float32))
+    wh = w.reshape(m, nh, d).permute(1, 0, 2)
+    x = torch.from_numpy(rs.randn(n, m).astype(np.float32)).to(dtype)
+    dx = code_grad_dx(tv.to(cuda), ti.to(cuda), wh.to(cuda), d=d)
+    dw = code_grad_dw(x.to(cuda), tv.to(cuda), ti.to(cuda), d=d)
+    # f32 outputs, sums in another order: 1e-4 relative to the magnitude
+    want_dx = ref.code_grad_dx_ref(tv, ti, wh, d=d)
+    want_dw = ref.code_grad_dw_ref(x, tv, ti, d=d)
+    torch.testing.assert_close(dx.cpu(), want_dx, rtol=1e-4, atol=1e-4 * want_dx.abs().max())
+    torch.testing.assert_close(dw.cpu(), want_dw, rtol=1e-4, atol=1e-4 * want_dw.abs().max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("banded", [True, False])
+def test_flash_sfa_block_skip_kernel_on_card(cuda, causal, banded):
+    """Banded codes (tile t on features 8·(t mod 8)..+7) send most tile
+    pairs down the closed form; random codes mostly compute."""
+    from repro_torch.kernels import block_skip_stats
+    rs = np.random.RandomState(15)
+    bh, n, d, k = 12, 1000, 64, 8
+    if banded:
+        band = (np.arange(n) // 64) % 8
+        qi = np.broadcast_to((band[:, None] * k + np.arange(k)).astype(np.int32), (bh, n, k))
+        qv = rs.randn(bh, n, k).astype(np.float32)
+        kv, ki = rs.randn(bh, n, k).astype(np.float32), qi.copy()
+    else:
+        qv, qi = _codes(rs, bh, n, k, d)
+        kv, ki = _codes(rs, bh, n, k, d)
+    v = rs.randn(bh, n, 64).astype(np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (qv, qi, kv, ki, v)]
+    s0, s1, s2 = block_skip_stats(*args[:4], d=d, causal=causal)
+    assert (s1 > 0.5 * (1 - s0)) == banded          # of the live tile pairs
+    ko, kl = flash_sfa(*args, d=d, causal=causal, return_residuals=True, block_skip=True)
+    po, pl = ref.flash_sfa_ref(*args, d=d, causal=causal, return_residuals=True)
+    torch.testing.assert_close(ko, po, rtol=0, atol=1e-4)
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("emit,rot", [("compact", 64), ("compact2", 64), ("compact2", 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_sfa_bwd_compact_emits_on_card(cuda, emit, rot, dtype):
+    rs = np.random.RandomState(16)
+    n, d, k = 1000, 64, 8
+    qv, qi = _codes(rs, 12, n, k, d)
+    kv, ki = _codes(rs, 12, n, k, d)
+    kv[:, 3], ki[:, 3] = 0.0, 0                  # padding row: duplicates of index 0
+    v, g = (rs.randn(12, n, d).astype(np.float32) for _ in range(2))
+    qv_, qi_, kv_, ki_, v_, g_ = (torch.from_numpy(a).to(cuda) for a in (qv, qi, kv, ki, v, g))
+    qv_, kv_, v_, g_ = (t.to(dtype) for t in (qv_, kv_, v_, g_))
+    o, lse = ref.flash_sfa_ref(qv_, qi_, kv_, ki_, v_, d=d, return_residuals=True)
+    got = flash_sfa_bwd(qv_, qi_, kv_, ki_, v_, o, lse, g_, d=d, emit=emit, rot_dim=rot)
+    want = ref.flash_sfa_bwd_ref(qv_, qi_, kv_, ki_, v_, o, lse, g_, d=d, emit=emit,
+                                 rot_dim=rot)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 0
+    width = k if emit == "compact" else 2 * k
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-4, msg=name)
+    assert got[0].shape[-1] == width
+
+
+def test_trainer_runs_the_compact_seam_kernels(cuda):
+    """TrainPolicy(bwd_emit="compact", fwd_fuse=True, remat="codes"): per
+    step and layer proj_rtopk 2 (q, k), block-skip FlashSFA 2 (forward and
+    the backward's rerun), the compact backward 1, code_grad dx and dW 2
+    each (q and k); no rtopk and no plain-schedule FlashSFA."""
+    from repro_torch.configs.base import TrainPolicy
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = get_config("gpt2-small-sfa8").reduced()
+    steps = 3
+    tr = Trainer(cfg, OptimizerConfig(warmup_steps=2, total_steps=4),
+                 DataConfig(vocab_size=cfg.vocab_size, seq_len=100, global_batch=2),
+                 TrainerConfig(total_steps=steps, policy=TrainPolicy.from_model(
+                     cfg, remat="codes", bwd_emit="compact", fwd_fuse=True,
+                     backend="cuda")), device=cuda)
+    reset_launches()
+    hist = tr.train()
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    per = steps * cfg.num_layers
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(proj_rtopk=2 * per, flash_sfa_block_skip=2 * per,
+                flash_sfa_bwd_compact=per, code_grad_dx=2 * per, code_grad_dw=2 * per)
+    assert launch_counts() == want

@@ -42,7 +42,9 @@ def test_package_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.kernels, repro_torch.serve, "
             "repro_torch.interop, repro_torch.launch.serve, repro_torch.train, "
-            "repro_torch.optim, repro_torch.data, repro_torch.launch.train\n"
+            "repro_torch.optim, repro_torch.data, repro_torch.launch.train, "
+            "repro_torch.core.remat, repro_torch.kernels.code_grad, "
+            "repro_torch.models.attention\n"
             "from repro_torch.kernels import _build\n"
             "assert not _build._LIBS\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -82,8 +84,8 @@ def test_kernel_wrappers_refuse_grad_outside_their_function():
     it raises, on either device, instead of dropping the gradient; the
     autograd Functions of kernels.ops are the way to differentiate."""
     from repro_torch.kernels import (
-        flash_attention, flash_attention_bwd, flash_sfa, flash_sfa_bwd, flash_sfa_decode,
-        rtopk,
+        code_grad_dw, code_grad_dx, flash_attention, flash_attention_bwd, flash_sfa,
+        flash_sfa_bwd, flash_sfa_decode, proj_rtopk, rtopk,
     )
     x = torch.randn(2, 8, 16, requires_grad=True)
     idx = torch.zeros(2, 8, 4, dtype=torch.int32)
@@ -92,7 +94,13 @@ def test_kernel_wrappers_refuse_grad_outside_their_function():
              lambda: flash_attention_bwd(x, x, x, x, lse, x),
              lambda: flash_sfa(x[..., :4], idx, x[..., :4], idx, x, d=16),
              lambda: flash_sfa_bwd(x[..., :4], idx, x[..., :4], idx, x, x, lse, x, d=16),
-             lambda: flash_sfa_decode(x[:, 0], x[..., :4], idx, x, torch.ones(2), d=16)]
+             lambda: flash_sfa_decode(x[:, 0], x[..., :4], idx, x, torch.ones(2), d=16),
+             lambda: flash_sfa(x[..., :4], idx, x[..., :4], idx, x, d=16, block_skip=True),
+             lambda: flash_sfa_bwd(x[..., :4], idx, x[..., :4], idx, x, x, lse, x, d=16,
+                                   emit="compact"),
+             lambda: proj_rtopk(x, x.transpose(1, 2), k=4),
+             lambda: code_grad_dx(x[..., :4], idx, x, d=16),
+             lambda: code_grad_dw(x[0], x[..., :4], idx, d=16)]
     for call in calls:
         with pytest.raises(RuntimeError, match="not differentiable"):
             call()
@@ -101,9 +109,18 @@ def test_kernel_wrappers_refuse_grad_outside_their_function():
 
 
 def test_kernel_wrappers_refuse_other_devices():
-    from repro_torch.kernels import flash_sfa_decode, rtopk
+    from repro_torch.kernels import (
+        code_grad_dw, code_grad_dx, flash_sfa_decode, proj_rtopk, rtopk,
+    )
     x = torch.zeros(2, 8, device="meta")
+    x3 = torch.zeros(2, 8, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         rtopk(x, 2)
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_sfa_decode(x, x, x, x, x, d=8)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        proj_rtopk(x3, x3, k=2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        code_grad_dx(x3, x3, x3, d=8)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        code_grad_dw(x, x3, x3, d=8)

@@ -166,8 +166,11 @@ def test_flash_sfa_bwd_ref_matches_jax_dense_emit(causal, k):
         np.put_along_axis(support, idx, True, axis=-1)
         assert (grad.numpy()[~support] == 0).all()
         assert (np.asarray(jgrad)[~support] == 0).all()
-    with pytest.raises(NotImplementedError, match="A.3"):
-        flash_sfa_bwd(*_t(qv, qi, kv, ki, v, o, lse, g), d=d, emit="compact")
+    # the compact emit is the dense rows gathered at the stored indices
+    compact = flash_sfa_bwd(*_t(qv, qi, kv, ki, v, o, lse, g), d=d, causal=causal,
+                            emit="compact")
+    for grad, dense, idx in ((compact[0], got[0], qi), (compact[1], got[1], ki)):
+        assert torch.equal(grad, dense.gather(-1, torch.from_numpy(idx).long()))
 
 
 @pytest.mark.parametrize("causal", [True, False])

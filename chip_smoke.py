@@ -23,6 +23,24 @@ Phases; any failure raises and the script exits non-zero:
                every kernel must have launched in this phase and no backend
                fallback may be recorded; then a separate traced window of 4
                decode steps gives the device's busy share;
+  4b. paged  — (a) the same 8 requests through ``PagedDecodeEngine``
+               (cuda, pages of 128, full residency, whole-prompt prefill):
+               streams identical to DecodeEngine's, one paged decode launch
+               per layer and tick; (b) 16 prompts of 64-1024 tokens, 64 new
+               tokens each, chunked prefill of 256, a pool of a quarter of
+               full residency: queueing and preemption must happen, every
+               request gets its tokens, the free list is whole at the end;
+  4c. speculative — ``SpeculativeDecodeEngine`` (draft_len 4, draft_k 2) on
+               the same 8 requests: the launches of the paged decode and the
+               multi-query verify kernel equal the prediction from ticks,
+               live slots and layers; each stream equals the paged engine's
+               or parts from it at a near-tie of the reference logits;
+  4d. cuda_fm — the feature-major kernels through the slot and the paged
+               engine on the same requests: launches as predicted, paged
+               streams identical to the slot streams, the token-major
+               streams equal or parted at a near-tie; then the serving
+               launcher with ``--no-reduced --paged --speculative`` and
+               ``--decode-backend cuda_fm --paged``;
   5. end to end — the same model in float32, prefill logits and 8
                teacher-forced decode steps through the "cuda" (kernels) and
                "torch" (plain) backends, held to a stated tolerance with the
@@ -52,6 +70,14 @@ Phases; any failure raises and the script exits non-zero:
                seam with remat="codes", against the "torch" oracle
                (remat="none"), to a stated tolerance;
  10. a ``kernels`` JSON line, then the result line.
+
+Phase 3 also holds the paged, multi-query and feature-major decode
+kernels (rows 11-14) at the serving path's shapes: 8 slots x 12 heads of
+64, k 8, pages of 128, up to 2048 tokens a slot, bf16 and f32, a shuffled
+non-monotone block table and one slot at the past-the-table sentinel; the
+paged kernel must equal flash_sfa_decode on the gathered view bit for bit,
+each verify row the paged kernel at its length, and the paged
+feature-major kernel the contiguous one on the gathered image.
 
 Phase 3 also holds the compact seam's kernels at the training path's
 shapes: proj_rtopk (x 8 x 1024 x 768, 12 heads of 64, k 8) in f32 on
@@ -158,14 +184,52 @@ def timings(kernel, plain, library):
                            ("library_ms", library, 50)):
         out[key.replace("ms", "call_ms")] = event_ms(fn, iters=iters)
         out[key] = device_ms(fn, iters=min(iters, 20))
+    replayed = [k for k in ("ms", "plain_ms", "library_ms") if out[k] is None]
+    for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        if out[key] is None and getattr(fn, "graph_ok", True):
+            out[key] = graph_ms(fn)
     missing = [k for k in ("ms", "plain_ms", "library_ms") if out[k] is None]
     if missing:
         out.update(ms=out["call_ms"], plain_ms=out["plain_call_ms"],
                    library_ms=out["library_call_ms"],
                    timing=f"cuda events: no device events traced for {', '.join(missing)}")
+    elif replayed:
+        out["timing"] = (f"profiler device time; CUDA-graph replay for {', '.join(replayed)}, "
+                         f"whose traces lost events")
     else:
         out["timing"] = "profiler device time"
     return out
+
+
+def graph_ms(fn, iters=20, replays=5):
+    """Device ms per call of fn(): ``iters`` calls captured in a CUDA graph
+    and replayed between CUDA events, so no host time sits between the
+    launches. None where fn() cannot be captured (a host synchronization
+    inside it). A callable with ``graph_ok = False`` is never captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (replays * iters)
+    except Exception as err:  # noqa: BLE001 - any capture failure means "not capturable"
+        torch.cuda.synchronize()
+        print(f"[timing] no CUDA graph: {str(err).splitlines()[0][:120]}")
+        return None
 
 
 def fmt(r):
@@ -377,6 +441,232 @@ def phase_decode(rs):
     return r
 
 
+# the paged decode kernels' main path: 8 slots x 12 heads of 64, k 8, pages
+# of 128 tokens, up to 2048 tokens a slot
+PAGED = dict(slots=8, h=12, d=64, k=8, dv=64, page=128, mp=16)
+
+
+def _paged_pools(rs, dtype, copies=4):
+    """``copies`` distinct pool sets (> the 50 MB L2 together, cycled so a
+    timed call reads from HBM) in the (hkv, P, page, F) layout, a shuffled
+    non-monotone block table and ragged lengths with slot 1 at the
+    past-the-table sentinel. Codes are rtopk codes of random rows."""
+    from repro_torch.kernels import rtopk
+    c = PAGED
+    P = c["slots"] * c["mp"] + 1
+    pools = []
+    for _ in range(copies):
+        kd = torch.from_numpy(rs.randn(c["h"], P, c["page"], c["d"]).astype(np.float32)).cuda()
+        kv, ki = rtopk(kd.to(dtype), c["k"])
+        v = torch.from_numpy(rs.randn(c["h"], P, c["page"], c["dv"]).astype(np.float32))
+        kf = torch.from_numpy(rs.randn(c["h"], P, c["d"], c["page"]).astype(np.float32))
+        pools.append(dict(kv=kv, ki=ki.to(torch.uint8), v=v.cuda().to(dtype),
+                          kf=kf.cuda().to(dtype)))
+    bt = rs.permutation(np.arange(1, P))[:c["slots"] * c["mp"]]
+    bt = torch.from_numpy(bt.reshape(c["slots"], c["mp"]).astype(np.int32)).cuda()
+    lengths = rs.randint(64, c["mp"] * c["page"] + 1, size=c["slots"])
+    lengths[1] = c["mp"] * c["page"] + 1
+    return pools, bt, lengths
+
+
+def _cycle(fns):
+    it = {"i": 0}
+
+    def call():
+        it["i"] = (it["i"] + 1) % len(fns)
+        return fns[it["i"]]()
+    return call
+
+
+def phase_decode_paged(rs):
+    """Rows 11 and 12: the paged decode kernel and the multi-query verify
+    kernel, each against its plain version, with the bit-equalities the
+    engines rely on."""
+    from repro_torch.kernels import (
+        flash_sfa_decode, flash_sfa_decode_multi, flash_sfa_decode_paged, topk_dense,
+    )
+    from repro_torch.kernels.ref import (
+        _pool_view, flash_sfa_decode_multi_ref, flash_sfa_decode_paged_ref,
+    )
+    c = PAGED
+    h, d, k, dv = c["h"], c["d"], c["k"], c["dv"]
+    scale = d ** -0.5
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pools, bt, lengths = _paged_pools(rs, dtype)
+        lens = torch.from_numpy(lengths.astype(np.int32)).cuda()
+        q = topk_dense(torch.from_numpy(rs.randn(c["slots"] * h, d).astype(np.float32)).cuda(), k)
+        p0 = pools[0]
+        ko = flash_sfa_decode_paged(q, p0["kv"], p0["ki"], p0["v"], bt, lens, d=d, heads=h)
+        po = flash_sfa_decode_paged_ref(q, p0["kv"], p0["ki"], p0["v"], bt, lens, d=d,
+                                        heads=h)
+        view = [_pool_view(p0[n], bt).contiguous() for n in ("kv", "ki", "v")]
+        o10 = flash_sfa_decode(q, *view, lens.repeat_interleave(h), d=d)
+        # verify pass: C = 5 queries of slot 2 at cache_len + c + 1
+        C, slot = 5, 2
+        start = int(min(lengths[slot], c["mp"] * c["page"])) - C
+        qm = topk_dense(torch.from_numpy(rs.randn(C * h, d).astype(np.float32)).cuda(), k)
+        lm = (start + torch.arange(C, device="cuda") + 1).repeat_interleave(h).int()
+        mo = flash_sfa_decode_multi(qm, p0["kv"], p0["ki"], p0["v"], lm, d=d, heads=h,
+                                    block_tables=bt, slot=slot)
+        mp_ = flash_sfa_decode_multi_ref(qm, p0["kv"], p0["ki"], p0["v"], lm, d=d, heads=h,
+                                         block_tables=bt, slot=slot)
+        multi_eq = True
+        for i in range(C):
+            li = lens.clone()
+            li[slot] = start + i + 1
+            qi = q.clone()
+            qi[slot * h:(slot + 1) * h] = qm[i * h:(i + 1) * h]
+            one = flash_sfa_decode_paged(qi, p0["kv"], p0["ki"], p0["v"], bt, li, d=d, heads=h)
+            multi_eq &= torch.equal(mo[i * h:(i + 1) * h], one[slot * h:(slot + 1) * h])
+        torch.cuda.synchronize()
+        # tolerance: f32 outputs, sums in another order: 1e-4
+        torch.testing.assert_close(ko, po, rtol=0, atol=1e-4)
+        torch.testing.assert_close(mo, mp_, rtol=0, atol=1e-4)
+        check(torch.equal(ko, o10), "flash_sfa_decode_paged: not bit-equal to "
+                                    "flash_sfa_decode on the gathered view")
+        check(multi_eq, "flash_sfa_decode_multi: a row is not bit-equal to the paged "
+                        "decode at its length")
+        errs = ((ko - po).abs().max().item(), (mo - mp_).abs().max().item())
+        print(f"[flash_sfa_decode_paged/multi] {dtype}: max|err| paged {errs[0]:.3g}, multi "
+              f"{errs[1]:.3g} (tol 1e-4); paged == flash_sfa_decode on the gathered view "
+              f"(bit-equal); each of the {C} verify rows == the paged decode at its length "
+              f"(bit-equal)")
+        if dtype != torch.bfloat16:
+            out["err"] = errs
+            continue
+        n_all = c["mp"] * c["page"]
+        eff = np.minimum(lengths, n_all)
+        tokens = int(eff.sum())
+        es = 2
+        per_tok = h * (k * (es + 1) + dv * es)
+        # library yardsticks: SDPA on the densified gathered cache (masked to
+        # the lengths), and on one slot's densified view for the verify rows
+        dense = []
+        for p in pools:
+            kd = _densify(_pool_view(p["kv"], bt), _pool_view(p["ki"], bt), d)
+            dense.append((kd.permute(0, 2, 1, 3).contiguous(),
+                          _pool_view(p["v"], bt).permute(0, 2, 1, 3).contiguous()))
+        mask = (torch.arange(n_all, device="cuda")[None, :]
+                < torch.from_numpy(eff).cuda()[:, None])[:, None, None, :]
+        qb = q.bfloat16().reshape(c["slots"], h, 1, d)
+        b_ms, b_by = bound(tokens * per_tok + c["slots"] * h * (d + dv) * 4,
+                           code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
+                           + tokens * h * 2 * dv / F32_FLOPS)
+        r11 = dict(max_abs_err=max(out["err"][0], errs[0]), bound_ms=b_ms, bound_by=b_by,
+                   **timings(_cycle([lambda p=p: flash_sfa_decode_paged(
+                       q, p["kv"], p["ki"], p["v"], bt, lens, d=d, heads=h) for p in pools]),
+                       _cycle([lambda p=p: flash_sfa_decode_paged_ref(
+                           q, p["kv"], p["ki"], p["v"], bt, lens, d=d, heads=h)
+                           for p in pools]),
+                       _cycle([lambda i=i: F.scaled_dot_product_attention(
+                           qb, dense[i][0], dense[i][1], attn_mask=mask, scale=scale)
+                           for i in range(len(pools))])))
+        print(f"[flash_sfa_decode_paged] slots {c['slots']} x h {h}, pages of {c['page']}, "
+              f"{c['mp']} a slot, lengths {eff.tolist()} (slot 1 at the sentinel), k {k}, "
+              f"uint8 idx, bf16 pools; library = SDPA on the densified gathered cache; "
+              f"{fmt(r11)}")
+        L = start + C
+        sdense = [(dense[i][0][slot:slot + 1], dense[i][1][slot:slot + 1])
+                  for i in range(len(pools))]
+        smask = (torch.arange(n_all, device="cuda")[None, :] < lm[::h, None])[None, None]
+        qmb = qm.bfloat16().reshape(C, h, d).transpose(0, 1)[None]
+        b_ms, b_by = bound(L * per_tok + C * h * (d + dv) * 4,
+                           code_product_s(C * L * h * 2 * k, C * L * h * 2 * d)
+                           + C * L * h * 2 * dv / F32_FLOPS)
+        r12 = dict(max_abs_err=max(out["err"][1], errs[1]), bound_ms=b_ms, bound_by=b_by,
+                   **timings(_cycle([lambda p=p: flash_sfa_decode_multi(
+                       qm, p["kv"], p["ki"], p["v"], lm, d=d, heads=h, block_tables=bt,
+                       slot=slot) for p in pools]),
+                       _cycle([lambda p=p: flash_sfa_decode_multi_ref(
+                           qm, p["kv"], p["ki"], p["v"], lm, d=d, heads=h, block_tables=bt,
+                           slot=slot) for p in pools]),
+                       _cycle([lambda i=i: F.scaled_dot_product_attention(
+                           qmb, sdense[i][0], sdense[i][1], attn_mask=smask, scale=scale)
+                           for i in range(len(pools))])))
+        print(f"[flash_sfa_decode_multi] one slot, C {C} queries x h {h} at lengths "
+              f"{start + 1}..{L}, bf16 pools; library = SDPA on the slot's densified view "
+              f"with the per-query length mask; bound counts the slot's cache once; "
+              f"{fmt(r12)}")
+        del dense
+        return r11, r12
+
+
+def phase_decode_fm(rs):
+    """Rows 13 and 14: the feature-major decode kernels against their plain
+    versions; row 14 bit-equal to row 13 on the gathered image."""
+    from repro_torch.kernels import flash_sfa_decode_fm, flash_sfa_decode_fm_paged, rtopk
+    from repro_torch.kernels.ref import flash_sfa_decode_fm_paged_ref, flash_sfa_decode_fm_ref
+    c = PAGED
+    h, d, k, dv = c["h"], c["d"], c["k"], c["dv"]
+    n_all = c["mp"] * c["page"]
+    scale = d ** -0.5
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        pools, bt, lengths = _paged_pools(rs, dtype)
+        lens = torch.from_numpy(lengths.astype(np.int32)).cuda()
+        qv, qi = rtopk(torch.from_numpy(rs.randn(c["slots"] * h, d).astype(np.float32))
+                       .cuda().to(dtype), k)
+        btl = bt.long()
+
+        def image(p):
+            kf = p["kf"][:, btl].permute(1, 0, 3, 2, 4).reshape(-1, d, n_all).contiguous()
+            v = p["v"][:, btl].transpose(0, 1).reshape(-1, n_all, dv).contiguous()
+            return kf, v
+
+        imgs = [image(p) for p in pools]
+        rlens = lens.repeat_interleave(h)
+        p0 = pools[0]
+        ko = flash_sfa_decode_fm_paged(qv, qi, p0["kf"], p0["v"], bt, lens, heads=h)
+        po = flash_sfa_decode_fm_paged_ref(qv, qi, p0["kf"], p0["v"], bt, lens, heads=h)
+        fo = flash_sfa_decode_fm(qv, qi, *imgs[0], rlens)
+        fp = flash_sfa_decode_fm_ref(qv, qi, *imgs[0], rlens)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(ko, po, rtol=0, atol=1e-4)
+        torch.testing.assert_close(fo, fp, rtol=0, atol=1e-4)
+        check(torch.equal(ko, fo), "flash_sfa_decode_fm_paged: not bit-equal to "
+                                   "flash_sfa_decode_fm on the gathered image")
+        e = ((fo - fp).abs().max().item(), (ko - po).abs().max().item())
+        errs.append(e)
+        print(f"[flash_sfa_decode_fm/_paged] {dtype}: max|err| fm {e[0]:.3g}, fm_paged "
+              f"{e[1]:.3g} (tol 1e-4); fm_paged == fm on the gathered image (bit-equal)")
+        if dtype != torch.bfloat16:
+            continue
+        eff = np.minimum(lengths, n_all)
+        tokens = int(eff.sum())
+        es = 2
+        b_ms, b_by = bound(tokens * h * (k * es + dv * es) + c["slots"] * h * (k * 8 + dv * 4),
+                           code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
+                           + tokens * h * 2 * dv / F32_FLOPS)
+        # library yardstick: SDPA on the dense K the image holds (transposed),
+        # masked to the lengths
+        lib_in = [(kf.reshape(c["slots"], h, d, n_all).transpose(2, 3).contiguous(),
+                   v.reshape(c["slots"], h, n_all, dv)) for kf, v in imgs]
+        qd = _densify(qv, qi, d).reshape(c["slots"], h, 1, d)
+        mask = (torch.arange(n_all, device="cuda")[None, :]
+                < torch.from_numpy(eff).cuda()[:, None])[:, None, None, :]
+        lib = _cycle([lambda i=i: F.scaled_dot_product_attention(
+            qd, lib_in[i][0], lib_in[i][1], attn_mask=mask, scale=scale)
+            for i in range(len(pools))])
+        r13 = dict(max_abs_err=max(x[0] for x in errs), bound_ms=b_ms, bound_by=b_by,
+                   **timings(_cycle([lambda i=i: flash_sfa_decode_fm(qv, qi, *imgs[i], rlens)
+                                     for i in range(len(pools))]),
+                             _cycle([lambda i=i: flash_sfa_decode_fm_ref(qv, qi, *imgs[i], rlens)
+                                     for i in range(len(pools))]), lib))
+        print(f"[flash_sfa_decode_fm] rows {c['slots'] * h}, image (rows, d {d}, n {n_all}) "
+              f"bf16, lengths {eff.tolist()}, k {k}; library = SDPA on the image's dense K; "
+              f"{fmt(r13)}")
+        r14 = dict(max_abs_err=max(x[1] for x in errs), bound_ms=b_ms, bound_by=b_by,
+                   **timings(_cycle([lambda p=p: flash_sfa_decode_fm_paged(
+                       qv, qi, p["kf"], p["v"], bt, lens, heads=h) for p in pools]),
+                       _cycle([lambda p=p: flash_sfa_decode_fm_paged_ref(
+                           qv, qi, p["kf"], p["v"], bt, lens, heads=h) for p in pools]), lib))
+        print(f"[flash_sfa_decode_fm_paged] the same through (hkv, P, d, {c['page']}) pools "
+              f"and the shuffled block table; library = SDPA on the gathered image's dense "
+              f"K; {fmt(r14)}")
+        return r13, r14
+
+
 TRAIN_BH, TRAIN_N = 96, 1024              # batch 8 x 12 heads, seq 1024
 
 
@@ -391,7 +681,12 @@ def _sdpa_bwd(q, k, v, g, scale):
     q, k, v = (t.detach().reshape(8, -1, *t.shape[1:]).requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale)
     g = g.reshape(out.shape)
-    return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+    def run():
+        return torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+    # autograd runs the backward on its own thread: not for a CUDA graph
+    run.graph_ok = False
+    return run
 
 
 def _close(got, want, dtype, what):
@@ -679,7 +974,9 @@ def phase_code_grad(rs):
         one = code_grad_dw(xx, vals, idx, d=d)
         torch.testing.assert_close(one, want, rtol=1e-4, atol=1e-4 * want.abs().max().item(),
                                    msg="code_grad_dw with one token split")
-        one_ms = device_ms(lambda: code_grad_dw(xx, vals, idx, d=d))
+        def run_one():
+            return code_grad_dw(xx, vals, idx, d=d)
+        one_ms = device_ms(run_one) or event_ms(run_one)
     finally:
         cg._DW_MAX_SPLITS = saved
     print(f"[code_grad_dw] token splits: {min(saved, ntok // cg._DW_SPLIT_TOKENS)} splits "
@@ -846,7 +1143,251 @@ def phase_engine(model, cfg):
           f"{100 - 100 * busy_ms / traced_ms:.1f}%); top kernels by device time: "
           + "; ".join(f"{name[:48]} {us / 1e3:.3f} ms" for name, us in top))
     print(f"[engine] slot 0 tokens: {outputs[0]}")
+    return counts, dict(prompts=prompts, outputs=outputs, cache_bytes=eng.cache_bytes(),
+                        step_ms=float(np.mean(step_ms)))
+
+
+# --------------------------------------------------------------------------
+# the paged, speculative and feature-major serving paths
+# --------------------------------------------------------------------------
+
+def _serve(eng, prompts, max_new, paged=True):
+    """Drive an engine to the end: (outputs per request, per-tick host ms,
+    wall s, live slots before each tick). Every tick ends in a synchronize."""
+    ids = [eng.add_request(p, max_new_tokens=max_new) for p in prompts]
+    tick_ms, live = [], []
+    t_start = time.perf_counter()
+    while (eng.busy if paged else eng.live.any()):
+        live.append(int(eng.live.sum()))
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    wall = time.perf_counter() - t_start
+    return [eng.outputs[i] for i in ids], tick_ms, wall, live
+
+
+def _near_tie_divergences(model, cfg, prompts, got, want, bound_logit):
+    """For each request whose stream ``got`` leaves ``want``, the reference
+    logit gap between the two tokens at the first differing position (a
+    prefill over the common prefix, in the engines' bf16); raises if a gap
+    exceeds ``bound_logit``. Returns [(request, position, gap)]."""
+    from repro_torch.models import prefill
+    out = []
+    for r, (p, a, b) in enumerate(zip(prompts, got, want)):
+        if a == b:
+            continue
+        i = next(j for j in range(min(len(a), len(b))) if a[j] != b[j])
+        toks = np.concatenate([p, np.asarray(b[:i], np.int64)])
+        logits, _ = prefill(model, {"tokens": torch.from_numpy(toks)[None].cuda()}, cfg)
+        gap = abs(float(logits[0, a[i]] - logits[0, b[i]]))
+        check(gap <= bound_logit, f"request {r}: streams part at token {i} where the "
+                                  f"reference logits differ by {gap:.4g} > {bound_logit}")
+        out.append((r, i, round(gap, 5)))
+    return out
+
+
+def phase_paged(model, cfg, slot_run):
+    """(a) the paged engine on the slot engine's prompts, full residency:
+    streams identical to DecodeEngine's; (b) 16 prompts, chunked prefill, a
+    quarter of full residency: queueing and preemption."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.backends import clear_fallback_reports, fallback_reports
+    from repro_torch.serve import PagedDecodeEngine, PagedEngineConfig, paged_page_bytes
+    layers = cfg.num_layers
+    clear_fallback_reports()
+    reset_launches()
+    eng = PagedDecodeEngine(model, cfg, PagedEngineConfig(max_slots=8, max_len=2048,
+                                                          page_size=128, decode_backend="cuda"),
+                            device="cuda")
+    outputs, tick_ms, wall, live = _serve(eng, slot_run["prompts"], 32)
+    counts = launch_counts()
+    check(outputs == slot_run["outputs"], "paged (a): streams differ from DecodeEngine's")
+    check(not fallback_reports(), f"paged (a): fallbacks {fallback_reports()}")
+    # every tick decodes (the first one after admitting all 8): one paged
+    # decode launch per layer and tick
+    check(counts["flash_sfa_decode_paged"] == layers * len(tick_ms) and
+          counts["flash_sfa_decode"] == 0 and counts["rtopk"] > 0 and counts["flash_sfa"] > 0,
+          f"paged (a): launches {counts}")
+    tokens = sum(len(o) for o in outputs)
+    res = dict(counts=counts, outputs=outputs)
+    print(f"[paged a] {cfg.name} full width bf16, cuda, 8 slots, max_len 2048, pages of "
+          f"128, full residency ({eng.num_pages - 1} pages), whole-prompt prefill: streams "
+          f"identical to DecodeEngine's for all 8 requests; {len(tick_ms)} ticks, decode ms "
+          f"per tick mean {np.mean(tick_ms[1:]):.3f} p50 {np.median(tick_ms[1:]):.3f} (first "
+          f"tick, with the 8 prefills, {tick_ms[0]:.1f}); DecodeEngine's decode step mean "
+          f"{slot_run['step_ms']:.3f}; {tokens / wall:.1f} tokens/s overall; kv cache "
+          f"{eng.cache_bytes() / 2**20:.2f} MiB (DecodeEngine "
+          f"{slot_run['cache_bytes'] / 2**20:.2f} MiB); launches {counts}")
+    # (b) queueing and preemption
+    rs = np.random.RandomState(SEED + 3)
+    prompts = [rs.randint(0, cfg.vocab_size, size=n).astype(np.int64)
+               for n in rs.randint(64, 1025, size=16)]
+    per = paged_page_bytes(cfg, page_size=128)
+    # a quarter of 8 slots x 16 pages; with 64 new tokens a request this
+    # schedule preempts three times (the schedule depends on the lengths
+    # only, so it is the same on any card)
+    budget_pages, new = 32, 64
+    clear_fallback_reports()
+    eng = PagedDecodeEngine(model, cfg, PagedEngineConfig(
+        max_slots=8, max_len=2048, page_size=128, prefill_chunk=256,
+        mem_budget_bytes=budget_pages * per, decode_backend="cuda"), device="cuda")
+    ids = [eng.add_request(p, max_new_tokens=new) for p in prompts]
+    tick_ms, queued, t_start = [], 0, time.perf_counter()
+    while eng.busy:
+        queued = max(queued, len(eng.queue))
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        check(len(tick_ms) < 5000, "paged (b): scheduler livelock")
+    wall = time.perf_counter() - t_start
+    outs = [eng.outputs[i] for i in ids]
+    check(all(len(o) == new for o in outs), f"paged (b): a request did not get its {new} tokens")
+    check(queued > 0 and eng.preemptions >= 1,
+          f"paged (b): queued {queued}, preemptions {eng.preemptions}")
+    check(len(eng.free_pages) == eng.num_pages - 1 and (eng.bt == 0).all(),
+          "paged (b): the free list is not whole at the end")
+    check(not fallback_reports(), f"paged (b): fallbacks {fallback_reports()}")
+    tokens = sum(len(o) for o in outs)
+    print(f"[paged b] 16 prompts of {sorted(len(p) for p in prompts)} tokens, {new} new each, "
+          f"prefill_chunk 256, pool {eng.num_pages - 1} pages ({budget_pages} x "
+          f"{per / 2**20:.3f} MiB = {eng.cache_bytes() / 2**20:.2f} MiB with the block "
+          f"table, against the slot engine's {slot_run['cache_bytes'] / 2**20:.2f} MiB): "
+          f"up to {queued} queued, {eng.preemptions} preemptions, every request got "
+          f"{new} tokens, free list whole; {len(tick_ms)} ticks, ms per tick mean "
+          f"{np.mean(tick_ms):.3f} p50 {np.median(tick_ms):.3f}; {tokens / wall:.1f} tokens/s")
+    return res
+
+
+SPEC_TIE = 0.125   # logit gap that counts as a near-tie, bf16 model
+
+
+def phase_speculative(model, cfg, paged_run, prompts):
+    """draft_len 4, draft_k 2 on the paged phase's prompts: the launches of
+    rows 11 and 12 as predicted from ticks, live slots and layers; streams
+    equal the paged engine's or part at a near-tie."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.backends import clear_fallback_reports, fallback_reports
+    from repro_torch.serve import SpeculativeDecodeEngine, SpeculativeEngineConfig
+    layers, J = cfg.num_layers, 4
+    clear_fallback_reports()
+    reset_launches()
+    eng = SpeculativeDecodeEngine(model, cfg, SpeculativeEngineConfig(
+        max_slots=8, max_len=2048, page_size=128, decode_backend="cuda", draft_len=J,
+        draft_k=2), device="cuda")
+    outputs, tick_ms, wall, live = _serve(eng, prompts, 32)
+    counts = launch_counts()
+    check(not fallback_reports(), f"speculative: fallbacks {fallback_reports()}")
+    ticks = len(tick_ms)
+    # every tick drafts J decode steps over the slot batch (one paged launch
+    # per layer each) and verifies each live slot (one multi launch per
+    # layer). The first tick admits all 8 requests before it decodes; after
+    # it, the live slots before a tick are those it verifies.
+    want11 = J * layers * ticks
+    want12 = layers * (len(prompts) + sum(live[1:]))
+    check(counts["flash_sfa_decode_paged"] == want11
+          and counts["flash_sfa_decode_multi"] == want12,
+          f"speculative: launches {counts}, predicted paged {want11}, multi {want12}")
+    check(all(len(o) == 32 for o in outputs), "speculative: a request did not get 32 tokens")
+    parted = _near_tie_divergences(model, cfg, prompts, outputs, paged_run["outputs"],
+                                   SPEC_TIE)
+    st = eng.spec_stats
+    tokens = sum(len(o) for o in outputs)
+    # the draft pass narrows the pools with sub_k (a torch op) for every
+    # layer and draft step: its time on one layer's pools, and one traced
+    # tick of the same requests served again (the first tick prefills)
+    from repro_torch.core.kv_cache import unpack_indices
+    from repro_torch.core.sparse import sub_k
+    pool = eng.caches[0].layer(0)
+
+    def draft_narrow():
+        return sub_k(pool.k_vals, unpack_indices(pool.k_idx), 2)
+    sub_dev, sub_call = device_ms(draft_narrow), event_ms(draft_narrow, iters=10)
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=9)
+    eng.step()
+    torch.cuda.synchronize()
+    kernels, traced_ms = trace_kernels(eng.step)
+    busy_ms = sum(kernels.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[speculative] traced tick (profiler on): wall {traced_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms ({100 * busy_ms / traced_ms:.1f}%); sub_k on one layer's pools "
+          f"{tuple(pool.k_vals.shape)}: device "
+          f"{'not measured' if sub_dev is None else f'{sub_dev:.4f} ms'}, per call with host "
+          f"{sub_call:.4f} ms, {J * layers} calls a tick = {J * layers * sub_call:.1f} ms of "
+          f"host time a tick; top kernels: "
+          + "; ".join(f"{name[:48]} {us / 1e3:.3f} ms" for name, us in top))
+    print(f"[speculative] draft_len {J}, draft_k 2, 8 requests x 32 tokens: {ticks} ticks, "
+          f"alpha {st['alpha']:.4f}, emitted tokens per tick over the 8 slots "
+          f"{st['acc_per_step']:.4f} (emitted {st['emitted']} over {st['ticks']} ticks), "
+          f"ms per tick mean "
+          f"{np.mean(tick_ms[1:]):.3f} p50 {np.median(tick_ms[1:]):.3f}, {tokens / wall:.1f} "
+          f"tokens/s; launches paged {counts['flash_sfa_decode_paged']} (predicted {want11}), "
+          f"multi {counts['flash_sfa_decode_multi']} (predicted {want12}); streams equal "
+          f"the paged engine's for {8 - len(parted)} of 8 requests, the others part at a "
+          f"near-tie (reference logit gap <= {SPEC_TIE}): {parted}")
     return counts
+
+
+def phase_feature_major(model, cfg, cuda_run, prompts):
+    """cuda_fm through the slot and the paged engine on the paged phase's
+    prompts: rows 13 and 14 launched as predicted, the paged streams
+    identical to the slot streams, and against the token-major streams the
+    near-tie rule."""
+    from repro_torch.core.kv_cache import kv_cache_nodes
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.backends import clear_fallback_reports, fallback_reports
+    from repro_torch.serve import (
+        DecodeEngine, EngineConfig, PagedDecodeEngine, PagedEngineConfig,
+    )
+    layers = cfg.num_layers
+    clear_fallback_reports()
+    reset_launches()
+    slot = DecodeEngine(model, cfg, EngineConfig(max_slots=8, max_len=2048,
+                                                 decode_backend="cuda_fm"), device="cuda")
+    s_out, s_ms, _, _ = _serve(slot, prompts, 32, paged=False)
+    c_slot = launch_counts()
+    check(c_slot["flash_sfa_decode_fm"] == layers * len(s_ms)
+          and c_slot["flash_sfa_decode_fm_paged"] == 0 and c_slot["flash_sfa_decode"] == 0,
+          f"cuda_fm slot: launches {c_slot}")
+    reset_launches()
+    paged = PagedDecodeEngine(model, cfg, PagedEngineConfig(
+        max_slots=8, max_len=2048, page_size=128, decode_backend="cuda_fm"), device="cuda")
+    p_out, p_ms, wall, _ = _serve(paged, prompts, 32)
+    c_paged = launch_counts()
+    check(c_paged["flash_sfa_decode_fm_paged"] == layers * len(p_ms)
+          and c_paged["flash_sfa_decode_fm"] == 0, f"cuda_fm paged: launches {c_paged}")
+    check(not fallback_reports(), f"cuda_fm: fallbacks {fallback_reports()}")
+    check(p_out == s_out, "cuda_fm: the paged streams differ from the slot streams")
+    parted = _near_tie_divergences(model, cfg, prompts, s_out, cuda_run["outputs"], SPEC_TIE)
+    layouts = sorted({type(n).__name__ for n in kv_cache_nodes(slot.caches)})
+    print(f"[cuda_fm] slot engine ({', '.join(layouts)}, "
+          f"{slot.cache_bytes() / 2**20:.2f} MiB, dense K image at rest): decode ms per step "
+          f"mean {np.mean(s_ms):.3f}; paged engine ({paged.cache_bytes() / 2**20:.2f} MiB): "
+          f"ms per tick mean {np.mean(p_ms[1:]):.3f}; paged streams identical to the slot "
+          f"streams; against the token-major cuda streams {8 - len(parted)} of 8 equal, the "
+          f"others part at a near-tie (gap <= {SPEC_TIE}): {parted}; launches fm "
+          f"{c_slot['flash_sfa_decode_fm']} (predicted {layers * len(s_ms)}), fm_paged "
+          f"{c_paged['flash_sfa_decode_fm_paged']} (predicted {layers * len(p_ms)})")
+    return c_slot, c_paged
+
+
+def phase_serve_launcher():
+    """The serving launcher's paged modes at full width."""
+    for extra in (["--paged", "--speculative"], ["--decode-backend", "cuda_fm", "--paged"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gpt2-small-sfa8",
+               "--no-reduced", "--requests", "4", "--max-new", "16", *extra]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                             cwd=ROOT)
+        out = res.stdout.strip().splitlines()
+        check(res.returncode == 0, f"serve launcher exit {res.returncode}: "
+                                   f"{res.stderr[-2000:]}")
+        check(not any("fallback" in line for line in out), f"serve launcher: {out}")
+        print(f"[serve launcher] {' '.join(cmd[3:])}: exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s; " + " | ".join(out[-3:]))
 
 
 def phase_end_to_end(model, cfg):
@@ -1041,14 +1582,21 @@ def main():
     results = {"rtopk": phase_rtopk(rs), "proj_rtopk": phase_proj_rtopk(rs),
                "flash_sfa": phase_flash_sfa(rs), "flash_sfa_block_skip": phase_block_skip(rs),
                "flash_sfa_decode": phase_decode(rs)}
+    results["flash_sfa_decode_paged"], results["flash_sfa_decode_multi"] = \
+        phase_decode_paged(rs)
+    results["flash_sfa_decode_fm"], results["flash_sfa_decode_fm_paged"] = phase_decode_fm(rs)
     results["flash_sfa_bwd"], results["flash_sfa_bwd_compact"] = phase_flash_sfa_bwd(rs)
     results["flash_attention"], results["flash_attention_bwd"] = phase_flash_attention(rs)
     results["code_grad_dx"], results["code_grad_dw"] = phase_code_grad(rs)
     cfg = get_config("gpt2-small-sfa8")
     model = init(cfg, device="cuda", seed=SEED)
-    counts = phase_engine(model, cfg)
+    counts, slot_run = phase_engine(model, cfg)
+    paged_run = phase_paged(model, cfg, slot_run)
+    spec = phase_speculative(model, cfg, paged_run, slot_run["prompts"])
+    fm_slot, fm_paged = phase_feature_major(model, cfg, paged_run, slot_run["prompts"])
     phase_end_to_end(model, cfg)
     del model
+    phase_serve_launcher()
     layers = cfg.num_layers
     # remat="full": each layer's forward runs twice per step (rtopk for Q
     # and K each time), its backward once
@@ -1067,6 +1615,8 @@ def main():
         bwd_emit="compact", fwd_fuse=True, remat="codes")
     phase_launcher()
     phase_grad_end_to_end()
+    decode_src = "src/repro_torch/csrc/flash_sfa_decode.cu"
+    fm_src = "src/repro_torch/csrc/flash_sfa_decode_fm.cu"
     meta = {
         "rtopk": ("src/repro_torch/csrc/rtopk.cu", "src/repro/kernels/rtopk.py:112", counts),
         "proj_rtopk": ("src/repro_torch/csrc/proj_rtopk.cu",
@@ -1081,8 +1631,14 @@ def main():
                          "src/repro/kernels/code_grad.py:81", compact),
         "code_grad_dw": ("src/repro_torch/csrc/code_grad.cu",
                          "src/repro/kernels/code_grad.py:140", compact),
-        "flash_sfa_decode": ("src/repro_torch/csrc/flash_sfa_decode.cu",
-                             "src/repro/kernels/flash_sfa_decode.py:110", counts),
+        "flash_sfa_decode": (decode_src, "src/repro/kernels/flash_sfa_decode.py:110", counts),
+        "flash_sfa_decode_paged": (decode_src, "src/repro/kernels/flash_sfa_decode.py:198",
+                                   paged_run["counts"]),
+        "flash_sfa_decode_multi": (decode_src, "src/repro/kernels/flash_sfa_decode.py:298",
+                                   spec),
+        "flash_sfa_decode_fm": (fm_src, "src/repro/kernels/flash_sfa_decode.py:429", fm_slot),
+        "flash_sfa_decode_fm_paged": (fm_src, "src/repro/kernels/flash_sfa_decode.py:536",
+                                      fm_paged),
         "flash_sfa_bwd": ("src/repro_torch/csrc/flash_sfa_bwd.cu",
                           "src/repro/kernels/flash_sfa_bwd.py:342", train),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

@@ -5,8 +5,15 @@ The PyTorch port keeps its own copy of the JAX package's config dataclasses
 through it, JAX. Field names, defaults and ``reduced()`` are the same, so
 ``dataclasses.asdict`` of a config is equal across the two packages, apart
 from the two backend-name fields, whose names follow this package's
-registry (``repro_torch/models/backends.py``: ``"torch"`` | ``"cuda"`` |
-``"auto"``).
+registry (``repro_torch/models/backends.py``). The JAX backend names map
+to the port's as:
+
+  * ``xla``       -> ``torch``   (the plain oracle);
+  * ``pallas``    -> ``cuda``    (the hand-written kernels);
+  * ``pallas_fm`` -> ``cuda_fm`` (the feature-major decode kernels, decode
+                                  only);
+
+and ``auto`` is ``auto`` in both.
 """
 from __future__ import annotations
 
@@ -42,12 +49,14 @@ class AttentionConfig:
     qk_norm: bool = False            # qwen3/gemma3-style per-head RMSNorm
     # Attention-backend registry names (repro_torch/models/backends.py):
     # "cuda" = the hand-written kernels, "torch" = the plain oracle, "auto"
-    # = "cuda" wherever it can serve the layer, else "torch". ``backend``
+    # = "cuda" wherever it can serve the layer, else "torch"; "cuda_fm"
+    # (decode only) = the feature-major decode kernels on the persistent
+    # FeatureMajorKV image, which the cache allocator then picks. ``backend``
     # drives prefill full-sequence attention, ``decode_backend`` serving
-    # decode. An explicit "cuda" that cannot serve a layer falls back to
+    # decode. An explicit backend that cannot serve a layer falls back to
     # "torch" with a structured FallbackReport.
     backend: str = "auto"            # "torch" | "cuda" | "auto"
-    decode_backend: str = "auto"     # "torch" | "cuda" | "auto"
+    decode_backend: str = "auto"     # "torch" | "cuda" | "cuda_fm" | "auto"
     # Training-side axes (TrainPolicy below). ``bwd_emit`` "compact" /
     # "compact2" route seam-eligible layers (cuda backend, no qk-norm /
     # window / rope-protect / MLA / distill) through the fused projection +
@@ -62,7 +71,8 @@ class AttentionConfig:
     # SFA-on-RoPE handling (paper A.1): keep a few leading dims dense so
     # position info survives sparsification; 0 = sparsify everything.
     sfa_rope_protect: int = 0
-    # Speculative drafting with the top-k' sub-code (later slice).
+    # Speculative drafting: decode reads the top-k' sub-code of the stored
+    # top-k codes (serve/speculative.py sets it on the draft pass).
     sfa_draft_k: Optional[int] = None
 
 

@@ -1,32 +1,55 @@
 """Typed KV caches — the serving-side data structures.
 
-Ported from the JAX package's ``repro/core/kv_cache.py`` for the layouts the
-token-major serving path uses:
+Ported from the JAX package's ``repro/core/kv_cache.py`` (non-MLA layouts):
 
-  * ``DenseKV``  — dense K/V, the baseline layout.
-  * ``SparseKV`` — SFA layout: top-k K values + *packed* indices (uint8 for
-                   d ≤ 256, uint16 for d ≤ 65536 — the paper's Appendix-J
-                   ratio ≈ 2d/(3k+4) on the K half) and dense V.
+  * ``DenseKV``        — dense K/V, the baseline layout.
+  * ``SparseKV``       — SFA layout: top-k K values + *packed* indices
+                         (uint8 for d ≤ 256, uint16 for d ≤ 65536 — the
+                         paper's Appendix-J ratio ≈ 2d/(3k+4) on the K
+                         half) and dense V.
+  * ``FeatureMajorKV`` — the ``cuda_fm`` serving layout: a persistent dense
+                         ``(b, hkv, d, n)`` feature-major K image and
+                         heads-major V ``(b, hkv, n, dv)``, extended one
+                         column per decoded token, so the decode kernel
+                         reads the k feature rows its sparse query
+                         addresses straight from the cache.
 
-The paged, feature-major and MLA layouts, and the dense protected RoPE dims
-of SFA-on-RoPE (paper A.1), come with later slices.
+and their paged counterparts (``PagedDenseKV``, ``PagedSparseKV``,
+``PagedFeatureMajorKV``): the same field layouts pooled into pages behind a
+block table, serving ``PagedDecodeEngine``. The MLA layouts and the dense
+protected RoPE dims of SFA-on-RoPE (paper A.1) come with later slices.
 
-Leaves keep the JAX layout: unstacked (per-layer) leaves are
-``(batch, tokens, hkv, F)`` with the token axis at 1, and the engine's
-layer-stacked caches add a leading layer axis. Unlike the JAX pytrees these
-caches are updated **in place** (``write`` and ``insert_slot`` return
-``self``): a decode step touches one token per slot, and copying the whole
-cache per step, as a functional update does outside ``jit``, would cost the
-cache's size in memory traffic. ``layer(i)`` returns views of one layer, so
-a write through it lands in the stacked storage.
+Unstacked (per-layer) leaves are ``(batch, tokens, ...)`` with the token
+axis at 1 unless the class lists the field in ``_TOKEN_AXES``
+(``FeatureMajorKV`` keeps tokens last in ``k_feat`` and at 2 in ``v``); the
+engine's layer-stacked caches add a leading layer axis. Unlike the JAX
+pytrees these caches are updated **in place** (``write``, ``write_chunk``,
+``insert_slot`` and ``insert_pages`` return ``self``): a decode step touches
+one token per slot, and copying the whole cache per step, as a functional
+update does outside ``jit``, would cost the cache's size in memory traffic.
+``layer(i)`` returns views of one layer, so a write through it lands in the
+stacked storage.
+
+The block table of a paged cache is one ``(slots, max_pages)`` int32 tensor
+on the cache's device, shared by every layer and every segment: it is not
+a per-layer leaf (the JAX package copies it into each layer of its pytree,
+``repro/serve/engine.py:346-357``). ``layer(i)`` and ``stack`` pass it
+through as it is, and the engine updates it in place when a slot's pages
+change.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 
-TOKEN_AXIS = 1  # unstacked token axis: (batch, tokens, ...)
+from repro_torch.core.sparse import SparseCode, densify
+
+TOKEN_AXIS = 1  # default unstacked token axis: (batch, tokens, ...)
+PAGE_TRASH = 0  # pool page 0 is never allocated to a request: a freed
+                # slot's block-table row is zeroed, so writes for dead
+                # slots land here and reads of it are always masked out
 
 
 # --------------------------------------------------------------------------
@@ -46,6 +69,10 @@ def pack_indices(idx: torch.Tensor, d: int) -> torch.Tensor:
     return idx.to(idx_dtype(d))
 
 
+def idx_bytes(d: int) -> int:
+    return torch.empty((), dtype=idx_dtype(d)).element_size()
+
+
 def unpack_indices(idx: torch.Tensor) -> torch.Tensor:
     return idx.to(torch.int64)
 
@@ -56,6 +83,14 @@ def unpack_indices(idx: torch.Tensor) -> torch.Tensor:
 
 class KVCache:
     """Base for the typed caches (every field is a tensor)."""
+
+    # per-field UNstacked token axis; fields not listed sit at TOKEN_AXIS
+    _TOKEN_AXES: ClassVar[dict] = {}
+
+    @classmethod
+    def token_axis(cls, field: str, *, stacked: bool = False) -> int:
+        ax = cls._TOKEN_AXES.get(field, TOKEN_AXIS)
+        return ax + 1 if stacked else ax
 
     def _tensors(self):
         for f in dataclasses.fields(self):
@@ -77,36 +112,42 @@ class KVCache:
         """Insert one token's entries at position ``pos``, in place.
 
         ``pos`` is an int or a (b,)-ragged integer tensor; each update
-        carries a singleton token axis (one new token) and is cast to the
-        stored dtype (indices pack down to uint8/uint16 here). Positions are
-        clamped to the last token like ``jax.lax.dynamic_update_slice``, so
-        a full, dead slot writes on its last row exactly as the JAX engine's
-        does.
+        carries a singleton token axis (one new token, at the field's token
+        axis) and is cast to the stored dtype (indices pack down to
+        uint8/uint16 here). Positions are clamped to the last token like
+        ``jax.lax.dynamic_update_slice``, so a full, dead slot writes on its
+        last row exactly as the JAX engine's does.
         """
         for name, val in updates.items():
             arr = getattr(self, name)
-            b, n = arr.shape[0], arr.shape[TOKEN_AXIS]
+            ax = self.token_axis(name)
+            b, n = arr.shape[0], arr.shape[ax]
             p = torch.as_tensor(pos, device=arr.device).long().clamp(0, n - 1).expand(b)
-            arr[torch.arange(b, device=arr.device), p] = val[:, 0].to(arr.dtype)
+            view = arr.movedim(ax, 1)
+            view[torch.arange(b, device=arr.device), p] = \
+                val.movedim(ax, 1)[:, 0].to(arr.dtype)
         return self
 
     def insert_slot(self, src: "KVCache", *, slot: int,
                     max_len: int) -> "KVCache":
         """Land a layer-stacked batch-1 prefill cache in ``slot``, in place.
 
-        ``self`` leaves are ``(L, B, max_len, ...)``; ``src`` leaves are
-        ``(L, 1, n, ...)``. The whole token axis of the slot is written
+        ``self`` leaves are ``(L, B, ...)`` with ``max_len`` tokens on each
+        field's token axis; ``src`` leaves are ``(L, 1, ...)`` with the
+        prompt's n tokens there. The whole token axis of the slot is written
         (zero tail), so reusing a freed slot overwrites the previous
         request's entries.
         """
         for name, dst in self._tensors():
             s = getattr(src, name)
-            n = s.shape[TOKEN_AXIS + 1]
+            ax = self.token_axis(name)       # of dst[:, slot] and s[:, 0]
+            n = s.shape[ax + 1]
             if n > max_len:
                 raise ValueError(f"prefill cache holds {n} tokens, more than "
                                  f"the slot's {max_len}")
-            dst[:, slot, n:].zero_()
-            dst[:, slot, :n] = s[:, 0].to(dst.dtype)
+            d = dst[:, slot]
+            d.narrow(ax, n, d.shape[ax] - n).zero_()
+            d.narrow(ax, 0, n).copy_(s[:, 0])
         return self
 
 
@@ -134,6 +175,286 @@ class SparseKV(KVCache):
     v: torch.Tensor
 
 
+@dataclasses.dataclass
+class FeatureMajorKV(KVCache):
+    """Persistent feature-major SFA cache (the ``cuda_fm`` serving layout).
+
+    k_feat (b, hkv, d, n)   dense feature-major K image, token axis LAST:
+                            the layout ``flash_sfa_decode_fm`` reads
+    v      (b, hkv, n, dv)  dense values, heads-major (token axis 2)
+
+    ``write`` scatters one dense (hkv, d) column per decoded token: the
+    densified top-k code, so every column stays <= k-sparse.
+    """
+    k_feat: torch.Tensor
+    v: torch.Tensor
+
+    _TOKEN_AXES: ClassVar[dict] = {"k_feat": 3, "v": 2}
+
+    def write(self, pos, *, k_vals, k_idx, v=None, **_ignored) -> "FeatureMajorKV":
+        """Densify the token's (k_vals, k_idx) code (b, 1, hkv, k) into a
+        feature column and land it at ``pos``, with the V row moved from
+        the model's (b, 1, hkv, dv) into the heads-major layout."""
+        col = densify(SparseCode(values=k_vals[:, 0], indices=unpack_indices(k_idx[:, 0]),
+                                 dim=self.k_feat.shape[-2]))       # (b, hkv, d)
+        updates = {"k_feat": col[..., None]}
+        if v is not None:
+            updates["v"] = v.movedim(1, 2)
+        return super().write(pos, **updates)
+
+
+# --------------------------------------------------------------------------
+# paged layouts (block tables over the same field layouts)
+# --------------------------------------------------------------------------
+
+class PagedKV(KVCache):
+    """Base for the paged layouts: a shared page pool + the block table.
+
+    Pool leaves keep each inner layout's kernel-major field layout but
+    trade the per-slot token axis for ``(pages, page_size)``: a token-major
+    field ``(b, n, hkv, F)`` pools as ``(hkv, pages, page_size, F)``, the
+    feature-major image ``(b, hkv, d, n)`` as ``(hkv, pages, d,
+    page_size)``. Logical page j of a slot holds its tokens ``[j·page,
+    (j+1)·page)``, so the paged kernels visit tokens in the contiguous
+    kernels' order and give the same bits on the same content.
+
+    ``block_table`` is the ``(slots, max_pages)`` int32 tensor of pool page
+    ids shared by all layers (not one of ``_tensors``). ``write`` lands one
+    decoded token per block-table row, ``write_chunk`` a chunk of one
+    slot's tokens, ``insert_pages`` a whole layer-stacked batch-1 prefill
+    cache into a slot's pages, and ``gather``/``gather_slot`` build the
+    contiguous inner-layout view the ``torch`` oracle reads.
+    """
+
+    def _tensors(self):
+        for f in dataclasses.fields(self):
+            if f.name != "block_table":
+                yield f.name, getattr(self, f.name)
+
+    # ---- coordinates ---------------------------------------------------
+    def _decode_coords(self, pos):
+        """Per-row (pool page id, in-page offset) for a (slots,) position
+        vector. Positions past the table go to the trash page: the engine
+        parks dead slots at a past-the-table sentinel, so their writes never
+        land in pages another request holds."""
+        page = self.page_size
+        bt = self.block_table
+        mp = bt.shape[-1]
+        pos = torch.as_tensor(pos, device=bt.device).long().expand(bt.shape[0])
+        pidx = (pos // page).clamp(0, mp - 1)
+        pids = bt.gather(1, pidx[:, None])[:, 0].long()
+        pids = torch.where(pos >= page * mp, PAGE_TRASH, pids)
+        return pids, pos % page
+
+    def _chunk_coords(self, slot, start, count: int):
+        """(pool page ids, offsets) of ``count`` consecutive tokens of one
+        slot from ``start``. Positions past the table go to the trash page
+        like ``_decode_coords`` (the verify pass writes draft lookahead past
+        a slot's last page near ``max_len``; clamping would overwrite the
+        slot's own final page)."""
+        page = self.page_size
+        bt = self.block_table
+        mp = bt.shape[-1]
+        pos = int(start) + torch.arange(count, device=bt.device)
+        pids = bt[int(slot)].long()[(pos // page).clamp(0, mp - 1)]
+        pids = torch.where(pos >= page * mp, PAGE_TRASH, pids)
+        return pids, pos % page
+
+    def _slot_table(self, slot):
+        """(1, max_pages) block-table view of one slot."""
+        return self.block_table[int(slot)][None]
+
+    # ---- pooled token-major (hkv, P, page, F) leaves --------------------
+    @staticmethod
+    def _scatter_tok(leaf, pids, offs, val):
+        """Write T tokens ``val (T, hkv, F)`` at (pids, offs) of a pooled
+        leaf (adjacent advanced indices: the indexed block is (hkv, T, F))."""
+        leaf[:, pids, offs] = val.transpose(0, 1).to(leaf.dtype)
+
+    @staticmethod
+    def _gather_tok(leaf, bt):
+        """(hkv, P, page, F) pooled leaf -> (s, n, hkv, F) contiguous
+        token-major view for the block tables ``bt (s, mp)``."""
+        g = leaf[:, bt.long()]                       # (hkv, s, mp, page, F)
+        hkv, s, mp, page = g.shape[:4]
+        return g.reshape((hkv, s, mp * page) + g.shape[4:]).movedim(0, 2)
+
+    @staticmethod
+    def _insert_tok(dst, src, pids, page: int):
+        """Land a stacked token-major prefill leaf ``src (L, 1, n, hkv, F)``
+        into whole pages ``pids (npg,)`` of the stacked pool ``dst (L, hkv,
+        P, page, F)``, the last partial page zero-padded."""
+        L, _, n, hkv = src.shape[:4]
+        npg = pids.shape[0]
+        s = src[:, 0]
+        if npg * page > n:
+            s = torch.cat([s, s.new_zeros((L, npg * page - n) + s.shape[2:])], 1)
+        s = s.reshape((L, npg, page, hkv) + s.shape[3:]).movedim(3, 1)
+        dst[:, :, pids] = s.to(dst.dtype)
+
+    # ---- interface -----------------------------------------------------
+    def write_chunk(self, slot, start, **updates) -> "PagedKV":
+        raise NotImplementedError(type(self).__name__)
+
+    def gather(self) -> KVCache:
+        """Contiguous inner-layout view of every slot (the oracle's input)."""
+        return self._view(self.block_table)
+
+    def gather_slot(self, slot) -> KVCache:
+        """Batch-1 contiguous view of one slot."""
+        return self._view(self._slot_table(slot))
+
+    def _view(self, bt) -> KVCache:
+        raise NotImplementedError(type(self).__name__)
+
+    def insert_pages(self, src: KVCache, page_ids) -> "PagedKV":
+        """Land a layer-stacked batch-1 prefill cache (inner layout) into
+        the pages ``page_ids`` of the stacked pool leaves, in place."""
+        raise NotImplementedError(type(self).__name__)
+
+    def insert_slot(self, src, *, slot, max_len):
+        raise NotImplementedError(
+            "paged caches land prompts with insert_pages, not insert_slot")
+
+
+@dataclasses.dataclass
+class PagedDenseKV(PagedKV):
+    """Paged dense cache: k/v pools are (hkv, pages, page_size, head_dim)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    block_table: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[-2]
+
+    def write(self, pos, *, k, v, **_ignored) -> "PagedDenseKV":
+        pids, offs = self._decode_coords(pos)
+        self._scatter_tok(self.k, pids, offs, k[:, 0])
+        self._scatter_tok(self.v, pids, offs, v[:, 0])
+        return self
+
+    def write_chunk(self, slot, start, *, k, v, **_ignored) -> "PagedDenseKV":
+        pids, offs = self._chunk_coords(slot, start, k.shape[1])
+        self._scatter_tok(self.k, pids, offs, k[0])
+        self._scatter_tok(self.v, pids, offs, v[0])
+        return self
+
+    def _view(self, bt) -> DenseKV:
+        return DenseKV(k=self._gather_tok(self.k, bt), v=self._gather_tok(self.v, bt))
+
+    def insert_pages(self, src: DenseKV, page_ids) -> "PagedDenseKV":
+        page = self.page_size
+        self._insert_tok(self.k, src.k, page_ids, page)
+        self._insert_tok(self.v, src.v, page_ids, page)
+        return self
+
+
+@dataclasses.dataclass
+class PagedSparseKV(PagedKV):
+    """Paged SFA cache: token-major pools, indices packed at rest.
+
+    k_vals/k_idx (hkv, pages, page_size, k); v (hkv, pages, page_size, dv).
+    """
+    k_vals: torch.Tensor
+    k_idx: torch.Tensor
+    v: torch.Tensor
+    block_table: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.v.shape[-2]
+
+    def _put(self, pids, offs, k_vals, k_idx, v):
+        self._scatter_tok(self.k_vals, pids, offs, k_vals)
+        self._scatter_tok(self.k_idx, pids, offs, k_idx)
+        self._scatter_tok(self.v, pids, offs, v)
+        return self
+
+    def write(self, pos, *, k_vals, k_idx, v, **_ignored) -> "PagedSparseKV":
+        pids, offs = self._decode_coords(pos)
+        return self._put(pids, offs, k_vals[:, 0], k_idx[:, 0], v[:, 0])
+
+    def write_chunk(self, slot, start, *, k_vals, k_idx, v,
+                    **_ignored) -> "PagedSparseKV":
+        pids, offs = self._chunk_coords(slot, start, k_vals.shape[1])
+        return self._put(pids, offs, k_vals[0], k_idx[0], v[0])
+
+    def _view(self, bt) -> SparseKV:
+        return SparseKV(k_vals=self._gather_tok(self.k_vals, bt),
+                        k_idx=self._gather_tok(self.k_idx, bt),
+                        v=self._gather_tok(self.v, bt))
+
+    def insert_pages(self, src: SparseKV, page_ids) -> "PagedSparseKV":
+        page = self.page_size
+        for name in ("k_vals", "k_idx", "v"):
+            self._insert_tok(getattr(self, name), getattr(src, name), page_ids, page)
+        return self
+
+
+@dataclasses.dataclass
+class PagedFeatureMajorKV(PagedKV):
+    """Paged persistent feature-major image (the ``cuda_fm`` layout).
+
+    k_feat (hkv, pages, d, page_size)  — each pool page is a (d, page)
+                                         tile of the image
+    v      (hkv, pages, page_size, dv) — token-major values
+    """
+    k_feat: torch.Tensor
+    v: torch.Tensor
+    block_table: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.k_feat.shape[-1]
+
+    def _put(self, pids, offs, k_vals, k_idx, v):
+        """Tokens' codes (T, hkv, k) densified into image columns; the
+        indexed block of k_feat[:, pids, :, offs] is (T, hkv, d), its
+        advanced indices being split by the feature axis."""
+        col = densify(SparseCode(values=k_vals, indices=unpack_indices(k_idx),
+                                 dim=self.k_feat.shape[-2]))         # (T, hkv, d)
+        self.k_feat[:, pids, :, offs] = col.to(self.k_feat.dtype)
+        if v is not None:
+            self._scatter_tok(self.v, pids, offs, v)
+        return self
+
+    def write(self, pos, *, k_vals, k_idx, v=None,
+              **_ignored) -> "PagedFeatureMajorKV":
+        pids, offs = self._decode_coords(pos)
+        return self._put(pids, offs, k_vals[:, 0], k_idx[:, 0],
+                         None if v is None else v[:, 0])
+
+    def write_chunk(self, slot, start, *, k_vals, k_idx, v,
+                    **_ignored) -> "PagedFeatureMajorKV":
+        pids, offs = self._chunk_coords(slot, start, k_vals.shape[1])
+        return self._put(pids, offs, k_vals[0], k_idx[0], v[0])
+
+    def _view(self, bt) -> FeatureMajorKV:
+        g = self.k_feat[:, bt.long()]                # (hkv, s, mp, d, page)
+        hkv, s, mp, d, page = g.shape
+        kf = g.permute(1, 0, 3, 2, 4).reshape(s, hkv, d, mp * page)
+        gv = self.v[:, bt.long()]                    # (hkv, s, mp, page, dv)
+        v = gv.transpose(0, 1).reshape(s, hkv, mp * page, gv.shape[-1])
+        return FeatureMajorKV(k_feat=kf, v=v)
+
+    def insert_pages(self, src: FeatureMajorKV,
+                     page_ids) -> "PagedFeatureMajorKV":
+        page = self.page_size
+        npg = page_ids.shape[0]
+        kf = src.k_feat[:, 0]                        # (L, hkv, d, n)
+        vv = src.v[:, 0]                             # (L, hkv, n, dv)
+        L, hkv, d, n = kf.shape
+        pad = npg * page - n
+        if pad:
+            kf = torch.cat([kf, kf.new_zeros((L, hkv, d, pad))], 3)
+            vv = torch.cat([vv, vv.new_zeros((L, hkv, pad, vv.shape[-1]))], 2)
+        kf = kf.reshape(L, hkv, d, npg, page).movedim(3, 2)   # (L, hkv, npg, d, page)
+        self.k_feat[:, :, page_ids] = kf.to(self.k_feat.dtype)
+        self.v[:, :, page_ids] = vv.reshape(L, hkv, npg, page, -1).to(self.v.dtype)
+        return self
+
+
 def kv_cache_nodes(tree) -> list:
     """All KVCache nodes of a (nested list/tuple/dict) cache tree, in order."""
     if isinstance(tree, KVCache):
@@ -146,6 +467,9 @@ def kv_cache_nodes(tree) -> list:
 
 
 def cache_nbytes(cache) -> int:
-    """Total at-rest bytes of the KVCache nodes of a cache tree."""
-    return sum(t.numel() * t.element_size()
-               for node in kv_cache_nodes(cache) for _, t in node._tensors())
+    """Total at-rest bytes of the KVCache nodes of a cache tree; the block
+    table that paged caches share counts once."""
+    nodes = kv_cache_nodes(cache)
+    tables = {id(n.block_table): n.block_table for n in nodes if isinstance(n, PagedKV)}
+    return (sum(t.numel() * t.element_size() for node in nodes for _, t in node._tensors())
+            + sum(t.numel() * t.element_size() for t in tables.values()))

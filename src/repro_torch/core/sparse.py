@@ -104,6 +104,25 @@ def sparsify(x: torch.Tensor, k: int) -> SparseCode:
     return SparseCode(values=x.gather(-1, idx), indices=idx, dim=d)
 
 
+def sub_k(values: torch.Tensor, indices: torch.Tensor, k_draft: int):
+    """Re-threshold a stored top-k code to its top-k' (k' < k) sub-code.
+
+    ``topk_mask`` selects by a global magnitude threshold with the lowest
+    index winning a tie, so the top-k' entries of the stored k entries are
+    the global top-k' of the original row (the nested-k property the
+    speculative draft relies on). Positions within the width-k code are
+    taken in ascending order, and stored indices ascend per row, so the
+    sub-code's indices ascend too: the order every decode kernel relies on.
+    Same values, indices and tie-breaks as the JAX package's ``sub_k``
+    (core/sparse.py:100). Returns ``(values', indices') (..., k_draft)``.
+    """
+    k = values.shape[-1]
+    if k_draft >= k:
+        return values, indices
+    pos = mask_to_indices(topk_mask(values, k_draft), k_draft)
+    return values.gather(-1, pos), indices.gather(-1, pos)
+
+
 def densify(code: SparseCode) -> torch.Tensor:
     """Scatter a SparseCode back to its dense (..., d) form. Duplicate
     indices sum, as the JAX one-hot contraction does."""
@@ -121,3 +140,10 @@ def topk_st(x: torch.Tensor, k: int) -> torch.Tensor:
     the k selected coordinates and zero elsewhere (``topk_st`` of the JAX
     package, core/sparse.py:139)."""
     return x * topk_mask(x, k).to(x.dtype)
+
+
+def to_feature_major(code: SparseCode) -> torch.Tensor:
+    """Dense feature-major ``(..., d, n)`` image of token-major codes
+    ``(..., n, k)``: the layout in which a k-sparse query reads only its k
+    feature rows (the JAX package's ``to_feature_major``)."""
+    return densify(code).transpose(-1, -2)

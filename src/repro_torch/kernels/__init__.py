@@ -4,7 +4,9 @@ rtopk            — exact row top-|k| (warp ballot bisection on bit patterns);
                    proj_rtopk: the fused head projection -> [RoPE] -> top-k
 flash_sfa        — FlashSFA forward (prefill attention over top-k codes),
                    with or without the block-skip level map
-flash_sfa_decode — one query against the token-major sparse KV cache
+flash_sfa_decode — one query against the KV cache: token-major sparse
+                   (contiguous, paged, and the multi-query verify pass)
+                   and the feature-major image (contiguous and paged)
 flash_sfa_bwd    — FlashSFA backward (dense, compact and compact2 emits)
                    and the dense FlashAttention backward, one templated
                    source
@@ -31,7 +33,10 @@ from repro_torch.kernels.flash_sfa import block_skip_stats, flash_sfa
 from repro_torch.kernels.flash_sfa_bwd import (
     flash_attention_bwd, flash_sfa_bwd, pair_closure_indices,
 )
-from repro_torch.kernels.flash_sfa_decode import flash_sfa_decode
+from repro_torch.kernels.flash_sfa_decode import (
+    feature_major_prefill, flash_sfa_decode, flash_sfa_decode_fm,
+    flash_sfa_decode_fm_paged, flash_sfa_decode_multi, flash_sfa_decode_paged,
+)
 from repro_torch.kernels.ops import (
     dense_attention_op, fold_heads, fused_qk_codes, sfa_attention_op, sfa_code,
     topk_dense, unfold_heads,
@@ -46,6 +51,10 @@ COUNTERS = {
     "flash_sfa": (flash_sfa, "launches"),
     "flash_sfa_block_skip": (flash_sfa, "block_skip_launches"),
     "flash_sfa_decode": (flash_sfa_decode, "launches"),
+    "flash_sfa_decode_paged": (flash_sfa_decode_paged, "launches"),
+    "flash_sfa_decode_multi": (flash_sfa_decode_multi, "launches"),
+    "flash_sfa_decode_fm": (flash_sfa_decode_fm, "launches"),
+    "flash_sfa_decode_fm_paged": (flash_sfa_decode_fm_paged, "launches"),
     "flash_sfa_bwd": (flash_sfa_bwd, "launches"),
     "flash_sfa_bwd_compact": (flash_sfa_bwd, "compact_launches"),
     "flash_attention": (flash_attention, "launches"),
@@ -65,8 +74,10 @@ def launch_counts() -> dict:
 
 
 __all__ = ["COUNTERS", "block_skip_stats", "code_grad_dw", "code_grad_dx",
-           "dense_attention_op", "flash_attention", "flash_attention_bwd",
-           "flash_sfa", "flash_sfa_bwd", "flash_sfa_decode", "fold_heads",
+           "dense_attention_op", "feature_major_prefill", "flash_attention",
+           "flash_attention_bwd", "flash_sfa", "flash_sfa_bwd", "flash_sfa_decode",
+           "flash_sfa_decode_fm", "flash_sfa_decode_fm_paged",
+           "flash_sfa_decode_multi", "flash_sfa_decode_paged", "fold_heads",
            "fused_qk_codes", "launch_counts", "pair_closure_indices",
            "proj_rtopk", "reset_launches", "rtopk", "scatter_code_grads",
            "sfa_attention_op", "sfa_code", "topk_dense", "unfold_heads"]

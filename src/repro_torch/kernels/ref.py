@@ -211,6 +211,109 @@ def flash_sfa_decode_ref(q, k_vals, k_idx, v, lengths, *, d: int,
     return torch.einsum("bn,bnd->bd", p, vv.float())
 
 
+def _pool_view(pool, bt):
+    """(hkv, P, page, F) pool -> (s, n, hkv, F) token-major view of the
+    block tables ``bt (s, max_pages)``, n = max_pages·page."""
+    g = pool[:, bt.long()]                                  # (hkv, s, mp, page, F)
+    hkv, s, mp, page = g.shape[:4]
+    return g.reshape(hkv, s, mp * page, g.shape[-1]).permute(1, 2, 0, 3)
+
+
+def flash_sfa_decode_paged_ref(q, kv_pool, ki_pool, v_pool, block_tables,
+                               lengths, *, d: int, scale: float | None = None,
+                               heads: int = 1):
+    """Decode over a paged token-major pool: q (slots·heads, d); pools
+    (hkv, P, page, F); block_tables (slots, max_pages); lengths (slots,)
+    including the new token. -> (slots·heads, dv) f32.
+
+    Replaces ``repro/kernels/flash_sfa_decode.py::flash_sfa_decode_paged``
+    (row 11 of PERF.md). The plain version gathers the block-table view
+    and runs ``flash_sfa_decode_ref`` on it, which is what the kernel must
+    equal bit for bit on the card. The kernel is bound by bytes (it reads
+    each valid token's k codes and V row once); its design reads the pools
+    in place through the block table, with no gather, unpack, GQA repeat or
+    upcast copy.
+    """
+    view = [_pool_view(t, block_tables) for t in (kv_pool, ki_pool, v_pool)]
+    lens = torch.as_tensor(lengths, device=q.device).reshape(-1).repeat_interleave(heads)
+    return flash_sfa_decode_ref(q, *view, lens, d=d, scale=scale)
+
+
+def flash_sfa_decode_multi_ref(q, k_vals, k_idx, v, lengths, *, d: int,
+                               scale: float | None = None, heads: int = 1,
+                               block_tables=None, slot: int = 0):
+    """Speculative verify: C queries q (C·heads, d) of one slot, row
+    ``c·heads + h`` masked to its own ``lengths[c·heads + h]``. The cache is
+    one slot's contiguous leaves (H, n, F) with H = heads or kv heads (the
+    JAX kernel's form), or, with ``block_tables``, the pools (hkv, P, page,
+    F) read through row ``slot`` of the table. -> (C·heads, dv) f32.
+
+    Replaces ``repro/kernels/flash_sfa_decode.py::flash_sfa_decode_multi``
+    (row 12). Bound by bytes: the least the card must move is the slot's
+    cache once for all C queries. The kernel walks every row exactly as the
+    paged decode kernel does, so row c equals a paged decode at its length
+    bit for bit (the greedy acceptance rule compares argmaxes across them).
+    """
+    if block_tables is not None:
+        bt = block_tables[int(slot)][None]
+        k_vals, k_idx, v = (_pool_view(t, bt)[0].transpose(0, 1)
+                            for t in (k_vals, k_idx, v))      # (hkv, n, F)
+    c = q.shape[0] // heads
+
+    def per_query(t):                                       # (H, n, F) -> (C, n, H, F)
+        return t.transpose(0, 1)[None].expand(c, *t.transpose(0, 1).shape)
+
+    return flash_sfa_decode_ref(q, per_query(k_vals), per_query(k_idx), per_query(v),
+                                lengths, d=d, scale=scale)
+
+
+def flash_sfa_decode_fm_ref(q_vals, q_idx, k_feat, v, lengths, *,
+                            scale: float | None = None, group: int = 1):
+    """Feature-major decode: sparse query (bh, kq) values + indices against
+    the dense image k_feat (bh / group, d, n) and V (bh / group, n, dv);
+    row i reads image and V row i // group; lengths (bh,). -> (bh, dv) f32.
+
+    Replaces ``repro/kernels/flash_sfa_decode.py::flash_sfa_decode_fm``
+    (row 13). s_j = scale·Σ_t qv[t]·k_feat[qi[t], j]: the kernel reads only
+    the kq addressed feature rows of the image, so it is bound by bytes at
+    len·(kq·val + dv·val) per row; threads own tokens, so each feature row
+    is one coalesced read.
+    """
+    d, n = k_feat.shape[-2:]
+    scale = scale if scale is not None else d ** -0.5
+    qd = _densify(q_vals, q_idx, d)                         # (bh, d)
+    kf = k_feat.float().repeat_interleave(group, dim=0)     # (bh, d, n)
+    s = torch.einsum("bd,bdn->bn", qd, kf) * scale
+    lengths = torch.as_tensor(lengths, device=qd.device).reshape(-1, 1)
+    valid = torch.arange(n, device=qd.device)[None, :] < lengths
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bn,bnd->bd", p, v.float().repeat_interleave(group, dim=0))
+
+
+def flash_sfa_decode_fm_paged_ref(q_vals, q_idx, kf_pool, v_pool, block_tables,
+                                  lengths, *, scale: float | None = None,
+                                  heads: int = 1):
+    """Feature-major decode over a paged image pool: q (slots·heads, kq);
+    kf_pool (hkv, P, d, page); v_pool (hkv, P, page, dv); block_tables
+    (slots, max_pages); lengths (slots,). -> (slots·heads, dv) f32.
+
+    Replaces ``repro/kernels/flash_sfa_decode.py::flash_sfa_decode_fm_paged``
+    (row 14): ``flash_sfa_decode_fm_ref`` on the gathered image, which the
+    kernel equals bit for bit on the card. Bound by bytes like row 13; the
+    kernel reads the pool in place through the block table.
+    """
+    bt = block_tables.long()
+    g = kf_pool[:, bt]                                      # (hkv, s, mp, d, page)
+    hkv, s_, mp, d, page = g.shape
+    kf = g.permute(1, 0, 3, 2, 4).reshape(s_ * hkv, d, mp * page)
+    gv = v_pool[:, bt]                                      # (hkv, s, mp, page, dv)
+    vv = gv.transpose(0, 1).reshape(s_ * hkv, mp * page, gv.shape[-1])
+    lens = torch.as_tensor(lengths, device=q_vals.device).reshape(-1).repeat_interleave(heads)
+    return flash_sfa_decode_fm_ref(q_vals, q_idx, kf, vv, lens, scale=scale,
+                                   group=heads // hkv)
+
+
 def scatter_code_grads(vals, idx, d: int):
     """(..., k) code values -> their dense (..., d) rows in vals.dtype: the
     exact inverse of the compact emit's gather. Duplicate indices sum (pair

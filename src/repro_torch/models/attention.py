@@ -10,7 +10,15 @@ Call modes sharing the parameters:
                          cache (a typed ``KVCache``, sparse for SFA layers);
   * ``mode="decode"``  — one new token: its K code and V are written into
                          the cache at ``cache_len`` (in place), then the
-                         query is scored against the cache.
+                         query is scored against the cache (contiguous or
+                         paged; ``sfa_draft_k`` reads the top-k' sub-code);
+  * ``mode="chunk"``   — chunked prefill into a paged cache: C prompt tokens
+                         of slot ``slot`` land at ``cache_len..``, and each
+                         query is scored as a single-token oracle decode at
+                         its own prefix length (all C at once);
+  * ``mode="verify"``  — the speculative verify pass: the same chunk write
+                         (full-k codes over the draft pass's writes), then
+                         the decode backend's multi-token ``verify``.
 
 ``cfg.attention.backend`` selects the full-sequence path (train, eval and
 prefill) and
@@ -38,15 +46,20 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import AttentionConfig, ModelConfig
-from repro_torch.core.kv_cache import DenseKV, KVCache, SparseKV, idx_dtype, pack_indices
+from repro_torch.core.kv_cache import (
+    DenseKV, FeatureMajorKV, KVCache, PagedDenseKV, PagedFeatureMajorKV, PagedKV,
+    PagedSparseKV, SparseKV, idx_dtype, pack_indices,
+)
 from repro_torch.core.remat import active_stash
 from repro_torch.kernels.flash_sfa import flash_sfa
 from repro_torch.kernels.flash_sfa_bwd import flash_sfa_bwd, pair_closure_indices
+from repro_torch.kernels.flash_sfa_decode import feature_major_prefill
 from repro_torch.kernels.ops import (
     fold_heads, fused_qk_codes, head_blocks, repeat_heads, sfa_code, unfold_heads,
 )
 from repro_torch.models.backends import (
-    AttentionRequest, DecodeQuery, expand_kv, resolve_backend_name, select_backend,
+    AttentionRequest, DecodeQuery, expand_kv, get_backend, resolve_backend_name,
+    select_backend,
 )
 from repro_torch.models.layers import (
     apply_norm, dense, dense_init, norm_init, rope, rope_code_vjp, sparse_proj_bwd,
@@ -69,7 +82,8 @@ def attention_init(gen, cfg: ModelConfig, device="cpu"):
     return p
 
 
-def _request(a: AttentionConfig, *, mode: str, window) -> AttentionRequest:
+def _request(a: AttentionConfig, *, mode: str, window, paged: bool = False,
+             speculative: bool = False) -> AttentionRequest:
     """Static backend request for this layer."""
     return AttentionRequest(
         mode=mode,
@@ -77,6 +91,8 @@ def _request(a: AttentionConfig, *, mode: str, window) -> AttentionRequest:
         window=(window is not None) or (a.window is not None),
         mla=a.mla is not None,
         sparse=a.sfa_k is not None,
+        paged=paged,
+        speculative=speculative,
     )
 
 
@@ -86,6 +102,32 @@ def split_qkv(qkv, h: int, hkv: int, hd: int):
     b, n, _ = qkv.shape
     q, k, v = torch.split(qkv, [h * hd, hkv * hd, hkv * hd], dim=-1)
     return q.reshape(b, n, h, hd), k.reshape(b, n, hkv, hd), v.reshape(b, n, hkv, hd)
+
+
+# the JAX kernel's token tile for the persistent image: the JAX engine
+# allocates the token axis in whole tiles, and the port does the same so
+# that the two engines' caches have the same length
+_FM_TILE = 128
+
+
+def _decode_uses_persistent_cache(cfg: ModelConfig) -> bool:
+    """The cache layout follows the selected decode backend: a backend with
+    the ``persistent_cache`` capability (cuda_fm) keeps its feature-major
+    image in the cache. A request that backend cannot serve resolves to the
+    oracle here exactly as it would at decode time."""
+    a = cfg.attention
+    sel = select_backend(a.decode_backend, _request(a, mode="decode", window=None),
+                         where=f"{cfg.name}/cache")
+    return sel.backend.caps.persistent_cache
+
+
+def decode_cache_token_multiple(cfg: ModelConfig) -> int:
+    """Allocation granularity of the decode cache's token axis: the JAX
+    persistent image is streamed in 128-token tiles, so the engine rounds
+    ``max_len`` up to a multiple of this (1 for every other layout)."""
+    if cfg.attention is None or cfg.attention.sfa_k is None:
+        return 1
+    return _FM_TILE if _decode_uses_persistent_cache(cfg) else 1
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -100,11 +142,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         return torch.zeros(shape, dtype=dt, device=device)
 
     if a.sfa_k is not None:
+        if _decode_uses_persistent_cache(cfg):
+            return FeatureMajorKV(k_feat=zeros(batch, hkv, hd, max_len),
+                                  v=zeros(batch, hkv, max_len, hd))
         kk = min(a.sfa_k, hd)
         return SparseKV(k_vals=zeros(batch, max_len, hkv, kk),
                         k_idx=zeros(batch, max_len, hkv, kk, dt=idx_dtype(hd)),
                         v=zeros(batch, max_len, hkv, hd))
     return DenseKV(k=zeros(batch, max_len, hkv, hd), v=zeros(batch, max_len, hkv, hd))
+
+
+def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
+                     block_table: torch.Tensor, dtype=torch.bfloat16,
+                     device="cpu") -> PagedKV:
+    """Per-layer paged decode cache: a page pool and the shared block table
+    ``(slots, max_pages)``. ``num_pages`` includes the reserved trash page
+    0; the layout follows the decode backend as in ``init_cache``."""
+    a = cfg.attention
+    if a.mla is not None:
+        raise NotImplementedError("MLA caches come with a later slice")
+    hkv, hd = a.num_kv_heads, a.head_dim
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if a.sfa_k is not None:
+        if _decode_uses_persistent_cache(cfg):
+            return PagedFeatureMajorKV(k_feat=zeros(hkv, num_pages, hd, page_size),
+                                       v=zeros(hkv, num_pages, page_size, hd),
+                                       block_table=block_table)
+        kk = min(a.sfa_k, hd)
+        return PagedSparseKV(
+            k_vals=zeros(hkv, num_pages, page_size, kk),
+            k_idx=zeros(hkv, num_pages, page_size, kk, dt=idx_dtype(hd)),
+            v=zeros(hkv, num_pages, page_size, hd), block_table=block_table)
+    return PagedDenseKV(k=zeros(hkv, num_pages, page_size, hd),
+                        v=zeros(hkv, num_pages, page_size, hd), block_table=block_table)
 
 
 # --------------------------------------------------------------------------
@@ -310,14 +383,14 @@ class AttentionOut(NamedTuple):
 
 def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
                     window=None, mode: str = "train", cache=None,
-                    cache_len=None) -> AttentionOut:
+                    cache_len=None, slot=None) -> AttentionOut:
     a = cfg.attention
     if a.mla is not None:
         raise NotImplementedError("MLA attention comes with a later slice")
-    if mode not in ("train", "eval", "prefill", "decode"):
-        raise NotImplementedError(f"attention mode {mode!r} comes with a later slice")
-    if a.sfa_rope_protect or a.sfa_draft_k:
-        raise NotImplementedError("sfa_rope_protect / sfa_draft_k come with a later slice")
+    if mode not in ("train", "eval", "prefill", "decode", "chunk", "verify"):
+        raise ValueError(f"unknown attention mode {mode!r}")
+    if a.sfa_rope_protect:
+        raise NotImplementedError("sfa_rope_protect comes with a later slice (A.5)")
     if a.ring and mode in ("train", "eval"):
         raise NotImplementedError("Ring-SFA context parallelism is ROADMAP A.6")
     b, n, _ = x.shape
@@ -363,7 +436,9 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
     if mode == "decode":
         if cache is None or cache_len is None:
             raise ValueError("decode mode needs a cache and cache_len")
-        sel = select_backend(a.decode_backend, _request(a, mode="decode", window=window),
+        sel = select_backend(a.decode_backend,
+                             _request(a, mode="decode", window=window,
+                                      paged=isinstance(cache, PagedKV)),
                              where=f"{cfg.name}/attention")
         # write the new token's K code and V at cache_len, then score
         if a.sfa_k is not None:
@@ -371,9 +446,33 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
             cache.write(cache_len, k_vals=k_vals, k_idx=k_idx, v=v)
         else:
             cache.write(cache_len, k=k, v=v)
-        ctx = sel.backend.decode(DecodeQuery(q=q), cache, cache_len,
-                                 scale=scale, window=window, sfa_k=a.sfa_k)
+        ctx = sel.backend.decode(DecodeQuery(q=q), cache, cache_len, scale=scale,
+                                 window=window, sfa_k=a.sfa_k, draft_k=a.sfa_draft_k)
         o = ctx.to(dt).reshape(b, 1, h * hd)
+        return AttentionOut(dense(params["w_o"], o, dt), cache)
+
+    if mode in ("chunk", "verify"):
+        # land the C tokens of one slot at cache_len.. (the verify pass's
+        # full-k codes overwrite the draft pass's writes), then score query
+        # c at its own causal length cache_len + c: the oracle for a chunk
+        # of a prefill, the backend's verify pass for a speculative check
+        if cache is None or cache_len is None or slot is None:
+            raise ValueError(f"{mode} mode needs a cache, cache_len and slot")
+        sel = select_backend(a.decode_backend,
+                             _request(a, mode="decode", window=window,
+                                      paged=isinstance(cache, PagedKV),
+                                      speculative=mode == "verify"),
+                             where=f"{cfg.name}/attention")
+        if a.sfa_k is not None:
+            k_vals, k_idx = sel.backend.code(k, a.sfa_k)             # (1, C, hkv, k)
+            cache.write_chunk(slot, cache_len, k_vals=k_vals, k_idx=k_idx, v=v)
+        else:
+            cache.write_chunk(slot, cache_len, k=k, v=v)
+        lens = int(cache_len) + torch.arange(n, device=x.device)      # (C,)
+        scorer = sel.backend if mode == "verify" else get_backend("torch")
+        ctx = scorer.verify(DecodeQuery(q=q), cache, lens, slot=slot, scale=scale,
+                            window=window, sfa_k=a.sfa_k)             # (C, h, dv)
+        o = ctx.to(dt).reshape(1, n, h * hd)
         return AttentionOut(dense(params["w_o"], o, dt), cache)
 
     sel = select_backend(a.backend, _request(a, mode="full", window=window),
@@ -385,7 +484,15 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
     if mode == "prefill":
         if a.sfa_k is not None:
             k_vals, k_idx = sel.backend.code(k, a.sfa_k)
-            new_cache = SparseKV(k_vals=k_vals.to(dt), k_idx=pack_indices(k_idx, hd), v=v)
+            if _decode_uses_persistent_cache(cfg):
+                # the persistent image (and heads-major V), built once here;
+                # decode steps extend both a column at a time
+                new_cache = FeatureMajorKV(
+                    k_feat=feature_major_prefill(k_vals.to(dt), k_idx, hd),
+                    v=v.movedim(1, 2))
+            else:
+                new_cache = SparseKV(k_vals=k_vals.to(dt), k_idx=pack_indices(k_idx, hd),
+                                     v=v)
         else:
             new_cache = DenseKV(k=k, v=v)
     return AttentionOut(out, new_cache)

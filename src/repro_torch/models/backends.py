@@ -1,35 +1,52 @@
 """Typed attention-backend registry: capability-based kernel selection.
 
 Ported from the JAX package's ``repro/models/backends.py``. A backend has a
-``Capabilities`` record and three entry points:
+``Capabilities`` record and four entry points:
 
   * ``full(q, k, v, ...)`` — full-sequence attention (prefill) on
                              ``(b, n, h, d)`` q and ``(b, n, hkv, d)`` k/v;
   * ``decode(query, cache, lengths, ...)`` — one new token against a typed
-                             ``KVCache``, returning ``(b, h, dv)``;
+                             ``KVCache`` (contiguous or paged), returning
+                             ``(b, h, dv)``; ``draft_k`` reads the top-k'
+                             sub-code (the speculative draft pass);
+  * ``verify(query, cache, lengths, ...)`` — C queries of one slot of a
+                             paged cache, each at its own causal length
+                             (the speculative verify pass), ``(C, h, dv)``;
   * ``code(x, k)``         — the top-k code the backend stores in the cache.
 
 Registered backends:
 
   * ``torch`` — the plain oracle (chunked online softmax, gather-scoring
                 decode, bisection top-k); runs on either device and
-                supports every layer this port serves.
+                supports every layer this port serves. Paged caches are
+                read through ``gather()``; the verify pass is one
+                per-query decode over the C queries at once.
   * ``cuda``  — the hand-written kernels: rtopk -> FlashSFA forward and
                 backward for SFA layers and FlashAttention forward and
                 backward for dense ones (train and prefill, differentiable
                 through the autograd Functions of ``kernels/ops.py``), the
-                token-major sparse-cache decode kernel, rtopk for every
-                top-k. Dense decode has no kernel (as in the JAX package)
-                and goes to ``torch``. On CPU tensors the kernel wrappers
-                run their plain versions, so the same routing and the same
-                backward seam are testable without a card.
+                token-major sparse-cache decode kernels (contiguous, paged
+                through the block table, and the multi-query verify pass),
+                rtopk for every top-k. The draft pass narrows the pools to
+                their top-k' sub-codes (``sub_k``, a torch op) before the
+                paged kernel. Dense decode has no kernel (as in the JAX
+                package) and goes to ``torch``. On CPU tensors the kernel
+                wrappers run their plain versions, so the same routing and
+                the same backward seam are testable without a card.
+  * ``cuda_fm`` — decode only: the feature-major kernels on the persistent
+                ``FeatureMajorKV`` image (contiguous or paged); its
+                ``persistent_cache`` capability makes the cache allocator
+                pick that layout. A draft narrows the query to k'. It has
+                no verify pass: verify falls back to ``torch`` with a
+                report, as the JAX ``pallas_fm`` does.
   * ``auto``  — not a backend but a policy: ``cuda`` where it can serve
                 the request, else ``torch``, with nothing recorded.
 
 An explicitly requested backend that cannot serve a layer (window, MLA,
-dense decode) falls back to ``torch`` with a structured
-``FallbackReport``, recorded once per (backend, request, site) and queryable
-through ``fallback_reports()``.
+dense decode, verify on ``cuda_fm``) falls back to ``torch`` with a
+structured ``FallbackReport``, recorded once per (backend, request, site)
+and queryable through ``fallback_reports()``. ``set_fm_debug`` turns on the
+``cuda_fm`` image integrity check (``--fm-debug``).
 """
 from __future__ import annotations
 
@@ -40,9 +57,15 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.attention import NEG_INF, chunked_attention
-from repro_torch.core.kv_cache import KVCache, SparseKV, unpack_indices
-from repro_torch.core.sparse import sparsify, topk_st
-from repro_torch.kernels.flash_sfa_decode import flash_sfa_decode
+from repro_torch.core.kv_cache import (
+    FeatureMajorKV, KVCache, PagedFeatureMajorKV, PagedKV, PagedSparseKV, SparseKV,
+    pack_indices, unpack_indices,
+)
+from repro_torch.core.sparse import sparsify, sub_k, to_feature_major, topk_st
+from repro_torch.kernels.flash_sfa_decode import (
+    flash_sfa_decode, flash_sfa_decode_fm, flash_sfa_decode_fm_paged,
+    flash_sfa_decode_multi, flash_sfa_decode_paged,
+)
 from repro_torch.kernels.ops import (
     dense_attention_op, sfa_attention_op, sfa_code, topk_dense,
 )
@@ -62,6 +85,8 @@ class AttentionRequest:
     window: bool = False         # sliding-window mask required
     mla: bool = False            # latent (MLA) attention
     sparse: bool = False         # sfa_k is set
+    paged: bool = False          # the cache is a paged (block-table) PagedKV
+    speculative: bool = False    # the multi-token verify pass is required
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +99,11 @@ class Capabilities:
     mla: bool = False
     sparse: bool = True
     dense: bool = True
+    # the backend keeps its decode layout resident in the cache itself
+    # (FeatureMajorKV): the allocator picks the cache type from the backend
+    persistent_cache: bool = False
+    paged: bool = False          # decodes against a PagedKV block table
+    speculative: bool = False    # has the multi-token ``verify`` pass
 
 
 class DecodeQuery(NamedTuple):
@@ -105,6 +135,10 @@ class AttentionBackend:
             return "SFA sparse attention not supported"
         if not req.sparse and not c.dense:
             return "dense attention not supported"
+        if req.paged and not c.paged:
+            return "paged KV cache (block-table reads) not supported"
+        if req.speculative and not c.speculative:
+            return "no multi-token speculative verify path"
         return None
 
     def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale,
@@ -114,7 +148,15 @@ class AttentionBackend:
         raise NotImplementedError(self.name)
 
     def decode(self, query: DecodeQuery, cache: KVCache, lengths, *,
+               scale, window, sfa_k, draft_k=None):
+        raise NotImplementedError(self.name)
+
+    def verify(self, query: DecodeQuery, cache: PagedKV, lengths, *, slot,
                scale, window, sfa_k):
+        """Speculative verify: C queries ``query.q (1, C, h, d)`` of slot
+        ``slot`` of a paged cache, query c at cache length ``lengths[c]``
+        (it sees positions ``< lengths[c] + 1``, as in ``decode``). Returns
+        ``(C, h, dv)``."""
         raise NotImplementedError(self.name)
 
     def code(self, x, k: int):
@@ -158,6 +200,13 @@ def _lengths(lengths, device):
     return torch.as_tensor(lengths, device=device).to(torch.int64).reshape(-1)
 
 
+def _per_query(cache: KVCache, c: int) -> KVCache:
+    """A batch-1 contiguous cache seen as a batch of ``c`` (views, no copy),
+    so C queries of one slot score as one batched decode."""
+    return dataclasses.replace(cache, **{n: t.expand(c, *t.shape[1:])
+                                         for n, t in cache._tensors()})
+
+
 # --------------------------------------------------------------------------
 # torch backend — the plain oracle
 # --------------------------------------------------------------------------
@@ -166,7 +215,7 @@ class TorchBackend(AttentionBackend):
     name = "torch"
     caps = Capabilities(full=True, decode=True, causal=True,
                         bidirectional=True, window=True, mla=False,
-                        sparse=True, dense=True)
+                        sparse=True, dense=True, paged=True, speculative=True)
 
     def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale,
              bwd_emit="dense"):
@@ -180,14 +229,23 @@ class TorchBackend(AttentionBackend):
                                  scale=scale, chunk_size=min(1024, max(n, 128)))
 
     def decode(self, query: DecodeQuery, cache: KVCache, lengths, *,
-               scale, window, sfa_k):
+               scale, window, sfa_k, draft_k=None):
+        if isinstance(cache, PagedKV):
+            # the oracle reads a paged cache through its contiguous view
+            cache = cache.gather()
         h = query.q.shape[2]
         lengths = _lengths(lengths, query.q.device)
+        if isinstance(cache, FeatureMajorKV):
+            # the image is dense: a draft narrows the query support to k'
+            return self._decode_feature_major(query, cache, lengths, scale=scale,
+                                              window=window, sfa_k=draft_k or sfa_k)
         if isinstance(cache, SparseKV):
-            qs = topk_st(query.q, sfa_k)[:, 0]                     # (b, h, d)
-            kv_r = expand_kv(cache.k_vals, h)
-            ki_r = expand_kv(unpack_indices(cache.k_idx), h)
-            s = _gather_score(qs, kv_r, ki_r, scale)
+            qs = topk_st(query.q, draft_k or sfa_k)[:, 0]          # (b, h, d)
+            kv_c, ki_c = cache.k_vals, unpack_indices(cache.k_idx)
+            if draft_k:
+                # nested-k draft: the stored codes re-thresholded to k'
+                kv_c, ki_c = sub_k(kv_c, ki_c, draft_k)
+            s = _gather_score(qs, expand_kv(kv_c, h), expand_kv(ki_c, h), scale)
             nmax = cache.v.shape[1]
         else:
             kr = expand_kv(cache.k, h)
@@ -200,6 +258,29 @@ class TorchBackend(AttentionBackend):
         vr = expand_kv(cache.v, h)
         return torch.einsum("bnh,bnhd->bhd", pr, vr.float())
 
+    def verify(self, query: DecodeQuery, cache: PagedKV, lengths, *, slot,
+               scale, window, sfa_k):
+        # each query is a single-token decode at its own causal length: the
+        # slot's contiguous view, seen as a batch of C, in one batched pass
+        g = _per_query(cache.gather_slot(slot), query.q.shape[1])
+        return self.decode(DecodeQuery(q=query.q[0][:, None]), g, lengths,
+                           scale=scale, window=window, sfa_k=sfa_k)
+
+    def _decode_feature_major(self, query, cache, lengths, *, scale, window, sfa_k):
+        """Sparse q against the dense (d, n) feature-major image and the
+        heads-major V: the function the cuda_fm kernels compute."""
+        h = query.q.shape[2]
+        group = h // cache.k_feat.shape[1]
+        nmax = cache.k_feat.shape[-1]
+        qs = topk_st(query.q, sfa_k)[:, 0]                          # (b, h, d)
+        kf = cache.k_feat.repeat_interleave(group, dim=1)           # (b, h, d, n)
+        s = torch.einsum("bhd,bhdn->bnh", qs.float(), kf.float()) * scale
+        ok = _prefix_mask(nmax, lengths, window)
+        s = torch.where(ok[..., None], s, torch.full_like(s, NEG_INF))
+        pr = torch.softmax(s, dim=1)
+        vr = cache.v.repeat_interleave(group, dim=1)                # (b, h, n, dv)
+        return torch.einsum("bnh,bhnd->bhd", pr, vr.float())
+
     def code(self, x, k: int):
         c = sparsify(x, k)
         return c.values, c.indices
@@ -211,11 +292,12 @@ class TorchBackend(AttentionBackend):
 
 class CudaBackend(AttentionBackend):
     """rtopk -> FlashSFA (or FlashAttention) forward and backward for full
-    sequences, the sparse-cache decode kernel."""
+    sequences; the sparse-cache decode kernels, contiguous and paged, and
+    the multi-query verify kernel."""
     name = "cuda"
     caps = Capabilities(full=True, decode=True, causal=True,
                         bidirectional=True, window=False, mla=False,
-                        sparse=True, dense=True)
+                        sparse=True, dense=True, paged=True, speculative=True)
 
     def unsupported_reason(self, req):
         r = super().unsupported_reason(req)
@@ -234,14 +316,114 @@ class CudaBackend(AttentionBackend):
                                 scale=scale, bwd_emit=bwd_emit)
 
     def decode(self, query: DecodeQuery, cache: SparseKV, lengths, *,
-               scale, window, sfa_k):
+               scale, window, sfa_k, draft_k=None):
         b, _, h, d = query.q.shape
-        qs = topk_dense(query.q[:, 0], sfa_k)                     # (b, h, d)
+        qs = topk_dense(query.q[:, 0], draft_k or sfa_k)          # (b, h, d)
         # lengths + 1: the new token is already written at cache_len
+        lens = _lengths(lengths, query.q.device) + 1
+        kv, ki = cache.k_vals, cache.k_idx
+        if draft_k:
+            # nested-k draft: the codes narrowed to their top-k' sub-codes (a
+            # torch op over the whole cache; the kernel then reads k' wide)
+            kv, ki = sub_k(kv, unpack_indices(ki), draft_k)
+            ki = pack_indices(ki, d)
+        if isinstance(cache, PagedSparseKV):
+            # the pools in place through the block table: no gather, no
+            # head repeat, the packed indices read as they are
+            o = flash_sfa_decode_paged(qs.reshape(b * h, d), kv, ki, cache.v,
+                                       cache.block_table, lens, d=d, scale=scale,
+                                       heads=h)
+        else:
+            # the cache leaves go in as they are (strided, packed, hkv heads)
+            o = flash_sfa_decode(qs.reshape(b * h, d), kv, ki, cache.v,
+                                 lens.repeat_interleave(h), d=d, scale=scale)
+        return o.reshape(b, h, -1)
+
+    def verify(self, query: DecodeQuery, cache: PagedSparseKV, lengths, *, slot,
+               scale, window, sfa_k):
+        # C queries of one slot in one launch, each at its own length, row c
+        # bit-equal to the paged decode kernel at that length
+        _, c, h, d = query.q.shape
+        qs = topk_dense(query.q[0], sfa_k).reshape(c * h, d)
         lens = (_lengths(lengths, query.q.device) + 1).repeat_interleave(h)
-        # the cache leaves go in as they are (strided, packed, hkv heads)
-        o = flash_sfa_decode(qs.reshape(b * h, d), cache.k_vals, cache.k_idx,
-                             cache.v, lens, d=d, scale=scale)
+        o = flash_sfa_decode_multi(qs, cache.k_vals, cache.k_idx, cache.v, lens, d=d,
+                                   scale=scale, heads=h, block_tables=cache.block_table,
+                                   slot=int(slot))
+        return o.reshape(c, h, -1)
+
+    def code(self, x, k: int):
+        return sfa_code(x, k)
+
+
+# Debug switch for the cuda_fm image integrity check (``set_fm_debug``,
+# ``--fm-debug``). Off by default: the check re-derives the image from its
+# own columns every step, the re-materialization the persistent layout
+# exists to avoid.
+_FM_DEBUG = False
+
+
+def set_fm_debug(enabled: bool) -> None:
+    """Turn the ``cuda_fm`` persistent-image integrity check on or off. The
+    backend reads the flag at every decode call, so running engines pick
+    the new setting up at their next step."""
+    global _FM_DEBUG
+    _FM_DEBUG = bool(enabled)
+
+
+def _check_fm_image(kfeat, sfa_k: int) -> None:
+    """Assert the (rows, d, n) image equals the image recomputed from its
+    own columns (sparsify -> to_feature_major). Incremental maintenance can
+    only corrupt the image by leaving stale entries, which makes a column
+    more than k-sparse; the recomputed image drops them."""
+    tm = kfeat.transpose(-1, -2)
+    recomputed = to_feature_major(sparsify(tm, min(sfa_k, tm.shape[-1])))
+    bad = int((kfeat.float() != recomputed.float()).sum())
+    if bad:
+        raise AssertionError(
+            f"FeatureMajorKV image diverged from its recomputed form on {bad} "
+            f"entries: a stale column survived an incremental write or insert "
+            f"(image columns must stay <= k-sparse)")
+
+
+class CudaFMBackend(AttentionBackend):
+    """Feature-major decode: the sparse query selects which k of the d
+    feature rows of the persistent image to read (the JAX ``pallas_fm``)."""
+    name = "cuda_fm"
+    caps = Capabilities(full=False, decode=True, causal=True,
+                        bidirectional=True, window=False, mla=False,
+                        sparse=True, dense=False, persistent_cache=True,
+                        paged=True)
+
+    def decode(self, query: DecodeQuery, cache: FeatureMajorKV, lengths, *,
+               scale, window, sfa_k, draft_k=None):
+        if not isinstance(cache, (FeatureMajorKV, PagedFeatureMajorKV)):
+            raise TypeError(
+                f"cuda_fm serves the persistent FeatureMajorKV cache, got "
+                f"{type(cache).__name__}: allocate caches through init_cache / "
+                f"init_decode_caches so the layout follows the selected backend")
+        b, _, h, d = query.q.shape
+        # a draft narrows the QUERY to k' feature rows: the dense image has
+        # no stored code to re-threshold
+        qv, qi = sfa_code(query.q[:, 0], min(draft_k or sfa_k, d))  # (b, h, kq)
+        qv, qi = qv.reshape(b * h, -1), qi.reshape(b * h, -1)
+        lens = _lengths(lengths, query.q.device) + 1
+        if isinstance(cache, PagedFeatureMajorKV):
+            if _FM_DEBUG:
+                g = cache.gather().k_feat
+                _check_fm_image(g.reshape(-1, *g.shape[2:]), sfa_k)
+            o = flash_sfa_decode_fm_paged(qv, qi, cache.k_feat, cache.v,
+                                          cache.block_table, lens, scale=scale,
+                                          heads=h)
+            return o.reshape(b, h, -1)
+        hkv, nmax = cache.k_feat.shape[1], cache.k_feat.shape[-1]
+        # both leaves are kernel-native (heads-major): the flat (b·hkv, ...)
+        # views are reshapes, and GQA is the kernel's row // group
+        kfeat = cache.k_feat.reshape(b * hkv, d, nmax)
+        if _FM_DEBUG:
+            _check_fm_image(kfeat, sfa_k)
+        o = flash_sfa_decode_fm(qv, qi, kfeat, cache.v.reshape(b * hkv, nmax, -1),
+                                lens.repeat_interleave(h), scale=scale,
+                                group=h // hkv)
         return o.reshape(b, h, -1)
 
     def code(self, x, k: int):
@@ -273,8 +455,10 @@ def get_backend(name: str) -> AttentionBackend:
 
 register_backend(TorchBackend())
 register_backend(CudaBackend())
+register_backend(CudaFMBackend())
 
-# "auto": the kernels wherever they can serve the layer
+# "auto": the token-major kernels wherever they can serve the layer (the
+# feature-major layout is chosen only by name, as in the JAX package)
 _AUTO_ORDER = ("cuda", "torch")
 
 

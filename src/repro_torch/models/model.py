@@ -4,7 +4,11 @@ Ported from the JAX package's ``repro/models/model.py``. Parameters keep the
 JAX tree's layout, including the stacked per-segment layer axis
 (``params.segments[si]`` leaves are ``(count, ...)``); the JAX layer scan
 becomes a Python loop over that axis. Decode caches are lists (one per
-segment) of layer-stacked typed ``KVCache``s, updated in place. In ``train``
+segment) of layer-stacked typed ``KVCache``s, updated in place; the paged
+ones share one block table (``init_paged_decode_caches``). Serving entry
+points: ``prefill``, ``decode_step``, and for the paged engines
+``prefill_chunk`` (chunked prefill) and ``verify_step`` (the speculative
+verify pass). In ``train``
 and ``eval`` mode, ``cfg.remat="full"`` wraps each layer in
 ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of the scan body):
 its activations are recomputed in the backward, kernels included.
@@ -104,10 +108,11 @@ def init(cfg: ModelConfig, *, generator=None, device=None, seed: int = 0) -> Mod
 # ==========================================================================
 
 def _tx_block(p, x, cfg: ModelConfig, *, positions=None, mode="train",
-              cache=None, cache_len=None):
+              cache=None, cache_len=None, slot=None):
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     ao = attn.attention_apply(p["attn"], h, cfg=cfg, positions=positions,
-                              mode=mode, cache=cache, cache_len=cache_len)
+                              mode=mode, cache=cache, cache_len=cache_len,
+                              slot=slot)
     x = x + ao.out
     h = L.apply_norm(p["ln2"], x, cfg.norm)
     x = x + L.mlp(p["mlp"], h, act=cfg.act, glu=cfg.glu)
@@ -130,7 +135,7 @@ def _remat(cfg: ModelConfig, mode: str) -> str:
 
 
 def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
-                 caches=None, cache_len=None):
+                 caches=None, cache_len=None, slot=None):
     """The layer loop over each segment's stacked axis (the JAX scan)."""
     tree = params.tree()
     remat = _remat(cfg, mode)
@@ -151,13 +156,13 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
                 continue
             c = caches[si].layer(i) if caches is not None else None
             x, nc = _tx_block(p, x, cfg, positions=positions, mode=mode,
-                              cache=c, cache_len=cache_len)
+                              cache=c, cache_len=cache_len, slot=slot)
             layer_caches.append(nc)
         if mode == "prefill":
             new_caches.append(type(layer_caches[0]).stack(layer_caches))
-        elif mode == "decode":
-            new_caches.append(caches[si])
-    return x, (new_caches if mode in ("prefill", "decode") else None)
+        elif caches is not None:
+            new_caches.append(caches[si])        # written in place
+    return x, (new_caches if mode not in ("train", "eval") else None)
 
 
 # ==========================================================================
@@ -249,6 +254,50 @@ def decode_step(params: Model, token, caches, cache_len, cfg: ModelConfig):
     return _head(params, h[:, 0], cfg), caches
 
 
+def _chunk_hidden(params: Model, tokens, offset: int, cfg: ModelConfig):
+    """(1, C) tokens at positions offset.. -> hidden (1, C, d) and positions.
+    Learned positions clamp past the table, where the JAX package uses
+    ``mode="clip"`` to match decode_step's clamped indexing."""
+    dtype = _dtype(cfg)
+    dev = params.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    positions = int(offset) + torch.arange(tokens.shape[1], device=dev)[None, :]
+    h = _embed_tokens(params, tokens, cfg, dtype)
+    if cfg.pos_embedding == "learned":
+        rows = params.pos.w.shape[0]
+        h = h + params.pos.w[positions[0].clamp(0, rows - 1)].to(dtype)[None]
+    return h, positions
+
+
+@torch.no_grad()
+def prefill_chunk(params: Model, tokens, caches, offset: int, valid: int, slot: int,
+                  cfg: ModelConfig):
+    """One chunk of a paged prefill: land ``tokens (1, C)`` of ``slot`` at
+    positions ``offset..offset+C-1`` of the paged caches (in place) and
+    return the logits (vocab,) at the last valid chunk position (``valid <=
+    C``; trailing pad tokens are written but masked or overwritten before
+    any read). Each query is scored as a single-token oracle decode at its
+    own prefix length, so chunk boundaries never change what it sees."""
+    h, positions = _chunk_hidden(params, tokens, offset, cfg)
+    h, caches = _apply_stack(params, h, cfg, positions=positions, mode="chunk",
+                             caches=caches, cache_len=int(offset), slot=int(slot))
+    return _head(params, h[0, int(valid) - 1], cfg), caches
+
+
+@torch.no_grad()
+def verify_step(params: Model, tokens, caches, offset: int, slot: int,
+                cfg: ModelConfig):
+    """Speculative verify: score ``tokens (1, C)`` of ``slot`` (the pending
+    token and C-1 drafted ones) at positions ``offset..offset+C-1`` in one
+    full-k pass through the decode backend's ``verify``, writing their full-k
+    codes over the draft pass's. Returns logits (C, vocab) at every
+    position and the caches."""
+    h, positions = _chunk_hidden(params, tokens, offset, cfg)
+    h, caches = _apply_stack(params, h, cfg, positions=positions, mode="verify",
+                             caches=caches, cache_len=int(offset), slot=int(slot))
+    return _head(params, h[0], cfg), caches
+
+
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, device=None) -> list:
     """Layer-stacked decode caches, one per segment. bf16 by default, also
@@ -257,6 +306,22 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
     out = []
     for _, count in segments(cfg):
         one = attn.init_cache(cfg, batch, max_len, dtype, device)
+        out.append(type(one).stack([one] * count))
+    return out
+
+
+def init_paged_decode_caches(cfg: ModelConfig, *, slots: int, num_pages: int,
+                             page_size: int, max_pages: int, dtype=torch.bfloat16,
+                             device=None) -> list:
+    """Layer-stacked paged decode caches, one per segment: a page pool per
+    layer and ONE ``(slots, max_pages)`` int32 block table shared by every
+    layer and segment (the engine updates it in place)."""
+    device = default_device(device)
+    bt = torch.zeros((slots, max_pages), dtype=torch.int32, device=device)
+    out = []
+    for _, count in segments(cfg):
+        one = attn.init_paged_cache(cfg, num_pages=num_pages, page_size=page_size,
+                                    block_table=bt, dtype=dtype, device=device)
         out.append(type(one).stack([one] * count))
     return out
 

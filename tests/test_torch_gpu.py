@@ -13,7 +13,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import (
     code_grad_dw, code_grad_dx, flash_attention, flash_attention_bwd, flash_sfa,
-    flash_sfa_bwd, flash_sfa_decode, launch_counts, proj_rtopk, reset_launches, rtopk,
+    flash_sfa_bwd, flash_sfa_decode, flash_sfa_decode_fm, flash_sfa_decode_fm_paged,
+    flash_sfa_decode_multi, flash_sfa_decode_paged, launch_counts, proj_rtopk,
+    reset_launches, rtopk,
 )
 from repro_torch.kernels import ref
 from repro_torch.models.layers import rope
@@ -344,3 +346,106 @@ def test_trainer_runs_the_compact_seam_kernels(cuda):
     want.update(proj_rtopk=2 * per, flash_sfa_block_skip=2 * per,
                 flash_sfa_bwd_compact=per, code_grad_dx=2 * per, code_grad_dw=2 * per)
     assert launch_counts() == want
+
+
+# --------------------------------------------------------------------------
+# the paged, multi-query and feature-major decode kernels (rows 11-14)
+# --------------------------------------------------------------------------
+
+def _paged_case(rs, dtype, slots=4, h=4, hkv=2, d=64, k=8, dv=64, page=16, mp=5):
+    """Pools (hkv, P, page, F) with a shuffled block table and ragged
+    lengths, slot 1 at the past-the-table sentinel."""
+    pool = slots * mp + 1
+    ki = np.sort(np.argsort(rs.rand(hkv, pool, page, d), -1)[..., :k], -1).astype(np.uint8)
+    bt = rs.permutation(np.arange(1, pool))[:slots * mp].reshape(slots, mp).astype(np.int32)
+    lens = rs.randint(1, mp * page + 1, size=slots).astype(np.int32)
+    lens[1] = mp * page + 1
+    t = {"kv": torch.from_numpy(rs.randn(hkv, pool, page, k).astype(np.float32)).to(dtype),
+         "ki": torch.from_numpy(ki),
+         "v": torch.from_numpy(rs.randn(hkv, pool, page, dv).astype(np.float32)).to(dtype),
+         "kf": torch.from_numpy(rs.randn(hkv, pool, d, page).astype(np.float32)).to(dtype),
+         "bt": torch.from_numpy(bt), "lens": torch.from_numpy(lens),
+         "q": torch.from_numpy(rs.randn(slots * h, d).astype(np.float32)),
+         "qv": torch.from_numpy(rs.randn(slots * h, k).astype(np.float32)),
+         "qi": torch.from_numpy(np.sort(np.argsort(rs.rand(slots * h, d), -1)[..., :k],
+                                        -1).astype(np.int32))}
+    return t, dict(slots=slots, h=h, hkv=hkv, d=d, page=page, mp=mp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_and_multi_decode_kernels_on_card(cuda, dtype):
+    """Row 11 against its plain version and bit-equal to row 10 on the
+    gathered view; each row of row 12 bit-equal to row 11 at its length."""
+    t, c = _paged_case(np.random.RandomState(10), dtype)
+    g = {n: x.to(cuda) for n, x in t.items()}
+    h, d = c["h"], c["d"]
+    ko = flash_sfa_decode_paged(g["q"], g["kv"], g["ki"], g["v"], g["bt"], g["lens"], d=d,
+                                heads=h)
+    po = ref.flash_sfa_decode_paged_ref(t["q"], t["kv"], t["ki"], t["v"], t["bt"], t["lens"],
+                                        d=d, heads=h)
+    torch.testing.assert_close(ko.cpu(), po, rtol=0, atol=1e-4)
+    view = [ref._pool_view(g[n], g["bt"]).contiguous() for n in ("kv", "ki", "v")]
+    assert torch.equal(ko, flash_sfa_decode(g["q"], *view, g["lens"].repeat_interleave(h), d=d))
+    slot, C = 2, 3
+    start = int(t["lens"][slot]) - C
+    qm = g["q"][:C * h]
+    lm = (start + torch.arange(C, device=cuda) + 1).repeat_interleave(h).int()
+    mo = flash_sfa_decode_multi(qm, g["kv"], g["ki"], g["v"], lm, d=d, heads=h,
+                                block_tables=g["bt"], slot=slot)
+    for i in range(C):
+        lens = g["lens"].clone()
+        lens[slot] = start + i + 1
+        q = g["q"].clone()
+        q[slot * h:(slot + 1) * h] = qm[i * h:(i + 1) * h]
+        one = flash_sfa_decode_paged(q, g["kv"], g["ki"], g["v"], g["bt"], lens, d=d, heads=h)
+        assert torch.equal(mo[i * h:(i + 1) * h], one[slot * h:(slot + 1) * h])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_feature_major_decode_kernels_on_card(cuda, dtype):
+    """Rows 13 and 14 against their plain versions; row 14 bit-equal to
+    row 13 on the gathered image."""
+    t, c = _paged_case(np.random.RandomState(11), dtype)
+    g = {n: x.to(cuda) for n, x in t.items()}
+    h, hkv, d = c["h"], c["hkv"], c["d"]
+    ko = flash_sfa_decode_fm_paged(g["qv"], g["qi"], g["kf"], g["v"], g["bt"], g["lens"],
+                                   heads=h)
+    po = ref.flash_sfa_decode_fm_paged_ref(t["qv"], t["qi"], t["kf"], t["v"], t["bt"],
+                                           t["lens"], heads=h)
+    torch.testing.assert_close(ko.cpu(), po, rtol=0, atol=1e-4)
+    bt = g["bt"].long()
+    n = c["mp"] * c["page"]
+    kf = g["kf"][:, bt].permute(1, 0, 3, 2, 4).reshape(-1, d, n).contiguous()
+    v = g["v"][:, bt].transpose(0, 1).reshape(-1, n, g["v"].shape[-1]).contiguous()
+    lens = g["lens"].repeat_interleave(h)
+    fo = flash_sfa_decode_fm(g["qv"], g["qi"], kf, v, lens, group=h // hkv)
+    assert torch.equal(fo, ko)
+    fp = ref.flash_sfa_decode_fm_ref(t["qv"], t["qi"], kf.cpu(), v.cpu(), lens.cpu(),
+                                     group=h // hkv)
+    torch.testing.assert_close(fo.cpu(), fp, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda_fm"])
+def test_paged_and_speculative_engines_launch_their_kernels(cuda, backend):
+    from repro_torch.models.model import init
+    from repro_torch.serve import (
+        PagedDecodeEngine, PagedEngineConfig, SpeculativeDecodeEngine,
+        SpeculativeEngineConfig,
+    )
+    import dataclasses
+    # f32: the verify pass's C-row GEMMs round like the decode's only to
+    # f32 precision, so a bf16 near-tie could part the two streams
+    cfg = dataclasses.replace(get_config("gpt2-small-sfa8").reduced(), dtype="float32")
+    model = init(cfg, device=cuda)
+    prompt = np.arange(1, 20)
+    kw = dict(max_slots=2, max_len=64, page_size=16, decode_backend=backend)
+    reset_launches()
+    ref_out = PagedDecodeEngine(model, cfg, PagedEngineConfig(**kw)).generate(prompt, 6)
+    counts = launch_counts()
+    paged = "flash_sfa_decode_paged" if backend == "cuda" else "flash_sfa_decode_fm_paged"
+    assert counts[paged] > 0
+    spec = SpeculativeDecodeEngine(model, cfg, SpeculativeEngineConfig(**kw, draft_len=3))
+    reset_launches()
+    assert spec.generate(prompt, 6) == ref_out
+    if backend == "cuda":
+        assert launch_counts()["flash_sfa_decode_multi"] > 0

@@ -44,7 +44,8 @@ def test_package_imports_without_jax():
             "repro_torch.interop, repro_torch.launch.serve, repro_torch.train, "
             "repro_torch.optim, repro_torch.data, repro_torch.launch.train, "
             "repro_torch.core.remat, repro_torch.kernels.code_grad, "
-            "repro_torch.models.attention\n"
+            "repro_torch.models.attention, repro_torch.serve.speculative, "
+            "repro_torch.serve.kv_cache, repro_torch.kernels.flash_sfa_decode\n"
             "from repro_torch.kernels import _build\n"
             "assert not _build._LIBS\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -85,11 +86,15 @@ def test_kernel_wrappers_refuse_grad_outside_their_function():
     autograd Functions of kernels.ops are the way to differentiate."""
     from repro_torch.kernels import (
         code_grad_dw, code_grad_dx, flash_attention, flash_attention_bwd, flash_sfa,
-        flash_sfa_bwd, flash_sfa_decode, proj_rtopk, rtopk,
+        flash_sfa_bwd, flash_sfa_decode, flash_sfa_decode_fm, flash_sfa_decode_fm_paged,
+        flash_sfa_decode_multi, flash_sfa_decode_paged, proj_rtopk, rtopk,
     )
     x = torch.randn(2, 8, 16, requires_grad=True)
     idx = torch.zeros(2, 8, 4, dtype=torch.int32)
     lse = torch.zeros(2, 8)
+    pool = torch.randn(1, 3, 8, 16, requires_grad=True)     # (hkv, P, page, F)
+    pidx = torch.zeros(1, 3, 8, 4, dtype=torch.uint8)
+    bt = torch.ones(2, 1, dtype=torch.int32)
     calls = [lambda: rtopk(x, 4), lambda: flash_attention(x, x, x),
              lambda: flash_attention_bwd(x, x, x, x, lse, x),
              lambda: flash_sfa(x[..., :4], idx, x[..., :4], idx, x, d=16),
@@ -100,7 +105,15 @@ def test_kernel_wrappers_refuse_grad_outside_their_function():
                                    emit="compact"),
              lambda: proj_rtopk(x, x.transpose(1, 2), k=4),
              lambda: code_grad_dx(x[..., :4], idx, x, d=16),
-             lambda: code_grad_dw(x[0], x[..., :4], idx, d=16)]
+             lambda: code_grad_dw(x[0], x[..., :4], idx, d=16),
+             lambda: flash_sfa_decode_paged(x[:, 0], pool[..., :4], pidx, pool, bt,
+                                            torch.ones(2), d=16, heads=1),
+             lambda: flash_sfa_decode_multi(x[:, 0], x[..., :4], idx, x, torch.ones(2),
+                                            d=16),
+             lambda: flash_sfa_decode_fm(x[:, 0, :4], idx[:, 0], x.transpose(1, 2), x,
+                                         torch.ones(2)),
+             lambda: flash_sfa_decode_fm_paged(x[:, 0, :4], idx[:, 0], pool.transpose(2, 3),
+                                               pool, bt, torch.ones(2))]
     for call in calls:
         with pytest.raises(RuntimeError, match="not differentiable"):
             call()
@@ -110,10 +123,20 @@ def test_kernel_wrappers_refuse_grad_outside_their_function():
 
 def test_kernel_wrappers_refuse_other_devices():
     from repro_torch.kernels import (
-        code_grad_dw, code_grad_dx, flash_sfa_decode, proj_rtopk, rtopk,
+        code_grad_dw, code_grad_dx, flash_sfa_decode, flash_sfa_decode_fm,
+        flash_sfa_decode_fm_paged, flash_sfa_decode_multi, flash_sfa_decode_paged,
+        proj_rtopk, rtopk,
     )
     x = torch.zeros(2, 8, device="meta")
     x3 = torch.zeros(2, 8, 8, device="meta")
+    x4 = torch.zeros(1, 3, 8, 8, device="meta")
+    bt = torch.ones(2, 1, dtype=torch.int32, device="meta")
+    for call in (lambda: flash_sfa_decode_paged(x, x4, x4, x4, bt, x[:, 0], d=8),
+                 lambda: flash_sfa_decode_multi(x, x3, x3, x3, x[:, 0], d=8),
+                 lambda: flash_sfa_decode_fm(x, x, x3, x3, x[:, 0]),
+                 lambda: flash_sfa_decode_fm_paged(x, x, x4, x4, bt, x[:, 0])):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            call()
     with pytest.raises(ValueError, match="cuda or cpu"):
         rtopk(x, 2)
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -8,7 +8,12 @@ Phases; any failure raises and the script exits non-zero:
   1. device  — the card's name, count and power limit (fails without CUDA);
   2. build   — nvcc builds every kernel source under src/repro_torch/csrc,
                one process per source, all started together;
-  3. kernels — each kernel against its plain PyTorch version on the card at
+  3. kernels — first the wgmma layout probe of the tensor-core kernels (one
+               SS and one RS chain on exact {-1, 0, 1} matrices, d 32, 64
+               and 128, equal to torch.matmul bit for bit) and the count of
+               HGMMA instructions in the flash_attention library
+               (cuobjdump -sass; 0 fails); then each kernel against its
+               plain PyTorch version on the card at
                the main paths' shapes (the training ones at bh 96 = batch
                8 x 12 heads, n 1024 and a ragged 1000, f32 and bf16), with
                the tolerance stated beside the check; kernel, plain and
@@ -68,8 +73,14 @@ Phases; any failure raises and the script exits non-zero:
                x seq 512: the loss and every parameter gradient through the
                "cuda" backend, dense emit with remat="full" and the compact
                seam with remat="codes", against the "torch" oracle
-               (remat="none"), to a stated tolerance;
+               (remat="none"), to a stated tolerance; then the dense
+               gpt2-small in bf16 the same way, through the tensor-core
+               flash_attention and its backward;
  10. a ``kernels`` JSON line, then the result line.
+
+Phase 3 also holds the dense attention's bf16 tensor-core bodies at d 32,
+64 and 128, causal and not, at n 1000, and two bf16 backward calls on the
+same inputs to be equal bit for bit.
 
 Phase 3 also holds the paged, multi-query and feature-major decode
 kernels (rows 11-14) at the serving path's shapes: 8 slots x 12 heads of
@@ -296,6 +307,49 @@ def phase_build():
 # --------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
+
+def phase_wgmma_probe():
+    """The tensor-core kernels' layouts, before any attention check: for d
+    in (32, 64, 128), one SS wgmma chain S = A·Bᵀ and one RS chain O =
+    bf16(S)·C fed from S's accumulator registers, on (64, d) tiles that TMA
+    loads as the attention kernels load theirs. Entries are in {-1, 0, 1},
+    so every product and sum is exact: S and O must equal torch.matmul in
+    f32 bit for bit. Then the count of HGMMA instructions that cuobjdump
+    finds in the flash_attention library: 0, or no cuobjdump, fails."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    rs = np.random.RandomState(SEED + 5)
+    fn = _build.entry("flash_attention", "wgmma_probe_launch",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+    for d in (32, 64, 128):
+        a, b, c = (torch.from_numpy(rs.randint(-1, 2, (64, d)).astype(np.float32))
+                   .cuda().bfloat16() for _ in range(3))
+        s_out = torch.empty(64, 64, device="cuda")
+        o_out = torch.empty(64, d, device="cuda")
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), s_out.data_ptr(), o_out.data_ptr(),
+                 d, _build.stream_ptr(a))
+        _build.check("flash_attention", err, "wgmma probe launch")
+        torch.cuda.synchronize()
+        s_want = a.float() @ b.float().T
+        o_want = s_want.bfloat16().float() @ c.float()
+        for name, got, want in (("SS A.B^T", s_out, s_want), ("RS bf16(S).C", o_out, o_want)):
+            bad = (got != want).nonzero()
+            if bad.numel():
+                at = tuple(bad[0].tolist())
+                raise AssertionError(f"wgmma probe d={d} {name}: {bad.shape[0]} entries differ, "
+                                     f"first at {at}: got {got[at].item()}, want "
+                                     f"{want[at].item()}")
+        print(f"[probe] d={d}: SS S = A.B^T (K-major A and B) and RS O = bf16(S).C (A from the "
+              f"S accumulator, C MN-major) equal torch.matmul in f32 exactly")
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    check(cuobjdump.exists(), f"cuobjdump not found beside nvcc ({cuobjdump})")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    check(hgmma > 0, "cuobjdump -sass finds no HGMMA in the flash_attention library")
+    print(f"[probe] cuobjdump -sass: {hgmma} HGMMA instructions in the flash_attention library")
+
 
 def _tie_rows(rs, rows, d):
     x = rs.randn(rows, d).astype(np.float32)
@@ -804,7 +858,30 @@ def phase_flash_attention(rs):
                   f"{', '.join(f'{m:.3g}' for _, m in errs_mags)})")
             if n == TRAIN_N and dtype == torch.bfloat16:
                 main = (q, k, v, g, po, pl)
+    # the bf16 tensor-core bodies at every head width, causal and not, ragged n
+    for d_, causal in ((32, True), (32, False), (64, False), (128, True), (128, False)):
+        n = 1000
+        q_, k_, v_, g_ = (torch.from_numpy(rs.randn(bh, n, d_).astype(np.float32)).cuda()
+                          .bfloat16() for _ in range(4))
+        ko, kl = flash_attention(q_, k_, v_, causal=causal, return_residuals=True)
+        po_, pl_ = flash_attention_ref(q_, k_, v_, causal=causal, return_residuals=True)
+        got = flash_attention_bwd(q_, k_, v_, po_, pl_, g_, causal=causal)
+        want = flash_attention_bwd_ref(q_, k_, v_, po_, pl_, g_, causal=causal)
+        torch.cuda.synchronize()
+        what = f"n={n} d={d_} causal={causal} bf16"
+        fwd_errs.append(_close(ko, po_, torch.bfloat16, f"flash_attention {what}")[0])
+        torch.testing.assert_close(kl, pl_, rtol=1e-5, atol=1e-4)
+        bwd_errs.append(max(_close(a, b, torch.bfloat16, f"flash_attention_bwd {name} {what}")[0]
+                            for name, a, b in zip(("dq", "dk", "dv"), got, want)))
+        print(f"[flash_attention] bh={bh} {what}: forward max|err| {fwd_errs[-1]:.3g} (lse "
+              f"{(kl - pl_).abs().max().item():.3g}), backward max|err| {bwd_errs[-1]:.3g}")
+    del q_, k_, v_, g_, got, want
     q, k, v, g, po, pl = main
+    # no atomics, one owner per output tile: the bf16 backward is deterministic
+    first, again = (flash_attention_bwd(q, k, v, po, pl, g, scale=scale) for _ in range(2))
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "flash_attention_bwd bf16: two calls on the same inputs differ")
+    print("[flash_attention_bwd] bf16 n=1024: two calls on the same inputs equal bit for bit")
     n, es, pairs = TRAIN_N, 2, _pairs(bh, TRAIN_N)
     qb, kb, vb = (t.reshape(8, -1, n, d) for t in (q, k, v))
     b_ms, b_by = bound(4 * bh * n * d * es + bh * n * 4, 4 * d * pairs / BF16_TC_FLOPS)
@@ -819,6 +896,12 @@ def phase_flash_attention(rs):
         lambda: flash_attention_bwd_ref(q, k, v, po, pl, g, scale=scale),
         _sdpa_bwd(q, k, v, g, scale)))
     print(f"[flash_attention_bwd] bf16 n={n}: library = SDPA backward (autograd); {fmt(bwd)}")
+    # where the backward's time goes: its two kernels and the wrapper's D
+    kernels, _ = trace_kernels(
+        lambda: [flash_attention_bwd(q, k, v, po, pl, g, scale=scale) for _ in range(10)])
+    print("[flash_attention_bwd] bf16 n=1024, device ms a call by kernel (one trace of 10 "
+          "calls): " + "; ".join(f"{name[:60]} {us / 1e4:.4f}" for name, us in
+                                 sorted(kernels.items(), key=lambda kv: -kv[1])))
     return fwd, bwd
 
 
@@ -1497,6 +1580,12 @@ def phase_train(arch, timed_steps, predicted, **policy):
           f"{busy_ms:.1f} ms ({100 * busy_ms / traced_ms:.1f}%, idle "
           f"{100 - 100 * busy_ms / traced_ms:.1f}%); top kernels by device time: "
           + "; ".join(f"{name[:48]} {us / 1e3:.2f} ms" for name, us in top))
+    # the port's kernels live in anonymous namespaces (as do a few of torch's)
+    ours = sorted(((name.split("::", 1)[1], us) for name, us in kernels.items()
+                   if name.startswith("void (anonymous namespace)::")), key=lambda kv: -kv[1])
+    print(f"[train] {arch}: kernels of anonymous namespaces in the traced step (the port's, "
+          f"a few of torch's): " + "; ".join(f"{name[:56]} {us / 1e3:.2f} ms"
+                                              for name, us in ours))
     if seams:
         print(f"[train] {arch}: compact seam taken (fused forward {seams[0].fused_fwd}); "
               f"remat {[(r.requested, r.applied) for r in remats]}")
@@ -1552,6 +1641,54 @@ def phase_grad_end_to_end():
               f"{worst[0]:.3g} ({worst[1]})")
 
 
+def phase_dense_grad_end_to_end():
+    """Loss and every parameter gradient of the dense baseline in bf16, the
+    tensor-core kernels against plain."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, markov_batch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import init, loss_fn
+    from repro_torch.train.train_step import to_batch
+    cfg = get_config("gpt2-small")
+    check(cfg.dtype == "bfloat16", f"gpt2-small trains in {cfg.dtype}, expected bfloat16")
+    model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
+    named = dict(model.named_parameters())
+    batch = to_batch(markov_batch(DataConfig(cfg.vocab_size, 512, 1, seed=SEED + 3), 0), "cuda")
+    runs = {}
+    for backend, remat in (("torch", "none"), ("cuda", "full")):
+        c = dataclasses.replace(cfg, remat=remat, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        reset_launches()
+        loss, _ = loss_fn(model, batch, c)
+        runs[backend] = (loss.item(), torch.autograd.grad(loss, list(named.values())))
+        if backend == "cuda":
+            counts = launch_counts()
+    layers = cfg.num_layers
+    check(counts["flash_attention"] == 2 * layers and counts["flash_attention_bwd"] == layers,
+          f"dense gradients end to end: launches {counts}, expected flash_attention "
+          f"{2 * layers} (forward and remat rerun) and flash_attention_bwd {layers}")
+    (lb, gb), (la, ga) = runs["torch"], runs["cuda"]
+    # tolerance: both runs are bf16 end to end and differ only in the
+    # attention, where each rounds its f32 result to bf16 once (one ulp,
+    # 2^-8 relative, apart at most); twelve layers of bf16 matmuls carry
+    # that into a ~1e-2 relative difference of a gradient. So 1e-2 on the
+    # loss and 5e-2 relative (L2) on each leaf; a wrong mask, scale or
+    # product moves the attention leaves by O(1).
+    check(np.isfinite(la) and abs(la - lb) <= 1e-2,
+          f"dense gradients end to end: loss {la} vs torch {lb}")
+    worst = (0.0, "")
+    for name, a, b in zip(named, ga, gb):
+        check(bool(torch.isfinite(a).all()), f"dense gradients end to end: non-finite d{name}")
+        rel = ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+        check(rel <= 5e-2, f"dense gradients end to end: d{name} relative error {rel:.3g} > 5e-2")
+        worst = max(worst, (rel, name))
+    print(f"[grad end-to-end] bf16 {cfg.name} full width, batch 1 x seq 512, cuda (remat full; "
+          f"flash_attention {counts['flash_attention']}, flash_attention_bwd "
+          f"{counts['flash_attention_bwd']} launches) vs torch (remat none): loss {la:.6f} vs "
+          f"{lb:.6f} (|diff| {abs(la - lb):.3g}, tol 1e-2); all {len(named)} parameter "
+          f"gradients within 5e-2 relative L2, worst {worst[0]:.3g} ({worst[1]})")
+
+
 def phase_launcher():
     """The slice's launcher command at full width for 2 steps."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gpt2-small-sfa8",
@@ -1578,6 +1715,7 @@ def main():
     phase_build()
     from repro_torch.configs import get_config
     from repro_torch.models import init
+    phase_wgmma_probe()
     rs = np.random.RandomState(SEED)
     results = {"rtopk": phase_rtopk(rs), "proj_rtopk": phase_proj_rtopk(rs),
                "flash_sfa": phase_flash_sfa(rs), "flash_sfa_block_skip": phase_block_skip(rs),
@@ -1615,6 +1753,7 @@ def main():
         bwd_emit="compact", fwd_fuse=True, remat="codes")
     phase_launcher()
     phase_grad_end_to_end()
+    phase_dense_grad_end_to_end()
     decode_src = "src/repro_torch/csrc/flash_sfa_decode.cu"
     fm_src = "src/repro_torch/csrc/flash_sfa_decode_fm.cu"
     meta = {
@@ -1643,7 +1782,7 @@ def main():
                           "src/repro/kernels/flash_sfa_bwd.py:342", train),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:155", dense),
-        "flash_attention_bwd": ("src/repro_torch/csrc/flash_sfa_bwd.cu",
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_sfa_bwd.py:380", dense),
     }
     kernels = []

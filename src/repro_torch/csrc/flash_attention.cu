@@ -1,54 +1,82 @@
-// flash_attention.cu — dense FlashAttention forward for Hopper (sm_90a).
+// flash_attention.cu — dense FlashAttention forward and backward for Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
-// (_flash_fwd, Pallas body _flash_kernel): the paper's dense baseline,
+// Replaces the TPU kernels repro/kernels/flash_attention.py::flash_attention
+// (_flash_fwd, Pallas body _flash_kernel) and, for bf16,
+// repro/kernels/flash_sfa_bwd.py::flash_attention_bwd (_bwd_impl with
+// sparse=False: _bwd_dq_kernel and _bwd_dkv_kernel): the paper's dense
+// baseline,
 //   out = softmax(Q . K^T * scale + mask) . V,   LSE = m + log(l),
+//   dS = P (dO . V^T - D) * scale,  dQ = dS . K,  dK = dS^T . Q,  dV = P^T . dO,
 // with online softmax over key tiles, never forming the (n, n) matrix. Keys
-// >= nk and, when causal, keys j > i are masked. q/k/v are (bh, n, d) with
-// d == dv; out is in their dtype, the LSE f32.
+// >= nk and, when causal, keys j > i are masked (top-left aligned). q/k/v
+// are (bh, n, d) with d == dv in {32, 64, 128}; out is in their dtype, the
+// LSE f32. D_i = sum(dO_i * O_i) comes in from the caller.
 //
-// Design: the dense twin of flash_sfa.cu. One block of 256 threads per
-// (bh, 64-query tile), looping over 64-key tiles up to the causal edge; Q,
-// K and V tiles are staged in shared memory as f32 (rows padded to d + 1,
-// so the 8 rows a warp reads at once fall in different banks). 4 threads
-// serve a query row: each scores a quarter of the tile's keys (a d-wide dot
-// product), the row's max and sum are combined across the 4 lanes with
-// shuffles, P goes through shared memory, and each thread accumulates a
-// quarter of the dv output columns. Softmax and accumulation run in f32.
+// Bound on the H100: near the ridge. Per (query, key) pair the forward does
+// 4d flops (Q.K^T, P.V) and the backward 10d (Q.K^T and dO.V^T again, dV,
+// dQ, dK), against 8d and 16d bytes per row: at n = 1024, causal, ~256 and
+// ~320 flops per byte, either side of the card's ~295 for bf16 (the forward
+// is bound by its bytes, the backward by its operations). Either way the
+// products have to run on the tensor cores while the next tiles stream in,
+// which is what the bf16 design below does.
 //
-// Bound on the H100: operations. Per (query, key) pair it does 2d flops of
-// score and 2dv of P.V against O(n (d + dv)) bytes; both products run on
-// CUDA cores in f32 here, where a faster kernel would put them on the
-// tensor cores (wgmma) — work for a later change.
+// bf16: the tensor-core bodies. Every product runs as wgmma m64nNk16 (bf16
+// in, f32 accumulate) on tiles that TMA copies into 128- (64-, d = 32)
+// byte-swizzled shared memory one stage ahead of their use (hopper.cuh).
+//  * forward: one block of two warpgroups per (bh, 128-query tile), 64 rows
+//    each; K/V 64-key tiles in a 2-stage ring. S = Q.K^T in the SS form;
+//    online softmax in registers (a row's statistics live in 4 lanes of a
+//    quad); P.V in the RS form, P fed from S's accumulator registers.
+//  * backward: two kernels, each output tile with one owner (no atomics, a
+//    deterministic result). dK/dV: one warpgroup per (bh, 64-key tile),
+//    walking query tiles from the diagonal; S^T = K.Q^T and dP^T = V.dO^T
+//    (SS), P^T and dS^T in registers, dV += P^T.dO and dK += dS^T.Q (RS).
+//    dQ: one warpgroup per (bh, 64-query tile) over the key tiles up to the
+//    causal edge; S = Q.K^T, dP = dO.V^T, dQ += dS.K.
+// P and dS are f32 values, not inputs: rounded once to bf16 they would add
+// ~2^-9 |p| per term, which fails the 1e-4 absolute check on outputs near
+// zero. Each is split into hi = bf16(x) and lo = bf16(x - hi), and two
+// wgmmas accumulate hi and lo into the same f32 registers: ~16 bits of P
+// and dS, at 6d instead of 4d flops per pair forward (16d instead of 10d
+// backward), all on the tensor cores. Q, K, V and dO are bf16 already and
+// exact as operands. Causal tiles are launched longest first.
+//
+// f32: the CUDA-core forward below (and flash_sfa_bwd.cu's SPARSE=false
+// backward), kept as the exact path: f32 on the tensor cores would be TF32
+// (~3 decimal digits), which fails f32's 1e-4 check. One block of 256
+// threads per (bh, 64-query tile); Q, K and V tiles staged as f32 (rows
+// padded to d + 1); 4 threads per query row each score a quarter of the
+// tile's keys, P goes through shared memory, and each thread accumulates a
+// quarter of the output columns.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core forward
+// ---------------------------------------------------------------------------
 
 constexpr int kB = 64;          // query rows per block == keys per tile
 constexpr int kThreads = 256;   // 4 threads per query row
 constexpr int kP = kB + 1;      // padded stride of the P tile
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
-
-template <int D, typename T>
-__device__ void stage(float* dst, const T* src, size_t row0, int rows_left) {
+template <int D>
+__device__ void stage(float* dst, const float* src, size_t row0, int rows_left) {
   for (int t = threadIdx.x; t < kB * D; t += kThreads) {
     const int r = t / D;
-    dst[r * (D + 1) + t % D] = r < rows_left ? to_f(src[(row0 + r) * D + t % D]) : 0.0f;
+    dst[r * (D + 1) + t % D] = r < rows_left ? src[(row0 + r) * D + t % D] : 0.0f;
   }
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
+flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ out,
                            float* __restrict__ lse, int nq, int nk, float scale,
                            int causal) {
   constexpr int DP = D + 1;
@@ -124,26 +152,551 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row < nq) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = out + (qrow0 + r) * D + sub;
+    float* orow = out + (qrow0 + r) * D + sub;
 #pragma unroll
-    for (int a = 0; a < D / 4; ++a) from_f(acc[a] / denom, orow + 4 * a);
+    for (int a = 0; a < D / 4; ++a) orow[4 * a] = acc[a] / denom;
     if (lse != nullptr && sub == 0) lse[qrow0 + r] = m + logf(denom);
   }
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int bh, int nq, int nk, float scale, int causal, cudaStream_t stream) {
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
+               int nq, int nk, float scale, int causal, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * kB * (D + 1) + kB * kP);
-  auto kernel = flash_attention_fwd_kernel<D, T>;
+  auto kernel = flash_attention_fwd_kernel<D>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kernel<<<dim3((nq + kB - 1) / kB, bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), nq, nk, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), nq, nk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core bodies
+// ---------------------------------------------------------------------------
+
+using hopper::Mma;
+using hopper::Tile;
+
+constexpr int kTile = 64;            // rows of one warpgroup; keys per K/V tile
+constexpr int kWG = 128;             // threads of a warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// The accumulator entry i of m64nN (see hopper.cuh): its row within the
+// warpgroup's 64 and its column.
+__device__ __forceinline__ int acc_row(int i) {
+  const int lane = threadIdx.x % 32;
+  return 16 * ((threadIdx.x % kWG) / 32) + lane / 4 + 8 * ((i % 4) / 2);
+}
+__device__ __forceinline__ int acc_col(int i) {
+  return 8 * (i / 4) + 2 * (threadIdx.x % 4) + (i % 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// S (64 x 64 f32) = A rows [a_r0, a_r0 + 64) of tile A . B^T (B's 64 rows),
+// both K-major over D: the SS form, D / 16 k-steps.
+template <int D, int ROWS_A>
+__device__ __forceinline__ void mma_abt(float (&s)[32], uint32_t a, int a_r0, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Mma<64>::ss(s, Tile<D, ROWS_A>::kmajor(a, a_r0, kk), Tile<D, kTile>::kmajor(b, 0, kk),
+                kk > 0);
+}
+
+// X (64 x 64 f32, an accumulator) split into bf16 hi + lo A fragments
+struct Split {
+  uint32_t hi[4][4], lo[4][4];
+  __device__ __forceinline__ explicit Split(const float (&x)[32]) {
+    hopper::split_frags(x, hi, lo);
+  }
+};
+
+// C (64 x D) += X . B = X_hi . B + X_lo . B, with B a (64, D) tile as the
+// MN-major operand: the RS form, 8 k16 steps.
+template <int D>
+__device__ __forceinline__ void mma_xb(float (&c)[D / 2], const Split& x, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = Tile<D, kTile>::mnmajor(b, kk);
+    Mma<D>::rs(c, x.hi[kk], db, 1);
+    Mma<D>::rs(c, x.lo[kk], db, 1);
+  }
+}
+
+// Store a warpgroup's 64 x D accumulator (times per-row factors) as bf16
+// rows r0 + (0..63) of a (.., D) matrix, rows < n only.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 2], size_t row_base,
+                                           int r0, int n, float f0, float f1) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = r0 + acc_row(i);
+    if (r < n) {
+      const float f = (i % 4) < 2 ? f0 : f1;
+      *reinterpret_cast<__nv_bfloat162*>(out + (row_base + r) * D + acc_col(i)) =
+          __floats2bfloat162_rn(acc[i] * f, acc[i + 1] * f);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(2 * kWG, 1)
+flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
+                              float* __restrict__ lse, int nq, int nk, float scale, int causal) {
+  using TQ = Tile<D, 2 * kTile>;
+  using TK = Tile<D, kTile>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar[3];   // Q; K/V stage 0, 1
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* ks = qs + TQ::BYTES;              // 2 stages
+  uint8_t* vs = ks + 2 * TK::BYTES;          // 2 stages
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kWG;
+  const int bh = blockIdx.x;
+  const int tiles = (nq + 2 * kTile - 1) / (2 * kTile);
+  const int q0 = (causal ? tiles - 1 - static_cast<int>(blockIdx.y) : blockIdx.y) * 2 * kTile;
+  const int r0 = q0 + wg * kTile;            // this warpgroup's first row
+  const int k_end = causal ? min(nk, q0 + 2 * kTile) : nk;
+  const int ntiles = (k_end + kTile - 1) / kTile;
+  const int wg_tiles = ((causal ? min(nk, r0 + kTile) : nk) + kTile - 1) / kTile;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bar[0], TQ::BYTES);
+    TQ::load(qs, &qmap, &bar[0], q0, bh);
+    hopper::mbar_expect_tx(&bar[1], 2 * TK::BYTES);
+    TK::load(ks, &kmap, &bar[1], 0, bh);
+    TK::load(vs, &vmap, &bar[1], 0, bh);
+  }
+
+  const float sl2 = scale * kLog2e;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};    // running max (log2 units), rows h = 0, 1
+  float l[2] = {0.0f, 0.0f};              // this thread's share of the row sums
+  const uint32_t qa = hopper::smem_u32(qs);
+  hopper::mbar_wait(&bar[0], 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
+    if (t > 0) __syncthreads();            // tile t - 1 (stage st ^ 1) is consumed
+    if (tid == 0 && t + 1 < ntiles) {
+      hopper::mbar_expect_tx(&bar[1 + (st ^ 1)], 2 * TK::BYTES);
+      TK::load(ks + (st ^ 1) * TK::BYTES, &kmap, &bar[1 + (st ^ 1)], (t + 1) * kTile, bh);
+      TK::load(vs + (st ^ 1) * TK::BYTES, &vmap, &bar[1 + (st ^ 1)], (t + 1) * kTile, bh);
+    }
+    if (t >= wg_tiles) continue;           // all of this tile is past the warpgroup's rows
+    hopper::mbar_wait(&bar[1 + st], (t >> 1) & 1);
+    const int k0 = t * kTile;
+
+    float s[32];
+    hopper::wgmma_fence();
+    mma_abt<D, 2 * kTile>(s, qa, wg * kTile, hopper::smem_u32(ks + st * TK::BYTES));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+
+    const bool edge = k0 + kTile > nk || (causal && k0 + kTile - 1 > r0);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * sl2;
+      if (edge) {
+        const int key = k0 + acc_col(i);
+        if (key >= nk || (causal && key > r0 + acc_row(i))) x = -INFINITY;
+      }
+      s[i] = x;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+    }
+    float corr[2], base[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      base[h] = m_new == -INFINITY ? 0.0f : m_new;
+      corr[h] = exp2f(m[h] - base[h]);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = exp2f(s[i] - base[(i % 4) / 2]);
+      l[(i % 4) / 2] += s[i];
+    }
+    hopper::fence_regs(o);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i % 4) / 2];
+
+    const Split p(s);
+    hopper::wgmma_fence();
+    mma_xb<D>(o, p, hopper::smem_u32(vs + st * TK::BYTES));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sum = fmaxf(quad_sum(l[h]), 1e-30f);
+    inv[h] = 1.0f / sum;
+    const int r = r0 + acc_row(2 * h);
+    if (lse != nullptr && tid % 4 == 0 && r < nq)
+      lse[static_cast<size_t>(bh) * nq + r] = (m[h] + log2f(sum)) * kLn2;
+  }
+  store_rows<D>(out, o, static_cast<size_t>(bh) * nq, r0, nq, inv[0], inv[1]);
+}
+
+// dQ: one warpgroup per (bh, 64-query tile), over the key tiles up to the
+// causal edge. Shared: Q, dO, then K and V in two stages.
+template <int D>
+__global__ void __launch_bounds__(kWG, 1)
+attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap dmap,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dq, int nq, int nk, float scale, int causal) {
+  using T = Tile<D, kTile>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar[3];   // Q + dO; K/V stage 0, 1
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* dos = qs + T::BYTES;
+  uint8_t* ks = dos + T::BYTES;              // 2 stages
+  uint8_t* vs = ks + 2 * T::BYTES;           // 2 stages
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int tiles = (nq + kTile - 1) / kTile;
+  const int q0 = (causal ? tiles - 1 - static_cast<int>(blockIdx.y) : blockIdx.y) * kTile;
+  const int k_end = causal ? min(nk, q0 + kTile) : nk;
+  const int ntiles = (k_end + kTile - 1) / kTile;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bar[0], 2 * T::BYTES);
+    T::load(qs, &qmap, &bar[0], q0, bh);
+    T::load(dos, &dmap, &bar[0], q0, bh);
+    hopper::mbar_expect_tx(&bar[1], 2 * T::BYTES);
+    T::load(ks, &kmap, &bar[1], 0, bh);
+    T::load(vs, &vmap, &bar[1], 0, bh);
+  }
+
+  const float sl2 = scale * kLog2e;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + acc_row(2 * h);
+    const size_t at = static_cast<size_t>(bh) * nq + min(r, nq - 1);
+    lse2[h] = lse[at] * kLog2e;
+    dl[h] = delta[at];
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  const uint32_t qa = hopper::smem_u32(qs), da = hopper::smem_u32(dos);
+  hopper::mbar_wait(&bar[0], 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
+    if (t > 0) __syncthreads();
+    if (tid == 0 && t + 1 < ntiles) {
+      hopper::mbar_expect_tx(&bar[1 + (st ^ 1)], 2 * T::BYTES);
+      T::load(ks + (st ^ 1) * T::BYTES, &kmap, &bar[1 + (st ^ 1)], (t + 1) * kTile, bh);
+      T::load(vs + (st ^ 1) * T::BYTES, &vmap, &bar[1 + (st ^ 1)], (t + 1) * kTile, bh);
+    }
+    hopper::mbar_wait(&bar[1 + st], (t >> 1) & 1);
+    const int k0 = t * kTile;
+    const uint32_t ka = hopper::smem_u32(ks + st * T::BYTES);
+
+    float s[32], dp[32];
+    hopper::wgmma_fence();
+    mma_abt<D, kTile>(s, qa, 0, ka);
+    mma_abt<D, kTile>(dp, da, 0, hopper::smem_u32(vs + st * T::BYTES));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    const bool edge = k0 + kTile > nk || (causal && k0 + kTile - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i % 4) / 2;
+      float p = exp2f(fmaf(s[i], sl2, -lse2[h]));
+      if (edge) {
+        const int key = k0 + acc_col(i);
+        if (key >= nk || (causal && key > q0 + acc_row(i))) p = 0.0f;
+      }
+      s[i] = p * (dp[i] - dl[h]) * scale;   // dS
+    }
+    const Split ds(s);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+    mma_xb<D>(acc, ds, ka);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+  }
+  store_rows<D>(dq, acc, static_cast<size_t>(bh) * nq, q0, nq, 1.0f, 1.0f);
+}
+
+// dK/dV: one warpgroup per (bh, 64-key tile), over the query tiles from the
+// causal diagonal. Shared: K, V, then Q and dO in two stages, and each
+// query tile's LSE and D.
+template <int D>
+__global__ void __launch_bounds__(kWG, 1)
+attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __grid_constant__ CUtensorMap dmap,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int nq, int nk,
+                            float scale, int causal) {
+  using T = Tile<D, kTile>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar[3];   // K + V; Q/dO stage 0, 1
+  __shared__ float lse_s[2][kTile], dl_s[2][kTile];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + T::BYTES;
+  uint8_t* qs = vs + T::BYTES;               // 2 stages
+  uint8_t* dos = qs + 2 * T::BYTES;          // 2 stages
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;         // the diagonal's tiles are the longest: y = 0 first
+  const int q_first = causal ? k0 : 0;
+  const int ntiles = q_first < nq ? (nq - q_first + kTile - 1) / kTile : 0;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bar[0], 2 * T::BYTES);
+    T::load(ks, &kmap, &bar[0], k0, bh);
+    T::load(vs, &vmap, &bar[0], k0, bh);
+    if (ntiles > 0) {
+      hopper::mbar_expect_tx(&bar[1], 2 * T::BYTES);
+      T::load(qs, &qmap, &bar[1], q_first, bh);
+      T::load(dos, &dmap, &bar[1], q_first, bh);
+    }
+  }
+  // each query tile's LSE (log2 units) and D: thread i < 64 holds row i of
+  // the next tile and stores it ahead of the barrier that opens the tile
+  const size_t stat0 = static_cast<size_t>(bh) * nq;
+  float lse_next = 0.0f, dl_next = 0.0f;
+  if (tid < kTile && q_first + tid < nq) {
+    lse_next = lse[stat0 + q_first + tid] * kLog2e;
+    dl_next = delta[stat0 + q_first + tid];
+  }
+
+  const float sl2 = scale * kLog2e;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.0f;
+  const uint32_t ka = hopper::smem_u32(ks), va = hopper::smem_u32(vs);
+  hopper::mbar_wait(&bar[0], 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
+    const int q0 = q_first + t * kTile;
+    if (tid < kTile) {                       // stage st was last read two tiles ago
+      lse_s[st][tid] = lse_next;
+      dl_s[st][tid] = dl_next;
+    }
+    __syncthreads();                         // tile t - 1 is consumed; this tile's stats are in
+    if (tid == 0 && t + 1 < ntiles) {
+      hopper::mbar_expect_tx(&bar[1 + (st ^ 1)], 2 * T::BYTES);
+      T::load(qs + (st ^ 1) * T::BYTES, &qmap, &bar[1 + (st ^ 1)], q0 + kTile, bh);
+      T::load(dos + (st ^ 1) * T::BYTES, &dmap, &bar[1 + (st ^ 1)], q0 + kTile, bh);
+    }
+    if (tid < kTile && t + 1 < ntiles && q0 + kTile + tid < nq) {
+      lse_next = lse[stat0 + q0 + kTile + tid] * kLog2e;
+      dl_next = delta[stat0 + q0 + kTile + tid];
+    }
+    hopper::mbar_wait(&bar[1 + st], (t >> 1) & 1);
+    const uint32_t qa = hopper::smem_u32(qs + st * T::BYTES);
+    const uint32_t da = hopper::smem_u32(dos + st * T::BYTES);
+
+    float s[32], dp[32];                     // S^T and dP^T: rows keys, columns queries
+    hopper::wgmma_fence();
+    mma_abt<D, kTile>(s, ka, 0, qa);
+    mma_abt<D, kTile>(dp, va, 0, da);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    const bool edge = q0 + kTile > nq || (causal && q0 < k0 + kTile);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = acc_col(i);
+      float p = exp2f(fmaf(s[i], sl2, -lse_s[st][c]));
+      if (edge) {
+        const int qi = q0 + c;
+        if (qi >= nq || (causal && k0 + acc_row(i) > qi)) p = 0.0f;
+      }
+      s[i] = p;                                        // P^T
+      dp[i] = p * (dp[i] - dl_s[st][c]) * scale;       // dS^T
+    }
+    const Split pt(s), dst(dp);
+    hopper::fence_regs(dva);
+    hopper::fence_regs(dka);
+    hopper::wgmma_fence();
+    mma_xb<D>(dva, pt, da);
+    mma_xb<D>(dka, dst, qa);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dva);
+    hopper::fence_regs(dka);
+  }
+  const size_t rows = static_cast<size_t>(bh) * nk;
+  store_rows<D>(dk, dka, rows, k0, nk, 1.0f, 1.0f);
+  store_rows<D>(dv, dva, rows, k0, nk, 1.0f, 1.0f);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int D>
+int launch_tc_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
+                  int nq, int nk, float scale, int causal, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  int e = hopper::make_map(&qm, q, D, nq, bh, 2 * kTile);
+  if (e == 0) e = hopper::make_map(&km, k, D, nk, bh, kTile);
+  if (e == 0) e = hopper::make_map(&vm, v, D, nk, bh, kTile);
+  if (e != 0) return e;
+  const size_t smem = 1024 + Tile<D, 2 * kTile>::BYTES + 4 * Tile<D, kTile>::BYTES;
+  auto kernel = flash_attention_tc_fwd_kernel<D>;
+  cudaError_t ce = allow_smem(kernel, smem);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  kernel<<<dim3(bh, (nq + 2 * kTile - 1) / (2 * kTile)), 2 * kWG, smem, stream>>>(
+      qm, km, vm, static_cast<bf16*>(out), static_cast<float*>(lse), nq, nk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_tc_bwd(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dq, void* dk, void* dv, int bh,
+                  int nq, int nk, float scale, int causal, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dm;
+  int e = hopper::make_map(&qm, q, D, nq, bh, kTile);
+  if (e == 0) e = hopper::make_map(&km, k, D, nk, bh, kTile);
+  if (e == 0) e = hopper::make_map(&vm, v, D, nk, bh, kTile);
+  if (e == 0) e = hopper::make_map(&dm, dout, D, nq, bh, kTile);
+  if (e != 0) return e;
+  const size_t smem = 1024 + 6 * Tile<D, kTile>::BYTES;
+  auto kdq = attention_bwd_dq_tc_kernel<D>;
+  auto kdkv = attention_bwd_dkv_tc_kernel<D>;
+  cudaError_t ce = allow_smem(kdq, smem);
+  if (ce == cudaSuccess) ce = allow_smem(kdkv, smem);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  const float* lse_ = static_cast<const float*>(lse);
+  const float* delta_ = static_cast<const float*>(delta);
+  kdq<<<dim3(bh, (nq + kTile - 1) / kTile), kWG, smem, stream>>>(
+      qm, km, vm, dm, lse_, delta_, static_cast<bf16*>(dq), nq, nk, scale, causal);
+  ce = cudaGetLastError();
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  kdkv<<<dim3(bh, (nk + kTile - 1) / kTile), kWG, smem, stream>>>(
+      qm, km, vm, dm, lse_, delta_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), nq, nk,
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The layout probe: S = A . B^T by one SS chain and O = bf16(S) . C by one
+// RS chain fed from S's accumulator (hi part only), for (64, D) tiles loaded
+// by TMA exactly as the attention kernels load theirs.
+template <int D>
+__global__ void __launch_bounds__(kWG, 1)
+wgmma_probe_kernel(const __grid_constant__ CUtensorMap amap,
+                   const __grid_constant__ CUtensorMap bmap,
+                   const __grid_constant__ CUtensorMap cmap, float* __restrict__ s_out,
+                   float* __restrict__ o_out) {
+  using T = Tile<D, kTile>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar;
+  uint8_t* as = align1024(smem_raw);
+  uint8_t* bs = as + T::BYTES;
+  uint8_t* cs = bs + T::BYTES;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(&bar, 3 * T::BYTES);
+    T::load(as, &amap, &bar, 0, 0);
+    T::load(bs, &bmap, &bar, 0, 0);
+    T::load(cs, &cmap, &bar, 0, 0);
+  }
+  hopper::mbar_wait(&bar, 0);
+  float s[32];
+  hopper::wgmma_fence();
+  mma_abt<D, kTile>(s, hopper::smem_u32(as), 0, hopper::smem_u32(bs));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(s);
+  for (int i = 0; i < 32; ++i) s_out[acc_row(i) * kTile + acc_col(i)] = s[i];
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  const Split x(s);
+  hopper::fence_regs(o);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) Mma<D>::rs(o, x.hi[kk], T::mnmajor(hopper::smem_u32(cs), kk), 1);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(o);
+  for (int i = 0; i < D / 2; ++i) o_out[acc_row(i) * D + acc_col(i)] = o[i];
+}
+
+template <int D>
+int launch_probe(const void* a, const void* b, const void* c, void* s_out, void* o_out,
+                 cudaStream_t stream) {
+  CUtensorMap am, bm, cm;
+  int e = hopper::make_map(&am, a, D, kTile, 1, kTile);
+  if (e == 0) e = hopper::make_map(&bm, b, D, kTile, 1, kTile);
+  if (e == 0) e = hopper::make_map(&cm, c, D, kTile, 1, kTile);
+  if (e != 0) return e;
+  const size_t smem = 1024 + 3 * Tile<D, kTile>::BYTES;
+  auto kernel = wgmma_probe_kernel<D>;
+  cudaError_t ce = allow_smem(kernel, smem);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  kernel<<<1, kWG, smem, stream>>>(am, bm, cm, static_cast<float*>(s_out),
+                                   static_cast<float*>(o_out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -153,28 +706,83 @@ extern "C" const char* sfa_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q (bh, nq, d), k and v (bh, nk, d), out (bh, nq, d): f32|bf16, one dtype,
-// d in {32, 64, 128}; lse (bh, nq) f32 or null. All contiguous. Returns the
-// launch's cudaGetLastError().
+// f32: q (bh, nq, d), k and v (bh, nk, d), out (bh, nq, d), d in {32, 64,
+// 128}; lse (bh, nq) f32 or null. All contiguous. Returns the launch's
+// cudaGetLastError().
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                           void* out, void* lse, int bh, int nq, int nk,
-                                          int d, float scale, int causal, int is_bf16,
-                                          void* stream) {
+                                          int d, float scale, int causal, void* stream) {
   cudaGetLastError();
   if (bh <= 0 || nq <= 0) return 0;
   if (bh > 65535 || nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 32) {
-    return is_bf16 ? launch<32, __nv_bfloat16>(q, k, v, out, lse, bh, nq, nk, scale, causal, s)
-                   : launch<32, float>(q, k, v, out, lse, bh, nq, nk, scale, causal, s);
+#define SFA_CALL(D) launch_f32<D>(q, k, v, out, lse, bh, nq, nk, scale, causal, s)
+  switch (d) {
+    case 32: return SFA_CALL(32);
+    case 64: return SFA_CALL(64);
+    case 128: return SFA_CALL(128);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (d == 64) {
-    return is_bf16 ? launch<64, __nv_bfloat16>(q, k, v, out, lse, bh, nq, nk, scale, causal, s)
-                   : launch<64, float>(q, k, v, out, lse, bh, nq, nk, scale, causal, s);
+#undef SFA_CALL
+}
+
+// bf16, the tensor-core forward: as flash_attention_fwd_launch, with every
+// pointer 16-byte aligned.
+extern "C" int flash_attention_tc_fwd_launch(const void* q, const void* k, const void* v,
+                                             void* out, void* lse, int bh, int nq, int nk,
+                                             int d, float scale, int causal, void* stream) {
+  cudaGetLastError();
+  if (bh <= 0 || nq <= 0) return 0;
+  if (nk <= 0 || (nq + 2 * kTile - 1) / (2 * kTile) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SFA_CALL(D) launch_tc_fwd<D>(q, k, v, out, lse, bh, nq, nk, scale, causal, s)
+  switch (d) {
+    case 32: return SFA_CALL(32);
+    case 64: return SFA_CALL(64);
+    case 128: return SFA_CALL(128);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (d == 128) {
-    return is_bf16 ? launch<128, __nv_bfloat16>(q, k, v, out, lse, bh, nq, nk, scale, causal, s)
-                   : launch<128, float>(q, k, v, out, lse, bh, nq, nk, scale, causal, s);
+#undef SFA_CALL
+}
+
+// bf16, the tensor-core backward: q (bh, nq, d), k, v (bh, nk, d), dout
+// (bh, nq, d); lse, delta (bh, nq) f32. Out: dq (bh, nq, d), dk, dv (bh, nk,
+// d), bf16. All contiguous and 16-byte aligned; d in {32, 64, 128}. Returns
+// the last launch's cudaGetLastError().
+extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse,
+                                          const void* delta, void* dq, void* dk, void* dv,
+                                          int bh, int nq, int nk, int d, float scale,
+                                          int causal, void* stream) {
+  cudaGetLastError();
+  if (bh <= 0 || nq <= 0 || nk <= 0) return 0;
+  if ((nq + kTile - 1) / kTile > 65535 || (nk + kTile - 1) / kTile > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SFA_CALL(D) \
+  launch_tc_bwd<D>(q, k, v, dout, lse, delta, dq, dk, dv, bh, nq, nk, scale, causal, s)
+  switch (d) {
+    case 32: return SFA_CALL(32);
+    case 64: return SFA_CALL(64);
+    case 128: return SFA_CALL(128);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+#undef SFA_CALL
+}
+
+// The layout probe: a, b, c (64, d) bf16 -> s_out (64, 64) = a . b^T and
+// o_out (64, d) = bf16(s) . c, f32.
+extern "C" int wgmma_probe_launch(const void* a, const void* b, const void* c, void* s_out,
+                                  void* o_out, int d, void* stream) {
+  cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SFA_CALL(D) launch_probe<D>(a, b, c, s_out, o_out, s)
+  switch (d) {
+    case 32: return SFA_CALL(32);
+    case 64: return SFA_CALL(64);
+    case 128: return SFA_CALL(128);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SFA_CALL
 }

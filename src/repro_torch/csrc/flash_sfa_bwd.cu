@@ -1,10 +1,10 @@
 // flash_sfa_bwd.cu — FlashSFA backward (dense, compact and compact2 emits)
-// and the dense FlashAttention backward, for Hopper (sm_90a).
+// and the f32 dense FlashAttention backward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels repro/kernels/flash_sfa_bwd.py::flash_sfa_bwd
-// (every emit) and ::flash_attention_bwd: both run _bwd_impl, whose two
-// Pallas kernels _bwd_dq_kernel and _bwd_dkv_kernel recompute each tile's
-// probabilities from the saved LSE and accumulate
+// (every emit) and, for f32, ::flash_attention_bwd: both run _bwd_impl,
+// whose two Pallas kernels _bwd_dq_kernel and _bwd_dkv_kernel recompute
+// each tile's probabilities from the saved LSE and accumulate
 //   dV_j  = sum_i P_ij dO_i
 //   dS_ij = P_ij (dO_i . V_j - D_i) * scale,   D_i = sum(dO_i * O_i)
 //   dQ_i  = sum_j dS_ij K_j,   dK_j = sum_i dS_ij Q_i.
@@ -50,13 +50,20 @@
 //
 // Bound on the H100: operations. Per (query, key) pair the two kernels do
 // about 2 * (2k + 2dv) + 2k + 2dv flops (scores twice, dO.V twice, dQ, dK,
-// dV) on CUDA cores against O(n (k + dv)) bytes; a faster kernel would run
-// the dv-wide products on the tensor cores (wgmma) — work for a later
-// change.
+// dV) on CUDA cores against O(n (k + dv)) bytes. The dv-wide products
+// (dO.V^T, P^T.dO) are the ones the tensor cores can take; the dense
+// backward's tensor-core form (csrc/flash_attention.cu, on csrc/hopper.cuh)
+// is the template for that.
+//
+// The dense form (SPARSE=false) is built for f32 only: it is the exact f32
+// path of the dense FlashAttention backward, where the tensor cores would
+// compute in TF32. bf16 dense goes to flash_attention.cu's wgmma kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -433,12 +440,15 @@ int dispatch(const void* qa, const void* qi, const void* ka, const void* ki,
   if (bh > 65535 || d <= 0 || d > 256) return static_cast<int>(cudaErrorInvalidValue);
   if (SPARSE && (kq <= 0 || kk <= 0 || kq > kMaxK || kk > kMaxK))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!SPARSE && (d != dvdim || emit != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!SPARSE && (d != dvdim || emit != 0 || is_bf16))  // dense: f32 only
+    return static_cast<int>(cudaErrorInvalidValue);
   if (emit < 0 || emit > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the dense form is not instantiated for bf16
+  using B16 = typename std::conditional<SPARSE, __nv_bfloat16, float>::type;
 #define SFA_BWD_CASE(DVV)                                                          \
   if (dvdim == DVV)                                                                \
-    return is_bf16 ? launch<SPARSE, DVV, __nv_bfloat16>(qa, qi, ka, ki, v, dout, lse, \
+    return is_bf16 ? launch<SPARSE, DVV, B16>(qa, qi, ka, ki, v, dout, lse, \
                                                         delta, dq, dk, dv, bh, nq, nk, \
                                                         kq, kk, d, scale, causal, emit, \
                                                         rot_dim, s)                    \
@@ -475,13 +485,13 @@ extern "C" int flash_sfa_bwd_launch(const void* qv, const void* qi, const void* 
 }
 
 // Dense q (bh, nq, d), k (bh, nk, d), v (bh, nk, d), dout (bh, nq, d) with
-// d == dv, in f32|bf16; lse, delta (bh, nq) f32. Out: dq, dk, dv alike.
+// d == dv, in f32 (bf16: flash_attention.cu, same signature); lse, delta
+// (bh, nq) f32. Out: dq, dk, dv alike.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse,
                                           const void* delta, void* dq, void* dk,
                                           void* dv, int bh, int nq, int nk, int d,
-                                          float scale, int causal, int is_bf16,
-                                          void* stream) {
+                                          float scale, int causal, void* stream) {
   return dispatch<false>(q, nullptr, k, nullptr, v, dout, lse, delta, dq, dk, dv, bh,
-                         nq, nk, 0, 0, d, d, scale, causal, is_bf16, 0, 0, stream);
+                         nq, nk, 0, 0, d, d, scale, causal, 0, 0, 0, stream);
 }

@@ -8,9 +8,12 @@ flash_sfa_decode — one query against the KV cache: token-major sparse
                    (contiguous, paged, and the multi-query verify pass)
                    and the feature-major image (contiguous and paged)
 flash_sfa_bwd    — FlashSFA backward (dense, compact and compact2 emits)
-                   and the dense FlashAttention backward, one templated
-                   source
-flash_attention  — dense FlashAttention forward (the paper's baseline)
+                   and the dense FlashAttention backward: f32 on this
+                   source's CUDA cores, bf16 on flash_attention.cu's
+                   tensor-core kernels
+flash_attention  — dense FlashAttention forward (the paper's baseline):
+                   bf16 on the tensor cores (TMA + wgmma, csrc/hopper.cuh),
+                   f32 on CUDA cores
 code_grad        — dx and dW of the Q/K projection from compact code
                    gradients
 ops              — head folding, the SFA and dense attention autograd

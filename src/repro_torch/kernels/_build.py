@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` exposes plain C entry points and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library,
 which ``ctypes`` loads (no PyTorch headers, so a build takes seconds). The
 libraries go into ``build/kernels/`` at the root of the checkout, one file
-per source, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. ``build_all`` starts one
-``nvcc`` per source, all at once.
+per source, named by a hash of the source, the shared headers and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. ``build_all`` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import: the package imports with neither ``nvcc`` nor
 a GPU, and the CPU paths never reach the build. ``refuse_grad`` is the one
@@ -44,9 +44,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source,
+    every shared header ``csrc/*.cuh`` (any source may include one) and the
+    flags, so an edit to any of them builds anew."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, nvcc: str):
@@ -138,6 +143,13 @@ def refuse_grad(what: str, *tensors) -> None:
             f"{what} is not differentiable by itself: call it through "
             f"kernels.ops (sfa_attention_op / dense_attention_op), the compact "
             f"seam of models.attention, or under torch.no_grad()")
+
+
+def tma_operand(t):
+    """``t`` contiguous and 16-byte aligned, as a TMA tensor map needs its
+    base (a copy only for a view that starts off the boundary)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

@@ -7,9 +7,10 @@ Replaces the TPU kernels ``repro/kernels/flash_sfa_bwd.py::flash_sfa_bwd``
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, emits ``_support_mask``,
 ``_gather_support`` and ``_pair_closure_gather``) with the CUDA kernels in
 ``csrc/flash_sfa_bwd.cu``, one source templated on sparse/dense with the
-emit as a launch parameter. Each call launches two kernels: dQ (one block
-per 64-query tile, walking the key tiles up to the causal edge) and dK/dV
-(one block per 64-key tile, walking the query tiles from the diagonal).
+emit as a launch parameter (the dense form f32 only; bf16 dense below).
+Each call launches two kernels: dQ (one block per 64-query tile, walking
+the key tiles up to the causal edge) and dK/dV (one block per 64-key tile,
+walking the query tiles from the diagonal).
 Each output tile has one owner: no atomics, a deterministic result.
 Probabilities are recomputed from the forward's LSE; D_i = Σ(dO_i ∘ O_i) is
 one torch reduction outside the kernels, as the JAX package computes it in
@@ -25,8 +26,17 @@ The compact emits write k (or 2k) values per row where the dense one
 writes d.
 
 Bound on the H100: operations (scores and dO·V are recomputed in both
-kernels, on CUDA cores in f32). Moving the dv-wide products onto the tensor
-cores is work for a later change.
+kernels, on CUDA cores in f32 here). The dv-wide products are the ones the
+tensor cores can take; the dense backward's bf16 body shows how.
+
+``flash_attention_bwd`` chooses its body by dtype. bf16 runs the
+tensor-core kernels in ``csrc/flash_attention.cu`` (same schedule: a dQ
+kernel and a dK/dV kernel, one owner per output tile, no atomics): S, dP
+and the three gradient products run as ``wgmma`` on TMA-loaded tiles, with
+P and dS (f32 values) split into bf16 hi + lo so that ~16 of their bits
+reach the tensor cores. f32 runs this source's ``SPARSE=false`` CUDA-core
+form, the exact path: f32 on the tensor cores would be TF32 (~3 decimal
+digits), which fails f32's 1e-4 check. A bf16 call never reaches it.
 
 The plain versions are ``kernels/ref.py::flash_sfa_bwd_ref`` and
 ``::flash_attention_bwd_ref``; the wrappers run them for CPU tensors only.
@@ -47,8 +57,11 @@ _MAX_K = 32
 _SFA_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _EMITS = {"dense": 0, "compact": 1, "compact2": 2}
+# flash_attention_bwd_launch: bf16 in csrc/flash_attention.cu, f32 in
+# csrc/flash_sfa_bwd.cu, one signature
 _DENSE_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float]
-               + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+               + [ctypes.c_int] + [ctypes.c_void_p])
+_DENSE_LIBS = {torch.bfloat16: "flash_attention", torch.float32: "flash_sfa_bwd"}
 
 
 def _check(what, name, t, shape, dtype, device):
@@ -147,7 +160,9 @@ def flash_attention_bwd(q, k, v, o, lse, g, *, causal: bool = True,
                         scale: float | None = None):
     """Dense FlashAttention backward. q/k/v/o/g (bh, n, d), lse (bh, n)
     f32 -> dq, dk, dv in q's, k's and v's dtypes. On the card all five share
-    one dtype (f32 or bf16) and d = dv is 32, 64 or 128."""
+    one dtype and d = dv is 32, 64 or 128: bf16 runs the tensor-core kernels
+    of ``csrc/flash_attention.cu``, f32 the CUDA-core kernels of
+    ``csrc/flash_sfa_bwd.cu`` (exact in f32, see the module docstring)."""
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     _build.refuse_grad("flash_attention_bwd", q, k, v, o, g)
     if v.device.type == "cpu":
@@ -158,7 +173,7 @@ def flash_attention_bwd(q, k, v, o, lse, g, *, causal: bool = True,
     bh, nq, d = q.shape
     nk = k.shape[1]
     dt, dev = v.dtype, v.device
-    if dt not in _DTYPES or d not in (32, 64, 128):
+    if dt not in _DENSE_LIBS or d not in (32, 64, 128):
         raise ValueError(f"flash_attention_bwd kernel takes f32/bf16 with d = dv in "
                          f"(32, 64, 128), got {dt}, d={d}")
     what = "flash_attention_bwd"
@@ -168,16 +183,17 @@ def flash_attention_bwd(q, k, v, o, lse, g, *, causal: bool = True,
     _check(what, "o", o, (bh, nq, d), dt, dev)
     _check(what, "g", g, (bh, nq, d), dt, dev)
     _check(what, "lse", lse, (bh, nq), torch.float32, dev)
-    q, k, v, g, lse = (t.contiguous() for t in (q, k, v, g, lse))
+    q, k, v, g = (_build.tma_operand(t) for t in (q, k, v, g))
+    lse = lse.contiguous()
     delta = _delta(o, g)
     dq, dk, dvo = (torch.empty_like(t) for t in (q, k, v))
-    fn = _build.entry("flash_sfa_bwd", "flash_attention_bwd_launch", _DENSE_ARGS)
+    lib = _DENSE_LIBS[dt]
+    fn = _build.entry(lib, "flash_attention_bwd_launch", _DENSE_ARGS)
     with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dvo.data_ptr(), bh, nq, nk, d, scale, int(causal), _DTYPES[dt],
-                 _build.stream_ptr(v))
-    _build.check("flash_sfa_bwd", err, "flash_attention_bwd launch")
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvo.data_ptr(), bh, nq,
+                 nk, d, scale, int(causal), _build.stream_ptr(v))
+    _build.check(lib, err, "flash_attention_bwd launch")
     flash_attention_bwd.launches += 1
     return dq, dk, dvo
 

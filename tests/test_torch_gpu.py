@@ -126,7 +126,8 @@ def test_flash_sfa_bwd_kernel_on_card(cuda, n, dv, k, dtype, causal):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("n,d,dtype", [(1024, 64, torch.float32), (1000, 64, torch.float32),
                                        (333, 128, torch.float32), (200, 32, torch.float32),
-                                       (1000, 64, torch.bfloat16)])
+                                       (1000, 64, torch.bfloat16), (1000, 32, torch.bfloat16),
+                                       (333, 128, torch.bfloat16)])
 def test_flash_attention_fwd_bwd_kernels_on_card(cuda, n, d, dtype, causal):
     rs = np.random.RandomState(11)
     q, k, v, g = (torch.from_numpy(rs.randn(12, n, d).astype(np.float32)).to(cuda).to(dtype)
@@ -140,6 +141,18 @@ def test_flash_attention_fwd_bwd_kernels_on_card(cuda, n, d, dtype, causal):
     want = ref.flash_attention_bwd_ref(q, k, v, po, pl, g, causal=causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_attention_bwd_bf16_is_deterministic(cuda, d):
+    # the tensor-core backward: one owner per output tile, no atomics
+    rs = np.random.RandomState(12)
+    q, k, v, g = (torch.from_numpy(rs.randn(12, 1000, d).astype(np.float32)).to(cuda)
+                  .bfloat16() for _ in range(4))
+    o, lse = flash_attention(q, k, v, return_residuals=True)
+    first = flash_attention_bwd(q, k, v, o, lse, g)
+    again = flash_attention_bwd(q, k, v, o, lse, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_wrappers_refuse_grad_outside_their_function(cuda):

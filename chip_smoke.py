@@ -10,9 +10,11 @@ Phases; any failure raises and the script exits non-zero:
                one process per source, all started together;
   3. kernels — first the wgmma layout probe of the tensor-core kernels (one
                SS and one RS chain on exact {-1, 0, 1} matrices, d 32, 64
-               and 128, equal to torch.matmul bit for bit) and the count of
-               HGMMA instructions in the flash_attention library
-               (cuobjdump -sass; 0 fails); then each kernel against its
+               and 128, equal to torch.matmul bit for bit; then the same
+               chains on tiles densified from top-k codes in shared memory)
+               and the count of HGMMA instructions in the flash_attention
+               and flash_sfa_tc libraries (cuobjdump -sass; 0 fails); then
+               each kernel against its
                plain PyTorch version on the card at
                the main paths' shapes (the training ones at bh 96 = batch
                8 x 12 heads, n 1024 and a ragged 1000, f32 and bf16), with
@@ -75,12 +77,21 @@ Phases; any failure raises and the script exits non-zero:
                seam with remat="codes", against the "torch" oracle
                (remat="none"), to a stated tolerance; then the dense
                gpt2-small in bf16 the same way, through the tensor-core
-               flash_attention and its backward;
+               flash_attention and its backward; then gpt2-small-sfa8 in
+               bf16 (dense emit, remat="full"; compact seam,
+               remat="codes") through the tensor-core FlashSFA bodies,
+               held to the torch backend's own bf16 distance from float32;
  10. a ``kernels`` JSON line, then the result line.
 
 Phase 3 also holds the dense attention's bf16 tensor-core bodies at d 32,
 64 and 128, causal and not, at n 1000, and two bf16 backward calls on the
-same inputs to be equal bit for bit.
+same inputs to be equal bit for bit. The FlashSFA rows (3-5) run bf16 on
+their tensor-core bodies (codes densified in shared memory) and f32 on the
+CUDA-core ones: both are held against the plain versions, the tensor-core
+bodies also at d 32 and 128, causal and not, ragged n (the backward with
+every emit, the compact emit equal to the dense one gathered, two calls
+equal bit for bit). Phases 6, 8 and 9's bf16 gpt2-small-sfa8 runs must
+launch no CUDA-core FlashSFA body.
 
 Phase 3 also holds the paged, multi-query and feature-major decode
 kernels (rows 11-14) at the serving path's shapes: 8 slots x 12 heads of
@@ -342,13 +353,49 @@ def phase_wgmma_probe():
                                      f"{want[at].item()}")
         print(f"[probe] d={d}: SS S = A.B^T (K-major A and B) and RS O = bf16(S).C (A from the "
               f"S accumulator, C MN-major) equal torch.matmul in f32 exactly")
+    # the same chains on tiles densified from top-k codes into shared memory
+    # (the FlashSFA tensor-core bodies' layout): A, B, C from codes with
+    # values in {-1, 1} at distinct indices, one row of each with a
+    # duplicated index (the densify sums it), one all-padding row
+    probe = _build.entry("flash_sfa_tc", "densify_probe_launch",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                         + [ctypes.c_int, ctypes.c_void_p])
+    k = 8
+    for d in (32, 64, 128):
+        idx = np.stack([np.sort(rs.permutation(d)[:k]) for _ in range(3 * 64)]).reshape(3, 64, k)
+        vals = rs.choice([-1.0, 1.0], size=(3, 64, k)).astype(np.float32)
+        idx[:, 5, 1] = idx[:, 5, 0]
+        idx[:, 9], vals[:, 9] = 0, 0.0
+        vals_t = torch.from_numpy(vals).cuda().bfloat16()
+        idx_t = torch.from_numpy(idx.astype(np.int32)).cuda()
+        packed = torch.empty(3 * 64 * k, dtype=torch.int32, device="cuda")
+        s_out = torch.empty(64, 64, device="cuda")
+        o_out = torch.empty(64, d, device="cuda")
+        err = probe(vals_t.data_ptr(), idx_t.data_ptr(), packed.data_ptr(), k, s_out.data_ptr(),
+                    o_out.data_ptr(), d, _build.stream_ptr(vals_t))
+        _build.check("flash_sfa_tc", err, "densify probe launch")
+        torch.cuda.synchronize()
+        dense = torch.zeros(3, 64, d, device="cuda").scatter_add_(-1, idx_t.long(),
+                                                                  vals_t.float())
+        s_want = dense[0] @ dense[1].T
+        o_want = s_want.bfloat16().float() @ dense[2]
+        for name, got, want in (("SS A.B^T", s_out, s_want), ("RS bf16(S).C", o_out, o_want)):
+            bad = (got != want).nonzero()
+            if bad.numel():
+                at = tuple(bad[0].tolist())
+                raise AssertionError(f"densify probe d={d} {name}: {bad.shape[0]} entries "
+                                     f"differ, first at {at}: got {got[at].item()}, want "
+                                     f"{want[at].item()}")
+        print(f"[probe] d={d}: the same chains on tiles densified from k={k} codes in shared "
+              f"memory equal torch.matmul on the densified matrices exactly")
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     check(cuobjdump.exists(), f"cuobjdump not found beside nvcc ({cuobjdump})")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    check(hgmma > 0, "cuobjdump -sass finds no HGMMA in the flash_attention library")
-    print(f"[probe] cuobjdump -sass: {hgmma} HGMMA instructions in the flash_attention library")
+    for lib in ("flash_attention", "flash_sfa_tc"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(lib))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        check(hgmma > 0, f"cuobjdump -sass finds no HGMMA in the {lib} library")
+        print(f"[probe] cuobjdump -sass: {hgmma} HGMMA instructions in the {lib} library")
 
 
 def _tie_rows(rs, rows, d):
@@ -397,22 +444,38 @@ def _densify(vals, idx, d):
     return out.scatter_(-1, idx.long(), vals)
 
 
+def _tc_only(what):
+    """Check that no CUDA-core FlashSFA body launched since the last reset."""
+    from repro_torch.kernels import body_counts
+    counts = body_counts()
+    check(not any(counts.values()), f"{what}: a CUDA-core FlashSFA body launched: {counts}")
+
+
+def _codes_of(rs, bh, n, d, k, dtype):
+    from repro_torch.kernels import rtopk
+    q, kk = (torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().to(dtype)
+             for _ in range(2))
+    return (*rtopk(q, k), *rtopk(kk, k))
+
+
 def phase_flash_sfa(rs):
-    from repro_torch.kernels import flash_sfa, rtopk
+    """Row 3 (block_skip=False) at the serving shape bh 12: bf16 runs the
+    tensor-core body, f32 the CUDA-core body; the tensor-core body also at
+    d 32 and 128, causal and not, ragged n."""
+    from repro_torch.kernels import body_counts, flash_sfa, reset_launches
     from repro_torch.kernels.ref import flash_sfa_ref
     bh, d, k, dv = 12, 64, 8, 64
     res = {}
     for n in (1024, 1000):
-        q = torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
-        kk = torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
+        reset_launches()
+        qv, qi, kv, ki = _codes_of(rs, bh, n, d, k, torch.bfloat16)
         v = torch.from_numpy(rs.randn(bh, n, dv).astype(np.float32)).cuda().bfloat16()
-        qv, qi = rtopk(q, k)
-        kv, ki = rtopk(kk, k)
         scale = d ** -0.5
         ko, kl = flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True)
         po, pl = flash_sfa_ref(qv, qi, kv, ki, v, d=d, scale=scale,
                                return_residuals=True)
         torch.cuda.synchronize()
+        _tc_only(f"flash_sfa bf16 n={n}")
         # tolerance: both accumulate in f32 and round to bf16, so outputs
         # may differ by one bf16 ulp (2^-7 relative); the f32 LSE by 1e-4
         err = (ko.float() - po.float()).abs().max().item()
@@ -433,10 +496,33 @@ def phase_flash_sfa(rs):
                                   return_residuals=True),
             lambda: F.scaled_dot_product_attention(qd, kd, vb, is_causal=True,
                                                    scale=scale)))
-        print(f"[flash_sfa] bh={bh} n={n} k={k} dv={dv} bf16: max|err| {err:.3g} "
-              f"(lse {lse_err:.3g}); library = SDPA on densified Q/K; {fmt(r)}")
+        print(f"[flash_sfa] bh={bh} n={n} k={k} dv={dv} bf16 (tensor-core body): max|err| "
+              f"{err:.3g} (lse {lse_err:.3g}); library = SDPA on densified Q/K; {fmt(r)}")
         res[n] = r
-    res[1024]["max_abs_err"] = max(r["max_abs_err"] for r in res.values())
+    # the f32 CUDA-core body, and the tensor-core body at every head width
+    # (inputs from a random state of their own: later phases see PR 15's)
+    rs = np.random.RandomState(SEED + 16)
+    for d_, causal, dtype in ((64, True, torch.float32), (64, False, torch.float32),
+                              (32, True, torch.bfloat16), (32, False, torch.bfloat16),
+                              (64, False, torch.bfloat16), (128, True, torch.bfloat16),
+                              (128, False, torch.bfloat16)):
+        n = 1000
+        reset_launches()
+        qv, qi, kv, ki = _codes_of(rs, bh, n, d_, k, dtype)
+        v = torch.from_numpy(rs.randn(bh, n, d_).astype(np.float32)).cuda().to(dtype)
+        ko, kl = flash_sfa(qv, qi, kv, ki, v, d=d_, causal=causal, return_residuals=True)
+        po, pl = flash_sfa_ref(qv, qi, kv, ki, v, d=d_, causal=causal, return_residuals=True)
+        torch.cuda.synchronize()
+        want_core = int(dtype == torch.float32)
+        check(body_counts()["flash_sfa_cuda_core"] == want_core,
+              f"flash_sfa {dtype} d={d_}: body launches {body_counts()}")
+        what = f"n={n} d={d_} causal={causal} {dtype}"
+        e = _close(ko, po, dtype, f"flash_sfa {what}")[0]
+        torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+        res[1024]["max_abs_err"] = max(res[1024]["max_abs_err"], e)
+        print(f"[flash_sfa] bh={bh} {what} ({'CUDA-core' if want_core else 'tensor-core'} "
+              f"body): max|err| {e:.3g} (lse {(kl - pl).abs().max().item():.3g})")
+    res[1024]["max_abs_err"] = max(res[1024]["max_abs_err"], res[1000]["max_abs_err"])
     return res[1024]
 
 
@@ -754,13 +840,17 @@ def _close(got, want, dtype, what):
 
 
 def phase_flash_sfa_bwd(rs):
-    from repro_torch.kernels import flash_sfa, flash_sfa_bwd, rtopk
+    """Row 5: the dense emit and the compact emits at the training shape;
+    bf16 runs the tensor-core body (also at d 32 and 128, causal and not),
+    f32 the CUDA-core body."""
+    from repro_torch.kernels import body_counts, flash_sfa, flash_sfa_bwd, reset_launches, rtopk
     from repro_torch.kernels.ref import _support, flash_sfa_bwd_ref
     bh, d, k, dv = TRAIN_BH, 64, 8, 64
     scale = d ** -0.5
     errs, compact_errs = [], []
     for n in (TRAIN_N, 1000):
         for dtype in (torch.float32, torch.bfloat16):
+            reset_launches()
             q, kk = (torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().to(dtype)
                      for _ in range(2))
             v, g = (torch.from_numpy(rs.randn(bh, n, dv).astype(np.float32)).cuda().to(dtype)
@@ -801,9 +891,48 @@ def phase_flash_sfa_bwd(rs):
                 print(f"[flash_sfa_bwd] {emit} (rot_dim {rot}) n={n} {dtype}: max|err| vs plain "
                       f"{cerr:.3g}" + ("; equal to the dense emit gathered at the stored "
                                        "indices" if emit == "compact" else ""))
+            cores = body_counts()["flash_sfa_bwd_cuda_core"]
+            check(cores == (4 if dtype == torch.float32 else 0),
+                  f"flash_sfa_bwd n={n} {dtype}: body launches {body_counts()}")
             if n == TRAIN_N and dtype == torch.bfloat16:
                 main = (args, _densify(qv, qi, d), _densify(kv, ki, d), v, g)
+    # the tensor-core body at the other head widths, causal and not, ragged n
+    # (inputs from a random state of their own: later phases see PR 15's)
+    rs_tc = np.random.RandomState(SEED + 18)
+    for d_, causal in ((32, True), (32, False), (64, False), (128, True), (128, False)):
+        n = 1000
+        reset_launches()
+        qv, qi, kv, ki = _codes_of(rs_tc, bh, n, d_, k, torch.bfloat16)
+        v_, g_ = (torch.from_numpy(rs_tc.randn(bh, n, d_).astype(np.float32)).cuda().bfloat16()
+                  for _ in range(2))
+        o, lse = flash_sfa(qv, qi, kv, ki, v_, d=d_, causal=causal, return_residuals=True)
+        a = (qv, qi, kv, ki, v_, o, lse, g_)
+        dense = flash_sfa_bwd(*a, d=d_, causal=causal)
+        what = f"n={n} d={d_} causal={causal} bf16"
+        for emit, rot in (("dense", d_), ("compact", d_), ("compact2", d_),
+                          ("compact2", d_ // 2)):
+            got = flash_sfa_bwd(*a, d=d_, causal=causal, emit=emit, rot_dim=rot)
+            want = flash_sfa_bwd_ref(*a, d=d_, causal=causal, emit=emit, rot_dim=rot)
+            torch.cuda.synchronize()
+            e = max(_close(x, y, torch.bfloat16, f"flash_sfa_bwd {emit}/{rot} {name} {what}")[0]
+                    for name, x, y in zip(("dq", "dk", "dv"), got, want))
+            (errs if emit == "dense" else compact_errs).append(e)
+            check(torch.equal(got[2], dense[2]), f"{emit} {what}: dV differs from the dense emit's")
+            if emit == "compact":
+                for x, y, idx in ((got[0], dense[0], qi), (got[1], dense[1], ki)):
+                    check(torch.equal(x, y.gather(-1, idx.long())),
+                          f"compact emit {what}: not the gathered dense emit")
+            print(f"[flash_sfa_bwd] {emit} (rot_dim {rot}) {what} (tensor-core body): max|err| "
+                  f"{e:.3g}")
+        _tc_only(f"flash_sfa_bwd {what}")
     args, qd, kd, v, g = main
+    # no atomics, one owner per output tile: the bf16 backward is deterministic
+    for emit in ("dense", "compact"):
+        first, again = (flash_sfa_bwd(*args, d=d, scale=scale, emit=emit) for _ in range(2))
+        check(all(torch.equal(x, y) for x, y in zip(first, again)),
+              f"flash_sfa_bwd bf16 {emit}: two calls on the same inputs differ")
+    print("[flash_sfa_bwd] bf16 n=1024 (tensor-core body): two calls on the same inputs equal "
+          "bit for bit, dense and compact emits")
     es, pairs = 2, _pairs(bh, TRAIN_N)
     n = TRAIN_N
     b_ms, b_by = bound(2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
@@ -816,6 +945,11 @@ def phase_flash_sfa_bwd(rs):
         _sdpa_bwd(qd, kd, v, g, scale)))
     print(f"[flash_sfa_bwd] bf16 n={n}: library = SDPA backward (autograd) on densified "
           f"Q/K; {fmt(r)}")
+    kernels, _ = trace_kernels(lambda: [flash_sfa_bwd(*args, d=d, scale=scale)
+                                        for _ in range(10)])
+    print("[flash_sfa_bwd] bf16 n=1024, device ms a call by kernel (one trace of 10 calls): "
+          + "; ".join(f"{name[:60]} {us / 1e4:.4f}" for name, us in
+                      sorted(kernels.items(), key=lambda kv: -kv[1])))
     # the compact emit writes k-wide dQ/dK rows where the dense one writes d
     b_ms, b_by = bound(2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
                        + 2 * bh * n * k * es + bh * n * dv * es,
@@ -1090,7 +1224,7 @@ def phase_block_skip(rs):
     k 8, dv 64, bf16, causal) on rtopk codes of random rows (the training
     path's kind) and on a planted banded input (tile t on features
     8·(t mod 8)..+7) whose off-band tile pairs take the closed form."""
-    from repro_torch.kernels import block_skip_stats, flash_sfa, rtopk
+    from repro_torch.kernels import block_skip_stats, flash_sfa, reset_launches, rtopk
     from repro_torch.kernels.flash_sfa import BLOCK, _skip_schedule
     from repro_torch.kernels.ref import flash_sfa_ref
     bh, n, d, k, dv = TRAIN_BH, TRAIN_N, HD, SFA_K, 64
@@ -1104,6 +1238,7 @@ def phase_block_skip(rs):
     kv, ki = banded(rs, bh, n, k, lambda i: (i // BLOCK) % 8)
     inputs["banded"] = (qv.bfloat16(), qi, kv.bfloat16(), ki)
     v = torch.from_numpy(rs.randn(bh, n, dv).astype(np.float32)).cuda().bfloat16()
+    reset_launches()
     for name, codes in inputs.items():
         for nn in (n, 1000):
             c = [t[:, :nn] for t in codes]
@@ -1123,6 +1258,28 @@ def phase_block_skip(rs):
                 check(stats[1] > 0.5 * (1 - stats[0]),
                       f"banded input: closed-form share {stats[1]} of the live steps "
                       f"{1 - stats[0]}")
+    _tc_only("flash_sfa block_skip bf16")
+    # the tensor-core body at the other head widths and non-causal, on banded
+    # codes (level 1 taken), ragged n; inputs from a random state of their own
+    rs_tc = np.random.RandomState(SEED + 17)
+    for d_, causal in ((32, True), (128, True), (64, False), (128, False)):
+        nn = 1000
+        bands = d_ // k
+        qv, qi = banded(rs_tc, bh, nn, k, lambda i: (i // BLOCK) % bands)
+        kv, ki = banded(rs_tc, bh, nn, k, lambda i: (i // BLOCK) % bands)
+        c = (qv.bfloat16(), qi, kv.bfloat16(), ki)
+        vv = torch.from_numpy(rs_tc.randn(bh, nn, d_).astype(np.float32)).cuda().bfloat16()
+        stats = block_skip_stats(*c, d=d_, causal=causal)
+        ko, kl = flash_sfa(*c, vv, d=d_, causal=causal, return_residuals=True, block_skip=True)
+        po, pl = flash_sfa_ref(*c, vv, d=d_, causal=causal, return_residuals=True)
+        torch.cuda.synchronize()
+        what = f"banded d={d_} causal={causal} n={nn}"
+        errs.append(_close(ko, po, torch.bfloat16, f"flash_sfa block_skip {what}")[0])
+        torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+        check(stats[1] > 0, f"flash_sfa block_skip {what}: no closed-form tile")
+        print(f"[flash_sfa block_skip] {what} bf16: block_skip_stats "
+              f"{tuple(round(x, 4) for x in stats)}; max|err| {errs[-1]:.3g}")
+    _tc_only("flash_sfa block_skip bf16, d 32 / 128")
     qv, qi, kv, ki = inputs["random"]
     level = _skip_schedule(qv, qi, kv, ki, d=d, causal=True, block_q=BLOCK, block_k=BLOCK)
     pairs, closed = _skip_work(level)
@@ -1142,10 +1299,11 @@ def phase_block_skip(rs):
     kernels, _ = trace_kernels(lambda: [flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale,
                                                   return_residuals=True, block_skip=True)
                                         for _ in range(20)])
-    fwd_us = sum(us for name, us in kernels.items() if "flash_sfa_fwd_kernel" in name)
-    print(f"[flash_sfa block_skip] of the wrapper's device time per call, the kernel "
-          f"{fwd_us / 20e3:.4f} ms, the level map and V row sums (torch) "
-          f"{(sum(kernels.values()) - fwd_us) / 20e3:.4f} ms")
+    fwd_us = sum(us for name, us in kernels.items() if "tc_fwd_kernel" in name)
+    pack_us = sum(us for name, us in kernels.items() if "pack_codes_kernel" in name)
+    print(f"[flash_sfa block_skip] of the wrapper's device time per call, the tensor-core "
+          f"kernel {fwd_us / 20e3:.4f} ms, the code pack {pack_us / 20e3:.4f} ms, the level "
+          f"map and V row sums (torch) {(sum(kernels.values()) - fwd_us - pack_us) / 20e3:.4f} ms")
     qv, qi, kv, ki = inputs["banded"]
     skip_ms = device_ms(lambda: flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale,
                                           return_residuals=True, block_skip=True))
@@ -1556,6 +1714,8 @@ def phase_train(arch, timed_steps, predicted, **policy):
           f"train {arch}: non-finite loss or gradient norm: {hist}")
     check(not reports, f"train {arch}: backend fallbacks recorded: {reports}")
     check(counts == want, f"train {arch}: launches {counts}, predicted {want}")
+    # bf16 at d = dv = 64, k 8: every FlashSFA launch on the tensor-core bodies
+    _tc_only(f"train {arch}")
     if policy.get("bwd_emit") in ("compact", "compact2"):
         check(len(seams) == 1 and seams[0].taken, f"train {arch}: compact seam {seams}")
     check(all(r.eligible for r in remats), f"train {arch}: remat degraded: {remats}")
@@ -1689,6 +1849,85 @@ def phase_dense_grad_end_to_end():
           f"gradients within 5e-2 relative L2, worst {worst[0]:.3g} ({worst[1]})")
 
 
+def phase_sfa_grad_bf16_end_to_end():
+    """Loss and every parameter gradient of gpt2-small-sfa8 in bf16, the
+    tensor-core FlashSFA bodies (dense emit under remat "full", and the
+    compact seam under remat "codes") against the torch backend. Top-k at
+    bf16 flips near-ties wherever two runs round differently, so the
+    tolerance is the torch backend's own distance, at these weights and
+    this batch, from the float32 run of the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, markov_batch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import init, loss_fn
+    from repro_torch.train.train_step import to_batch
+    cfg = get_config("gpt2-small-sfa8")
+    check(cfg.dtype == "bfloat16", f"gpt2-small-sfa8 trains in {cfg.dtype}, expected bfloat16")
+    model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
+    named = dict(model.named_parameters())
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = init(cfg32, device="cuda", seed=SEED)
+    with torch.no_grad():
+        for name, p in model32.named_parameters():
+            p.copy_(named[name].float())
+    model32.requires_grad_(True)
+    batch = to_batch(markov_batch(DataConfig(cfg.vocab_size, 512, 1, seed=SEED + 4), 0), "cuda")
+
+    def run(m, c, **attention):
+        c = dataclasses.replace(c, remat=attention.pop("remat", "none"),
+                                attention=dataclasses.replace(c.attention, **attention))
+        loss, _ = loss_fn(m, batch, c)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        return loss.item(), {n: g.float() for n, g in zip(dict(m.named_parameters()), grads)}
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+    l32, g32 = run(model32, cfg32, backend="torch")
+    lt, gt = run(model, cfg, backend="torch")
+    check(np.isfinite(lt), "sfa bf16 gradients end to end: non-finite torch loss")
+    noise = {name: rel(gt[name], g32[name]) for name in named}
+    print(f"[grad end-to-end] bf16 {cfg.name} full width, batch 1 x seq 512: the torch "
+          f"backend in bf16 against float32 on the same weights: loss {lt:.6f} vs {l32:.6f}; "
+          f"relative L2 per leaf " + ", ".join(f"{n} {e:.3g}" for n, e in noise.items()))
+    for label, remat, emit, rows in (
+            ("dense emit, remat full", "full", "dense", ("rtopk", "flash_sfa", "flash_sfa_bwd")),
+            ("compact seam, remat codes", "codes", "compact",
+             ("proj_rtopk", "flash_sfa_block_skip", "flash_sfa_bwd_compact", "code_grad_dx",
+              "code_grad_dw"))):
+        reset_launches()
+        la, ga = run(model, cfg, backend="cuda", remat=remat, bwd_emit=emit, fwd_fuse=True)
+        counts = launch_counts()
+        check(all(counts[r] > 0 for r in rows),
+              f"sfa bf16 gradients end to end ({label}): kernels not launched {counts}")
+        _tc_only(f"sfa bf16 gradients end to end ({label})")
+        # tolerance: the cuda and torch runs differ only in the attention
+        # (and, on the seam, the fused projection), each rounding its f32
+        # result to bf16 once; the torch run differs from float32 in every
+        # product. So the cuda run stays within twice the torch run's
+        # distance from float32, plus 1e-2 (a leaf the flips barely move):
+        # |loss - torch| <= 2 |torch - f32| + 1e-2 and each leaf's relative
+        # L2 from torch <= 2 x its torch-from-f32 error + 1e-2. A wrong
+        # mask, scale, emit or support moves the attention leaves by O(1).
+        tol = 2 * abs(lt - l32) + 1e-2
+        check(np.isfinite(la) and abs(la - lt) <= tol,
+              f"sfa bf16 gradients end to end ({label}): loss {la} vs torch {lt} (tol {tol:.3g})")
+        worst = (0.0, "", 0.0)
+        for name in named:
+            check(bool(torch.isfinite(ga[name]).all()),
+                  f"sfa bf16 gradients end to end ({label}): non-finite d{name}")
+            e, t = rel(ga[name], gt[name]), 2 * noise[name] + 1e-2
+            check(e <= t, f"sfa bf16 gradients end to end ({label}): d{name} relative error "
+                          f"{e:.3g} > {t:.3g}")
+            worst = max(worst, (e / t, name, e))
+        print(f"[grad end-to-end] bf16 {cfg.name} full width, batch 1 x seq 512, cuda {label} "
+              f"(launches {', '.join(f'{r} {counts[r]}' for r in rows)}; no CUDA-core FlashSFA "
+              f"body) vs torch: loss {la:.6f} vs {lt:.6f} (|diff| {abs(la - lt):.3g}, tol "
+              f"{tol:.3g}); all {len(named)} parameter gradients within their tolerance, "
+              f"nearest to it d{worst[1]} at {worst[2]:.3g} ({100 * worst[0]:.1f}% of its "
+              f"tolerance)")
+
+
 def phase_launcher():
     """The slice's launcher command at full width for 2 steps."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gpt2-small-sfa8",
@@ -1754,18 +1993,20 @@ def main():
     phase_launcher()
     phase_grad_end_to_end()
     phase_dense_grad_end_to_end()
+    phase_sfa_grad_bf16_end_to_end()
     decode_src = "src/repro_torch/csrc/flash_sfa_decode.cu"
     fm_src = "src/repro_torch/csrc/flash_sfa_decode_fm.cu"
+    # rows 3-5 run bf16 on the tensor-core bodies (f32 on flash_sfa.cu and
+    # flash_sfa_bwd.cu); their timed calls are bf16
+    sfa_tc_src = "src/repro_torch/csrc/flash_sfa_tc.cu"
     meta = {
         "rtopk": ("src/repro_torch/csrc/rtopk.cu", "src/repro/kernels/rtopk.py:112", counts),
         "proj_rtopk": ("src/repro_torch/csrc/proj_rtopk.cu",
                        "src/repro/kernels/rtopk.py:202", compact),
-        "flash_sfa": ("src/repro_torch/csrc/flash_sfa.cu",
-                      "src/repro/kernels/flash_sfa.py:297", counts),
-        "flash_sfa_block_skip": ("src/repro_torch/csrc/flash_sfa.cu",
-                                 "src/repro/kernels/flash_sfa.py:387", compact),
-        "flash_sfa_bwd_compact": ("src/repro_torch/csrc/flash_sfa_bwd.cu",
-                                  "src/repro/kernels/flash_sfa_bwd.py:342", compact),
+        "flash_sfa": (sfa_tc_src, "src/repro/kernels/flash_sfa.py:297", counts),
+        "flash_sfa_block_skip": (sfa_tc_src, "src/repro/kernels/flash_sfa.py:387", compact),
+        "flash_sfa_bwd_compact": (sfa_tc_src, "src/repro/kernels/flash_sfa_bwd.py:342",
+                                  compact),
         "code_grad_dx": ("src/repro_torch/csrc/code_grad.cu",
                          "src/repro/kernels/code_grad.py:81", compact),
         "code_grad_dw": ("src/repro_torch/csrc/code_grad.cu",
@@ -1778,8 +2019,7 @@ def main():
         "flash_sfa_decode_fm": (fm_src, "src/repro/kernels/flash_sfa_decode.py:429", fm_slot),
         "flash_sfa_decode_fm_paged": (fm_src, "src/repro/kernels/flash_sfa_decode.py:536",
                                       fm_paged),
-        "flash_sfa_bwd": ("src/repro_torch/csrc/flash_sfa_bwd.cu",
-                          "src/repro/kernels/flash_sfa_bwd.py:342", train),
+        "flash_sfa_bwd": (sfa_tc_src, "src/repro/kernels/flash_sfa_bwd.py:342", train),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:155", dense),
         "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",

@@ -21,8 +21,10 @@
 // products have to run on the tensor cores while the next tiles stream in,
 // which is what the bf16 design below does.
 //
-// bf16: the tensor-core bodies. Every product runs as wgmma m64nNk16 (bf16
-// in, f32 accumulate) on tiles that TMA copies into 128- (64-, d = 32)
+// bf16: the tensor-core bodies of attention_tc.cuh, instantiated here with
+// SPARSE = false (flash_sfa_tc.cu instantiates the same schedule on
+// densified top-k codes). Every product runs as wgmma m64nNk16 (bf16 in,
+// f32 accumulate) on tiles that TMA copies into 128- (64-, d = 32)
 // byte-swizzled shared memory one stage ahead of their use (hopper.cuh).
 //  * forward: one block of two warpgroups per (bh, 128-query tile), 64 rows
 //    each; K/V 64-key tiles in a 2-stage ring. S = Q.K^T in the SS form;
@@ -50,11 +52,9 @@
 // tile's keys, P goes through shared memory, and each thread accumulates a
 // quarter of the output columns.
 
-#include "hopper.cuh"
+#include "attention_tc.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------
 // f32: the CUDA-core forward
@@ -175,421 +175,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// bf16: the tensor-core bodies
-// ---------------------------------------------------------------------------
-
-using hopper::Mma;
-using hopper::Tile;
-
-constexpr int kTile = 64;            // rows of one warpgroup; keys per K/V tile
-constexpr int kWG = 128;             // threads of a warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// The accumulator entry i of m64nN (see hopper.cuh): its row within the
-// warpgroup's 64 and its column.
-__device__ __forceinline__ int acc_row(int i) {
-  const int lane = threadIdx.x % 32;
-  return 16 * ((threadIdx.x % kWG) / 32) + lane / 4 + 8 * ((i % 4) / 2);
-}
-__device__ __forceinline__ int acc_col(int i) {
-  return 8 * (i / 4) + 2 * (threadIdx.x % 4) + (i % 2);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// S (64 x 64 f32) = A rows [a_r0, a_r0 + 64) of tile A . B^T (B's 64 rows),
-// both K-major over D: the SS form, D / 16 k-steps.
-template <int D, int ROWS_A>
-__device__ __forceinline__ void mma_abt(float (&s)[32], uint32_t a, int a_r0, uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    Mma<64>::ss(s, Tile<D, ROWS_A>::kmajor(a, a_r0, kk), Tile<D, kTile>::kmajor(b, 0, kk),
-                kk > 0);
-}
-
-// X (64 x 64 f32, an accumulator) split into bf16 hi + lo A fragments
-struct Split {
-  uint32_t hi[4][4], lo[4][4];
-  __device__ __forceinline__ explicit Split(const float (&x)[32]) {
-    hopper::split_frags(x, hi, lo);
-  }
-};
-
-// C (64 x D) += X . B = X_hi . B + X_lo . B, with B a (64, D) tile as the
-// MN-major operand: the RS form, 8 k16 steps.
-template <int D>
-__device__ __forceinline__ void mma_xb(float (&c)[D / 2], const Split& x, uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = Tile<D, kTile>::mnmajor(b, kk);
-    Mma<D>::rs(c, x.hi[kk], db, 1);
-    Mma<D>::rs(c, x.lo[kk], db, 1);
-  }
-}
-
-// Store a warpgroup's 64 x D accumulator (times per-row factors) as bf16
-// rows r0 + (0..63) of a (.., D) matrix, rows < n only.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 2], size_t row_base,
-                                           int r0, int n, float f0, float f1) {
-#pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int r = r0 + acc_row(i);
-    if (r < n) {
-      const float f = (i % 4) < 2 ? f0 : f1;
-      *reinterpret_cast<__nv_bfloat162*>(out + (row_base + r) * D + acc_col(i)) =
-          __floats2bfloat162_rn(acc[i] * f, acc[i + 1] * f);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(2 * kWG, 1)
-flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
-                              const __grid_constant__ CUtensorMap kmap,
-                              const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
-                              float* __restrict__ lse, int nq, int nk, float scale, int causal) {
-  using TQ = Tile<D, 2 * kTile>;
-  using TK = Tile<D, kTile>;
-  extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bar[3];   // Q; K/V stage 0, 1
-  uint8_t* qs = align1024(smem_raw);
-  uint8_t* ks = qs + TQ::BYTES;              // 2 stages
-  uint8_t* vs = ks + 2 * TK::BYTES;          // 2 stages
-
-  const int tid = threadIdx.x;
-  const int wg = tid / kWG;
-  const int bh = blockIdx.x;
-  const int tiles = (nq + 2 * kTile - 1) / (2 * kTile);
-  const int q0 = (causal ? tiles - 1 - static_cast<int>(blockIdx.y) : blockIdx.y) * 2 * kTile;
-  const int r0 = q0 + wg * kTile;            // this warpgroup's first row
-  const int k_end = causal ? min(nk, q0 + 2 * kTile) : nk;
-  const int ntiles = (k_end + kTile - 1) / kTile;
-  const int wg_tiles = ((causal ? min(nk, r0 + kTile) : nk) + kTile - 1) / kTile;
-
-  if (tid == 0) {
-    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
-    hopper::mbar_fence_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    hopper::mbar_expect_tx(&bar[0], TQ::BYTES);
-    TQ::load(qs, &qmap, &bar[0], q0, bh);
-    hopper::mbar_expect_tx(&bar[1], 2 * TK::BYTES);
-    TK::load(ks, &kmap, &bar[1], 0, bh);
-    TK::load(vs, &vmap, &bar[1], 0, bh);
-  }
-
-  const float sl2 = scale * kLog2e;
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
-  float m[2] = {-INFINITY, -INFINITY};    // running max (log2 units), rows h = 0, 1
-  float l[2] = {0.0f, 0.0f};              // this thread's share of the row sums
-  const uint32_t qa = hopper::smem_u32(qs);
-  hopper::mbar_wait(&bar[0], 0);
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int st = t & 1;
-    if (t > 0) __syncthreads();            // tile t - 1 (stage st ^ 1) is consumed
-    if (tid == 0 && t + 1 < ntiles) {
-      hopper::mbar_expect_tx(&bar[1 + (st ^ 1)], 2 * TK::BYTES);
-      TK::load(ks + (st ^ 1) * TK::BYTES, &kmap, &bar[1 + (st ^ 1)], (t + 1) * kTile, bh);
-      TK::load(vs + (st ^ 1) * TK::BYTES, &vmap, &bar[1 + (st ^ 1)], (t + 1) * kTile, bh);
-    }
-    if (t >= wg_tiles) continue;           // all of this tile is past the warpgroup's rows
-    hopper::mbar_wait(&bar[1 + st], (t >> 1) & 1);
-    const int k0 = t * kTile;
-
-    float s[32];
-    hopper::wgmma_fence();
-    mma_abt<D, 2 * kTile>(s, qa, wg * kTile, hopper::smem_u32(ks + st * TK::BYTES));
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(s);
-
-    const bool edge = k0 + kTile > nk || (causal && k0 + kTile - 1 > r0);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      float x = s[i] * sl2;
-      if (edge) {
-        const int key = k0 + acc_col(i);
-        if (key >= nk || (causal && key > r0 + acc_row(i))) x = -INFINITY;
-      }
-      s[i] = x;
-      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
-    }
-    float corr[2], base[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], quad_max(mx[h]));
-      base[h] = m_new == -INFINITY ? 0.0f : m_new;
-      corr[h] = exp2f(m[h] - base[h]);
-      m[h] = m_new;
-      l[h] *= corr[h];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] = exp2f(s[i] - base[(i % 4) / 2]);
-      l[(i % 4) / 2] += s[i];
-    }
-    hopper::fence_regs(o);
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i % 4) / 2];
-
-    const Split p(s);
-    hopper::wgmma_fence();
-    mma_xb<D>(o, p, hopper::smem_u32(vs + st * TK::BYTES));
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(o);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float sum = fmaxf(quad_sum(l[h]), 1e-30f);
-    inv[h] = 1.0f / sum;
-    const int r = r0 + acc_row(2 * h);
-    if (lse != nullptr && tid % 4 == 0 && r < nq)
-      lse[static_cast<size_t>(bh) * nq + r] = (m[h] + log2f(sum)) * kLn2;
-  }
-  store_rows<D>(out, o, static_cast<size_t>(bh) * nq, r0, nq, inv[0], inv[1]);
-}
-
-// dQ: one warpgroup per (bh, 64-query tile), over the key tiles up to the
-// causal edge. Shared: Q, dO, then K and V in two stages.
-template <int D>
-__global__ void __launch_bounds__(kWG, 1)
-attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
-                           const __grid_constant__ CUtensorMap kmap,
-                           const __grid_constant__ CUtensorMap vmap,
-                           const __grid_constant__ CUtensorMap dmap,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           bf16* __restrict__ dq, int nq, int nk, float scale, int causal) {
-  using T = Tile<D, kTile>;
-  extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bar[3];   // Q + dO; K/V stage 0, 1
-  uint8_t* qs = align1024(smem_raw);
-  uint8_t* dos = qs + T::BYTES;
-  uint8_t* ks = dos + T::BYTES;              // 2 stages
-  uint8_t* vs = ks + 2 * T::BYTES;           // 2 stages
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int tiles = (nq + kTile - 1) / kTile;
-  const int q0 = (causal ? tiles - 1 - static_cast<int>(blockIdx.y) : blockIdx.y) * kTile;
-  const int k_end = causal ? min(nk, q0 + kTile) : nk;
-  const int ntiles = (k_end + kTile - 1) / kTile;
-
-  if (tid == 0) {
-    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
-    hopper::mbar_fence_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    hopper::mbar_expect_tx(&bar[0], 2 * T::BYTES);
-    T::load(qs, &qmap, &bar[0], q0, bh);
-    T::load(dos, &dmap, &bar[0], q0, bh);
-    hopper::mbar_expect_tx(&bar[1], 2 * T::BYTES);
-    T::load(ks, &kmap, &bar[1], 0, bh);
-    T::load(vs, &vmap, &bar[1], 0, bh);
-  }
-
-  const float sl2 = scale * kLog2e;
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + acc_row(2 * h);
-    const size_t at = static_cast<size_t>(bh) * nq + min(r, nq - 1);
-    lse2[h] = lse[at] * kLog2e;
-    dl[h] = delta[at];
-  }
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
-  const uint32_t qa = hopper::smem_u32(qs), da = hopper::smem_u32(dos);
-  hopper::mbar_wait(&bar[0], 0);
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int st = t & 1;
-    if (t > 0) __syncthreads();
-    if (tid == 0 && t + 1 < ntiles) {
-      hopper::mbar_expect_tx(&bar[1 + (st ^ 1)], 2 * T::BYTES);
-      T::load(ks + (st ^ 1) * T::BYTES, &kmap, &bar[1 + (st ^ 1)], (t + 1) * kTile, bh);
-      T::load(vs + (st ^ 1) * T::BYTES, &vmap, &bar[1 + (st ^ 1)], (t + 1) * kTile, bh);
-    }
-    hopper::mbar_wait(&bar[1 + st], (t >> 1) & 1);
-    const int k0 = t * kTile;
-    const uint32_t ka = hopper::smem_u32(ks + st * T::BYTES);
-
-    float s[32], dp[32];
-    hopper::wgmma_fence();
-    mma_abt<D, kTile>(s, qa, 0, ka);
-    mma_abt<D, kTile>(dp, da, 0, hopper::smem_u32(vs + st * T::BYTES));
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(s);
-    hopper::fence_regs(dp);
-
-    const bool edge = k0 + kTile > nk || (causal && k0 + kTile - 1 > q0);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i % 4) / 2;
-      float p = exp2f(fmaf(s[i], sl2, -lse2[h]));
-      if (edge) {
-        const int key = k0 + acc_col(i);
-        if (key >= nk || (causal && key > q0 + acc_row(i))) p = 0.0f;
-      }
-      s[i] = p * (dp[i] - dl[h]) * scale;   // dS
-    }
-    const Split ds(s);
-    hopper::fence_regs(acc);
-    hopper::wgmma_fence();
-    mma_xb<D>(acc, ds, ka);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(acc);
-  }
-  store_rows<D>(dq, acc, static_cast<size_t>(bh) * nq, q0, nq, 1.0f, 1.0f);
-}
-
-// dK/dV: one warpgroup per (bh, 64-key tile), over the query tiles from the
-// causal diagonal. Shared: K, V, then Q and dO in two stages, and each
-// query tile's LSE and D.
-template <int D>
-__global__ void __launch_bounds__(kWG, 1)
-attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
-                            const __grid_constant__ CUtensorMap kmap,
-                            const __grid_constant__ CUtensorMap vmap,
-                            const __grid_constant__ CUtensorMap dmap,
-                            const float* __restrict__ lse, const float* __restrict__ delta,
-                            bf16* __restrict__ dk, bf16* __restrict__ dv, int nq, int nk,
-                            float scale, int causal) {
-  using T = Tile<D, kTile>;
-  extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bar[3];   // K + V; Q/dO stage 0, 1
-  __shared__ float lse_s[2][kTile], dl_s[2][kTile];
-  uint8_t* ks = align1024(smem_raw);
-  uint8_t* vs = ks + T::BYTES;
-  uint8_t* qs = vs + T::BYTES;               // 2 stages
-  uint8_t* dos = qs + 2 * T::BYTES;          // 2 stages
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTile;         // the diagonal's tiles are the longest: y = 0 first
-  const int q_first = causal ? k0 : 0;
-  const int ntiles = q_first < nq ? (nq - q_first + kTile - 1) / kTile : 0;
-
-  if (tid == 0) {
-    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
-    hopper::mbar_fence_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    hopper::mbar_expect_tx(&bar[0], 2 * T::BYTES);
-    T::load(ks, &kmap, &bar[0], k0, bh);
-    T::load(vs, &vmap, &bar[0], k0, bh);
-    if (ntiles > 0) {
-      hopper::mbar_expect_tx(&bar[1], 2 * T::BYTES);
-      T::load(qs, &qmap, &bar[1], q_first, bh);
-      T::load(dos, &dmap, &bar[1], q_first, bh);
-    }
-  }
-  // each query tile's LSE (log2 units) and D: thread i < 64 holds row i of
-  // the next tile and stores it ahead of the barrier that opens the tile
-  const size_t stat0 = static_cast<size_t>(bh) * nq;
-  float lse_next = 0.0f, dl_next = 0.0f;
-  if (tid < kTile && q_first + tid < nq) {
-    lse_next = lse[stat0 + q_first + tid] * kLog2e;
-    dl_next = delta[stat0 + q_first + tid];
-  }
-
-  const float sl2 = scale * kLog2e;
-  float dka[D / 2], dva[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.0f;
-  const uint32_t ka = hopper::smem_u32(ks), va = hopper::smem_u32(vs);
-  hopper::mbar_wait(&bar[0], 0);
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int st = t & 1;
-    const int q0 = q_first + t * kTile;
-    if (tid < kTile) {                       // stage st was last read two tiles ago
-      lse_s[st][tid] = lse_next;
-      dl_s[st][tid] = dl_next;
-    }
-    __syncthreads();                         // tile t - 1 is consumed; this tile's stats are in
-    if (tid == 0 && t + 1 < ntiles) {
-      hopper::mbar_expect_tx(&bar[1 + (st ^ 1)], 2 * T::BYTES);
-      T::load(qs + (st ^ 1) * T::BYTES, &qmap, &bar[1 + (st ^ 1)], q0 + kTile, bh);
-      T::load(dos + (st ^ 1) * T::BYTES, &dmap, &bar[1 + (st ^ 1)], q0 + kTile, bh);
-    }
-    if (tid < kTile && t + 1 < ntiles && q0 + kTile + tid < nq) {
-      lse_next = lse[stat0 + q0 + kTile + tid] * kLog2e;
-      dl_next = delta[stat0 + q0 + kTile + tid];
-    }
-    hopper::mbar_wait(&bar[1 + st], (t >> 1) & 1);
-    const uint32_t qa = hopper::smem_u32(qs + st * T::BYTES);
-    const uint32_t da = hopper::smem_u32(dos + st * T::BYTES);
-
-    float s[32], dp[32];                     // S^T and dP^T: rows keys, columns queries
-    hopper::wgmma_fence();
-    mma_abt<D, kTile>(s, ka, 0, qa);
-    mma_abt<D, kTile>(dp, va, 0, da);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(s);
-    hopper::fence_regs(dp);
-
-    const bool edge = q0 + kTile > nq || (causal && q0 < k0 + kTile);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int c = acc_col(i);
-      float p = exp2f(fmaf(s[i], sl2, -lse_s[st][c]));
-      if (edge) {
-        const int qi = q0 + c;
-        if (qi >= nq || (causal && k0 + acc_row(i) > qi)) p = 0.0f;
-      }
-      s[i] = p;                                        // P^T
-      dp[i] = p * (dp[i] - dl_s[st][c]) * scale;       // dS^T
-    }
-    const Split pt(s), dst(dp);
-    hopper::fence_regs(dva);
-    hopper::fence_regs(dka);
-    hopper::wgmma_fence();
-    mma_xb<D>(dva, pt, da);
-    mma_xb<D>(dka, dst, qa);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(dva);
-    hopper::fence_regs(dka);
-  }
-  const size_t rows = static_cast<size_t>(bh) * nk;
-  store_rows<D>(dk, dka, rows, k0, nk, 1.0f, 1.0f);
-  store_rows<D>(dv, dva, rows, k0, nk, 1.0f, 1.0f);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 template <int D>
 int launch_tc_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
                   int nq, int nk, float scale, int causal, cudaStream_t stream) {
@@ -599,11 +184,12 @@ int launch_tc_fwd(const void* q, const void* k, const void* v, void* out, void* 
   if (e == 0) e = hopper::make_map(&vm, v, D, nk, bh, kTile);
   if (e != 0) return e;
   const size_t smem = 1024 + Tile<D, 2 * kTile>::BYTES + 4 * Tile<D, kTile>::BYTES;
-  auto kernel = flash_attention_tc_fwd_kernel<D>;
+  auto kernel = flash_attention_tc_fwd_kernel<D, false>;
   cudaError_t ce = allow_smem(kernel, smem);
   if (ce != cudaSuccess) return static_cast<int>(ce);
   kernel<<<dim3(bh, (nq + 2 * kTile - 1) / (2 * kTile)), 2 * kWG, smem, stream>>>(
-      qm, km, vm, static_cast<bf16*>(out), static_cast<float*>(lse), nq, nk, scale, causal);
+      qm, km, vm, Codes{}, Codes{}, nullptr, nullptr, static_cast<bf16*>(out),
+      static_cast<float*>(lse), nq, nk, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -618,20 +204,21 @@ int launch_tc_bwd(const void* q, const void* k, const void* v, const void* dout,
   if (e == 0) e = hopper::make_map(&dm, dout, D, nq, bh, kTile);
   if (e != 0) return e;
   const size_t smem = 1024 + 6 * Tile<D, kTile>::BYTES;
-  auto kdq = attention_bwd_dq_tc_kernel<D>;
-  auto kdkv = attention_bwd_dkv_tc_kernel<D>;
+  auto kdq = attention_bwd_dq_tc_kernel<D, false>;
+  auto kdkv = attention_bwd_dkv_tc_kernel<D, false>;
   cudaError_t ce = allow_smem(kdq, smem);
   if (ce == cudaSuccess) ce = allow_smem(kdkv, smem);
   if (ce != cudaSuccess) return static_cast<int>(ce);
   const float* lse_ = static_cast<const float*>(lse);
   const float* delta_ = static_cast<const float*>(delta);
   kdq<<<dim3(bh, (nq + kTile - 1) / kTile), kWG, smem, stream>>>(
-      qm, km, vm, dm, lse_, delta_, static_cast<bf16*>(dq), nq, nk, scale, causal);
+      qm, km, vm, dm, Codes{}, Codes{}, lse_, delta_, static_cast<bf16*>(dq), nq, nk, scale,
+      causal, 0, 0);
   ce = cudaGetLastError();
   if (ce != cudaSuccess) return static_cast<int>(ce);
   kdkv<<<dim3(bh, (nk + kTile - 1) / kTile), kWG, smem, stream>>>(
-      qm, km, vm, dm, lse_, delta_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), nq, nk,
-      scale, causal);
+      qm, km, vm, dm, Codes{}, Codes{}, lse_, delta_, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), nq, nk, scale, causal, 0, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

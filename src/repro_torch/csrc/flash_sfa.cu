@@ -40,9 +40,12 @@
 // level map every tile is level 2 (block_skip=False).
 //
 // Bound on the H100: operations. Per (query, key) pair the kernel does 2k
-// flops of score and 2dv of P.V, against O(n k + n dv) bytes moved; the
-// P.V product runs on CUDA cores in f32 here, where a faster kernel would
-// put it on the tensor cores (wgmma) — work for a later change.
+// flops of score and 2dv of P.V, against O(n k + n dv) bytes moved, all on
+// CUDA cores in f32. That is the exact path, kept for f32 (the tensor cores
+// would compute in TF32, which fails f32's 1e-4) and for bf16 shapes the
+// tensor-core body does not take (d != dv, k > 32); bf16 with d = dv in
+// {32, 64, 128} and k <= 32 runs flash_sfa_tc.cu instead, 7x faster at the
+// serving shape (PERF.md, PR 16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

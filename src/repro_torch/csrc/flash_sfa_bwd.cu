@@ -50,10 +50,12 @@
 //
 // Bound on the H100: operations. Per (query, key) pair the two kernels do
 // about 2 * (2k + 2dv) + 2k + 2dv flops (scores twice, dO.V twice, dQ, dK,
-// dV) on CUDA cores against O(n (k + dv)) bytes. The dv-wide products
-// (dO.V^T, P^T.dO) are the ones the tensor cores can take; the dense
-// backward's tensor-core form (csrc/flash_attention.cu, on csrc/hopper.cuh)
-// is the template for that.
+// dV) on CUDA cores against O(n (k + dv)) bytes. That is the exact path,
+// kept for f32 (the tensor cores would compute in TF32, which fails f32's
+// 1e-4) and for bf16 shapes the tensor-core body does not take (d != dv);
+// bf16 with d = dv in {32, 64, 128} and k <= 32 runs flash_sfa_tc.cu, which
+// densifies the code tiles into shared memory and runs every product on the
+// tensor cores, 12x faster at the training shape (PERF.md, PR 16).
 //
 // The dense form (SPARSE=false) is built for f32 only: it is the exact f32
 // path of the dense FlashAttention backward, where the tensor cores would

@@ -3,14 +3,16 @@
 rtopk            — exact row top-|k| (warp ballot bisection on bit patterns);
                    proj_rtopk: the fused head projection -> [RoPE] -> top-k
 flash_sfa        — FlashSFA forward (prefill attention over top-k codes),
-                   with or without the block-skip level map
+                   with or without the block-skip level map: bf16 on the
+                   tensor cores (csrc/flash_sfa_tc.cu, codes densified into
+                   swizzled shared memory), f32 on CUDA cores
 flash_sfa_decode — one query against the KV cache: token-major sparse
                    (contiguous, paged, and the multi-query verify pass)
                    and the feature-major image (contiguous and paged)
 flash_sfa_bwd    — FlashSFA backward (dense, compact and compact2 emits)
-                   and the dense FlashAttention backward: f32 on this
-                   source's CUDA cores, bf16 on flash_attention.cu's
-                   tensor-core kernels
+                   and the dense FlashAttention backward: f32 on
+                   flash_sfa_bwd.cu's CUDA cores, bf16 on the tensor-core
+                   kernels of flash_sfa_tc.cu and flash_attention.cu
 flash_attention  — dense FlashAttention forward (the paper's baseline):
                    bf16 on the tensor cores (TMA + wgmma, csrc/hopper.cuh),
                    f32 on CUDA cores
@@ -25,7 +27,10 @@ Each kernel wrapper runs its CUDA kernel for a CUDA tensor and its plain
 version for a CPU tensor, and counts its kernel launches in
 ``<wrapper>.launches`` (``flash_sfa.block_skip_launches`` for the block-skip
 schedule, ``flash_sfa_bwd.compact_launches`` for the compact emits).
-``launch_counts()`` reads them all under one name per kernel. A wrapper's
+``launch_counts()`` reads them all under one name per kernel (one per
+PERF.md row, whichever body ran); ``body_counts()`` reads the launches of
+the FlashSFA CUDA-core bodies alone (``<wrapper>.cuda_core_launches``), so
+a run shows which body its bf16 path took. A wrapper's
 output has no ``grad_fn``: it refuses inputs that require grad, and
 gradients go through the autograd Functions of ``ops`` and of
 ``models/attention.py`` on either device.
@@ -67,16 +72,29 @@ COUNTERS = {
 }
 
 
+# the FlashSFA bodies that a dtype or shape can send a call to instead of
+# the tensor-core ones
+BODY_COUNTERS = {
+    "flash_sfa_cuda_core": (flash_sfa, "cuda_core_launches"),
+    "flash_sfa_bwd_cuda_core": (flash_sfa_bwd, "cuda_core_launches"),
+}
+
+
 def reset_launches() -> None:
-    for fn, attr in COUNTERS.values():
+    for fn, attr in (*COUNTERS.values(), *BODY_COUNTERS.values()):
         setattr(fn, attr, 0)
+
+
+def body_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in BODY_COUNTERS.items()}
 
 
 def launch_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
-__all__ = ["COUNTERS", "block_skip_stats", "code_grad_dw", "code_grad_dx",
+__all__ = ["BODY_COUNTERS", "COUNTERS", "block_skip_stats", "body_counts",
+           "code_grad_dw", "code_grad_dx",
            "dense_attention_op", "feature_major_prefill", "flash_attention",
            "flash_attention_bwd", "flash_sfa", "flash_sfa_bwd", "flash_sfa_decode",
            "flash_sfa_decode_fm", "flash_sfa_decode_fm_paged",

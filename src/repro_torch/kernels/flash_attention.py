@@ -39,6 +39,8 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 _ENTRIES = {torch.float32: "flash_attention_fwd_launch",
             torch.bfloat16: "flash_attention_tc_fwd_launch"}
 
+HEAD_DIMS = (32, 64, 128)   # d = dv of both bodies and of flash_attention_bwd's
+
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] + \
     [ctypes.c_int] + [ctypes.c_void_p]
 
@@ -59,9 +61,9 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     bh, nq, d = q.shape
     nk = k.shape[1]
     dt = v.dtype
-    if dt not in _ENTRIES or d not in (32, 64, 128):
+    if dt not in _ENTRIES or d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes f32/bf16 with d = dv in "
-                         f"(32, 64, 128), got {dt}, d={d}")
+                         f"{HEAD_DIMS}, got {dt}, d={d}")
     for name, t, shape in (("q", q, (bh, nq, d)), ("k", k, (bh, nk, d)),
                            ("v", v, (bh, nk, d))):
         if tuple(t.shape) != shape or t.dtype != dt or t.device != v.device:

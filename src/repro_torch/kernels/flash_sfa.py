@@ -4,27 +4,40 @@ Replaces the TPU kernel ``repro/kernels/flash_sfa.py::flash_sfa``, both
 schedules (``block_skip=False``: Pallas body ``_flash_sfa_kernel``, helpers
 ``_tile_update``, ``_finalize_tile``, ``_densify_block``; ``block_skip=True``:
 ``_flash_sfa_skip_kernel`` with its XLA pre-pass ``_tile_occupancy`` /
-``_block_maps``) with the CUDA kernel
-in ``csrc/flash_sfa.cu``: one block per (bh, 64-query tile), a loop over
-64-key tiles up to the causal edge, each key tile densified into shared
-memory as (64 × d) f32, scores gathered at each query's own k coordinates
-(k multiply-adds per score where the TPU ran a d-wide matmul), online
-softmax and P·V in f32.
+``_block_maps``), with two CUDA bodies chosen by dtype and shape:
 
-Bound on the H100: operations (2k flops of score and 2·dv of P·V per
-(query, key) pair against O(n·(k + dv)) bytes). The design cuts the score
-work from d to k per pair; P·V still runs on CUDA cores, and moving it onto
-the tensor cores is work for a later change.
+* bf16 with d = dv in {32, 64, 128} and k <= 32 — the tensor-core body
+  (``csrc/flash_sfa_tc.cu`` on ``csrc/attention_tc.cuh``, the dense bf16
+  forward's schedule): one block of two warpgroups per (bh, 128-query
+  tile); the query codes densified once into a swizzled shared-memory tile,
+  each 64-key tile's codes staged one tile ahead (cp.async, beside V's TMA
+  load) and densified the same way, as the TPU densifies in VMEM; S = Q̃·K̃ᵀ
+  and P·V as ``wgmma`` with the online softmax in registers and P split
+  into bf16 hi + lo. A pack kernel first turns each code into one 32-bit
+  word. Bound on the H100: operations, now on the tensor cores (4·d flops
+  per (query, key) pair, 6·d with the split).
+* f32, and bf16 shapes outside that set (d ≠ dv, k > 32) — the CUDA-core body of
+  ``csrc/flash_sfa.cu``: one block per (bh, 64-query tile), each key tile
+  densified into shared memory as (64 × d) f32, scores gathered at each
+  query's own k coordinates (k multiply-adds per score), online softmax
+  and P·V in f32 on CUDA cores. It is the exact f32 path: f32 on the
+  tensor cores would be TF32 (~3 decimal digits), which fails f32's 1e-4.
+
+The dtype and shape alone choose the body (``tensor_core_body``); no
+caller picks one. ``flash_sfa.launches`` and ``.block_skip_launches`` count
+the launches of either body by schedule (one PERF.md row each);
+``flash_sfa.cuda_core_launches`` counts those of the CUDA-core body alone.
 
 Block skip (``block_skip=True``): ``_block_maps`` builds, in torch outside
 the kernel as the JAX package does in XLA, a level map per (query tile, key
-tile) at the kernel's own 64 × 64 tile: 0 = causally dead, 1 = the two
-tiles' feature occupancies (``_tile_occupancy``, value-zero entries
-excluded) do not intersect on a fully visible tile, so every score is 0 and
-the kernel applies the closed-form online-softmax update from the tile's V
-row sum without reading its K codes or V; 2 = compute. The TPU's ``fetch``
-map (which K/V block to DMA at each grid step) has no counterpart: it only
-keeps the TPU pipeline from copying skipped blocks, and a CUDA block reads
+tile) at the kernels' 64 × 64 tile (the tensor-core body's warpgroup reads
+the level of its own 64 rows): 0 = causally dead, 1 = the two tiles'
+feature occupancies (``_tile_occupancy``, value-zero entries excluded) do
+not intersect on a fully visible tile, so every score is 0 and the kernel
+applies the closed-form online-softmax update from the tile's V row sum
+without reading its K codes or V; 2 = compute. The TPU's ``fetch`` map
+(which K/V block to DMA at each grid step) has no counterpart: it only
+keeps the TPU pipeline from copying skipped blocks, and a CUDA block loads
 only the tiles it computes. The level map does not change the function, so
 the plain version of both schedules is the same ``flash_sfa_ref``. At d 64
 and k 8 a 64-row tile occupies nearly all 64 features, so level 1 is rare
@@ -47,7 +60,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-BLOCK = 64          # the kernel's query and key tile (csrc/flash_sfa.cu kBQ = kBK)
+_TC_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            + [ctypes.c_int] + [ctypes.c_void_p])
+BLOCK = 64          # the kernels' level-map tile (csrc/flash_sfa.cu kBQ = kBK; a warpgroup)
+# the shapes the forward's bodies take (models/backends.py reads them)
+V_HEAD_DIMS = (32, 64, 128)   # dv, either body
+MAX_D = 256                   # d, either body
+TC_DIMS = (32, 64, 128)       # d = dv of the tensor-core bodies
+TC_MAX_K = 32                 # their largest code width
+
+
+def tensor_core_body(dtype, d: int, dv: int, kq: int, kk: int) -> bool:
+    """Whether a call on the card runs the tensor-core body (forward and
+    backward alike): bf16 with d = dv in {32, 64, 128} and k <= 32."""
+    return (dtype == torch.bfloat16 and d == dv and dv in TC_DIMS
+            and 0 < kq <= TC_MAX_K and 0 < kk <= TC_MAX_K)
+
+
+def packed_scratch(bh: int, nq: int, kq: int, nk: int, kk: int, device):
+    """The tensor-core bodies' scratch: one 32-bit word per code of both sides."""
+    return torch.empty(bh * (nq * kq + nk * kk), dtype=torch.int32, device=device)
 
 
 def _tile_occupancy(vals, idx, d: int, nblocks: int, block: int):
@@ -128,7 +160,8 @@ def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
     Exactly softmax(densify(Q̃)·densify(K̃)ᵀ·scale + causal)·V, with either
     schedule (``block_skip``: skip dead and zero-overlap tiles). On the card
     the code values and v share one dtype (f32 or bf16), indices are int32,
-    d <= 256 and dv is 32, 64 or 128.
+    d <= 256 and dv is 32, 64 or 128. bf16 with d = dv in {32, 64, 128} and
+    k <= 32 runs the tensor-core body, everything else the CUDA-core body.
     """
     scale = float(scale if scale is not None else d ** -0.5)
     _build.refuse_grad("flash_sfa", q_vals, k_vals, v)
@@ -142,9 +175,9 @@ def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
     nk, kk = k_vals.shape[1], k_vals.shape[2]
     dv = v.shape[-1]
     dt = v.dtype
-    if dt not in _DTYPES or dv not in (32, 64, 128) or not 0 < d <= 256:
-        raise ValueError(f"flash_sfa kernel takes f32/bf16 with dv in (32, 64, 128) "
-                         f"and d <= 256, got {dt}, dv={dv}, d={d}")
+    if dt not in _DTYPES or dv not in V_HEAD_DIMS or not 0 < d <= MAX_D:
+        raise ValueError(f"flash_sfa kernel takes f32/bf16 with dv in {V_HEAD_DIMS} "
+                         f"and d <= {MAX_D}, got {dt}, dv={dv}, d={d}")
     _check("q_vals", q_vals, (bh, nq, kq), dt)
     _check("q_idx", q_idx, (bh, nq, kq), torch.int32)
     _check("k_vals", k_vals, (bh, nk, kk), dt)
@@ -163,16 +196,28 @@ def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
         level = _skip_schedule(q_vals, q_idx, k_vals, k_idx, d=d, causal=causal,
                                block_q=BLOCK, block_k=BLOCK).contiguous()
         vsum = _pad_rows(v, BLOCK).float().reshape(bh, -1, BLOCK, dv).sum(2)
-    fn = _build.entry("flash_sfa", "flash_sfa_fwd_launch", _ARGS)
-    with torch.cuda.device(v.device):
-        err = fn(q_vals.data_ptr(), q_idx.data_ptr(), k_vals.data_ptr(),
-                 k_idx.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr() if lse is not None else None,
-                 level.data_ptr() if level is not None else None,
-                 vsum.data_ptr() if vsum is not None else None,
-                 bh, nq, nk, kq, kk, d, dv, scale, int(causal), _DTYPES[dt],
-                 _build.stream_ptr(v))
-    _build.check("flash_sfa", err, "flash_sfa launch")
+    ptrs = (lse.data_ptr() if lse is not None else None,
+            level.data_ptr() if level is not None else None,
+            vsum.data_ptr() if vsum is not None else None)
+    if tensor_core_body(dt, d, dv, kq, kk):
+        v = _build.tma_operand(v)
+        packed = packed_scratch(bh, nq, kq, nk, kk, v.device)
+        fn = _build.entry("flash_sfa_tc", "flash_sfa_tc_fwd_launch", _TC_ARGS)
+        with torch.cuda.device(v.device):
+            err = fn(q_vals.data_ptr(), q_idx.data_ptr(), k_vals.data_ptr(),
+                     k_idx.data_ptr(), v.data_ptr(), out.data_ptr(), *ptrs,
+                     packed.data_ptr(), bh, nq, nk, kq, kk, d, scale, int(causal),
+                     _build.stream_ptr(v))
+        _build.check("flash_sfa_tc", err, "flash_sfa launch")
+    else:
+        fn = _build.entry("flash_sfa", "flash_sfa_fwd_launch", _ARGS)
+        with torch.cuda.device(v.device):
+            err = fn(q_vals.data_ptr(), q_idx.data_ptr(), k_vals.data_ptr(),
+                     k_idx.data_ptr(), v.data_ptr(), out.data_ptr(), *ptrs,
+                     bh, nq, nk, kq, kk, d, dv, scale, int(causal), _DTYPES[dt],
+                     _build.stream_ptr(v))
+        _build.check("flash_sfa", err, "flash_sfa launch")
+        flash_sfa.cuda_core_launches += 1
     if block_skip:
         flash_sfa.block_skip_launches += 1
     else:
@@ -180,5 +225,6 @@ def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
     return (out, lse) if return_residuals else out
 
 
-flash_sfa.launches = 0              # block_skip=False
-flash_sfa.block_skip_launches = 0   # block_skip=True
+flash_sfa.launches = 0              # block_skip=False, either body
+flash_sfa.block_skip_launches = 0   # block_skip=True, either body
+flash_sfa.cuda_core_launches = 0    # the CUDA-core body, either schedule

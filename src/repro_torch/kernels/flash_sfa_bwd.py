@@ -5,38 +5,48 @@ Replaces the TPU kernels ``repro/kernels/flash_sfa_bwd.py::flash_sfa_bwd``
 (every emit: ``"dense"``, ``"compact"``, ``"compact2"``) and
 ``::flash_attention_bwd`` (both ``_bwd_impl``: Pallas bodies
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, emits ``_support_mask``,
-``_gather_support`` and ``_pair_closure_gather``) with the CUDA kernels in
-``csrc/flash_sfa_bwd.cu``, one source templated on sparse/dense with the
-emit as a launch parameter (the dense form f32 only; bf16 dense below).
-Each call launches two kernels: dQ (one block per 64-query tile, walking
-the key tiles up to the causal edge) and dK/dV (one block per 64-key tile,
-walking the query tiles from the diagonal).
-Each output tile has one owner: no atomics, a deterministic result.
-Probabilities are recomputed from the forward's LSE; D_i = Σ(dO_i ∘ O_i) is
-one torch reduction outside the kernels, as the JAX package computes it in
-XLA. In the sparse form each densified tile lives in shared memory and
-dQ/dK are accumulated only on each row's k stored coordinates (k
-multiply-adds per pair, gathered from the dense tile). The emit decides
-what is written: dense rows that are zero off the support (the
-straight-through gradient of paper Eq. 6), the k accumulators themselves
-as (n, k) values aligned to the stored indices (``"compact"``: 0 where an
-index falls outside [0, d)), or those values laid out on the RoPE pair
-closure as (n, 2k) (``"compact2"``: even or unrotated first, odd second).
-The compact emits write k (or 2k) values per row where the dense one
-writes d.
+``_gather_support`` and ``_pair_closure_gather``). Each call launches two
+kernels: dQ (one owner per 64-query tile, walking the key tiles up to the
+causal edge) and dK/dV (one owner per 64-key tile, walking the query tiles
+from the diagonal): no atomics, a deterministic result. Probabilities are
+recomputed from the forward's LSE; D_i = Σ(dO_i ∘ O_i) is one torch
+reduction outside the kernels, as the JAX package computes it in XLA.
 
-Bound on the H100: operations (scores and dO·V are recomputed in both
-kernels, on CUDA cores in f32 here). The dv-wide products are the ones the
-tensor cores can take; the dense backward's bf16 body shows how.
+``flash_sfa_bwd`` chooses its body by dtype and shape, as the forward does
+(``flash_sfa.tensor_core_body``):
+
+* bf16 with d = dv in {32, 64, 128} and k <= 32 — the tensor-core body
+  (``csrc/flash_sfa_tc.cu`` on ``csrc/attention_tc.cuh``, the dense bf16
+  backward's schedule): each Q̃ and K̃ tile is densified from the codes
+  (packed into 32-bit words by a pack kernel, the streamed side staged one
+  tile ahead by cp.async) into the swizzled shared-memory layout TMA would
+  write; S, dP, dV, dK and dQ run as ``wgmma`` with P and dS split into
+  bf16 hi + lo. dQ and dK are emitted from the dense f32 accumulator as the
+  TPU's ``_unpack`` does: masked to the support (dense), or staged through
+  shared memory and gathered at the stored indices (compact, compact2), so
+  the compact emit equals the dense one gathered, bit for bit. Bound on
+  the H100: operations, on the tensor cores (10·d flops per (query, key)
+  pair, 16·d with the split).
+* f32, and bf16 shapes outside that set — the CUDA-core body of
+  ``csrc/flash_sfa_bwd.cu`` (SPARSE=true): each tile densified as f32 in
+  shared memory and dQ/dK accumulated only on each row's k stored
+  coordinates (k multiply-adds per pair), the compact emits written
+  straight from those k-wide accumulators. Exact in f32; f32 on the tensor
+  cores would be TF32, which fails f32's 1e-4 check.
+
+The emit decides what is written: dense rows that are zero off the support
+(the straight-through gradient of paper Eq. 6), the values at the stored
+indices as (n, k) (``"compact"``: 0 where an index falls outside [0, d)),
+or those values laid out on the RoPE pair closure as (n, 2k)
+(``"compact2"``: even or unrotated first, odd second).
+``flash_sfa_bwd.launches`` / ``.compact_launches`` count either body's
+launches by emit (one PERF.md row each); ``.cuda_core_launches`` those of
+the CUDA-core body alone. The dtype and shape alone choose the body.
 
 ``flash_attention_bwd`` chooses its body by dtype. bf16 runs the
-tensor-core kernels in ``csrc/flash_attention.cu`` (same schedule: a dQ
-kernel and a dK/dV kernel, one owner per output tile, no atomics): S, dP
-and the three gradient products run as ``wgmma`` on TMA-loaded tiles, with
-P and dS (f32 values) split into bf16 hi + lo so that ~16 of their bits
-reach the tensor cores. f32 runs this source's ``SPARSE=false`` CUDA-core
-form, the exact path: f32 on the tensor cores would be TF32 (~3 decimal
-digits), which fails f32's 1e-4 check. A bf16 call never reaches it.
+tensor-core kernels of ``csrc/flash_attention.cu`` (the same schedule with
+TMA-loaded Q and K); f32 runs ``csrc/flash_sfa_bwd.cu``'s ``SPARSE=false``
+CUDA-core form, the exact path. A bf16 call never reaches it.
 
 The plain versions are ``kernels/ref.py::flash_sfa_bwd_ref`` and
 ``::flash_attention_bwd_ref``; the wrappers run them for CPU tensors only.
@@ -48,14 +58,19 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import HEAD_DIMS as _DENSE_DIMS
+from repro_torch.kernels.flash_sfa import MAX_D, V_HEAD_DIMS, packed_scratch, tensor_core_body
 from repro_torch.kernels.ref import flash_attention_bwd_ref as flash_attention_bwd_plain
 from repro_torch.kernels.ref import flash_sfa_bwd_ref as flash_sfa_bwd_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_K = 32
+MAX_K = 32          # the largest code width either backward body takes (d, dv: as
+                    # the forward's, flash_sfa.MAX_D and .V_HEAD_DIMS)
 
 _SFA_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_TC_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _EMITS = {"dense": 0, "compact": 1, "compact2": 2}
 # flash_attention_bwd_launch: bf16 in csrc/flash_attention.cu, f32 in
 # csrc/flash_sfa_bwd.cu, one signature
@@ -100,7 +115,9 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
     ``pair_closure_indices(idx, rot_dim)`` (default rot_dim = d).
 
     On the card the code values, v, o and g share one dtype (f32 or bf16),
-    indices are int32, k <= 32, d <= 256 and dv is 32, 64 or 128.
+    indices are int32, k <= 32, d <= 256 and dv is 32, 64 or 128. bf16 with
+    d = dv in {32, 64, 128} runs the tensor-core body, everything else the
+    CUDA-core body (``flash_sfa.tensor_core_body``).
     """
     if emit not in _EMITS:
         raise ValueError(f"emit={emit!r}; expected 'dense', 'compact' or 'compact2'")
@@ -116,10 +133,10 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
     bh, nq, kq = q_vals.shape
     nk, kk = k_vals.shape[1], k_vals.shape[2]
     dv, dt, dev = v.shape[-1], v.dtype, v.device
-    if (dt not in _DTYPES or dv not in (32, 64, 128) or not 0 < d <= 256
-            or not 0 < kq <= _MAX_K or not 0 < kk <= _MAX_K):
-        raise ValueError(f"flash_sfa_bwd kernel takes f32/bf16, dv in (32, 64, 128), "
-                         f"d <= 256 and k <= {_MAX_K}; got {dt}, dv={dv}, d={d}, "
+    if (dt not in _DTYPES or dv not in V_HEAD_DIMS or not 0 < d <= MAX_D
+            or not 0 < kq <= MAX_K or not 0 < kk <= MAX_K):
+        raise ValueError(f"flash_sfa_bwd kernel takes f32/bf16, dv in {V_HEAD_DIMS}, "
+                         f"d <= {MAX_D} and k <= {MAX_K}; got {dt}, dv={dv}, d={d}, "
                          f"k={kq}/{kk}")
     what = "flash_sfa_bwd"
     _check(what, "q_idx", q_idx, (bh, nq, kq), torch.int32, dev)
@@ -137,14 +154,27 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
     dq = torch.empty((bh, nq, wq), dtype=dt, device=dev)
     dk = torch.empty((bh, nk, wk), dtype=dt, device=dev)
     dvo = torch.empty((bh, nk, dv), dtype=dt, device=dev)
-    fn = _build.entry("flash_sfa_bwd", "flash_sfa_bwd_launch", _SFA_ARGS)
-    with torch.cuda.device(dev):
-        err = fn(q_vals.data_ptr(), q_idx.data_ptr(), k_vals.data_ptr(),
-                 k_idx.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvo.data_ptr(),
-                 bh, nq, nk, kq, kk, d, dv, scale, int(causal), _DTYPES[dt],
-                 _EMITS[emit], rot, _build.stream_ptr(v))
-    _build.check("flash_sfa_bwd", err, "flash_sfa_bwd launch")
+    if tensor_core_body(dt, d, dv, kq, kk):
+        v, g = _build.tma_operand(v), _build.tma_operand(g)
+        packed = packed_scratch(bh, nq, kq, nk, kk, dev)
+        fn = _build.entry("flash_sfa_tc", "flash_sfa_tc_bwd_launch", _TC_ARGS)
+        with torch.cuda.device(dev):
+            err = fn(q_vals.data_ptr(), q_idx.data_ptr(), k_vals.data_ptr(),
+                     k_idx.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvo.data_ptr(),
+                     packed.data_ptr(), bh, nq, nk, kq, kk, d, scale, int(causal),
+                     _EMITS[emit], rot, _build.stream_ptr(v))
+        _build.check("flash_sfa_tc", err, "flash_sfa_bwd launch")
+    else:
+        fn = _build.entry("flash_sfa_bwd", "flash_sfa_bwd_launch", _SFA_ARGS)
+        with torch.cuda.device(dev):
+            err = fn(q_vals.data_ptr(), q_idx.data_ptr(), k_vals.data_ptr(),
+                     k_idx.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvo.data_ptr(),
+                     bh, nq, nk, kq, kk, d, dv, scale, int(causal), _DTYPES[dt],
+                     _EMITS[emit], rot, _build.stream_ptr(v))
+        _build.check("flash_sfa_bwd", err, "flash_sfa_bwd launch")
+        flash_sfa_bwd.cuda_core_launches += 1
     if emit == "dense":
         flash_sfa_bwd.launches += 1
     else:
@@ -152,8 +182,9 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
     return dq, dk, dvo
 
 
-flash_sfa_bwd.launches = 0           # emit="dense"
-flash_sfa_bwd.compact_launches = 0   # emit="compact" | "compact2"
+flash_sfa_bwd.launches = 0            # emit="dense", either body
+flash_sfa_bwd.compact_launches = 0    # emit="compact" | "compact2", either body
+flash_sfa_bwd.cuda_core_launches = 0  # the CUDA-core body, any emit
 
 
 def flash_attention_bwd(q, k, v, o, lse, g, *, causal: bool = True,
@@ -173,9 +204,9 @@ def flash_attention_bwd(q, k, v, o, lse, g, *, causal: bool = True,
     bh, nq, d = q.shape
     nk = k.shape[1]
     dt, dev = v.dtype, v.device
-    if dt not in _DENSE_LIBS or d not in (32, 64, 128):
+    if dt not in _DENSE_LIBS or d not in _DENSE_DIMS:
         raise ValueError(f"flash_attention_bwd kernel takes f32/bf16 with d = dv in "
-                         f"(32, 64, 128), got {dt}, d={d}")
+                         f"{_DENSE_DIMS}, got {dt}, d={d}")
     what = "flash_attention_bwd"
     _check(what, "q", q, (bh, nq, d), dt, dev)
     _check(what, "k", k, (bh, nk, d), dt, dev)

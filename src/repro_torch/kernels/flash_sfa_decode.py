@@ -63,6 +63,7 @@ from repro_torch.kernels.ref import flash_sfa_decode_ref as flash_sfa_decode_pla
 
 _VALS = {torch.float32: 0, torch.bfloat16: 1}
 _IDX = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
+V_HEAD_DIMS = (32, 64, 128)   # dv of every decode kernel (models/backends.py reads it)
 
 
 _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
@@ -100,9 +101,9 @@ def _check_cache(name, q, k_vals, k_idx, v):
     if k_idx.dtype not in _IDX:
         raise TypeError(f"{name}: k_idx dtype {k_idx.dtype} not in {list(_IDX)}")
     kk, dv = k_vals.shape[-1], v.shape[-1]
-    if k_idx.shape[-1] != kk or dv not in (32, 64, 128):
+    if k_idx.shape[-1] != kk or dv not in V_HEAD_DIMS:
         raise ValueError(f"{name}: k_idx width {k_idx.shape[-1]} vs {kk}, "
-                         f"dv={dv} (kernel takes 32, 64 or 128)")
+                         f"dv={dv} (kernel takes {V_HEAD_DIMS})")
     for t, what in ((k_vals, "k_vals"), (k_idx, "k_idx"), (v, "v")):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: {what} needs a contiguous last axis")
@@ -299,8 +300,8 @@ def _check_fm(name, q_vals, q_idx, k_feat, v):
                         f"got {k_feat.dtype}/{v.dtype}")
     if q_idx.shape != q_vals.shape or q_vals.ndim != 2:
         raise ValueError(f"{name}: q_vals/q_idx must be (rows, kq) alike")
-    if v.shape[-1] not in (32, 64, 128):
-        raise ValueError(f"{name}: dv={v.shape[-1]} (kernel takes 32, 64 or 128)")
+    if v.shape[-1] not in V_HEAD_DIMS:
+        raise ValueError(f"{name}: dv={v.shape[-1]} (kernel takes {V_HEAD_DIMS})")
     for t, what in ((k_feat, "k_feat"), (v, "v")):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: {what} needs a contiguous last axis")

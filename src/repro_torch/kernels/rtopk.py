@@ -40,6 +40,9 @@ from repro_torch.kernels.ref import rtopk_ref as rtopk_plain
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+MAX_D = 256                    # rtopk's largest row width
+PROJ_HEAD_DIMS = (32, 64, 128)  # proj_rtopk's head dims d
+
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
@@ -54,8 +57,8 @@ def rtopk(x: torch.Tensor, k: int):
         raise ValueError(f"rtopk runs on cuda or cpu tensors, got {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"rtopk kernel takes float32/bfloat16, got {x.dtype}")
-    if not 0 < k <= d or d > 256:
-        raise ValueError(f"rtopk kernel needs 0 < k <= d <= 256, got k={k}, d={d}")
+    if not 0 < k <= d or d > MAX_D:
+        raise ValueError(f"rtopk kernel needs 0 < k <= d <= {MAX_D}, got k={k}, d={d}")
     x = x.contiguous()
     lead = x.shape[:-1]
     rows = x.numel() // d
@@ -98,10 +101,10 @@ def proj_rtopk(x: torch.Tensor, w_heads: torch.Tensor, positions=None, *, k: int
     b, n, m = x.shape
     nh, m2, d = w_heads.shape
     if (m2 != m or x.dtype not in _DTYPES or w_heads.dtype not in _DTYPES
-            or d not in (32, 64, 128) or not 0 < k <= d or w_heads.stride(-1) != 1
+            or d not in PROJ_HEAD_DIMS or not 0 < k <= d or w_heads.stride(-1) != 1
             or w_heads.device != x.device):
         raise ValueError(f"proj_rtopk kernel takes x (b, n, m) and w (H, m, d) in "
-                         f"f32/bf16 on one device, unit stride on d, d in (32, 64, 128) "
+                         f"f32/bf16 on one device, unit stride on d, d in {PROJ_HEAD_DIMS} "
                          f"and 0 < k <= d; got x {tuple(x.shape)} {x.dtype}, w "
                          f"{tuple(w_heads.shape)} {w_heads.dtype} strides "
                          f"{w_heads.stride()}, k={k}")

@@ -52,8 +52,10 @@ from repro_torch.core.kv_cache import (
 )
 from repro_torch.core.remat import active_stash
 from repro_torch.kernels.flash_sfa import flash_sfa
+from repro_torch.kernels.flash_sfa_bwd import MAX_K as _SEAM_MAX_K
 from repro_torch.kernels.flash_sfa_bwd import flash_sfa_bwd, pair_closure_indices
 from repro_torch.kernels.flash_sfa_decode import feature_major_prefill
+from repro_torch.kernels.rtopk import PROJ_HEAD_DIMS as _SEAM_HEAD_DIMS
 from repro_torch.kernels.ops import (
     fold_heads, fused_qk_codes, head_blocks, repeat_heads, sfa_code, unfold_heads,
 )
@@ -83,8 +85,9 @@ def attention_init(gen, cfg: ModelConfig, device="cpu"):
 
 
 def _request(a: AttentionConfig, *, mode: str, window, paged: bool = False,
-             speculative: bool = False) -> AttentionRequest:
-    """Static backend request for this layer."""
+             speculative: bool = False, backward: bool = True) -> AttentionRequest:
+    """Static backend request for this layer (``backward``: whether the
+    "full" call may be differentiated)."""
     return AttentionRequest(
         mode=mode,
         causal=a.causal if mode == "full" else True,
@@ -93,6 +96,10 @@ def _request(a: AttentionConfig, *, mode: str, window, paged: bool = False,
         sparse=a.sfa_k is not None,
         paged=paged,
         speculative=speculative,
+        head_dim=a.head_dim,
+        v_head_dim=a.head_dim,
+        sfa_k=a.sfa_k,
+        backward=backward,
     )
 
 
@@ -184,6 +191,7 @@ def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
 # the fused projection + attention seam for compact code gradients
 # --------------------------------------------------------------------------
 
+
 def compact_seam_ineligible_reason(cfg: ModelConfig, window=None) -> Optional[str]:
     """None when a train-mode layer can take the compact seam, else why
     not. RoPE is admitted (the pair-closure emit and ``rope_code_vjp`` keep
@@ -199,6 +207,11 @@ def compact_seam_ineligible_reason(cfg: ModelConfig, window=None) -> Optional[st
         return "bwd_emit is dense"
     if a.mla is not None:
         return "MLA projects through the latent space outside the seam"
+    if a.head_dim not in _SEAM_HEAD_DIMS:
+        return (f"head_dim {a.head_dim}: the fused projection kernel proj_rtopk takes "
+                f"{_SEAM_HEAD_DIMS}")
+    if a.sfa_k > _SEAM_MAX_K:
+        return f"sfa_k {a.sfa_k}: the compact backward emits take k <= {_SEAM_MAX_K}"
     if a.qk_norm:
         return ("qk-norm rescales the cotangent by per-row statistics, "
                 "off the stored support")
@@ -475,7 +488,10 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
         o = ctx.to(dt).reshape(1, n, h * hd)
         return AttentionOut(dense(params["w_o"], o, dt), cache)
 
-    sel = select_backend(a.backend, _request(a, mode="full", window=window),
+    # a prefill or eval under no_grad runs the forward alone
+    backward = mode == "train" or torch.is_grad_enabled()
+    sel = select_backend(a.backend, _request(a, mode="full", window=window,
+                                             backward=backward),
                          where=f"{cfg.name}/attention")
     o = sel.backend.full(q, k, v, num_heads=h, sfa_k=a.sfa_k, causal=a.causal,
                          window=window, scale=scale, bwd_emit=a.bwd_emit)

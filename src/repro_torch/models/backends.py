@@ -43,7 +43,8 @@ Registered backends:
                 the request, else ``torch``, with nothing recorded.
 
 An explicitly requested backend that cannot serve a layer (window, MLA,
-dense decode, verify on ``cuda_fm``) falls back to ``torch`` with a
+dense decode, verify on ``cuda_fm``, head dims or a code width that the
+CUDA kernels do not take) falls back to ``torch`` with a
 structured ``FallbackReport``, recorded once per (backend, request, site)
 and queryable through ``fallback_reports()``. ``set_fm_debug`` turns on the
 ``cuda_fm`` image integrity check (``--fm-debug``).
@@ -62,6 +63,13 @@ from repro_torch.core.kv_cache import (
     pack_indices, unpack_indices,
 )
 from repro_torch.core.sparse import sparsify, sub_k, to_feature_major, topk_st
+# the kernels' shape limits, as their wrappers state them
+from repro_torch.kernels.flash_attention import HEAD_DIMS as _DENSE_DIMS
+from repro_torch.kernels.flash_sfa import MAX_D as _SFA_MAX_D
+from repro_torch.kernels.flash_sfa import V_HEAD_DIMS as _SFA_DV
+from repro_torch.kernels.flash_sfa_bwd import MAX_K as _SFA_BWD_MAX_K
+from repro_torch.kernels.flash_sfa_decode import V_HEAD_DIMS as _DECODE_DV
+from repro_torch.kernels.rtopk import MAX_D as _RTOPK_MAX_D
 from repro_torch.kernels.flash_sfa_decode import (
     flash_sfa_decode, flash_sfa_decode_fm, flash_sfa_decode_fm_paged,
     flash_sfa_decode_multi, flash_sfa_decode_paged,
@@ -87,6 +95,12 @@ class AttentionRequest:
     sparse: bool = False         # sfa_k is set
     paged: bool = False          # the cache is a paged (block-table) PagedKV
     speculative: bool = False    # the multi-token verify pass is required
+    # the layer's shapes, for backends whose kernels take only some; None
+    # where the caller did not say (nothing is checked then)
+    head_dim: Optional[int] = None     # q/k width d
+    v_head_dim: Optional[int] = None   # v width dv (None: = head_dim)
+    sfa_k: Optional[int] = None        # code width k of an SFA layer
+    backward: bool = True              # a "full" call may be differentiated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,10 +304,48 @@ class TorchBackend(AttentionBackend):
 # cuda backend — the hand-written kernels
 # --------------------------------------------------------------------------
 
+def kernel_shape_reason(req: AttentionRequest) -> Optional[str]:
+    """None if the CUDA kernels take the layer's head dims and code width
+    (``req.head_dim`` unset: nothing to check), else why not. The limits
+    are the wrappers' own constants: full-sequence dense d = dv in
+    ``flash_attention.HEAD_DIMS``; full-sequence SFA dv in
+    ``flash_sfa.V_HEAD_DIMS``, d <= ``flash_sfa.MAX_D`` (and rtopk's
+    ``MAX_D``), and k <= ``flash_sfa_bwd.MAX_K`` where a backward can run
+    (``req.backward``: the forward's bodies take any k); decode dv in
+    ``flash_sfa_decode.V_HEAD_DIMS`` and d <= rtopk's ``MAX_D``. Which
+    FlashSFA body runs (tensor or CUDA cores) is the wrappers' choice."""
+    d = req.head_dim
+    if d is None:
+        return None
+    dv = d if req.v_head_dim is None else req.v_head_dim
+    if req.mode == "decode":
+        dvs = _DECODE_DV
+    elif req.sparse:
+        dvs = _SFA_DV
+    else:
+        dvs = _DENSE_DIMS
+    if dv not in dvs:
+        return f"v head dim {dv}: the CUDA attention kernels take dv in {dvs}"
+    if req.sparse or req.mode == "decode":
+        max_d = min(_RTOPK_MAX_D, _SFA_MAX_D)
+        if d > max_d:
+            return f"head dim {d}: the CUDA top-k and FlashSFA kernels take d <= {max_d}"
+        if (req.mode == "full" and req.backward and req.sfa_k is not None
+                and min(req.sfa_k, d) > _SFA_BWD_MAX_K):
+            return (f"sfa_k {req.sfa_k}: the CUDA FlashSFA backward takes k <= "
+                    f"{_SFA_BWD_MAX_K}")
+        return None
+    if d != dv:
+        return (f"head dims d={d}, dv={dv}: the CUDA FlashAttention kernels take "
+                f"d = dv in {dvs}")
+    return None
+
+
 class CudaBackend(AttentionBackend):
     """rtopk -> FlashSFA (or FlashAttention) forward and backward for full
     sequences; the sparse-cache decode kernels, contiguous and paged, and
-    the multi-query verify kernel."""
+    the multi-query verify kernel. ``unsupported_reason`` declines the
+    shapes the kernels do not take (``kernel_shape_reason``)."""
     name = "cuda"
     caps = Capabilities(full=True, decode=True, causal=True,
                         bidirectional=True, window=False, mla=False,
@@ -303,7 +355,7 @@ class CudaBackend(AttentionBackend):
         r = super().unsupported_reason(req)
         if r is None and req.mode == "decode" and not req.sparse:
             return "dense KV cache: no CUDA dense-decode kernel"
-        return r
+        return r or kernel_shape_reason(req)
 
     def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale,
              bwd_emit="dense"):
@@ -393,6 +445,9 @@ class CudaFMBackend(AttentionBackend):
                         bidirectional=True, window=False, mla=False,
                         sparse=True, dense=False, persistent_cache=True,
                         paged=True)
+
+    def unsupported_reason(self, req):
+        return super().unsupported_reason(req) or kernel_shape_reason(req)
 
     def decode(self, query: DecodeQuery, cache: FeatureMajorKV, lengths, *,
                scale, window, sfa_k, draft_k=None):

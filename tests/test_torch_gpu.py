@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import (
-    code_grad_dw, code_grad_dx, flash_attention, flash_attention_bwd, flash_sfa,
+    body_counts, code_grad_dw, code_grad_dx, flash_attention, flash_attention_bwd, flash_sfa,
     flash_sfa_bwd, flash_sfa_decode, flash_sfa_decode_fm, flash_sfa_decode_fm_paged,
     flash_sfa_decode_multi, flash_sfa_decode_paged, launch_counts, proj_rtopk,
     reset_launches, rtopk,
@@ -60,7 +60,8 @@ def test_rtopk_kernel_on_card(cuda, dtype, d, k):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("n,dv,dtype", [(1024, 64, torch.float32), (1000, 64, torch.float32),
-                                        (333, 128, torch.float32), (1000, 64, torch.bfloat16)])
+                                        (333, 128, torch.float32), (1000, 64, torch.bfloat16),
+                                        (333, 128, torch.bfloat16)])
 def test_flash_sfa_kernel_on_card(cuda, n, dv, dtype, causal):
     rs = np.random.RandomState(8)
     qv, qi = _codes(rs, 12, n, 8, 64)
@@ -462,3 +463,87 @@ def test_paged_and_speculative_engines_launch_their_kernels(cuda, backend):
     assert spec.generate(prompt, 6) == ref_out
     if backend == "cuda":
         assert launch_counts()["flash_sfa_decode_multi"] > 0
+
+
+# --------------------------------------------------------------------------
+# the FlashSFA tensor-core bodies (bf16, d = dv in {32, 64, 128}, k <= 32)
+# --------------------------------------------------------------------------
+
+def _tc_case(rs, n, d, k=8, bh=12):
+    qv, qi = _codes(rs, bh, n, k, d)
+    kv, ki = _codes(rs, bh, n, k, d)
+    kv[:, 3], ki[:, 3] = 0.0, 0                  # padding row: duplicates of index 0
+    v, g = (rs.randn(bh, n, d).astype(np.float32) for _ in range(2))
+    t = [torch.from_numpy(a).cuda() for a in (qv, qi, kv, ki, v, g)]
+    for i in (0, 2, 4, 5):
+        t[i] = t[i].bfloat16()
+    return t
+
+
+@pytest.mark.parametrize("block_skip", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n", [1024, 1000])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_sfa_tensor_core_body_on_card(cuda, d, n, causal, block_skip):
+    qv, qi, kv, ki, v, _ = _tc_case(np.random.RandomState(17), n, d)
+    reset_launches()
+    ko, kl = flash_sfa(qv, qi, kv, ki, v, d=d, causal=causal, return_residuals=True,
+                       block_skip=block_skip)
+    assert body_counts()["flash_sfa_cuda_core"] == 0
+    po, pl = ref.flash_sfa_ref(qv, qi, kv, ki, v, d=d, causal=causal, return_residuals=True)
+    # bf16 output: one bf16 ulp (2^-7 rel) + 1e-4; the f32 LSE 1e-5 + 1e-4
+    torch.testing.assert_close(ko.float(), po.float(), rtol=2 ** -7, atol=1e-4)
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n", [1024, 1000])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_sfa_bwd_tensor_core_body_on_card(cuda, d, n, causal):
+    qv, qi, kv, ki, v, g = _tc_case(np.random.RandomState(18), n, d)
+    o, lse = ref.flash_sfa_ref(qv, qi, kv, ki, v, d=d, causal=causal, return_residuals=True)
+    args = (qv, qi, kv, ki, v, o, lse, g)
+    reset_launches()
+    dense = flash_sfa_bwd(*args, d=d, causal=causal)
+    for emit, rot in (("dense", d), ("compact", d), ("compact2", d), ("compact2", d // 2)):
+        got = flash_sfa_bwd(*args, d=d, causal=causal, emit=emit, rot_dim=rot)
+        want = ref.flash_sfa_bwd_ref(*args, d=d, causal=causal, emit=emit, rot_dim=rot)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape, name
+            torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -7, atol=1e-4,
+                                       msg=f"{emit}/{rot} {name}")
+        # one owner per output tile, no atomics: bit for bit the same again
+        assert all(torch.equal(a, b) for a, b in zip(got, flash_sfa_bwd(
+            *args, d=d, causal=causal, emit=emit, rot_dim=rot)))
+        if emit == "compact":
+            for a, b, idx in ((got[0], dense[0], qi), (got[1], dense[1], ki)):
+                assert torch.equal(a, b.gather(-1, idx.long()))
+    for grad, idx in ((dense[0], qi), (dense[1], ki)):
+        assert bool((grad[ref._support(idx, d) == 0] == 0).all())
+    assert body_counts()["flash_sfa_bwd_cuda_core"] == 0
+
+
+def test_short_embedding_model_runs_on_the_card_under_auto(cuda):
+    # head_dim 16: no CUDA kernel takes it, so "auto" routes every layer to
+    # the torch oracle (nothing recorded) and an explicit "cuda" records why
+    import dataclasses
+
+    from repro_torch.models import forward_logits
+    from repro_torch.models.backends import clear_fallback_reports, fallback_reports
+    from repro_torch.models.model import init
+    cfg = get_config("gpt2-small-short4")
+    assert cfg.attention.backend == "auto" and cfg.attention.head_dim == 16
+    model = init(cfg, device=cuda)
+    tokens = torch.from_numpy(np.random.RandomState(19).randint(0, cfg.vocab_size, (1, 128)))
+    clear_fallback_reports()
+    reset_launches()
+    logits = forward_logits(model, {"tokens": tokens.to(cuda)}, cfg)
+    assert bool(torch.isfinite(logits).all()) and fallback_reports() == ()
+    assert launch_counts()["flash_attention"] == 0
+    explicit = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention,
+                                                                      backend="cuda"))
+    again = forward_logits(model, {"tokens": tokens.to(cuda)}, explicit)
+    assert torch.equal(again, logits)
+    assert {r.reason for r in fallback_reports()} == {
+        "v head dim 16: the CUDA attention kernels take dv in (32, 64, 128)"}
+    clear_fallback_reports()

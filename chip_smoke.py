@@ -99,7 +99,14 @@ kernels (rows 11-14) at the serving path's shapes: 8 slots x 12 heads of
 non-monotone block table and one slot at the past-the-table sentinel; the
 paged kernel must equal flash_sfa_decode on the gathered view bit for bit,
 each verify row the paged kernel at its length, and the paged
-feature-major kernel the contiguous one on the gathered image.
+feature-major kernel the contiguous one on the gathered image. Rows 10-12
+(the token-major decode, split over the keys in runs of 128 positions) are
+also held at lengths on and around a run boundary with a zero-length row,
+which must give 0: against the plain versions and for both bit-equalities
+(row 10 also against itself in the folded layout and on a second call).
+Each timed row names the kernels one call launches (the decode's split and
+merge kernels), and phase 4 prints the decode kernels' device ms per
+traced step.
 
 Phase 3 also holds the compact seam's kernels at the training path's
 shapes: proj_rtopk (x 8 x 1024 x 768, 12 heads of 64, k 8) in f32 on
@@ -158,13 +165,22 @@ def event_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, attempts=3):
+def short_name(kernel):
+    """A traced kernel's name without its return type, namespace and
+    parameter list."""
+    name = kernel.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0][:72]
+
+
+def device_ms(fn, iters=20, attempts=3, per_kernel=None):
     """Mean device time per call of fn() in ms: the CUDA kernels' own time,
     summed from a torch.profiler trace of ``iters`` calls (host overhead
     between launches excluded). fn() launches the same kernels on every
     call, so a whole trace holds each kernel a multiple of ``iters`` times;
     one that does not (the profiler lost events) or has no device events
-    is taken again, up to ``attempts`` times; None if none was whole."""
+    is taken again, up to ``attempts`` times; None if none was whole.
+    ``per_kernel``, if given, receives {kernel: ms per call} of the trace
+    taken."""
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -172,6 +188,8 @@ def device_ms(fn, iters=20, attempts=3):
         kernels, _ = trace_kernels(lambda: [fn() for _ in range(iters)], counts)
         total_us = sum(kernels.values())
         if total_us > 0 and all(c % iters == 0 for c in counts.values()):
+            if per_kernel is not None:
+                per_kernel.update({short_name(n): us / 1e3 / iters for n, us in kernels.items()})
             return total_us / 1e3 / iters
         print(f"[timing] retake: traced launches per kernel {sorted(counts.values())} "
               f"over {iters} calls")
@@ -200,12 +218,14 @@ def trace_kernels(fn, counts=None):
 
 def timings(kernel, plain, library):
     """ms / plain_ms / library_ms as device time (profiler), and the CUDA
-    event time per call beside each; ``timing`` says which "ms" holds."""
-    out = {}
+    event time per call beside each; ``timing`` says which "ms" holds, and
+    ``kernels_ms`` names each kernel one call of ``kernel`` launches."""
+    out = {"kernels_ms": {}}
     for key, fn, iters in (("ms", kernel, 50), ("plain_ms", plain, 10),
                            ("library_ms", library, 50)):
         out[key.replace("ms", "call_ms")] = event_ms(fn, iters=iters)
-        out[key] = device_ms(fn, iters=min(iters, 20))
+        out[key] = device_ms(fn, iters=min(iters, 20),
+                             per_kernel=out["kernels_ms"] if key == "ms" else None)
     replayed = [k for k in ("ms", "plain_ms", "library_ms") if out[k] is None]
     for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
         if out[key] is None and getattr(fn, "graph_ok", True):
@@ -255,11 +275,12 @@ def graph_ms(fn, iters=20, replays=5):
 
 
 def fmt(r):
+    names = "; ".join(f"{n} {ms:.4f}" for n, ms in r.get("kernels_ms", {}).items())
     return (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms ({r['timing']}; per call with host: "
             f"{r['call_ms']:.4f} / {r['plain_call_ms']:.4f} / "
             f"{r['library_call_ms']:.4f} ms), bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}); kernels per call (ms): {names or 'not traced'}")
 
 
 def bound(bytes_moved, op_seconds):
@@ -526,6 +547,22 @@ def phase_flash_sfa(rs):
     return res[1024]
 
 
+def _close_rows(got, want, lens, what):
+    """got against its plain version (1e-4: f32 outputs, sums in another
+    order); a row of length 0 must be exactly 0. -> max |err|."""
+    check(not got[lens <= 0].any(), f"{what}: a zero-length row is not 0")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    return (got - want).abs().max().item()
+
+
+def _boundary_lengths(n_max, count):
+    """``count`` lengths at and around the decode kernels' run boundaries
+    (SPLIT = 128 tokens), with a zero-length row and n_max."""
+    from repro_torch.kernels.flash_sfa_decode import SPLIT
+    cand = [0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT, n_max - 1, n_max, 2 * SPLIT + 1]
+    return np.array((cand * count)[:count], np.int32)
+
+
 def phase_decode(rs):
     from repro_torch.kernels import flash_sfa_decode, rtopk, topk_dense
     from repro_torch.kernels.ref import flash_sfa_decode_ref
@@ -549,6 +586,23 @@ def phase_decode(rs):
     # tolerance: f32 outputs, sums in another order: 1e-4
     err = (ko - po).abs().max().item()
     torch.testing.assert_close(ko, po, rtol=0, atol=1e-4)
+    # run boundaries and a zero-length row: against the plain version; the
+    # same content in the folded (bh, n, F) layout (other strides, other
+    # load paths) and a second call give the same bits
+    bl = torch.from_numpy(np.repeat(_boundary_lengths(n_max, b), h)).cuda()
+    folded = [t.permute(0, 2, 1, 3).reshape(b * h, n_max, t.shape[-1]).contiguous()
+              for t in (kv, ki, v)]
+    kb = flash_sfa_decode(q, kv, ki, v, bl, d=d, scale=scale)
+    e_b = _close_rows(kb, flash_sfa_decode_ref(q, kv, ki, v, bl, d=d, scale=scale), bl,
+                      "flash_sfa_decode at the run boundaries")
+    check(torch.equal(kb, flash_sfa_decode(q, *folded, bl, d=d, scale=scale)),
+          "flash_sfa_decode: the folded layout does not give the same bits")
+    check(torch.equal(kb, flash_sfa_decode(q, kv, ki, v, bl, d=d, scale=scale)),
+          "flash_sfa_decode: two identical calls differ")
+    err = max(err, e_b)
+    print(f"[flash_sfa_decode] lengths {_boundary_lengths(n_max, b).tolist()}: max|err| "
+          f"{e_b:.3g} (tol 1e-4; zero-length row 0); folded layout and a second call "
+          f"bit-equal")
     # library yardstick: SDPA on the densified cache, masked to the lengths
     dense = []
     for kv_, ki_, v_ in caches:
@@ -618,13 +672,57 @@ def _cycle(fns):
     return call
 
 
+def _check_paged_multi(q, qm, p0, bt, lens, slot, start, what):
+    """Rows 11 and 12 on one pool set: each against its plain version (a
+    zero-length row must be exactly 0), the paged
+    decode bit-equal to flash_sfa_decode on the gathered view, and each of
+    the C verify rows of ``slot`` at lengths start+1.. bit-equal to the
+    paged decode at its length. -> (verify lengths, (paged err, multi err))."""
+    from repro_torch.kernels import flash_sfa_decode, flash_sfa_decode_multi, flash_sfa_decode_paged
+    from repro_torch.kernels.ref import (
+        _pool_view, flash_sfa_decode_multi_ref, flash_sfa_decode_paged_ref,
+    )
+    c = PAGED
+    h, d = c["h"], c["d"]
+    C = qm.shape[0] // h
+    ko = flash_sfa_decode_paged(q, p0["kv"], p0["ki"], p0["v"], bt, lens, d=d, heads=h)
+    po = flash_sfa_decode_paged_ref(q, p0["kv"], p0["ki"], p0["v"], bt, lens, d=d, heads=h)
+    view = [_pool_view(p0[n], bt).contiguous() for n in ("kv", "ki", "v")]
+    o10 = flash_sfa_decode(q, *view, lens.repeat_interleave(h), d=d)
+    lm = (start + torch.arange(C, device="cuda") + 1).repeat_interleave(h).int()
+    mo = flash_sfa_decode_multi(qm, p0["kv"], p0["ki"], p0["v"], lm, d=d, heads=h,
+                                block_tables=bt, slot=slot)
+    mp_ = flash_sfa_decode_multi_ref(qm, p0["kv"], p0["ki"], p0["v"], lm, d=d, heads=h,
+                                     block_tables=bt, slot=slot)
+    multi_eq = True
+    for i in range(C):
+        li = lens.clone()
+        li[slot] = start + i + 1
+        qi = q.clone()
+        qi[slot * h:(slot + 1) * h] = qm[i * h:(i + 1) * h]
+        one = flash_sfa_decode_paged(qi, p0["kv"], p0["ki"], p0["v"], bt, li, d=d, heads=h)
+        multi_eq &= torch.equal(mo[i * h:(i + 1) * h], one[slot * h:(slot + 1) * h])
+    torch.cuda.synchronize()
+    errs = (_close_rows(ko, po, lens.repeat_interleave(h), f"flash_sfa_decode_paged {what}"),
+            _close_rows(mo, mp_, lm, f"flash_sfa_decode_multi {what}"))
+    check(torch.equal(ko, o10), f"flash_sfa_decode_paged {what}: not bit-equal to "
+                                f"flash_sfa_decode on the gathered view")
+    check(multi_eq, f"flash_sfa_decode_multi {what}: a row is not bit-equal to the paged "
+                    f"decode at its length")
+    print(f"[flash_sfa_decode_paged/multi] {what}: slot lengths {lens.tolist()}, verify "
+          f"slot {slot} at {start + 1}..{start + C}: max|err| paged {errs[0]:.3g}, multi "
+          f"{errs[1]:.3g} (tol 1e-4); paged == flash_sfa_decode on the gathered view "
+          f"(bit-equal); each of the {C} verify rows == the paged decode at its length "
+          f"(bit-equal)")
+    return lm, errs
+
+
 def phase_decode_paged(rs):
     """Rows 11 and 12: the paged decode kernel and the multi-query verify
     kernel, each against its plain version, with the bit-equalities the
     engines rely on."""
-    from repro_torch.kernels import (
-        flash_sfa_decode, flash_sfa_decode_multi, flash_sfa_decode_paged, topk_dense,
-    )
+    from repro_torch.kernels import flash_sfa_decode_multi, flash_sfa_decode_paged, topk_dense
+    from repro_torch.kernels.flash_sfa_decode import SPLIT
     from repro_torch.kernels.ref import (
         _pool_view, flash_sfa_decode_multi_ref, flash_sfa_decode_paged_ref,
     )
@@ -637,41 +735,18 @@ def phase_decode_paged(rs):
         lens = torch.from_numpy(lengths.astype(np.int32)).cuda()
         q = topk_dense(torch.from_numpy(rs.randn(c["slots"] * h, d).astype(np.float32)).cuda(), k)
         p0 = pools[0]
-        ko = flash_sfa_decode_paged(q, p0["kv"], p0["ki"], p0["v"], bt, lens, d=d, heads=h)
-        po = flash_sfa_decode_paged_ref(q, p0["kv"], p0["ki"], p0["v"], bt, lens, d=d,
-                                        heads=h)
-        view = [_pool_view(p0[n], bt).contiguous() for n in ("kv", "ki", "v")]
-        o10 = flash_sfa_decode(q, *view, lens.repeat_interleave(h), d=d)
         # verify pass: C = 5 queries of slot 2 at cache_len + c + 1
         C, slot = 5, 2
         start = int(min(lengths[slot], c["mp"] * c["page"])) - C
         qm = topk_dense(torch.from_numpy(rs.randn(C * h, d).astype(np.float32)).cuda(), k)
-        lm = (start + torch.arange(C, device="cuda") + 1).repeat_interleave(h).int()
-        mo = flash_sfa_decode_multi(qm, p0["kv"], p0["ki"], p0["v"], lm, d=d, heads=h,
-                                    block_tables=bt, slot=slot)
-        mp_ = flash_sfa_decode_multi_ref(qm, p0["kv"], p0["ki"], p0["v"], lm, d=d, heads=h,
-                                         block_tables=bt, slot=slot)
-        multi_eq = True
-        for i in range(C):
-            li = lens.clone()
-            li[slot] = start + i + 1
-            qi = q.clone()
-            qi[slot * h:(slot + 1) * h] = qm[i * h:(i + 1) * h]
-            one = flash_sfa_decode_paged(qi, p0["kv"], p0["ki"], p0["v"], bt, li, d=d, heads=h)
-            multi_eq &= torch.equal(mo[i * h:(i + 1) * h], one[slot * h:(slot + 1) * h])
-        torch.cuda.synchronize()
-        # tolerance: f32 outputs, sums in another order: 1e-4
-        torch.testing.assert_close(ko, po, rtol=0, atol=1e-4)
-        torch.testing.assert_close(mo, mp_, rtol=0, atol=1e-4)
-        check(torch.equal(ko, o10), "flash_sfa_decode_paged: not bit-equal to "
-                                    "flash_sfa_decode on the gathered view")
-        check(multi_eq, "flash_sfa_decode_multi: a row is not bit-equal to the paged "
-                        "decode at its length")
-        errs = ((ko - po).abs().max().item(), (mo - mp_).abs().max().item())
-        print(f"[flash_sfa_decode_paged/multi] {dtype}: max|err| paged {errs[0]:.3g}, multi "
-              f"{errs[1]:.3g} (tol 1e-4); paged == flash_sfa_decode on the gathered view "
-              f"(bit-equal); each of the {C} verify rows == the paged decode at its length "
-              f"(bit-equal)")
+        lm, errs = _check_paged_multi(q, qm, p0, bt, lens, slot, start, str(dtype))
+        # run boundaries, a zero-length slot and the past-the-table
+        # sentinel; the verify rows' lengths SPLIT-2..SPLIT+2 cross a boundary
+        bl = torch.from_numpy(_boundary_lengths(c["mp"] * c["page"], c["slots"])).cuda()
+        bl[-1] = c["mp"] * c["page"] + 1
+        e_b = _check_paged_multi(q, qm, p0, bt, bl, slot, SPLIT - 3,
+                                 f"{dtype} at the run boundaries")[1]
+        errs = (max(errs[0], e_b[0]), max(errs[1], e_b[1]))
         if dtype != torch.bfloat16:
             out["err"] = errs
             continue
@@ -1365,6 +1440,10 @@ def phase_engine(model, cfg):
     torch.cuda.synchronize()
     kernels, traced_ms = trace_kernels(lambda: [eng.step() for _ in range(4)])
     busy_ms = sum(kernels.values()) / 1e3
+    # the token-major decode's kernels (split and merge), per step
+    decode_ms = sum(us for n, us in kernels.items()
+                    if short_name(n).startswith(("decode_split_kernel",
+                                                 "decode_merge_kernel"))) / 1e3 / 4
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
     layouts = sorted({type(n).__name__ for n in kv_cache_nodes(eng.caches)})
     tokens = sum(len(o) for o in outputs)
@@ -1381,7 +1460,8 @@ def phase_engine(model, cfg):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[engine] traced 4 decode steps (profiler on): wall {traced_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms ({100 * busy_ms / traced_ms:.1f}%, idle "
-          f"{100 - 100 * busy_ms / traced_ms:.1f}%); top kernels by device time: "
+          f"{100 - 100 * busy_ms / traced_ms:.1f}%); decode kernels {decode_ms:.4f} ms a "
+          f"step ({100 * decode_ms * 4 / busy_ms:.1f}% of busy); top kernels by device time: "
           + "; ".join(f"{name[:48]} {us / 1e3:.3f} ms" for name, us in top))
     print(f"[engine] slot 0 tokens: {outputs[0]}")
     return counts, dict(prompts=prompts, outputs=outputs, cache_bytes=eng.cache_bytes(),

@@ -8,13 +8,17 @@ Token-major sparse cache (``csrc/flash_sfa_decode.cu``, one kernel body):
   * ``flash_sfa_decode_multi``  (row 12) — the speculative verify pass: C
     queries of one slot, each at its own causal length.
 
-One block per query row, the query staged in shared memory, each warp
-scoring its cache tokens by gathering the query at the token's k stored
-indices (s_j = scale·Σ_t kv[j,t]·q[ki[j,t]]), online softmax per warp, V
-accumulated in f32, one merge of the warps at the end; output f32. Only
-the addressing of a token differs between the three, so the paged kernel
-equals the contiguous one on the ``gather()``ed view bit for bit, and each
-row of the verify pass equals the paged decode at its length.
+Split over the keys (flash-decoding): a row's tokens fall into runs of
+``SPLIT`` = 128 positions by position alone, one block per (row, run). A
+block scores its run in parallel, one token a thread, by gathering the
+query at the token's k stored indices (s_j = scale·Σ_t kv[j,t]·q[ki[j,t]]),
+takes the run's max, p_j = exp(s_j − m), and adds p_j·V_j in f32 from the
+run's V rows, which cp.async stages in shared memory while the run is
+scored; each run's (m, l, acc) goes to an f32 workspace, and a second
+kernel merges a row's runs in run order; output f32. The runs depend on the row's length only and only the addressing of a
+token differs between the three, so the paged kernel equals the contiguous
+one on the ``gather()``ed view bit for bit, and each row of the verify pass
+equals the paged decode at its length.
 
 Feature-major dense image (``csrc/flash_sfa_decode_fm.cu``):
 
@@ -40,8 +44,8 @@ uint8/uint16 indices, bf16 values, head h reading kv head h // group, the
 pools through the block table. The JAX package's contiguous path copies
 the whole cache every step to unpack, repeat the GQA heads and upcast V
 (``repro/models/backends.py:431-438``); the port makes none of those
-copies. The grid is one block per query row (96 for gpt2-small at 8
-slots, under the 132 SMs); split-K is work for a later change.
+copies. At gpt2-small's 8 slots the split gives 96 rows up to 16 blocks
+each; the verify pass still reads the slot's cache once per query row.
 
 The plain versions are in ``kernels/ref.py``; a wrapper runs its plain
 version for CPU tensors only, and counts its kernel launches in
@@ -64,9 +68,10 @@ from repro_torch.kernels.ref import flash_sfa_decode_ref as flash_sfa_decode_pla
 _VALS = {torch.float32: 0, torch.bfloat16: 1}
 _IDX = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
 V_HEAD_DIMS = (32, 64, 128)   # dv of every decode kernel (models/backends.py reads it)
+SPLIT = 128                   # tokens of a run of the token-major kernels (csrc kSplit)
 
 
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
+_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
          + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _FM_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
@@ -120,16 +125,20 @@ def _int32(t, device, shape, name, what):
 def _launch_token_major(name, q, k_vals, k_idx, v, lens, *, heads, hkv, d, scale,
                         n_cap, strides, bt=None, max_pages=0, page=0,
                         slot_fixed=-1, len_per_slot=0):
-    """One launch of ``flash_sfa_decode_launch`` -> (rows, dv) f32."""
+    """One call of ``flash_sfa_decode_launch`` (the split kernel, then the
+    merge kernel) -> (rows, dv) f32."""
     rows = q.shape[0]
     kk, dv = k_vals.shape[-1], v.shape[-1]
     q = q.float().contiguous()
     out = torch.empty((rows, dv), dtype=torch.float32, device=q.device)
+    # each run's partial (m, l, acc[dv]), merged in run order by the second kernel
+    ws = torch.empty(rows * -(-n_cap // SPLIT) * (dv + 2), dtype=torch.float32,
+                     device=q.device)
     fn = _build.entry("flash_sfa_decode", "flash_sfa_decode_launch", _ARGS)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_vals.data_ptr(), k_idx.data_ptr(), v.data_ptr(),
-                 lens.data_ptr(), out.data_ptr(), rows, heads, hkv, kk, d, dv,
-                 n_cap, *strides, float(scale), _VALS[v.dtype], _IDX[k_idx.dtype],
+                 lens.data_ptr(), out.data_ptr(), ws.data_ptr(), rows, heads, hkv, kk, d,
+                 dv, n_cap, SPLIT, *strides, float(scale), _VALS[v.dtype], _IDX[k_idx.dtype],
                  None if bt is None else bt.data_ptr(), max_pages, page,
                  slot_fixed, len_per_slot, _build.stream_ptr(q))
     _build.check("flash_sfa_decode", err, f"{name} launch")

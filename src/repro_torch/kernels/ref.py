@@ -198,7 +198,15 @@ def flash_sfa_decode_ref(q, k_vals, k_idx, v, lengths, *, d: int,
                          scale: float | None = None):
     """Decode: dense query (bh, d) against a token-major sparse K cache and
     dense V, masked to ``lengths (bh,)``. Cache leaves as in
-    ``decode_cache_views``; any index dtype. -> (bh, dv) f32."""
+    ``decode_cache_views``; any index dtype. -> (bh, dv) f32; a row of
+    length 0 has no key and gives 0, as the kernels' acc / max(l, 1e-30).
+
+    Replaces ``repro/kernels/flash_sfa_decode.py::flash_sfa_decode`` (row
+    10). The kernel is bound by bytes (each valid token's k codes and V row
+    read once); its design splits every row into runs of 128 positions, one
+    block each, so the card keeps enough loads in flight, and merges the
+    runs' partials in run order (``csrc/flash_sfa_decode.cu``).
+    """
     scale = scale if scale is not None else d ** -0.5
     kv, ki, vv = decode_cache_views(q, k_vals, k_idx, v)
     kd = _densify(kv, ki, d)                                # (bh, n, d)
@@ -208,7 +216,7 @@ def flash_sfa_decode_ref(q, k_vals, k_idx, v, lengths, *, d: int,
     valid = torch.arange(n, device=q.device)[None, :] < lengths
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bn,bnd->bd", p, vv.float())
+    return torch.where(lengths > 0, torch.einsum("bn,bnd->bd", p, vv.float()), 0.0)
 
 
 def _pool_view(pool, bt):
@@ -230,8 +238,9 @@ def flash_sfa_decode_paged_ref(q, kv_pool, ki_pool, v_pool, block_tables,
     (row 11 of PERF.md). The plain version gathers the block-table view
     and runs ``flash_sfa_decode_ref`` on it, which is what the kernel must
     equal bit for bit on the card. The kernel is bound by bytes (it reads
-    each valid token's k codes and V row once); its design reads the pools
-    in place through the block table, with no gather, unpack, GQA repeat or
+    each valid token's k codes and V row once); its design is row 10's
+    split body reading the pools in place through the block table (each
+    run's pages looked up once), with no gather, unpack, GQA repeat or
     upcast copy.
     """
     view = [_pool_view(t, block_tables) for t in (kv_pool, ki_pool, v_pool)]
@@ -250,9 +259,11 @@ def flash_sfa_decode_multi_ref(q, k_vals, k_idx, v, lengths, *, d: int,
 
     Replaces ``repro/kernels/flash_sfa_decode.py::flash_sfa_decode_multi``
     (row 12). Bound by bytes: the least the card must move is the slot's
-    cache once for all C queries. The kernel walks every row exactly as the
-    paged decode kernel does, so row c equals a paged decode at its length
-    bit for bit (the greedy acceptance rule compares argmaxes across them).
+    cache once for all C queries. The kernel splits and sums every row
+    exactly as the paged decode kernel does (runs by position, merged in
+    run order), so row c equals a paged decode at its length bit for bit
+    (the greedy acceptance rule compares argmaxes across them); it still
+    reads the slot's cache once per query row.
     """
     if block_tables is not None:
         bt = block_tables[int(slot)][None]

@@ -439,6 +439,70 @@ def test_feature_major_decode_kernels_on_card(cuda, dtype):
     torch.testing.assert_close(fo.cpu(), fp, rtol=0, atol=1e-4)
 
 
+def _misaligned(t):
+    """The same content one element past an aligned base: the kernels take
+    their scalar loads where the vector loads' alignment fails."""
+    return torch.cat([torch.zeros_like(t[..., :1]), t], -1)[..., 1:]
+
+
+@pytest.mark.parametrize("dv,kk,idx_dtype,dtype,page", [
+    (32, 2, torch.uint16, torch.float32, 48), (128, 8, torch.int32, torch.float32, 128),
+    (64, 8, torch.uint8, torch.bfloat16, 48), (128, 2, torch.uint16, torch.bfloat16, 128),
+    (32, 8, torch.int32, torch.bfloat16, 128), (64, 8, torch.uint16, torch.float32, 48)])
+def test_split_decode_kernels_at_run_boundaries_on_card(cuda, dv, kk, idx_dtype, dtype, page):
+    """Rows 10-12's split body at lengths on and around its runs of SPLIT
+    tokens, a zero-length row and the past-the-table sentinel, GQA group 2:
+    each against its plain version; row 11 bit-equal to row 10 on the
+    gathered view, to itself on misaligned copies (scalar loads) and across
+    two calls; each row of row 12 bit-equal to row 11 at its length."""
+    from repro_torch.kernels.flash_sfa_decode import SPLIT
+    rs = np.random.RandomState(12)
+    slots, h, hkv, d, n_cap = 8, 4, 2, 64, 384
+    mp = n_cap // page
+    pool = slots * mp + 1
+    idx = np.sort(np.argsort(rs.rand(hkv, pool, page, d), -1)[..., :kk], -1)
+    idx[:, ::7, ::5, 0] = d + 3                  # an index past d lands nowhere
+    bt = rs.permutation(np.arange(1, pool))[:slots * mp].reshape(slots, mp).astype(np.int32)
+    lens = np.array([0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT + 1, n_cap, n_cap + 1],
+                    np.int32)
+    t = {"kv": torch.from_numpy(rs.randn(hkv, pool, page, kk).astype(np.float32)).to(dtype),
+         "ki": torch.from_numpy(idx.astype(np.int32)).to(idx_dtype),
+         "v": torch.from_numpy(rs.randn(hkv, pool, page, dv).astype(np.float32)).to(dtype),
+         "bt": torch.from_numpy(bt), "lens": torch.from_numpy(lens),
+         "q": torch.from_numpy(rs.randn(slots * h, d).astype(np.float32))}
+    g = {n: x.to(cuda) for n, x in t.items()}
+    pools = [g[n] for n in ("kv", "ki", "v")]
+    ko = flash_sfa_decode_paged(g["q"], *pools, g["bt"], g["lens"], d=d, heads=h)
+    po = ref.flash_sfa_decode_paged_ref(t["q"], t["kv"], t["ki"], t["v"], t["bt"], t["lens"],
+                                        d=d, heads=h)
+    torch.testing.assert_close(ko.cpu(), po, rtol=0, atol=1e-4)
+    assert not ko[:h].any()                      # slot 0 has length 0
+    assert torch.equal(ko, flash_sfa_decode_paged(g["q"], *pools, g["bt"], g["lens"], d=d,
+                                                  heads=h))
+    mis = [_misaligned(x) for x in pools]
+    assert mis[0].data_ptr() % 16 and torch.equal(mis[2], pools[2])
+    assert torch.equal(ko, flash_sfa_decode_paged(g["q"], *mis, g["bt"], g["lens"], d=d,
+                                                  heads=h))
+    # the gathered view, built on the host (CUDA indexing takes no uint16)
+    view = [ref._pool_view(t[n], t["bt"]).contiguous().to(cuda) for n in ("kv", "ki", "v")]
+    rlens = g["lens"].repeat_interleave(h)
+    assert torch.equal(ko, flash_sfa_decode(g["q"], *view, rlens, d=d))
+    # row 12: C = 8 verify queries of slot 5 at the same lengths
+    slot = 5
+    mo = flash_sfa_decode_multi(g["q"], *pools, rlens, d=d, heads=h, block_tables=g["bt"],
+                                slot=slot)
+    mp_ = ref.flash_sfa_decode_multi_ref(t["q"], t["kv"], t["ki"], t["v"], rlens.cpu(), d=d,
+                                         heads=h, block_tables=t["bt"], slot=slot)
+    torch.testing.assert_close(mo.cpu(), mp_, rtol=0, atol=1e-4)
+    for i, length in enumerate(lens):
+        li = g["lens"].clone()
+        li[slot] = int(length)
+        q = g["q"].clone()
+        q[slot * h:(slot + 1) * h] = g["q"][i * h:(i + 1) * h]
+        one = flash_sfa_decode_paged(q, *pools, g["bt"], li, d=d, heads=h)
+        assert torch.equal(mo[i * h:(i + 1) * h], one[slot * h:(slot + 1) * h])
+
+
 @pytest.mark.parametrize("backend", ["cuda", "cuda_fm"])
 def test_paged_and_speculative_engines_launch_their_kernels(cuda, backend):
     from repro_torch.models.model import init

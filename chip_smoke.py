@@ -67,8 +67,9 @@ Phases; any failure raises and the script exits non-zero:
                fwd_fuse=True, remat="codes"), 1 warm-up and 5 timed steps;
                the launches of proj_rtopk, block-skip flash_sfa, the
                compact flash_sfa_bwd and code_grad_dx/dw equal to the
-               prediction (and no rtopk or plain-schedule flash_sfa), no
-               fallback, the seam taken on every layer, "codes" applied;
+               prediction (and no rtopk or plain-schedule flash_sfa), every
+               code_grad_dw on its tensor-core body, no fallback, the seam
+               taken on every layer, "codes" applied;
                then the launcher ``python -m repro_torch.launch.train
                --no-reduced --bwd-emit compact --remat codes`` for 2 steps;
   9. gradients end to end — float32 gpt2-small-sfa8 at full width, batch 1
@@ -91,7 +92,7 @@ CUDA-core ones: both are held against the plain versions, the tensor-core
 bodies also at d 32 and 128, causal and not, ragged n (the backward with
 every emit, the compact emit equal to the dense one gathered, two calls
 equal bit for bit). Phases 6, 8 and 9's bf16 gpt2-small-sfa8 runs must
-launch no CUDA-core FlashSFA body.
+launch no CUDA-core body (FlashSFA, code_grad_dw).
 
 Phase 3 also holds the paged, multi-query and feature-major decode
 kernels (rows 11-14) at the serving path's shapes: 8 slots x 12 heads of
@@ -99,22 +100,25 @@ kernels (rows 11-14) at the serving path's shapes: 8 slots x 12 heads of
 non-monotone block table and one slot at the past-the-table sentinel; the
 paged kernel must equal flash_sfa_decode on the gathered view bit for bit,
 each verify row the paged kernel at its length, and the paged
-feature-major kernel the contiguous one on the gathered image. Rows 10-12
-(the token-major decode, split over the keys in runs of 128 positions) are
-also held at lengths on and around a run boundary with a zero-length row,
-which must give 0: against the plain versions and for both bit-equalities
-(row 10 also against itself in the folded layout and on a second call).
-Each timed row names the kernels one call launches (the decode's split and
-merge kernels), and phase 4 prints the decode kernels' device ms per
-traced step.
+feature-major kernel the contiguous one on the gathered image. Rows 10-14
+(the token-major and the feature-major decode, each split over the keys in
+runs of 128 positions) are also held at lengths on and around a run
+boundary with a zero-length row, which must give 0: against the plain
+versions and for their bit-equalities (row 10 also against itself in the
+folded layout and on a second call). Each timed row names the kernels one
+call launches (a decode's split and merge kernels), and phase 4 prints the
+decode kernels' device ms per traced step.
 
 Phase 3 also holds the compact seam's kernels at the training path's
 shapes: proj_rtopk (x 8 x 1024 x 768, 12 heads of 64, k 8) in f32 on
 dyadic inputs (every sum exact: indices equal, values bit-equal), and in
 bf16 and f32 on random inputs (rows whose index sets differ must have a
 near-tie), with RoPE at full width; code_grad_dx/dw (12 heads x 8,192
-tokens, k 8 and the 2k pair closure; code_grad_dw also with one token
-split, which must agree and is timed beside the default); block-skip flash_sfa on the training
+tokens, k 8 and the 2k pair closure; bf16 dW on its tensor-core body, also
+against the CUDA-core body on the same inputs, bit-equal to the plain
+version on inputs whose sums are exact at d 32, 64 and 128, and with one
+token split, which must agree and is timed beside the default; the
+kernels' ptxas registers and spills); block-skip flash_sfa on the training
 path's codes and on a planted banded input (tile t on features 8(t mod 8)
 .. +7) that sends most tile pairs down the closed form, with
 ``block_skip_stats`` of both; the compact and compact2 backward emits
@@ -466,10 +470,11 @@ def _densify(vals, idx, d):
 
 
 def _tc_only(what):
-    """Check that no CUDA-core FlashSFA body launched since the last reset."""
+    """Check that no CUDA-core body (FlashSFA forward or backward,
+    code_grad_dw) launched since the last reset."""
     from repro_torch.kernels import body_counts
     counts = body_counts()
-    check(not any(counts.values()), f"{what}: a CUDA-core FlashSFA body launched: {counts}")
+    check(not any(counts.values()), f"{what}: a CUDA-core body launched: {counts}")
 
 
 def _codes_of(rs, bh, n, d, k, dtype):
@@ -841,10 +846,25 @@ def phase_decode_fm(rs):
         torch.testing.assert_close(fo, fp, rtol=0, atol=1e-4)
         check(torch.equal(ko, fo), "flash_sfa_decode_fm_paged: not bit-equal to "
                                    "flash_sfa_decode_fm on the gathered image")
-        e = ((fo - fp).abs().max().item(), (ko - po).abs().max().item())
+        # run boundaries (runs of SPLIT positions), a zero-length slot (its
+        # rows must be exactly 0) and the past-the-table sentinel
+        bl = torch.from_numpy(_boundary_lengths(n_all, c["slots"])).cuda()
+        bl[-1] = n_all + 1
+        rbl = bl.repeat_interleave(h)
+        kb = flash_sfa_decode_fm_paged(qv, qi, p0["kf"], p0["v"], bt, bl, heads=h)
+        fb = flash_sfa_decode_fm(qv, qi, *imgs[0], rbl)
+        eb = (_close_rows(fb, flash_sfa_decode_fm_ref(qv, qi, *imgs[0], rbl), rbl,
+                          f"flash_sfa_decode_fm {dtype} at the run boundaries"),
+              _close_rows(kb, flash_sfa_decode_fm_paged_ref(qv, qi, p0["kf"], p0["v"], bt, bl,
+                                                            heads=h), rbl,
+                          f"flash_sfa_decode_fm_paged {dtype} at the run boundaries"))
+        check(torch.equal(kb, fb), "flash_sfa_decode_fm_paged at the run boundaries: not "
+                                   "bit-equal to flash_sfa_decode_fm on the gathered image")
+        e = (max((fo - fp).abs().max().item(), eb[0]), max((ko - po).abs().max().item(), eb[1]))
         errs.append(e)
         print(f"[flash_sfa_decode_fm/_paged] {dtype}: max|err| fm {e[0]:.3g}, fm_paged "
-              f"{e[1]:.3g} (tol 1e-4); fm_paged == fm on the gathered image (bit-equal)")
+              f"{e[1]:.3g} (tol 1e-4), also at slot lengths {bl.tolist()} (zero-length rows 0); "
+              f"fm_paged == fm on the gathered image (bit-equal)")
         if dtype != torch.bfloat16:
             continue
         eff = np.minimum(lengths, n_all)
@@ -1203,13 +1223,56 @@ def phase_proj_rtopk(rs):
     return r
 
 
+def ptxas_kernels(name):
+    """{kernel: (registers, spill line)} from the ``-Xptxas -v`` log of
+    ``csrc/<name>.cu``'s build."""
+    from repro_torch.kernels import _build
+    out, fn, spill = {}, None, ""
+    for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn is not None:
+            regs = int(line.split("Used")[1].split()[0])
+            out[fn] = (regs, spill)
+    return out
+
+
+def _exact_codes(rs, h, ntok, d, kw, dups=True):
+    """Codes whose dW sums are exact in f32 on either body: values in
+    {-1, 1} at distinct indices; with ``dups`` every 7th row repeats its
+    first index with the value 2^-9, so the summed duplicate 1 + 2^-9 (or
+    -1 + 2^-9) is not a bf16 and goes through the lo tile exactly (hi +-1,
+    lo 2^-9); without, every 9th row is padding (index 0, value 0)."""
+    idx = np.sort(np.argsort(rs.rand(h, ntok, d), -1)[..., :kw], -1).astype(np.int32)
+    vals = rs.choice([-1.0, 1.0], size=(h, ntok, kw)).astype(np.float32)
+    if dups:
+        idx[:, 3::7, 1] = idx[:, 3::7, 0]
+        vals[:, 3::7, 1] = 2.0 ** -9
+    else:
+        idx[:, 5::9], vals[:, 5::9] = 0, 0.0
+    idx[:, 9::11, -1] = d + 1                      # outside [0, d): adds nothing
+    return (torch.from_numpy(vals).cuda().bfloat16(), torch.from_numpy(idx).cuda())
+
+
 def phase_code_grad(rs):
     """code_grad_dx/dw at the training path's shapes: 12 heads x 8,192
-    tokens of bf16 codes, k 8 (and the pair closure's 2k), m 768."""
-    from repro_torch.kernels import code_grad_dw, code_grad_dx
+    tokens of bf16 codes, k 8 (and the pair closure's 2k), m 768. bf16 dW
+    runs the tensor-core body, f32 the CUDA-core one; the tensor-core body
+    is also held against the CUDA-core body on the same bf16 inputs, bit
+    for bit against the plain version on inputs whose sums are exact
+    (the layout check: d 32, 64 and 128, ragged n and m), and with one
+    token split."""
+    from repro_torch.kernels import body_counts, code_grad_dw, code_grad_dx, reset_launches
+    from repro_torch.kernels.code_grad import tensor_core_body
     from repro_torch.kernels.ops import head_blocks
     from repro_torch.kernels.ref import code_grad_dw_ref, code_grad_dx_ref, scatter_code_grads
+    cg = sys.modules["repro_torch.kernels.code_grad"]
     h, ntok, m, d = HEADS, TRAIN_B * TRAIN_N, D_MODEL, HD
+    for fn, (regs, spill) in ptxas_kernels("code_grad").items():
+        if "code_grad_dw" in fn:
+            print(f"[code_grad] ptxas: {fn}: {regs} registers; {spill}")
     w = torch.from_numpy((0.04 * rs.randn(m, 3 * h * d)).astype(np.float32)).cuda()
     wq = head_blocks(w, 0, h, d)
     x = torch.from_numpy(rs.randn(ntok, m).astype(np.float32)).cuda()
@@ -1221,21 +1284,54 @@ def phase_code_grad(rs):
                                .astype(np.int32)).cuda()
         idx[:, 3::7, 1] = idx[:, 3::7, 0]          # duplicates sum (pair closures)
         xx = x.to(dtype)
+        reset_launches()
         got = (code_grad_dx(vals, idx, wq, d=d), code_grad_dw(xx, vals, idx, d=d))
+        tc = tensor_core_body(dtype, d, kw, m)
+        check(body_counts()["code_grad_dw_cuda_core"] == (0 if tc else 1),
+              f"code_grad_dw kw={kw} {dtype}: body launches {body_counts()}")
         want = (code_grad_dx_ref(vals, idx, wq, d=d), code_grad_dw_ref(xx, vals, idx, d=d))
         torch.cuda.synchronize()
         # f32 outputs, sums of up to 12·16 (dx) or 8,192·16 (dW) terms in
-        # another order: 1e-4 of the output's largest magnitude
+        # another order, each summed duplicate kept to ~16 bits (hi + lo) on
+        # the tensor cores: 1e-4 of the output's largest magnitude
         for name, a, bb in zip(("dx", "dw"), got, want):
             scale_ = bb.abs().max().item()
             torch.testing.assert_close(a, bb, rtol=1e-4, atol=1e-4 * scale_,
                                        msg=f"code_grad {name} kw={kw} {dtype}")
             errs[name].append((a - bb).abs().max().item())
-        print(f"[code_grad] kw={kw} {dtype}: max|err| dx {errs['dx'][-1]:.3g}, dW "
-              f"{errs['dw'][-1]:.3g} (max |dx| {want[0].abs().max().item():.3g}, |dW| "
-              f"{want[1].abs().max().item():.3g})")
+        line = (f"[code_grad] kw={kw} {dtype}: max|err| dx {errs['dx'][-1]:.3g}, dW "
+                f"{errs['dw'][-1]:.3g} ({'tensor-core' if tc else 'CUDA-core'} dW body; max "
+                f"|dx| {want[0].abs().max().item():.3g}, |dW| {want[1].abs().max().item():.3g})")
+        if tc:   # the same inputs through the CUDA-core body
+            core = cg._dw_cuda_core(xx, vals, idx, d)
+            torch.testing.assert_close(got[1], core, rtol=1e-4,
+                                       atol=1e-4 * want[1].abs().max().item(),
+                                       msg=f"code_grad_dw kw={kw}: tensor-core vs CUDA-core body")
+            line += f"; against the CUDA-core body {(got[1] - core).abs().max().item():.3g}"
+        print(line)
         if kw == SFA_K and dtype == torch.bfloat16:
             main = (vals, idx, xx)
+    # the layout: exact sums (values in {-1, 1}, x in {-1, 0, 1}, a summed
+    # duplicate 1 + 2^-9 through the lo tile) give the plain version's bits
+    for hh, n_, m_, d_, kw, dups in ((h, ntok, m, d, SFA_K, True), (h, ntok, m, d, SFA_K, False),
+                                     (h, ntok, m, d, 2 * SFA_K, True),
+                                     (5, 1000, 200, 32, SFA_K, True),
+                                     (3, 777, 136, 128, 2 * SFA_K, True)):
+        vals, idx = _exact_codes(rs, hh, n_, d_, kw, dups)
+        xe = torch.from_numpy(rs.randint(-1, 2, (n_, m_)).astype(np.float32)).cuda().bfloat16()
+        check(tensor_core_body(torch.bfloat16, d_, kw, m_), "exact dW inputs: not the tensor cores")
+        got = code_grad_dw(xe, vals, idx, d=d_)
+        want = code_grad_dw_ref(xe, vals, idx, d=d_)
+        torch.cuda.synchronize()
+        bad = (got != want).nonzero()
+        if bad.numel():
+            at = tuple(bad[0].tolist())
+            raise AssertionError(f"code_grad_dw exact inputs h={hh} n={n_} m={m_} d={d_} kw={kw}: "
+                                 f"{bad.shape[0]} entries differ, first at {at}: got "
+                                 f"{got[at].item()}, want {want[at].item()}")
+        how = "duplicates through the lo tile" if dups else "no duplicate: no lo products"
+        print(f"[code_grad] dW tensor-core body on exact inputs, {hh} heads x {n_} tokens, m "
+              f"{m_}, d {d_}, kw {kw} ({how}): equal to the plain version bit for bit")
     vals, idx, xx = main
     kw, es = SFA_K, 2
     ops_s = code_product_s(2 * ntok * m * h * kw, 2 * ntok * m * h * d)
@@ -1256,9 +1352,11 @@ def phase_code_grad(rs):
         print(f"[{name}] bf16 codes {h} x {ntok} x {kw}, m {m}: library = scatter_code_grads + "
               f"torch.einsum; {fmt(r)}")
         res[name] = r
-    # dW's token split (up to 8 splits of >= 1,024 tokens and an ordered
-    # sum) against one block per (head, column tile) walking all tokens
-    cg = sys.modules["repro_torch.kernels.code_grad"]
+    # the CUDA-core dW body on the same bf16 inputs (what the tensor-core
+    # body replaced on this path), and each body with one token split
+    def run_core():
+        return cg._dw_cuda_core(xx, vals, idx, d)
+    core_ms = device_ms(run_core) or event_ms(run_core)
     split_ms = res["code_grad_dw"]["ms"]
     want = code_grad_dw(xx, vals, idx, d=d)
     saved, cg._DW_MAX_SPLITS = cg._DW_MAX_SPLITS, 1
@@ -1269,10 +1367,14 @@ def phase_code_grad(rs):
         def run_one():
             return code_grad_dw(xx, vals, idx, d=d)
         one_ms = device_ms(run_one) or event_ms(run_one)
+        one_core_ms = device_ms(run_core) or event_ms(run_core)
     finally:
         cg._DW_MAX_SPLITS = saved
-    print(f"[code_grad_dw] token splits: {min(saved, ntok // cg._DW_SPLIT_TOKENS)} splits "
-          f"{split_ms:.4f} ms, one split {one_ms:.4f} ms (device time per call)")
+    splits = cg.tc_splits(ntok, h, d, m, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"[code_grad_dw] tensor-core body: {splits[0]} token splits of {splits[1]} tokens "
+          f"{split_ms:.4f} ms, one split {one_ms:.4f} ms; CUDA-core body on the same bf16 "
+          f"inputs: {max(1, min(saved, ntok // cg._DW_SPLIT_TOKENS))} splits {core_ms:.4f} ms, one split "
+          f"{one_core_ms:.4f} ms (device time per call)")
     return res["code_grad_dx"], res["code_grad_dw"]
 
 
@@ -1759,7 +1861,7 @@ def phase_train(arch, timed_steps, predicted, **policy):
     from repro_torch.configs.base import TrainPolicy
     from repro_torch.core.remat import clear_remat_reports, remat_reports
     from repro_torch.data import DataConfig, markov_batch
-    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels import body_counts, launch_counts, reset_launches
     from repro_torch.models.attention import clear_compact_seam_reports, compact_seam_reports
     from repro_torch.models.backends import clear_fallback_reports, fallback_reports
     from repro_torch.optim import OptimizerConfig
@@ -1794,8 +1896,12 @@ def phase_train(arch, timed_steps, predicted, **policy):
           f"train {arch}: non-finite loss or gradient norm: {hist}")
     check(not reports, f"train {arch}: backend fallbacks recorded: {reports}")
     check(counts == want, f"train {arch}: launches {counts}, predicted {want}")
-    # bf16 at d = dv = 64, k 8: every FlashSFA launch on the tensor-core bodies
+    # bf16 at d = dv = 64, k 8: every FlashSFA launch on the tensor-core
+    # bodies, and the compact seam's dW on the tensor-core one
     _tc_only(f"train {arch}")
+    if policy.get("bwd_emit") in ("compact", "compact2"):
+        check(counts["code_grad_dw"] > 0 and body_counts()["code_grad_dw_cuda_core"] == 0,
+              f"train {arch}: code_grad_dw not all on the tensor cores: {body_counts()}")
     if policy.get("bwd_emit") in ("compact", "compact2"):
         check(len(seams) == 1 and seams[0].taken, f"train {arch}: compact seam {seams}")
     check(all(r.eligible for r in remats), f"train {arch}: remat degraded: {remats}")
@@ -2001,7 +2107,7 @@ def phase_sfa_grad_bf16_end_to_end():
                           f"{e:.3g} > {t:.3g}")
             worst = max(worst, (e / t, name, e))
         print(f"[grad end-to-end] bf16 {cfg.name} full width, batch 1 x seq 512, cuda {label} "
-              f"(launches {', '.join(f'{r} {counts[r]}' for r in rows)}; no CUDA-core FlashSFA "
+              f"(launches {', '.join(f'{r} {counts[r]}' for r in rows)}; no CUDA-core "
               f"body) vs torch: loss {la:.6f} vs {lt:.6f} (|diff| {abs(la - lt):.3g}, tol "
               f"{tol:.3g}); all {len(named)} parameter gradients within their tolerance, "
               f"nearest to it d{worst[1]} at {worst[2]:.3g} ({100 * worst[0]:.1f}% of its "

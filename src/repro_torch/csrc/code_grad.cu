@@ -10,13 +10,18 @@
 // which is scatter(vals_h, idx_h) @ w_h^T and x^T @ scatter(vals_h, idx_h):
 // each code entry adds its own term, so duplicate indices sum (as the TPU's
 // _densify_block does) and an index outside [0, d) adds nothing. The dense
-// (N, d) gradient is never formed, not even in shared memory: each product
-// is gathered at the kw stored coordinates, kw multiply-adds per output
-// element and head where the TPU densified the tile and ran a d-wide
-// matmul on its matrix unit.
+// (N, d) gradient is never formed in device memory.
 //
-// Design. Every output element has one owner and a fixed summation order:
-// no atomics, a deterministic result.
+// Two kinds of body. dW in bf16 with d in {32, 64, 128}, kw in {8, 16} and
+// m a multiple of 8 runs on the tensor cores (code_grad_dw_tc_launch,
+// below): the TPU's counterpart, each code tile densified in shared memory
+// and fed to a d-wide product. dx, and dW in f32 (on the tensor cores f32
+// would be TF32, which fails f32's 1e-4) or at other bf16 shapes, run on
+// CUDA cores: each product gathered at the kw stored coordinates, kw
+// multiply-adds per output element and head.
+//
+// Design of the CUDA-core bodies. Every output element has one owner and a
+// fixed summation order: no atomics, a deterministic result.
 //  * dx: one block of 256 threads per (128-token tile, 64-column tile of
 //    m). Per head the block stages w_h's 64 rows of the tile transposed in
 //    shared memory, (d, 64 + 1) f32, and the tile's codes; thread (j, rg)
@@ -34,15 +39,17 @@
 //    partials in order (S = 1 writes the result directly). Each code entry
 //    costs a shared-memory read-modify-write of the accumulator (with the
 //    entry's two broadcast reads, four shared-memory operations per two
-//    flops): that, not the flops, sets this kernel's time.
+//    flops): that, not the flops, sets this body's time (0.82 ms at
+//    gpt2-small's 12 heads x 8,192 tokens, k 8; PERF.md).
 //
-// Bound on the H100: operations, 2 kw flops per (token, column, head) on
-// CUDA cores for each of dx and dW, against the bytes of x, w and the
-// codes once each and the f32 outputs.
+// Bound on the H100: operations, for each of dx and dW the lesser of 2 kw
+// flops per (token, column, head) on CUDA cores and 2 d on the tensor
+// cores, against the bytes of x, w and the codes once each and the f32
+// outputs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -169,6 +176,331 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, float* __restr
   out[e] = v;
 }
 
+// ---- dW on the tensor cores (bf16) -------------------------------------------
+//
+// dW^T (H.d x m) = S^T (H.d x n) . x (n x m), S the densified codes of all
+// heads side by side: one GEMM whose reduction is the token axis.
+//  * A pack kernel first reads each (head, token) row of kw codes once and
+//    resolves its repeated indices: the first occurrence of an index in
+//    [0, d) gets the word index << 16 | bf16 hi of the f32 sum (in code
+//    order) of the row's codes at that index, and lo = bf16(sum - hi) where
+//    the sum is not a bf16 (~16 bits of a summed duplicate, an f32 value
+//    that is not an input); every other code gets no index. Codes without a
+//    duplicate are bf16 inputs, exact in hi. The dense kernel then stores
+//    each word as it comes, so its per-chunk densify is one store per code
+//    where comparing a row's codes against each other in the kernel cost
+//    O(kw^2) per row in every one of the m / 128 blocks that reads it.
+//  * A block owns 128 feature rows (128 / d heads) by 128 columns of m, two
+//    warpgroups of 64 feature rows each, and walks its token split in
+//    chunks of 64 tokens (four k16 steps). A = the chunk's S^T, 128 feature
+//    rows x 64 token columns, densified by all 256 threads (d / 32 a code
+//    row, each a share of its words) into the swizzled K-major layout TMA
+//    would write (hopper::Tile<64, 128>), hi and lo in two tiles; every
+//    (feature, token) cell has one writer. B = the x chunk, 64 token rows x
+//    128 columns, by TMA (zero fill past n and m), the MN-major operand of
+//    Mma<128>::ss_mn. The lo products run only if the pack kernel found a
+//    nonzero lo anywhere in the call (the codes rtopk emits repeat only
+//    zero-valued padding, whose sums are exact): the chunk loop exists
+//    twice, with and without them, and the choice is made once. A wgmma
+//    under a branch ptxas cannot prove uniform is serialized (C7520, 0.10
+//    ms on the path below), and choosing per chunk behind a __shfl_sync'd
+//    flag ran slower on the card than always running both products.
+//  * Per chunk c: the products of c are issued; each warpgroup waits for
+//    its products of c - 1 and zeroes its half of their S stage (16-byte
+//    stores); one barrier; the x tile and packed rows of chunk c + 3 are
+//    issued (TMA; cp.async, each row's 16-byte pieces shared by its
+//    threads); chunk c + 1 is densified into the zeroed stage;
+//    fence.proxy.async, one barrier. So the products of c run while c + 1
+//    is densified, and c + 1's are issued before c's are done.
+// x is read once per feature tile (6 times for gpt2-small's 12 heads of
+// 64), from L2 after the first. Each split writes its partial, and
+// sum_splits_kernel adds the splits in order: no atomics, a deterministic
+// result.
+// Bound on the H100: operations, 2 d flops per (token, column, head) on the
+// tensor cores (the lo products, where they run, double what the body
+// runs).
+
+constexpr int kTcRows = 128;     // feature rows of a block: two warpgroups of 64
+constexpr int kTcCols = 128;     // columns of m of a block: the wgmma N
+constexpr int kTcTok = 64;       // tokens of a chunk: four k16 steps
+constexpr int kTcStages = 4;     // x tiles and packed rows: chunks c .. c + 3
+constexpr int kTcThreads = 256;
+constexpr uint32_t kNoIndex = 0xFFFF0000u;   // a packed word that stores nothing
+using STile = hopper::Tile<kTcTok, kTcRows>;   // S^T chunk: feature rows x token columns
+using XTile = hopper::Tile<kTcCols, kTcTok>;   // x chunk: token rows x 128 columns of m
+
+__device__ __forceinline__ void sts_u16(uint32_t addr, unsigned short bits) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"(bits));
+}
+__device__ __forceinline__ void sts_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr), "r"(0u));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// the densify's generic-proxy stores, made visible to wgmma's async proxy
+// (a barrier must follow before the product)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// BYTES (4, 8 or a multiple of 16) bytes at p, aligned to min(16, BYTES),
+// as 32-bit words
+template <int BYTES>
+__device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[BYTES / 4]) {
+  if constexpr (BYTES % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      const uint4 q = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = q.x;
+      w[4 * i + 1] = q.y;
+      w[4 * i + 2] = q.z;
+      w[4 * i + 3] = q.w;
+    }
+  } else if constexpr (BYTES == 8) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    w[0] = q.x;
+    w[1] = q.y;
+  } else {
+    static_assert(BYTES == 4, "4, 8 or a multiple of 16 bytes");
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// codes (rows, KW) -> words (rows, KW) uint32 and lo (rows, KW) bf16 bits,
+// one thread a row: see the note above; *lo_any (zeroed by the caller)
+// becomes 1 if any lo is nonzero
+template <int KW>
+__global__ void pack_dw_codes_kernel(const __nv_bfloat16* __restrict__ vals,
+                                     const int32_t* __restrict__ idx, uint32_t* __restrict__ words,
+                                     uint16_t* __restrict__ lo, int* __restrict__ lo_any,
+                                     long long rows, int d) {
+  uint32_t mine = 0;   // some row of this thread has a nonzero lo
+  for (long long row = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       row < rows; row += static_cast<long long>(gridDim.x) * blockDim.x) {
+    uint32_t iw[KW], vw[KW / 2];
+    load_words<KW * 4>(idx + row * KW, iw);
+    load_words<KW * 2>(vals + row * KW, vw);
+    int id[KW];
+    float v[KW];
+#pragma unroll
+    for (int u = 0; u < KW; ++u) {
+      const int x = static_cast<int>(iw[u]);
+      id[u] = x >= 0 && x < d ? x : -1;
+      v[u] = __uint_as_float(u % 2 ? vw[u / 2] & 0xffff0000u : vw[u / 2] << 16);
+    }
+    uint32_t ow[KW], ol[KW / 2];
+#pragma unroll
+    for (int u = 0; u < KW / 2; ++u) ol[u] = 0;
+#pragma unroll
+    for (int u = 0; u < KW; ++u) {
+      bool first = id[u] >= 0;
+#pragma unroll
+      for (int w = 0; w < u; ++w) first = first && id[w] != id[u];
+      float sum = v[u];   // the f32 sum of the index's codes, in code order
+#pragma unroll
+      for (int w = u + 1; w < KW; ++w)
+        if (id[w] == id[u]) sum = __fadd_rn(sum, v[w]);
+      const __nv_bfloat16 h = __float2bfloat16_rn(sum);
+      const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(__fsub_rn(sum, __bfloat162float(h))));
+      ow[u] = first ? (static_cast<uint32_t>(id[u]) << 16) | __bfloat16_as_ushort(h) : kNoIndex;
+      ol[u / 2] |= (first ? l : 0u) << (16 * (u % 2));
+    }
+#pragma unroll
+    for (int i = 0; i < KW / 4; ++i)
+      reinterpret_cast<uint4*>(words + row * KW)[i] =
+          make_uint4(ow[4 * i], ow[4 * i + 1], ow[4 * i + 2], ow[4 * i + 3]);
+#pragma unroll
+    for (int i = 0; i < KW / 8; ++i) {
+      reinterpret_cast<uint4*>(lo + row * KW)[i] =
+          make_uint4(ol[4 * i], ol[4 * i + 1], ol[4 * i + 2], ol[4 * i + 3]);
+      mine |= ol[4 * i] | ol[4 * i + 1] | ol[4 * i + 2] | ol[4 * i + 3];
+    }
+  }
+  if (__syncthreads_or(mine != 0) && threadIdx.x == 0) atomicOr(lo_any, 1);
+}
+
+// byte offset of cell (feature row r, token t) of an STile: 128-byte rows,
+// the 128-byte swizzle (the tile sits on a 1024-byte boundary)
+__device__ __forceinline__ uint32_t s_cell(int r, int t) {
+  return r * STile::SW + ((t * 2) ^ ((r & 7) << 4));
+}
+
+template <int D, int KW>
+__global__ void __launch_bounds__(kTcThreads, 1)
+code_grad_dw_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const uint32_t* __restrict__ words, const uint16_t* __restrict__ lo_bits,
+                       const int* __restrict__ lo_any, float* __restrict__ part, int nh,
+                       int ntok, int m, int split_len) {
+  static_assert(KW % 8 == 0, "a packed row is whole 16-byte pieces of lo bits");
+  constexpr int ROWS = kTcTok * (kTcRows / D);   // (token, head) code rows of a chunk
+  constexpr int P = kTcThreads / ROWS;           // threads a row (d / 32)
+  constexpr int U = KW / P;                      // words of a thread's share
+  constexpr int PIECES = KW / 8 + KW / 4;        // 16-byte pieces of a row: lo, words
+  constexpr int CSTAGE = ROWS * KW * 6;          // bytes of a chunk's packed rows
+  static_assert(KW % P == 0, "a row's words share out evenly");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* s_hi = base;                              // 2 stages of S^T, hi
+  uint8_t* s_lo = s_hi + 2 * STile::BYTES;           // 2 stages of S^T, lo
+  uint8_t* xs = s_lo + 2 * STile::BYTES;             // kTcStages x tiles
+  uint8_t* codes = xs + kTcStages * XTile::BYTES;    // kTcStages x (ROWS, KW) lo, words
+  uint64_t* bar = reinterpret_cast<uint64_t*>(codes + kTcStages * CSTAGE);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int f0 = blockIdx.x * kTcRows;
+  const int m0 = blockIdx.y * kTcCols;
+  const int t_begin = blockIdx.z * split_len;
+  const int t_end = min(ntok, t_begin + split_len);
+  const int nc = t_end > t_begin ? (t_end - t_begin + kTcTok - 1) / kTcTok : 0;
+  // packed row r = (token slot wt, head slot hs), share sh of its words
+  const int r = tid % ROWS;
+  const int sh = tid / ROWS;
+  const int wt = r % kTcTok;
+  const int hs = r / kTcTok;
+  const int head = f0 / D + hs;
+  auto live = [&](int c) {
+    return head < nh && c < nc && t_begin + c * kTcTok + wt < t_end;
+  };
+  auto codes_of = [&](int c) { return codes + (c % kTcStages) * CSTAGE; };
+
+  for (int o = tid * 16; o < 4 * STile::BYTES; o += kTcThreads * 16)
+    sts_zero16(hopper::smem_u32(s_hi) + o);
+  if (tid == 0) {
+    for (int i = 0; i < kTcStages; ++i) hopper::mbar_init(&bar[i], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // chunk c's x tile (thread 0) and packed rows (a row's threads share its
+  // pieces); one commit group per chunk and thread, empty or not
+  auto load = [&](int c) {
+    if (tid == 0 && c < nc) {
+      uint8_t* dst = xs + (c % kTcStages) * XTile::BYTES;
+      uint64_t* b = &bar[c % kTcStages];
+      hopper::mbar_expect_tx(b, XTile::BYTES);
+#pragma unroll
+      for (int ch = 0; ch < XTile::CHUNKS; ++ch)
+        hopper::tma_load_3d(dst + ch * kTcTok * XTile::SW, &xmap, b, m0 + ch * XTile::CHUNK,
+                            t_begin + c * kTcTok, 0);
+    }
+    if (live(c)) {
+      const size_t row = (static_cast<size_t>(head) * ntok + t_begin + c * kTcTok + wt) * KW;
+      const uint32_t cs = hopper::smem_u32(codes_of(c));
+      for (int q = sh; q < PIECES; q += P) {
+        if (q < KW / 8)
+          cp_async16(cs + (r * KW + 8 * q) * 2, lo_bits + row + 8 * q);
+        else
+          cp_async16(cs + ROWS * KW * 2 + (r * KW + 4 * (q - KW / 8)) * 4,
+                     words + row + 4 * (q - KW / 8));
+      }
+    }
+    cp_async_commit();
+  };
+  // the thread's share of chunk c's packed row into S stage c & 1
+  auto scatter = [&](int c) {
+    if (!live(c)) return;
+    uint32_t w[U], l[(U + 1) / 2];
+    load_words<U * 4>(codes_of(c) + ROWS * KW * 2 + (r * KW + sh * U) * 4, w);
+    load_words<U * 2>(codes_of(c) + (r * KW + sh * U) * 2, l);
+    const uint32_t hi = hopper::smem_u32(s_hi + (c & 1) * STile::BYTES);
+    const uint32_t lo = hopper::smem_u32(s_lo + (c & 1) * STile::BYTES);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const uint32_t id = w[u] >> 16;
+      if (id < static_cast<uint32_t>(D)) {
+        const uint32_t off = s_cell(hs * D + id, wt);
+        sts_u16(hi + off, static_cast<unsigned short>(w[u] & 0xffffu));
+        const uint32_t lb = (l[u / 2] >> (16 * (u % 2))) & 0xffffu;
+        if (lb != 0) sts_u16(lo + off, static_cast<unsigned short>(lb));
+      }
+    }
+  };
+  // this warpgroup's 64 rows of S stage st zeroed, hi (and lo)
+  auto zero_half = [&](int st, auto with_lo) {
+    const uint32_t o = st * STile::BYTES + wg * (STile::BYTES / 2) + (tid % 128) * 16;
+#pragma unroll
+    for (int k = 0; k < STile::BYTES / 2; k += 128 * 16) {
+      sts_zero16(hopper::smem_u32(s_hi) + o + k);
+      if constexpr (decltype(with_lo)::value) sts_zero16(hopper::smem_u32(s_lo) + o + k);
+    }
+  };
+
+  for (int c = 0; c < kTcStages - 1; ++c) load(c);
+  cp_async_wait<kTcStages - 2>();
+  __syncthreads();
+  scatter(0);
+  fence_proxy_async();
+  __syncthreads();
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  hopper::fence_regs(acc);
+  // the chunks, with the lo products (with_lo true) or without: one loop
+  // each, chosen once for the whole call, so no wgmma sits under a branch
+  auto run = [&](auto with_lo) {
+    for (int c = 0; c < nc; ++c) {
+      const uint32_t a_hi = hopper::smem_u32(s_hi + (c & 1) * STile::BYTES);
+      const uint32_t a_lo = hopper::smem_u32(s_lo + (c & 1) * STile::BYTES);
+      const uint32_t b = hopper::smem_u32(xs + (c % kTcStages) * XTile::BYTES);
+      hopper::mbar_wait(&bar[c % kTcStages], (c / kTcStages) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::Mma<128>::ss_mn(acc, STile::kmajor(a_hi, 64 * wg, kk), XTile::mnmajor(b, kk), 1);
+      if constexpr (decltype(with_lo)::value) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::Mma<128>::ss_mn(acc, STile::kmajor(a_lo, 64 * wg, kk), XTile::mnmajor(b, kk), 1);
+      }
+      hopper::wgmma_commit();
+      // this warpgroup's products of c - 1 are done: zero its rows of their
+      // stage, the one chunk c + 1 is densified into
+      hopper::wgmma_wait<1>();
+      if (c > 0) zero_half((c + 1) & 1, with_lo);
+      cp_async_wait<kTcStages - 3>();
+      __syncthreads();   // all products of c - 1 done; the stage zeroed; c + 1's rows landed
+      load(c + kTcStages - 1);
+      scatter(c + 1);
+      fence_proxy_async();
+      __syncthreads();   // chunk c + 1 densified
+    }
+  };
+  // lo_any is one value for the whole call; __shfl_sync lets ptxas see it
+  // uniform over the warp
+  if (__shfl_sync(0xffffffffu, *lo_any, 0))
+    run(std::true_type{});
+  else
+    run(std::false_type{});
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // this split's block of dW, the accumulator transposed: row f of S^T is
+  // column f % d of head f / d
+  float* dst = part + static_cast<size_t>(blockIdx.z) * nh * m * D;
+  const int lane = tid % 32;
+  const int r0 = f0 + 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
+  const int c0 = m0 + 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int f = r0 + 8 * ((i % 4) / 2);
+    const int j = c0 + 8 * (i / 4) + (i % 2);
+    if (f < nh * D && j < m) {
+      const int h = f / D;
+      dst[(static_cast<size_t>(h) * m + j) * D + (f - h * D)] = acc[i];
+    }
+  }
+}
+
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -214,6 +546,62 @@ int launch_dw(const void* x, const void* vals, const void* idx, void* out, void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// The TMA map of x (ntok, m) bf16 for XTile: boxes of 64 columns x 64
+// token rows, 128-byte swizzle, rows past ntok and columns past m
+// zero-filled. Returns a cudaError_t value.
+int x_map(CUtensorMap* map, const void* x, int ntok, int m) {
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(m), static_cast<cuuint64_t>(ntok), 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(m) * 2,
+                                 static_cast<cuuint64_t>(ntok) * m * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(XTile::CHUNK),
+                             static_cast<cuuint32_t>(kTcTok), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D, int KW>
+int launch_dw_tc(const CUtensorMap& map, const uint32_t* words, const uint16_t* lo,
+                 const int* lo_any, float* dst, int nh, int ntok, int m, int splits,
+                 int split_len, cudaStream_t stream) {
+  const size_t smem = 1024 + 4 * STile::BYTES + kTcStages * XTile::BYTES +
+                      static_cast<size_t>(kTcStages) * kTcTok * (kTcRows / D) * KW * 6 +
+                      kTcStages * sizeof(uint64_t);
+  auto kernel = code_grad_dw_tc_kernel<D, KW>;
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((nh * D + kTcRows - 1) / kTcRows, (m + kTcCols - 1) / kTcCols, splits);
+  kernel<<<grid, kTcThreads, smem, stream>>>(map, words, lo, lo_any, dst, nh, ntok, m,
+                                             split_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KW>
+int launch_dw_tc_kw(const CUtensorMap& map, const void* vals, const void* idx, uint32_t* words,
+                    uint16_t* lo, int* lo_any, float* dst, int nh, int ntok, int m, int d,
+                    int splits, int split_len, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(nh) * ntok;
+  const long long want = (rows + 255) / 256;
+  cudaError_t e = cudaMemsetAsync(lo_any, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  pack_dw_codes_kernel<KW><<<static_cast<int>(want < 132LL * 16 ? want : 132LL * 16), 256, 0,
+                             stream>>>(static_cast<const __nv_bfloat16*>(vals),
+                                       static_cast<const int32_t*>(idx), words, lo, lo_any,
+                                       rows, d);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  switch (d) {
+    case 32: return launch_dw_tc<32, KW>(map, words, lo, lo_any, dst, nh, ntok, m, splits, split_len, stream);
+    case 64: return launch_dw_tc<64, KW>(map, words, lo, lo_any, dst, nh, ntok, m, splits, split_len, stream);
+    default: return launch_dw_tc<128, KW>(map, words, lo, lo_any, dst, nh, ntok, m, splits, split_len, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" const char* sfa_error_string(int err) {
@@ -256,4 +644,49 @@ extern "C" int code_grad_dw_launch(const void* x, const void* vals, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_dw<__nv_bfloat16>(x, vals, idx, out, part, nh, ntok, kw, m, d, splits, s)
                  : launch_dw<float>(x, vals, idx, out, part, nh, ntok, kw, m, d, splits, s);
+}
+
+// The tensor-core body: x (ntok, m), vals (nh, ntok, kw) bf16 and idx
+// (nh, ntok, kw) int32, contiguous and 16-byte aligned; kw in {8, 16}, d in
+// {32, 64, 128}, m a multiple of 8; out (nh, m, d) f32; part (splits, nh,
+// m, d) f32 scratch, unused when splits == 1; packed: scratch of nh * ntok
+// * kw * 6 + 16 bytes, 16-byte aligned (the pack kernel's words, its lo
+// bits, then the flag of a nonzero lo).
+// Split s takes tokens [s * split_len, (s + 1) * split_len): split_len a
+// multiple of 64, every split non-empty. Launches the pack kernel, the
+// dense kernel and (splits > 1) the ordered sum; returns the last launch's
+// cudaGetLastError().
+extern "C" int code_grad_dw_tc_launch(const void* x, const void* vals, const void* idx,
+                                      void* out, void* part, void* packed, int nh, int ntok,
+                                      int kw, int m, int d, int splits, int split_len,
+                                      void* stream) {
+  cudaGetLastError();
+  if (nh <= 0 || m <= 0) return 0;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (ntok <= 0 || (kw != 8 && kw != 16) || (d != 32 && d != 64 && d != 128) || m % 8 != 0 ||
+      (m + kTcCols - 1) / kTcCols > 65535 || splits <= 0 || splits > 65535 ||
+      split_len <= 0 || split_len % kTcTok != 0 ||
+      static_cast<long long>(splits) * split_len < ntok ||
+      static_cast<long long>(splits - 1) * split_len >= ntok || misaligned(x) ||
+      misaligned(vals) || misaligned(idx) || misaligned(packed) ||
+      (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap map;
+  const int e = x_map(&map, x, ntok, m);
+  if (e != 0) return e;
+  uint32_t* words = static_cast<uint32_t*>(packed);
+  uint16_t* lo = reinterpret_cast<uint16_t*>(words + static_cast<size_t>(nh) * ntok * kw);
+  int* lo_any = reinterpret_cast<int*>(lo + static_cast<size_t>(nh) * ntok * kw);
+  float* dst = static_cast<float*>(splits == 1 ? out : part);
+  const int err =
+      kw == 8 ? launch_dw_tc_kw<8>(map, vals, idx, words, lo, lo_any, dst, nh, ntok, m, d, splits,
+                                   split_len, s)
+              : launch_dw_tc_kw<16>(map, vals, idx, words, lo, lo_any, dst, nh, ntok, m, d,
+                                    splits, split_len, s);
+  if (err != 0 || splits == 1) return err;
+  const size_t count = static_cast<size_t>(nh) * m * d;
+  sum_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), count, splits);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,8 @@ flash_attention  — dense FlashAttention forward (the paper's baseline):
                    bf16 on the tensor cores (TMA + wgmma, csrc/hopper.cuh),
                    f32 on CUDA cores
 code_grad        — dx and dW of the Q/K projection from compact code
-                   gradients
+                   gradients: dW bf16 on the tensor cores (codes densified
+                   in shared memory, x by TMA), f32 and dx on CUDA cores
 ops              — head folding, the SFA and dense attention autograd
                    Functions, the fused q/k codes, top-k helpers
 ref              — the plain PyTorch versions of the kernels
@@ -29,8 +30,10 @@ version for a CPU tensor, and counts its kernel launches in
 schedule, ``flash_sfa_bwd.compact_launches`` for the compact emits).
 ``launch_counts()`` reads them all under one name per kernel (one per
 PERF.md row, whichever body ran); ``body_counts()`` reads the launches of
-the FlashSFA CUDA-core bodies alone (``<wrapper>.cuda_core_launches``), so
-a run shows which body its bf16 path took. A wrapper's
+the CUDA-core bodies alone of the kernels that also have a tensor-core one
+(FlashSFA forward and backward, code_grad_dw:
+``<wrapper>.cuda_core_launches``), so a run shows which body its bf16 path
+took. A wrapper's
 output has no ``grad_fn``: it refuses inputs that require grad, and
 gradients go through the autograd Functions of ``ops`` and of
 ``models/attention.py`` on either device.
@@ -72,11 +75,12 @@ COUNTERS = {
 }
 
 
-# the FlashSFA bodies that a dtype or shape can send a call to instead of
+# the CUDA-core bodies that a dtype or shape can send a call to instead of
 # the tensor-core ones
 BODY_COUNTERS = {
     "flash_sfa_cuda_core": (flash_sfa, "cuda_core_launches"),
     "flash_sfa_bwd_cuda_core": (flash_sfa_bwd, "cuda_core_launches"),
+    "code_grad_dw_cuda_core": (code_grad_dw, "cuda_core_launches"),
 }
 
 

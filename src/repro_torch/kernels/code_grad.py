@@ -10,21 +10,36 @@ are:
 
 Replaces the TPU kernels ``repro/kernels/code_grad.py::code_grad_dx``
 (Pallas body ``_dx_kernel``) and ``::code_grad_dw`` (``_dw_kernel``) with the
-CUDA kernels in ``csrc/code_grad.cu``. Where the TPU densified each
-(block_n, d) code tile in VMEM and fed a d-wide matmul to its matrix unit,
-the CUDA kernels gather each product at the kw stored coordinates (kw
-multiply-adds per output element and head instead of d): each code entry
-adds its own term, so duplicate indices sum, as ``_densify_block`` makes
-them, and an index outside [0, d) adds nothing. The dense (n, d) gradient
-is never formed. dx: one block per (128-token tile, 64-column tile), the
-heads summed inside the block. dW: one block per (head, 128-column tile,
-token split), each thread owning one row of an f32 accumulator in shared
-memory, then a fixed-order sum of the splits. Every output has one owner
-and one summation order: no atomics, a deterministic result.
+CUDA kernels in ``csrc/code_grad.cu``. Each code entry adds its own term,
+so duplicate indices sum, as ``_densify_block`` makes them, and an index
+outside [0, d) adds nothing. The dense (n, d) gradient never reaches device
+memory.
 
-Bound on the H100: operations, 2·kw flops per (token, column, head) for
-each of dx and dW on CUDA cores in f32; the bytes are x, w and the codes
-once each plus the f32 outputs.
+dW picks its body by dtype and shape alone (``tensor_core_body``):
+
+  * bf16 with d in ``TC_HEAD_DIMS``, kw in ``TC_KW`` and m a multiple of 8
+    — the tensor cores, as the TPU densified each code tile in VMEM for its
+    matrix unit: a pack kernel resolves each code row's repeated indices
+    once (a repeated index's f32 sum kept as bf16 hi + lo, the lo products
+    run only when some sum needs them); then dWᵀ = Sᵀ·x
+    as one GEMM over the token axis, each block 128 feature rows (128/d
+    heads) × 128 columns of m, the chunk's Sᵀ hi and lo tiles densified in
+    shared memory, x by TMA; the token axis split so the blocks fill the
+    card, then a fixed-order sum;
+  * f32 (on the tensor cores f32 would be TF32, which fails 1e-4) and the
+    other bf16 shapes — the CUDA-core body: one block per (head,
+    128-column tile, token split), each thread owning one row of an f32
+    accumulator in shared memory, gathering each product at the kw stored
+    coordinates; ``code_grad_dw.cuda_core_launches`` counts it
+    (``kernels.body_counts()``).
+
+dx (one body, CUDA cores): one block per (128-token tile, 64-column tile),
+the heads summed inside the block. Every output has one owner and one
+summation order: no atomics, a deterministic result.
+
+Bound on the H100: operations, for each of dx and dW the lesser of 2·kw
+flops per (token, column, head) on CUDA cores and 2·d on the tensor cores;
+the bytes are x, w and the codes once each plus the f32 outputs.
 
 The weight blocks are read in place through their strides (unit stride on
 d), so a per-head view of the packed ``w_qkv`` needs no copy.
@@ -37,6 +52,7 @@ them for CPU tensors only. ``scatter_code_grads`` is the exact (…, k) ->
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,8 +66,38 @@ _MAX_KW = 64
 _DX_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _DW_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_DW_SPLIT_TOKENS = 1024     # tokens per split of dW's contraction
-_DW_MAX_SPLITS = 8
+_DW_TC_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_DW_SPLIT_TOKENS = 1024     # CUDA-core dW: tokens per split of the contraction
+_DW_MAX_SPLITS = 8          # either dW body: most token splits
+TC_HEAD_DIMS = (32, 64, 128)   # d of the tensor-core dW body
+TC_KW = (8, 16)                # its code widths
+_TC_TILE = 128                 # its block: feature rows and columns of m (csrc kTcRows, kTcCols)
+_TC_TOK = 64                   # its chunk of tokens (csrc kTcTok)
+_TC_MIN_CHUNKS = 4             # chunks a token split walks at least
+
+
+def tensor_core_body(dtype, d: int, kw: int, m: int) -> bool:
+    """Does ``code_grad_dw`` run the tensor-core body for this dtype and
+    shape? (bf16, d in TC_HEAD_DIMS, kw in TC_KW, m a multiple of 8: the
+    rows of x a TMA tile reads sit on 16 bytes.)"""
+    return dtype == torch.bfloat16 and d in TC_HEAD_DIMS and kw in TC_KW and m % 8 == 0
+
+
+def tc_splits(n: int, nh: int, d: int, m: int, sms: int):
+    """(splits, split_len) of the tensor-core dW body: as many token splits
+    as keep every block of one wave on its own SM (at most _DW_MAX_SPLITS,
+    each at least _TC_MIN_CHUNKS chunks), split_len a whole number of
+    chunks and no split empty."""
+    tiles = -(-nh * d // _TC_TILE) * -(-m // _TC_TILE)
+    chunks = -(-n // _TC_TOK)
+    splits = max(1, min(sms // tiles, chunks // _TC_MIN_CHUNKS, _DW_MAX_SPLITS))
+    split_len = -(-chunks // splits) * _TC_TOK
+    return -(-n // split_len), split_len
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_codes(what, vals, idx, d):
@@ -102,10 +148,50 @@ def code_grad_dx(vals, idx, w, *, d: int):
 code_grad_dx.launches = 0
 
 
+def _dw_tensor_core(x, vals, idx, d):
+    """The tensor-core dW body on checked bf16 inputs -> (H, m, d) f32."""
+    nh, n, kw = vals.shape
+    m = x.shape[1]
+    x, vals, idx = (_build.tma_operand(t) for t in (x, vals, idx))
+    out = torch.empty((nh, m, d), dtype=torch.float32, device=vals.device)
+    splits, split_len = tc_splits(n, nh, d, m, _sm_count(vals.device.index))
+    part = (torch.empty((splits, nh, m, d), dtype=torch.float32, device=vals.device)
+            if splits > 1 else None)
+    # the pack kernel's words (4 bytes a code), lo bits (2 bytes a code) and
+    # the flag of a nonzero lo
+    packed = torch.empty(nh * n * kw * 6 + 16, dtype=torch.uint8, device=vals.device)
+    fn = _build.entry("code_grad", "code_grad_dw_tc_launch", _DW_TC_ARGS)
+    with torch.cuda.device(vals.device):
+        err = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                 part.data_ptr() if part is not None else None, packed.data_ptr(), nh, n, kw,
+                 m, d, splits, split_len, _build.stream_ptr(vals))
+    _build.check("code_grad", err, "code_grad_dw (tensor cores) launch")
+    return out
+
+
+def _dw_cuda_core(x, vals, idx, d):
+    """The CUDA-core dW body on checked inputs -> (H, m, d) f32."""
+    nh, n, kw = vals.shape
+    m = x.shape[1]
+    x, vals, idx = x.contiguous(), vals.contiguous(), idx.contiguous()
+    out = torch.empty((nh, m, d), dtype=torch.float32, device=vals.device)
+    splits = max(1, min(_DW_MAX_SPLITS, n // _DW_SPLIT_TOKENS))
+    part = (torch.empty((splits, nh, m, d), dtype=torch.float32, device=vals.device)
+            if splits > 1 else None)
+    fn = _build.entry("code_grad", "code_grad_dw_launch", _DW_ARGS)
+    with torch.cuda.device(vals.device):
+        err = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                 part.data_ptr() if part is not None else None, nh, n, kw, m, d,
+                 splits, _DTYPES[vals.dtype], _build.stream_ptr(vals))
+    _build.check("code_grad", err, "code_grad_dw launch")
+    return out
+
+
 def code_grad_dw(x, vals, idx, *, d: int):
     """dW_h = xᵀ @ scatter(vals_h, idx_h). x (n, m) projection input (the
     tokens flattened over the batch); vals/idx (H, n, kw) at any code
-    width, in x's dtype on the card. Returns (H, m, d) f32."""
+    width, in x's dtype on the card. Returns (H, m, d) f32. On the card the
+    dtype and shape pick the body (``tensor_core_body``)."""
     _build.refuse_grad("code_grad_dw", x, vals)
     if vals.device.type == "cpu":
         return code_grad_dw_plain(x, vals, idx, d=d)
@@ -117,23 +203,19 @@ def code_grad_dw(x, vals, idx, *, d: int):
         raise ValueError(f"code_grad_dw: x is {tuple(x.shape)} {x.dtype} on {x.device}, "
                          f"expected ({n}, m) {vals.dtype} on {vals.device}")
     m = x.shape[1]
-    x, vals, idx = x.contiguous(), vals.contiguous(), idx.contiguous()
-    out = torch.empty((nh, m, d), dtype=torch.float32, device=vals.device)
     if n == 0:
-        return out.zero_()
-    splits = max(1, min(_DW_MAX_SPLITS, n // _DW_SPLIT_TOKENS))
-    part = (torch.empty((splits, nh, m, d), dtype=torch.float32, device=vals.device)
-            if splits > 1 else None)
-    fn = _build.entry("code_grad", "code_grad_dw_launch", _DW_ARGS)
-    with torch.cuda.device(vals.device):
-        err = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                 part.data_ptr() if part is not None else None, nh, n, kw, m, d,
-                 splits, _DTYPES[vals.dtype], _build.stream_ptr(vals))
-    _build.check("code_grad", err, "code_grad_dw launch")
+        return torch.zeros((nh, m, d), dtype=torch.float32, device=vals.device)
+    if tensor_core_body(vals.dtype, d, kw, m):
+        out = _dw_tensor_core(x, vals, idx, d)
+    else:
+        out = _dw_cuda_core(x, vals, idx, d)
+        code_grad_dw.cuda_core_launches += 1
     code_grad_dw.launches += 1
     return out
 
 
-code_grad_dw.launches = 0
+code_grad_dw.launches = 0             # either body
+code_grad_dw.cuda_core_launches = 0   # the CUDA-core body
 
-__all__ = ["code_grad_dw", "code_grad_dx", "scatter_code_grads"]
+__all__ = ["TC_HEAD_DIMS", "TC_KW", "code_grad_dw", "code_grad_dx", "scatter_code_grads",
+           "tc_splits", "tensor_core_body"]

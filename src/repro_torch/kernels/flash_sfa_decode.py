@@ -20,15 +20,18 @@ token differs between the three, so the paged kernel equals the contiguous
 one on the ``gather()``ed view bit for bit, and each row of the verify pass
 equals the paged decode at its length.
 
-Feature-major dense image (``csrc/flash_sfa_decode_fm.cu``):
+Feature-major dense image (``csrc/flash_sfa_decode_fm.cu``, one kernel
+body):
 
   * ``flash_sfa_decode_fm``       (row 13) — the ``FeatureMajorKV`` image;
   * ``flash_sfa_decode_fm_paged`` (row 14) — the ``PagedFeatureMajorKV``
     pools, bit-equal to row 13 on the gathered image.
 
-The sparse query's k (value, index) pairs sit in shared memory; threads
-own tokens and sum qv[t]·K_feat[qi[t], j] in t order (each feature row one
-coalesced read), then the warps run the same online softmax as above.
+Split over the keys as above, runs of ``SPLIT`` positions: threads own
+tokens and sum qv[t]·K_feat[qi[t], j] in t order (each feature row one
+coalesced read), the run's V rows staged by cp.async meanwhile; the runs'
+partials go through the token-major decode's merge kernel
+(``csrc/decode_split.cuh``).
 
 ``feature_major_prefill`` builds the persistent image from the prefill's
 codes: a torch scatter, as the JAX package's is an XLA scatter.
@@ -68,13 +71,13 @@ from repro_torch.kernels.ref import flash_sfa_decode_ref as flash_sfa_decode_pla
 _VALS = {torch.float32: 0, torch.bfloat16: 1}
 _IDX = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
 V_HEAD_DIMS = (32, 64, 128)   # dv of every decode kernel (models/backends.py reads it)
-SPLIT = 128                   # tokens of a run of the token-major kernels (csrc kSplit)
+SPLIT = 128                   # tokens of a run of the decode kernels (csrc kSplit)
 
 
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
          + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-_FM_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+_FM_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2
             + [ctypes.c_void_p])
 
@@ -318,16 +321,21 @@ def _check_fm(name, q_vals, q_idx, k_feat, v):
 
 def _launch_fm(name, q_vals, q_idx, k_feat, v, lens, *, heads, group, d, scale,
                n_cap, strides, bt=None, max_pages=0, page=0):
+    """One call of ``flash_sfa_decode_fm_launch`` (the split kernel, then the
+    merge kernel) -> (rows, dv) f32."""
     rows, kq = q_vals.shape
     dv = v.shape[-1]
     qv = q_vals.float().contiguous()
     qi = q_idx.to(torch.int32).contiguous()
     out = torch.empty((rows, dv), dtype=torch.float32, device=qv.device)
+    # each run's partial (m, l, acc[dv]), merged in run order by the second kernel
+    ws = torch.empty(rows * -(-n_cap // SPLIT) * (dv + 2), dtype=torch.float32,
+                     device=qv.device)
     fn = _build.entry("flash_sfa_decode_fm", "flash_sfa_decode_fm_launch", _FM_ARGS)
     with torch.cuda.device(qv.device):
         err = fn(qv.data_ptr(), qi.data_ptr(), k_feat.data_ptr(), v.data_ptr(),
-                 lens.data_ptr(), out.data_ptr(), rows, heads, group, kq, d, dv,
-                 n_cap, *strides, float(scale), _VALS[v.dtype],
+                 lens.data_ptr(), out.data_ptr(), ws.data_ptr(), rows, heads, group, kq,
+                 d, dv, n_cap, SPLIT, *strides, float(scale), _VALS[v.dtype],
                  None if bt is None else bt.data_ptr(), max_pages, page,
                  _build.stream_ptr(qv))
     _build.check("flash_sfa_decode_fm", err, f"{name} launch")

@@ -282,13 +282,17 @@ def flash_sfa_decode_fm_ref(q_vals, q_idx, k_feat, v, lengths, *,
                             scale: float | None = None, group: int = 1):
     """Feature-major decode: sparse query (bh, kq) values + indices against
     the dense image k_feat (bh / group, d, n) and V (bh / group, n, dv);
-    row i reads image and V row i // group; lengths (bh,). -> (bh, dv) f32.
+    row i reads image and V row i // group; lengths (bh,). -> (bh, dv) f32;
+    a row of length 0 has no key and gives 0, as the kernels' acc /
+    max(l, 1e-30).
 
     Replaces ``repro/kernels/flash_sfa_decode.py::flash_sfa_decode_fm``
     (row 13). s_j = scale·Σ_t qv[t]·k_feat[qi[t], j]: the kernel reads only
     the kq addressed feature rows of the image, so it is bound by bytes at
-    len·(kq·val + dv·val) per row; threads own tokens, so each feature row
-    is one coalesced read.
+    len·(kq·val + dv·val) per row. Its design splits every row into runs of
+    128 positions, one block each, threads owning tokens (each feature row
+    one coalesced read), and merges the runs' partials in run order
+    (``csrc/flash_sfa_decode_fm.cu``).
     """
     d, n = k_feat.shape[-2:]
     scale = scale if scale is not None else d ** -0.5
@@ -299,7 +303,8 @@ def flash_sfa_decode_fm_ref(q_vals, q_idx, k_feat, v, lengths, *,
     valid = torch.arange(n, device=qd.device)[None, :] < lengths
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bn,bnd->bd", p, v.float().repeat_interleave(group, dim=0))
+    out = torch.einsum("bn,bnd->bd", p, v.float().repeat_interleave(group, dim=0))
+    return torch.where(lengths > 0, out, 0.0)
 
 
 def flash_sfa_decode_fm_paged_ref(q_vals, q_idx, kf_pool, v_pool, block_tables,

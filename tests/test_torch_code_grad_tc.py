@@ -1,0 +1,176 @@
+"""The tensor-core ``code_grad_dw`` body's arithmetic, emulated on the CPU.
+
+``csrc/code_grad.cu``'s tensor-core body computes dWᵀ = Sᵀ·x as one GEMM
+over the token axis: per token and head it sums a repeated index's code
+values in f32, in code order, and keeps the sum as bf16 hi plus bf16 lo =
+bf16(sum − hi) (a code without a duplicate is a bf16 input, exact in hi);
+each chunk of 64 tokens adds its bf16 products hi·x and lo·x into an f32
+accumulator, each token split keeps its own, and the splits add in order.
+The emulation below does the same in plain torch and is held against the
+port's plain version (the wrapper on CPU tensors) and the JAX package's
+Pallas ``code_grad_dw`` in interpret mode at the card's tolerance, rtol
+1e-4 and atol 1e-4·max|dW| (f32 sums in another order; ~16 bits of each
+summed duplicate). Inputs are bf16 values (x and the codes), as on the
+compact seam, with duplicates planted on every 7th row, padding rows,
+indices outside [0, d), and the 2k pair closure of RoPE; n and m ragged to
+the body's 64-token chunks and 128-column blocks.
+
+The routing (which body a dtype and shape take, the token splits) is pure
+Python and checked here too; the bodies themselves run on the card
+(tests/test_torch_gpu.py, chip_smoke.py).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.code_grad import code_grad_dw as jax_code_grad_dw
+from repro_torch.kernels import body_counts, code_grad_dw, launch_counts, reset_launches
+from repro_torch.kernels.code_grad import (
+    TC_HEAD_DIMS, TC_KW, _DW_MAX_SPLITS, tc_splits, tensor_core_body,
+)
+from repro_torch.kernels.flash_sfa_bwd import pair_closure_indices
+from repro_torch.kernels.ref import code_grad_dw_ref
+
+TOK = 64          # tokens of the body's chunk (csrc kTcTok)
+H100_SMS = 132
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+
+
+def _codes(rs, nh, n, d, k, closure):
+    """bf16 code gradients (nh, n, kw) with planted duplicates, padding rows
+    and out-of-range indices; ``closure``: kw = 2k on the pair closure of
+    the k stored indices (both members of a pair stored -> a repeated
+    index whose shares sum)."""
+    idx = np.sort(np.argsort(rs.rand(nh, n, d), axis=-1)[..., :k], axis=-1)
+    idx[:, 3::7, 1] = idx[:, 3::7, 0]             # duplicates sum
+    idx[:, 9::11, -1] = d + 2                      # outside [0, d): adds nothing
+    idx = torch.from_numpy(idx.astype(np.int32))
+    if closure:
+        idx = pair_closure_indices(idx, d).int()
+    vals = _bf16(rs.randn(*idx.shape))
+    vals[:, 5], idx[:, 5] = 0.0, 0                 # a padding row: index 0 repeated
+    return vals, idx
+
+
+def densify_hi_lo(vals, idx, d):
+    """(H, n, kw) codes -> (hi, lo) (H, n, d), bf16 values in f32: each
+    index's codes summed in f32 in code order, hi = bf16(sum), lo =
+    bf16(sum − hi)."""
+    ok = (idx >= 0) & (idx < d)
+    at = torch.where(ok, idx, 0).long()
+    v = torch.where(ok, vals.float(), 0.0)
+    s = torch.zeros(idx.shape[:-1] + (d,))
+    for u in range(idx.shape[-1]):                 # code order, one add each
+        s.scatter_add_(-1, at[..., u:u + 1], v[..., u:u + 1])
+    hi = s.bfloat16().float()
+    return hi, (s - hi).bfloat16().float()
+
+
+def emulate_dw(x, vals, idx, d, splits, split_len, lo_products=True):
+    """The body: per split, per 64-token chunk, acc += hiᵀ·x (+ loᵀ·x), f32;
+    the splits added in order. -> (H, m, d) f32."""
+    hi, lo = densify_hi_lo(vals, idx, d)
+    xf = x.float()
+    n = x.shape[0]
+    out = None
+    for s in range(splits):
+        acc = torch.zeros(hi.shape[0], x.shape[1], d)
+        for c0 in range(s * split_len, min(n, (s + 1) * split_len), TOK):
+            t = slice(c0, min(c0 + TOK, (s + 1) * split_len, n))
+            acc = acc + torch.einsum("nm,hnd->hmd", xf[t], hi[:, t])
+            if lo_products:
+                acc = acc + torch.einsum("nm,hnd->hmd", xf[t], lo[:, t])
+        out = acc if out is None else out + acc
+    return out
+
+
+def _close(got, want):
+    want = torch.from_numpy(np.array(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+CASES = [(3, 300, 200, 64, 8, False), (3, 300, 200, 64, 8, True), (5, 257, 136, 32, 8, True),
+         (2, 190, 264, 128, 8, False), (2, 130, 128, 128, 8, True), (4, 64, 64, 32, 8, False)]
+
+
+@pytest.mark.parametrize("nh,n,m,d,k,closure", CASES)
+def test_tensor_core_dw_emulation_matches_plain_and_pallas(nh, n, m, d, k, closure):
+    rs = np.random.RandomState(nh * 1000 + n + d)
+    vals, idx = _codes(rs, nh, n, d, k, closure)
+    x = _bf16(rs.randn(n, m))
+    kw = idx.shape[-1]
+    assert tensor_core_body(torch.bfloat16, d, kw, m)
+    plain = code_grad_dw(x, vals, idx, d=d)        # the wrapper's CPU path
+    assert torch.equal(plain, code_grad_dw_ref(x, vals, idx, d=d))
+    want = jax_code_grad_dw(jnp.asarray(x.float().numpy()), jnp.asarray(vals.float().numpy()),
+                            jnp.asarray(idx.numpy()), d=d, interpret=True)
+    _close(plain, want)
+    for splits, split_len in {tc_splits(n, nh, d, m, H100_SMS), tc_splits(n, nh, d, m, 10 ** 6),
+                              (1, -(-n // TOK) * TOK)}:
+        got = emulate_dw(x, vals, idx, d, splits, split_len)
+        _close(got, plain)
+        _close(got, want)
+
+
+def test_duplicates_need_the_lo_tile():
+    """On the pair closure with duplicates, rounding each summed duplicate
+    once to bf16 (hi alone) moves dW by more than the tolerance; hi + lo
+    does not."""
+    rs = np.random.RandomState(3)
+    nh, n, m, d = 2, 512, 128, 64
+    idx = torch.from_numpy(np.sort(np.argsort(rs.rand(nh, n, d), -1)[..., :8], -1)
+                           .astype(np.int32))
+    idx[..., 1::2] = idx[..., 0::2]                # every code has a partner
+    vals = torch.empty(nh, n, 8, dtype=torch.bfloat16)
+    vals[..., 0::2] = _bf16(rs.randn(nh, n, 4))
+    vals[..., 1::2] = _bf16(rs.randn(nh, n, 4) * 2 ** -5)   # sums need more than 8 bits
+    x = _bf16(rs.randn(n, m))
+    want = code_grad_dw_ref(x, vals, idx, d=d)
+    _close(emulate_dw(x, vals, idx, d, 1, n), want)
+    with pytest.raises(AssertionError):
+        _close(emulate_dw(x, vals, idx, d, 1, n, lo_products=False), want)
+
+
+def test_body_routing_by_dtype_and_shape():
+    """bf16 with d in {32, 64, 128}, kw in {8, 16} and m a multiple of 8 takes
+    the tensor cores; f32 and every other shape the CUDA-core body."""
+    assert TC_HEAD_DIMS == (32, 64, 128) and TC_KW == (8, 16)
+    assert tensor_core_body(torch.bfloat16, 64, 8, 768)       # the compact seam
+    assert tensor_core_body(torch.bfloat16, 64, 16, 768)      # its pair closure
+    for d in TC_HEAD_DIMS:
+        for kw in TC_KW:
+            assert tensor_core_body(torch.bfloat16, d, kw, 136)
+            assert not tensor_core_body(torch.float32, d, kw, 768)
+            assert not tensor_core_body(torch.bfloat16, d, kw, 130)
+    for d, kw in ((16, 8), (96, 8), (256, 16), (64, 4), (64, 32), (64, 64), (32, 12)):
+        assert not tensor_core_body(torch.bfloat16, d, kw, 768)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 255, 256, 1000, 8191, 8192, 65536])
+@pytest.mark.parametrize("nh,d,m", [(12, 64, 768), (3, 32, 200), (16, 128, 2048)])
+def test_token_splits_cover_every_token_once(n, nh, d, m):
+    """Whole 64-token chunks per split, none empty, every token in one
+    split, and one wave of blocks on the H100's 132 SMs."""
+    splits, split_len = tc_splits(n, nh, d, m, H100_SMS)
+    assert split_len % TOK == 0 and 1 <= splits <= _DW_MAX_SPLITS
+    assert (splits - 1) * split_len < n <= splits * split_len
+    tiles = -(-nh * d // 128) * -(-m // 128)
+    assert splits == 1 or splits * tiles <= H100_SMS
+    assert splits == 1 or split_len >= 4 * TOK
+
+
+def test_main_path_split_and_the_cuda_core_counter():
+    """gpt2-small's compact seam (12 heads of 64 x 8,192 tokens, m 768): 36
+    blocks of 128 x 128, 3 splits of 43 chunks; on the CPU the wrapper runs
+    the plain version and counts no launch of either body."""
+    assert tc_splits(8192, 12, 64, 768, H100_SMS) == (3, 43 * TOK)
+    assert "code_grad_dw_cuda_core" in body_counts()
+    rs = np.random.RandomState(4)
+    vals, idx = _codes(rs, 2, 80, 64, 8, False)
+    reset_launches()
+    code_grad_dw(_bf16(rs.randn(80, 96)), vals, idx, d=64)
+    assert launch_counts()["code_grad_dw"] == 0 and body_counts()["code_grad_dw_cuda_core"] == 0

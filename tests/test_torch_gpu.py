@@ -611,3 +611,116 @@ def test_short_embedding_model_runs_on_the_card_under_auto(cuda):
     assert {r.reason for r in fallback_reports()} == {
         "v head dim 16: the CUDA attention kernels take dv in (32, 64, 128)"}
     clear_fallback_reports()
+
+
+# --------------------------------------------------------------------------
+# code_grad_dw's tensor-core body and the split feature-major decode
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dups", [True, False])
+@pytest.mark.parametrize("kw", [8, 16])
+@pytest.mark.parametrize("nh,n,m,d", [(12, 2048, 768, 64), (5, 1000, 200, 32),
+                                      (3, 777, 136, 128), (2, 70, 64, 64), (2, 30, 40, 64)])
+def test_code_grad_dw_tensor_core_body_on_card(cuda, nh, n, m, d, kw, dups):
+    """bf16 dW on the tensor cores against its plain version and against the
+    CUDA-core body on the same inputs (rtol 1e-4, atol 1e-4 max|dW|: f32
+    sums in another order, each summed duplicate kept to ~16 bits), with
+    duplicates, padding rows and indices outside [0, d), n and m ragged to
+    the 64-token chunks and 128-column blocks (also fewer tokens and
+    columns than one x tile holds); then exact inputs (values in
+    {-1, 1}, x in {-1, 0, 1}, a duplicate 1 + 2^-9 through the lo tile)
+    equal to the plain version bit for bit; body_counts() shows the body.
+    Without duplicates (as rtopk's codes: padding rows repeat a zero) the
+    body runs no lo products."""
+    import repro_torch.kernels.code_grad as cg
+    rs = np.random.RandomState(17)
+    vals, idx = _codes(rs, nh, n, kw, d)
+    if dups:
+        idx[:, 3::7, 1] = idx[:, 3::7, 0]             # duplicates sum
+    idx[:, 9::11, -1] = d + 1                         # outside [0, d): nothing
+    vals[:, 5], idx[:, 5] = 0.0, 0                    # a padding row
+    tv = torch.from_numpy(vals).to(cuda).bfloat16()
+    ti = torch.from_numpy(idx).to(cuda)
+    x = torch.from_numpy(rs.randn(n, m).astype(np.float32)).to(cuda).bfloat16()
+    assert cg.tensor_core_body(torch.bfloat16, d, kw, m)
+    reset_launches()
+    got = code_grad_dw(x, tv, ti, d=d)
+    assert body_counts()["code_grad_dw_cuda_core"] == 0 and launch_counts()["code_grad_dw"] == 1
+    want = ref.code_grad_dw_ref(x.cpu(), tv.cpu(), ti.cpu(), d=d)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * want.abs().max())
+    core = cg._dw_cuda_core(x, tv, ti, d)
+    torch.testing.assert_close(got, core, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+    ev = rs.choice([-1.0, 1.0], size=vals.shape).astype(np.float32)
+    ev[:, 3::7, 1] = 2.0 ** -9 if dups else 0.0
+    ev = torch.from_numpy(ev).to(cuda).bfloat16()
+    xe = torch.from_numpy(rs.randint(-1, 2, (n, m)).astype(np.float32)).to(cuda).bfloat16()
+    exact = code_grad_dw(xe, ev, ti, d=d)
+    assert torch.equal(exact.cpu(), ref.code_grad_dw_ref(xe.cpu(), ev.cpu(), ti.cpu(), d=d))
+    assert torch.equal(exact, code_grad_dw(xe, ev, ti, d=d))   # deterministic
+    reset_launches()
+    code_grad_dw(x.float(), tv.float(), ti, d=d)               # f32: the CUDA-core body
+    assert body_counts()["code_grad_dw_cuda_core"] == 1
+
+
+def test_code_grad_dw_routes_other_shapes_to_cuda_cores(cuda):
+    """bf16 at a code width or head dim the tensor-core body does not take
+    runs the CUDA-core body, against its plain version."""
+    rs = np.random.RandomState(18)
+    for nh, n, m, d, kw in ((3, 200, 96, 64, 4), (2, 130, 130, 64, 8), (2, 100, 64, 48, 8)):
+        vals, idx = _codes(rs, nh, n, kw, d)
+        tv = torch.from_numpy(vals).to(cuda).bfloat16()
+        ti = torch.from_numpy(idx).to(cuda)
+        x = torch.from_numpy(rs.randn(n, m).astype(np.float32)).to(cuda).bfloat16()
+        reset_launches()
+        got = code_grad_dw(x, tv, ti, d=d)
+        assert body_counts()["code_grad_dw_cuda_core"] == 1
+        want = ref.code_grad_dw_ref(x.cpu(), tv.cpu(), ti.cpu(), d=d)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * want.abs().max())
+
+
+@pytest.mark.parametrize("dv,kq,dtype,page", [
+    (32, 4, torch.float32, 48), (64, 8, torch.bfloat16, 128), (128, 8, torch.float32, 128),
+    (64, 8, torch.float32, 48), (128, 16, torch.bfloat16, 48)])
+def test_split_fm_decode_kernels_at_run_boundaries_on_card(cuda, dv, kq, dtype, page):
+    """Rows 13-14's split body at lengths on and around its runs of SPLIT
+    tokens, a zero-length slot (0) and the past-the-table sentinel, GQA
+    group 2: each against its plain version (1e-4); row 14 bit-equal to
+    row 13 on the gathered image, to itself on misaligned pool copies (V
+    by plain loads) and across two calls."""
+    from repro_torch.kernels.flash_sfa_decode import SPLIT
+    rs = np.random.RandomState(19)
+    slots, h, hkv, d, n_cap = 8, 4, 2, 64, 384
+    mp = n_cap // page
+    pool = slots * mp + 1
+    bt = rs.permutation(np.arange(1, pool))[:slots * mp].reshape(slots, mp).astype(np.int32)
+    lens = np.array([0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT + 1, n_cap, n_cap + 1],
+                    np.int32)
+    qi = np.sort(np.argsort(rs.rand(slots * h, d), -1)[..., :kq], -1).astype(np.int32)
+    qi[::5, 0] = d + 2                               # an index past d adds nothing
+    t = {"kf": torch.from_numpy(rs.randn(hkv, pool, d, page).astype(np.float32)).to(dtype),
+         "v": torch.from_numpy(rs.randn(hkv, pool, page, dv).astype(np.float32)).to(dtype),
+         "bt": torch.from_numpy(bt), "lens": torch.from_numpy(lens),
+         "qv": torch.from_numpy(rs.randn(slots * h, kq).astype(np.float32)),
+         "qi": torch.from_numpy(qi)}
+    g = {n: x.to(cuda) for n, x in t.items()}
+    ko = flash_sfa_decode_fm_paged(g["qv"], g["qi"], g["kf"], g["v"], g["bt"], g["lens"],
+                                   heads=h)
+    po = ref.flash_sfa_decode_fm_paged_ref(t["qv"], t["qi"], t["kf"], t["v"], t["bt"],
+                                           t["lens"], heads=h)
+    torch.testing.assert_close(ko.cpu(), po, rtol=0, atol=1e-4)
+    assert not ko[:h].any()                          # slot 0 has length 0
+    assert torch.equal(ko, flash_sfa_decode_fm_paged(g["qv"], g["qi"], g["kf"], g["v"],
+                                                     g["bt"], g["lens"], heads=h))
+    mis = [_misaligned(g[n]) for n in ("kf", "v")]
+    assert mis[1].data_ptr() % 16 and torch.equal(mis[1], g["v"])
+    assert torch.equal(ko, flash_sfa_decode_fm_paged(g["qv"], g["qi"], *mis, g["bt"],
+                                                     g["lens"], heads=h))
+    btl = g["bt"].long()
+    kf = g["kf"][:, btl].permute(1, 0, 3, 2, 4).reshape(-1, d, n_cap).contiguous()
+    v = g["v"][:, btl].transpose(0, 1).reshape(-1, n_cap, dv).contiguous()
+    rlens = g["lens"].repeat_interleave(h)
+    fo = flash_sfa_decode_fm(g["qv"], g["qi"], kf, v, rlens, group=h // hkv)
+    assert torch.equal(fo, ko)
+    fp = ref.flash_sfa_decode_fm_ref(t["qv"], t["qi"], kf.cpu(), v.cpu(), rlens.cpu(),
+                                     group=h // hkv)
+    torch.testing.assert_close(fo.cpu(), fp, rtol=0, atol=1e-4)

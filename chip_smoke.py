@@ -68,8 +68,9 @@ Phases; any failure raises and the script exits non-zero:
                the launches of proj_rtopk, block-skip flash_sfa, the
                compact flash_sfa_bwd and code_grad_dx/dw equal to the
                prediction (and no rtopk or plain-schedule flash_sfa), every
-               code_grad_dw on its tensor-core body, no fallback, the seam
-               taken on every layer, "codes" applied;
+               proj_rtopk, code_grad_dx and code_grad_dw on its tensor-core
+               body, no fallback, the seam taken on every layer, "codes"
+               applied;
                then the launcher ``python -m repro_torch.launch.train
                --no-reduced --bwd-emit compact --remat codes`` for 2 steps;
   9. gradients end to end — float32 gpt2-small-sfa8 at full width, batch 1
@@ -92,7 +93,7 @@ CUDA-core ones: both are held against the plain versions, the tensor-core
 bodies also at d 32 and 128, causal and not, ragged n (the backward with
 every emit, the compact emit equal to the dense one gathered, two calls
 equal bit for bit). Phases 6, 8 and 9's bf16 gpt2-small-sfa8 runs must
-launch no CUDA-core body (FlashSFA, code_grad_dw).
+launch no CUDA-core body (proj_rtopk, FlashSFA, code_grad_dx, code_grad_dw).
 
 Phase 3 also holds the paged, multi-query and feature-major decode
 kernels (rows 11-14) at the serving path's shapes: 8 slots x 12 heads of
@@ -110,15 +111,21 @@ call launches (a decode's split and merge kernels), and phase 4 prints the
 decode kernels' device ms per traced step.
 
 Phase 3 also holds the compact seam's kernels at the training path's
-shapes: proj_rtopk (x 8 x 1024 x 768, 12 heads of 64, k 8) in f32 on
-dyadic inputs (every sum exact: indices equal, values bit-equal), and in
-bf16 and f32 on random inputs (rows whose index sets differ must have a
-near-tie), with RoPE at full width; code_grad_dx/dw (12 heads x 8,192
-tokens, k 8 and the 2k pair closure; bf16 dW on its tensor-core body, also
-against the CUDA-core body on the same inputs, bit-equal to the plain
-version on inputs whose sums are exact at d 32, 64 and 128, and with one
+shapes: proj_rtopk (x 8 x 1024 x 768, 12 heads of 64, k 8; bf16 on its
+tensor-core body, f32 on the CUDA-core one) on dyadic inputs (every sum
+exact: indices equal, values bit-equal), f32 and bf16 with and without
+RoPE at full width, bf16 also with w read in place and packed, at d 32 and
+128, ragged n, m 200 and 3 heads, k 8, 16 and 24; and in bf16 and f32 on
+random inputs (rows whose index sets differ must have a near-tie; with
+RoPE the codes bit-equal to RoPE and selection of the kernel's own y,
+which is within one ulp of the plain y), timed beside bf16 w in place and
+the CUDA-core body on the same bf16 inputs; code_grad_dx/dw (12 heads x
+8,192 tokens, k 8 and the 2k pair closure; bf16 codes on the tensor-core
+bodies, also against the CUDA-core bodies on the same inputs, bit-equal to
+the plain version on inputs whose sums are exact at d 32, 64 and 128, dx
+with an f32 w in multiples of 1/16 or 2^-12 and a bf16 w, and dW with one
 token split, which must agree and is timed beside the default; the
-kernels' ptxas registers and spills); block-skip flash_sfa on the training
+tensor-core kernels' ptxas registers and spills); block-skip flash_sfa on the training
 path's codes and on a planted banded input (tile t on features 8(t mod 8)
 .. +7) that sends most tile pairs down the closed form, with
 ``block_skip_stats`` of both; the compact and compact2 backward emits
@@ -278,6 +285,12 @@ def graph_ms(fn, iters=20, replays=5):
         return None
 
 
+def kernel_ms(fn):
+    """Device ms per call of fn(): the profiler's, else a CUDA-graph replay's
+    (both without host time), else CUDA events around the calls."""
+    return device_ms(fn) or graph_ms(fn) or event_ms(fn)
+
+
 def fmt(r):
     names = "; ".join(f"{n} {ms:.4f}" for n, ms in r.get("kernels_ms", {}).items())
     return (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
@@ -300,6 +313,15 @@ def code_product_s(k_flops, d_flops):
     gathered form (k-wide, CUDA cores at the f32 rate) and its densified
     form (d-wide, bf16 tensor cores), the same function either way."""
     return min(k_flops / F32_FLOPS, d_flops / BF16_TC_FLOPS)
+
+
+def timed(fn, *args, **kwargs):
+    """fn(*args, **kwargs), then a line with its wall seconds, so a slow run
+    shows which phase took the time."""
+    t = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[time] {fn.__name__} {time.perf_counter() - t:.1f} s", flush=True)
+    return out
 
 
 def check(ok, what):
@@ -455,7 +477,7 @@ def phase_rtopk(rs):
 
         es = x.element_size()
         b_ms, b_by = bound(rows * d * es + rows * k * (es + 4),
-                           32 * rows * d / F32_FLOPS)
+                           rows * d / F32_FLOPS)   # about d compares a row
         r = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
                  **timings(lambda: rtopk(x, k), lambda: rtopk_ref(x, k), library))
         print(f"[rtopk] {dtype} rows={rows} d={d} k={k}: indices equal, values "
@@ -470,8 +492,9 @@ def _densify(vals, idx, d):
 
 
 def _tc_only(what):
-    """Check that no CUDA-core body (FlashSFA forward or backward,
-    code_grad_dw) launched since the last reset."""
+    """Check that no CUDA-core body (proj_rtopk, FlashSFA forward or
+    backward, code_grad_dx or code_grad_dw) launched since the last
+    reset."""
     from repro_torch.kernels import body_counts
     counts = body_counts()
     check(not any(counts.values()), f"{what}: a CUDA-core body launched: {counts}")
@@ -1152,60 +1175,133 @@ def near_ties(y, got_idx, want_idx, k, rel):
     return diff, int(diff.sum()), int((diff & tie).sum())
 
 
+def _dyadic_proj(rs, b, n, m, cols):
+    """x (b, n, m) in {-1, -3/4, ..., 1} and w (m, cols) in multiples of
+    1/16 up to 1/2: bf16 values, every product a multiple of 2^-6 and every
+    |sum| <= m / 2, exact in f32 in any order."""
+    x = torch.from_numpy(rs.randint(-4, 5, size=(b, n, m)).astype(np.float32) / 4).cuda()
+    w = torch.from_numpy(rs.randint(-8, 9, size=(m, cols)).astype(np.float32) / 16).cuda()
+    return x, w
+
+
 def phase_proj_rtopk(rs):
     """proj_rtopk at the training path's shapes: the 12 query heads' view of
-    a packed (768, 2304) f32 w_qkv, x (8, 1024, 768)."""
-    from repro_torch.kernels import proj_rtopk
+    a packed (768, 2304) f32 w_qkv, x (8, 1024, 768). bf16 x runs the
+    tensor-core body, f32 the CUDA-core body (body_counts says which)."""
+    from repro_torch.kernels import body_counts, proj_rtopk, reset_launches
     from repro_torch.kernels.ops import head_blocks
-    from repro_torch.kernels.ref import proj_rtopk_ref
+    from repro_torch.kernels.ref import proj_rtopk_ref, rtopk_ref
+    from repro_torch.kernels.rtopk import tensor_core_body, w_in_place
     from repro_torch.models.layers import rope
+    rt = sys.modules["repro_torch.kernels.rtopk"]
     b, n, m, h, d, k = TRAIN_B, TRAIN_N, D_MODEL, HEADS, HD, SFA_K
-    # f32, dyadic inputs: products are multiples of 2^-6 and |sums| <= 384,
-    # exact in f32 in any order — indices equal, values bit-equal (and the
-    # coarse grid plants many ties at the threshold)
-    x = torch.from_numpy(rs.randint(-4, 5, size=(b, n, m)).astype(np.float32) / 4).cuda()
-    w = torch.from_numpy(rs.randint(-8, 9, size=(m, 3 * h * d)).astype(np.float32) / 16).cuda()
+    for fn, (regs, spill) in ptxas_kernels("proj_rtopk").items():
+        if "tc_kernel" in fn or "w_heads_bf16" in fn:
+            print(f"[proj_rtopk] ptxas: {fn}: {regs} registers; {spill}")
+
+    def exact(x, wh, what, pos=None, spec=None, k=k):
+        """Dyadic inputs: indices equal and values bit-equal to the plain
+        version (the rounding, RoPE and selection see the same f32 sums)."""
+        reset_launches()
+        kv, ki = proj_rtopk(x, wh, pos, k=k, rope_spec=spec)
+        tc = body_counts()["proj_rtopk_cuda_core"] == 0
+        check(tc == tensor_core_body(x.dtype, wh.shape[-1], x.shape[-1]),
+              f"proj_rtopk {what}: body launches {body_counts()}")
+        pv, pi = proj_rtopk_ref(x, wh, pos, k=k, rope_spec=spec)
+        torch.cuda.synchronize()
+        bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+        check(torch.equal(ki, pi), f"proj_rtopk {what}: indices differ")
+        check(torch.equal(kv.view(bits), pv.view(bits)), f"proj_rtopk {what}: values not "
+                                                          f"bit-equal")
+        print(f"[proj_rtopk] {what}: {'tensor-core' if tc else 'CUDA-core'} body, indices "
+              f"equal, values bit-equal")
+        return kv, ki
+
+    # f32 (the CUDA-core body) and bf16 (the tensor cores) at the main shapes,
+    # w the strided view of the packed f32 w_qkv (rounded to bf16 by the
+    # pack kernel; its dyadic values are bf16), with and without RoPE
+    x, w = _dyadic_proj(rs, b, n, m, 3 * h * d)
     wq = head_blocks(w, 0, h, d)
-    kv, ki = proj_rtopk(x, wq, k=k)
-    pv, pi = proj_rtopk_ref(x, wq, k=k)
-    torch.cuda.synchronize()
-    check(torch.equal(ki, pi), "proj_rtopk f32 dyadic: indices differ")
-    check(torch.equal(kv.view(torch.int32), pv.view(torch.int32)),
-          "proj_rtopk f32 dyadic: values not bit-equal")
-    print(f"[proj_rtopk] f32 dyadic x {tuple(x.shape)}, w heads {tuple(wq.shape)} "
-          f"(strided view), k={k}: indices equal, values bit-equal")
+    pos = torch.arange(n, device="cuda")[None, :].expand(b, n)
+    exact(x, wq, f"f32 dyadic x {tuple(x.shape)}, w heads {tuple(wq.shape)} (strided view)")
+    got = exact(x.bfloat16(), wq, f"bf16 dyadic x {tuple(x.shape)}, f32 w heads "
+                                   f"{tuple(wq.shape)} (strided view)")
+    again = proj_rtopk(x.bfloat16(), wq, k=k)
+    check(torch.equal(got[1], again[1]) and torch.equal(got[0].view(torch.int16),
+                                                         again[0].view(torch.int16)),
+          "proj_rtopk tensor-core body: two calls differ")
+    exact(x.bfloat16(), wq, "bf16 dyadic, RoPE at full width", pos, (10_000.0, d))
+    wb = head_blocks(w.bfloat16(), 0, h, d)
+    check(w_in_place(wb), "a bf16 head view of the packed w_qkv is not read in place")
+    exact(x.bfloat16(), wb, "bf16 dyadic, bf16 w heads read in place by TMA")
+    exact(x.bfloat16(), wb.contiguous(), "bf16 dyadic, contiguous bf16 w heads (packed)")
+    # head dims 32 and 128, ragged n, m = 200 and 3 heads (the last column
+    # tile part empty), with and without RoPE (rot_dim d and d / 2); k 8
+    # and 16 (one thread selects a row) and 24 (one warp a row); inputs
+    # from a random state of their own, so the later phases' stay as they were
+    rs_r = np.random.RandomState(SEED + 19)
+    for bb, nn, mm, hh, dd in ((2, 1000, 200, 3, 64), (2, 777, 200, 5, 32), (1, 300, 136, 3, 128)):
+        xe, we = _dyadic_proj(rs_r, bb, nn, mm, 2 * hh * dd)
+        whe = head_blocks(we, 1, hh, dd)
+        pe = torch.arange(nn, device="cuda")[None, :].expand(bb, nn)
+        for spec, kk in ((None, k), ((10_000.0, dd), 16), ((500.0, dd // 2), 24)):
+            exact(xe.bfloat16(), whe, f"bf16 dyadic b {bb}, n {nn}, m {mm}, {hh} heads of {dd}, "
+                                      f"k {kk}, rope {spec}", pe if spec else None, spec, kk)
     # random inputs: the kernel's f32 sum runs in another order than the
     # plain einsum's, so a row may keep another index only where its k-th
     # and (k+1)-th magnitudes are within the two results' difference of
     # each other: bf16 — a rounding each side, 2 ulps (2^-6 relative),
     # with or without RoPE; f32 — the sums' own error, which grows with
-    # sqrt(m): 64 ulps (2^-17)
+    # sqrt(m): 64 ulps (2^-17). Without RoPE the values of the other rows
+    # are within _close. With RoPE a one-ulp move of y becomes a move of
+    # up to ulp(y_2j)·|cos| + ulp(y_2j+1)·|sin| in a rotated value, more
+    # than an ulp of it where the rotation cancels; so the RoPE'd codes are
+    # held to the kernel's own y instead: that y (every entry, k = d)
+    # within _close of the plain one, and the codes bit-equal to the plain
+    # RoPE and selection applied to it
     w = (0.04 * torch.from_numpy(rs.randn(m, 3 * h * d).astype(np.float32))).cuda()
     wq = head_blocks(w, 0, h, d)
     xr = torch.from_numpy(rs.randn(b, n, m).astype(np.float32)).cuda()
-    pos = torch.arange(n, device="cuda")[None, :].expand(b, n)
     errs = []
     for dtype, rope_on in ((torch.float32, False), (torch.bfloat16, False),
                            (torch.bfloat16, True)):
         xx = xr.to(dtype)
         spec = (10_000.0, d) if rope_on else None
+        reset_launches()
         kv, ki = proj_rtopk(xx, wq, pos if rope_on else None, k=k, rope_spec=spec)
+        check(body_counts()["proj_rtopk_cuda_core"] == (1 if dtype == torch.float32 else 0),
+              f"proj_rtopk {dtype}: body launches {body_counts()}")
         pv, pi = proj_rtopk_ref(xx, wq, pos if rope_on else None, k=k, rope_spec=spec)
-        y = torch.einsum("bnm,hmd->bnhd", xx.float(), wq.to(dtype).float()).to(dtype)
-        if rope_on:
-            y = rope(y, pos, theta=10_000.0, rot_dim=d)
+        y0 = torch.einsum("bnm,hmd->bnhd", xx.float(), wq.to(dtype).float()).to(dtype)
+        y = rope(y0, pos, theta=10_000.0, rot_dim=d) if rope_on else y0
         y = y.transpose(1, 2)
         rel = 2.0 ** -17 if dtype == torch.float32 else 2.0 ** -6
         diff, n_diff, n_tie = near_ties(y, ki, pi, k, rel)
         check(n_diff == n_tie, f"proj_rtopk {dtype} rope={rope_on}: {n_diff - n_tie} rows "
                                f"differ without a near-tie")
         same = ~diff
-        _close(kv[same], pv[same], dtype, f"proj_rtopk {dtype} rope={rope_on} values")
-        err = (kv[same].float() - pv[same].float()).abs().max().item()
+        moved = (kv[same].float() - pv[same].float()).abs()
+        err = moved.max().item()
         errs.append(err)
+        note = ""
+        if rope_on:
+            yk = proj_rtopk(xx, wq, k=d)[0]             # the kernel's y, every entry
+            _close(yk, y0.transpose(1, 2), dtype, f"proj_rtopk {dtype}: y before RoPE")
+            own = rtopk_ref(rope(yk.transpose(1, 2), pos, theta=10_000.0, rot_dim=d)
+                            .transpose(1, 2), k)
+            check(torch.equal(ki, own[1]) and torch.equal(kv.view(torch.int16),
+                                                         own[0].view(torch.int16)),
+                  f"proj_rtopk {dtype} rope: codes differ from RoPE + selection of its own y")
+            outside = int((moved > 1e-4 + 2 ** -7 * pv[same].float().abs()).sum())
+            note = (f"; y before RoPE within one ulp of the plain y (max|err| "
+                    f"{(yk.float() - y0.transpose(1, 2).float()).abs().max().item():.3g}), the "
+                    f"codes bit-equal to RoPE + selection of it; {outside} values of the other "
+                    f"rows beyond one ulp of the plain codes (a rotation of a moved y)")
+        else:
+            _close(kv[same], pv[same], dtype, f"proj_rtopk {dtype} values")
         print(f"[proj_rtopk] {dtype} random, rope={rope_on}: {n_diff} of {diff.numel()} rows "
               f"pick another index set, each at a near-tie (gap <= {rel:.3g} relative); "
-              f"max|err| on the others {err:.3g}")
+              f"max|err| on the others {err:.3g}{note}")
     xb = xr.bfloat16()
     rows = b * h * n
 
@@ -1214,12 +1310,38 @@ def phase_proj_rtopk(rs):
         _, i = torch.topk(y.abs(), k, dim=-1)
         return i
 
+    # the product on the tensor cores and about d compares a row for the
+    # selection on the CUDA cores run side by side: the larger of the two
     b_ms, b_by = bound(b * n * m * 2 + m * h * d * 4 + rows * k * (2 + 4),
-                       2 * b * n * m * h * d / BF16_TC_FLOPS + 32 * rows * d / F32_FLOPS)
+                       max(2 * b * n * m * h * d / BF16_TC_FLOPS, rows * d / F32_FLOPS))
     r = dict(max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by, **timings(
         lambda: proj_rtopk(xb, wq, k=k), lambda: proj_rtopk_ref(xb, wq, k=k), library))
     print(f"[proj_rtopk] bf16 x {tuple(xb.shape)}, {h} heads of {d}, k={k}: library = "
           f"torch.matmul + torch.topk; {fmt(r)}")
+    # beside it: bf16 w heads read in place (no pack kernel), and the
+    # CUDA-core body on the same bf16 inputs (what the tensor cores replaced)
+    wqb = head_blocks(w.bfloat16(), 0, h, d)
+    outs = {}
+
+    def run_core():
+        vals = torch.empty((b, h, n, k), dtype=xb.dtype, device="cuda")
+        idx = torch.empty((b, h, n, k), dtype=torch.int32, device="cuda")
+        rt._proj_cuda_core(xb, wq, None, k, 0.0, 0, vals, idx)
+        return vals, idx
+    for name, fn in (("bf16 w in place", lambda: proj_rtopk(xb, wqb, k=k)),
+                     ("CUDA-core body", run_core)):
+        outs[name] = (kernel_ms(fn),)
+    core = run_core()
+    diff, n_diff, n_tie = near_ties(torch.einsum("bnm,hmd->bhnd", xb.float(),
+                                                 wq.bfloat16().float()).bfloat16(),
+                                    core[1], proj_rtopk(xb, wq, k=k)[1], k, 2.0 ** -6)
+    check(n_diff == n_tie, f"proj_rtopk: the two bodies part at {n_diff - n_tie} rows without "
+                           f"a near-tie")
+    print(f"[proj_rtopk] tensor-core body with f32 w (pack kernel + dense kernel) "
+          f"{r['ms']:.4f} ms ({'; '.join(f'{kn} {v:.4f}' for kn, v in r['kernels_ms'].items())}); "
+          f"with bf16 w in place {outs['bf16 w in place'][0]:.4f} ms; the CUDA-core body on "
+          f"the same bf16 inputs {outs['CUDA-core body'][0]:.4f} ms ({n_diff} rows part from "
+          f"the tensor-core body's, each at a near-tie) (device time per call)")
     return r
 
 
@@ -1256,14 +1378,22 @@ def _exact_codes(rs, h, ntok, d, kw, dups=True):
     return (torch.from_numpy(vals).cuda().bfloat16(), torch.from_numpy(idx).cuda())
 
 
+def _bit_equal(got, want, what):
+    bad = (got != want).nonzero()
+    if bad.numel():
+        at = tuple(bad[0].tolist())
+        raise AssertionError(f"{what}: {bad.shape[0]} entries differ, first at {at}: got "
+                             f"{got[at].item()}, want {want[at].item()}")
+
+
 def phase_code_grad(rs):
     """code_grad_dx/dw at the training path's shapes: 12 heads x 8,192
-    tokens of bf16 codes, k 8 (and the pair closure's 2k), m 768. bf16 dW
-    runs the tensor-core body, f32 the CUDA-core one; the tensor-core body
-    is also held against the CUDA-core body on the same bf16 inputs, bit
-    for bit against the plain version on inputs whose sums are exact
-    (the layout check: d 32, 64 and 128, ragged n and m), and with one
-    token split."""
+    tokens of bf16 codes, k 8 (and the pair closure's 2k), m 768. bf16
+    codes run the tensor-core bodies, f32 the CUDA-core ones; each
+    tensor-core body is also held against its CUDA-core body on the same
+    bf16 inputs, bit for bit against the plain version on inputs whose sums
+    are exact (the layout check: d 32, 64 and 128, ragged n and m), and dW
+    with one token split."""
     from repro_torch.kernels import body_counts, code_grad_dw, code_grad_dx, reset_launches
     from repro_torch.kernels.code_grad import tensor_core_body
     from repro_torch.kernels.ops import head_blocks
@@ -1271,7 +1401,7 @@ def phase_code_grad(rs):
     cg = sys.modules["repro_torch.kernels.code_grad"]
     h, ntok, m, d = HEADS, TRAIN_B * TRAIN_N, D_MODEL, HD
     for fn, (regs, spill) in ptxas_kernels("code_grad").items():
-        if "code_grad_dw" in fn:
+        if "tc_kernel" in fn or "w_heads_bf16" in fn:
             print(f"[code_grad] ptxas: {fn}: {regs} registers; {spill}")
     w = torch.from_numpy((0.04 * rs.randn(m, 3 * h * d)).astype(np.float32)).cuda()
     wq = head_blocks(w, 0, h, d)
@@ -1287,51 +1417,71 @@ def phase_code_grad(rs):
         reset_launches()
         got = (code_grad_dx(vals, idx, wq, d=d), code_grad_dw(xx, vals, idx, d=d))
         tc = tensor_core_body(dtype, d, kw, m)
-        check(body_counts()["code_grad_dw_cuda_core"] == (0 if tc else 1),
-              f"code_grad_dw kw={kw} {dtype}: body launches {body_counts()}")
+        check(body_counts()["code_grad_dx_cuda_core"] == body_counts()["code_grad_dw_cuda_core"]
+              == (0 if tc else 1), f"code_grad kw={kw} {dtype}: body launches {body_counts()}")
         want = (code_grad_dx_ref(vals, idx, wq, d=d), code_grad_dw_ref(xx, vals, idx, d=d))
         torch.cuda.synchronize()
         # f32 outputs, sums of up to 12·16 (dx) or 8,192·16 (dW) terms in
-        # another order, each summed duplicate kept to ~16 bits (hi + lo) on
-        # the tensor cores: 1e-4 of the output's largest magnitude
+        # another order, each summed duplicate and (dx) each f32 weight kept
+        # to ~16 bits (hi + lo) on the tensor cores: 1e-4 of the output's
+        # largest magnitude
         for name, a, bb in zip(("dx", "dw"), got, want):
             scale_ = bb.abs().max().item()
             torch.testing.assert_close(a, bb, rtol=1e-4, atol=1e-4 * scale_,
                                        msg=f"code_grad {name} kw={kw} {dtype}")
             errs[name].append((a - bb).abs().max().item())
         line = (f"[code_grad] kw={kw} {dtype}: max|err| dx {errs['dx'][-1]:.3g}, dW "
-                f"{errs['dw'][-1]:.3g} ({'tensor-core' if tc else 'CUDA-core'} dW body; max "
+                f"{errs['dw'][-1]:.3g} ({'tensor-core' if tc else 'CUDA-core'} bodies; max "
                 f"|dx| {want[0].abs().max().item():.3g}, |dW| {want[1].abs().max().item():.3g})")
-        if tc:   # the same inputs through the CUDA-core body
-            core = cg._dw_cuda_core(xx, vals, idx, d)
-            torch.testing.assert_close(got[1], core, rtol=1e-4,
-                                       atol=1e-4 * want[1].abs().max().item(),
-                                       msg=f"code_grad_dw kw={kw}: tensor-core vs CUDA-core body")
-            line += f"; against the CUDA-core body {(got[1] - core).abs().max().item():.3g}"
+        if tc:   # the same inputs through the CUDA-core bodies
+            core = (cg._dx_cuda_core(vals, idx, wq, d), cg._dw_cuda_core(xx, vals, idx, d))
+            for name, a, c, bb in zip(("dx", "dw"), got, core, want):
+                torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4 * bb.abs().max().item(),
+                                           msg=f"code_grad {name} kw={kw}: tensor-core vs "
+                                               f"CUDA-core body")
+            line += (f"; against the CUDA-core bodies dx {(got[0] - core[0]).abs().max().item():.3g}"
+                     f", dW {(got[1] - core[1]).abs().max().item():.3g}")
         print(line)
         if kw == SFA_K and dtype == torch.bfloat16:
             main = (vals, idx, xx)
-    # the layout: exact sums (values in {-1, 1}, x in {-1, 0, 1}, a summed
-    # duplicate 1 + 2^-9 through the lo tile) give the plain version's bits
+    # the layout: exact sums give the plain version's bits. dW: values in
+    # {-1, 1}, x in {-1, 0, 1}, a summed duplicate 1 + 2^-9 through the lo
+    # tile. dx: the same codes against a w in multiples of 1/16 (bf16, no lo
+    # part), or, without duplicates, against a w in multiples of 2^-12 (an
+    # f32 with a nonzero lo part) or a bf16 w; the body leaves out S_lo.W_lo
+    # (below 2^-16 of a product), so exact inputs keep one of them zero
     for hh, n_, m_, d_, kw, dups in ((h, ntok, m, d, SFA_K, True), (h, ntok, m, d, SFA_K, False),
                                      (h, ntok, m, d, 2 * SFA_K, True),
                                      (5, 1000, 200, 32, SFA_K, True),
-                                     (3, 777, 136, 128, 2 * SFA_K, True)):
+                                     (3, 777, 136, 128, 2 * SFA_K, True),
+                                     (4, 1000, 200, 128, SFA_K, False),
+                                     (5, 333, 72, 32, 2 * SFA_K, False)):
         vals, idx = _exact_codes(rs, hh, n_, d_, kw, dups)
         xe = torch.from_numpy(rs.randint(-1, 2, (n_, m_)).astype(np.float32)).cuda().bfloat16()
-        check(tensor_core_body(torch.bfloat16, d_, kw, m_), "exact dW inputs: not the tensor cores")
-        got = code_grad_dw(xe, vals, idx, d=d_)
-        want = code_grad_dw_ref(xe, vals, idx, d=d_)
-        torch.cuda.synchronize()
-        bad = (got != want).nonzero()
-        if bad.numel():
-            at = tuple(bad[0].tolist())
-            raise AssertionError(f"code_grad_dw exact inputs h={hh} n={n_} m={m_} d={d_} kw={kw}: "
-                                 f"{bad.shape[0]} entries differ, first at {at}: got "
-                                 f"{got[at].item()}, want {want[at].item()}")
+        check(tensor_core_body(torch.bfloat16, d_, kw, m_), "exact inputs: not the tensor cores")
+        reset_launches()
+        _bit_equal(code_grad_dw(xe, vals, idx, d=d_), code_grad_dw_ref(xe, vals, idx, d=d_),
+                   f"code_grad_dw exact inputs h={hh} n={n_} m={m_} d={d_} kw={kw}")
         how = "duplicates through the lo tile" if dups else "no duplicate: no lo products"
         print(f"[code_grad] dW tensor-core body on exact inputs, {hh} heads x {n_} tokens, m "
               f"{m_}, d {d_}, kw {kw} ({how}): equal to the plain version bit for bit")
+        grid = 16 if dups else 4096
+        wd = torch.from_numpy(rs.randint(-grid // 2, grid // 2 + 1, (m_, 2 * hh * d_))
+                              .astype(np.float32) / grid).cuda()
+        weights = [("f32 w" + (" in 1/16" if dups else " in 2^-12, nonzero lo"),
+                    head_blocks(wd, 1, hh, d_))]
+        if not dups:
+            weights.append(("bf16 w", head_blocks(wd.bfloat16(), 1, hh, d_)))
+        for wname, we in weights:
+            got = code_grad_dx(vals, idx, we, d=d_)
+            _bit_equal(got, code_grad_dx_ref(vals, idx, we, d=d_),
+                       f"code_grad_dx exact inputs h={hh} n={n_} m={m_} d={d_} kw={kw} {wname}")
+            check(torch.equal(got, code_grad_dx(vals, idx, we, d=d_)),
+                  f"code_grad_dx h={hh} d={d_} kw={kw} {wname}: two calls differ")
+            print(f"[code_grad] dx tensor-core body on exact inputs, {hh} heads x {n_} tokens, "
+                  f"m {m_}, d {d_}, kw {kw} ({how}; {wname}): equal to the plain version bit "
+                  f"for bit, and to itself on a second call")
+        check(not any(body_counts().values()), f"exact inputs: body launches {body_counts()}")
     vals, idx, xx = main
     kw, es = SFA_K, 2
     ops_s = code_product_s(2 * ntok * m * h * kw, 2 * ntok * m * h * d)
@@ -1352,11 +1502,21 @@ def phase_code_grad(rs):
         print(f"[{name}] bf16 codes {h} x {ntok} x {kw}, m {m}: library = scatter_code_grads + "
               f"torch.einsum; {fmt(r)}")
         res[name] = r
-    # the CUDA-core dW body on the same bf16 inputs (what the tensor-core
-    # body replaced on this path), and each body with one token split
+    # the CUDA-core bodies on the same bf16 inputs (what the tensor-core
+    # bodies replaced on this path), dx with a bf16 w (no lo products), and
+    # dW with one token split
+    def run_dx_core():
+        return cg._dx_cuda_core(vals, idx, wq, d)
+    wqb = wq.bfloat16()
+
+    def run_dx_bf16():
+        return code_grad_dx(vals, idx, wqb, d=d)
+    dx_core_ms = kernel_ms(run_dx_core)
+    dx_bf16_ms = kernel_ms(run_dx_bf16)
+
     def run_core():
         return cg._dw_cuda_core(xx, vals, idx, d)
-    core_ms = device_ms(run_core) or event_ms(run_core)
+    core_ms = kernel_ms(run_core)
     split_ms = res["code_grad_dw"]["ms"]
     want = code_grad_dw(xx, vals, idx, d=d)
     saved, cg._DW_MAX_SPLITS = cg._DW_MAX_SPLITS, 1
@@ -1366,11 +1526,14 @@ def phase_code_grad(rs):
                                    msg="code_grad_dw with one token split")
         def run_one():
             return code_grad_dw(xx, vals, idx, d=d)
-        one_ms = device_ms(run_one) or event_ms(run_one)
-        one_core_ms = device_ms(run_core) or event_ms(run_core)
+        one_ms = kernel_ms(run_one)
+        one_core_ms = kernel_ms(run_core)
     finally:
         cg._DW_MAX_SPLITS = saved
     splits = cg.tc_splits(ntok, h, d, m, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"[code_grad_dx] tensor-core body {res['code_grad_dx']['ms']:.4f} ms with the f32 w "
+          f"(hi + lo), {dx_bf16_ms:.4f} ms with a bf16 w (no lo products); CUDA-core body on "
+          f"the same bf16 inputs {dx_core_ms:.4f} ms (device time per call)")
     print(f"[code_grad_dw] tensor-core body: {splits[0]} token splits of {splits[1]} tokens "
           f"{split_ms:.4f} ms, one split {one_ms:.4f} ms; CUDA-core body on the same bf16 "
           f"inputs: {max(1, min(saved, ntok // cg._DW_SPLIT_TOKENS))} splits {core_ms:.4f} ms, one split "
@@ -1897,11 +2060,12 @@ def phase_train(arch, timed_steps, predicted, **policy):
     check(not reports, f"train {arch}: backend fallbacks recorded: {reports}")
     check(counts == want, f"train {arch}: launches {counts}, predicted {want}")
     # bf16 at d = dv = 64, k 8: every FlashSFA launch on the tensor-core
-    # bodies, and the compact seam's dW on the tensor-core one
+    # bodies, and the compact seam's proj_rtopk, dx and dW on theirs
     _tc_only(f"train {arch}")
     if policy.get("bwd_emit") in ("compact", "compact2"):
-        check(counts["code_grad_dw"] > 0 and body_counts()["code_grad_dw_cuda_core"] == 0,
-              f"train {arch}: code_grad_dw not all on the tensor cores: {body_counts()}")
+        seam = ("proj_rtopk", "code_grad_dx", "code_grad_dw")
+        check(all(counts[r] > 0 and body_counts()[f"{r}_cuda_core"] == 0 for r in seam),
+              f"train {arch}: the seam's kernels not all on the tensor cores: {body_counts()}")
     if policy.get("bwd_emit") in ("compact", "compact2"):
         check(len(seams) == 1 and seams[0].taken, f"train {arch}: compact seam {seams}")
     check(all(r.eligible for r in remats), f"train {arch}: remat degraded: {remats}")
@@ -2134,52 +2298,55 @@ def phase_launcher():
 
 def main():
     t_start = time.perf_counter()
-    name, count = phase_device()
+    name, count = timed(phase_device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    timed(phase_build)
     from repro_torch.configs import get_config
     from repro_torch.models import init
-    phase_wgmma_probe()
+    timed(phase_wgmma_probe)
     rs = np.random.RandomState(SEED)
-    results = {"rtopk": phase_rtopk(rs), "proj_rtopk": phase_proj_rtopk(rs),
-               "flash_sfa": phase_flash_sfa(rs), "flash_sfa_block_skip": phase_block_skip(rs),
-               "flash_sfa_decode": phase_decode(rs)}
+    results = {"rtopk": timed(phase_rtopk, rs), "proj_rtopk": timed(phase_proj_rtopk, rs),
+               "flash_sfa": timed(phase_flash_sfa, rs),
+               "flash_sfa_block_skip": timed(phase_block_skip, rs),
+               "flash_sfa_decode": timed(phase_decode, rs)}
     results["flash_sfa_decode_paged"], results["flash_sfa_decode_multi"] = \
-        phase_decode_paged(rs)
-    results["flash_sfa_decode_fm"], results["flash_sfa_decode_fm_paged"] = phase_decode_fm(rs)
-    results["flash_sfa_bwd"], results["flash_sfa_bwd_compact"] = phase_flash_sfa_bwd(rs)
-    results["flash_attention"], results["flash_attention_bwd"] = phase_flash_attention(rs)
-    results["code_grad_dx"], results["code_grad_dw"] = phase_code_grad(rs)
+        timed(phase_decode_paged, rs)
+    results["flash_sfa_decode_fm"], results["flash_sfa_decode_fm_paged"] = \
+        timed(phase_decode_fm, rs)
+    results["flash_sfa_bwd"], results["flash_sfa_bwd_compact"] = timed(phase_flash_sfa_bwd, rs)
+    results["flash_attention"], results["flash_attention_bwd"] = timed(phase_flash_attention, rs)
+    results["code_grad_dx"], results["code_grad_dw"] = timed(phase_code_grad, rs)
     cfg = get_config("gpt2-small-sfa8")
     model = init(cfg, device="cuda", seed=SEED)
-    counts, slot_run = phase_engine(model, cfg)
-    paged_run = phase_paged(model, cfg, slot_run)
-    spec = phase_speculative(model, cfg, paged_run, slot_run["prompts"])
-    fm_slot, fm_paged = phase_feature_major(model, cfg, paged_run, slot_run["prompts"])
-    phase_end_to_end(model, cfg)
+    counts, slot_run = timed(phase_engine, model, cfg)
+    paged_run = timed(phase_paged, model, cfg, slot_run)
+    spec = timed(phase_speculative, model, cfg, paged_run, slot_run["prompts"])
+    fm_slot, fm_paged = timed(phase_feature_major, model, cfg, paged_run, slot_run["prompts"])
+    timed(phase_end_to_end, model, cfg)
     del model
-    phase_serve_launcher()
+    timed(phase_serve_launcher)
     layers = cfg.num_layers
     # remat="full": each layer's forward runs twice per step (rtopk for Q
     # and K each time), its backward once
-    train, _ = phase_train("gpt2-small-sfa8", 5, {"rtopk": 4 * layers, "flash_sfa": 2 * layers,
-                                                  "flash_sfa_bwd": layers})
-    dense, _ = phase_train("gpt2-small", 2, {"flash_attention": 2 * layers,
-                                             "flash_attention_bwd": layers})
+    train, _ = timed(phase_train, "gpt2-small-sfa8", 5,
+                     {"rtopk": 4 * layers, "flash_sfa": 2 * layers, "flash_sfa_bwd": layers})
+    dense, _ = timed(phase_train, "gpt2-small", 2,
+                     {"flash_attention": 2 * layers, "flash_attention_bwd": layers})
     # the compact seam under remat="codes": per layer and step proj_rtopk
     # for q and k once (the backward's rerun takes the kept codes),
     # block-skip FlashSFA twice (forward and rerun), the compact backward
     # once, code_grad dx and dW for q and k
-    compact, _ = phase_train(
-        "gpt2-small-sfa8", 5, {"proj_rtopk": 2 * layers, "flash_sfa_block_skip": 2 * layers,
-                               "flash_sfa_bwd_compact": layers, "code_grad_dx": 2 * layers,
-                               "code_grad_dw": 2 * layers},
+    compact, _ = timed(
+        phase_train, "gpt2-small-sfa8", 5,
+        {"proj_rtopk": 2 * layers, "flash_sfa_block_skip": 2 * layers,
+         "flash_sfa_bwd_compact": layers, "code_grad_dx": 2 * layers,
+         "code_grad_dw": 2 * layers},
         bwd_emit="compact", fwd_fuse=True, remat="codes")
-    phase_launcher()
-    phase_grad_end_to_end()
-    phase_dense_grad_end_to_end()
-    phase_sfa_grad_bf16_end_to_end()
+    timed(phase_launcher)
+    timed(phase_grad_end_to_end)
+    timed(phase_dense_grad_end_to_end)
+    timed(phase_sfa_grad_bf16_end_to_end)
     decode_src = "src/repro_torch/csrc/flash_sfa_decode.cu"
     fm_src = "src/repro_torch/csrc/flash_sfa_decode_fm.cu"
     # rows 3-5 run bf16 on the tensor-core bodies (f32 on flash_sfa.cu and

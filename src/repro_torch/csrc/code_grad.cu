@@ -12,13 +12,14 @@
 // _densify_block does) and an index outside [0, d) adds nothing. The dense
 // (N, d) gradient is never formed in device memory.
 //
-// Two kinds of body. dW in bf16 with d in {32, 64, 128}, kw in {8, 16} and
-// m a multiple of 8 runs on the tensor cores (code_grad_dw_tc_launch,
-// below): the TPU's counterpart, each code tile densified in shared memory
-// and fed to a d-wide product. dx, and dW in f32 (on the tensor cores f32
-// would be TF32, which fails f32's 1e-4) or at other bf16 shapes, run on
-// CUDA cores: each product gathered at the kw stored coordinates, kw
-// multiply-adds per output element and head.
+// Two kinds of body. With bf16 codes, d in {32, 64, 128}, kw in {8, 16}
+// and m a multiple of 8, dx and dW run on the tensor cores
+// (code_grad_dx_tc_launch, code_grad_dw_tc_launch, below): the TPU's
+// counterpart, each code tile densified in shared memory and fed to a
+// d-wide product. f32 codes (on the tensor cores f32 would be TF32, which
+// fails f32's 1e-4) and the other bf16 shapes run on CUDA cores: each
+// product gathered at the kw stored coordinates, kw multiply-adds per
+// output element and head.
 //
 // Design of the CUDA-core bodies. Every output element has one owner and a
 // fixed summation order: no atomics, a deterministic result.
@@ -60,8 +61,7 @@ constexpr int kDxRows = kDxTok / (kThreads / kDxCol);  // 32 rows per thread
 constexpr int kDwCol = 128;   // dw: columns of m per block (= threads)
 constexpr int kDwTok = 64;    // dw: tokens per staged chunk
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+using hopper::to_f;
 
 template <typename T, typename TW>
 __global__ void __launch_bounds__(kThreads)
@@ -327,10 +327,16 @@ __global__ void pack_dw_codes_kernel(const __nv_bfloat16* __restrict__ vals,
   if (__syncthreads_or(mine != 0) && threadIdx.x == 0) atomicOr(lo_any, 1);
 }
 
-// byte offset of cell (feature row r, token t) of an STile: 128-byte rows,
-// the 128-byte swizzle (the tile sits on a 1024-byte boundary)
-__device__ __forceinline__ uint32_t s_cell(int r, int t) {
-  return r * STile::SW + ((t * 2) ^ ((r & 7) << 4));
+// byte offset of cell (row r, column c) of a swizzled bf16 tile with C <= 64
+// columns a row, one swizzle span (hopper::Tile<C, ROWS>: 128-byte rows and
+// swizzle for C = 64, 64-byte for C = 32; the tile sits on a 1024-byte
+// boundary). dW's S^T tile is cell<64>(feature row, token).
+template <int C>
+__device__ __forceinline__ uint32_t cell(int r, int c) {
+  constexpr int SW = C * 2;
+  static_assert(SW == 64 || SW == 128, "one swizzle span of 64 or 128 bytes a row");
+  const uint32_t swz = (SW == 128 ? (r & 7) : ((r >> 1) & 3)) << 4;
+  return r * SW + ((c * 2) ^ swz);
 }
 
 template <int D, int KW>
@@ -418,7 +424,7 @@ code_grad_dw_tc_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int u = 0; u < U; ++u) {
       const uint32_t id = w[u] >> 16;
       if (id < static_cast<uint32_t>(D)) {
-        const uint32_t off = s_cell(hs * D + id, wt);
+        const uint32_t off = cell<kTcTok>(hs * D + id, wt);
         sts_u16(hi + off, static_cast<unsigned short>(w[u] & 0xffffu));
         const uint32_t lb = (l[u / 2] >> (16 * (u % 2))) & 0xffffu;
         if (lb != 0) sts_u16(lo + off, static_cast<unsigned short>(lb));
@@ -501,6 +507,213 @@ code_grad_dw_tc_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// ---- dx on the tensor cores (bf16 codes) -------------------------------------
+//
+// dx (n x m) = S (n x H.d) . W^T (H.d x m): one GEMM whose reduction is the
+// head-feature axis, each head's S_h densified from its codes.
+//  * The codes go through pack_dw_codes_kernel as for dW (each row's
+//    repeated indices resolved once into idx << 16 | bf16 hi words and lo
+//    bits, the flag of a nonzero lo). w, f32 on the compact seam, is split
+//    once per call into contiguous (H, m, d) bf16 hi and lo = bf16(w - hi)
+//    (hopper::w_heads_bf16): bf16 w alone would lose about 2^-9 of every product,
+//    which fails dx's 1e-4; a bf16 w has no lo and skips those products.
+//  * A block owns 128 tokens x 128 columns of m, two warpgroups of 64
+//    tokens, and walks the heads in order, each in steps of F = min(d, 64)
+//    features (d 128: two steps a head), every output with one owner and
+//    no split: no atomics, a deterministic result. A = the step's S tile,
+//    128 token rows x F features, densified into the swizzled K-major
+//    layout (hopper::Tile<F, 128>) by all 256 threads, two a code row, hi
+//    and lo in two tiles; B = the step's w_h hi (and lo) tile, 128 rows of
+//    m x F features, K-major, by TMA (zero fill past m). Products: S_hi.W_hi
+//    + S_hi.W_lo (f32 w) + S_lo.W_hi (where the pack kernel found a nonzero
+//    lo: the loop exists twice and the choice is made once per call, as for
+//    dW; S_lo.W_lo, below 2^-16 of a product, is left out), F / 16
+//    Mma<128>::ss steps each.
+//  * The schedule is dW's with heads for chunks: per step s the products of
+//    s are issued; each warpgroup waits for its products of s - 1 and zeroes
+//    its 64 rows of their S stage; one barrier; the w tiles and packed rows
+//    of step s + 2 are issued (TMA; cp.async, each row's 16-byte pieces
+//    shared by its threads); step s + 1 is densified into the zeroed stage;
+//    fence.proxy.async, one barrier.
+// Three other schedules ran slower on an H100 SXM (700 W) at gpt2-small's
+// shapes (this kernel 0.0619-0.0626 ms): A = S built in each thread's
+// registers from the codes for wgmma's RS form, no S tile (0.1137 ms; 240-255
+// registers, the per-code register selects); A = w loaded and split in
+// registers, B = S in shared memory (dx^T; 0.1196 ms); and each warpgroup
+// densifying its own rows behind a 128-thread barrier, the w ring handed over
+// by empty barriers (0.0926 ms).
+// Bound on the H100: operations, 2 d flops per (token, column, head) on the
+// tensor cores (the lo products double or triple what the body runs).
+
+constexpr int kDxTcTok = 128;      // tokens of a block: two warpgroups of 64
+constexpr int kDxTcCols = 128;     // columns of m of a block: the wgmma N
+constexpr int kDxTcStages = 3;     // w tiles and packed rows: steps s .. s + 2
+
+template <int D, int KW, bool W_LO>
+__global__ void __launch_bounds__(kTcThreads, 1)
+code_grad_dx_tc_kernel(const __grid_constant__ CUtensorMap hi_map,
+                       const __grid_constant__ CUtensorMap lo_map,
+                       const uint32_t* __restrict__ words, const uint16_t* __restrict__ lo_bits,
+                       const int* __restrict__ lo_any, float* __restrict__ out, int nh, int ntok,
+                       int m) {
+  constexpr int F = D < 64 ? D : 64;             // features of a step
+  constexpr int HALVES = D / F;                  // steps of a head
+  using T = hopper::Tile<F, kDxTcTok>;           // S and w tiles: 128 rows x F features
+  constexpr int P = kTcThreads / kDxTcTok;       // threads a code row
+  constexpr int U = KW / P;                      // words of a thread's share
+  constexpr int PIECES = KW / 8 + KW / 4;        // 16-byte pieces of a row: lo, words
+  constexpr int CSTAGE = kDxTcTok * KW * 6;      // bytes of a step's packed rows
+  static_assert(KW % 8 == 0 && KW % P == 0 && T::CHUNKS == 1, "one swizzle span a row");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* s_hi = base;                                  // 2 stages of S, hi
+  uint8_t* s_lo = s_hi + 2 * T::BYTES;                   // 2 stages of S, lo
+  uint8_t* w_hi = s_lo + 2 * T::BYTES;                   // kDxTcStages w tiles, hi
+  uint8_t* w_lo = w_hi + kDxTcStages * T::BYTES;         // kDxTcStages w tiles, lo
+  uint8_t* codes = w_lo + kDxTcStages * T::BYTES;        // kDxTcStages x (128, KW) lo, words
+  uint64_t* bar = reinterpret_cast<uint64_t*>(codes + kDxTcStages * CSTAGE);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int t0 = blockIdx.x * kDxTcTok;
+  const int m0 = blockIdx.y * kDxTcCols;
+  const int steps = nh * HALVES;
+  // packed row r = token t0 + r, share sh of its words
+  const int r = tid % kDxTcTok;
+  const int sh = tid / kDxTcTok;
+  auto live = [&](int s) { return s < steps && t0 + r < ntok; };
+  auto codes_of = [&](int s) { return codes + (s % kDxTcStages) * CSTAGE; };
+
+  for (int o = tid * 16; o < 4 * T::BYTES; o += kTcThreads * 16)
+    sts_zero16(hopper::smem_u32(s_hi) + o);
+  if (tid == 0) {
+    for (int i = 0; i < kDxTcStages; ++i) hopper::mbar_init(&bar[i], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // step s's w tiles (thread 0) and packed rows (a row's threads share its
+  // pieces); one commit group per step and thread, empty or not
+  auto load = [&](int s) {
+    if (tid == 0 && s < steps) {
+      const int st = s % kDxTcStages;
+      uint64_t* b = &bar[st];
+      hopper::mbar_expect_tx(b, (W_LO ? 2 : 1) * T::BYTES);
+      hopper::tma_load_3d(w_hi + st * T::BYTES, &hi_map, b, (s % HALVES) * F, m0, s / HALVES);
+      if constexpr (W_LO)
+        hopper::tma_load_3d(w_lo + st * T::BYTES, &lo_map, b, (s % HALVES) * F, m0, s / HALVES);
+    }
+    if (live(s)) {
+      const size_t row = (static_cast<size_t>(s / HALVES) * ntok + t0 + r) * KW;
+      const uint32_t cs = hopper::smem_u32(codes_of(s));
+      for (int q = sh; q < PIECES; q += P) {
+        if (q < KW / 8)
+          cp_async16(cs + (r * KW + 8 * q) * 2, lo_bits + row + 8 * q);
+        else
+          cp_async16(cs + kDxTcTok * KW * 2 + (r * KW + 4 * (q - KW / 8)) * 4,
+                     words + row + 4 * (q - KW / 8));
+      }
+    }
+    cp_async_commit();
+  };
+  // the thread's share of step s's packed row into S stage s & 1: the codes
+  // whose index falls in the step's F features
+  auto scatter = [&](int s) {
+    if (!live(s)) return;
+    uint32_t w[U], l[(U + 1) / 2];
+    load_words<U * 4>(codes_of(s) + kDxTcTok * KW * 2 + (r * KW + sh * U) * 4, w);
+    load_words<U * 2>(codes_of(s) + (r * KW + sh * U) * 2, l);
+    const uint32_t hi = hopper::smem_u32(s_hi + (s & 1) * T::BYTES);
+    const uint32_t lo = hopper::smem_u32(s_lo + (s & 1) * T::BYTES);
+    const uint32_t f0 = (s % HALVES) * F;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const uint32_t f = (w[u] >> 16) - f0;    // no index (0xFFFF) or another step's: >= F
+      if (f < static_cast<uint32_t>(F)) {
+        const uint32_t off = cell<F>(r, f);
+        sts_u16(hi + off, static_cast<unsigned short>(w[u] & 0xffffu));
+        const uint32_t lb = (l[u / 2] >> (16 * (u % 2))) & 0xffffu;
+        if (lb != 0) sts_u16(lo + off, static_cast<unsigned short>(lb));
+      }
+    }
+  };
+  // this warpgroup's 64 rows of S stage st zeroed, hi (and lo)
+  auto zero_half = [&](int st, auto with_lo) {
+    const uint32_t o = st * T::BYTES + wg * (T::BYTES / 2) + (tid % 128) * 16;
+#pragma unroll
+    for (int k = 0; k < T::BYTES / 2; k += 128 * 16) {
+      sts_zero16(hopper::smem_u32(s_hi) + o + k);
+      if constexpr (decltype(with_lo)::value) sts_zero16(hopper::smem_u32(s_lo) + o + k);
+    }
+  };
+
+  for (int s = 0; s < kDxTcStages - 1; ++s) load(s);
+  cp_async_wait<kDxTcStages - 2>();
+  __syncthreads();
+  scatter(0);
+  fence_proxy_async();
+  __syncthreads();
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  hopper::fence_regs(acc);
+  // the steps, with the S lo products (with_lo true) or without: one loop
+  // each, chosen once for the whole call, so no wgmma sits under a branch
+  auto run = [&](auto with_lo) {
+    for (int s = 0; s < steps; ++s) {
+      const int st = s % kDxTcStages;
+      const uint32_t a_hi = hopper::smem_u32(s_hi + (s & 1) * T::BYTES);
+      const uint32_t a_lo = hopper::smem_u32(s_lo + (s & 1) * T::BYTES);
+      const uint32_t b_hi = hopper::smem_u32(w_hi + st * T::BYTES);
+      const uint32_t b_lo = hopper::smem_u32(w_lo + st * T::BYTES);
+      hopper::mbar_wait(&bar[st], (s / kDxTcStages) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F / 16; ++kk) {
+        hopper::Mma<128>::ss(acc, T::kmajor(a_hi, 64 * wg, kk), T::kmajor(b_hi, 0, kk), 1);
+        if constexpr (W_LO)
+          hopper::Mma<128>::ss(acc, T::kmajor(a_hi, 64 * wg, kk), T::kmajor(b_lo, 0, kk), 1);
+        if constexpr (decltype(with_lo)::value)
+          hopper::Mma<128>::ss(acc, T::kmajor(a_lo, 64 * wg, kk), T::kmajor(b_hi, 0, kk), 1);
+      }
+      hopper::wgmma_commit();
+      // this warpgroup's products of s - 1 are done: zero its rows of their
+      // S stage, the one step s + 1 is densified into
+      hopper::wgmma_wait<1>();
+      if (s > 0) zero_half((s + 1) & 1, with_lo);
+      cp_async_wait<kDxTcStages - 3>();
+      __syncthreads();   // all products of s - 1 done; the stage zeroed; s + 1's rows landed
+      load(s + kDxTcStages - 1);
+      scatter(s + 1);
+      fence_proxy_async();
+      __syncthreads();   // step s + 1 densified
+    }
+  };
+  // lo_any is one value for the whole call; __shfl_sync lets ptxas see it
+  // uniform over the warp
+  if (__shfl_sync(0xffffffffu, *lo_any, 0))
+    run(std::true_type{});
+  else
+    run(std::false_type{});
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // the block's (128, 128) tile of dx: row 64 wg + 16 w + l/4 (+8), columns
+  // 8j + 2(l%4) and + 1 (m is even: both or neither in range)
+  const int lane = tid % 32;
+  const int row0 = t0 + 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
+  const int col0 = m0 + 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int t = row0 + 8 * ((i % 4) / 2);
+    const int j = col0 + 8 * (i / 4);
+    if (t < ntok && j < m)
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(t) * m + j) =
+          make_float2(acc[i], acc[i + 1]);
+  }
+}
+
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -546,25 +759,6 @@ int launch_dw(const void* x, const void* vals, const void* idx, void* out, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// The TMA map of x (ntok, m) bf16 for XTile: boxes of 64 columns x 64
-// token rows, 128-byte swizzle, rows past ntok and columns past m
-// zero-filled. Returns a cudaError_t value.
-int x_map(CUtensorMap* map, const void* x, int ntok, int m) {
-  hopper::EncodeTiled encode = hopper::encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(m), static_cast<cuuint64_t>(ntok), 1};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(m) * 2,
-                                 static_cast<cuuint64_t>(ntok) * m * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(XTile::CHUNK),
-                             static_cast<cuuint32_t>(kTcTok), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <int D, int KW>
 int launch_dw_tc(const CUtensorMap& map, const uint32_t* words, const uint16_t* lo,
                  const int* lo_any, float* dst, int nh, int ntok, int m, int splits,
@@ -581,10 +775,10 @@ int launch_dw_tc(const CUtensorMap& map, const uint32_t* words, const uint16_t* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// the pack kernel over (nh, ntok) code rows, after zeroing the lo flag
 template <int KW>
-int launch_dw_tc_kw(const CUtensorMap& map, const void* vals, const void* idx, uint32_t* words,
-                    uint16_t* lo, int* lo_any, float* dst, int nh, int ntok, int m, int d,
-                    int splits, int split_len, cudaStream_t stream) {
+int pack_codes(const void* vals, const void* idx, uint32_t* words, uint16_t* lo, int* lo_any,
+               int nh, int ntok, int d, cudaStream_t stream) {
   const long long rows = static_cast<long long>(nh) * ntok;
   const long long want = (rows + 255) / 256;
   cudaError_t e = cudaMemsetAsync(lo_any, 0, sizeof(int), stream);
@@ -593,12 +787,46 @@ int launch_dw_tc_kw(const CUtensorMap& map, const void* vals, const void* idx, u
                              stream>>>(static_cast<const __nv_bfloat16*>(vals),
                                        static_cast<const int32_t*>(idx), words, lo, lo_any,
                                        rows, d);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KW>
+int launch_dw_tc_kw(const CUtensorMap& map, const void* vals, const void* idx, uint32_t* words,
+                    uint16_t* lo, int* lo_any, float* dst, int nh, int ntok, int m, int d,
+                    int splits, int split_len, cudaStream_t stream) {
+  const int e = pack_codes<KW>(vals, idx, words, lo, lo_any, nh, ntok, d, stream);
+  if (e != 0) return e;
   switch (d) {
     case 32: return launch_dw_tc<32, KW>(map, words, lo, lo_any, dst, nh, ntok, m, splits, split_len, stream);
     case 64: return launch_dw_tc<64, KW>(map, words, lo, lo_any, dst, nh, ntok, m, splits, split_len, stream);
     default: return launch_dw_tc<128, KW>(map, words, lo, lo_any, dst, nh, ntok, m, splits, split_len, stream);
+  }
+}
+
+template <int D, int KW, bool W_LO>
+int launch_dx_tc(const CUtensorMap& hi, const CUtensorMap& lo, const uint32_t* words,
+                 const uint16_t* lo_bits, const int* lo_any, float* out, int nh, int ntok, int m,
+                 cudaStream_t stream) {
+  using T = hopper::Tile<(D < 64 ? D : 64), kDxTcTok>;
+  const size_t smem = 1024 + (4 + 2 * kDxTcStages) * T::BYTES +
+                      static_cast<size_t>(kDxTcStages) * kDxTcTok * KW * 6 +
+                      kDxTcStages * sizeof(uint64_t);
+  auto kernel = code_grad_dx_tc_kernel<D, KW, W_LO>;
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((ntok + kDxTcTok - 1) / kDxTcTok, (m + kDxTcCols - 1) / kDxTcCols);
+  kernel<<<grid, kTcThreads, smem, stream>>>(hi, lo, words, lo_bits, lo_any, out, nh, ntok, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KW, bool W_LO>
+int launch_dx_tc_d(int d, const CUtensorMap& hi, const CUtensorMap& lo, const uint32_t* words,
+                   const uint16_t* lo_bits, const int* lo_any, float* out, int nh, int ntok,
+                   int m, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch_dx_tc<32, KW, W_LO>(hi, lo, words, lo_bits, lo_any, out, nh, ntok, m, stream);
+    case 64: return launch_dx_tc<64, KW, W_LO>(hi, lo, words, lo_bits, lo_any, out, nh, ntok, m, stream);
+    default: return launch_dx_tc<128, KW, W_LO>(hi, lo, words, lo_bits, lo_any, out, nh, ntok, m, stream);
   }
 }
 
@@ -673,7 +901,9 @@ extern "C" int code_grad_dw_tc_launch(const void* x, const void* vals, const voi
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap map;
-  const int e = x_map(&map, x, ntok, m);
+  // x (ntok, m): boxes of 64 columns x 64 token rows, zero fill past either edge
+  const int e = hopper::map_3d(&map, x, m, ntok, m, 1, static_cast<long long>(ntok) * m,
+                               XTile::CHUNK, kTcTok);
   if (e != 0) return e;
   uint32_t* words = static_cast<uint32_t*>(packed);
   uint16_t* lo = reinterpret_cast<uint16_t*>(words + static_cast<size_t>(nh) * ntok * kw);
@@ -689,4 +919,48 @@ extern "C" int code_grad_dw_tc_launch(const void* x, const void* vals, const voi
   sum_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, s>>>(
       static_cast<const float*>(part), static_cast<float*>(out), count, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core dx body: vals (nh, ntok, kw) bf16 and idx (nh, ntok, kw)
+// int32, contiguous and 16-byte aligned; kw in {8, 16}, d in {32, 64, 128},
+// m a multiple of 8; w heads (nh, m, d) in f32|bf16 at element strides
+// (w_sh, w_sm, 1); out (ntok, m) f32. packed: scratch as for
+// code_grad_dw_tc_launch (nh * ntok * kw * 6 + 16 bytes); wsplit: scratch
+// of nh * m * d bf16 (bf16 w) or twice that (f32 w: hi, then lo), 16-byte
+// aligned. Launches the pack kernel, the w split and the dense kernel;
+// returns the last launch's cudaGetLastError().
+extern "C" int code_grad_dx_tc_launch(const void* vals, const void* idx, const void* w,
+                                      void* out, void* packed, void* wsplit, int nh, int ntok,
+                                      int kw, int m, int d, long long w_sh, long long w_sm,
+                                      int w_bf16, void* stream) {
+  cudaGetLastError();
+  if (ntok <= 0 || m <= 0) return 0;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (nh <= 0 || (kw != 8 && kw != 16) || (d != 32 && d != 64 && d != 128) || m % 8 != 0 ||
+      (m + kDxTcCols - 1) / kDxTcCols > 65535 ||
+      static_cast<long long>(nh) * m * d >= (1LL << 31) || misaligned(vals) ||
+      misaligned(idx) || misaligned(packed) || misaligned(wsplit))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* words = static_cast<uint32_t*>(packed);
+  uint16_t* lo = reinterpret_cast<uint16_t*>(words + static_cast<size_t>(nh) * ntok * kw);
+  int* lo_any = reinterpret_cast<int*>(lo + static_cast<size_t>(nh) * ntok * kw);
+  int e = kw == 8 ? pack_codes<8>(vals, idx, words, lo, lo_any, nh, ntok, d, s)
+                  : pack_codes<16>(vals, idx, words, lo, lo_any, nh, ntok, d, s);
+  if (e != 0) return e;
+  const long long count = static_cast<long long>(nh) * m * d;
+  __nv_bfloat16* w_hi = static_cast<__nv_bfloat16*>(wsplit);
+  __nv_bfloat16* w_lo = w_bf16 ? nullptr : w_hi + count;
+  e = hopper::w_heads_bf16<false>(w, w_bf16, w_hi, w_lo, nh, m, d, w_sh, w_sm, s);
+  if (e != 0) return e;
+  CUtensorMap hi_map, lo_map;
+  e = hopper::make_map(&hi_map, w_hi, d, m, nh, kDxTcCols);
+  if (e == 0) e = hopper::make_map(&lo_map, w_bf16 ? w_hi : w_lo, d, m, nh, kDxTcCols);
+  if (e != 0) return e;
+  float* o = static_cast<float*>(out);
+  if (kw == 8)
+    return w_bf16 ? launch_dx_tc_d<8, false>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s)
+                  : launch_dx_tc_d<8, true>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s);
+  return w_bf16 ? launch_dx_tc_d<16, false>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s)
+                : launch_dx_tc_d<16, true>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s);
 }

@@ -1,9 +1,11 @@
 // hopper.cuh — the Hopper (sm_90a) building blocks of the tensor-core
-// attention kernels and of code_grad.cu's dW: TMA tile loads completing on
-// an mbarrier, wgmma shared-memory descriptors for the swizzled tiles TMA
-// writes, the m64nNk16 bf16 wgmma in its SS form (A and B in shared memory;
-// for N = 128 also with B MN-major) and RS form (A in registers), and the
-// hi/lo split of an f32 operand into two bf16s.
+// attention kernels, of code_grad.cu's dx and dW and of proj_rtopk.cu: TMA
+// tile loads completing on an mbarrier, wgmma shared-memory descriptors for
+// the swizzled tiles TMA writes, the m64nNk16 bf16 wgmma in its SS form (A
+// and B in shared memory; for N = 128 also with B MN-major) and RS form (A
+// in registers), the hi/lo split of an f32 operand into two bf16s, the TMA
+// map encoders, and the kernel that writes strided f32|bf16 weight heads as
+// contiguous bf16 (hi, and lo = bf16(w - hi) where asked).
 //
 // Tile layout. A (ROWS, D) bf16 tile of a row-major (bh, n, D) tensor is
 // loaded by TMA in column chunks of one swizzle span each: 128-byte rows
@@ -294,19 +296,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a contiguous (bh, n, d) bf16 tensor for Tile<d, box_rows>:
-// boxes of (CHUNK columns, box_rows rows, 1 head), swizzled as the tile
-// expects, rows past n zero-filled. Returns a cudaError_t value.
-inline int make_map(CUtensorMap* map, const void* ptr, int d, int n, int bh, int box_rows) {
+// The map of a bf16 tensor of (depth, rows, cols) at row stride row_elems
+// and depth stride depth_elems (elements; multiples of 8): boxes of
+// (box_cols, box_rows, 1), swizzled in spans of sw bytes (64 or 128), zero
+// fill past every edge. Returns a cudaError_t value.
+inline int map_3d(CUtensorMap* map, const void* ptr, long long cols, long long rows,
+                  long long row_elems, long long depth, long long depth_elems, int box_cols,
+                  int box_rows, int sw = 128) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const int sw = d >= 64 ? 128 : 64;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(n) * d * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(sw / 2), static_cast<cuuint32_t>(box_rows),
-                             1};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_elems) * 2,
+                                 static_cast<cuuint64_t>(depth_elems) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -314,6 +318,64 @@ inline int make_map(CUtensorMap* map, const void* ptr, int d, int n, int bh, int
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The map of a contiguous (bh, n, d) bf16 tensor for Tile<d, box_rows>:
+// boxes of (CHUNK columns, box_rows rows, 1 head), swizzled as the tile
+// expects, rows past n zero-filled. Returns a cudaError_t value.
+inline int make_map(CUtensorMap* map, const void* ptr, int d, int n, int bh, int box_rows) {
+  const int sw = d >= 64 ? 128 : 64;
+  return map_3d(map, ptr, d, n, d, bh, static_cast<long long>(n) * d, sw / 2, box_rows, sw);
+}
+
+// ---- weight heads to bf16 ---------------------------------------------------
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// w heads (nh, m, d) at strides (w_sh, w_sm, 1) -> hi = bf16(w), contiguous,
+// and (lo non-null) lo = bf16(w - hi) in the same layout. ROWS fixes the
+// layout: false (nh, m, d), head after head; true (m, nh * d), row j holding
+// every head's columns of w's row j.
+template <bool ROWS, typename TW>
+__global__ void w_heads_bf16_kernel(const TW* __restrict__ w, __nv_bfloat16* __restrict__ hi,
+                                    __nv_bfloat16* __restrict__ lo, int nh, int m, int d,
+                                    long long w_sh, long long w_sm) {
+  const int total = nh * m * d;   // < 2^31 (the callers check)
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += gridDim.x * blockDim.x) {
+    int h, j, c;
+    if (ROWS) {
+      j = e / (nh * d);
+      const int col = e - j * nh * d;
+      h = col / d;
+      c = col - h * d;
+    } else {
+      const int hj = e / d;
+      c = e - hj * d;
+      h = hj / m;
+      j = hj - h * m;
+    }
+    const float v = to_f(w[h * w_sh + j * w_sm + c]);
+    const __nv_bfloat16 top = __float2bfloat16_rn(v);
+    hi[e] = top;
+    if (lo != nullptr) lo[e] = __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(top)));
+  }
+}
+
+// Launches w_heads_bf16_kernel on w, bf16 if w_bf16 else f32. Returns a
+// cudaError_t value.
+template <bool ROWS>
+int w_heads_bf16(const void* w, bool w_bf16, __nv_bfloat16* hi, __nv_bfloat16* lo, int nh, int m,
+                 int d, long long w_sh, long long w_sm, cudaStream_t stream) {
+  const long long want = (static_cast<long long>(nh) * m * d + 255) / 256;
+  const int blocks = static_cast<int>(want < 132LL * 16 ? want : 132LL * 16);
+  if (w_bf16)
+    w_heads_bf16_kernel<ROWS><<<blocks, 256, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(w), hi, lo, nh, m, d, w_sh, w_sm);
+  else
+    w_heads_bf16_kernel<ROWS><<<blocks, 256, 0, stream>>>(static_cast<const float*>(w), hi, lo,
+                                                          nh, m, d, w_sh, w_sm);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace hopper

@@ -6,33 +6,52 @@
 // each head: y = x @ w_h with w rounded to x's dtype and the sum in f32,
 // rounded to x's dtype (the unfused `x @ w.astype(x.dtype)`); then, with a
 // rope spec (theta, rot_dim), RoPE at the row's position on the leading
-// rot_dim dims in (2j, 2j+1) pairs (f32 math, rounded to x's dtype); then
+// rot_dim dims in (2j, 2j+1) pairs (f32 math, each product rounded on its
+// own as torch's elementwise ops round it, then rounded to x's dtype); then
 // the exact top-|k| of repro_torch's rtopk kernel: NaN read as +0, ties in
 // ascending index order, indices ascending, values moved bit-exact. Only
 // the (b, H, n, k) codes are written: the dense (n, d) projection never
 // leaves the block.
 //
-// Design: one block of 256 threads per (64-token tile, head, batch row).
-// w is read in place through its strides (head stride, row stride; unit
-// stride along d), so a per-head view of the packed w_qkv needs no copy.
-// The product walks m in chunks of 32: the x chunk (64 x 32) and the w
-// chunk (32 x D) are staged in shared memory as f32, and each thread
-// accumulates a 4-row x D/16-column register tile (rows rg + 16i, columns
-// cg + 16j), so a warp reads the w chunk conflict-free and the x chunk by
-// broadcast. The rounded (64 x D) tile then goes to shared memory (aliasing
-// the chunk buffers), RoPE rotates it in place, and each of the 8 warps
-// selects 8 rows with the warp-ballot bisection of csrc/rtopk.cu (one row
-// per warp, lane l holding entries e*32 + l).
+// Two bodies, one epilogue: RoPE in shared memory, then the selection. One
+// warp a row runs the warp-ballot bisection of csrc/rtopk.cu (lane l holding
+// entries e*32 + l); in the tensor-core body, for k <= 16, one thread a row
+// keeps the k largest magnitudes in a sorted register list instead (the
+// same choice): with 8 warps a block, the bisection's 32 dependent ballot
+// steps a row made that body 2.6x slower on an H100.
 //
-// Bound on the H100: operations. The projection is 2 m D flops per row and
-// head on CUDA cores in f32 here (bf16 inputs could use the tensor cores:
-// wgmma, a later change); the top-k is 32 ballot steps per row on
+// The tensor-core body (bf16 x, d in {32, 64, 128}, m a multiple of 8;
+// proj_rtopk_tc_launch): Y (b.n x H.d) = X (b.n x m) . W (m x H.d) as one
+// GEMM on wgmma. A block owns 128 tokens x 128 columns of Y (128 / d
+// heads) with two warpgroups of 64 tokens, and walks m in chunks of 64:
+// the x chunk (K-major A, 128 x 64) and the w chunk (MN-major B, 64 x 128)
+// arrive by TMA into a ring of three stages, zero-filled past n, m and the
+// last head, and each chunk is four Mma<128>::ss_mn steps. x is read once
+// per 128 columns (6 times at gpt2's 12 heads of 64, from L2 after the
+// first) where the CUDA-core body read it once per head. w reaches TMA as
+// contiguous (m, H.d) bf16: a pack kernel rounds an f32 head block (or a
+// bf16 one whose strides TMA cannot take) once per call; a bf16 block with
+// adjacent heads and 16-byte rows goes to TMA in place. bf16 x bf16
+// products are exact in f32, so only the order of the f32 sum differs from
+// the plain version's. The accumulator, rounded to bf16, then fills a
+// (128, 129) f32 tile over the stages for the epilogue.
+//
+// The CUDA-core body (f32 x, where the tensor cores would be TF32, which
+// fails f32's 1e-4; and other shapes; proj_rtopk_launch): one block of 256
+// threads per (64-token tile, head, batch row). w is read in place through
+// its strides. The product walks m in chunks of 32: the x chunk (64 x 32)
+// and the w chunk (32 x D) are staged in shared memory as f32, and each
+// thread accumulates a 4-row x D/16-column register tile (rows rg + 16i,
+// columns cg + 16j), so a warp reads the w chunk conflict-free and the x
+// chunk by broadcast. The rounded (64 x D) tile then goes to shared memory
+// (aliasing the chunk buffers) for the epilogue.
+//
+// Bound on the H100: operations. The projection is 2 m d flops per row and
+// head (tensor cores for bf16); the top-k is 32 ballot steps per row on
 // registers; the bytes are x and w once and k values + k int32 indices per
 // row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -42,8 +61,7 @@ constexpr int kThreads = 256;
 constexpr int kChunk = 32;     // m per staged chunk
 constexpr int kXP = kChunk + 1;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+using hopper::to_f;
 // round an f32 to T's precision and back (identity for f32)
 __device__ __forceinline__ float round_to(float x, float) { return x; }
 __device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
@@ -55,6 +73,114 @@ __device__ __forceinline__ void store_bits(float f, __nv_bfloat16* p) {
   *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(__float_as_uint(f) >> 16);
 }
 
+// RoPE on the pair (p[0], p[1]) = dims (2 jp, 2 jp + 1) at this position,
+// in place: the op sequence of models.layers.rope, each product and sum
+// rounded on its own (no FMA), then rounded to T
+template <typename T>
+__device__ __forceinline__ void rope_pair(float* p, int position, int jp, float theta,
+                                          int rot_dim) {
+  const float freq = powf(theta, -static_cast<float>(2 * jp) / static_cast<float>(rot_dim));
+  const float ang = static_cast<float>(position) * freq;
+  const float cs = cosf(ang), sn = sinf(ang);
+  const float x1 = p[0], x2 = p[1];
+  p[0] = round_to(__fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn)), T());
+  p[1] = round_to(__fadd_rn(__fmul_rn(x2, cs), __fmul_rn(x1, sn)), T());
+}
+
+// the exact top-|k| of one row of E * 32 entries y[e * 32 + lane], by one
+// warp, into k values (T's bits) and k ascending indices at vals / idx
+template <int E, typename T>
+__device__ __forceinline__ void select_row(const float* y, T* vals, int32_t* idx, int k,
+                                           int lane) {
+  const unsigned lower = (1u << lane) - 1u;
+  float f[E];
+  int32_t mag[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    f[e] = y[e * 32 + lane];
+    if (isnan(f[e])) f[e] = 0.0f;  // NaN -> +0.0 (the rtopk contract)
+    mag[e] = __float_as_int(fabsf(f[e]));
+  }
+  int lo = 0;
+  int hi = 0x7F800001;  // above +inf
+  for (int it = 0; it < 32; ++it) {
+    const int mid = lo + (hi - lo) / 2;
+    int cnt = 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) cnt += __popc(__ballot_sync(kFull, mag[e] >= mid));
+    if (cnt >= k) lo = mid; else hi = mid;
+  }
+  const int theta_bits = lo;
+  int n_hi = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) n_hi += __popc(__ballot_sync(kFull, mag[e] > theta_bits));
+  const int tie_quota = k - n_hi;
+  int ties_before = 0, sel_before = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const bool tie = mag[e] == theta_bits;
+    const unsigned tie_mask = __ballot_sync(kFull, tie);
+    const int tie_rank = ties_before + __popc(tie_mask & lower);
+    const bool sel = mag[e] > theta_bits || (tie && tie_rank < tie_quota);
+    const unsigned sel_mask = __ballot_sync(kFull, sel);
+    if (sel) {
+      const int o = sel_before + __popc(sel_mask & lower);
+      store_bits(f[e], vals + o);
+      idx[o] = e * 32 + lane;
+    }
+    ties_before += __popc(tie_mask);
+    sel_before += __popc(sel_mask);
+  }
+}
+
+// the same selection by one thread for a row of D entries y[0 .. D) when
+// k <= KL: the KL largest magnitudes kept in a descending register list
+// (one max / min pass a entry), the k-th of them the threshold; then the
+// entries above it, and the first (k - n_hi) at it in index order, written
+// in index order. Equal to select_row's choice, with no ballot chain.
+template <int D, int KL, typename T>
+__device__ __forceinline__ void select_row_thread(const float* y, T* vals, int32_t* idx,
+                                                  int k) {
+  int32_t top[KL];
+#pragma unroll
+  for (int j = 0; j < KL; ++j) top[j] = -1;   // below every magnitude
+#pragma unroll 8
+  for (int e = 0; e < D; ++e) {
+    const float f = y[e];
+    int32_t v = isnan(f) ? 0 : __float_as_int(fabsf(f));
+#pragma unroll
+    for (int j = 0; j < KL; ++j) {
+      const int32_t t = max(v, top[j]);
+      v = min(v, top[j]);
+      top[j] = t;
+    }
+  }
+  int32_t theta = top[0];
+#pragma unroll
+  for (int j = 1; j < KL; ++j)
+    if (j == k - 1) theta = top[j];
+  int n_hi = 0;
+#pragma unroll
+  for (int j = 0; j < KL; ++j) n_hi += top[j] > theta;   // the list is descending
+  const int tie_quota = k - n_hi;
+  int ties = 0, o = 0;
+#pragma unroll 8
+  for (int e = 0; e < D; ++e) {
+    float f = y[e];
+    if (isnan(f)) f = 0.0f;  // NaN -> +0.0 (the rtopk contract)
+    const int32_t v = __float_as_int(fabsf(f));
+    const bool tie = v == theta;
+    if (v > theta || (tie && ties < tie_quota)) {
+      store_bits(f, vals + o);
+      idx[o] = e;
+      ++o;
+    }
+    ties += tie;
+  }
+}
+
+// ---- the CUDA-core body -------------------------------------------------------
+
 template <int D, typename T, typename TW>
 __global__ void __launch_bounds__(kThreads)
 proj_rtopk_kernel(const T* __restrict__ x, const TW* __restrict__ w,
@@ -64,7 +190,6 @@ proj_rtopk_kernel(const T* __restrict__ x, const TW* __restrict__ w,
                   int rot_dim) {
   constexpr int TN = D / 16;  // columns per thread
   constexpr int TM = 4;       // rows per thread
-  constexpr int E = D / 32;   // entries per lane in the selection
   constexpr int YP = D + 1;
   extern __shared__ float smem[];
   float* xs = smem;                 // (kRows, kXP)
@@ -126,61 +251,17 @@ proj_rtopk_kernel(const T* __restrict__ x, const TW* __restrict__ w,
     for (int t = tid; t < kRows * half; t += kThreads) {
       const int r = t / half, jp = t % half;
       if (r >= rows_left) continue;
-      const float freq = powf(theta, -static_cast<float>(2 * jp) / static_cast<float>(rot_dim));
-      const float ang = static_cast<float>(pos[static_cast<size_t>(b) * n + n0 + r]) * freq;
-      const float cs = cosf(ang), sn = sinf(ang);
-      float* p = ys + r * YP + 2 * jp;
-      const float x1 = p[0], x2 = p[1];
-      p[0] = round_to(x1 * cs - x2 * sn, T());
-      p[1] = round_to(x2 * cs + x1 * sn, T());
+      rope_pair<T>(ys + r * YP + 2 * jp, pos[static_cast<size_t>(b) * n + n0 + r], jp, theta,
+                   rot_dim);
     }
     __syncthreads();
   }
 
   // top-|k| per row: one warp per row, 8 rows per warp
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const unsigned lower = (1u << lane) - 1u;
-  for (int r = warp; r < kRows && r < rows_left; r += kThreads / 32) {
-    float f[E];
-    int32_t mag[E];
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      f[e] = ys[r * YP + e * 32 + lane];
-      if (isnan(f[e])) f[e] = 0.0f;  // NaN -> +0.0 (the rtopk contract)
-      mag[e] = __float_as_int(fabsf(f[e]));
-    }
-    int lo = 0;
-    int hi = 0x7F800001;  // above +inf
-    for (int it = 0; it < 32; ++it) {
-      const int mid = lo + (hi - lo) / 2;
-      int cnt = 0;
-#pragma unroll
-      for (int e = 0; e < E; ++e) cnt += __popc(__ballot_sync(kFull, mag[e] >= mid));
-      if (cnt >= k) lo = mid; else hi = mid;
-    }
-    const int theta_bits = lo;
-    int n_hi = 0;
-#pragma unroll
-    for (int e = 0; e < E; ++e) n_hi += __popc(__ballot_sync(kFull, mag[e] > theta_bits));
-    const int tie_quota = k - n_hi;
-    int ties_before = 0, sel_before = 0;
+  for (int r = tid >> 5; r < kRows && r < rows_left; r += kThreads / 32) {
     const size_t orow = ((static_cast<size_t>(b) * nh + h) * n + n0 + r) * k;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const bool tie = mag[e] == theta_bits;
-      const unsigned tie_mask = __ballot_sync(kFull, tie);
-      const int tie_rank = ties_before + __popc(tie_mask & lower);
-      const bool sel = mag[e] > theta_bits || (tie && tie_rank < tie_quota);
-      const unsigned sel_mask = __ballot_sync(kFull, sel);
-      if (sel) {
-        const size_t o = orow + sel_before + __popc(sel_mask & lower);
-        store_bits(f[e], vals + o);
-        idx[o] = e * 32 + lane;
-      }
-      ties_before += __popc(tie_mask);
-      sel_before += __popc(sel_mask);
-    }
+    select_row<D / 32>(ys + r * YP, vals + orow, idx + orow, k, lane);
   }
 }
 
@@ -218,6 +299,151 @@ int by_dtype(const void* x, const void* w, const void* pos, void* vals, void* id
   return launch<D, float, float>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, theta, rot_dim, s);
 }
 
+// ---- the tensor-core body (bf16 x) ------------------------------------------
+
+constexpr int kTcTok = 128;      // tokens of a block: two warpgroups of 64
+constexpr int kTcCols = 128;     // columns of Y (heads x d) of a block: the wgmma N
+constexpr int kTcK = 64;         // m of a chunk: four k16 steps
+constexpr int kTcStages = 3;     // x and w tiles: chunks c .. c + 2
+constexpr int kTcThreads = 256;
+constexpr int kYP = kTcCols + 1; // row stride of the f32 y tile
+using XTile = hopper::Tile<kTcK, kTcTok>;    // x chunk: 128 token rows x 64 of m (K-major)
+using WTile = hopper::Tile<kTcCols, kTcK>;   // w chunk: 64 rows of m x 128 columns (MN-major)
+static_assert(kTcTok * kYP * 4 <= kTcStages * (XTile::BYTES + WTile::BYTES),
+              "the y tile fits over the stages");
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+proj_rtopk_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap, const int32_t* __restrict__ pos,
+                     __nv_bfloat16* __restrict__ vals, int32_t* __restrict__ idx, int n, int m,
+                     int nh, int k, float theta, int rot_dim) {
+  constexpr int HEADS = kTcCols / D;   // heads of a block
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* xs = base;                                // kTcStages x tiles
+  uint8_t* ws = xs + kTcStages * XTile::BYTES;       // kTcStages w tiles
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ws + kTcStages * WTile::BYTES);
+  float* ys = reinterpret_cast<float*>(base);        // (kTcTok, kYP), after the product
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int n0 = blockIdx.x * kTcTok;
+  const int col0 = blockIdx.y * kTcCols;
+  const int b = blockIdx.z;
+  const int nc = (m + kTcK - 1) / kTcK;
+
+  if (tid == 0) {
+    for (int i = 0; i < kTcStages; ++i) hopper::mbar_init(&bar[i], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  // chunk c's x and w tiles onto its stage's barrier (thread 0)
+  auto load = [&](int c) {
+    if (tid != 0 || c >= nc) return;
+    const int st = c % kTcStages;
+    hopper::mbar_expect_tx(&bar[st], XTile::BYTES + WTile::BYTES);
+    hopper::tma_load_3d(xs + st * XTile::BYTES, &xmap, &bar[st], c * kTcK, n0, b);
+#pragma unroll
+    for (int ch = 0; ch < WTile::CHUNKS; ++ch)
+      hopper::tma_load_3d(ws + st * WTile::BYTES + ch * kTcK * WTile::SW, &wmap, &bar[st],
+                          col0 + ch * WTile::CHUNK, c * kTcK, 0);
+  };
+  for (int c = 0; c < kTcStages - 1; ++c) load(c);
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  hopper::fence_regs(acc);
+  for (int c = 0; c < nc; ++c) {
+    const int st = c % kTcStages;
+    const uint32_t a = hopper::smem_u32(xs + st * XTile::BYTES);
+    const uint32_t bw = hopper::smem_u32(ws + st * WTile::BYTES);
+    hopper::mbar_wait(&bar[st], (c / kTcStages) & 1);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcK / 16; ++kk)
+      hopper::Mma<128>::ss_mn(acc, XTile::kmajor(a, 64 * wg, kk), WTile::mnmajor(bw, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();   // this warpgroup's products of c - 1 are done
+    __syncthreads();           // both warpgroups': chunk c - 1's stage is free
+    load(c + kTcStages - 1);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  __syncthreads();   // every product has read its tiles: the y tile goes over them
+
+  // the accumulator rounded to bf16: row 64 wg + 16 w + l/4 (+8), column
+  // 8j + 2(l%4) (+1)
+  const int lane = tid % 32;
+  const int r0 = 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
+  const int c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    ys[(r0 + 8 * ((i % 4) / 2)) * kYP + c0 + 8 * (i / 4) + (i % 2)] =
+        round_to(acc[i], __nv_bfloat16());
+  __syncthreads();
+
+  if (pos != nullptr) {  // RoPE on each head's leading rot_dim dims, in place
+    const int half = rot_dim / 2;
+    for (int t = tid; t < kTcTok * HEADS * half; t += kTcThreads) {
+      const int r = t / (HEADS * half), hs = (t / half) % HEADS, jp = t % half;
+      if (n0 + r >= n) continue;
+      rope_pair<__nv_bfloat16>(ys + r * kYP + hs * D + 2 * jp,
+                               pos[static_cast<size_t>(b) * n + n0 + r], jp, theta, rot_dim);
+    }
+    __syncthreads();
+  }
+
+  // top-|k| per (token, head) row: one thread a row for k <= 16 (the warp
+  // reads 32 rows' entries column by column: kYP keeps them on 32 banks),
+  // else one warp a row
+  if (k <= 16) {
+    for (int row = tid; row < kTcTok * HEADS; row += kTcThreads) {
+      const int r = row % kTcTok, hs = row / kTcTok;
+      const int h = col0 / D + hs;
+      if (h >= nh || n0 + r >= n) continue;
+      const size_t orow = ((static_cast<size_t>(b) * nh + h) * n + n0 + r) * k;
+      if (k <= 8)
+        select_row_thread<D, 8>(ys + r * kYP + hs * D, vals + orow, idx + orow, k);
+      else
+        select_row_thread<D, 16>(ys + r * kYP + hs * D, vals + orow, idx + orow, k);
+    }
+    return;
+  }
+  for (int row = tid / 32; row < kTcTok * HEADS; row += kTcThreads / 32) {
+    const int r = row % kTcTok, hs = row / kTcTok;
+    const int h = col0 / D + hs;
+    if (h >= nh || n0 + r >= n) continue;
+    const size_t orow = ((static_cast<size_t>(b) * nh + h) * n + n0 + r) * k;
+    select_row<D / 32>(ys + r * kYP + hs * D, vals + orow, idx + orow, k, lane);
+  }
+}
+
+template <int D>
+int launch_tc(const CUtensorMap& xmap, const CUtensorMap& wmap, const void* pos, void* vals,
+              void* idx, int b, int n, int m, int nh, int k, float theta, int rot_dim,
+              cudaStream_t stream) {
+  const size_t smem = 1024 + kTcStages * (XTile::BYTES + WTile::BYTES) +
+                      kTcStages * sizeof(uint64_t);
+  auto kernel = proj_rtopk_tc_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((n + kTcTok - 1) / kTcTok, (nh * D + kTcCols - 1) / kTcCols, b);
+  kernel<<<grid, kTcThreads, smem, stream>>>(xmap, wmap, static_cast<const int32_t*>(pos),
+                                             static_cast<__nv_bfloat16*>(vals),
+                                             static_cast<int32_t*>(idx), n, m, nh, k, theta,
+                                             rot_dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_args(int b, int n, int m, int nh, int d, int k, const void* pos, int rot_dim) {
+  return m <= 0 || k <= 0 || k > d || nh > 65535 || b > 65535 ||
+         (pos != nullptr && (rot_dim <= 0 || rot_dim > d || rot_dim % 2));
+}
+
 }  // namespace
 
 extern "C" const char* sfa_error_string(int err) {
@@ -236,13 +462,52 @@ extern "C" int proj_rtopk_launch(const void* x, const void* w, const void* pos,
                                  void* stream) {
   cudaGetLastError();
   if (b <= 0 || n <= 0 || nh <= 0) return 0;
-  if (m <= 0 || k <= 0 || k > d || nh > 65535 || b > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (pos != nullptr && (rot_dim <= 0 || rot_dim > d || rot_dim % 2))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(b, n, m, nh, d, k, pos, rot_dim)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 32) return by_dtype<32>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, theta, rot_dim, x_bf16, w_bf16, s);
   if (d == 64) return by_dtype<64>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, theta, rot_dim, x_bf16, w_bf16, s);
   if (d == 128) return by_dtype<128>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, theta, rot_dim, x_bf16, w_bf16, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core body: x (b, n, m) bf16 contiguous and 16-byte aligned, m
+// a multiple of 8; w heads (nh, m, d) in f32|bf16 at element strides
+// (w_sh, w_sm, 1); pos, vals, idx, k, theta and rot_dim as for
+// proj_rtopk_launch (vals bf16), d in {32, 64, 128}. wpack: scratch of
+// m * nh * d bf16, 16-byte aligned, where the pack kernel writes w as
+// (m, nh * d); null to read a bf16 w in place, which needs w_sh == d,
+// w_sm a multiple of 8 and w 16-byte aligned. Launches the pack kernel
+// (with wpack) and the dense kernel; returns the last launch's
+// cudaGetLastError().
+extern "C" int proj_rtopk_tc_launch(const void* x, const void* w, const void* pos, void* vals,
+                                    void* idx, void* wpack, int b, int n, int m, int nh, int d,
+                                    long long w_sh, long long w_sm, int k, float theta,
+                                    int rot_dim, int w_bf16, void* stream) {
+  cudaGetLastError();
+  if (b <= 0 || n <= 0 || nh <= 0) return 0;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (bad_args(b, n, m, nh, d, k, pos, rot_dim) || (d != 32 && d != 64 && d != 128) ||
+      m % 8 != 0 || static_cast<long long>(nh) * d * m >= (1LL << 31) || misaligned(x) ||
+      (wpack != nullptr && misaligned(wpack)) ||
+      (wpack == nullptr && (!w_bf16 || w_sh != d || w_sm % 8 != 0 || misaligned(w))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long cols = static_cast<long long>(nh) * d;
+  const void* wt = w;
+  long long w_row = w_sm;
+  if (wpack != nullptr) {
+    // w as (m, nh * d) bf16, row j holding every head's columns of w's row j
+    const int e = hopper::w_heads_bf16<true>(w, w_bf16, static_cast<__nv_bfloat16*>(wpack),
+                                             nullptr, nh, m, d, w_sh, w_sm, s);
+    if (e != 0) return e;
+    wt = wpack;
+    w_row = cols;
+  }
+  CUtensorMap xmap, wmap;
+  int e = hopper::map_3d(&xmap, x, m, n, m, b, static_cast<long long>(n) * m, kTcK, kTcTok);
+  if (e == 0) e = hopper::map_3d(&wmap, wt, cols, m, w_row, 1, w_row * m, WTile::CHUNK, kTcK);
+  if (e != 0) return e;
+  if (d == 32) return launch_tc<32>(xmap, wmap, pos, vals, idx, b, n, m, nh, k, theta, rot_dim, s);
+  if (d == 64) return launch_tc<64>(xmap, wmap, pos, vals, idx, b, n, m, nh, k, theta, rot_dim, s);
+  return launch_tc<128>(xmap, wmap, pos, vals, idx, b, n, m, nh, k, theta, rot_dim, s);
 }

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
 rtopk            — exact row top-|k| (warp ballot bisection on bit patterns);
-                   proj_rtopk: the fused head projection -> [RoPE] -> top-k
+                   proj_rtopk: the fused head projection -> [RoPE] -> top-k,
+                   bf16 on the tensor cores (x and w by TMA, wgmma), f32 on
+                   CUDA cores
 flash_sfa        — FlashSFA forward (prefill attention over top-k codes),
                    with or without the block-skip level map: bf16 on the
                    tensor cores (csrc/flash_sfa_tc.cu, codes densified into
@@ -17,8 +19,9 @@ flash_attention  — dense FlashAttention forward (the paper's baseline):
                    bf16 on the tensor cores (TMA + wgmma, csrc/hopper.cuh),
                    f32 on CUDA cores
 code_grad        — dx and dW of the Q/K projection from compact code
-                   gradients: dW bf16 on the tensor cores (codes densified
-                   in shared memory, x by TMA), f32 and dx on CUDA cores
+                   gradients: bf16 on the tensor cores (codes densified in
+                   shared memory, x or the split w by TMA), f32 on CUDA
+                   cores
 ops              — head folding, the SFA and dense attention autograd
                    Functions, the fused q/k codes, top-k helpers
 ref              — the plain PyTorch versions of the kernels
@@ -31,7 +34,7 @@ schedule, ``flash_sfa_bwd.compact_launches`` for the compact emits).
 ``launch_counts()`` reads them all under one name per kernel (one per
 PERF.md row, whichever body ran); ``body_counts()`` reads the launches of
 the CUDA-core bodies alone of the kernels that also have a tensor-core one
-(FlashSFA forward and backward, code_grad_dw:
+(proj_rtopk, FlashSFA forward and backward, code_grad_dx and code_grad_dw:
 ``<wrapper>.cuda_core_launches``), so a run shows which body its bf16 path
 took. A wrapper's
 output has no ``grad_fn``: it refuses inputs that require grad, and
@@ -78,8 +81,10 @@ COUNTERS = {
 # the CUDA-core bodies that a dtype or shape can send a call to instead of
 # the tensor-core ones
 BODY_COUNTERS = {
+    "proj_rtopk_cuda_core": (proj_rtopk, "cuda_core_launches"),
     "flash_sfa_cuda_core": (flash_sfa, "cuda_core_launches"),
     "flash_sfa_bwd_cuda_core": (flash_sfa_bwd, "cuda_core_launches"),
+    "code_grad_dx_cuda_core": (code_grad_dx, "cuda_core_launches"),
     "code_grad_dw_cuda_core": (code_grad_dw, "cuda_core_launches"),
 }
 

@@ -15,27 +15,33 @@ so duplicate indices sum, as ``_densify_block`` makes them, and an index
 outside [0, d) adds nothing. The dense (n, d) gradient never reaches device
 memory.
 
-dW picks its body by dtype and shape alone (``tensor_core_body``):
+Both pick their body by dtype and shape alone (``tensor_core_body``: the
+codes' dtype, d, kw and m):
 
   * bf16 with d in ``TC_HEAD_DIMS``, kw in ``TC_KW`` and m a multiple of 8
     — the tensor cores, as the TPU densified each code tile in VMEM for its
     matrix unit: a pack kernel resolves each code row's repeated indices
     once (a repeated index's f32 sum kept as bf16 hi + lo, the lo products
-    run only when some sum needs them); then dWᵀ = Sᵀ·x
-    as one GEMM over the token axis, each block 128 feature rows (128/d
-    heads) × 128 columns of m, the chunk's Sᵀ hi and lo tiles densified in
-    shared memory, x by TMA; the token axis split so the blocks fill the
-    card, then a fixed-order sum;
-  * f32 (on the tensor cores f32 would be TF32, which fails 1e-4) and the
-    other bf16 shapes — the CUDA-core body: one block per (head,
-    128-column tile, token split), each thread owning one row of an f32
-    accumulator in shared memory, gathering each product at the kw stored
-    coordinates; ``code_grad_dw.cuda_core_launches`` counts it
+    run only when some sum needs them). dW: dWᵀ = Sᵀ·x as one GEMM over
+    the token axis, each block 128 feature rows (128/d heads) × 128 columns
+    of m, the chunk's Sᵀ hi and lo tiles densified in shared memory, x by
+    TMA; the token axis split so the blocks fill the card, then a
+    fixed-order sum. dx: dx = S·Wᵀ as one GEMM over the head-feature axis,
+    each block 128 tokens × 128 columns of m walking the heads in order,
+    each head's S tile densified in shared memory, w split once per call
+    into contiguous bf16 hi + lo (an f32 w rounded to bf16 alone fails
+    1e-4) and read by TMA;
+  * f32 codes (on the tensor cores f32 would be TF32, which fails 1e-4) and
+    the other bf16 shapes — the CUDA-core bodies: dx one block per
+    (128-token tile, 64-column tile), the heads summed inside the block; dW
+    one block per (head, 128-column tile, token split), each thread owning
+    one row of an f32 accumulator in shared memory; both gather each
+    product at the kw stored coordinates. ``code_grad_dx.cuda_core_launches``
+    and ``code_grad_dw.cuda_core_launches`` count them
     (``kernels.body_counts()``).
 
-dx (one body, CUDA cores): one block per (128-token tile, 64-column tile),
-the heads summed inside the block. Every output has one owner and one
-summation order: no atomics, a deterministic result.
+Every output has one owner and one summation order: no atomics, a
+deterministic result.
 
 Bound on the H100: operations, for each of dx and dW the lesser of 2·kw
 flops per (token, column, head) on CUDA cores and 2·d on the tensor cores;
@@ -65,21 +71,24 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_KW = 64
 _DX_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_DX_TC_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+               + [ctypes.c_int] + [ctypes.c_void_p])
 _DW_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DW_TC_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DW_SPLIT_TOKENS = 1024     # CUDA-core dW: tokens per split of the contraction
 _DW_MAX_SPLITS = 8          # either dW body: most token splits
-TC_HEAD_DIMS = (32, 64, 128)   # d of the tensor-core dW body
-TC_KW = (8, 16)                # its code widths
+TC_HEAD_DIMS = (32, 64, 128)   # d of the tensor-core bodies
+TC_KW = (8, 16)                # their code widths
 _TC_TILE = 128                 # its block: feature rows and columns of m (csrc kTcRows, kTcCols)
 _TC_TOK = 64                   # its chunk of tokens (csrc kTcTok)
 _TC_MIN_CHUNKS = 4             # chunks a token split walks at least
 
 
 def tensor_core_body(dtype, d: int, kw: int, m: int) -> bool:
-    """Does ``code_grad_dw`` run the tensor-core body for this dtype and
-    shape? (bf16, d in TC_HEAD_DIMS, kw in TC_KW, m a multiple of 8: the
-    rows of x a TMA tile reads sit on 16 bytes.)"""
+    """Do ``code_grad_dx`` and ``code_grad_dw`` run their tensor-core
+    bodies for codes of this dtype and this shape? (bf16, d in
+    TC_HEAD_DIMS, kw in TC_KW, m a multiple of 8: the rows of x, and of the
+    w tiles, that a TMA tile reads sit on 16 bytes.)"""
     return dtype == torch.bfloat16 and d in TC_HEAD_DIMS and kw in TC_KW and m % 8 == 0
 
 
@@ -110,17 +119,57 @@ def _check_codes(what, vals, idx, d):
                          f"and d <= 256; got {vals.dtype}, kw={kw}, d={d}")
 
 
-def _weight_strides(what, w, d):
+def _check_weight(what, w, d):
     if w.dtype not in _DTYPES or w.shape[-1] != d or w.stride(-1) != 1:
         raise ValueError(f"{what}: w must be (H, m, {d}) f32/bf16 with unit stride on "
                          f"d, got {tuple(w.shape)} {w.dtype} strides {w.stride()}")
-    return w.stride(0), w.stride(1)
+
+
+def _packed_codes(vals):
+    """Scratch of the pack kernel: its words (4 bytes a code), lo bits (2
+    bytes a code) and the flag of a nonzero lo."""
+    return torch.empty(vals.numel() * 6 + 16, dtype=torch.uint8, device=vals.device)
+
+
+def _dx_tensor_core(vals, idx, w, d):
+    """The tensor-core dx body on checked bf16 codes -> (n, m) f32."""
+    nh, n, kw = vals.shape
+    m = w.shape[1]
+    vals, idx = _build.tma_operand(vals), _build.tma_operand(idx)
+    out = torch.empty((n, m), dtype=torch.float32, device=vals.device)
+    packed = _packed_codes(vals)
+    # w as contiguous bf16 hi (and, for f32 w, lo) heads
+    wsplit = torch.empty((1 if w.dtype == torch.bfloat16 else 2) * nh * m * d,
+                         dtype=torch.bfloat16, device=vals.device)
+    fn = _build.entry("code_grad", "code_grad_dx_tc_launch", _DX_TC_ARGS)
+    with torch.cuda.device(vals.device):
+        err = fn(vals.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 packed.data_ptr(), wsplit.data_ptr(), nh, n, kw, m, d, w.stride(0),
+                 w.stride(1), _DTYPES[w.dtype], _build.stream_ptr(vals))
+    _build.check("code_grad", err, "code_grad_dx (tensor cores) launch")
+    return out
+
+
+def _dx_cuda_core(vals, idx, w, d):
+    """The CUDA-core dx body on checked inputs -> (n, m) f32."""
+    nh, n, kw = vals.shape
+    m = w.shape[1]
+    vals, idx = vals.contiguous(), idx.contiguous()
+    out = torch.empty((n, m), dtype=torch.float32, device=vals.device)
+    fn = _build.entry("code_grad", "code_grad_dx_launch", _DX_ARGS)
+    with torch.cuda.device(vals.device):
+        err = fn(vals.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 nh, n, kw, m, d, w.stride(0), w.stride(1), _DTYPES[vals.dtype],
+                 _DTYPES[w.dtype], _build.stream_ptr(vals))
+    _build.check("code_grad", err, "code_grad_dx launch")
+    return out
 
 
 def code_grad_dx(vals, idx, w, *, d: int):
     """dx = Σ_h scatter(vals_h, idx_h) @ w_hᵀ. vals/idx (H, n, kw) at any
     code width; w (H, m, d) per-head weight blocks, any strides with unit
-    stride on d. Returns (n, m) f32."""
+    stride on d. Returns (n, m) f32. On the card the codes' dtype and the
+    shape pick the body (``tensor_core_body``)."""
     _build.refuse_grad("code_grad_dx", vals, w)
     if vals.device.type == "cpu":
         return code_grad_dx_plain(vals, idx, w, d=d)
@@ -131,21 +180,19 @@ def code_grad_dx(vals, idx, w, *, d: int):
     if w.shape[0] != nh or w.device != vals.device:
         raise ValueError(f"code_grad_dx: w is {tuple(w.shape)} on {w.device}, codes "
                          f"{tuple(vals.shape)} on {vals.device}")
-    w_sh, w_sm = _weight_strides("code_grad_dx", w, d)
+    _check_weight("code_grad_dx", w, d)
     m = w.shape[1]
-    vals, idx = vals.contiguous(), idx.contiguous()
-    out = torch.empty((n, m), dtype=torch.float32, device=vals.device)
-    fn = _build.entry("code_grad", "code_grad_dx_launch", _DX_ARGS)
-    with torch.cuda.device(vals.device):
-        err = fn(vals.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 nh, n, kw, m, d, w_sh, w_sm, _DTYPES[vals.dtype], _DTYPES[w.dtype],
-                 _build.stream_ptr(vals))
-    _build.check("code_grad", err, "code_grad_dx launch")
+    if tensor_core_body(vals.dtype, d, kw, m):
+        out = _dx_tensor_core(vals, idx, w, d)
+    else:
+        out = _dx_cuda_core(vals, idx, w, d)
+        code_grad_dx.cuda_core_launches += 1
     code_grad_dx.launches += 1
     return out
 
 
-code_grad_dx.launches = 0
+code_grad_dx.launches = 0             # either body
+code_grad_dx.cuda_core_launches = 0   # the CUDA-core body
 
 
 def _dw_tensor_core(x, vals, idx, d):
@@ -157,9 +204,7 @@ def _dw_tensor_core(x, vals, idx, d):
     splits, split_len = tc_splits(n, nh, d, m, _sm_count(vals.device.index))
     part = (torch.empty((splits, nh, m, d), dtype=torch.float32, device=vals.device)
             if splits > 1 else None)
-    # the pack kernel's words (4 bytes a code), lo bits (2 bytes a code) and
-    # the flag of a nonzero lo
-    packed = torch.empty(nh * n * kw * 6 + 16, dtype=torch.uint8, device=vals.device)
+    packed = _packed_codes(vals)
     fn = _build.entry("code_grad", "code_grad_dw_tc_launch", _DW_TC_ARGS)
     with torch.cuda.device(vals.device):
         err = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),

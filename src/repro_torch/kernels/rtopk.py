@@ -13,15 +13,27 @@ whole row in one warp's registers so each of the 32 steps is a few ballots
 with no shared memory or shuffles.
 
 ``proj_rtopk`` replaces the TPU kernel ``repro/kernels/rtopk.py::proj_rtopk``
-(Pallas body ``_proj_rtopk_kernel``, ``_rope_tile``) with the CUDA kernel in
-``csrc/proj_rtopk.cu``: one block per (64-token tile, head, batch row)
-builds the (64, d) projection in f32 from x and the head's columns of w
-(read in place through strides), rounds it to x's dtype, applies RoPE when
-asked, and selects each row's top-k with the same warp-ballot bisection and
-tie order as rtopk. Only the codes reach device memory: the dense (n, d)
+(Pallas body ``_proj_rtopk_kernel``, ``_rope_tile``) with the CUDA kernels
+in ``csrc/proj_rtopk.cu``, which pick their body by dtype and shape alone
+(``tensor_core_body``):
+
+  * bf16 x with d in ``PROJ_HEAD_DIMS`` and m a multiple of 8 — the tensor
+    cores: Y = X·W as one GEMM on wgmma, a block owning 128 tokens × 128
+    columns (128/d heads), x and w by TMA in chunks of 64 of m; w rounded
+    to bf16 as contiguous (m, H·d) by a pack kernel once per call (a bf16
+    w with adjacent heads and 16-byte rows goes to TMA in place);
+  * f32 (on the tensor cores f32 would be TF32, which fails 1e-4) and the
+    other shapes — the CUDA-core body: one block per (64-token tile, head,
+    batch row), the (64, d) product in f32 registers, w read in place
+    through its strides; ``proj_rtopk.cuda_core_launches`` counts it
+    (``kernels.body_counts()``).
+
+Both round the f32 product to x's dtype into shared memory, apply RoPE when
+asked, and select each row's top-k with rtopk's choice and tie order: one
+warp a row by the warp-ballot bisection, or in the tensor-core body, for
+k <= 16, one thread a row keeping the k largest magnitudes in registers. Only the codes reach device memory: the dense (n, d)
 q/k of the unfused path is never written. Bound on the H100: operations
-(the 2·m·d flops of the projection per row and head, on CUDA cores in f32
-here; the tensor cores are a later change).
+(the 2·m·d flops of the projection per row and head).
 
 The plain versions are ``kernels/ref.py::rtopk_ref`` (the same bisection in
 torch ops) and ``::proj_rtopk_ref`` (einsum, rope, rtopk_ref); the wrappers
@@ -79,6 +91,69 @@ rtopk.launches = 0
 _PROJ_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
               + [ctypes.c_int] + [ctypes.c_float] + [ctypes.c_int] * 3
               + [ctypes.c_void_p])
+_PROJ_TC_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                 + [ctypes.c_int] + [ctypes.c_float] + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p])
+
+
+def tensor_core_body(dtype, d: int, m: int) -> bool:
+    """Does ``proj_rtopk`` run the tensor-core body for x of this dtype and
+    this shape? (bf16, d in PROJ_HEAD_DIMS, m a multiple of 8: the rows of
+    x and w that a TMA tile reads sit on 16 bytes.)"""
+    return dtype == torch.bfloat16 and d in PROJ_HEAD_DIMS and m % 8 == 0
+
+
+def w_in_place(w_heads: torch.Tensor) -> bool:
+    """Can the tensor-core body's TMA read this (H, m, d) weight view as it
+    lies, as the (m, H·d) matrix of its rows? (bf16, the heads side by
+    side, 16-byte rows on a 16-byte base.) Otherwise a pack kernel writes
+    that matrix in bf16 first."""
+    return (w_heads.dtype == torch.bfloat16 and w_heads.stride(0) == w_heads.shape[-1]
+            and w_heads.stride(1) % 8 == 0 and w_heads.data_ptr() % 16 == 0)
+
+
+def _rope_args(positions, rope_spec, b, n, d, device):
+    if rope_spec is None:
+        return None, 0.0, 0
+    if positions is None:
+        raise ValueError("proj_rtopk: rope_spec needs positions")
+    theta, rot = float(rope_spec[0]), int(rope_spec[1])
+    if rot <= 0 or rot > d or rot % 2:
+        raise ValueError(f"proj_rtopk: rot_dim {rot} must be even and <= d={d}")
+    pos = torch.as_tensor(positions, device=device).expand(b, n).to(torch.int32).contiguous()
+    return pos, theta, rot
+
+
+def _proj_tensor_core(x, w_heads, pos, k, theta, rot, vals, idx):
+    """The tensor-core body on checked bf16 x."""
+    b, n, m = x.shape
+    nh, _, d = w_heads.shape
+    x = _build.tma_operand(x)
+    wpack = (None if w_in_place(w_heads) else
+             torch.empty((m, nh * d), dtype=torch.bfloat16, device=x.device))
+    fn = _build.entry("proj_rtopk", "proj_rtopk_tc_launch", _PROJ_TC_ARGS)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w_heads.data_ptr(),
+                 pos.data_ptr() if pos is not None else None, vals.data_ptr(),
+                 idx.data_ptr(), wpack.data_ptr() if wpack is not None else None, b, n, m,
+                 nh, d, w_heads.stride(0), w_heads.stride(1), k, theta, rot,
+                 _DTYPES[w_heads.dtype], _build.stream_ptr(x))
+    _build.check("proj_rtopk", err, "proj_rtopk (tensor cores) launch")
+
+
+def _proj_cuda_core(x, w_heads, pos, k, theta, rot, vals, idx):
+    """The CUDA-core body on checked inputs."""
+    b, n, m = x.shape
+    nh, _, d = w_heads.shape
+    x = x.contiguous()
+    fn = _build.entry("proj_rtopk", "proj_rtopk_launch", _PROJ_ARGS)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w_heads.data_ptr(),
+                 pos.data_ptr() if pos is not None else None, vals.data_ptr(),
+                 idx.data_ptr(), b, n, m, nh, d, w_heads.stride(0), w_heads.stride(1),
+                 k, theta, rot, _DTYPES[x.dtype], _DTYPES[w_heads.dtype],
+                 _build.stream_ptr(x))
+    _build.check("proj_rtopk", err, "proj_rtopk launch")
 
 
 def proj_rtopk(x: torch.Tensor, w_heads: torch.Tensor, positions=None, *, k: int,
@@ -87,11 +162,13 @@ def proj_rtopk(x: torch.Tensor, w_heads: torch.Tensor, positions=None, *, k: int
 
     x (b, n, m) activations; w_heads (H, m, d) per-head projection blocks
     (any strides with unit stride on d: a per-head view of a packed weight
-    is read in place); positions (b, n) int, needed with
-    ``rope_spec = (theta, rot_dim)``. Returns (values (b, H, n, k) in
-    x.dtype, indices (b, H, n, k) int32 ascending) = rtopk of
-    rope(x @ w_h.to(x.dtype)), the product summed in f32 and rounded to
-    x.dtype. On the card x and w are f32 or bf16 and d is 32, 64 or 128.
+    is read in place, or packed once per call by the tensor-core body);
+    positions (b, n) int, needed with ``rope_spec = (theta, rot_dim)``.
+    Returns (values (b, H, n, k) in x.dtype, indices (b, H, n, k) int32
+    ascending) = rtopk of rope(x @ w_h.to(x.dtype)), the product summed in
+    f32 and rounded to x.dtype. On the card x and w are f32 or bf16 and d
+    is 32, 64 or 128; the dtype and shape pick the body
+    (``tensor_core_body``).
     """
     _build.refuse_grad("proj_rtopk", x, w_heads)
     if x.device.type == "cpu":
@@ -108,29 +185,17 @@ def proj_rtopk(x: torch.Tensor, w_heads: torch.Tensor, positions=None, *, k: int
                          f"and 0 < k <= d; got x {tuple(x.shape)} {x.dtype}, w "
                          f"{tuple(w_heads.shape)} {w_heads.dtype} strides "
                          f"{w_heads.stride()}, k={k}")
-    pos = None
-    theta, rot = 0.0, 0
-    if rope_spec is not None:
-        if positions is None:
-            raise ValueError("proj_rtopk: rope_spec needs positions")
-        theta, rot = float(rope_spec[0]), int(rope_spec[1])
-        if rot <= 0 or rot > d or rot % 2:
-            raise ValueError(f"proj_rtopk: rot_dim {rot} must be even and <= d={d}")
-        pos = torch.as_tensor(positions, device=x.device).expand(b, n).to(
-            torch.int32).contiguous()
-    x = x.contiguous()
+    pos, theta, rot = _rope_args(positions, rope_spec, b, n, d, x.device)
     vals = torch.empty((b, nh, n, k), dtype=x.dtype, device=x.device)
     idx = torch.empty((b, nh, n, k), dtype=torch.int32, device=x.device)
-    fn = _build.entry("proj_rtopk", "proj_rtopk_launch", _PROJ_ARGS)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w_heads.data_ptr(),
-                 pos.data_ptr() if pos is not None else None, vals.data_ptr(),
-                 idx.data_ptr(), b, n, m, nh, d, w_heads.stride(0), w_heads.stride(1),
-                 k, theta, rot, _DTYPES[x.dtype], _DTYPES[w_heads.dtype],
-                 _build.stream_ptr(x))
-    _build.check("proj_rtopk", err, "proj_rtopk launch")
+    if tensor_core_body(x.dtype, d, m):
+        _proj_tensor_core(x, w_heads, pos, k, theta, rot, vals, idx)
+    else:
+        _proj_cuda_core(x, w_heads, pos, k, theta, rot, vals, idx)
+        proj_rtopk.cuda_core_launches += 1
     proj_rtopk.launches += 1
     return vals, idx
 
 
-proj_rtopk.launches = 0
+proj_rtopk.launches = 0             # either body
+proj_rtopk.cuda_core_launches = 0   # the CUDA-core body

@@ -1,19 +1,29 @@
-"""The tensor-core ``code_grad_dw`` body's arithmetic, emulated on the CPU.
+"""The tensor-core ``code_grad_dw`` and ``code_grad_dx`` bodies' arithmetic,
+emulated on the CPU.
 
-``csrc/code_grad.cu``'s tensor-core body computes dWᵀ = Sᵀ·x as one GEMM
+``csrc/code_grad.cu``'s tensor-core dW body computes dWᵀ = Sᵀ·x as one GEMM
 over the token axis: per token and head it sums a repeated index's code
 values in f32, in code order, and keeps the sum as bf16 hi plus bf16 lo =
 bf16(sum − hi) (a code without a duplicate is a bf16 input, exact in hi);
 each chunk of 64 tokens adds its bf16 products hi·x and lo·x into an f32
 accumulator, each token split keeps its own, and the splits add in order.
-The emulation below does the same in plain torch and is held against the
-port's plain version (the wrapper on CPU tensors) and the JAX package's
-Pallas ``code_grad_dw`` in interpret mode at the card's tolerance, rtol
-1e-4 and atol 1e-4·max|dW| (f32 sums in another order; ~16 bits of each
-summed duplicate). Inputs are bf16 values (x and the codes), as on the
+Its dx body computes dx = S·Wᵀ as one GEMM over the head-feature axis from
+the same hi and lo tiles and w split into bf16 hi + lo = bf16(w − hi):
+per head in order, per step of min(d, 64) features, S_hi·W_hiᵀ +
+S_hi·W_loᵀ + S_lo·W_hiᵀ into an f32 accumulator (S_lo·W_loᵀ, below 2^-16
+of a product, is left out; a bf16 w has no lo). The emulations below do the
+same in plain torch and are held against the port's plain versions (the
+wrappers on CPU tensors) and the JAX package's Pallas ``code_grad_dw`` /
+``code_grad_dx`` in interpret mode at the card's tolerance, rtol 1e-4 and
+atol 1e-4·max (f32 sums in another order; ~16 bits of each summed
+duplicate and of each f32 weight). Inputs are bf16 codes (and x), as on the
 compact seam, with duplicates planted on every 7th row, padding rows,
-indices outside [0, d), and the 2k pair closure of RoPE; n and m ragged to
-the body's 64-token chunks and 128-column blocks.
+indices outside [0, d), and the 2k pair closure of RoPE; n, m and the head
+count ragged to the bodies' 64-token chunks, 128-token and 128-column
+blocks; w f32 (a strided per-head view of a packed weight) and bf16. On
+exact inputs (codes in {-1, 1} with a 1 + 2^-9 duplicate and a w whose lo
+part is zero, or no duplicate and a w with a nonzero lo part) the dx
+emulation equals the plain version bit for bit.
 
 The routing (which body a dtype and shape take, the token splits) is pure
 Python and checked here too; the bodies themselves run on the card
@@ -25,12 +35,16 @@ import pytest
 import torch
 
 from repro.kernels.code_grad import code_grad_dw as jax_code_grad_dw
-from repro_torch.kernels import body_counts, code_grad_dw, launch_counts, reset_launches
+from repro.kernels.code_grad import code_grad_dx as jax_code_grad_dx
+from repro_torch.kernels import (
+    body_counts, code_grad_dw, code_grad_dx, launch_counts, reset_launches,
+)
 from repro_torch.kernels.code_grad import (
     TC_HEAD_DIMS, TC_KW, _DW_MAX_SPLITS, tc_splits, tensor_core_body,
 )
 from repro_torch.kernels.flash_sfa_bwd import pair_closure_indices
-from repro_torch.kernels.ref import code_grad_dw_ref
+from repro_torch.kernels.ops import head_blocks
+from repro_torch.kernels.ref import code_grad_dw_ref, code_grad_dx_ref
 
 TOK = 64          # tokens of the body's chunk (csrc kTcTok)
 H100_SMS = 132
@@ -165,12 +179,154 @@ def test_token_splits_cover_every_token_once(n, nh, d, m):
 
 def test_main_path_split_and_the_cuda_core_counter():
     """gpt2-small's compact seam (12 heads of 64 x 8,192 tokens, m 768): 36
-    blocks of 128 x 128, 3 splits of 43 chunks; on the CPU the wrapper runs
-    the plain version and counts no launch of either body."""
+    blocks of 128 x 128, 3 splits of 43 chunks; on the CPU the wrappers run
+    the plain versions and count no launch of either body."""
     assert tc_splits(8192, 12, 64, 768, H100_SMS) == (3, 43 * TOK)
-    assert "code_grad_dw_cuda_core" in body_counts()
+    assert {"code_grad_dx_cuda_core", "code_grad_dw_cuda_core"} <= set(body_counts())
     rs = np.random.RandomState(4)
     vals, idx = _codes(rs, 2, 80, 64, 8, False)
     reset_launches()
     code_grad_dw(_bf16(rs.randn(80, 96)), vals, idx, d=64)
-    assert launch_counts()["code_grad_dw"] == 0 and body_counts()["code_grad_dw_cuda_core"] == 0
+    code_grad_dx(vals, idx, torch.from_numpy(rs.randn(2, 96, 64).astype(np.float32)), d=64)
+    assert launch_counts()["code_grad_dw"] == launch_counts()["code_grad_dx"] == 0
+    assert body_counts()["code_grad_dw_cuda_core"] == body_counts()["code_grad_dx_cuda_core"] == 0
+
+
+# --------------------------------------------------------------------------
+# dx
+# --------------------------------------------------------------------------
+
+STEP = 64         # features of the dx body's step (csrc: F = min(d, 64))
+
+
+def split_w(w):
+    """w -> (hi, lo) f32 values of bf16 hi = bf16(w) and lo = bf16(w − hi)."""
+    wf = w.float()
+    hi = wf.bfloat16().float()
+    return hi, (wf - hi).bfloat16().float()
+
+
+def emulate_dx(vals, idx, w, d, lo_products=True, w_lo_products=True):
+    """The dx body: per head in order, per step of min(d, 64) features,
+    acc += S_hi·W_hiᵀ (+ S_hi·W_loᵀ) (+ S_lo·W_hiᵀ), f32 -> (n, m)."""
+    hi, lo = densify_hi_lo(vals, idx, d)
+    whi, wlo = split_w(w)
+    acc = torch.zeros(vals.shape[1], w.shape[1])
+    for h in range(vals.shape[0]):
+        for f0 in range(0, d, STEP):
+            f = slice(f0, f0 + STEP)
+            acc = acc + hi[h][:, f] @ whi[h][:, f].T
+            if w_lo_products:
+                acc = acc + hi[h][:, f] @ wlo[h][:, f].T
+            if lo_products:
+                acc = acc + lo[h][:, f] @ whi[h][:, f].T
+    return acc
+
+
+def _weights(rs, nh, m, d, bf16):
+    """A strided per-head view of a packed (m, 2·nh·d) weight (the second
+    block of nh heads, as ``head_blocks`` takes the key heads), f32 or
+    bf16."""
+    w = torch.from_numpy((0.05 * rs.randn(m, 2 * nh * d)).astype(np.float32))
+    return head_blocks(w.bfloat16() if bf16 else w, nh, nh, d)
+
+
+DX_CASES = [(3, 300, 200, 64, 8, False, False), (3, 300, 200, 64, 8, True, False),
+            (12, 130, 768, 64, 8, False, False), (5, 257, 136, 32, 8, True, True),
+            (2, 190, 264, 128, 8, False, True), (2, 130, 128, 128, 8, True, False),
+            (4, 64, 64, 32, 8, False, False)]
+
+
+@pytest.mark.parametrize("nh,n,m,d,k,closure,bf16_w", DX_CASES)
+def test_tensor_core_dx_emulation_matches_plain_and_pallas(nh, n, m, d, k, closure, bf16_w):
+    rs = np.random.RandomState(nh * 100 + n + m + d)
+    vals, idx = _codes(rs, nh, n, d, k, closure)
+    w = _weights(rs, nh, m, d, bf16_w)
+    kw = idx.shape[-1]
+    assert tensor_core_body(torch.bfloat16, d, kw, m)
+    plain = code_grad_dx(vals, idx, w, d=d)        # the wrapper's CPU path
+    assert torch.equal(plain, code_grad_dx_ref(vals, idx, w, d=d))
+    want = jax_code_grad_dx(jnp.asarray(vals.float().numpy()), jnp.asarray(idx.numpy()),
+                            jnp.asarray(w.float().numpy()), d=d, interpret=True)
+    _close(plain, want)
+    got = emulate_dx(vals, idx, w, d, w_lo_products=not bf16_w)
+    _close(got, plain)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("d,kw,dups", [(64, 8, True), (64, 8, False), (32, 16, True),
+                                       (128, 16, False), (128, 8, True)])
+def test_tensor_core_dx_emulation_is_exact_on_exact_inputs(d, kw, dups):
+    """Codes in {-1, 1} (with dups every 7th row repeats its first index
+    with 2^-9: a summed duplicate 1 + 2^-9 through the lo tile) against w in
+    multiples of 1/16 (no lo part) with duplicates, or of 2^-12 (a nonzero
+    lo part) without: every product and sum exact, the emulation equals the
+    plain version bit for bit."""
+    rs = np.random.RandomState(d + kw)
+    nh, n, m = 5, 200, 136
+    idx = np.sort(np.argsort(rs.rand(nh, n, d), -1)[..., :kw], -1).astype(np.int32)
+    vals = rs.choice([-1.0, 1.0], size=(nh, n, kw)).astype(np.float32)
+    if dups:
+        idx[:, 3::7, 1], vals[:, 3::7, 1] = idx[:, 3::7, 0], 2.0 ** -9
+    idx[:, 9::11, -1] = d + 1
+    vals, idx = _bf16(vals), torch.from_numpy(idx)
+    grid = 16 if dups else 4096
+    w = torch.from_numpy(rs.randint(-grid // 2, grid // 2 + 1, (m, 2 * nh * d))
+                         .astype(np.float32) / grid)
+    wh = head_blocks(w, 0, nh, d)
+    whi, wlo = split_w(wh)
+    assert bool((wlo == 0).all()) == dups
+    plain = code_grad_dx_ref(vals, idx, wh, d=d)
+    assert torch.equal(emulate_dx(vals, idx, wh, d), plain)
+
+
+def test_dx_needs_the_w_lo_products():
+    """On random f32 w, rounding w once to bf16 (W_hi alone) moves dx by
+    more than the tolerance; hi + lo does not."""
+    rs = np.random.RandomState(5)
+    nh, n, m, d = 4, 256, 128, 64
+    vals, idx = _codes(rs, nh, n, d, 8, False)
+    w = _weights(rs, nh, m, d, False)
+    want = code_grad_dx_ref(vals, idx, w, d=d)
+    _close(emulate_dx(vals, idx, w, d), want)
+    with pytest.raises(AssertionError):
+        _close(emulate_dx(vals, idx, w, d, w_lo_products=False), want)
+
+
+def test_dx_duplicates_need_the_s_lo_products():
+    """On the pair closure with duplicates, dropping S_lo·W_hiᵀ moves dx by
+    more than the tolerance; keeping it (and leaving out S_lo·W_loᵀ) does
+    not."""
+    rs = np.random.RandomState(6)
+    nh, n, m, d = 2, 512, 128, 64
+    idx = torch.from_numpy(np.sort(np.argsort(rs.rand(nh, n, d), -1)[..., :8], -1)
+                           .astype(np.int32))
+    idx[..., 1::2] = idx[..., 0::2]                # every code has a partner
+    vals = torch.empty(nh, n, 8, dtype=torch.bfloat16)
+    vals[..., 0::2] = _bf16(rs.randn(nh, n, 4))
+    vals[..., 1::2] = _bf16(rs.randn(nh, n, 4) * 2 ** -5)   # sums need more than 8 bits
+    w = _weights(rs, nh, m, d, False)
+    want = code_grad_dx_ref(vals, idx, w, d=d)
+    _close(emulate_dx(vals, idx, w, d), want)
+    with pytest.raises(AssertionError):
+        _close(emulate_dx(vals, idx, w, d, lo_products=False), want)
+
+
+def test_dx_body_routing_by_dtype_and_shape():
+    """dx takes the tensor cores on the same rule as dW — bf16 codes, d in
+    {32, 64, 128}, kw in {8, 16}, m a multiple of 8 — whatever w's dtype;
+    f32 codes and every other shape take the CUDA-core body. On the CPU the
+    wrapper counts neither body."""
+    assert tensor_core_body(torch.bfloat16, 64, 8, 768)       # the compact seam's dx
+    assert tensor_core_body(torch.bfloat16, 64, 16, 768)      # the pair closure's
+    assert not tensor_core_body(torch.float32, 64, 8, 768)
+    assert not tensor_core_body(torch.bfloat16, 64, 8, 772)
+    assert not tensor_core_body(torch.bfloat16, 48, 8, 768)
+    assert not tensor_core_body(torch.bfloat16, 64, 12, 768)
+    rs = np.random.RandomState(7)
+    vals, idx = _codes(rs, 3, 70, 64, 8, False)
+    for bf16_w in (False, True):
+        reset_launches()
+        got = code_grad_dx(vals, idx, _weights(rs, 3, 72, 64, bf16_w), d=64)
+        assert got.shape == (70, 72) and got.dtype == torch.float32
+        assert launch_counts()["code_grad_dx"] == body_counts()["code_grad_dx_cuda_core"] == 0

@@ -336,16 +336,26 @@ def test_flash_sfa_bwd_compact_emits_on_card(cuda, emit, rot, dtype):
     assert got[0].shape[-1] == width
 
 
-def test_trainer_runs_the_compact_seam_kernels(cuda):
+@pytest.mark.parametrize("sfa_k", [4, 8])
+def test_trainer_runs_the_compact_seam_kernels(cuda, sfa_k):
     """TrainPolicy(bwd_emit="compact", fwd_fuse=True, remat="codes"): per
     step and layer proj_rtopk 2 (q, k), block-skip FlashSFA 2 (forward and
     the backward's rerun), the compact backward 1, code_grad dx and dW 2
-    each (q and k); no rtopk and no plain-schedule FlashSFA."""
+    each (q and k); no rtopk and no plain-schedule FlashSFA. At the full
+    model's k 8 the bf16 seam runs no CUDA-core body; at the reduced
+    config's k 4 (no tensor-core code width of dx and dW) every dx and dW
+    launch runs its CUDA-core body, and proj_rtopk, routed by d and m
+    alone, still runs none."""
+    import dataclasses
+
+    import repro_torch.kernels.code_grad as cg
     from repro_torch.configs.base import TrainPolicy
     from repro_torch.data import DataConfig
     from repro_torch.optim import OptimizerConfig
     from repro_torch.train import Trainer, TrainerConfig
     cfg = get_config("gpt2-small-sfa8").reduced()
+    cfg = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, sfa_k=sfa_k))
+    assert cfg.dtype == "bfloat16"
     steps = 3
     tr = Trainer(cfg, OptimizerConfig(warmup_steps=2, total_steps=4),
                  DataConfig(vocab_size=cfg.vocab_size, seq_len=100, global_batch=2),
@@ -360,6 +370,12 @@ def test_trainer_runs_the_compact_seam_kernels(cuda):
     want.update(proj_rtopk=2 * per, flash_sfa_block_skip=2 * per,
                 flash_sfa_bwd_compact=per, code_grad_dx=2 * per, code_grad_dw=2 * per)
     assert launch_counts() == want
+    want_body = dict.fromkeys(body_counts(), 0)
+    tc = cg.tensor_core_body(torch.bfloat16, cfg.attention.head_dim, sfa_k, cfg.d_model)
+    assert tc == (sfa_k == 8)
+    if not tc:
+        want_body.update(code_grad_dx_cuda_core=2 * per, code_grad_dw_cuda_core=2 * per)
+    assert body_counts() == want_body
 
 
 # --------------------------------------------------------------------------
@@ -676,6 +692,141 @@ def test_code_grad_dw_routes_other_shapes_to_cuda_cores(cuda):
         assert body_counts()["code_grad_dw_cuda_core"] == 1
         want = ref.code_grad_dw_ref(x.cpu(), tv.cpu(), ti.cpu(), d=d)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * want.abs().max())
+
+
+# --------------------------------------------------------------------------
+# the tensor-core bodies of proj_rtopk (row 2) and code_grad_dx (row 8)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,n,m,nh,d", [(2, 1000, 200, 3, 64), (2, 300, 768, 12, 64),
+                                        (1, 777, 200, 5, 32), (1, 260, 136, 3, 128)])
+@pytest.mark.parametrize("rot", [None, "d", "half"])
+@pytest.mark.parametrize("k", [8, 16, 24])
+def test_proj_rtopk_tensor_core_body_on_card(cuda, b, n, m, nh, d, rot, k):
+    """bf16 x on the tensor cores: on dyadic inputs (every f32 sum exact in
+    any order) indices equal and values bit-equal to the plain version on
+    the card, with and without RoPE, k 8 and 16 (one thread selects a row)
+    and 24 (one warp a row), for the strided f32 view of a packed w (the
+    pack kernel), its bf16 view (TMA in place) and a contiguous bf16 w
+    (packed); two calls equal; body_counts() 0, and 1 for f32 x."""
+    from repro_torch.kernels.ops import head_blocks
+    from repro_torch.kernels.rtopk import tensor_core_body, w_in_place
+    rs = np.random.RandomState(20)
+    x = torch.from_numpy(rs.randint(-4, 5, size=(b, n, m)).astype(np.float32) / 4).to(cuda)
+    w = torch.from_numpy(rs.randint(-8, 9, size=(m, 2 * nh * d)).astype(np.float32) / 16).to(cuda)
+    pos = torch.arange(n, device=cuda)[None, :].expand(b, n)
+    spec = None if rot is None else (10_000.0, d if rot == "d" else d // 2)
+    p = pos if spec else None
+    xb = x.bfloat16()
+    assert tensor_core_body(torch.bfloat16, d, m)
+    views = (head_blocks(w, 1, nh, d), head_blocks(w.bfloat16(), 0, nh, d),
+             head_blocks(w, 0, nh, d).bfloat16().contiguous())
+    assert [w_in_place(v) for v in views] == [False, True, False]
+    for wh in views:
+        reset_launches()
+        kv, ki = proj_rtopk(xb, wh, p, k=k, rope_spec=spec)
+        assert body_counts()["proj_rtopk_cuda_core"] == 0 and launch_counts()["proj_rtopk"] == 1
+        pv, pi = ref.proj_rtopk_ref(xb, wh, p, k=k, rope_spec=spec)
+        assert torch.equal(ki, pi)
+        assert torch.equal(kv.view(torch.int16), pv.view(torch.int16))
+        again = proj_rtopk(xb, wh, p, k=k, rope_spec=spec)
+        assert torch.equal(again[1], ki) and torch.equal(again[0].view(torch.int16),
+                                                         kv.view(torch.int16))
+    reset_launches()
+    proj_rtopk(x, views[0], p, k=k, rope_spec=spec)            # f32: the CUDA-core body
+    assert body_counts()["proj_rtopk_cuda_core"] == 1
+
+
+def test_proj_rtopk_tensor_core_body_random_on_card(cuda):
+    """Random bf16 inputs at gpt2's width: a row may pick another index set
+    than the plain version (or the CUDA-core body) only at a near-tie of two
+    bf16 roundings (2^-6 relative); the other rows' values within a bf16
+    ulp."""
+    from repro_torch.kernels.ops import head_blocks
+    rt = __import__("sys").modules["repro_torch.kernels.rtopk"]
+    rs = np.random.RandomState(21)
+    b, n, m, nh, d, k = 2, 1000, 768, 12, 64, 8
+    x = torch.from_numpy(rs.randn(b, n, m).astype(np.float32)).to(cuda).bfloat16()
+    w = torch.from_numpy((0.04 * rs.randn(m, 3 * nh * d)).astype(np.float32)).to(cuda)
+    wh = head_blocks(w, 0, nh, d)
+    kv, ki = proj_rtopk(x, wh, k=k)
+    pv, pi = ref.proj_rtopk_ref(x, wh, k=k)
+    cv = torch.empty_like(kv)
+    ci = torch.empty_like(ki)
+    rt._proj_cuda_core(x, wh, None, k, 0.0, 0, cv, ci)
+    y = torch.einsum("bnm,hmd->bhnd", x.float(), wh.bfloat16().float()).bfloat16()
+    for vals, idx in ((pv, pi), (cv, ci)):
+        diff, tie = near_tie_rows(y, ki, idx, k, 2.0 ** -6)
+        assert bool((tie | ~diff).all()), int((diff & ~tie).sum())
+        torch.testing.assert_close(kv[~diff].float(), vals[~diff].float(), rtol=2 ** -7,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("nh,n,m,d,kw", [(12, 2048, 768, 64, 8), (12, 1000, 768, 64, 16),
+                                         (5, 1000, 200, 32, 8), (3, 777, 136, 128, 16),
+                                         (4, 300, 72, 128, 8), (2, 30, 40, 32, 16)])
+def test_code_grad_dx_tensor_core_body_on_card(cuda, nh, n, m, d, kw):
+    """bf16 codes on the tensor cores: random codes (duplicates, padding
+    rows, indices outside [0, d)) against the plain version and the
+    CUDA-core body at rtol 1e-4, atol 1e-4 max|dx| (f32 sums in another
+    order; w and each summed duplicate kept to ~16 bits as hi + lo), for an
+    f32 and a bf16 w; exact inputs bit-equal to the plain version (values
+    in {-1, 1} with a 1 + 2^-9 duplicate against w in multiples of 1/16, or
+    no duplicate against w in multiples of 2^-12 with a nonzero lo part,
+    or a bf16 w: the body leaves out S_lo.W_lo); two calls equal;
+    body_counts() 0, and 1 for f32 codes."""
+    import repro_torch.kernels.code_grad as cg
+    from repro_torch.kernels.ops import head_blocks
+    rs = np.random.RandomState(22)
+    vals, idx = _codes(rs, nh, n, kw, d)
+    idx[:, 3::7, 1] = idx[:, 3::7, 0]                 # duplicates sum
+    idx[:, 9::11, -1] = d + 1                         # outside [0, d): nothing
+    vals[:, 5], idx[:, 5] = 0.0, 0                    # a padding row
+    tv = torch.from_numpy(vals).to(cuda).bfloat16()
+    ti = torch.from_numpy(idx).to(cuda)
+    w = torch.from_numpy((0.05 * rs.randn(m, 2 * nh * d)).astype(np.float32)).to(cuda)
+    assert cg.tensor_core_body(torch.bfloat16, d, kw, m)
+    for wh in (head_blocks(w, 1, nh, d), head_blocks(w, 1, nh, d).bfloat16()):
+        reset_launches()
+        got = code_grad_dx(tv, ti, wh, d=d)
+        assert body_counts()["code_grad_dx_cuda_core"] == 0 and launch_counts()["code_grad_dx"] == 1
+        want = ref.code_grad_dx_ref(tv, ti, wh, d=d)
+        tol = 1e-4 * want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=tol)
+        torch.testing.assert_close(got, cg._dx_cuda_core(tv, ti, wh, d), rtol=1e-4, atol=tol)
+        assert torch.equal(got, code_grad_dx(tv, ti, wh, d=d))   # deterministic
+    for dups, grid in ((True, 16), (False, 4096)):
+        ev = rs.choice([-1.0, 1.0], size=vals.shape).astype(np.float32)
+        ei = np.sort(np.argsort(rs.rand(nh, n, d), -1)[..., :kw], -1).astype(np.int32)
+        if dups:
+            ei[:, 3::7, 1], ev[:, 3::7, 1] = ei[:, 3::7, 0], 2.0 ** -9
+        ei[:, 9::11, -1] = d + 1
+        ev, ei = torch.from_numpy(ev).to(cuda).bfloat16(), torch.from_numpy(ei).to(cuda)
+        we = torch.from_numpy(rs.randint(-grid // 2, grid // 2 + 1, (m, nh * d))
+                              .astype(np.float32) / grid).to(cuda)
+        for wh in (head_blocks(we, 0, nh, d),) + (() if dups else
+                                                  (head_blocks(we.bfloat16(), 0, nh, d),)):
+            exact = code_grad_dx(ev, ei, wh, d=d)
+            assert torch.equal(exact, ref.code_grad_dx_ref(ev, ei, wh, d=d))
+    reset_launches()
+    code_grad_dx(tv.float(), ti, head_blocks(w, 1, nh, d), d=d)   # f32: the CUDA-core body
+    assert body_counts()["code_grad_dx_cuda_core"] == 1
+
+
+def test_code_grad_dx_routes_other_shapes_to_cuda_cores(cuda):
+    """bf16 codes at a code width, head dim or m the tensor-core body does
+    not take run the CUDA-core body, against its plain version."""
+    rs = np.random.RandomState(23)
+    for nh, n, m, d, kw in ((3, 200, 96, 64, 4), (2, 130, 130, 64, 8), (2, 100, 64, 48, 8)):
+        vals, idx = _codes(rs, nh, n, kw, d)
+        tv = torch.from_numpy(vals).to(cuda).bfloat16()
+        ti = torch.from_numpy(idx).to(cuda)
+        w = torch.from_numpy(rs.randn(nh, m, d).astype(np.float32)).to(cuda)
+        reset_launches()
+        got = code_grad_dx(tv, ti, w, d=d)
+        assert body_counts()["code_grad_dx_cuda_core"] == 1
+        want = ref.code_grad_dx_ref(tv, ti, w, d=d)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
 
 
 @pytest.mark.parametrize("dv,kq,dtype,page", [

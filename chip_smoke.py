@@ -85,6 +85,14 @@ Phases; any failure raises and the script exits non-zero:
                held to the torch backend's own bf16 distance from float32;
  10. a ``kernels`` JSON line, then the result line.
 
+Phase 3 holds row 1 (rtopk, d 64, k 8, bf16 and f32, tie-heavy rows) at
+the three shapes of its main paths: a decode step's 96 rows, a prefill's
+12,288 and a training step's 98,304, on its one-thread body, with the warp
+body at k 24 and d 256 beside. The serving phases and the dense-emit
+train phase must run rtopk on its one-thread body only (``rtopk_warp`` 0).
+``tools/rtopk_sweep.py`` times the same shapes for design sweeps and A/B
+calls against another tree.
+
 Phase 3 also holds the dense attention's bf16 tensor-core bodies at d 32,
 64 and 128, causal and not, at n 1000, and two bf16 backward calls on the
 same inputs to be equal bit for bit. The FlashSFA rows (3-5) run bf16 on
@@ -453,37 +461,83 @@ def _tie_rows(rs, rows, d):
     return x
 
 
-def phase_rtopk(rs):
-    from repro_torch.kernels import rtopk
+# row 1's shapes on its main paths (d 64, k 8): a decode step's q or k (8
+# slots x 12 heads), one 1024-token prefill's (12 heads), a training step's
+# (batch 8 x 12 heads x 1024 tokens)
+RTOPK_SHAPES = (("decode", 8 * 12), ("prefill", 1024 * 12), ("training", 8 * 12 * 1024))
+
+
+def _rtopk_exact(x, k, kv, ki, what):
+    """rtopk's codes against rtopk_ref's: indices equal, values bit-equal
+    (tolerance: none). Returns max |error| (0)."""
     from repro_torch.kernels.ref import rtopk_ref
-    rows, d, k = 1024 * 12, 64, 8             # one 1024-token prefill, 12 heads
-    res = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.from_numpy(_tie_rows(rs, rows, d)).cuda().to(dtype)
-        kv, ki = rtopk(x, k)
-        pv, pi = rtopk_ref(x, k)
-        torch.cuda.synchronize()
-        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-        # tolerance: none — indices equal and values bit-equal
-        check(torch.equal(ki, pi), f"rtopk {dtype}: indices differ")
-        check(torch.equal(kv.view(bits), pv.view(bits)),
-              f"rtopk {dtype}: values not bit-equal")
-        err = (kv.float() - pv.float()).abs().max().item()
+    pv, pi = rtopk_ref(x, k)
+    torch.cuda.synchronize()
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    check(torch.equal(ki, pi), f"rtopk {what}: indices differ")
+    check(torch.equal(kv.view(bits), pv.view(bits)), f"rtopk {what}: values not bit-equal")
+    return (kv.float() - pv.float()).abs().max().item()
 
-        def library():
-            _, i = torch.topk(x.abs(), k, dim=-1)
-            i, _ = torch.sort(i, dim=-1)
-            return x.gather(-1, i), i
 
-        es = x.element_size()
-        b_ms, b_by = bound(rows * d * es + rows * k * (es + 4),
-                           rows * d / F32_FLOPS)   # about d compares a row
-        r = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-                 **timings(lambda: rtopk(x, k), lambda: rtopk_ref(x, k), library))
-        print(f"[rtopk] {dtype} rows={rows} d={d} k={k}: indices equal, values "
-              f"bit-equal; library = topk+sort; {fmt(r)}")
-        res[str(dtype)] = r
-    return res["torch.bfloat16"]
+def rtopk_shapes(rs, own):
+    """rtopk at RTOPK_SHAPES, d 64, k 8, f32 and bf16, on tie-heavy rows
+    (the prefill rows from ``rs``, the others from ``own``): the codes equal
+    rtopk_ref's, and kernel, plain and library (torch.topk + sort) times and
+    the byte bound at each shape. Returns ({(shape, dtype): timings},
+    [max |error|]). ``tools/rtopk_sweep.py`` also runs it on another tree's
+    port, which may lack the body counter."""
+    from repro_torch.kernels import body_counts, reset_launches, rtopk
+    from repro_torch.kernels.ref import rtopk_ref
+    d, k = 64, 8
+    res, errs = {}, []
+    for shape, rows in RTOPK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(_tie_rows(rs if shape == "prefill" else own, rows, d)
+                                 ).cuda().to(dtype)
+            reset_launches()
+            kv, ki = rtopk(x, k)
+            check(body_counts().get("rtopk_warp", 0) == 0,
+                  f"rtopk {shape} {dtype}: not the one-thread body {body_counts()}")
+            errs.append(_rtopk_exact(x, k, kv, ki, f"{shape} {dtype}"))
+
+            def library(x=x):
+                _, i = torch.topk(x.abs(), k, dim=-1)
+                i, _ = torch.sort(i, dim=-1)
+                return x.gather(-1, i), i
+
+            es = x.element_size()
+            b_ms, b_by = bound(rows * d * es + rows * k * (es + 4),
+                               rows * d / F32_FLOPS)   # about d compares a row
+            r = dict(bound_ms=b_ms, bound_by=b_by,
+                     **timings(lambda x=x: rtopk(x, k), lambda x=x: rtopk_ref(x, k), library))
+            print(f"[rtopk] {shape} {dtype} rows={rows} d={d} k={k}: indices equal, values "
+                  f"bit-equal; library = topk+sort; {fmt(r)}")
+            res[(shape, dtype)] = r
+    return res, errs
+
+
+def phase_rtopk(rs):
+    """Row 1: ``rtopk_shapes`` on the one-thread body (rtopk_warp stays 0);
+    then the warp body (k 24 at d 64; d 256) held the same way. The
+    prefill rows come from ``rs``, so later phases draw what they drew when
+    row 1 ran at one shape; the others from a random state of their own."""
+    from repro_torch.kernels import body_counts, reset_launches, rtopk
+    own = np.random.RandomState(SEED + 20)
+    res, errs = rtopk_shapes(rs, own)
+    # the warp body: k > 16, and a width without a one-thread instantiation
+    for d_, k_ in ((64, 24), (256, 16)):
+        x = torch.from_numpy(_tie_rows(own, 1024 * 12, d_)).cuda().bfloat16()
+        reset_launches()
+        kv, ki = rtopk(x, k_)
+        check(body_counts()["rtopk_warp"] == 1, f"rtopk d={d_} k={k_}: {body_counts()}")
+        errs.append(_rtopk_exact(x, k_, kv, ki, f"warp body d={d_} k={k_}"))
+        print(f"[rtopk] warp body, bf16 rows={x.shape[0]} d={d_} k={k_}: indices equal, "
+              f"values bit-equal; kernel {kernel_ms(lambda x=x: rtopk(x, k_)):.4f} ms")
+    out = dict(res[("prefill", torch.bfloat16)], max_abs_err=max(errs))
+    out["shapes"] = {f"{shape} {str(dt).split('.')[-1]}": {
+        key: r[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        for (shape, dt), r in res.items()}
+    return out
 
 
 def _densify(vals, idx, d):
@@ -493,8 +547,8 @@ def _densify(vals, idx, d):
 
 def _tc_only(what):
     """Check that no CUDA-core body (proj_rtopk, FlashSFA forward or
-    backward, code_grad_dx or code_grad_dw) launched since the last
-    reset."""
+    backward, code_grad_dx or code_grad_dw) and no rtopk warp body
+    launched since the last reset."""
     from repro_torch.kernels import body_counts
     counts = body_counts()
     check(not any(counts.values()), f"{what}: a CUDA-core body launched: {counts}")
@@ -1699,6 +1753,7 @@ def phase_engine(model, cfg):
     check(not reports, f"engine: backend fallbacks recorded: {reports}")
     serving = ("rtopk", "flash_sfa", "flash_sfa_decode")
     check(all(counts[k] > 0 for k in serving), f"engine: a kernel never launched: {counts}")
+    _rtopk_one_thread("engine")
     # a separate traced window: the same prompts again, 4 decode steps
     for p in prompts:
         eng.add_request(p, max_new_tokens=5)
@@ -1736,6 +1791,15 @@ def phase_engine(model, cfg):
 # --------------------------------------------------------------------------
 # the paged, speculative and feature-major serving paths
 # --------------------------------------------------------------------------
+
+def _rtopk_one_thread(what):
+    """Check that the path just driven ran rtopk, and only on its
+    one-thread body (its rows are d 64, k 8 or k' 2)."""
+    from repro_torch.kernels import body_counts, launch_counts
+    check(launch_counts()["rtopk"] > 0 and body_counts()["rtopk_warp"] == 0,
+          f"{what}: rtopk launches {launch_counts()['rtopk']}, warp body "
+          f"{body_counts()['rtopk_warp']}")
+
 
 def _serve(eng, prompts, max_new, paged=True):
     """Drive an engine to the end: (outputs per request, per-tick host ms,
@@ -1795,6 +1859,7 @@ def phase_paged(model, cfg, slot_run):
     check(counts["flash_sfa_decode_paged"] == layers * len(tick_ms) and
           counts["flash_sfa_decode"] == 0 and counts["rtopk"] > 0 and counts["flash_sfa"] > 0,
           f"paged (a): launches {counts}")
+    _rtopk_one_thread("paged (a)")
     tokens = sum(len(o) for o in outputs)
     res = dict(counts=counts, outputs=outputs)
     print(f"[paged a] {cfg.name} full width bf16, cuda, 8 slots, max_len 2048, pages of "
@@ -1835,6 +1900,7 @@ def phase_paged(model, cfg, slot_run):
     check(len(eng.free_pages) == eng.num_pages - 1 and (eng.bt == 0).all(),
           "paged (b): the free list is not whole at the end")
     check(not fallback_reports(), f"paged (b): fallbacks {fallback_reports()}")
+    _rtopk_one_thread("paged (a) and (b)")
     tokens = sum(len(o) for o in outs)
     print(f"[paged b] 16 prompts of {sorted(len(p) for p in prompts)} tokens, {new} new each, "
           f"prefill_chunk 256, pool {eng.num_pages - 1} pages ({budget_pages} x "
@@ -1875,6 +1941,7 @@ def phase_speculative(model, cfg, paged_run, prompts):
     check(counts["flash_sfa_decode_paged"] == want11
           and counts["flash_sfa_decode_multi"] == want12,
           f"speculative: launches {counts}, predicted paged {want11}, multi {want12}")
+    _rtopk_one_thread("speculative")
     check(all(len(o) == 32 for o in outputs), "speculative: a request did not get 32 tokens")
     parted = _near_tie_divergences(model, cfg, prompts, outputs, paged_run["outputs"],
                                    SPEC_TIE)
@@ -1937,6 +2004,7 @@ def phase_feature_major(model, cfg, cuda_run, prompts):
     check(c_slot["flash_sfa_decode_fm"] == layers * len(s_ms)
           and c_slot["flash_sfa_decode_fm_paged"] == 0 and c_slot["flash_sfa_decode"] == 0,
           f"cuda_fm slot: launches {c_slot}")
+    _rtopk_one_thread("cuda_fm slot")
     reset_launches()
     paged = PagedDecodeEngine(model, cfg, PagedEngineConfig(
         max_slots=8, max_len=2048, page_size=128, decode_backend="cuda_fm"), device="cuda")
@@ -1944,6 +2012,7 @@ def phase_feature_major(model, cfg, cuda_run, prompts):
     c_paged = launch_counts()
     check(c_paged["flash_sfa_decode_fm_paged"] == layers * len(p_ms)
           and c_paged["flash_sfa_decode_fm"] == 0, f"cuda_fm paged: launches {c_paged}")
+    _rtopk_one_thread("cuda_fm paged")
     check(not fallback_reports(), f"cuda_fm: fallbacks {fallback_reports()}")
     check(p_out == s_out, "cuda_fm: the paged streams differ from the slot streams")
     parted = _near_tie_divergences(model, cfg, prompts, s_out, cuda_run["outputs"], SPEC_TIE)
@@ -2384,7 +2453,8 @@ def main():
         kernels.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
                             launches=path_counts[kname], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+                            bound_by=r["bound_by"], library_ms=r["library_ms"],
+                            **({"shapes": r["shapes"]} if "shapes" in r else {})))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

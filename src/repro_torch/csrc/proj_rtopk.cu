@@ -13,12 +13,14 @@
 // the (b, H, n, k) codes are written: the dense (n, d) projection never
 // leaves the block.
 //
-// Two bodies, one epilogue: RoPE in shared memory, then the selection. One
-// warp a row runs the warp-ballot bisection of csrc/rtopk.cu (lane l holding
-// entries e*32 + l); in the tensor-core body, for k <= 16, one thread a row
-// keeps the k largest magnitudes in a sorted register list instead (the
-// same choice): with 8 warps a block, the bisection's 32 dependent ballot
-// steps a row made that body 2.6x slower on an H100.
+// Two bodies, one epilogue: RoPE in shared memory, then the selection, from
+// csrc/topk_select.cuh (shared with rtopk.cu) on the f32 tile that holds
+// y in x's precision. One warp a row runs the warp-ballot bisection
+// (topk::select_row, lane l holding entries e*32 + l); in the tensor-core
+// body, for k <= 16, one thread a row keeps the k largest magnitudes in a
+// sorted register list instead (topk::select_row_thread, the same choice):
+// with 8 warps a block, the bisection's 32 dependent ballot steps a row
+// made that body 2.6x slower on an H100.
 //
 // The tensor-core body (bf16 x, d in {32, 64, 128}, m a multiple of 8;
 // proj_rtopk_tc_launch): Y (b.n x H.d) = X (b.n x m) . W (m x H.d) as one
@@ -47,15 +49,14 @@
 // (aliasing the chunk buffers) for the epilogue.
 //
 // Bound on the H100: operations. The projection is 2 m d flops per row and
-// head (tensor cores for bf16); the top-k is 32 ballot steps per row on
-// registers; the bytes are x and w once and k values + k int32 indices per
-// row.
+// head (tensor cores for bf16); the top-k is about d compares a row; the
+// bytes are x and w once and k values + k int32 indices per row.
 
 #include "hopper.cuh"
+#include "topk_select.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRows = 64;      // tokens per block
 constexpr int kThreads = 256;
 constexpr int kChunk = 32;     // m per staged chunk
@@ -66,11 +67,6 @@ using hopper::to_f;
 __device__ __forceinline__ float round_to(float x, float) { return x; }
 __device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(x));
-}
-// raw bits of a value that T holds exactly
-__device__ __forceinline__ void store_bits(float f, float* p) { *p = f; }
-__device__ __forceinline__ void store_bits(float f, __nv_bfloat16* p) {
-  *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(__float_as_uint(f) >> 16);
 }
 
 // RoPE on the pair (p[0], p[1]) = dims (2 jp, 2 jp + 1) at this position,
@@ -85,98 +81,6 @@ __device__ __forceinline__ void rope_pair(float* p, int position, int jp, float 
   const float x1 = p[0], x2 = p[1];
   p[0] = round_to(__fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn)), T());
   p[1] = round_to(__fadd_rn(__fmul_rn(x2, cs), __fmul_rn(x1, sn)), T());
-}
-
-// the exact top-|k| of one row of E * 32 entries y[e * 32 + lane], by one
-// warp, into k values (T's bits) and k ascending indices at vals / idx
-template <int E, typename T>
-__device__ __forceinline__ void select_row(const float* y, T* vals, int32_t* idx, int k,
-                                           int lane) {
-  const unsigned lower = (1u << lane) - 1u;
-  float f[E];
-  int32_t mag[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    f[e] = y[e * 32 + lane];
-    if (isnan(f[e])) f[e] = 0.0f;  // NaN -> +0.0 (the rtopk contract)
-    mag[e] = __float_as_int(fabsf(f[e]));
-  }
-  int lo = 0;
-  int hi = 0x7F800001;  // above +inf
-  for (int it = 0; it < 32; ++it) {
-    const int mid = lo + (hi - lo) / 2;
-    int cnt = 0;
-#pragma unroll
-    for (int e = 0; e < E; ++e) cnt += __popc(__ballot_sync(kFull, mag[e] >= mid));
-    if (cnt >= k) lo = mid; else hi = mid;
-  }
-  const int theta_bits = lo;
-  int n_hi = 0;
-#pragma unroll
-  for (int e = 0; e < E; ++e) n_hi += __popc(__ballot_sync(kFull, mag[e] > theta_bits));
-  const int tie_quota = k - n_hi;
-  int ties_before = 0, sel_before = 0;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const bool tie = mag[e] == theta_bits;
-    const unsigned tie_mask = __ballot_sync(kFull, tie);
-    const int tie_rank = ties_before + __popc(tie_mask & lower);
-    const bool sel = mag[e] > theta_bits || (tie && tie_rank < tie_quota);
-    const unsigned sel_mask = __ballot_sync(kFull, sel);
-    if (sel) {
-      const int o = sel_before + __popc(sel_mask & lower);
-      store_bits(f[e], vals + o);
-      idx[o] = e * 32 + lane;
-    }
-    ties_before += __popc(tie_mask);
-    sel_before += __popc(sel_mask);
-  }
-}
-
-// the same selection by one thread for a row of D entries y[0 .. D) when
-// k <= KL: the KL largest magnitudes kept in a descending register list
-// (one max / min pass a entry), the k-th of them the threshold; then the
-// entries above it, and the first (k - n_hi) at it in index order, written
-// in index order. Equal to select_row's choice, with no ballot chain.
-template <int D, int KL, typename T>
-__device__ __forceinline__ void select_row_thread(const float* y, T* vals, int32_t* idx,
-                                                  int k) {
-  int32_t top[KL];
-#pragma unroll
-  for (int j = 0; j < KL; ++j) top[j] = -1;   // below every magnitude
-#pragma unroll 8
-  for (int e = 0; e < D; ++e) {
-    const float f = y[e];
-    int32_t v = isnan(f) ? 0 : __float_as_int(fabsf(f));
-#pragma unroll
-    for (int j = 0; j < KL; ++j) {
-      const int32_t t = max(v, top[j]);
-      v = min(v, top[j]);
-      top[j] = t;
-    }
-  }
-  int32_t theta = top[0];
-#pragma unroll
-  for (int j = 1; j < KL; ++j)
-    if (j == k - 1) theta = top[j];
-  int n_hi = 0;
-#pragma unroll
-  for (int j = 0; j < KL; ++j) n_hi += top[j] > theta;   // the list is descending
-  const int tie_quota = k - n_hi;
-  int ties = 0, o = 0;
-#pragma unroll 8
-  for (int e = 0; e < D; ++e) {
-    float f = y[e];
-    if (isnan(f)) f = 0.0f;  // NaN -> +0.0 (the rtopk contract)
-    const int32_t v = __float_as_int(fabsf(f));
-    const bool tie = v == theta;
-    if (v > theta || (tie && ties < tie_quota)) {
-      store_bits(f, vals + o);
-      idx[o] = e;
-      ++o;
-    }
-    ties += tie;
-  }
 }
 
 // ---- the CUDA-core body -------------------------------------------------------
@@ -261,7 +165,7 @@ proj_rtopk_kernel(const T* __restrict__ x, const TW* __restrict__ w,
   const int lane = tid & 31;
   for (int r = tid >> 5; r < kRows && r < rows_left; r += kThreads / 32) {
     const size_t orow = ((static_cast<size_t>(b) * nh + h) * n + n0 + r) * k;
-    select_row<D / 32>(ys + r * YP, vals + orow, idx + orow, k, lane);
+    topk::select_row<D / 32>(ys + r * YP, vals + orow, idx + orow, D, k, lane);
   }
 }
 
@@ -406,9 +310,9 @@ proj_rtopk_tc_kernel(const __grid_constant__ CUtensorMap xmap,
       if (h >= nh || n0 + r >= n) continue;
       const size_t orow = ((static_cast<size_t>(b) * nh + h) * n + n0 + r) * k;
       if (k <= 8)
-        select_row_thread<D, 8>(ys + r * kYP + hs * D, vals + orow, idx + orow, k);
+        topk::select_row_thread<D, 8>(ys + r * kYP + hs * D, vals + orow, idx + orow, k);
       else
-        select_row_thread<D, 16>(ys + r * kYP + hs * D, vals + orow, idx + orow, k);
+        topk::select_row_thread<D, 16>(ys + r * kYP + hs * D, vals + orow, idx + orow, k);
     }
     return;
   }
@@ -417,7 +321,7 @@ proj_rtopk_tc_kernel(const __grid_constant__ CUtensorMap xmap,
     const int h = col0 / D + hs;
     if (h >= nh || n0 + r >= n) continue;
     const size_t orow = ((static_cast<size_t>(b) * nh + h) * n + n0 + r) * k;
-    select_row<D / 32>(ys + r * kYP + hs * D, vals + orow, idx + orow, k, lane);
+    topk::select_row<D / 32>(ys + r * kYP + hs * D, vals + orow, idx + orow, D, k, lane);
   }
 }
 

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
-rtopk            — exact row top-|k| (warp ballot bisection on bit patterns);
+rtopk            — exact row top-|k| (one thread a row over rows staged in
+                   shared memory; a warp-ballot bisection for k > 16 and
+                   other widths; both from csrc/topk_select.cuh);
                    proj_rtopk: the fused head projection -> [RoPE] -> top-k,
                    bf16 on the tensor cores (x and w by TMA, wgmma), f32 on
                    CUDA cores
@@ -35,8 +37,8 @@ schedule, ``flash_sfa_bwd.compact_launches`` for the compact emits).
 PERF.md row, whichever body ran); ``body_counts()`` reads the launches of
 the CUDA-core bodies alone of the kernels that also have a tensor-core one
 (proj_rtopk, FlashSFA forward and backward, code_grad_dx and code_grad_dw:
-``<wrapper>.cuda_core_launches``), so a run shows which body its bf16 path
-took. A wrapper's
+``<wrapper>.cuda_core_launches``) and of rtopk's warp body
+(``rtopk.warp_body_launches``), so a run shows which body its path took. A wrapper's
 output has no ``grad_fn``: it refuses inputs that require grad, and
 gradients go through the autograd Functions of ``ops`` and of
 ``models/attention.py`` on either device.
@@ -78,9 +80,11 @@ COUNTERS = {
 }
 
 
-# the CUDA-core bodies that a dtype or shape can send a call to instead of
-# the tensor-core ones
+# the bodies that a dtype or shape can send a call to instead of the main
+# ones: the CUDA-core bodies beside the tensor-core ones, rtopk's warp body
+# beside its one-thread body
 BODY_COUNTERS = {
+    "rtopk_warp": (rtopk, "warp_body_launches"),
     "proj_rtopk_cuda_core": (proj_rtopk, "cuda_core_launches"),
     "flash_sfa_cuda_core": (flash_sfa, "cuda_core_launches"),
     "flash_sfa_bwd_cuda_core": (flash_sfa_bwd, "cuda_core_launches"),

@@ -21,7 +21,11 @@ def rtopk_ref(x: torch.Tensor, k: int):
     The 32-step bisection on the bit patterns of |x| (the form of
     ``core.sparse.topk_mask``), not ``torch.topk``. NaN is canonicalized to
     +0 first (the rtopk contract: parity with top-k of |nan_to_zero(x)|),
-    ties keep the lowest index, and values are moved bit-exact.
+    ties keep the lowest index, and values are moved bit-exact. The CUDA
+    kernel (``csrc/rtopk.cu``, its selection in ``csrc/topk_select.cuh``)
+    makes the same choice two other ways: one thread a row keeping the k
+    largest magnitudes in a register list (d 32, 64 or 128, k <= 16), or
+    one warp a row bisecting over the raw bits (16 steps for bf16).
     """
     d = x.shape[-1]
     if not 0 < k <= d:

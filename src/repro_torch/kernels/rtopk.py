@@ -1,16 +1,31 @@
-"""rtopk: row-wise exact top-|k| by bisection on IEEE-754 bit patterns, and
+"""rtopk: row-wise exact top-|k| on IEEE-754 bit patterns, and
 proj_rtopk: the fused head projection -> [RoPE] -> top-k.
 
 Replaces the TPU kernel ``repro/kernels/rtopk.py::rtopk`` (Pallas body
 ``_rtopk_kernel`` -> ``_topk_select``) with the CUDA kernel in
-``csrc/rtopk.cu``: one warp per row, the row strided across lanes, the
-exact 32-step bisection counted with ``__ballot_sync``/``__popc``, ties kept
-in ascending index order, values moved bit-exact, NaN read as +0.
+``csrc/rtopk.cu``, whose selection code lives in ``csrc/topk_select.cuh``
+(shared with proj_rtopk): ties kept in ascending index order, values moved
+bit-exact as raw bits, NaN read as +0. It has two bodies, picked by shape
+alone (``one_thread_body``):
+
+  * d in ``THREAD_HEAD_DIMS`` and k <= ``THREAD_MAX_K`` (every path of the
+    port's models) — one thread a row: a warp stages its rows, one
+    contiguous span of x, in shared memory at a bank-spreading pitch; a
+    thread keeps the k largest keys of its row in a descending register
+    list (8 or 16 long, merged in groups of 8). bf16 keys carry their index,
+    so the list's first k are the codes; f32 takes the k-th as a threshold
+    and writes the entries above it and the first ties in index order. The
+    warp's codes leave as two contiguous spans. Lanes split a row and
+    merge their lists by shuffles, as many as ``csrc/rtopk.cu``'s
+    ``by_rows`` picks from the dtype and the row count (1 or 2 at a
+    training step's rows, 4 or 8 below kManyRows);
+  * the other shapes (k > 16, other d <= 256) — the warp body: one warp a
+    row, the exact bisection over the magnitude bits counted with
+    ``__ballot_sync``/``__popc`` (16 steps on bf16, 32 on f32);
+    ``rtopk.warp_body_launches`` counts it (``kernels.body_counts()``).
 
 Bound on the H100: bytes (the row is read once, k values and k int32
-indices are written; the bisection runs on registers). The design keeps the
-whole row in one warp's registers so each of the 32 steps is a few ballots
-with no shared memory or shuffles.
+indices are written).
 
 ``proj_rtopk`` replaces the TPU kernel ``repro/kernels/rtopk.py::proj_rtopk``
 (Pallas body ``_proj_rtopk_kernel``, ``_rope_tile``) with the CUDA kernels
@@ -29,14 +44,15 @@ in ``csrc/proj_rtopk.cu``, which pick their body by dtype and shape alone
     (``kernels.body_counts()``).
 
 Both round the f32 product to x's dtype into shared memory, apply RoPE when
-asked, and select each row's top-k with rtopk's choice and tie order: one
-warp a row by the warp-ballot bisection, or in the tensor-core body, for
-k <= 16, one thread a row keeping the k largest magnitudes in registers. Only the codes reach device memory: the dense (n, d)
-q/k of the unfused path is never written. Bound on the H100: operations
+asked, and select each row's top-k with ``csrc/topk_select.cuh``, rtopk's
+choice and tie order: one warp a row by the warp-ballot bisection, or in
+the tensor-core body, for k <= 16, one thread a row keeping the k largest
+magnitudes in registers. Only the codes reach device memory: the dense
+(n, d) q/k of the unfused path is never written. Bound on the H100: operations
 (the 2·m·d flops of the projection per row and head).
 
-The plain versions are ``kernels/ref.py::rtopk_ref`` (the same bisection in
-torch ops) and ``::proj_rtopk_ref`` (einsum, rope, rtopk_ref); the wrappers
+The plain versions are ``kernels/ref.py::rtopk_ref`` (a bisection in torch
+ops, the same choice) and ``::proj_rtopk_ref`` (einsum, rope, rtopk_ref); the wrappers
 run them for CPU tensors only.
 """
 from __future__ import annotations
@@ -53,14 +69,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 MAX_D = 256                    # rtopk's largest row width
+THREAD_HEAD_DIMS = (32, 64, 128)  # the row widths of rtopk's one-thread body
+THREAD_MAX_K = 16                 # and its largest k
 PROJ_HEAD_DIMS = (32, 64, 128)  # proj_rtopk's head dims d
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def one_thread_body(d: int, k: int) -> bool:
+    """Does ``rtopk`` run its one-thread body on rows of width d at this k
+    (else the warp body)?"""
+    return d in THREAD_HEAD_DIMS and k <= THREAD_MAX_K
 
 
 def rtopk(x: torch.Tensor, k: int):
     """Row-wise top-k by magnitude. x: (..., d) f32|bf16 -> (values (..., k)
-    in x.dtype, indices (..., k) int32 ascending). d <= 256 on the card."""
+    in x.dtype, indices (..., k) int32 ascending). d <= 256 on the card; the
+    shape picks the body (``one_thread_body``)."""
     d = x.shape[-1]
     _build.refuse_grad("rtopk", x)
     if x.device.type == "cpu":
@@ -71,7 +96,10 @@ def rtopk(x: torch.Tensor, k: int):
         raise TypeError(f"rtopk kernel takes float32/bfloat16, got {x.dtype}")
     if not 0 < k <= d or d > MAX_D:
         raise ValueError(f"rtopk kernel needs 0 < k <= d <= {MAX_D}, got k={k}, d={d}")
+    one = one_thread_body(d, k)
     x = x.contiguous()
+    if one and x.data_ptr() % 16:   # the one-thread body stages 16-byte chunks
+        x = x.clone()
     lead = x.shape[:-1]
     rows = x.numel() // d
     vals = torch.empty(lead + (k,), dtype=x.dtype, device=x.device)
@@ -79,13 +107,16 @@ def rtopk(x: torch.Tensor, k: int):
     fn = _build.entry("rtopk", "rtopk_launch", _ARGS)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, d, k,
-                 _DTYPES[x.dtype], _build.stream_ptr(x))
+                 _DTYPES[x.dtype], int(one), _build.stream_ptr(x))
     _build.check("rtopk", err, "rtopk launch")
     rtopk.launches += 1
+    if not one:
+        rtopk.warp_body_launches += 1
     return vals, idx
 
 
-rtopk.launches = 0
+rtopk.launches = 0             # either body
+rtopk.warp_body_launches = 0   # the warp body
 
 
 _PROJ_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2

@@ -47,15 +47,46 @@ def _codes(rs, bh, n, k, d):
     return vals, idx.astype(np.int32)
 
 
-@pytest.mark.parametrize("d,k", [(64, 8), (128, 8), (256, 16), (20, 3)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rtopk_kernel_on_card(cuda, dtype, d, k):
-    x = torch.from_numpy(_ties(7, 1000, d)).to(dtype)
-    kv, ki = rtopk(x.to(cuda), k)
+def _special(seed, rows, d):
+    """_ties' rows and the contract's edge values: a row of one magnitude
+    (both signs), ±0 among subnormals, ±inf beside NaN."""
+    rs = np.random.RandomState(seed + 1)
+    x = _ties(seed, rows, d)
+    x[3::7, :] = np.where(rs.rand(d) < 0.5, 1.5, -1.5)
+    x[4::7, :] = np.where(rs.rand(d) < 0.5, 0.0, -0.0)
+    x[4::7, ::5] = rs.randint(1, 4, size=(len(x[4::7]), len(range(0, d, 5)))) * 1e-39
+    x[5::7, min(3, d - 1)] = np.inf
+    x[5::7, min(7, d - 1)] = -np.inf
+    return x
+
+
+def _rtopk_exact(kv, ki, x, k):
     pv, pi = ref.rtopk_ref(x, k)
     assert torch.equal(ki.cpu(), pi)
-    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
     assert torch.equal(kv.cpu().view(bits), pv.view(bits))
+
+
+@pytest.mark.parametrize("d,k", [(32, 1), (32, 8), (32, 9), (32, 16), (64, 1), (64, 8),
+                                 (64, 9), (64, 16), (128, 1), (128, 8), (128, 9), (128, 16),
+                                 (20, 17), (256, 17), (20, 3), (256, 16), (256, 32),
+                                 (64, 17), (64, 32), (128, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rtopk_kernel_on_card(cuda, dtype, d, k):
+    """Both bodies (the one-thread body at d 32/64/128 and k <= 16, on
+    either side of its KL border 8 | 9; the warp body above k 16 and at d
+    20 and 256) at 1 row, 96 (a decode step) and row counts that end in a
+    part block, on either side of the one-lane threshold: indices equal to
+    the plain version's, values bit-equal, and body_counts() shows the body."""
+    rtopk_mod = __import__("sys").modules["repro_torch.kernels.rtopk"]
+    one = rtopk_mod.one_thread_body(d, k)
+    for rows in (1, 96, 1000, 40_001):
+        x = torch.from_numpy(_special(7, rows, d)).to(dtype)
+        reset_launches()
+        kv, ki = rtopk(x.to(cuda), k)
+        assert body_counts()["rtopk_warp"] == (0 if one else 1)
+        assert launch_counts()["rtopk"] == 1
+        _rtopk_exact(kv, ki, x, k)
 
 
 @pytest.mark.parametrize("causal", [True, False])

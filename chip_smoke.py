@@ -21,7 +21,14 @@ Phases; any failure raises and the script exits non-zero:
                the tolerance stated beside the check; kernel, plain and
                library-call device times (a torch.profiler trace;
                CUDA-event times per call beside them) and the bound (least
-               time the card could take);
+               time the card could take); then the rows this slice's
+               models run at their own shapes (``phase_qwen3_llama_shapes``):
+               rows 1, 3, 5, 6, 7 at qwen3-0.6b-sfa8's training shape (bh
+               8 x 16, n 1024, d 128, k 8), rows 10, 11, 13, 14 at its
+               decode shape (8 slots, 16 query heads over 8 kv heads, d
+               128; row 12 checked there), rows 2, 4, 8, 9 at llama3.2-3b's
+               seam shape (24 heads, d 128, k 16, code width 32, m 3072),
+               each an extra shape of its entry in the ``kernels`` line;
   4. engine  — the serving main path at full width: gpt2-small-sfa8
                (12 layers, d_model 768, 12 heads of 64, SFA k=8, vocab
                50,257), bf16, random weights from a seed, through
@@ -48,10 +55,18 @@ Phases; any failure raises and the script exits non-zero:
                streams equal or parted at a near-tie; then the serving
                launcher with ``--no-reduced --paged --speculative`` and
                ``--decode-backend cuda_fm --paged``;
-  5. end to end — the same model in float32, prefill logits and 8
+  4e. qwen3  — qwen3-0.6b-sfa8 at full width and depth (28 layers, d_model
+               1024, 16 heads over 8 kv heads of 128, k 8, vocab 151,936),
+               bf16, random weights from the seed: the same 8 requests
+               through the slot engine (its KV cache at rest equal to
+               ``cache_bytes_per_token``'s byte model, a traced window of 4
+               decode steps), the paged engine at full residency (streams
+               identical) and the cuda_fm engines (the near-tie rule);
+  5. end to end — gpt2-small-sfa8 in float32, prefill logits and 8
                teacher-forced decode steps through the "cuda" (kernels) and
                "torch" (plain) backends, held to a stated tolerance with the
-               argmax equal at every step;
+               argmax equal at every step; then qwen3-0.6b-sfa8 the same way
+               at full width and 4 of its 28 layers;
   6. train   — the training main path at full width: gpt2-small-sfa8 in
                bf16 through ``Trainer`` (AdamW, remat="full", Markov data),
                batch 8 x seq 1024, 1 warm-up and 5 timed steps; step ms,
@@ -73,6 +88,16 @@ Phases; any failure raises and the script exits non-zero:
                applied;
                then the launcher ``python -m repro_torch.launch.train
                --no-reduced --bwd-emit compact --remat codes`` for 2 steps;
+  8b. qwen3 train — qwen3-0.6b-sfa8 (dense emit, remat "full"; then a
+               compact request, which qk-norm sends off the seam: the report
+               says why and the op-level compact emit runs) and the dense
+               qwen3-0.6b, full width and depth, batch 8 x 1024, bf16;
+               llama3.2-3b at full width and 4 of 28 layers through the RoPE
+               compact seam (compact2, remat "codes"; code width 32, so
+               code_grad dx and dW on their CUDA-core bodies, 2L a step
+               each, as predicted); each train phase prints its step FLOPs
+               (``utils.analytic.step_flops``) and their share of the bf16
+               peak;
   9. gradients end to end — float32 gpt2-small-sfa8 at full width, batch 1
                x seq 512: the loss and every parameter gradient through the
                "cuda" backend, dense emit with remat="full" and the compact
@@ -83,6 +108,10 @@ Phases; any failure raises and the script exits non-zero:
                bf16 (dense emit, remat="full"; compact seam,
                remat="codes") through the tensor-core FlashSFA bodies,
                held to the torch backend's own bf16 distance from float32;
+               then qwen3-0.6b-sfa8 at full width and 2 layers in bf16 (dense
+               emit) by the same rule, and llama3.2-3b at full width and 2
+               layers in float32 through the compact seam against the torch
+               backend (1e-4 on the loss, 1e-3 relative L2 a leaf);
  10. a ``kernels`` JSON line, then the result line.
 
 Phase 3 holds row 1 (rtopk, d 64, k 8, bf16 and f32, tie-heavy rows) at
@@ -722,13 +751,13 @@ def phase_decode(rs):
 PAGED = dict(slots=8, h=12, d=64, k=8, dv=64, page=128, mp=16)
 
 
-def _paged_pools(rs, dtype, copies=4):
+def _paged_pools(rs, dtype, copies=4, c=PAGED):
     """``copies`` distinct pool sets (> the 50 MB L2 together, cycled so a
-    timed call reads from HBM) in the (hkv, P, page, F) layout, a shuffled
-    non-monotone block table and ragged lengths with slot 1 at the
-    past-the-table sentinel. Codes are rtopk codes of random rows."""
+    timed call reads from HBM) in the (hkv, P, page, F) layout (hkv =
+    ``c["h"]``), a shuffled non-monotone block table and ragged lengths with
+    slot 1 at the past-the-table sentinel. Codes are rtopk codes of random
+    rows."""
     from repro_torch.kernels import rtopk
-    c = PAGED
     P = c["slots"] * c["mp"] + 1
     pools = []
     for _ in range(copies):
@@ -754,18 +783,18 @@ def _cycle(fns):
     return call
 
 
-def _check_paged_multi(q, qm, p0, bt, lens, slot, start, what):
+def _check_paged_multi(q, qm, p0, bt, lens, slot, start, what, c=PAGED):
     """Rows 11 and 12 on one pool set: each against its plain version (a
     zero-length row must be exactly 0), the paged
     decode bit-equal to flash_sfa_decode on the gathered view, and each of
     the C verify rows of ``slot`` at lengths start+1.. bit-equal to the
-    paged decode at its length. -> (verify lengths, (paged err, multi err))."""
+    paged decode at its length. Query heads ``c["heads"]`` (GQA) or
+    ``c["h"]``. -> (verify lengths, (paged err, multi err))."""
     from repro_torch.kernels import flash_sfa_decode, flash_sfa_decode_multi, flash_sfa_decode_paged
     from repro_torch.kernels.ref import (
         _pool_view, flash_sfa_decode_multi_ref, flash_sfa_decode_paged_ref,
     )
-    c = PAGED
-    h, d = c["h"], c["d"]
+    h, d = c.get("heads", c["h"]), c["d"]
     C = qm.shape[0] // h
     ko = flash_sfa_decode_paged(q, p0["kv"], p0["ki"], p0["v"], bt, lens, d=d, heads=h)
     po = flash_sfa_decode_paged_ref(q, p0["kv"], p0["ki"], p0["v"], bt, lens, d=d, heads=h)
@@ -1709,6 +1738,391 @@ def phase_block_skip(rs):
 
 
 # --------------------------------------------------------------------------
+# phase 3 at the qwen3 and llama shapes
+# --------------------------------------------------------------------------
+
+SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms")
+# qwen3-0.6b-sfa8's training step (batch 8 x 16 heads, 1024 tokens, d 128,
+# k 8) and decode step (8 slots, 16 query heads over 8 kv heads, d 128);
+# llama3.2-3b's compact seam (24 query heads, d 128, k 16, code width 32,
+# m 3072)
+Q3, LL = dict(b=8, h=16, hkv=8, d=128, k=8), dict(b=8, h=24, hkv=8, d=128, k=16, m=3072)
+Q3_PAGED = dict(slots=8, h=8, heads=16, d=128, k=8, dv=128, page=128, mp=16)
+
+
+def _add_shape(results, name, label, r):
+    """Record ``r`` as one more shape of kernel ``name``'s entry (the row's
+    first shape, gpt2-small-sfa8's, beside it under "gpt2")."""
+    row = results[name]
+    shapes = row.setdefault("shapes", {})
+    if not shapes:
+        shapes["gpt2"] = {key: row[key] for key in SHAPE_KEYS}
+    shapes[label] = {key: r[key] for key in SHAPE_KEYS}
+    row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+
+
+def _timed_shape(results, name, label, what, err, bytes_moved, op_s, kernel, plain, library):
+    b_ms, b_by = bound(bytes_moved, op_s)
+    r = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **timings(kernel, plain, library))
+    print(f"[{name}] {label}: {what}; {fmt(r)}")
+    _add_shape(results, name, label, r)
+
+
+def phase_qwen3_llama_shapes(results):
+    """Rows 1, 3, 5, 6, 7 at qwen3's training shape, rows 10, 11, 13, 14 at
+    its decode shape (GQA, a group of 2), rows 2, 4, 8, 9 at llama's seam
+    shape (k 16: code width 32, code_grad on its CUDA-core bodies), row 12
+    checked at d 128 with a group of 2: each against its plain version with
+    the tolerance of its gpt2 check, timed beside its plain version and its
+    library call, and the bound from these inputs. The d 128 kernels'
+    ptxas registers first."""
+    from repro_torch.kernels import (
+        body_counts, code_grad_dw, code_grad_dx, flash_attention, flash_attention_bwd,
+        flash_sfa, flash_sfa_bwd, flash_sfa_decode, flash_sfa_decode_fm,
+        flash_sfa_decode_fm_paged, flash_sfa_decode_paged, proj_rtopk, reset_launches, rtopk,
+        topk_dense,
+    )
+    from repro_torch.kernels.flash_sfa import BLOCK, _skip_schedule
+    from repro_torch.kernels.ops import head_blocks
+    from repro_torch.kernels.ref import (
+        _pool_view, code_grad_dw_ref, code_grad_dx_ref, flash_attention_bwd_ref,
+        flash_attention_ref, flash_sfa_bwd_ref, flash_sfa_decode_fm_paged_ref,
+        flash_sfa_decode_fm_ref, flash_sfa_decode_paged_ref, flash_sfa_decode_ref,
+        flash_sfa_ref, proj_rtopk_ref, rtopk_ref, scatter_code_grads,
+    )
+    for lib in ("flash_attention", "flash_sfa_tc", "flash_sfa_bwd", "proj_rtopk", "code_grad"):
+        regs = ptxas_kernels(lib)
+        print(f"[ptxas] {lib}: " + "; ".join(
+            f"{fn[:60]} {r} regs" + ("" if sp.startswith("0 bytes stack frame, 0 ") or not sp
+                                    else f" ({sp})") for fn, (r, sp) in regs.items()))
+    rs = np.random.RandomState(SEED + 30)
+    es = 2
+    # ---- qwen3's training shape: rows 1, 3, 5, 7, 6 ----
+    b, h, d, k = Q3["b"], Q3["h"], Q3["d"], Q3["k"]
+    bh, n, dv, scale = b * h, TRAIN_N, d, d ** -0.5
+    label = "qwen3 training"
+    rows = bh * n
+    x = torch.from_numpy(_tie_rows(rs, rows, d)).cuda().bfloat16()
+    reset_launches()
+    kv, ki = rtopk(x, k)
+    check(body_counts()["rtopk_warp"] == 0, f"rtopk {label}: {body_counts()}")
+    err = _rtopk_exact(x, k, kv, ki, label)
+
+    def rtopk_library():
+        _, i = torch.topk(x.abs(), k, dim=-1)
+        i, _ = torch.sort(i, dim=-1)
+        return x.gather(-1, i), i
+
+    _timed_shape(results, "rtopk", f"{label} bfloat16",
+                 f"bf16 rows={rows} d={d} k={k}, one-thread body: indices equal, values "
+                 f"bit-equal; library = topk+sort", err, rows * d * es + rows * k * (es + 4),
+                 rows * d / F32_FLOPS, lambda: rtopk(x, k), lambda: rtopk_ref(x, k),
+                 rtopk_library)
+    del x, kv, ki
+    reset_launches()
+    qv, qi, kv, ki = _codes_of(rs, bh, n, d, k, torch.bfloat16)
+    v, g = (torch.from_numpy(rs.randn(bh, n, dv).astype(np.float32)).cuda().bfloat16()
+            for _ in range(2))
+    ko, kl = flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True)
+    po, pl = flash_sfa_ref(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True)
+    torch.cuda.synchronize()
+    err = _close(ko, po, torch.bfloat16, f"flash_sfa {label}")[0]
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+    args = (qv, qi, kv, ki, v, ko, kl, g)
+    got = flash_sfa_bwd(*args, d=d, scale=scale)
+    want = flash_sfa_bwd_ref(*args, d=d, scale=scale)
+    torch.cuda.synchronize()
+    berr = max(_close(a, w, torch.bfloat16, f"flash_sfa_bwd {nm} {label}")[0]
+               for nm, a, w in zip(("dq", "dk", "dv"), got, want))
+    _tc_only(f"flash_sfa {label}")
+    del po, pl, got, want
+    qd = _densify(qv, qi, d)
+    kd = _densify(kv, ki, d)
+    pairs = _pairs(bh, n)
+    _timed_shape(results, "flash_sfa", label,
+                 f"bh={bh} n={n} d=dv={d} k={k} bf16 (tensor-core body): max|err| {err:.3g}; "
+                 f"library = SDPA on densified Q/K", err,
+                 2 * bh * n * k * (es + 4) + 2 * bh * n * dv * es + bh * n * 4,
+                 code_product_s(2 * k * pairs, 2 * d * pairs) + 2 * dv * pairs / BF16_TC_FLOPS,
+                 lambda: flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True),
+                 lambda: flash_sfa_ref(qv, qi, kv, ki, v, d=d, scale=scale,
+                                       return_residuals=True),
+                 lambda: F.scaled_dot_product_attention(
+                     qd.reshape(b, h, n, d), kd.reshape(b, h, n, d), v.reshape(b, h, n, dv),
+                     is_causal=True, scale=scale))
+    _timed_shape(results, "flash_sfa_bwd", label,
+                 f"dense emit, bh={bh} n={n} d=dv={d} k={k} bf16 (tensor-core body): max|err| "
+                 f"{berr:.3g}; library = SDPA backward (autograd) on densified Q/K", berr,
+                 2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
+                 + 2 * bh * n * d * es + bh * n * dv * es,
+                 code_product_s(6 * k * pairs, 6 * d * pairs) + 4 * dv * pairs / BF16_TC_FLOPS,
+                 lambda: flash_sfa_bwd(*args, d=d, scale=scale),
+                 lambda: flash_sfa_bwd_ref(*args, d=d, scale=scale),
+                 _sdpa_bwd(qd, kd, v, g, scale))
+    del qd, kd, args
+    q, kk = (torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
+             for _ in range(2))
+    ko, kl = flash_attention(q, kk, v, scale=scale, return_residuals=True)
+    po, pl = flash_attention_ref(q, kk, v, scale=scale, return_residuals=True)
+    got = flash_attention_bwd(q, kk, v, po, pl, g, scale=scale)
+    want = flash_attention_bwd_ref(q, kk, v, po, pl, g, scale=scale)
+    torch.cuda.synchronize()
+    ferr = _close(ko, po, torch.bfloat16, f"flash_attention {label}")[0]
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+    berr = max(_close(a, w, torch.bfloat16, f"flash_attention_bwd {nm} {label}")[0]
+               for nm, a, w in zip(("dq", "dk", "dv"), got, want))
+    del got, want
+    _timed_shape(results, "flash_attention", label,
+                 f"bh={bh} n={n} d={d} bf16: max|err| {ferr:.3g}; library = SDPA", ferr,
+                 4 * bh * n * d * es + bh * n * 4, 4 * d * pairs / BF16_TC_FLOPS,
+                 lambda: flash_attention(q, kk, v, scale=scale, return_residuals=True),
+                 lambda: flash_attention_ref(q, kk, v, scale=scale, return_residuals=True),
+                 lambda: F.scaled_dot_product_attention(
+                     q.reshape(b, h, n, d), kk.reshape(b, h, n, d), v.reshape(b, h, n, d),
+                     is_causal=True, scale=scale))
+    _timed_shape(results, "flash_attention_bwd", label,
+                 f"bh={bh} n={n} d={d} bf16: max|err| {berr:.3g}; library = SDPA backward "
+                 f"(autograd)", berr, 8 * bh * n * d * es + bh * n * 4,
+                 10 * d * pairs / BF16_TC_FLOPS,
+                 lambda: flash_attention_bwd(q, kk, v, po, pl, g, scale=scale),
+                 lambda: flash_attention_bwd_ref(q, kk, v, po, pl, g, scale=scale),
+                 _sdpa_bwd(q, kk, v, g, scale))
+    del q, kk, v, g, po, pl, ko, kl
+    torch.cuda.empty_cache()
+    # ---- qwen3's decode step: rows 10, 11 (12 checked), 13, 14 ----
+    label = "qwen3 decode"
+    hkv, group, n_max = Q3["hkv"], h // Q3["hkv"], 2048
+    lengths = rs.randint(64, n_max + 1, size=b)
+    lens = torch.from_numpy(np.repeat(lengths, h).astype(np.int32)).cuda()
+    caches = []
+    for _ in range(4):
+        kdn = torch.from_numpy(rs.randn(b, n_max, hkv, d).astype(np.float32)).cuda()
+        kv, ki = rtopk(kdn.bfloat16(), k)
+        v = torch.from_numpy(rs.randn(b, n_max, hkv, dv).astype(np.float32)).cuda().bfloat16()
+        caches.append((kv, ki.to(torch.uint8), v))
+    q = topk_dense(torch.from_numpy(rs.randn(b * h, d).astype(np.float32)).cuda(), k)
+    bl = torch.from_numpy(np.repeat(_boundary_lengths(n_max, b), h)).cuda()
+    err = 0.0
+    for ll in (lens, bl):
+        err = max(err, _close_rows(flash_sfa_decode(q, *caches[0], ll, d=d, scale=scale),
+                                   flash_sfa_decode_ref(q, *caches[0], ll, d=d, scale=scale), ll,
+                                   f"flash_sfa_decode {label}"))
+    dense = [(_densify(kv_, ki_, d).permute(0, 2, 1, 3).repeat_interleave(group, 1).contiguous(),
+              v_.permute(0, 2, 1, 3).repeat_interleave(group, 1).contiguous())
+             for kv_, ki_, v_ in caches]
+    mask = (torch.arange(n_max, device="cuda")[None, :]
+            < torch.from_numpy(lengths).cuda()[:, None])[:, None, None, :]
+    qb = q.bfloat16().reshape(b, h, 1, d)
+    tokens = int(lengths.sum())
+    _timed_shape(results, "flash_sfa_decode", label,
+                 f"b={b} h={h} over hkv={hkv} n_max={n_max} lengths={lengths.tolist()} (and run "
+                 f"boundaries, a zero-length row 0) k={k} d=dv={d}: max|err| {err:.3g} (tol "
+                 f"1e-4); library = SDPA on the densified cache, heads expanded", err,
+                 tokens * hkv * (k * (es + 1) + dv * es) + b * h * (d + dv) * 4,
+                 code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
+                 + tokens * h * 2 * dv / F32_FLOPS,
+                 _cycle([lambda i=i: flash_sfa_decode(q, *caches[i], lens, d=d, scale=scale)
+                         for i in range(4)]),
+                 _cycle([lambda i=i: flash_sfa_decode_ref(q, *caches[i], lens, d=d, scale=scale)
+                         for i in range(4)]),
+                 _cycle([lambda i=i: F.scaled_dot_product_attention(
+                     qb, dense[i][0], dense[i][1], attn_mask=mask, scale=scale)
+                     for i in range(4)]))
+    del caches, dense
+    c = Q3_PAGED
+    pools, bt, plen = _paged_pools(rs, torch.bfloat16, c=c)
+    plens = torch.from_numpy(plen.astype(np.int32)).cuda()
+    q = topk_dense(torch.from_numpy(rs.randn(c["slots"] * h, d).astype(np.float32)).cuda(), k)
+    C, slot = 5, 2
+    start = int(min(plen[slot], c["mp"] * c["page"])) - C
+    qm = topk_dense(torch.from_numpy(rs.randn(C * h, d).astype(np.float32)).cuda(), k)
+    _, errs = _check_paged_multi(q, qm, pools[0], bt, plens, slot, start, label, c=c)
+    results["flash_sfa_decode_multi"]["max_abs_err"] = max(
+        results["flash_sfa_decode_multi"]["max_abs_err"], errs[1])
+    n_all = c["mp"] * c["page"]
+    eff = np.minimum(plen, n_all)
+    tokens = int(eff.sum())
+    dense = []
+    for p in pools:
+        kdn = _densify(_pool_view(p["kv"], bt), _pool_view(p["ki"], bt), d)
+        dense.append((kdn.permute(0, 2, 1, 3).repeat_interleave(group, 1).contiguous(),
+                      _pool_view(p["v"], bt).permute(0, 2, 1, 3).repeat_interleave(group, 1)
+                      .contiguous()))
+    mask = (torch.arange(n_all, device="cuda")[None, :]
+            < torch.from_numpy(eff).cuda()[:, None])[:, None, None, :]
+    qb = q.bfloat16().reshape(c["slots"], h, 1, d)
+    _timed_shape(results, "flash_sfa_decode_paged", label,
+                 f"slots {c['slots']} x h {h} over hkv {hkv}, pages of {c['page']}, lengths "
+                 f"{eff.tolist()}: max|err| {errs[0]:.3g}; library = SDPA on the densified "
+                 f"gathered cache, heads expanded", errs[0],
+                 tokens * hkv * (k * (es + 1) + dv * es) + c["slots"] * h * (d + dv) * 4,
+                 code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
+                 + tokens * h * 2 * dv / F32_FLOPS,
+                 _cycle([lambda p=p: flash_sfa_decode_paged(
+                     q, p["kv"], p["ki"], p["v"], bt, plens, d=d, heads=h) for p in pools]),
+                 _cycle([lambda p=p: flash_sfa_decode_paged_ref(
+                     q, p["kv"], p["ki"], p["v"], bt, plens, d=d, heads=h) for p in pools]),
+                 _cycle([lambda i=i: F.scaled_dot_product_attention(
+                     qb, dense[i][0], dense[i][1], attn_mask=mask, scale=scale)
+                     for i in range(len(pools))]))
+    del dense
+    btl = bt.long()
+    imgs = [(p["kf"][:, btl].permute(1, 0, 3, 2, 4).reshape(-1, d, n_all).contiguous(),
+             p["v"][:, btl].transpose(0, 1).reshape(-1, n_all, dv).contiguous()) for p in pools]
+    qv, qi = rtopk(torch.from_numpy(rs.randn(c["slots"] * h, d).astype(np.float32))
+                   .cuda().bfloat16(), k)
+    rlens = plens.repeat_interleave(h)
+    fo = flash_sfa_decode_fm(qv, qi, *imgs[0], rlens, group=group)
+    e13 = _close_rows(fo, flash_sfa_decode_fm_ref(qv, qi, *imgs[0], rlens, group=group), rlens,
+                      f"flash_sfa_decode_fm {label}")
+    ko = flash_sfa_decode_fm_paged(qv, qi, pools[0]["kf"], pools[0]["v"], bt, plens, heads=h)
+    e14 = _close_rows(ko, flash_sfa_decode_fm_paged_ref(qv, qi, pools[0]["kf"], pools[0]["v"],
+                                                        bt, plens, heads=h), rlens,
+                      f"flash_sfa_decode_fm_paged {label}")
+    check(torch.equal(ko, fo), f"flash_sfa_decode_fm_paged {label}: not bit-equal to "
+                               f"flash_sfa_decode_fm on the gathered image")
+    lib_in = [(kf.reshape(c["slots"], hkv, d, n_all).transpose(2, 3).repeat_interleave(group, 1)
+               .contiguous(), vv.reshape(c["slots"], hkv, n_all, dv).repeat_interleave(group, 1)
+               .contiguous()) for kf, vv in imgs]
+    qd = _densify(qv, qi, d).reshape(c["slots"], h, 1, d)
+    lib = _cycle([lambda i=i: F.scaled_dot_product_attention(
+        qd, lib_in[i][0], lib_in[i][1], attn_mask=mask, scale=scale) for i in range(len(pools))])
+    fm_bytes = tokens * (h * k * es + hkv * dv * es) + c["slots"] * h * (k * 8 + dv * 4)
+    fm_ops = (code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
+              + tokens * h * 2 * dv / F32_FLOPS)
+    _timed_shape(results, "flash_sfa_decode_fm", label,
+                 f"rows {c['slots'] * h} in groups of {group}, image (rows / {group}, d {d}, n "
+                 f"{n_all}) bf16: max|err| {e13:.3g}; library = SDPA on the image's dense K, "
+                 f"heads expanded", e13, fm_bytes, fm_ops,
+                 _cycle([lambda i=i: flash_sfa_decode_fm(qv, qi, *imgs[i], rlens, group=group)
+                         for i in range(len(pools))]),
+                 _cycle([lambda i=i: flash_sfa_decode_fm_ref(qv, qi, *imgs[i], rlens,
+                                                             group=group)
+                         for i in range(len(pools))]), lib)
+    _timed_shape(results, "flash_sfa_decode_fm_paged", label,
+                 f"the same through (hkv {hkv}, P, d, {c['page']}) pools, heads {h}: max|err| "
+                 f"{e14:.3g}, bit-equal to flash_sfa_decode_fm on the gathered image", e14,
+                 fm_bytes, fm_ops,
+                 _cycle([lambda p=p: flash_sfa_decode_fm_paged(
+                     qv, qi, p["kf"], p["v"], bt, plens, heads=h) for p in pools]),
+                 _cycle([lambda p=p: flash_sfa_decode_fm_paged_ref(
+                     qv, qi, p["kf"], p["v"], bt, plens, heads=h) for p in pools]), lib)
+    del pools, imgs, lib_in
+    torch.cuda.empty_cache()
+    # ---- llama3.2-3b's compact seam: rows 2, 4, 8, 9 ----
+    label = "llama seam"
+    b, h, hkv, d, k, m = LL["b"], LL["h"], LL["hkv"], LL["d"], LL["k"], LL["m"]
+    bh, kw, scale = b * h, 2 * k, d ** -0.5
+    spec = (500_000.0, d)
+    pos = torch.arange(n, device="cuda")[None, :].expand(b, n)
+    x, w = _dyadic_proj(rs, b, n, m, (h + 2 * hkv) * d)
+    wq = head_blocks(w, 0, h, d)
+    reset_launches()
+    kv, ki = proj_rtopk(x.bfloat16(), wq, pos, k=k, rope_spec=spec)
+    pv, pi = proj_rtopk_ref(x.bfloat16(), wq, pos, k=k, rope_spec=spec)
+    torch.cuda.synchronize()
+    check(body_counts()["proj_rtopk_cuda_core"] == 0, f"proj_rtopk {label}: {body_counts()}")
+    check(torch.equal(ki, pi) and torch.equal(kv.view(torch.int16), pv.view(torch.int16)),
+          f"proj_rtopk {label}: dyadic inputs with RoPE not bit-equal to the plain version")
+    # f32 x (the CUDA-core body, which the f32 gradient check runs), 2 of the 8 rows
+    x2, p2 = x[:2].contiguous(), pos[:2]
+    kv, ki = proj_rtopk(x2, wq, p2, k=k, rope_spec=spec)
+    pv, pi = proj_rtopk_ref(x2, wq, p2, k=k, rope_spec=spec)
+    torch.cuda.synchronize()
+    check(body_counts()["proj_rtopk_cuda_core"] == 1, f"proj_rtopk {label} f32: {body_counts()}")
+    check(torch.equal(ki, pi) and torch.equal(kv.view(torch.int32), pv.view(torch.int32)),
+          f"proj_rtopk {label} f32: dyadic inputs with RoPE not bit-equal to the plain version")
+    print(f"[proj_rtopk] {label}: dyadic x (8, {n}, {m}) bf16 (tensor-core body) and (2, {n}, "
+          f"{m}) f32 (CUDA-core body), {h} heads of {d}, RoPE theta {spec[0]:g}, k {k}: "
+          f"indices equal, values bit-equal to the plain version")
+    del x, w, x2, kv, ki, pv, pi
+    w = (0.02 * torch.from_numpy(rs.randn(m, (h + 2 * hkv) * d).astype(np.float32))).cuda()
+    wq = head_blocks(w, 0, h, d)
+    xb = torch.from_numpy(rs.randn(b, n, m).astype(np.float32)).cuda().bfloat16()
+    rows = b * h * n
+
+    def proj_library():
+        y = torch.matmul(xb, w[:, :h * d].bfloat16()).reshape(b, n, h, d)
+        _, i = torch.topk(y.abs(), k, dim=-1)
+        return i
+
+    _timed_shape(results, "proj_rtopk", label,
+                 f"bf16 x {tuple(xb.shape)}, {h} heads of {d}, RoPE theta {spec[0]:g}, k={k} "
+                 f"(tensor-core body; dyadic inputs bit-equal to the plain version); library = "
+                 f"torch.matmul + torch.topk", 0.0,
+                 b * n * m * es + m * h * d * 4 + rows * k * (es + 4),
+                 max(2 * b * n * m * h * d / BF16_TC_FLOPS, rows * d / F32_FLOPS),
+                 lambda: proj_rtopk(xb, wq, pos, k=k, rope_spec=spec),
+                 lambda: proj_rtopk_ref(xb, wq, pos, k=k, rope_spec=spec), proj_library)
+    qv, qi, kv, ki = _codes_of(rs, bh, n, d, k, torch.bfloat16)
+    v = torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
+    reset_launches()
+    ko, kl = flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True,
+                       block_skip=True)
+    po, pl = flash_sfa_ref(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True)
+    torch.cuda.synchronize()
+    err = _close(ko, po, torch.bfloat16, f"flash_sfa block_skip {label}")[0]
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+    _tc_only(f"flash_sfa block_skip {label}")
+    del po, pl
+    level = _skip_schedule(qv, qi, kv, ki, d=d, causal=True, block_q=BLOCK, block_k=BLOCK)
+    pairs, closed = _skip_work(level)
+    qd, kd = _densify(qv, qi, d), _densify(kv, ki, d)
+    _timed_shape(results, "flash_sfa_block_skip", label,
+                 f"rtopk codes bh={bh} n={n} d=dv={d} k={k} bf16: max|err| {err:.3g}; {pairs} "
+                 f"computed pairs, {closed} closed-form tiles; library = SDPA on densified Q/K",
+                 err, 2 * bh * n * k * (es + 4) + 2 * bh * n * d * es + bh * n * 4,
+                 code_product_s(2 * k * pairs, 2 * d * pairs) + 2 * d * pairs / BF16_TC_FLOPS
+                 + 2 * d * BLOCK * closed / F32_FLOPS,
+                 lambda: flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True,
+                                   block_skip=True),
+                 lambda: flash_sfa_ref(qv, qi, kv, ki, v, d=d, scale=scale,
+                                       return_residuals=True),
+                 lambda: F.scaled_dot_product_attention(
+                     qd.reshape(b, h, n, d), kd.reshape(b, h, n, d), v.reshape(b, h, n, d),
+                     is_causal=True, scale=scale))
+    del qv, qi, kv, ki, v, qd, kd, level
+    torch.cuda.empty_cache()
+    ntok = b * n
+    vals = torch.from_numpy(rs.randn(h, ntok, kw).astype(np.float32)).cuda().bfloat16()
+    idx = torch.from_numpy(np.sort(np.argsort(rs.rand(h, ntok, d), -1)[..., :kw], -1)
+                           .astype(np.int32)).cuda()
+    idx[:, 3::7, 1] = idx[:, 3::7, 0]          # duplicates sum (pair closures)
+    xx = xb.reshape(ntok, m)
+    reset_launches()
+    got = (code_grad_dx(vals, idx, wq, d=d), code_grad_dw(xx, vals, idx, d=d))
+    check(body_counts()["code_grad_dx_cuda_core"] == body_counts()["code_grad_dw_cuda_core"] == 1,
+          f"code_grad {label} (width {kw}): not the CUDA-core bodies {body_counts()}")
+    want = (code_grad_dx_ref(vals, idx, wq, d=d), code_grad_dw_ref(xx, vals, idx, d=d))
+    torch.cuda.synchronize()
+    cerr = {}
+    for nm, a, bb in zip(("dx", "dw"), got, want):
+        torch.testing.assert_close(a, bb, rtol=1e-4, atol=1e-4 * bb.abs().max().item(),
+                                   msg=f"code_grad {nm} {label}")
+        cerr[nm] = (a - bb).abs().max().item()
+    del got, want
+    ops_s = code_product_s(2 * ntok * m * h * kw, 2 * ntok * m * h * d)
+    codes = h * ntok * kw * (es + 4)
+    _timed_shape(results, "code_grad_dx", label,
+                 f"bf16 codes {h} x {ntok} x {kw}, m {m}, d {d} (CUDA-core body, width {kw}): "
+                 f"max|err| {cerr['dx']:.3g}; library = scatter_code_grads + torch.einsum",
+                 cerr["dx"], codes + h * m * d * 4 + ntok * m * 4, ops_s,
+                 lambda: code_grad_dx(vals, idx, wq, d=d),
+                 lambda: code_grad_dx_ref(vals, idx, wq, d=d),
+                 lambda: torch.einsum("hnd,hmd->nm", scatter_code_grads(vals, idx, d).float(),
+                                      wq))
+    _timed_shape(results, "code_grad_dw", label,
+                 f"the same codes, x ({ntok}, {m}) bf16 (CUDA-core body): max|err| "
+                 f"{cerr['dw']:.3g}; library = scatter_code_grads + torch.einsum", cerr["dw"],
+                 codes + ntok * m * es + h * m * d * 4, ops_s,
+                 lambda: code_grad_dw(xx, vals, idx, d=d),
+                 lambda: code_grad_dw_ref(xx, vals, idx, d=d),
+                 lambda: torch.einsum("nm,hnd->hmd", xx.float(),
+                                      scatter_code_grads(vals, idx, d).float()))
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
 # phase 4-5: the serving main path
 # --------------------------------------------------------------------------
 
@@ -1716,7 +2130,7 @@ def phase_engine(model, cfg):
     from repro_torch.core.kv_cache import kv_cache_nodes
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models.backends import clear_fallback_reports, fallback_reports
-    from repro_torch.serve import DecodeEngine, EngineConfig
+    from repro_torch.serve import DecodeEngine, EngineConfig, cache_bytes_per_token
     rs = np.random.RandomState(SEED)
     prompts = [rs.randint(0, cfg.vocab_size, size=n).astype(np.int64)
                for n in rs.randint(64, 1025, size=8)]
@@ -1754,6 +2168,10 @@ def phase_engine(model, cfg):
     serving = ("rtopk", "flash_sfa", "flash_sfa_decode")
     check(all(counts[k] > 0 for k in serving), f"engine: a kernel never launched: {counts}")
     _rtopk_one_thread("engine")
+    # the cache at rest against the byte model: 8 slots x its token capacity
+    model_bytes = cache_bytes_per_token(cfg)["sfa"] * 8 * eng._cache_len
+    check(eng.cache_bytes() == model_bytes, f"engine: kv cache {eng.cache_bytes()} bytes, the "
+                                            f"byte model {model_bytes}")
     # a separate traced window: the same prompts again, 4 decode steps
     for p in prompts:
         eng.add_request(p, max_new_tokens=5)
@@ -1775,7 +2193,8 @@ def phase_engine(model, cfg):
           f"{np.mean(step_ms):.3f} p50 {np.median(step_ms):.3f} over {len(step_ms)} "
           f"steps; {decode_tokens / (sum(step_ms) / 1e3):.1f} decode tokens/s, "
           f"{tokens / wall:.1f} tokens/s overall ({tokens} tokens in {wall:.2f} s)")
-    print(f"[engine] kv cache {eng.cache_bytes() / 2**20:.2f} MiB ({', '.join(layouts)}); "
+    print(f"[engine] kv cache {eng.cache_bytes() / 2**20:.2f} MiB ({', '.join(layouts)}; "
+          f"equal to cache_bytes_per_token x 8 x {eng._cache_len}); "
           f"launches {counts}; fallbacks none; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[engine] traced 4 decode steps (profiler on): wall {traced_ms:.2f} ms, "
@@ -1837,10 +2256,10 @@ def _near_tie_divergences(model, cfg, prompts, got, want, bound_logit):
     return out
 
 
-def phase_paged(model, cfg, slot_run):
+def phase_paged(model, cfg, slot_run, preempt=True):
     """(a) the paged engine on the slot engine's prompts, full residency:
-    streams identical to DecodeEngine's; (b) 16 prompts, chunked prefill, a
-    quarter of full residency: queueing and preemption."""
+    streams identical to DecodeEngine's; (b, with ``preempt``) 16 prompts,
+    chunked prefill, a quarter of full residency: queueing and preemption."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models.backends import clear_fallback_reports, fallback_reports
     from repro_torch.serve import PagedDecodeEngine, PagedEngineConfig, paged_page_bytes
@@ -1870,6 +2289,8 @@ def phase_paged(model, cfg, slot_run):
           f"{slot_run['step_ms']:.3f}; {tokens / wall:.1f} tokens/s overall; kv cache "
           f"{eng.cache_bytes() / 2**20:.2f} MiB (DecodeEngine "
           f"{slot_run['cache_bytes'] / 2**20:.2f} MiB); launches {counts}")
+    if not preempt:
+        return res
     # (b) queueing and preemption
     rs = np.random.RandomState(SEED + 3)
     prompts = [rs.randint(0, cfg.vocab_size, size=n).astype(np.int64)
@@ -2045,7 +2466,7 @@ def phase_serve_launcher():
               f"{time.perf_counter() - t0:.1f} s; " + " | ".join(out[-3:]))
 
 
-def phase_end_to_end(model, cfg):
+def phase_end_to_end(model, cfg, depth="full depth"):
     """Kernels against plain on the whole model, float32."""
     from repro_torch.models import decode_step, init_decode_caches, prefill
     from repro_torch.models.model import insert_slot
@@ -2074,8 +2495,8 @@ def phase_end_to_end(model, cfg):
     # logits of magnitude ~1, and the argmax equal at every step
     check(err <= 5e-3, f"end to end: max |logit diff| {err:.3g} > 5e-3")
     check(torch.equal(a.argmax(-1), b.argmax(-1)), "end to end: argmax differs")
-    print(f"[end-to-end] f32 {cfg.name}: prefill(512) + 8 teacher-forced decode "
-          f"steps, cuda vs torch backends: max |logit diff| {err:.3g} (tol 5e-3), "
+    print(f"[end-to-end] f32 {cfg.name} full width, {depth}: prefill(512) + 8 teacher-forced "
+          f"decode steps, cuda vs torch backends: max |logit diff| {err:.3g} (tol 5e-3), "
           f"argmax equal at all {a.shape[0]} steps")
 
 
@@ -2083,14 +2504,19 @@ def phase_end_to_end(model, cfg):
 # phase 6-8: the training main path
 # --------------------------------------------------------------------------
 
-def phase_train(arch, timed_steps, predicted, **policy):
+def phase_train(arch, timed_steps, predicted, *, layers=None, bodies=None, **policy):
     """Train full-width ``arch`` in bf16 through ``Trainer``: 1 warm-up and
     ``timed_steps`` timed steps with the launch counts read over all of
     them, then one traced step. ``predicted`` maps kernel -> launches per
-    step (every other kernel: none); ``policy`` overrides the TrainPolicy
-    (default remat="full"). Returns (launch counts, step summary)."""
+    step (every other kernel: none) and ``bodies`` CUDA-core body -> its
+    launches per step (default: none on any); ``layers`` cuts the depth;
+    ``policy`` overrides the TrainPolicy (default remat="full"). A compact
+    request must take the seam where proj_rtopk is predicted, and record why
+    not elsewhere. Prints the step's FLOPs (``utils.analytic.step_flops``)
+    and their share of the bf16 peak. Returns (launch counts, step
+    summary)."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import TrainPolicy
+    from repro_torch.configs.base import ShapeConfig, TrainPolicy
     from repro_torch.core.remat import clear_remat_reports, remat_reports
     from repro_torch.data import DataConfig, markov_batch
     from repro_torch.kernels import body_counts, launch_counts, reset_launches
@@ -2098,7 +2524,12 @@ def phase_train(arch, timed_steps, predicted, **policy):
     from repro_torch.models.backends import clear_fallback_reports, fallback_reports
     from repro_torch.optim import OptimizerConfig
     from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.utils.analytic import step_flops
     cfg = get_config(arch)
+    depth = f"{cfg.num_layers} layers"
+    if layers is not None:
+        depth = f"{layers} of {cfg.num_layers} layers (depth cut)"
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     policy = dict({"remat": "full"}, **policy)
     batch, seq = 8, TRAIN_N
     steps = 1 + timed_steps
@@ -2128,15 +2559,16 @@ def phase_train(arch, timed_steps, predicted, **policy):
           f"train {arch}: non-finite loss or gradient norm: {hist}")
     check(not reports, f"train {arch}: backend fallbacks recorded: {reports}")
     check(counts == want, f"train {arch}: launches {counts}, predicted {want}")
-    # bf16 at d = dv = 64, k 8: every FlashSFA launch on the tensor-core
-    # bodies, and the compact seam's proj_rtopk, dx and dW on theirs
-    _tc_only(f"train {arch}")
+    # bf16 at d = dv in {64, 128}, k <= 16: every FlashSFA launch and the
+    # compact seam's proj_rtopk on the tensor-core bodies, code_grad dx and
+    # dW on theirs at code width 8 or 16 (on the CUDA-core ones at 32)
+    want_bodies = {name: (bodies or {}).get(name, 0) * steps for name in body_counts()}
+    check(body_counts() == want_bodies,
+          f"train {arch}: body launches {body_counts()}, predicted {want_bodies}")
     if policy.get("bwd_emit") in ("compact", "compact2"):
-        seam = ("proj_rtopk", "code_grad_dx", "code_grad_dw")
-        check(all(counts[r] > 0 and body_counts()[f"{r}_cuda_core"] == 0 for r in seam),
-              f"train {arch}: the seam's kernels not all on the tensor cores: {body_counts()}")
-    if policy.get("bwd_emit") in ("compact", "compact2"):
-        check(len(seams) == 1 and seams[0].taken, f"train {arch}: compact seam {seams}")
+        taken = "proj_rtopk" in predicted
+        check(len(seams) == 1 and seams[0].taken == taken and (taken or seams[0].reason),
+              f"train {arch}: compact seam {seams}")
     check(all(r.eligible for r in remats), f"train {arch}: remat degraded: {remats}")
     t0 = time.perf_counter()
     markov_batch(dcfg, 0)
@@ -2147,7 +2579,14 @@ def phase_train(arch, timed_steps, predicted, **policy):
     timed = step_ms[1:]
     tokens = batch * seq
     label = ", ".join(f"{k} {v}" for k, v in policy.items())
-    print(f"[train] {arch} full width bf16, batch {batch} x seq {seq}, {label}, AdamW; "
+    fl = step_flops(dataclasses.replace(cfg, remat=policy["remat"]),
+                    ShapeConfig("chip", seq, batch, "train"))
+    step_s = np.mean(timed) / 1e3
+    print(f"[train] {arch}: step FLOPs (utils.analytic.step_flops) total "
+          f"{fl['total_flops']:.4g} (model 6N {fl['model_flops']:.4g}); at the mean step, "
+          f"{100 * fl['total_flops'] / step_s / BF16_TC_FLOPS:.2f}% of the bf16 peak "
+          f"(model FLOPs {100 * fl['model_flops'] / step_s / BF16_TC_FLOPS:.2f}%)")
+    print(f"[train] {arch} full width bf16, {depth}, batch {batch} x seq {seq}, {label}, AdamW; "
           f"losses {[round(h['loss'], 4) for h in hist]}, grad norms "
           f"{[round(h['grad_norm'], 3) for h in hist]}")
     print(f"[train] {arch}: warm-up step {step_ms[0]:.1f} ms; timed steps ms "
@@ -2166,41 +2605,137 @@ def phase_train(arch, timed_steps, predicted, **policy):
           f"a few of torch's): " + "; ".join(f"{name[:56]} {us / 1e3:.2f} ms"
                                               for name, us in ours))
     if seams:
-        print(f"[train] {arch}: compact seam taken (fused forward {seams[0].fused_fwd}); "
-              f"remat {[(r.requested, r.applied) for r in remats]}")
+        print(f"[train] {arch}: compact seam "
+              + (f"taken (fused forward {seams[0].fused_fwd})" if seams[0].taken
+                 else f"declined: {seams[0].reason}")
+              + f"; remat {[(r.requested, r.applied) for r in remats]}; CUDA-core bodies "
+              f"{body_counts()}")
     return counts, dict(step_ms=float(np.mean(timed)), tokens_s=tokens / (np.mean(timed) / 1e3),
                         peak_gib=peak / 2**30, busy=busy_ms / traced_ms)
 
 
-def phase_grad_end_to_end():
-    """Loss and every parameter gradient, kernels against plain, float32."""
+GRAD_RUNS = (("torch", "torch", "none", "dense"),
+             ("cuda dense emit, remat full", "cuda", "full", "dense"),
+             ("cuda compact seam, remat codes", "cuda", "codes", "compact"))
+
+
+def _own_y_dense(cfg):
+    """``models.layers.dense`` whose q and k columns of the packed qkv
+    projection take their values from proj_rtopk's own f32 y (k = d: every
+    entry, before RoPE) and their gradient from the dense product: the
+    plain path on the y the compact seam selects from."""
+    from repro_torch.kernels import proj_rtopk
+    from repro_torch.kernels.ops import head_blocks
+    from repro_torch.models import layers as L
+    a = cfg.attention
+    h, hkv, hd = a.num_heads, a.num_kv_heads, a.head_dim
+
+    def dense(params, x, dtype=None):
+        y = L.dense(params, x, dtype)
+        if y.shape[-1] != (h + 2 * hkv) * hd:
+            return y
+        b, n, _ = x.shape
+        own = proj_rtopk(x.detach(), head_blocks(params["w"].detach(), 0, h + hkv, hd), k=hd)[0]
+        own = own.transpose(1, 2).reshape(b, n, (h + hkv) * hd)
+        qk = y[..., :(h + hkv) * hd]
+        return torch.cat([qk + (own - qk).detach(), y[..., (h + hkv) * hd:]], dim=-1)
+    return dense
+
+
+def _layer0_code_flips(model, cfg, batch):
+    """Layer 0's q and k codes from the compact seam's fused projection
+    (proj_rtopk) against the torch path's (dense projection, RoPE, plain
+    top-k) on the same f32 input: rows whose index sets differ must sit at
+    a near-tie of the torch path's magnitudes (2^-17 relative, f32 sums of
+    m terms in two orders). -> (rows that differ, rows)."""
+    from repro_torch.kernels.ops import fused_qk_codes
+    from repro_torch.kernels.ref import rtopk_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models.attention import split_qkv
+    a = cfg.attention
+    h, hkv, hd, k = a.num_heads, a.num_kv_heads, a.head_dim, a.sfa_k
+    with torch.no_grad():
+        x = model.embed.w[batch["tokens"]].float()
+        if cfg.norm == "rmsnorm":
+            x = x * cfg.d_model ** 0.5
+        p = L.tree_index(model.tree()["segments"][0], 0)
+        x = L.apply_norm(p["ln1"], x, cfg.norm)
+        n = x.shape[1]
+        pos = torch.arange(n, device=x.device)[None, :]
+        q, kk, _ = split_qkv(L.dense(p["attn"]["w_qkv"], x), h, hkv, hd)
+        got = fused_qk_codes(x, p["attn"]["w_qkv"]["w"], pos, h=h, hkv=hkv, hd=hd, sfa_k=k,
+                             rope_spec=(a.rope_theta, hd))
+        diff = rows = 0
+        for y, idx in ((q, got[1]), (kk, got[3])):
+            y = L.rope(y, pos, theta=a.rope_theta).transpose(1, 2).reshape(-1, n, hd)
+            d_rows, n_diff, n_tie = near_ties(y, idx, rtopk_ref(y, k)[1], k, 2.0 ** -17)
+            check(n_diff == n_tie, f"layer 0 codes: {n_diff - n_tie} rows differ from the torch "
+                                   f"path's without a near-tie")
+            diff, rows = diff + n_diff, rows + d_rows.numel()
+    return diff, rows
+
+
+def phase_grad_end_to_end(arch="gpt2-small-sfa8", layers=None, runs=GRAD_RUNS, own_y=False):
+    """Loss and every parameter gradient, kernels against plain, float32,
+    full width (``layers`` cuts the depth); ``runs``: (label, backend,
+    remat, emit), the torch run first. With ``own_y`` (the compact seam at
+    a width where f32 sums of d_model terms in two orders part top-k
+    near-ties): layer 0's seam codes are held to the torch path's but at
+    near-ties, and the torch run takes its q and k values from
+    proj_rtopk's own f32 y (``_own_y_dense``), so both runs select from the
+    same y; the plain torch run's distance is printed beside it."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, markov_batch
-    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels import body_counts, launch_counts, reset_launches
     from repro_torch.models import init, loss_fn
     from repro_torch.train.train_step import to_batch
-    cfg = dataclasses.replace(get_config("gpt2-small-sfa8"), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    depth = f"{cfg.num_layers} layers"
+    if layers is not None:
+        depth = f"{layers} of {cfg.num_layers} layers (depth cut)"
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
     named = dict(model.named_parameters())
     batch = to_batch(markov_batch(DataConfig(cfg.vocab_size, 512, 1, seed=SEED + 2), 0), "cuda")
-    runs = {}
-    for label, backend, remat, emit in (("torch", "torch", "none", "dense"),
-                                        ("cuda dense emit, remat full", "cuda", "full", "dense"),
-                                        ("cuda compact seam, remat codes", "cuda", "codes",
-                                         "compact")):
+    runs_out, bodies = {}, {}
+    if own_y:
+        from repro_torch.models import attention as attn_mod
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention,
+                                                                   backend="torch"))
+        loss, _ = loss_fn(model, batch, c)
+        plain = (loss.item(), torch.autograd.grad(loss, list(named.values())))
+        saved, attn_mod.dense = attn_mod.dense, _own_y_dense(cfg)
+        try:
+            loss, _ = loss_fn(model, batch, c)
+            runs_out["torch"] = (loss.item(), torch.autograd.grad(loss, list(named.values())))
+        finally:
+            attn_mod.dense = saved
+        runs = [r for r in runs if r[0] != "torch"]
+        flips, rows = _layer0_code_flips(model, cfg, batch)
+        print(f"[grad end-to-end] f32 {cfg.name}: layer 0's seam codes differ from the torch "
+              f"path's on {flips} of {rows} rows, each at a near-tie (2^-17 relative)")
+    for label, backend, remat, emit in runs:
         c = dataclasses.replace(cfg, remat=remat, attention=dataclasses.replace(
             cfg.attention, backend=backend, bwd_emit=emit, fwd_fuse=True))
         reset_launches()
         loss, _ = loss_fn(model, batch, c)
-        runs[label] = (loss.item(), torch.autograd.grad(loss, list(named.values())))
+        runs_out[label] = (loss.item(), torch.autograd.grad(loss, list(named.values())))
         counts = launch_counts()
+        bodies[label] = {n_: v for n_, v in body_counts().items() if v}
         if emit == "compact":
             check(all(counts[k] > 0 for k in ("proj_rtopk", "flash_sfa_block_skip",
                                               "flash_sfa_bwd_compact", "code_grad_dx",
                                               "code_grad_dw")),
                   f"gradients end to end: the compact seam did not run its kernels {counts}")
-    lb, gb = runs.pop("torch")
-    for label, (la, ga) in runs.items():
+    lb, gb = runs_out.pop("torch")
+    for label, (la, ga) in runs_out.items():
+        if own_y:
+            dist = {name: ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                    for name, a, b in zip(named, ga, plain[1])}
+            print(f"[grad end-to-end] f32 {cfg.name}, {label} against the plain torch run "
+                  f"(its own dense projection; not held to 1e-3, the seam parts from it at "
+                  f"near-ties): loss {la:.6f} vs {plain[0]:.6f}; relative L2 per leaf "
+                  + ", ".join(f"{n_} {e:.3g}" for n_, e in dist.items()))
         check(np.isfinite(la), f"gradients end to end ({label}): non-finite loss")
         # tolerance: f32, sums in another order (1e-6 relative expected); a
         # top-k tie that the two orders break apart moves one coordinate of
@@ -2214,10 +2749,11 @@ def phase_grad_end_to_end():
             check(rel <= 1e-3,
                   f"gradients end to end ({label}): d{name} relative error {rel:.3g} > 1e-3")
             worst = max(worst, (rel, name))
-        print(f"[grad end-to-end] f32 {cfg.name} full width, batch 1 x seq 512, {label}: "
-              f"loss {la:.6f} vs torch {lb:.6f} (|diff| {abs(la - lb):.3g}, tol 1e-4); all "
-              f"{len(named)} parameter gradients within 1e-3 relative L2, worst "
-              f"{worst[0]:.3g} ({worst[1]})")
+        print(f"[grad end-to-end] f32 {cfg.name} full width, {depth}, batch 1 x seq 512, "
+              f"{label} (CUDA-core bodies {bodies[label]}): loss {la:.6f} vs torch {lb:.6f} "
+              f"(|diff| {abs(la - lb):.3g}, tol 1e-4); all {len(named)} parameter gradients "
+              f"within 1e-3 relative L2, worst {worst[0]:.3g} ({worst[1]})"
+              + (" (torch run on proj_rtopk's own y)" if own_y else ""))
 
 
 def phase_dense_grad_end_to_end():
@@ -2268,20 +2804,25 @@ def phase_dense_grad_end_to_end():
           f"gradients within 5e-2 relative L2, worst {worst[0]:.3g} ({worst[1]})")
 
 
-def phase_sfa_grad_bf16_end_to_end():
-    """Loss and every parameter gradient of gpt2-small-sfa8 in bf16, the
-    tensor-core FlashSFA bodies (dense emit under remat "full", and the
-    compact seam under remat "codes") against the torch backend. Top-k at
-    bf16 flips near-ties wherever two runs round differently, so the
-    tolerance is the torch backend's own distance, at these weights and
-    this batch, from the float32 run of the same weights."""
+def phase_sfa_grad_bf16_end_to_end(arch="gpt2-small-sfa8", layers=None, compact=True):
+    """Loss and every parameter gradient of ``arch`` (full width; ``layers``
+    cuts the depth) in bf16, the tensor-core FlashSFA bodies (dense emit
+    under remat "full", and with ``compact`` the compact seam under remat
+    "codes") against the torch backend. Top-k at bf16 flips near-ties
+    wherever two runs round differently, so the tolerance is the torch
+    backend's own distance, at these weights and this batch, from the
+    float32 run of the same weights."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, markov_batch
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models import init, loss_fn
     from repro_torch.train.train_step import to_batch
-    cfg = get_config("gpt2-small-sfa8")
-    check(cfg.dtype == "bfloat16", f"gpt2-small-sfa8 trains in {cfg.dtype}, expected bfloat16")
+    cfg = get_config(arch)
+    depth = f"{cfg.num_layers} layers"
+    if layers is not None:
+        depth = f"{layers} of {cfg.num_layers} layers (depth cut)"
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    check(cfg.dtype == "bfloat16", f"{arch} trains in {cfg.dtype}, expected bfloat16")
     model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
     named = dict(model.named_parameters())
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -2306,14 +2847,14 @@ def phase_sfa_grad_bf16_end_to_end():
     lt, gt = run(model, cfg, backend="torch")
     check(np.isfinite(lt), "sfa bf16 gradients end to end: non-finite torch loss")
     noise = {name: rel(gt[name], g32[name]) for name in named}
-    print(f"[grad end-to-end] bf16 {cfg.name} full width, batch 1 x seq 512: the torch "
+    print(f"[grad end-to-end] bf16 {cfg.name} full width, {depth}, batch 1 x seq 512: the torch "
           f"backend in bf16 against float32 on the same weights: loss {lt:.6f} vs {l32:.6f}; "
           f"relative L2 per leaf " + ", ".join(f"{n} {e:.3g}" for n, e in noise.items()))
     for label, remat, emit, rows in (
             ("dense emit, remat full", "full", "dense", ("rtopk", "flash_sfa", "flash_sfa_bwd")),
             ("compact seam, remat codes", "codes", "compact",
              ("proj_rtopk", "flash_sfa_block_skip", "flash_sfa_bwd_compact", "code_grad_dx",
-              "code_grad_dw"))):
+              "code_grad_dw")))[:2 if compact else 1]:
         reset_launches()
         la, ga = run(model, cfg, backend="cuda", remat=remat, bwd_emit=emit, fwd_fuse=True)
         counts = launch_counts()
@@ -2339,8 +2880,8 @@ def phase_sfa_grad_bf16_end_to_end():
             check(e <= t, f"sfa bf16 gradients end to end ({label}): d{name} relative error "
                           f"{e:.3g} > {t:.3g}")
             worst = max(worst, (e / t, name, e))
-        print(f"[grad end-to-end] bf16 {cfg.name} full width, batch 1 x seq 512, cuda {label} "
-              f"(launches {', '.join(f'{r} {counts[r]}' for r in rows)}; no CUDA-core "
+        print(f"[grad end-to-end] bf16 {cfg.name} full width, {depth}, batch 1 x seq 512, cuda "
+              f"{label} (launches {', '.join(f'{r} {counts[r]}' for r in rows)}; no CUDA-core "
               f"body) vs torch: loss {la:.6f} vs {lt:.6f} (|diff| {abs(la - lt):.3g}, tol "
               f"{tol:.3g}); all {len(named)} parameter gradients within their tolerance, "
               f"nearest to it d{worst[1]} at {worst[2]:.3g} ({100 * worst[0]:.1f}% of its "
@@ -2386,6 +2927,7 @@ def main():
     results["flash_sfa_bwd"], results["flash_sfa_bwd_compact"] = timed(phase_flash_sfa_bwd, rs)
     results["flash_attention"], results["flash_attention_bwd"] = timed(phase_flash_attention, rs)
     results["code_grad_dx"], results["code_grad_dw"] = timed(phase_code_grad, rs)
+    timed(phase_qwen3_llama_shapes, results)
     cfg = get_config("gpt2-small-sfa8")
     model = init(cfg, device="cuda", seed=SEED)
     counts, slot_run = timed(phase_engine, model, cfg)
@@ -2395,6 +2937,20 @@ def main():
     timed(phase_end_to_end, model, cfg)
     del model
     timed(phase_serve_launcher)
+    # qwen3-0.6b-sfa8 at full width and depth: the slot, paged (full
+    # residency) and cuda_fm engines on the same 8 requests (GQA, d 128)
+    qcfg = get_config("qwen3-0.6b-sfa8")
+    model = init(qcfg, device="cuda", seed=SEED)
+    _, q_slot = timed(phase_engine, model, qcfg)
+    q_paged = timed(phase_paged, model, qcfg, q_slot, preempt=False)
+    timed(phase_feature_major, model, qcfg, q_paged, q_slot["prompts"])
+    del model
+    # its f32 end to end at full width, 4 of 28 layers
+    q4 = dataclasses.replace(qcfg, num_layers=4)
+    model = init(q4, device="cuda", seed=SEED)
+    timed(phase_end_to_end, model, q4, f"4 of {qcfg.num_layers} layers (depth cut)")
+    del model
+    torch.cuda.empty_cache()
     layers = cfg.num_layers
     # remat="full": each layer's forward runs twice per step (rtopk for Q
     # and K each time), its backward once
@@ -2413,9 +2969,30 @@ def main():
          "code_grad_dw": 2 * layers},
         bwd_emit="compact", fwd_fuse=True, remat="codes")
     timed(phase_launcher)
+    # qwen3 at full width and depth: the dense emit; a compact request,
+    # which qk-norm sends off the seam (the op-level compact emit runs:
+    # flash_sfa_bwd_compact); the dense qwen3-0.6b
+    ql = qcfg.num_layers
+    timed(phase_train, "qwen3-0.6b-sfa8", 3,
+          {"rtopk": 4 * ql, "flash_sfa": 2 * ql, "flash_sfa_bwd": ql})
+    timed(phase_train, "qwen3-0.6b-sfa8", 2,
+          {"rtopk": 4 * ql, "flash_sfa": 2 * ql, "flash_sfa_bwd_compact": ql},
+          bwd_emit="compact", fwd_fuse=True)
+    timed(phase_train, "qwen3-0.6b", 2, {"flash_attention": 2 * ql, "flash_attention_bwd": ql})
+    # llama3.2-3b at full width, 4 layers, through the RoPE compact seam:
+    # k 16 gives codes 2k = 32 wide, outside code_grad's tensor-core widths,
+    # so dx and dW run their CUDA-core bodies (2L a step each)
+    ll = 4
+    timed(phase_train, "llama3.2-3b", 2,
+          {"proj_rtopk": 2 * ll, "flash_sfa_block_skip": 2 * ll, "flash_sfa_bwd_compact": ll,
+           "code_grad_dx": 2 * ll, "code_grad_dw": 2 * ll},
+          layers=ll, bodies={"code_grad_dx_cuda_core": 2 * ll, "code_grad_dw_cuda_core": 2 * ll},
+          bwd_emit="compact2", fwd_fuse=True, remat="codes")
     timed(phase_grad_end_to_end)
     timed(phase_dense_grad_end_to_end)
     timed(phase_sfa_grad_bf16_end_to_end)
+    timed(phase_sfa_grad_bf16_end_to_end, "qwen3-0.6b-sfa8", 2, False)
+    timed(phase_grad_end_to_end, "llama3.2-3b", 2, (GRAD_RUNS[0], GRAD_RUNS[2]), True)
     decode_src = "src/repro_torch/csrc/flash_sfa_decode.cu"
     fm_src = "src/repro_torch/csrc/flash_sfa_decode_fm.cu"
     # rows 3-5 run bf16 on the tensor-core bodies (f32 on flash_sfa.cu and

@@ -1,31 +1,44 @@
 """Arch registry: ``get_config(name)`` / ``--arch <id>`` resolution.
 
-The port serves the paper's own models so far (``gpt2-*``, ``qwen3-0.6b*``);
-every other arch of the JAX package's registry raises ``KeyError`` naming it
-as not yet ported.
+The port takes the paper's own models (``gpt2-*``, ``qwen3-0.6b*``) and
+the dense llama-family archs of the JAX package's registry (``_ARCH_MODULES``,
+one module each); every other arch there raises ``KeyError`` naming it as
+not yet ported.
 """
 from __future__ import annotations
 
+import importlib
+
 from repro_torch.configs.base import (
-    AttentionConfig, FrontendConfig, MLAConfig, MoEConfig, ModelConfig,
-    REMAT_POLICIES, RWKVConfig, SSMConfig, TrainPolicy,
+    LM_SHAPES, AttentionConfig, FrontendConfig, MLAConfig, MoEConfig, ModelConfig,
+    REMAT_POLICIES, RWKVConfig, ShapeConfig, SSMConfig, TrainPolicy, shape_by_name,
 )
 from repro_torch.configs import paper_models
 
 # archs the JAX package registers whose model families the port has not
 # reached yet (MoE, hybrid, SSM, MLA, windows, frontends)
 NOT_YET_PORTED = (
-    "gemma3-4b", "llama3.2-3b", "llama3-8b", "deepseek-7b",
-    "moonshot-v1-16b-a3b", "deepseek-v2-236b", "jamba-v0.1-52b",
+    "gemma3-4b", "moonshot-v1-16b-a3b", "deepseek-v2-236b", "jamba-v0.1-52b",
     "paligemma-3b", "rwkv6-3b", "hubert-xlarge",
 )
+
+# registered archs the port takes: id -> module of this package
+_ARCH_MODULES = {
+    "llama3.2-3b": "llama3_2_3b",
+    "llama3-8b": "llama3_8b",
+    "deepseek-7b": "deepseek_7b",
+}
+
+_PORTED = "gpt2-*, qwen3-0.6b*, " + ", ".join(_ARCH_MODULES)
 
 
 def get_config(name: str) -> ModelConfig:
     """Resolve a paper-model arch id to its config."""
     if name in NOT_YET_PORTED:
         raise KeyError(f"arch {name!r} is not yet ported to repro_torch; "
-                       f"ported: gpt2-*, qwen3-0.6b*")
+                       f"ported: {_PORTED}")
+    if name in _ARCH_MODULES:
+        return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}").CONFIG
     if name.startswith("gpt2-"):
         parts = name.split("-")          # gpt2-small[-sfa8|-short2]
         size = parts[1]
@@ -45,11 +58,12 @@ def get_config(name: str) -> ModelConfig:
         if suffix.startswith("-short"):
             return paper_models.short_embedding(paper_models.qwen3_06b(),
                                                 int(suffix[6:]))
-    raise KeyError(f"unknown arch: {name!r}; ported: gpt2-*, qwen3-0.6b*")
+    raise KeyError(f"unknown arch: {name!r}; ported: {_PORTED}")
 
 
 __all__ = [
-    "AttentionConfig", "FrontendConfig", "MLAConfig", "MoEConfig",
+    "AttentionConfig", "FrontendConfig", "LM_SHAPES", "MLAConfig", "MoEConfig",
     "ModelConfig", "NOT_YET_PORTED", "REMAT_POLICIES", "RWKVConfig",
-    "SSMConfig", "TrainPolicy", "get_config", "paper_models",
+    "SSMConfig", "ShapeConfig", "TrainPolicy", "get_config", "paper_models",
+    "shape_by_name",
 ]

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass, replace
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 from repro_torch.core.remat import REMAT_POLICIES
 
@@ -64,7 +64,7 @@ class AttentionConfig:
     # (n, k) code gradients straight into the code_grad kernels; elsewhere
     # the compact emit runs at the op level (kernels/ops.py scatters once).
     # ``fwd_fuse`` runs the seam's forward as proj_rtopk -> block-skip
-    # FlashSFA. ``ring`` is distribution work (ROADMAP A.6).
+    # FlashSFA. ``ring`` is distribution work (ROADMAP, "distribution").
     bwd_emit: str = "dense"          # "dense" | "compact" | "compact2"
     fwd_fuse: bool = True
     ring: bool = False
@@ -208,8 +208,8 @@ class TrainPolicy:
                        "compact2".
       * ``fwd_fuse`` — fused projection -> top-k forward with block-skip
                        FlashSFA on seam-eligible layers.
-      * ``ring``     — Ring-SFA context parallelism (ROADMAP A.6).
-      * ``tp``       — intended tensor-parallel degree (ROADMAP A.6), for
+      * ``ring``     — Ring-SFA context parallelism (ROADMAP, "distribution").
+      * ``tp``       — intended tensor-parallel degree (ROADMAP, "distribution"), for
                        the divisibility check.
       * ``backend``  — optional attention-backend override in this
                        package's registry names: "torch" | "cuda" | "auto"
@@ -290,3 +290,28 @@ class TrainPolicy:
                 att_updates["backend"] = pol.backend
             updates["attention"] = replace(cfg.attention, **att_updates)
         return replace(cfg, **updates)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: a sequence length and a global batch for one
+    kind of step (the JAX package's ``ShapeConfig``)."""
+    name: str                        # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+LM_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in LM_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

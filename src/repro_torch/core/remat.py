@@ -112,7 +112,8 @@ def _stashing(stash: CodeStash):
 class _CodesCheckpoint(torch.autograd.Function):
     """One layer under remat="codes": forward without a graph, keeping the
     layer input and the recorded codes; backward reruns the layer with the
-    codes replayed and differentiates it."""
+    codes replayed and differentiates it. The layer returns a tensor or a
+    tuple (the output and an aux loss term, None where there is none)."""
 
     @staticmethod
     def forward(ctx, fn, spec, x, *leaves):
@@ -125,22 +126,27 @@ class _CodesCheckpoint(torch.autograd.Function):
         return y
 
     @staticmethod
-    def backward(ctx, gy):
+    def backward(ctx, *gys):
         x, *codes = ctx.saved_tensors
         xd = x.detach().requires_grad_(ctx.needs_input_grad[2])
         leaves = [t.detach().requires_grad_(need)
                   for t, need in zip(ctx.leaves, ctx.needs_input_grad[3:])]
         with torch.enable_grad(), _stashing(CodeStash(codes)):
-            y = ctx.fn(xd, tree_unflatten(leaves, ctx.spec))
+            ys = ctx.fn(xd, tree_unflatten(leaves, ctx.spec))
+        ys = ys if isinstance(ys, tuple) else (ys,)
+        outs = [(y, g) for y, g in zip(ys, gys)
+                if y is not None and g is not None and y.requires_grad]
         wanted = [t for t in (xd, *leaves) if t.requires_grad]
-        got = iter(torch.autograd.grad(y, wanted, gy, allow_unused=True))
+        got = iter(torch.autograd.grad([y for y, _ in outs], wanted, [g for _, g in outs],
+                                       allow_unused=True))
         grads = [next(got) if t.requires_grad else None for t in (xd, *leaves)]
         return (None, None, *grads)
 
 
 def checkpoint_codes(fn, x, params):
-    """``fn(x, params) -> y`` for one layer under remat="codes"; ``params``
-    is the layer's (nested) dict of tensors, differentiable inputs."""
+    """``fn(x, params) -> y`` (or a tuple of y and an aux term) for one layer under
+    remat="codes"; ``params`` is the layer's (nested) dict of tensors,
+    differentiable inputs."""
     leaves, spec = tree_flatten(params)
     return _CodesCheckpoint.apply(fn, spec, x, *leaves)
 

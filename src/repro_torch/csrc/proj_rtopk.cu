@@ -70,14 +70,16 @@ __device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
 }
 
 // RoPE on the pair (p[0], p[1]) = dims (2 jp, 2 jp + 1) at this position,
-// in place: the op sequence of models.layers.rope, each product and sum
+// in place: the op sequence of models.layers.rope (cos and sin of the f32
+// angle evaluated in double and rounded to f32), each product and sum
 // rounded on its own (no FMA), then rounded to T
 template <typename T>
 __device__ __forceinline__ void rope_pair(float* p, int position, int jp, float theta,
                                           int rot_dim) {
   const float freq = powf(theta, -static_cast<float>(2 * jp) / static_cast<float>(rot_dim));
   const float ang = static_cast<float>(position) * freq;
-  const float cs = cosf(ang), sn = sinf(ang);
+  const float cs = static_cast<float>(cos(static_cast<double>(ang)));
+  const float sn = static_cast<float>(sin(static_cast<double>(ang)));
   const float x1 = p[0], x2 = p[1];
   p[0] = round_to(__fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn)), T());
   p[1] = round_to(__fadd_rn(__fmul_rn(x2, cs), __fmul_rn(x1, sn)), T());

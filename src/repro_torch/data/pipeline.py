@@ -45,8 +45,10 @@ def markov_batch(cfg: DataConfig, step: int, host: int = 0, nhosts: int = 1):
     """One {"tokens", "labels"} batch of int32 (b, seq_len); labels are the
     next token."""
     rs = np.random.RandomState((cfg.seed * 9176 + step * 31 + host) % (2**31))
-    succ, probs = _MARKOV_CACHE.setdefault(
-        (cfg.vocab_size, cfg.seed), _markov_matrix(cfg.vocab_size, cfg.seed))
+    key = (cfg.vocab_size, cfg.seed)
+    if key not in _MARKOV_CACHE:          # built once per (vocab, seed)
+        _MARKOV_CACHE[key] = _markov_matrix(cfg.vocab_size, cfg.seed)
+    succ, probs = _MARKOV_CACHE[key]
     b = cfg.global_batch // nhosts
     toks = np.empty((b, cfg.seq_len + 1), np.int32)
     toks[:, 0] = rs.randint(0, cfg.vocab_size, size=b)

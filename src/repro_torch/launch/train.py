@@ -25,7 +25,7 @@ Backend fallbacks, compact-seam routing and remat degrades are printed at
 exit.
 
 Not ported yet, and refused with the ROADMAP item that brings them: the
-production meshes and ``--tp``/``--ring`` > 1 (A.6).
+production meshes and ``--tp``/``--ring`` > 1 ("distribution").
 """
 import argparse
 
@@ -71,7 +71,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "debug" or args.tp > 1 or args.ring > 1:
         raise NotImplementedError("production meshes and --tp/--ring > 1 are "
-                                  "distribution work, ROADMAP A.6")
+                                  "distribution work (ROADMAP, \"distribution\")")
 
     cfg = get_config(args.arch)
     if args.reduced:

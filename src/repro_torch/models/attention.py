@@ -46,6 +46,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import AttentionConfig, ModelConfig
+from repro_torch.core.attention import chunked_attention
 from repro_torch.core.kv_cache import (
     DenseKV, FeatureMajorKV, KVCache, PagedDenseKV, PagedFeatureMajorKV, PagedKV,
     PagedSparseKV, SparseKV, idx_dtype, pack_indices,
@@ -392,6 +393,8 @@ def sfa_proj_attend_compact(w, x, positions, *, h, hkv, hd, sfa_k, causal, scale
 class AttentionOut(NamedTuple):
     out: torch.Tensor
     cache: Optional[KVCache]
+    # the layer's paper Eq. 8 term (train mode, ``cfg.sfa_distill > 0``)
+    distill: Optional[torch.Tensor] = None
 
 
 def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
@@ -403,9 +406,11 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
     if mode not in ("train", "eval", "prefill", "decode", "chunk", "verify"):
         raise ValueError(f"unknown attention mode {mode!r}")
     if a.sfa_rope_protect:
-        raise NotImplementedError("sfa_rope_protect comes with a later slice (A.5)")
+        raise NotImplementedError("sfa_rope_protect comes with a later slice (ROADMAP, "
+                                  "\"protected RoPE dims\")")
     if a.ring and mode in ("train", "eval"):
-        raise NotImplementedError("Ring-SFA context parallelism is ROADMAP A.6")
+        raise NotImplementedError("Ring-SFA context parallelism is distribution work "
+                                  "(ROADMAP, \"distribution\")")
     b, n, _ = x.shape
     h, hkv, hd = a.num_heads, a.num_kv_heads, a.head_dim
     dt = x.dtype
@@ -495,6 +500,14 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
                          where=f"{cfg.name}/attention")
     o = sel.backend.full(q, k, v, num_heads=h, sfa_k=a.sfa_k, causal=a.causal,
                          window=window, scale=scale, bwd_emit=a.bwd_emit)
+    distill = None
+    if mode == "train" and a.sfa_k is not None and cfg.sfa_distill > 0:
+        # paper Eq. 8: pull the SFA head outputs toward stop-grad dense ones
+        with torch.no_grad():
+            o_dense = chunked_attention(q, expand_kv(k, h), expand_kv(v, h), causal=a.causal,
+                                        window=window, scale=scale,
+                                        chunk_size=min(1024, max(n, 128)))
+        distill = (o.float() - o_dense.float()).square().mean()
     out = dense(params["w_o"], o.reshape(b, n, h * hd), dt)
     new_cache = None
     if mode == "prefill":
@@ -511,4 +524,4 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
                                      v=v)
         else:
             new_cache = DenseKV(k=k, v=v)
-    return AttentionOut(out, new_cache)
+    return AttentionOut(out, new_cache, distill)

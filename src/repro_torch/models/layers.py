@@ -148,6 +148,14 @@ def embed(params, tokens, dtype=torch.bfloat16):
     return params["w"][tokens].to(dtype)
 
 
+def _cos_sin(ang):
+    """cos and sin of f32 angles, evaluated in f64 and rounded to f32: the
+    correctly rounded table, the same bits on every CPU. torch's f32 cos
+    and sin give other bits under AVX2 than under AVX-512 kernels."""
+    a = ang.double()
+    return torch.cos(a).float(), torch.sin(a).float()
+
+
 def rope(x, positions, *, theta: float = 10_000.0, rot_dim: int | None = None):
     """Rotary embedding on (..., seq, heads, head_dim); positions (..., seq).
     If rot_dim < head_dim only the leading rot_dim dims rotate."""
@@ -156,8 +164,8 @@ def rope(x, positions, *, theta: float = 10_000.0, rot_dim: int | None = None):
     freqs = theta ** (-torch.arange(0, rot, 2, dtype=torch.float32,
                                     device=x.device) / rot)
     ang = positions[..., None].float() * freqs                 # (..., s, rot/2)
-    cos = torch.cos(ang)[..., None, :]                          # (..., s, 1, rot/2)
-    sin = torch.sin(ang)[..., None, :]
+    cos, sin = _cos_sin(ang)
+    cos, sin = cos[..., None, :], sin[..., None, :]             # (..., s, 1, rot/2)
     x1 = x[..., 0:rot:2].float()
     x2 = x[..., 1:rot:2].float()
     r1 = x1 * cos - x2 * sin
@@ -189,7 +197,7 @@ def rope_code_vjp(vals, idx, positions, *, theta: float = 10_000.0, rot_dim: int
     # pair j's frequency theta^(-2j/rot_dim): rope()'s table
     freqs = theta ** (-(torch.div(base, 2, rounding_mode="floor") * 2).float() / rot_dim)
     ang = positions[..., None].float() * freqs
-    c, s = torch.cos(ang), torch.sin(ang)
+    c, s = _cos_sin(ang)
     de = torch.where(rotated, c * ge + s * go, ge)
     do = torch.where(rotated, c * go - s * ge, go)
     return torch.cat([de, do], dim=-1).to(vals.dtype)

@@ -116,7 +116,8 @@ def _tx_block(p, x, cfg: ModelConfig, *, positions=None, mode="train",
     x = x + ao.out
     h = L.apply_norm(p["ln2"], x, cfg.norm)
     x = x + L.mlp(p["mlp"], h, act=cfg.act, glu=cfg.glu)
-    return x, ao.cache
+    aux = None if ao.distill is None else cfg.sfa_distill * ao.distill   # paper Eq. 8
+    return x, ao.cache, aux
 
 
 def _remat(cfg: ModelConfig, mode: str) -> str:
@@ -136,9 +137,16 @@ def _remat(cfg: ModelConfig, mode: str) -> str:
 
 def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
                  caches=None, cache_len=None, slot=None):
-    """The layer loop over each segment's stacked axis (the JAX scan)."""
+    """The layer loop over each segment's stacked axis (the JAX scan).
+    Returns (x, the summed aux loss or None, caches)."""
     tree = params.tree()
     remat = _remat(cfg, mode)
+
+    def layer(x, p):
+        x, _, aux = _tx_block(p, x, cfg, positions=positions, mode=mode)
+        return x, aux
+
+    aux_total = None
     new_caches = []
     for si, (_, count) in enumerate(segments(cfg)):
         seg = tree["segments"][si]
@@ -146,23 +154,21 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
         for i in range(count):
             p = L.tree_index(seg, i)
             if remat == "full":
-                x = checkpoint(lambda x, p=p: _tx_block(
-                    p, x, cfg, positions=positions, mode=mode)[0], x,
-                    use_reentrant=False)
-                continue
-            if remat == "codes":
-                x = checkpoint_codes(lambda x, p: _tx_block(
-                    p, x, cfg, positions=positions, mode=mode)[0], x, p)
-                continue
-            c = caches[si].layer(i) if caches is not None else None
-            x, nc = _tx_block(p, x, cfg, positions=positions, mode=mode,
-                              cache=c, cache_len=cache_len, slot=slot)
-            layer_caches.append(nc)
+                x, aux = checkpoint(layer, x, p, use_reentrant=False)
+            elif remat == "codes":
+                x, aux = checkpoint_codes(layer, x, p)
+            else:
+                c = caches[si].layer(i) if caches is not None else None
+                x, nc, aux = _tx_block(p, x, cfg, positions=positions, mode=mode,
+                                       cache=c, cache_len=cache_len, slot=slot)
+                layer_caches.append(nc)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
         if mode == "prefill":
             new_caches.append(type(layer_caches[0]).stack(layer_caches))
         elif caches is not None:
             new_caches.append(caches[si])        # written in place
-    return x, (new_caches if mode not in ("train", "eval") else None)
+    return x, aux_total, (new_caches if mode not in ("train", "eval") else None)
 
 
 # ==========================================================================
@@ -203,18 +209,17 @@ def _head(params: Model, h, cfg: ModelConfig):
 def loss_fn(params: Model, batch, cfg: ModelConfig, *, aux_weight: float = 1.0):
     """Training loss: sequence-chunked CE over ``batch["labels"]`` (-1 = no
     target), as the JAX package's ``loss_fn``. Returns (loss, {"ce", "aux",
-    "tokens"}). The aux term is zero on the dense family; the SFA
-    distillation term (``cfg.sfa_distill``, paper Eq. 8) comes with a later
-    slice."""
-    if cfg.sfa_distill:
-        raise NotImplementedError("sfa_distill (paper Eq. 8) comes with a later slice")
+    "tokens"}). The aux term is the SFA layers' distillation term summed
+    over the layers, each weighted by ``cfg.sfa_distill`` (paper Eq. 8), and
+    zero without it."""
     h = _embed_inputs(params, batch["tokens"], cfg, _dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    h, _ = _apply_stack(params, h, cfg, positions=positions, mode="train")
+    h, aux, _ = _apply_stack(params, h, cfg, positions=positions, mode="train")
     h = L.apply_norm(params.final_norm.tree(), h, cfg.norm)
     ce, cnt = L.chunked_cross_entropy(h, _head_weights(params, cfg),
                                       batch["labels"], chunk=cfg.loss_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
@@ -222,7 +227,7 @@ def forward_logits(params: Model, batch, cfg: ModelConfig, *, mode="train"):
     """Full-sequence logits (b, n, vocab) f32."""
     h = _embed_inputs(params, batch["tokens"], cfg, _dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    h, _ = _apply_stack(params, h, cfg, positions=positions, mode=mode)
+    h, _, _ = _apply_stack(params, h, cfg, positions=positions, mode=mode)
     return _head(params, h, cfg)
 
 
@@ -231,7 +236,7 @@ def prefill(params: Model, batch, cfg: ModelConfig):
     """Prefill: last-position logits (b, vocab) + layer-stacked caches."""
     h = _embed_inputs(params, batch["tokens"], cfg, _dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    h, caches = _apply_stack(params, h, cfg, positions=positions, mode="prefill")
+    h, _, caches = _apply_stack(params, h, cfg, positions=positions, mode="prefill")
     return _head(params, h[:, -1], cfg), caches
 
 
@@ -249,7 +254,7 @@ def decode_step(params: Model, token, caches, cache_len, cfg: ModelConfig):
         # JAX clamps an out-of-range gather; clamp explicitly here
         rows = params.pos.w.shape[0]
         h = h + params.pos.w[cache_len.clamp(0, rows - 1)].to(dtype)[:, None]
-    h, caches = _apply_stack(params, h, cfg, positions=cache_len[:, None],
+    h, _, caches = _apply_stack(params, h, cfg, positions=cache_len[:, None],
                              mode="decode", caches=caches, cache_len=cache_len)
     return _head(params, h[:, 0], cfg), caches
 
@@ -279,7 +284,7 @@ def prefill_chunk(params: Model, tokens, caches, offset: int, valid: int, slot: 
     any read). Each query is scored as a single-token oracle decode at its
     own prefix length, so chunk boundaries never change what it sees."""
     h, positions = _chunk_hidden(params, tokens, offset, cfg)
-    h, caches = _apply_stack(params, h, cfg, positions=positions, mode="chunk",
+    h, _, caches = _apply_stack(params, h, cfg, positions=positions, mode="chunk",
                              caches=caches, cache_len=int(offset), slot=int(slot))
     return _head(params, h[0, int(valid) - 1], cfg), caches
 
@@ -293,7 +298,7 @@ def verify_step(params: Model, tokens, caches, offset: int, slot: int,
     codes over the draft pass's. Returns logits (C, vocab) at every
     position and the caches."""
     h, positions = _chunk_hidden(params, tokens, offset, cfg)
-    h, caches = _apply_stack(params, h, cfg, positions=positions, mode="verify",
+    h, _, caches = _apply_stack(params, h, cfg, positions=positions, mode="verify",
                              caches=caches, cache_len=int(offset), slot=int(slot))
     return _head(params, h[0], cfg), caches
 

@@ -9,7 +9,7 @@ batch into that many microbatches and averages their gradients, one
 microbatch's activations alive at a time. The execution-policy axes (remat,
 backend, bwd_emit, fwd_fuse, ring, tp) come in as one ``TrainPolicy``
 (``policy=``), validated against the model when the step is built. Top-k
-gradient compression is distribution work, ROADMAP A.6.
+gradient compression is distribution work (ROADMAP, "distribution").
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                     policy: Optional[TrainPolicy] = None):
     if grad_compression is not None:
         raise NotImplementedError("top-k gradient compression is distribution "
-                                  "work, ROADMAP A.6")
+                                  "work (ROADMAP, \"distribution\")")
     cfg = _resolve(cfg, policy)
     update = make_optimizer(opt_cfg)
 

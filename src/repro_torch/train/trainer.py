@@ -6,8 +6,8 @@ the parameters in f32 and computes in ``cfg.dtype`` (the JAX package's
 ``param_dtype = "float32"``); its weights are random from ``tcfg.seed``, or
 the ``params`` it is given (e.g. ``interop.from_jax`` of a JAX trainer's).
 The step runs a plain loop. The fault-tolerance ``Supervisor`` and
-checkpointing of the JAX trainer are ROADMAP A.7; gradient compression is
-A.6.
+checkpointing of the JAX trainer are the ROADMAP item "checkpointing";
+gradient compression is the item "distribution".
 """
 from __future__ import annotations
 

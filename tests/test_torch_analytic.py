@@ -1,0 +1,57 @@
+"""The port's analytic models against the JAX package's: ``param_count``,
+``step_flops`` and ``step_hbm_bytes`` equal for every arch the port takes,
+full and reduced, at every ``LM_SHAPES`` entry (exact: the same closed
+forms on the same integers)."""
+import dataclasses
+
+import pytest
+
+from repro.configs import LM_SHAPES as JAX_SHAPES
+from repro.configs import get_config as jax_get_config
+from repro.utils import analytic as jax_analytic
+from repro_torch.configs import LM_SHAPES, NOT_YET_PORTED, get_config, shape_by_name
+from repro_torch.utils import analytic
+
+ARCHS = ["gpt2-small", "gpt2-small-sfa8", "gpt2-medium-sfa16", "gpt2-small-short2",
+         "qwen3-0.6b", "qwen3-0.6b-sfa8", "llama3.2-3b", "llama3-8b", "deepseek-7b"]
+
+
+def test_shapes_equal_the_reference():
+    assert [vars(s) for s in LM_SHAPES] == [vars(s) for s in JAX_SHAPES]
+    assert shape_by_name("decode_32k") == LM_SHAPES[2]
+    with pytest.raises(KeyError):
+        shape_by_name("train_1m")
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_counts_equal_the_reference(arch, reduced):
+    jc, tc = jax_get_config(arch), get_config(arch)
+    if reduced:
+        jc, tc = jc.reduced(), tc.reduced()
+    assert analytic.param_count(tc) == jax_analytic.param_count(jc)
+    for js, ts in zip(JAX_SHAPES, LM_SHAPES):
+        assert analytic.step_flops(tc, ts) == jax_analytic.step_flops(jc, js), ts.name
+        for ndev in (1, 4):
+            assert (analytic.step_hbm_bytes(tc, ts, ndev)
+                    == jax_analytic.step_hbm_bytes(jc, js, ndev)), (ts.name, ndev)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "codes"])
+def test_train_flops_follow_the_remat_policy(remat):
+    jc = dataclasses.replace(jax_get_config("qwen3-0.6b-sfa8"), remat=remat)
+    tc = dataclasses.replace(get_config("qwen3-0.6b-sfa8"), remat=remat)
+    shape = shape_by_name("train_4k")
+    got = analytic.step_flops(tc, shape)
+    assert got == jax_analytic.step_flops(jc, JAX_SHAPES[0])
+    assert got["total_flops"] == got["forward_flops"] * (3 if remat == "none" else 4)
+
+
+def test_unported_families_raise_as_segments_does():
+    for family in ("moe", "ssm", "hybrid", "rwkv"):
+        cfg = dataclasses.replace(get_config("gpt2-small").reduced(), family=family)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            analytic.param_count(cfg)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            analytic.step_flops(cfg, LM_SHAPES[0])
+    assert "rwkv6-3b" in NOT_YET_PORTED

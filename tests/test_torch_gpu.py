@@ -195,25 +195,53 @@ def test_wrappers_refuse_grad_outside_their_function(cuda):
         rtopk(q, 8)
 
 
-@pytest.mark.parametrize("arch", ["gpt2-small-sfa8", "gpt2-small"])
+@pytest.mark.parametrize("arch", ["gpt2-small-sfa8", "gpt2-small", "qwen3-0.6b-sfa8",
+                                  "qwen3-0.6b", "llama3.2-3b"])
 def test_trainer_runs_the_backward_kernels(cuda, arch):
+    """Three steps of reduced ``arch`` (qwen3 and llama with GQA, 2 kv
+    heads): the forward and backward kernels launch as the layer count
+    predicts. llama takes the compact seam (RoPE, remat "codes") at its own
+    sfa_k 16, so its codes are 2k = 32 wide and code_grad runs its CUDA-core
+    bodies."""
+    import dataclasses
+
     from repro_torch.configs.base import TrainPolicy
     from repro_torch.data import DataConfig
+    from repro_torch.models.attention import clear_compact_seam_reports, compact_seam_reports
     from repro_torch.optim import OptimizerConfig
     from repro_torch.train import Trainer, TrainerConfig
-    cfg = get_config(arch).reduced()
+    cfg, full = get_config(arch).reduced(), get_config(arch).attention
+    if full.rope:                        # GQA, and the model's own k
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, num_kv_heads=2, sfa_k=full.sfa_k))
+    seam = arch.startswith("llama")
+    policy = (dict(remat="codes", bwd_emit="compact2", fwd_fuse=True) if seam
+              else dict(remat="full"))
     tr = Trainer(cfg, OptimizerConfig(warmup_steps=2, total_steps=4),
                  DataConfig(vocab_size=cfg.vocab_size, seq_len=100, global_batch=2),
                  TrainerConfig(total_steps=3, policy=TrainPolicy.from_model(
-                     cfg, remat="full", backend="cuda")), device=cuda)
+                     cfg, backend="cuda", **policy)), device=cuda)
+    clear_compact_seam_reports()
     reset_launches()
     hist = tr.train()
     assert all(np.isfinite(h["loss"]) for h in hist)
-    counts = launch_counts()
+    counts, bodies, L = launch_counts(), body_counts(), 3 * cfg.num_layers
+    if seam:
+        assert [r.taken for r in compact_seam_reports()] == [True]
+        assert cfg.attention.sfa_k == 16
+        for name in ("proj_rtopk", "flash_sfa_block_skip", "code_grad_dx", "code_grad_dw"):
+            assert counts[name] == 2 * L, (name, counts)
+        assert counts["flash_sfa_bwd_compact"] == L and counts["rtopk"] == 0
+        # width 2k = 32 is outside the tensor-core widths (8, 16)
+        assert bodies["code_grad_dx_cuda_core"] == bodies["code_grad_dw_cuda_core"] == 2 * L
+        assert bodies["rtopk_warp"] == 0
+        return
     fwd, bwd = (("flash_sfa", "flash_sfa_bwd") if cfg.attention.sfa_k
                 else ("flash_attention", "flash_attention_bwd"))
     # remat="full": each layer's forward runs twice per step, its backward once
-    assert counts[fwd] == 2 * counts[bwd] == 2 * 3 * cfg.num_layers
+    assert counts[fwd] == 2 * counts[bwd] == 2 * L
+    if cfg.attention.sfa_k:
+        assert counts["rtopk"] == 4 * L and bodies["rtopk_warp"] == 0
 
 
 def test_engine_launches_every_kernel(cuda):
@@ -227,6 +255,29 @@ def test_engine_launches_every_kernel(cuda):
     assert len(out) == 4
     serving = ("rtopk", "flash_sfa", "flash_sfa_decode")
     assert all(launch_counts()[name] > 0 for name in serving)
+
+
+def test_qwen3_engine_launches_the_decode_kernels_with_gqa(cuda):
+    """Reduced qwen3-0.6b-sfa8 with 2 kv heads (a group of 2) through the
+    slot engine: one decode launch per layer and step, no fallback."""
+    import dataclasses
+
+    from repro_torch.models.backends import clear_fallback_reports, fallback_reports
+    from repro_torch.models.model import init
+    from repro_torch.serve import DecodeEngine, EngineConfig
+    cfg = get_config("qwen3-0.6b-sfa8").reduced()
+    cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, num_kv_heads=2, backend="cuda", decode_backend="cuda"))
+    model = init(cfg, device=cuda)
+    eng = DecodeEngine(model, cfg, EngineConfig(max_slots=2, max_len=64))
+    clear_fallback_reports()
+    reset_launches()
+    out = eng.generate(np.arange(1, 9), max_new_tokens=4)
+    assert len(out) == 4 and not fallback_reports()
+    counts = launch_counts()
+    assert counts["flash_sfa"] == cfg.num_layers
+    assert counts["flash_sfa_decode"] == 3 * cfg.num_layers
+    assert counts["rtopk"] > 0 and body_counts()["rtopk_warp"] == 0
 
 
 # --------------------------------------------------------------------------

@@ -29,6 +29,10 @@ Phases; any failure raises and the script exits non-zero:
                128; row 12 checked there), rows 2, 4, 8, 9 at llama3.2-3b's
                seam shape (24 heads, d 128, k 16, code width 32, m 3072),
                each an extra shape of its entry in the ``kernels`` line;
+               then (``phase_moonshot_shapes``) rows 1, 3, 5 at
+               moonshot-v1-16b-a3b's training shape (bh 8 x 16, n 1024, d
+               128, k 16) and 10-14 at its decode shape (8 slots x 16
+               heads, MHA), the shape "MS" of each row;
   4. engine  — the serving main path at full width: gpt2-small-sfa8
                (12 layers, d_model 768, 12 heads of 64, SFA k=8, vocab
                50,257), bf16, random weights from a seed, through
@@ -62,11 +66,20 @@ Phases; any failure raises and the script exits non-zero:
                ``cache_bytes_per_token``'s byte model, a traced window of 4
                decode steps), the paged engine at full residency (streams
                identical) and the cuda_fm engines (the near-tie rule);
+  4f. moonshot — moonshot-v1-16b-a3b (MoE: 64 routed experts top-6 of
+               width 1,408 + 2 shared, d_model 2048, 16 heads of 128, k 16,
+               vocab 163,840) at full width and 12 of its 48 layers (1
+               dense + 11 MoE; the depth cut: 28.37 B f32 parameters do not
+               fit), bf16: the slot engine (decode launches = layers x
+               steps, the KV cache at rest = the byte model, the experts'
+               f32 -> bf16 cast timed a layer), the paged engine (streams
+               identical) and cuda_fm;
   5. end to end — gpt2-small-sfa8 in float32, prefill logits and 8
                teacher-forced decode steps through the "cuda" (kernels) and
                "torch" (plain) backends, held to a stated tolerance with the
                argmax equal at every step; then qwen3-0.6b-sfa8 the same way
-               at full width and 4 of its 28 layers;
+               at full width and 4 of its 28 layers, and moonshot at 2 of
+               its 48 layers on f32 caches;
   6. train   — the training main path at full width: gpt2-small-sfa8 in
                bf16 through ``Trainer`` (AdamW, remat="full", Markov data),
                batch 8 x seq 1024, 1 warm-up and 5 timed steps; step ms,
@@ -95,7 +108,8 @@ Phases; any failure raises and the script exits non-zero:
                llama3.2-3b at full width and 4 of 28 layers through the RoPE
                compact seam (compact2, remat "codes"; code width 32, so
                code_grad dx and dW on their CUDA-core bodies, 2L a step
-               each, as predicted); each train phase prints its step FLOPs
+               each, as predicted); moonshot at full width and 4 of 48
+               layers (dense emit, remat "full"); each train phase prints its step FLOPs
                (``utils.analytic.step_flops``) and their share of the bf16
                peak;
   9. gradients end to end — float32 gpt2-small-sfa8 at full width, batch 1
@@ -108,8 +122,8 @@ Phases; any failure raises and the script exits non-zero:
                bf16 (dense emit, remat="full"; compact seam,
                remat="codes") through the tensor-core FlashSFA bodies,
                held to the torch backend's own bf16 distance from float32;
-               then qwen3-0.6b-sfa8 at full width and 2 layers in bf16 (dense
-               emit) by the same rule, and llama3.2-3b at full width and 2
+               then qwen3-0.6b-sfa8 and moonshot at full width and 2 layers
+               in bf16 (dense emit) by the same rule, and llama3.2-3b at full width and 2
                layers in float32 through the compact seam against the torch
                backend (1e-4 on the loss, 1e-3 relative L2 a leaf);
  10. a ``kernels`` JSON line, then the result line.
@@ -294,14 +308,27 @@ def timings(kernel, plain, library):
 def graph_ms(fn, iters=20, replays=5):
     """Device ms per call of fn(): ``iters`` calls captured in a CUDA graph
     and replayed between CUDA events, so no host time sits between the
-    launches. None where fn() cannot be captured (a host synchronization
-    inside it). A callable with ``graph_ok = False`` is never captured."""
+    launches. None where fn() cannot be captured: a host synchronization
+    inside it, found by a warm-up call under the sync debug mode before any
+    capture starts (a capture that fails part-way leaves the caching
+    allocator unable to hand memory back, so ``torch.cuda.empty_cache``
+    frees nothing for the rest of the run). A callable with ``graph_ok =
+    False`` is never captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    mode = torch.cuda.get_sync_debug_mode()
     try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
+        torch.cuda.set_sync_debug_mode("error")
         with torch.cuda.stream(side):
             fn()
-        torch.cuda.current_stream().wait_stream(side)
+    except RuntimeError as err:
+        torch.cuda.synchronize()
+        print(f"[timing] no CUDA graph (fn synchronizes): {str(err).splitlines()[0][:100]}")
+        return None
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.current_stream().wait_stream(side)
+    try:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for _ in range(iters):
@@ -353,12 +380,26 @@ def code_product_s(k_flops, d_flops):
 
 
 def timed(fn, *args, **kwargs):
-    """fn(*args, **kwargs), then a line with its wall seconds, so a slow run
-    shows which phase took the time."""
+    """fn(*args, **kwargs), then a line with its wall seconds and the
+    card's memory after it (in use on the device, and this process's
+    allocated and cached tensors), so a slow or swollen run shows which
+    phase took the time or the memory."""
     t = time.perf_counter()
     out = fn(*args, **kwargs)
-    print(f"[time] {fn.__name__} {time.perf_counter() - t:.1f} s", flush=True)
+    free, total = torch.cuda.mem_get_info()
+    print(f"[time] {fn.__name__} {time.perf_counter() - t:.1f} s; device memory in use "
+          f"{(total - free) / 2**30:.2f} GiB (allocated {torch.cuda.memory_allocated() / 2**30:.2f},"
+          f" reserved {torch.cuda.memory_reserved() / 2**30:.2f})", flush=True)
     return out
+
+
+def release():
+    """Free what earlier phases left on the card: collect reference cycles,
+    then hand the allocator's cached blocks back to CUDA (a launcher
+    phase's subprocess allocates beside this process)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check(ok, what):
@@ -1748,6 +1789,10 @@ SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms")
 # m 3072)
 Q3, LL = dict(b=8, h=16, hkv=8, d=128, k=8), dict(b=8, h=24, hkv=8, d=128, k=16, m=3072)
 Q3_PAGED = dict(slots=8, h=8, heads=16, d=128, k=8, dv=128, page=128, mp=16)
+# moonshot-v1-16b-a3b's training step (batch 8 x 16 heads, MHA, 1024
+# tokens, d 128, k 16) and decode step (8 slots x 16 heads, MHA, d 128, k 16)
+MS = dict(b=8, h=16, hkv=16, d=128, k=16)
+MS_PAGED = dict(slots=8, h=16, heads=16, d=128, k=16, dv=128, page=128, mp=16)
 
 
 def _add_shape(results, name, label, r):
@@ -1761,46 +1806,33 @@ def _add_shape(results, name, label, r):
     row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
 
 
-def _timed_shape(results, name, label, what, err, bytes_moved, op_s, kernel, plain, library):
+def _timed_shape(results, name, label, key, what, err, bytes_moved, op_s, kernel, plain,
+                 library):
+    """Time one shape of kernel ``name``, print it under ``label`` and record
+    it as the shape ``key`` (None: the label) of its entry."""
     b_ms, b_by = bound(bytes_moved, op_s)
     r = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **timings(kernel, plain, library))
     print(f"[{name}] {label}: {what}; {fmt(r)}")
-    _add_shape(results, name, label, r)
+    _add_shape(results, name, key or label, r)
 
 
-def phase_qwen3_llama_shapes(results):
-    """Rows 1, 3, 5, 6, 7 at qwen3's training shape, rows 10, 11, 13, 14 at
-    its decode shape (GQA, a group of 2), rows 2, 4, 8, 9 at llama's seam
-    shape (k 16: code width 32, code_grad on its CUDA-core bodies), row 12
-    checked at d 128 with a group of 2: each against its plain version with
-    the tolerance of its gpt2 check, timed beside its plain version and its
-    library call, and the bound from these inputs. The d 128 kernels'
-    ptxas registers first."""
+def _sfa_train_rows(results, rs, s, label, key=None, dense=True):
+    """Rows 1, 3, 5 (and with ``dense`` 7, 6) at a model's training shape
+    ``s`` (batch b x h heads, TRAIN_N tokens, d = dv, k), bf16: each
+    against its plain version, timed beside it and its library call, the
+    bound from these inputs; recorded as the shape ``key`` (default: the
+    printed label) of each row's entry."""
     from repro_torch.kernels import (
-        body_counts, code_grad_dw, code_grad_dx, flash_attention, flash_attention_bwd,
-        flash_sfa, flash_sfa_bwd, flash_sfa_decode, flash_sfa_decode_fm,
-        flash_sfa_decode_fm_paged, flash_sfa_decode_paged, proj_rtopk, reset_launches, rtopk,
-        topk_dense,
+        body_counts, flash_attention, flash_attention_bwd, flash_sfa, flash_sfa_bwd,
+        reset_launches, rtopk,
     )
-    from repro_torch.kernels.flash_sfa import BLOCK, _skip_schedule
-    from repro_torch.kernels.ops import head_blocks
     from repro_torch.kernels.ref import (
-        _pool_view, code_grad_dw_ref, code_grad_dx_ref, flash_attention_bwd_ref,
-        flash_attention_ref, flash_sfa_bwd_ref, flash_sfa_decode_fm_paged_ref,
-        flash_sfa_decode_fm_ref, flash_sfa_decode_paged_ref, flash_sfa_decode_ref,
-        flash_sfa_ref, proj_rtopk_ref, rtopk_ref, scatter_code_grads,
+        flash_attention_bwd_ref, flash_attention_ref, flash_sfa_bwd_ref, flash_sfa_ref,
+        rtopk_ref,
     )
-    for lib in ("flash_attention", "flash_sfa_tc", "flash_sfa_bwd", "proj_rtopk", "code_grad"):
-        regs = ptxas_kernels(lib)
-        print(f"[ptxas] {lib}: " + "; ".join(
-            f"{fn[:60]} {r} regs" + ("" if sp.startswith("0 bytes stack frame, 0 ") or not sp
-                                    else f" ({sp})") for fn, (r, sp) in regs.items()))
-    rs = np.random.RandomState(SEED + 30)
     es = 2
-    # ---- qwen3's training shape: rows 1, 3, 5, 7, 6 ----
-    b, h, d, k = Q3["b"], Q3["h"], Q3["d"], Q3["k"]
+    b, h, d, k = s["b"], s["h"], s["d"], s["k"]
     bh, n, dv, scale = b * h, TRAIN_N, d, d ** -0.5
-    label = "qwen3 training"
     rows = bh * n
     x = torch.from_numpy(_tie_rows(rs, rows, d)).cuda().bfloat16()
     reset_launches()
@@ -1813,7 +1845,7 @@ def phase_qwen3_llama_shapes(results):
         i, _ = torch.sort(i, dim=-1)
         return x.gather(-1, i), i
 
-    _timed_shape(results, "rtopk", f"{label} bfloat16",
+    _timed_shape(results, "rtopk", f"{label} bfloat16", key,
                  f"bf16 rows={rows} d={d} k={k}, one-thread body: indices equal, values "
                  f"bit-equal; library = topk+sort", err, rows * d * es + rows * k * (es + 4),
                  rows * d / F32_FLOPS, lambda: rtopk(x, k), lambda: rtopk_ref(x, k),
@@ -1839,7 +1871,7 @@ def phase_qwen3_llama_shapes(results):
     qd = _densify(qv, qi, d)
     kd = _densify(kv, ki, d)
     pairs = _pairs(bh, n)
-    _timed_shape(results, "flash_sfa", label,
+    _timed_shape(results, "flash_sfa", label, key,
                  f"bh={bh} n={n} d=dv={d} k={k} bf16 (tensor-core body): max|err| {err:.3g}; "
                  f"library = SDPA on densified Q/K", err,
                  2 * bh * n * k * (es + 4) + 2 * bh * n * dv * es + bh * n * 4,
@@ -1850,7 +1882,7 @@ def phase_qwen3_llama_shapes(results):
                  lambda: F.scaled_dot_product_attention(
                      qd.reshape(b, h, n, d), kd.reshape(b, h, n, d), v.reshape(b, h, n, dv),
                      is_causal=True, scale=scale))
-    _timed_shape(results, "flash_sfa_bwd", label,
+    _timed_shape(results, "flash_sfa_bwd", label, key,
                  f"dense emit, bh={bh} n={n} d=dv={d} k={k} bf16 (tensor-core body): max|err| "
                  f"{berr:.3g}; library = SDPA backward (autograd) on densified Q/K", berr,
                  2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
@@ -1860,38 +1892,58 @@ def phase_qwen3_llama_shapes(results):
                  lambda: flash_sfa_bwd_ref(*args, d=d, scale=scale),
                  _sdpa_bwd(qd, kd, v, g, scale))
     del qd, kd, args
-    q, kk = (torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
-             for _ in range(2))
-    ko, kl = flash_attention(q, kk, v, scale=scale, return_residuals=True)
-    po, pl = flash_attention_ref(q, kk, v, scale=scale, return_residuals=True)
-    got = flash_attention_bwd(q, kk, v, po, pl, g, scale=scale)
-    want = flash_attention_bwd_ref(q, kk, v, po, pl, g, scale=scale)
-    torch.cuda.synchronize()
-    ferr = _close(ko, po, torch.bfloat16, f"flash_attention {label}")[0]
-    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
-    berr = max(_close(a, w, torch.bfloat16, f"flash_attention_bwd {nm} {label}")[0]
-               for nm, a, w in zip(("dq", "dk", "dv"), got, want))
-    del got, want
-    _timed_shape(results, "flash_attention", label,
-                 f"bh={bh} n={n} d={d} bf16: max|err| {ferr:.3g}; library = SDPA", ferr,
-                 4 * bh * n * d * es + bh * n * 4, 4 * d * pairs / BF16_TC_FLOPS,
-                 lambda: flash_attention(q, kk, v, scale=scale, return_residuals=True),
-                 lambda: flash_attention_ref(q, kk, v, scale=scale, return_residuals=True),
-                 lambda: F.scaled_dot_product_attention(
-                     q.reshape(b, h, n, d), kk.reshape(b, h, n, d), v.reshape(b, h, n, d),
-                     is_causal=True, scale=scale))
-    _timed_shape(results, "flash_attention_bwd", label,
-                 f"bh={bh} n={n} d={d} bf16: max|err| {berr:.3g}; library = SDPA backward "
-                 f"(autograd)", berr, 8 * bh * n * d * es + bh * n * 4,
-                 10 * d * pairs / BF16_TC_FLOPS,
-                 lambda: flash_attention_bwd(q, kk, v, po, pl, g, scale=scale),
-                 lambda: flash_attention_bwd_ref(q, kk, v, po, pl, g, scale=scale),
-                 _sdpa_bwd(q, kk, v, g, scale))
-    del q, kk, v, g, po, pl, ko, kl
+    if dense:
+        q, kk = (torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
+                 for _ in range(2))
+        ko, kl = flash_attention(q, kk, v, scale=scale, return_residuals=True)
+        po, pl = flash_attention_ref(q, kk, v, scale=scale, return_residuals=True)
+        got = flash_attention_bwd(q, kk, v, po, pl, g, scale=scale)
+        want = flash_attention_bwd_ref(q, kk, v, po, pl, g, scale=scale)
+        torch.cuda.synchronize()
+        ferr = _close(ko, po, torch.bfloat16, f"flash_attention {label}")[0]
+        torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+        berr = max(_close(a, w, torch.bfloat16, f"flash_attention_bwd {nm} {label}")[0]
+                   for nm, a, w in zip(("dq", "dk", "dv"), got, want))
+        del got, want
+        _timed_shape(results, "flash_attention", label, key,
+                     f"bh={bh} n={n} d={d} bf16: max|err| {ferr:.3g}; library = SDPA", ferr,
+                     4 * bh * n * d * es + bh * n * 4, 4 * d * pairs / BF16_TC_FLOPS,
+                     lambda: flash_attention(q, kk, v, scale=scale, return_residuals=True),
+                     lambda: flash_attention_ref(q, kk, v, scale=scale, return_residuals=True),
+                     lambda: F.scaled_dot_product_attention(
+                         q.reshape(b, h, n, d), kk.reshape(b, h, n, d), v.reshape(b, h, n, d),
+                         is_causal=True, scale=scale))
+        _timed_shape(results, "flash_attention_bwd", label, key,
+                     f"bh={bh} n={n} d={d} bf16: max|err| {berr:.3g}; library = SDPA backward "
+                     f"(autograd)", berr, 8 * bh * n * d * es + bh * n * 4,
+                     10 * d * pairs / BF16_TC_FLOPS,
+                     lambda: flash_attention_bwd(q, kk, v, po, pl, g, scale=scale),
+                     lambda: flash_attention_bwd_ref(q, kk, v, po, pl, g, scale=scale),
+                     _sdpa_bwd(q, kk, v, g, scale))
+        del q, kk, po, pl
+    del v, g, ko, kl
     torch.cuda.empty_cache()
-    # ---- qwen3's decode step: rows 10, 11 (12 checked), 13, 14 ----
-    label = "qwen3 decode"
-    hkv, group, n_max = Q3["hkv"], h // Q3["hkv"], 2048
+
+
+def _sfa_decode_rows(results, rs, s, c, label, key=None):
+    """Rows 10, 11 (12 checked), 13, 14 at a model's decode step: ``s``
+    (b slots, h query heads over hkv kv heads, d = dv, k), ``c`` its paged
+    pools (pages of c["page"], c["mp"] a slot), bf16 caches of up to 2048
+    tokens a slot: each against its plain version and in its bit-equalities,
+    timed beside its plain version and SDPA on the densified cache (heads
+    expanded), the bound from these inputs; recorded as the shape ``key``
+    (default: the label)."""
+    from repro_torch.kernels import (
+        flash_sfa_decode, flash_sfa_decode_fm, flash_sfa_decode_fm_paged,
+        flash_sfa_decode_paged, rtopk, topk_dense,
+    )
+    from repro_torch.kernels.ref import (
+        _pool_view, flash_sfa_decode_fm_paged_ref, flash_sfa_decode_fm_ref,
+        flash_sfa_decode_paged_ref, flash_sfa_decode_ref,
+    )
+    es = 2
+    b, h, hkv, d, k = s["b"], s["h"], s["hkv"], s["d"], s["k"]
+    dv, scale, group, n_max = d, d ** -0.5, s["h"] // s["hkv"], 2048
     lengths = rs.randint(64, n_max + 1, size=b)
     lens = torch.from_numpy(np.repeat(lengths, h).astype(np.int32)).cuda()
     caches = []
@@ -1914,7 +1966,7 @@ def phase_qwen3_llama_shapes(results):
             < torch.from_numpy(lengths).cuda()[:, None])[:, None, None, :]
     qb = q.bfloat16().reshape(b, h, 1, d)
     tokens = int(lengths.sum())
-    _timed_shape(results, "flash_sfa_decode", label,
+    _timed_shape(results, "flash_sfa_decode", label, key,
                  f"b={b} h={h} over hkv={hkv} n_max={n_max} lengths={lengths.tolist()} (and run "
                  f"boundaries, a zero-length row 0) k={k} d=dv={d}: max|err| {err:.3g} (tol "
                  f"1e-4); library = SDPA on the densified cache, heads expanded", err,
@@ -1929,7 +1981,6 @@ def phase_qwen3_llama_shapes(results):
                      qb, dense[i][0], dense[i][1], attn_mask=mask, scale=scale)
                      for i in range(4)]))
     del caches, dense
-    c = Q3_PAGED
     pools, bt, plen = _paged_pools(rs, torch.bfloat16, c=c)
     plens = torch.from_numpy(plen.astype(np.int32)).cuda()
     q = topk_dense(torch.from_numpy(rs.randn(c["slots"] * h, d).astype(np.float32)).cuda(), k)
@@ -1951,7 +2002,7 @@ def phase_qwen3_llama_shapes(results):
     mask = (torch.arange(n_all, device="cuda")[None, :]
             < torch.from_numpy(eff).cuda()[:, None])[:, None, None, :]
     qb = q.bfloat16().reshape(c["slots"], h, 1, d)
-    _timed_shape(results, "flash_sfa_decode_paged", label,
+    _timed_shape(results, "flash_sfa_decode_paged", label, key,
                  f"slots {c['slots']} x h {h} over hkv {hkv}, pages of {c['page']}, lengths "
                  f"{eff.tolist()}: max|err| {errs[0]:.3g}; library = SDPA on the densified "
                  f"gathered cache, heads expanded", errs[0],
@@ -1990,7 +2041,7 @@ def phase_qwen3_llama_shapes(results):
     fm_bytes = tokens * (h * k * es + hkv * dv * es) + c["slots"] * h * (k * 8 + dv * 4)
     fm_ops = (code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
               + tokens * h * 2 * dv / F32_FLOPS)
-    _timed_shape(results, "flash_sfa_decode_fm", label,
+    _timed_shape(results, "flash_sfa_decode_fm", label, key,
                  f"rows {c['slots'] * h} in groups of {group}, image (rows / {group}, d {d}, n "
                  f"{n_all}) bf16: max|err| {e13:.3g}; library = SDPA on the image's dense K, "
                  f"heads expanded", e13, fm_bytes, fm_ops,
@@ -1999,7 +2050,7 @@ def phase_qwen3_llama_shapes(results):
                  _cycle([lambda i=i: flash_sfa_decode_fm_ref(qv, qi, *imgs[i], rlens,
                                                              group=group)
                          for i in range(len(pools))]), lib)
-    _timed_shape(results, "flash_sfa_decode_fm_paged", label,
+    _timed_shape(results, "flash_sfa_decode_fm_paged", label, key,
                  f"the same through (hkv {hkv}, P, d, {c['page']}) pools, heads {h}: max|err| "
                  f"{e14:.3g}, bit-equal to flash_sfa_decode_fm on the gathered image", e14,
                  fm_bytes, fm_ops,
@@ -2009,6 +2060,33 @@ def phase_qwen3_llama_shapes(results):
                      qv, qi, p["kf"], p["v"], bt, plens, heads=h) for p in pools]), lib)
     del pools, imgs, lib_in
     torch.cuda.empty_cache()
+
+
+def phase_qwen3_llama_shapes(results):
+    """Rows 1, 3, 5, 6, 7 at qwen3's training shape, rows 10, 11, 13, 14 at
+    its decode shape (GQA, a group of 2), rows 2, 4, 8, 9 at llama's seam
+    shape (k 16: code width 32, code_grad on its CUDA-core bodies), row 12
+    checked at d 128 with a group of 2: each against its plain version with
+    the tolerance of its gpt2 check, timed beside its plain version and its
+    library call, and the bound from these inputs. The d 128 kernels'
+    ptxas registers first."""
+    from repro_torch.kernels import (
+        body_counts, code_grad_dw, code_grad_dx, flash_sfa, proj_rtopk, reset_launches,
+    )
+    from repro_torch.kernels.flash_sfa import BLOCK, _skip_schedule
+    from repro_torch.kernels.ops import head_blocks
+    from repro_torch.kernels.ref import (
+        code_grad_dw_ref, code_grad_dx_ref, flash_sfa_ref, proj_rtopk_ref, scatter_code_grads,
+    )
+    for lib in ("flash_attention", "flash_sfa_tc", "flash_sfa_bwd", "proj_rtopk", "code_grad"):
+        regs = ptxas_kernels(lib)
+        print(f"[ptxas] {lib}: " + "; ".join(
+            f"{fn[:60]} {r} regs" + ("" if sp.startswith("0 bytes stack frame, 0 ") or not sp
+                                    else f" ({sp})") for fn, (r, sp) in regs.items()))
+    rs = np.random.RandomState(SEED + 30)
+    _sfa_train_rows(results, rs, Q3, "qwen3 training")
+    _sfa_decode_rows(results, rs, Q3, Q3_PAGED, "qwen3 decode")
+    es, n = 2, TRAIN_N
     # ---- llama3.2-3b's compact seam: rows 2, 4, 8, 9 ----
     label = "llama seam"
     b, h, hkv, d, k, m = LL["b"], LL["h"], LL["hkv"], LL["d"], LL["k"], LL["m"]
@@ -2046,7 +2124,7 @@ def phase_qwen3_llama_shapes(results):
         _, i = torch.topk(y.abs(), k, dim=-1)
         return i
 
-    _timed_shape(results, "proj_rtopk", label,
+    _timed_shape(results, "proj_rtopk", label, None,
                  f"bf16 x {tuple(xb.shape)}, {h} heads of {d}, RoPE theta {spec[0]:g}, k={k} "
                  f"(tensor-core body; dyadic inputs bit-equal to the plain version); library = "
                  f"torch.matmul + torch.topk", 0.0,
@@ -2068,7 +2146,7 @@ def phase_qwen3_llama_shapes(results):
     level = _skip_schedule(qv, qi, kv, ki, d=d, causal=True, block_q=BLOCK, block_k=BLOCK)
     pairs, closed = _skip_work(level)
     qd, kd = _densify(qv, qi, d), _densify(kv, ki, d)
-    _timed_shape(results, "flash_sfa_block_skip", label,
+    _timed_shape(results, "flash_sfa_block_skip", label, None,
                  f"rtopk codes bh={bh} n={n} d=dv={d} k={k} bf16: max|err| {err:.3g}; {pairs} "
                  f"computed pairs, {closed} closed-form tiles; library = SDPA on densified Q/K",
                  err, 2 * bh * n * k * (es + 4) + 2 * bh * n * d * es + bh * n * 4,
@@ -2103,7 +2181,7 @@ def phase_qwen3_llama_shapes(results):
     del got, want
     ops_s = code_product_s(2 * ntok * m * h * kw, 2 * ntok * m * h * d)
     codes = h * ntok * kw * (es + 4)
-    _timed_shape(results, "code_grad_dx", label,
+    _timed_shape(results, "code_grad_dx", label, None,
                  f"bf16 codes {h} x {ntok} x {kw}, m {m}, d {d} (CUDA-core body, width {kw}): "
                  f"max|err| {cerr['dx']:.3g}; library = scatter_code_grads + torch.einsum",
                  cerr["dx"], codes + h * m * d * 4 + ntok * m * 4, ops_s,
@@ -2111,7 +2189,7 @@ def phase_qwen3_llama_shapes(results):
                  lambda: code_grad_dx_ref(vals, idx, wq, d=d),
                  lambda: torch.einsum("hnd,hmd->nm", scatter_code_grads(vals, idx, d).float(),
                                       wq))
-    _timed_shape(results, "code_grad_dw", label,
+    _timed_shape(results, "code_grad_dw", label, None,
                  f"the same codes, x ({ntok}, {m}) bf16 (CUDA-core body): max|err| "
                  f"{cerr['dw']:.3g}; library = scatter_code_grads + torch.einsum", cerr["dw"],
                  codes + ntok * m * es + h * m * d * 4, ops_s,
@@ -2122,11 +2200,20 @@ def phase_qwen3_llama_shapes(results):
     torch.cuda.empty_cache()
 
 
+def phase_moonshot_shapes(results):
+    """Rows 1, 3, 5 at moonshot-v1-16b-a3b's training shape and rows 10, 11
+    (12 checked), 13, 14 at its decode shape (MHA, k 16), each recorded as
+    the shape "MS" of its row's entry."""
+    rs = np.random.RandomState(SEED + 40)
+    _sfa_train_rows(results, rs, MS, "MS training", key="MS", dense=False)
+    _sfa_decode_rows(results, rs, MS, MS_PAGED, "MS decode", key="MS")
+
+
 # --------------------------------------------------------------------------
 # phase 4-5: the serving main path
 # --------------------------------------------------------------------------
 
-def phase_engine(model, cfg):
+def phase_engine(model, cfg, depth="full depth"):
     from repro_torch.core.kv_cache import kv_cache_nodes
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models.backends import clear_fallback_reports, fallback_reports
@@ -2167,6 +2254,10 @@ def phase_engine(model, cfg):
     check(not reports, f"engine: backend fallbacks recorded: {reports}")
     serving = ("rtopk", "flash_sfa", "flash_sfa_decode")
     check(all(counts[k] > 0 for k in serving), f"engine: a kernel never launched: {counts}")
+    # every step decodes all 8 slots: one decode launch per layer and step
+    check(counts["flash_sfa_decode"] == cfg.num_layers * len(step_ms),
+          f"engine: flash_sfa_decode launches {counts['flash_sfa_decode']}, predicted "
+          f"{cfg.num_layers} layers x {len(step_ms)} steps")
     _rtopk_one_thread("engine")
     # the cache at rest against the byte model: 8 slots x its token capacity
     model_bytes = cache_bytes_per_token(cfg)["sfa"] * 8 * eng._cache_len
@@ -2186,7 +2277,7 @@ def phase_engine(model, cfg):
     layouts = sorted({type(n).__name__ for n in kv_cache_nodes(eng.caches)})
     tokens = sum(len(o) for o in outputs)
     decode_tokens = tokens - len(outputs)
-    print(f"[engine] {cfg.name} full width bf16, 8 slots, max_len 2048, prompt "
+    print(f"[engine] {cfg.name} full width bf16, {depth}, 8 slots, max_len 2048, prompt "
           f"lengths {[len(p) for p in prompts]}")
     print(f"[engine] prefill ms per request {[round(x, 2) for x in prefill_ms]} "
           f"(mean {np.mean(prefill_ms):.2f}); decode ms per step mean "
@@ -2203,8 +2294,30 @@ def phase_engine(model, cfg):
           f"step ({100 * decode_ms * 4 / busy_ms:.1f}% of busy); top kernels by device time: "
           + "; ".join(f"{name[:48]} {us / 1e3:.3f} ms" for name, us in top))
     print(f"[engine] slot 0 tokens: {outputs[0]}")
+    if cfg.moe is not None:
+        _moe_cast(model, cfg, float(np.mean(step_ms)))
     return counts, dict(prompts=prompts, outputs=outputs, cache_bytes=eng.cache_bytes(),
                         step_ms=float(np.mean(step_ms)))
+
+
+def _moe_cast(model, cfg, step_ms):
+    """The device time of one MoE layer's f32 -> bf16 cast of all its
+    experts (up, gate, down), which ``moe_apply`` makes at every call, as
+    the reference does, and its share of a decode step."""
+    from repro_torch.models import segments
+    from repro_torch.models.layers import tree_index
+    p = tree_index(model.tree()["segments"][-1], 0)["moe"]
+    names = [n for n in ("up", "gate", "down") if n in p]
+    ms = device_ms(lambda: [p[n].to(torch.bfloat16) for n in names])
+    layers = sum(count for kind, count in segments(cfg) if kind == "block_moe")
+    moved = sum(p[n].numel() for n in names) * 6
+    if ms is None:
+        ms = event_ms(lambda: [p[n].to(torch.bfloat16) for n in names], iters=10)
+    print(f"[engine] MoE expert cast, one layer ({', '.join(names)}: {cfg.moe.num_experts} "
+          f"experts, f32 -> bf16, {moved / 1e9:.3f} GB read + written): {ms:.4f} ms "
+          f"(bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms); x {layers} MoE layers = "
+          f"{ms * layers:.3f} ms of the {step_ms:.3f} ms decode step "
+          f"({100 * ms * layers / step_ms:.1f}%)")
 
 
 # --------------------------------------------------------------------------
@@ -2451,6 +2564,7 @@ def phase_feature_major(model, cfg, cuda_run, prompts):
 
 def phase_serve_launcher():
     """The serving launcher's paged modes at full width."""
+    release()
     for extra in (["--paged", "--speculative"], ["--decode-backend", "cuda_fm", "--paged"]):
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gpt2-small-sfa8",
                "--no-reduced", "--requests", "4", "--max-new", "16", *extra]
@@ -2466,8 +2580,9 @@ def phase_serve_launcher():
               f"{time.perf_counter() - t0:.1f} s; " + " | ".join(out[-3:]))
 
 
-def phase_end_to_end(model, cfg, depth="full depth"):
-    """Kernels against plain on the whole model, float32."""
+def phase_end_to_end(model, cfg, depth="full depth", cache_dtype=torch.bfloat16):
+    """Kernels against plain on the whole model, float32 (caches in
+    ``cache_dtype``)."""
     from repro_torch.models import decode_step, init_decode_caches, prefill
     from repro_torch.models.model import insert_slot
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -2479,7 +2594,7 @@ def phase_end_to_end(model, cfg, depth="full depth"):
         c = dataclasses.replace(cfg32, attention=dataclasses.replace(
             cfg32.attention, backend=backend, decode_backend=backend))
         logits, one = prefill(model, {"tokens": prompt}, c)
-        caches = insert_slot(init_decode_caches(c, 1, 1024, device="cuda"), one,
+        caches = insert_slot(init_decode_caches(c, 1, 1024, cache_dtype, device="cuda"), one,
                              slot=0, max_len=1024)
         steps = [logits]
         for i, tok in enumerate(stream):
@@ -2495,9 +2610,9 @@ def phase_end_to_end(model, cfg, depth="full depth"):
     # logits of magnitude ~1, and the argmax equal at every step
     check(err <= 5e-3, f"end to end: max |logit diff| {err:.3g} > 5e-3")
     check(torch.equal(a.argmax(-1), b.argmax(-1)), "end to end: argmax differs")
-    print(f"[end-to-end] f32 {cfg.name} full width, {depth}: prefill(512) + 8 teacher-forced "
-          f"decode steps, cuda vs torch backends: max |logit diff| {err:.3g} (tol 5e-3), "
-          f"argmax equal at all {a.shape[0]} steps")
+    print(f"[end-to-end] f32 {cfg.name} full width, {depth}, {str(cache_dtype)[6:]} caches: "
+          f"prefill(512) + 8 teacher-forced decode steps, cuda vs torch backends: max |logit "
+          f"diff| {err:.3g} (tol 5e-3), argmax equal at all {a.shape[0]} steps")
 
 
 # --------------------------------------------------------------------------
@@ -2582,10 +2697,13 @@ def phase_train(arch, timed_steps, predicted, *, layers=None, bodies=None, **pol
     fl = step_flops(dataclasses.replace(cfg, remat=policy["remat"]),
                     ShapeConfig("chip", seq, batch, "train"))
     step_s = np.mean(timed) / 1e3
+    moe_note = ("; the total counts the reference's one-hot dispatch and combine einsums, "
+                "which the port's index dispatch does not run, and model FLOPs are "
+                "6 N_active" if cfg.moe is not None else "")
     print(f"[train] {arch}: step FLOPs (utils.analytic.step_flops) total "
           f"{fl['total_flops']:.4g} (model 6N {fl['model_flops']:.4g}); at the mean step, "
           f"{100 * fl['total_flops'] / step_s / BF16_TC_FLOPS:.2f}% of the bf16 peak "
-          f"(model FLOPs {100 * fl['model_flops'] / step_s / BF16_TC_FLOPS:.2f}%)")
+          f"(model FLOPs {100 * fl['model_flops'] / step_s / BF16_TC_FLOPS:.2f}%){moe_note}")
     print(f"[train] {arch} full width bf16, {depth}, batch {batch} x seq {seq}, {label}, AdamW; "
           f"losses {[round(h['loss'], 4) for h in hist]}, grad norms "
           f"{[round(h['grad_norm'], 3) for h in hist]}")
@@ -2890,6 +3008,7 @@ def phase_sfa_grad_bf16_end_to_end(arch="gpt2-small-sfa8", layers=None, compact=
 
 def phase_launcher():
     """The slice's launcher command at full width for 2 steps."""
+    release()
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gpt2-small-sfa8",
            "--no-reduced", "--batch", "8", "--seq-len", str(TRAIN_N), "--steps", "2",
            "--bwd-emit", "compact", "--remat", "codes"]
@@ -2928,6 +3047,7 @@ def main():
     results["flash_attention"], results["flash_attention_bwd"] = timed(phase_flash_attention, rs)
     results["code_grad_dx"], results["code_grad_dw"] = timed(phase_code_grad, rs)
     timed(phase_qwen3_llama_shapes, results)
+    timed(phase_moonshot_shapes, results)
     cfg = get_config("gpt2-small-sfa8")
     model = init(cfg, device="cuda", seed=SEED)
     counts, slot_run = timed(phase_engine, model, cfg)
@@ -2950,7 +3070,27 @@ def main():
     model = init(q4, device="cuda", seed=SEED)
     timed(phase_end_to_end, model, q4, f"4 of {qcfg.num_layers} layers (depth cut)")
     del model
-    torch.cuda.empty_cache()
+    release()
+    # moonshot-v1-16b-a3b at full width, 12 of 48 layers (1 dense + 11 MoE;
+    # 28.8 GB of f32 weights): the slot, paged (full residency) and cuda_fm
+    # engines on the same 8 requests (MHA, d 128, k 16)
+    mcfg = get_config("moonshot-v1-16b-a3b")
+    m12 = dataclasses.replace(mcfg, num_layers=12)
+    model = init(m12, device="cuda", seed=SEED)
+    _, m_slot = timed(phase_engine, model, m12, f"12 of {mcfg.num_layers} layers (depth cut)")
+    m_paged = timed(phase_paged, model, m12, m_slot, preempt=False)
+    timed(phase_feature_major, model, m12, m_paged, m_slot["prompts"])
+    del model
+    release()
+    # its f32 end to end at 2 layers (1 dense + 1 MoE), f32 caches: a bf16
+    # cache rounds a 1e-6 difference to the neighbouring number, which can
+    # move a token to another expert
+    m2 = dataclasses.replace(mcfg, num_layers=2)
+    model = init(m2, device="cuda", seed=SEED)
+    timed(phase_end_to_end, model, m2, f"2 of {mcfg.num_layers} layers (depth cut)",
+          torch.float32)
+    del model
+    release()
     layers = cfg.num_layers
     # remat="full": each layer's forward runs twice per step (rtopk for Q
     # and K each time), its backward once
@@ -2988,10 +3128,17 @@ def main():
            "code_grad_dx": 2 * ll, "code_grad_dw": 2 * ll},
           layers=ll, bodies={"code_grad_dx_cuda_core": 2 * ll, "code_grad_dw_cuda_core": 2 * ll},
           bwd_emit="compact2", fwd_fuse=True, remat="codes")
+    # moonshot-v1-16b-a3b at full width, 4 of 48 layers (1 dense + 3 MoE),
+    # dense emit, remat "full"
+    ml = 4
+    timed(phase_train, "moonshot-v1-16b-a3b", 2,
+          {"rtopk": 4 * ml, "flash_sfa": 2 * ml, "flash_sfa_bwd": ml}, layers=ml)
+    torch.cuda.empty_cache()
     timed(phase_grad_end_to_end)
     timed(phase_dense_grad_end_to_end)
     timed(phase_sfa_grad_bf16_end_to_end)
     timed(phase_sfa_grad_bf16_end_to_end, "qwen3-0.6b-sfa8", 2, False)
+    timed(phase_sfa_grad_bf16_end_to_end, "moonshot-v1-16b-a3b", 2, False)
     timed(phase_grad_end_to_end, "llama3.2-3b", 2, (GRAD_RUNS[0], GRAD_RUNS[2]), True)
     decode_src = "src/repro_torch/csrc/flash_sfa_decode.cu"
     fm_src = "src/repro_torch/csrc/flash_sfa_decode_fm.cu"

@@ -18,8 +18,11 @@ whose forward keeps no codes runs "full" instead, and the loop records why
 (``core.remat.remat_reports``).
 
 Entry points take the ``Model`` (a ``ParamTree``) where the JAX functions
-take the param pytree. Other families (MoE, hybrid, SSM, frontends) come
-with later slices.
+take the param pytree. The dense and MoE families are ported: an MoE model
+is two segments, its ``first_dense`` dense layers (MLP widened to
+``max(d_ff, expert_dim · top_k)``) and then MoE layers (``models/moe.py``),
+whose load-balance loss, weighted by ``MOE_AUX_WEIGHT``, joins the aux
+term. Other families (hybrid, SSM, frontends) come with later slices.
 """
 from __future__ import annotations
 
@@ -31,13 +34,28 @@ from repro_torch.core.kv_cache import KVCache
 from repro_torch.core.remat import checkpoint_codes, normalize_remat, record_remat
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+
+MOE_AUX_WEIGHT = 0.01
 
 
 def segments(cfg: ModelConfig):
-    if cfg.family not in ("dense",) or cfg.moe is not None or cfg.frontend is not None:
+    """[(kind, layers)]: the JAX package's segments, keyed on ``cfg.moe``."""
+    if cfg.family not in ("dense", "moe") or cfg.frontend is not None:
         raise NotImplementedError(
             f"family {cfg.family!r} (arch {cfg.name!r}) comes with a later slice")
+    if cfg.moe is not None:
+        fd = cfg.moe.first_dense
+        return ([("block_dense", fd)] if fd else []) + [("block_moe", cfg.num_layers - fd)]
     return [("block_dense", cfg.num_layers)]
+
+
+def dense_ff(cfg: ModelConfig) -> int:
+    """A dense layer's MLP width: ``d_ff``, widened to ``expert_dim ·
+    top_k`` inside an MoE model."""
+    if cfg.moe is None:
+        return cfg.d_ff
+    return max(cfg.d_ff, cfg.moe.expert_dim * cfg.moe.top_k)
 
 
 def _dtype(cfg: ModelConfig):
@@ -69,12 +87,17 @@ class Model(L.ParamTree):
 def param_tree(cfg: ModelConfig, *, generator=None, device="cpu") -> dict:
     """The parameter tree with fresh values (shapes and scales of the JAX
     ``init``; its RNG's values are not reproduced)."""
-    def block():
-        return {"ln1": L.norm_init(cfg.d_model, cfg.norm, device),
-                "attn": attn.attention_init(generator, cfg, device),
-                "ln2": L.norm_init(cfg.d_model, cfg.norm, device),
-                "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff, glu=cfg.glu,
-                                  device=device)}
+    def block(kind):
+        p = {"ln1": L.norm_init(cfg.d_model, cfg.norm, device),
+             "attn": attn.attention_init(generator, cfg, device),
+             "ln2": L.norm_init(cfg.d_model, cfg.norm, device)}
+        if kind == "block_moe":
+            p["moe"] = moe_lib.moe_init(generator, cfg.d_model, cfg.moe, glu=cfg.glu,
+                                        device=device)
+        else:
+            p["mlp"] = L.mlp_init(generator, cfg.d_model, dense_ff(cfg), glu=cfg.glu,
+                                  device=device)
+        return p
 
     def stack(trees):
         if isinstance(trees[0], dict):
@@ -89,8 +112,8 @@ def param_tree(cfg: ModelConfig, *, generator=None, device="cpu") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.vocab_size,
                                          device=device)
-    params["segments"] = [stack([block() for _ in range(count)])
-                          for _, count in segments(cfg)]
+    params["segments"] = [stack([block(kind) for _ in range(count)])
+                          for kind, count in segments(cfg)]
     return params
 
 
@@ -107,17 +130,28 @@ def init(cfg: ModelConfig, *, generator=None, device=None, seed: int = 0) -> Mod
 # block + stack
 # ==========================================================================
 
-def _tx_block(p, x, cfg: ModelConfig, *, positions=None, mode="train",
-              cache=None, cache_len=None, slot=None):
+def _tx_block(p, x, cfg: ModelConfig, kind: str = "block_dense", *, positions=None,
+              mode="train", cache=None, cache_len=None, slot=None):
+    """One layer: (x, its cache, its aux term or None). The aux term is the
+    MoE load-balance loss x ``MOE_AUX_WEIGHT`` plus the SFA distillation
+    term x ``cfg.sfa_distill`` (paper Eq. 8), each where there is one."""
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     ao = attn.attention_apply(p["attn"], h, cfg=cfg, positions=positions,
                               mode=mode, cache=cache, cache_len=cache_len,
                               slot=slot)
     x = x + ao.out
     h = L.apply_norm(p["ln2"], x, cfg.norm)
-    x = x + L.mlp(p["mlp"], h, act=cfg.act, glu=cfg.glu)
-    aux = None if ao.distill is None else cfg.sfa_distill * ao.distill   # paper Eq. 8
-    return x, ao.cache, aux
+    aux = None
+    if kind == "block_moe":
+        mo, aux = moe_lib.moe_apply(p["moe"], h, cfg.moe, act=cfg.act, glu=cfg.glu,
+                                    with_aux=mode in ("train", "eval"))
+        aux = None if aux is None else MOE_AUX_WEIGHT * aux
+    else:
+        mo = L.mlp(p["mlp"], h, act=cfg.act, glu=cfg.glu)
+    if ao.distill is not None:
+        distill = cfg.sfa_distill * ao.distill
+        aux = distill if aux is None else aux + distill
+    return x + mo, ao.cache, aux
 
 
 def _remat(cfg: ModelConfig, mode: str) -> str:
@@ -142,13 +176,13 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
     tree = params.tree()
     remat = _remat(cfg, mode)
 
-    def layer(x, p):
-        x, _, aux = _tx_block(p, x, cfg, positions=positions, mode=mode)
-        return x, aux
-
     aux_total = None
     new_caches = []
-    for si, (_, count) in enumerate(segments(cfg)):
+    for si, (kind, count) in enumerate(segments(cfg)):
+        def layer(x, p, kind=kind):
+            x, _, aux = _tx_block(p, x, cfg, kind, positions=positions, mode=mode)
+            return x, aux
+
         seg = tree["segments"][si]
         layer_caches = []
         for i in range(count):
@@ -159,7 +193,7 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
                 x, aux = checkpoint_codes(layer, x, p)
             else:
                 c = caches[si].layer(i) if caches is not None else None
-                x, nc, aux = _tx_block(p, x, cfg, positions=positions, mode=mode,
+                x, nc, aux = _tx_block(p, x, cfg, kind, positions=positions, mode=mode,
                                        cache=c, cache_len=cache_len, slot=slot)
                 layer_caches.append(nc)
             if aux is not None:
@@ -209,9 +243,9 @@ def _head(params: Model, h, cfg: ModelConfig):
 def loss_fn(params: Model, batch, cfg: ModelConfig, *, aux_weight: float = 1.0):
     """Training loss: sequence-chunked CE over ``batch["labels"]`` (-1 = no
     target), as the JAX package's ``loss_fn``. Returns (loss, {"ce", "aux",
-    "tokens"}). The aux term is the SFA layers' distillation term summed
-    over the layers, each weighted by ``cfg.sfa_distill`` (paper Eq. 8), and
-    zero without it."""
+    "tokens"}). The aux term sums over the layers the MoE load-balance loss
+    weighted by ``MOE_AUX_WEIGHT`` and the SFA distillation term weighted
+    by ``cfg.sfa_distill`` (paper Eq. 8); it is zero without either."""
     h = _embed_inputs(params, batch["tokens"], cfg, _dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, aux, _ = _apply_stack(params, h, cfg, positions=positions, mode="train")

@@ -6,7 +6,8 @@
 ``loss_fn`` -> ``torch.autograd.grad`` over every parameter -> the optimizer
 update (in place, see ``optim/optimizer.py``). ``accum_steps > 1`` splits the
 batch into that many microbatches and averages their gradients, one
-microbatch's activations alive at a time. The execution-policy axes (remat,
+microbatch's activations alive at a time (its metrics average the microbatches' ce
+and aux; the JAX step reports aux 0 there). The execution-policy axes (remat,
 backend, bwd_emit, fwd_fuse, ring, tp) come in as one ``TrainPolicy``
 (``policy=``), validated against the model when the step is built. Top-k
 gradient compression is distribution work (ROADMAP, "distribution").
@@ -54,7 +55,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
             loss, metrics, grads = compute_grads(names, leaves, params, batch)
         else:
             grads = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in named.items()}
-            losses, ces = [], []
+            losses, ces, auxes = [], [], []
             micro = {k: v.chunk(accum_steps) for k, v in batch.items()}
             for i in range(accum_steps):
                 loss_i, m_i, g_i = compute_grads(
@@ -64,9 +65,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                         grads[k] += g / accum_steps
                 losses.append(loss_i.detach())
                 ces.append(m_i["ce"].detach())
+                auxes.append(m_i["aux"].detach())
             loss = torch.stack(losses).mean()
-            zero = torch.zeros((), device=loss.device)
-            metrics = {"ce": torch.stack(ces).mean(), "aux": zero, "tokens": zero}
+            metrics = {"ce": torch.stack(ces).mean(), "aux": torch.stack(auxes).mean(),
+                       "tokens": torch.zeros((), device=loss.device)}
         _, opt_state, opt_metrics = update(opt_cfg, grads, opt_state, named)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return params, opt_state, {k: v.detach() if torch.is_tensor(v) else v

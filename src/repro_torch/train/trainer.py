@@ -67,7 +67,7 @@ class Trainer:
         for step in range(self.tcfg.total_steps):
             m = self.run_step(step)
             if step % self.tcfg.log_every == 0:
-                print(f"step {step:5d} loss {m['loss']:.4f} "
+                print(f"step {step:5d} loss {m['loss']:.4f} aux {m['aux']:.4g} "
                       f"gnorm {m['grad_norm']:.3f} lr {m['lr']:.2e}")
             history.append({"step": step, **m})
         return history

@@ -4,19 +4,23 @@ The port's own copy of the JAX package's ``repro/utils/analytic.py``, over
 the port's configs, ``core.remat.normalize_remat``, ``models.model.segments``
 and ``serve.kv_cache.cache_bytes_per_token``: the same config and shape
 give the same numbers. It takes the families ``segments`` takes (dense
-blocks); for any other family ``segments`` raises, and so does this.
+and MoE blocks); for any other family ``segments`` raises, and so does this.
 
 Conventions: a (m, k) × (k, n) matmul is 2mkn FLOPs; causal attention
 halves the score and PV terms; the backward is 2× the forward; remat adds
 one forward recompute. Attention compute is counted dense, as the kernels'
 densified tensor-core bodies run it; SFA's savings show in the byte model
-(the sparse KV cache).
+(the sparse KV cache). An MoE layer counts its active experts (top-k
+routed + shared + router) and the reference's one-hot dispatch and combine
+einsums over groups of ``models.moe.GROUP`` tokens (4 · cf · top_k · gs · d a
+token), which the port's index dispatch does not run.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.remat import normalize_remat
-from repro_torch.models.model import segments
+from repro_torch.models.model import dense_ff, segments
+from repro_torch.models.moe import GROUP
 from repro_torch.serve.kv_cache import cache_bytes_per_token
 
 
@@ -25,20 +29,34 @@ def _attn_params(cfg: ModelConfig) -> int:
     return cfg.d_model * a.head_dim * (a.num_heads * 2 + a.num_kv_heads * 2)
 
 
-def _mlp_params(cfg: ModelConfig) -> int:
-    return cfg.d_model * cfg.d_ff * (3 if cfg.glu else 2)
+def _mlp_params(cfg: ModelConfig, ff: int) -> int:
+    return cfg.d_model * ff * (3 if cfg.glu else 2)
+
+
+def _moe_params(cfg: ModelConfig) -> tuple[int, int]:
+    """(total, active) parameters of one MoE layer."""
+    m = cfg.moe
+    per_exp = cfg.d_model * m.expert_dim * (3 if cfg.glu else 2)
+    shared = m.num_shared * per_exp
+    router = cfg.d_model * m.num_experts
+    return (m.num_experts * per_exp + shared + router,
+            m.top_k * per_exp + shared + router)
 
 
 def param_count(cfg: ModelConfig) -> dict:
-    """{'total': N, 'active': N} (the two differ only for MoE, which the
-    port does not take yet)."""
+    """{'total': N, 'active': N_active} (they differ only for MoE)."""
     d = cfg.d_model
     emb = cfg.vocab_size * d
     head = 0 if cfg.tie_embeddings else cfg.vocab_size * d
-    total = emb + head
-    for _, count in segments(cfg):
-        total += count * (_attn_params(cfg) + _mlp_params(cfg))
-    return {"total": total, "active": total}
+    total = active = emb + head
+    for kind, count in segments(cfg):
+        if kind == "block_moe":
+            tt, aa = _moe_params(cfg)
+        else:
+            tt = aa = _mlp_params(cfg, dense_ff(cfg))
+        total += count * (_attn_params(cfg) + tt)
+        active += count * (_attn_params(cfg) + aa)
+    return {"total": total, "active": active}
 
 
 def _attn_flops_per_token(cfg: ModelConfig, ctx: int, layer: int) -> float:
@@ -59,9 +77,17 @@ def step_flops(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     b, n = shape.global_batch, shape.seq_len
     pc = param_count(cfg)
     tokens = b if shape.kind == "decode" else b * n     # decode: one new token each
-    layers = sum(count for _, count in segments(cfg))
-    fwd = sum(_attn_flops_per_token(cfg, n, i) + 2 * _mlp_params(cfg)
-              for i in range(layers)) * tokens
+    fwd, li = 0.0, 0
+    for kind, count in segments(cfg):
+        if kind == "block_moe":
+            m = cfg.moe
+            dispatch = 4 * m.capacity_factor * m.top_k * min(GROUP, n) * cfg.d_model
+            mlp = 2 * _moe_params(cfg)[1] + dispatch
+        else:
+            mlp = 2 * _mlp_params(cfg, dense_ff(cfg))
+        for i in range(li, li + count):
+            fwd += (_attn_flops_per_token(cfg, n, i) + mlp) * tokens
+        li += count
     fwd += 2 * cfg.d_model * cfg.vocab_size * tokens      # logits
     if shape.kind == "train":
         # forward + backward (2x) + one recompute under any remat policy

@@ -13,7 +13,8 @@ from repro_torch.configs import LM_SHAPES, NOT_YET_PORTED, get_config, shape_by_
 from repro_torch.utils import analytic
 
 ARCHS = ["gpt2-small", "gpt2-small-sfa8", "gpt2-medium-sfa16", "gpt2-small-short2",
-         "qwen3-0.6b", "qwen3-0.6b-sfa8", "llama3.2-3b", "llama3-8b", "deepseek-7b"]
+         "qwen3-0.6b", "qwen3-0.6b-sfa8", "llama3.2-3b", "llama3-8b", "deepseek-7b",
+         "moonshot-v1-16b-a3b"]
 
 
 def test_shapes_equal_the_reference():
@@ -47,8 +48,31 @@ def test_train_flops_follow_the_remat_policy(remat):
     assert got["total_flops"] == got["forward_flops"] * (3 if remat == "none" else 4)
 
 
+def test_moonshot_counts_total_and_active_as_the_reference():
+    """moonshot-v1-16b-a3b: 1 dense layer (MLP widened to expert_dim x
+    top_k = 8,448), 47 MoE layers of 64 experts top-6 + 2 shared, an untied
+    head; total and active parameters and the step FLOPs (with the
+    reference's dispatch and combine terms) at every LM shape equal the
+    JAX package's."""
+    jc, tc = jax_get_config("moonshot-v1-16b-a3b"), get_config("moonshot-v1-16b-a3b")
+    pc = analytic.param_count(tc)
+    assert pc == jax_analytic.param_count(jc)
+    one = dataclasses.replace(tc, num_layers=2)
+    dense = analytic._attn_params(tc) + analytic._mlp_params(tc, 8448)
+    moe_total, moe_active = analytic._moe_params(tc)
+    moe_layer = analytic._attn_params(tc) + moe_total
+    assert (dense, moe_layer) == (68_681_728, 587_857_920)
+    assert analytic.param_count(one)["total"] == 2 * 163_840 * 2048 + dense + moe_layer
+    assert pc["total"] == 2 * 163_840 * 2048 + dense + 47 * moe_layer == 28_369_092_608
+    assert pc["active"] == pc["total"] - 47 * (moe_total - moe_active)
+    for js, ts in zip(JAX_SHAPES, LM_SHAPES):
+        got = analytic.step_flops(tc, ts)
+        assert got == jax_analytic.step_flops(jc, js), ts.name
+        assert got["model_flops"] < got["total_flops"]
+
+
 def test_unported_families_raise_as_segments_does():
-    for family in ("moe", "ssm", "hybrid", "rwkv"):
+    for family in ("ssm", "hybrid", "rwkv"):
         cfg = dataclasses.replace(get_config("gpt2-small").reduced(), family=family)
         with pytest.raises(NotImplementedError, match="later slice"):
             analytic.param_count(cfg)

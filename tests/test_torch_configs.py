@@ -14,7 +14,7 @@ from repro.configs import get_config as jax_get_config
 from repro_torch.configs import NOT_YET_PORTED, get_config
 
 NAMES = ["gpt2-small", "gpt2-small-sfa8", "gpt2-medium-sfa16",
-         "qwen3-0.6b-sfa8"]
+         "qwen3-0.6b-sfa8", "moonshot-v1-16b-a3b"]
 
 # (JAX default, port default) of the backend-name fields
 BACKEND_FIELDS = {"backend": ("xla", "auto"), "decode_backend": ("auto", "auto")}

@@ -957,3 +957,49 @@ def test_split_fm_decode_kernels_at_run_boundaries_on_card(cuda, dv, kq, dtype, 
     fp = ref.flash_sfa_decode_fm_ref(t["qv"], t["qi"], kf.cpu(), v.cpu(), rlens.cpu(),
                                      group=h // hkv)
     torch.testing.assert_close(fo.cpu(), fp, rtol=0, atol=1e-4)
+
+
+def test_moe_layer_on_card_gives_the_same_bits_twice_and_its_cpu_result(cuda):
+    """moonshot's routing (64 experts top-6, 2 shared, capacity factor
+    1.25) at d 512, expert width 352, 2 x 256 bf16 tokens: forward and
+    backward (x and every leaf) equal bit for bit over two calls on the
+    card; routing equal to the CPU run's on the same inputs (a flip fails
+    the test, no tolerance covers it), output and gradients within bf16
+    rounding of it (both sum in f32 and round once, in other orders)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    mc = MoEConfig(num_experts=64, top_k=6, expert_dim=352, num_shared=2)
+    d = 512
+    p_cpu = moe.moe_init(torch.Generator().manual_seed(0), d, mc)
+    x_cpu = torch.randn(2, 256, d, generator=torch.Generator().manual_seed(1)).bfloat16()
+    w = torch.randn(2, 256, d, generator=torch.Generator().manual_seed(2))
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {n: t for k, v in tree.items() for n, t in leaves(v, f"{prefix}{k}.").items()}
+        return {prefix[:-1]: tree}
+
+    def run(device):
+        p = {k: ({kk: vv.to(device) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(device)) for k, v in p_cpu.items()}
+        flat = leaves(p)
+        for t in flat.values():
+            t.requires_grad_(True)
+        x = x_cpu.to(device).requires_grad_(True)
+        out, aux = moe.moe_apply(p, x, mc)
+        ((out.float() * w.to(device)).sum() + aux).backward()
+        r = moe.route(p["router"]["w"].detach(), x.detach().reshape(-1, d), mc, gs=512,
+                      dtype=torch.bfloat16)
+        return ([out.detach(), aux.detach(), x.grad] + [t.grad for t in flat.values()],
+                r.sel.cpu(), r.keep.cpu())
+
+    a, sel, keep = run(cuda)
+    b, _, _ = run(cuda)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    c, csel, ckeep = run("cpu")
+    flips = int((sel != csel).any(-1).sum())
+    assert flips == 0, f"{flips} tokens routed to other experts on the card than on the CPU"
+    assert torch.equal(keep, ckeep)
+    for got, want in zip(a, c):
+        got, want = got.float().cpu(), want.float()
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2 * want.abs().max().item())

@@ -1,9 +1,10 @@
 """Arch registry: ``get_config(name)`` / ``--arch <id>`` resolution.
 
 The port takes the paper's own models (``gpt2-*``, ``qwen3-0.6b*``), the
-dense llama-family archs and the MoE moonshot-v1-16b-a3b of the JAX
-package's registry (``_ARCH_MODULES``, one module each); every other arch
-there raises ``KeyError`` naming it as not yet ported.
+dense llama-family archs, the MoE moonshot-v1-16b-a3b and the frontend
+archs paligemma-3b (vlm) and hubert-xlarge (audio) of the JAX package's
+registry (``_ARCH_MODULES``, one module each); every other arch there
+raises ``KeyError`` naming it as not yet ported.
 """
 from __future__ import annotations
 
@@ -16,11 +17,8 @@ from repro_torch.configs.base import (
 from repro_torch.configs import paper_models
 
 # archs the JAX package registers whose model families the port has not
-# reached yet (hybrid, SSM, MLA, windows, frontends)
-NOT_YET_PORTED = (
-    "gemma3-4b", "deepseek-v2-236b", "jamba-v0.1-52b",
-    "paligemma-3b", "rwkv6-3b", "hubert-xlarge",
-)
+# reached yet (hybrid, SSM, MLA, windows)
+NOT_YET_PORTED = ("gemma3-4b", "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-3b")
 
 # registered archs the port takes: id -> module of this package
 _ARCH_MODULES = {
@@ -28,6 +26,8 @@ _ARCH_MODULES = {
     "llama3-8b": "llama3_8b",
     "deepseek-7b": "deepseek_7b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "paligemma-3b": "paligemma_3b",
+    "hubert-xlarge": "hubert_xlarge",
 }
 
 _PORTED = "gpt2-*, qwen3-0.6b*, " + ", ".join(_ARCH_MODULES)

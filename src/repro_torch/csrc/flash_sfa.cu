@@ -39,6 +39,16 @@
 // block, and a CUDA block reads only the tiles it computes. With a null
 // level map every tile is level 2 (block_skip=False).
 //
+// dv is 32, 64, 80, 128 or 256 (any multiple of 4 fits the body: 4 threads
+// a row, DV / 4 columns each); dv 80 and 256 serve hubert-xlarge's and
+// paligemma-3b's head dims, which the tensor-core body does not take. Above
+// dv 128 (kWideDV) a thread would keep 64 accumulators beside the 64 scores
+// of a tile, fully unrolled: there the row's 4 threads score a quarter of
+// the keys each, exchange the row's max and sum by warp shuffles and stage
+// p in a (64 x 68) shared tile that the P.V loop reads, which cuts the
+// score work 4x and the registers, and keeps the body cheap to compile.
+// The K and V tiles take 128 KB of shared memory at 256 (the opt-in below).
+//
 // Bound on the H100: operations. Per (query, key) pair the kernel does 2k
 // flops of score and 2dv of P.V, against O(n k + n dv) bytes moved, all on
 // CUDA cores in f32. That is the exact path, kept for f32 (the tensor cores
@@ -57,6 +67,8 @@ constexpr int kBQ = 64;       // query rows per block
 constexpr int kBK = 64;       // keys per tile
 constexpr int kThreads = 256; // 4 threads per query row
 constexpr float kNegInf = -1e30f;
+constexpr int kWideDV = 128;  // wider rows score a quarter of the keys a thread
+constexpr int kPS = kBK + 4;  // row stride of the wide rows' p tile (no bank conflict)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -73,10 +85,14 @@ flash_sfa_fwd_kernel(const T* __restrict__ qv, const int32_t* __restrict__ qi,
                      int d, float scale, int causal) {
   constexpr int DVT = DV / 4;
   extern __shared__ float smem[];
-  float* kd = smem;                   // (kBK, d)   densified key tile
-  float* vs = kd + kBK * d;           // (kBK, DV)  value tile
+  // the K tile's row stride: d, or d + 1 for wide rows, whose 4 threads
+  // read 4 different rows of it at once (at d 256 all in one bank)
+  const int dk = DV > kWideDV ? d + 1 : d;
+  float* kd = smem;                   // (kBK, dk)  densified key tile
+  float* vs = kd + kBK * dk;          // (kBK, DV)  value tile
   float* qvs = vs + kBK * DV;         // (kBQ, kq)  query code values
   int* qis = reinterpret_cast<int*>(qvs + kBQ * kq);  // (kBQ, kq) indices
+  float* ps = reinterpret_cast<float*>(qis + kBQ * kq);  // DV > kWideDV: (kBQ, kPS) p
 
   const int tid = threadIdx.x;
   const int r = tid >> 2;
@@ -123,7 +139,7 @@ flash_sfa_fwd_kernel(const T* __restrict__ qv, const int32_t* __restrict__ qi,
       continue;
     }
     __syncthreads();  // the previous tile is consumed (and q codes staged)
-    for (int t = tid; t < kBK * d; t += kThreads) kd[t] = 0.0f;
+    for (int t = tid; t < kBK * dk; t += kThreads) kd[t] = 0.0f;
     for (int t = tid; t < kBK * DV; t += kThreads) {
       const int kr = k0 + t / DV;
       vs[t] = kr < nk ? to_f(v[(static_cast<size_t>(bh) * nk + kr) * DV + t % DV]) : 0.0f;
@@ -131,7 +147,7 @@ flash_sfa_fwd_kernel(const T* __restrict__ qv, const int32_t* __restrict__ qi,
     __syncthreads();
     if (tid < kBK && k0 + tid < nk) {
       const size_t base = (static_cast<size_t>(bh) * nk + k0 + tid) * kk;
-      float* dst = kd + tid * d;
+      float* dst = kd + tid * dk;
       for (int t = 0; t < kk; ++t) {
         const int id = ki[base + t];
         if (id >= 0 && id < d) dst[id] += to_f(kv[base + t]);
@@ -139,41 +155,94 @@ flash_sfa_fwd_kernel(const T* __restrict__ qv, const int32_t* __restrict__ qi,
     }
     __syncthreads();
 
-    // scores: the row's k code entries, each times one column of the tile
-    float s[kBK];
+    if constexpr (DV > kWideDV) {
+      // wide rows: the row's 4 threads score a quarter of the keys each
+      // (keys sub + 4j), share the row's max and sum by shuffles and stage
+      // p in shared memory, so the P.V loop reads p there and need not be
+      // unrolled over the keys beside DV / 4 accumulators
+      constexpr int KQ = kBK / 4;
+      float s[KQ];
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) s[j] = 0.0f;
-    for (int t = 0; t < kq; ++t) {
-      const int id = qis[r * kq + t];
-      if (id < 0) continue;
-      const float qval = qvs[r * kq + t];
-      const float* col = kd + id;
+      for (int j = 0; j < KQ; ++j) s[j] = 0.0f;
+      for (int t = 0; t < kq; ++t) {
+        const int id = qis[r * kq + t];
+        if (id < 0) continue;
+        const float qval = qvs[r * kq + t];
+        const float* col = kd + sub * dk + id;
 #pragma unroll
-      for (int j = 0; j < kBK; ++j) s[j] += qval * col[j * d];
+        for (int j = 0; j < KQ; ++j) s[j] += qval * col[j * 4 * dk];
+      }
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < KQ; ++j) {
+        const int col = k0 + sub + 4 * j;
+        const bool ok = col < nk && (!causal || col <= row);
+        s[j] = ok ? s[j] * scale : kNegInf;
+        mt = fmaxf(mt, s[j]);
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(m, mt);
+      const float corr = expf(m - m_new);
+      float psum = 0.0f;
+      float* prow = ps + r * kPS;
+#pragma unroll
+      for (int j = 0; j < KQ; ++j) {
+        const float p = expf(s[j] - m_new);
+        psum += p;
+        prow[sub + 4 * j] = p;
+      }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      __syncwarp();  // a row's 4 threads are 4 lanes of one warp
+#pragma unroll
+      for (int c = 0; c < DVT; ++c) acc[c] *= corr;
+#pragma unroll 2
+      for (int j = 0; j < kBK; ++j) {
+        const float p = prow[j];
+        const float* vrow = vs + j * DV + sub;
+#pragma unroll
+        for (int c = 0; c < DVT; ++c) acc[c] += p * vrow[c * 4];
+      }
+      l = l * corr + psum;
+      m = m_new;
+    } else {
+      // scores: the row's k code entries, each times one column of the tile
+      float s[kBK];
+#pragma unroll
+      for (int j = 0; j < kBK; ++j) s[j] = 0.0f;
+      for (int t = 0; t < kq; ++t) {
+        const int id = qis[r * kq + t];
+        if (id < 0) continue;
+        const float qval = qvs[r * kq + t];
+        const float* col = kd + id;
+#pragma unroll
+        for (int j = 0; j < kBK; ++j) s[j] += qval * col[j * d];
+      }
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kBK; ++j) {
+        const int col = k0 + j;
+        const bool ok = col < nk && (!causal || col <= row);
+        s[j] = ok ? s[j] * scale : kNegInf;
+        mt = fmaxf(mt, s[j]);
+      }
+      const float m_new = fmaxf(m, mt);
+      const float corr = expf(m - m_new);
+#pragma unroll
+      for (int c = 0; c < DVT; ++c) acc[c] *= corr;
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kBK; ++j) {
+        const float p = expf(s[j] - m_new);
+        psum += p;
+        const float* vrow = vs + j * DV + sub;
+#pragma unroll
+        for (int c = 0; c < DVT; ++c) acc[c] += p * vrow[c * 4];
+      }
+      l = l * corr + psum;
+      m = m_new;
     }
-    float mt = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const int col = k0 + j;
-      const bool ok = col < nk && (!causal || col <= row);
-      s[j] = ok ? s[j] * scale : kNegInf;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float m_new = fmaxf(m, mt);
-    const float corr = expf(m - m_new);
-#pragma unroll
-    for (int c = 0; c < DVT; ++c) acc[c] *= corr;
-    float psum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float p = expf(s[j] - m_new);
-      psum += p;
-      const float* vrow = vs + j * DV + sub;
-#pragma unroll
-      for (int c = 0; c < DVT; ++c) acc[c] += p * vrow[c * 4];
-    }
-    l = l * corr + psum;
-    m = m_new;
   }
 
   if (row < nq) {
@@ -190,8 +259,9 @@ int launch(const void* qv, const void* qi, const void* kv, const void* ki,
            const void* v, void* out, void* lse, const void* level, const void* vsum,
            int bh, int nq, int nk, int kq, int kk, int d, float scale, int causal,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kBK) * d + kBK * DV + kBQ * kq)
-                      + sizeof(int) * kBQ * kq;
+  const size_t dk = DV > kWideDV ? d + 1 : d;  // the kernel's K tile stride
+  const size_t smem = sizeof(float) * (kBK * dk + kBK * DV + kBQ * kq) + sizeof(int) * kBQ * kq
+                      + (DV > kWideDV ? sizeof(float) * kBQ * kPS : 0);
   auto kernel = flash_sfa_fwd_kernel<DV, T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -231,17 +301,17 @@ extern "C" int flash_sfa_fwd_launch(const void* qv, const void* qi, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   if ((level == nullptr) != (vsum == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dv == 32) {
-    return is_bf16 ? launch<32, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s)
-                   : launch<32, float>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s);
-  }
-  if (dv == 64) {
-    return is_bf16 ? launch<64, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s)
-                   : launch<64, float>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s);
-  }
-  if (dv == 128) {
-    return is_bf16 ? launch<128, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s)
-                   : launch<128, float>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, kq, kk, d, scale, causal, s);
-  }
+#define SFA_FWD_CASE(DVV)                                                                    \
+  if (dv == DVV)                                                                             \
+    return is_bf16 ? launch<DVV, __nv_bfloat16>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, \
+                                                nq, nk, kq, kk, d, scale, causal, s)         \
+                   : launch<DVV, float>(qv, qi, kv, ki, v, out, lse, level, vsum, bh, nq, nk, \
+                                        kq, kk, d, scale, causal, s);
+  SFA_FWD_CASE(32)
+  SFA_FWD_CASE(64)
+  SFA_FWD_CASE(80)
+  SFA_FWD_CASE(128)
+  SFA_FWD_CASE(256)
+#undef SFA_FWD_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

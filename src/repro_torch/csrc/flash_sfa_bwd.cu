@@ -45,6 +45,11 @@
 //    (the key's own k coordinates gathered from the dense Q tile) and write
 //    P and dS; then each thread accumulates its quarter of dV_j (dv-wide)
 //    and of dK_j on the key's k stored coordinates.
+// dv is 32, 64, 80 or 128 for SPARSE (80 is hubert-xlarge's head dim: the
+// tiles are staged at a stride of dv + 1 and the columns split 4 ways, so
+// any multiple of 4 fits), 32, 64 or 128 for the dense form. A d = dv 256
+// backward does not fit this body: its dQ kernel would stage K, V and dO
+// as f32 at a stride of 257 (~197 KB of shared memory before dS).
 // Ragged n is masked inside the kernels. All sums run in f32; dQ/dK come
 // out in the code values' dtype and dV in v's dtype.
 //
@@ -459,6 +464,9 @@ int dispatch(const void* qa, const void* qi, const void* ka, const void* ki,
                                                 scale, causal, emit, rot_dim, s);
   SFA_BWD_CASE(32)
   SFA_BWD_CASE(64)
+  if constexpr (SPARSE) {  // dv 80 (hubert-xlarge) for FlashSFA only
+    SFA_BWD_CASE(80)
+  }
   SFA_BWD_CASE(128)
 #undef SFA_BWD_CASE
   return static_cast<int>(cudaErrorInvalidValue);

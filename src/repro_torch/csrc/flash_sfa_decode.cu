@@ -388,5 +388,6 @@ extern "C" int flash_sfa_decode_launch(
   if (dv == 32) return by_value<32>(val_kind, idx_kind, a);
   if (dv == 64) return by_value<64>(val_kind, idx_kind, a);
   if (dv == 128) return by_value<128>(val_kind, idx_kind, a);
+  if (dv == 256) return by_value<256>(val_kind, idx_kind, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,7 +7,10 @@ stacked per-segment layer axis of ``params["segments"][si]``, the packed
 ``w_qkv`` (d_model, (h + 2·hkv)·hd) that attention splits in column order
 q | k | v, dense weights as (in, out) without bias, norms with ``scale``
 (and ``bias`` for LayerNorm), the tied ``embed.w`` (vocab, d) and ``pos.w``
-with min(max_seq_len, 65536) rows; an MoE layer's ``moe`` holds
+with min(max_seq_len, 65536) rows; a frontend model's dense
+``frontend.w`` (input_dim, d), with no ``embed`` for audio (hubert, whose
+``pos.w`` and untied ``lm_head.w`` are carried as well, the former never
+read); an MoE layer's ``moe`` holds
 ``router.w`` (d, e), the stacked experts ``up`` / ``gate`` (e, d, f) and
 ``down`` (e, f, d), and ``shared_{up,gate,down}.w``. Every JAX leaf must be consumed and
 every port parameter filled with a leaf of its shape, or this raises.

@@ -19,6 +19,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -64,13 +66,15 @@ def _start(name: str, nvcc: str):
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _wait(name: str, started) -> str | None:
-    """Wait for one nvcc; the error text if it failed, else None."""
-    proc, tmp, out = started
+    """Wait for one nvcc; the error text if it failed, else None. The log
+    (ptxas's lines) ends with the compile's wall seconds."""
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
+    log += f"nvcc wall {time.perf_counter() - t0:.1f} s\n"
     out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         return f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{log}"
@@ -89,8 +93,10 @@ def build_all() -> dict[str, str]:
     Every nvcc started is waited for before a failure is raised."""
     nvcc = _nvcc()
     started = {name: _start(name, nvcc) for name in SOURCES}
-    errors = [err for name, st in started.items() if st is not None
-              for err in [_wait(name, st)] if err is not None]
+    # one waiting thread per nvcc, so each log records its own compile's wall
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        waits = [pool.submit(_wait, name, st) for name, st in started.items() if st is not None]
+        errors = [err for w in waits for err in [w.result()] if err is not None]
     if errors:
         raise RuntimeError("\n".join(errors))
     return {name: library_path(name).with_suffix(".log").read_text()

@@ -16,7 +16,8 @@ schedules (``block_skip=False``: Pallas body ``_flash_sfa_kernel``, helpers
   into bf16 hi + lo. A pack kernel first turns each code into one 32-bit
   word. Bound on the H100: operations, now on the tensor cores (4·d flops
   per (query, key) pair, 6·d with the split).
-* f32, and bf16 shapes outside that set (d ≠ dv, k > 32) — the CUDA-core body of
+* f32, and bf16 shapes outside that set (d ≠ dv, k > 32, dv 80 or 256) — the
+  CUDA-core body of
   ``csrc/flash_sfa.cu``: one block per (bh, 64-query tile), each key tile
   densified into shared memory as (64 × d) f32, scores gathered at each
   query's own k coordinates (k multiply-adds per score), online softmax
@@ -64,7 +65,7 @@ _TC_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
             + [ctypes.c_int] + [ctypes.c_void_p])
 BLOCK = 64          # the kernels' level-map tile (csrc/flash_sfa.cu kBQ = kBK; a warpgroup)
 # the shapes the forward's bodies take (models/backends.py reads them)
-V_HEAD_DIMS = (32, 64, 128)   # dv, either body
+V_HEAD_DIMS = (32, 64, 80, 128, 256)  # dv, either body (80, 256: the CUDA-core one)
 MAX_D = 256                   # d, either body
 TC_DIMS = (32, 64, 128)       # d = dv of the tensor-core bodies
 TC_MAX_K = 32                 # their largest code width
@@ -160,8 +161,8 @@ def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
     Exactly softmax(densify(Q̃)·densify(K̃)ᵀ·scale + causal)·V, with either
     schedule (``block_skip``: skip dead and zero-overlap tiles). On the card
     the code values and v share one dtype (f32 or bf16), indices are int32,
-    d <= 256 and dv is 32, 64 or 128. bf16 with d = dv in {32, 64, 128} and
-    k <= 32 runs the tensor-core body, everything else the CUDA-core body.
+    d <= 256 and dv is in ``V_HEAD_DIMS``. bf16 with d = dv in {32, 64, 128}
+    and k <= 32 runs the tensor-core body, everything else the CUDA-core body.
     """
     scale = float(scale if scale is not None else d ** -0.5)
     _build.refuse_grad("flash_sfa", q_vals, k_vals, v)

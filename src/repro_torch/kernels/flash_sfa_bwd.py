@@ -59,13 +59,17 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import HEAD_DIMS as _DENSE_DIMS
-from repro_torch.kernels.flash_sfa import MAX_D, V_HEAD_DIMS, packed_scratch, tensor_core_body
+from repro_torch.kernels.flash_sfa import MAX_D, packed_scratch, tensor_core_body
 from repro_torch.kernels.ref import flash_attention_bwd_ref as flash_attention_bwd_plain
 from repro_torch.kernels.ref import flash_sfa_bwd_ref as flash_sfa_bwd_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_K = 32          # the largest code width either backward body takes (d, dv: as
-                    # the forward's, flash_sfa.MAX_D and .V_HEAD_DIMS)
+MAX_K = 32          # the largest code width either backward body takes (d: as the
+                    # forward's, flash_sfa.MAX_D)
+# dv of the backward's bodies (80: the CUDA-core one). The forward's list
+# also has 256, which no backward body takes: models/backends.py checks a
+# layer that trains against this list.
+V_HEAD_DIMS = (32, 64, 80, 128)
 
 _SFA_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -115,7 +119,7 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
     ``pair_closure_indices(idx, rot_dim)`` (default rot_dim = d).
 
     On the card the code values, v, o and g share one dtype (f32 or bf16),
-    indices are int32, k <= 32, d <= 256 and dv is 32, 64 or 128. bf16 with
+    indices are int32, k <= 32, d <= 256 and dv is in ``V_HEAD_DIMS``. bf16 with
     d = dv in {32, 64, 128} runs the tensor-core body, everything else the
     CUDA-core body (``flash_sfa.tensor_core_body``).
     """

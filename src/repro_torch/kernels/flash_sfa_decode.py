@@ -70,7 +70,7 @@ from repro_torch.kernels.ref import flash_sfa_decode_ref as flash_sfa_decode_pla
 
 _VALS = {torch.float32: 0, torch.bfloat16: 1}
 _IDX = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
-V_HEAD_DIMS = (32, 64, 128)   # dv of every decode kernel (models/backends.py reads it)
+V_HEAD_DIMS = (32, 64, 128, 256)  # dv of every decode kernel (models/backends.py reads it)
 SPLIT = 128                   # tokens of a run of the decode kernels (csrc kSplit)
 
 

@@ -68,6 +68,7 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS as _DENSE_DIMS
 from repro_torch.kernels.flash_sfa import MAX_D as _SFA_MAX_D
 from repro_torch.kernels.flash_sfa import V_HEAD_DIMS as _SFA_DV
 from repro_torch.kernels.flash_sfa_bwd import MAX_K as _SFA_BWD_MAX_K
+from repro_torch.kernels.flash_sfa_bwd import V_HEAD_DIMS as _SFA_BWD_DV
 from repro_torch.kernels.flash_sfa_decode import V_HEAD_DIMS as _DECODE_DV
 from repro_torch.kernels.rtopk import MAX_D as _RTOPK_MAX_D
 from repro_torch.kernels.flash_sfa_decode import (
@@ -307,11 +308,12 @@ class TorchBackend(AttentionBackend):
 def kernel_shape_reason(req: AttentionRequest) -> Optional[str]:
     """None if the CUDA kernels take the layer's head dims and code width
     (``req.head_dim`` unset: nothing to check), else why not. The limits
-    are the wrappers' own constants: full-sequence dense d = dv in
-    ``flash_attention.HEAD_DIMS``; full-sequence SFA dv in
-    ``flash_sfa.V_HEAD_DIMS``, d <= ``flash_sfa.MAX_D`` (and rtopk's
-    ``MAX_D``), and k <= ``flash_sfa_bwd.MAX_K`` where a backward can run
-    (``req.backward``: the forward's bodies take any k); decode dv in
+    are the wrappers' own constants, each path against its own list:
+    full-sequence dense d = dv in ``flash_attention.HEAD_DIMS``;
+    full-sequence SFA dv in ``flash_sfa.V_HEAD_DIMS``, d <=
+    ``flash_sfa.MAX_D`` (and rtopk's ``MAX_D``), and where a backward can
+    run (``req.backward``) also dv in ``flash_sfa_bwd.V_HEAD_DIMS`` and k <=
+    ``flash_sfa_bwd.MAX_K`` (the forward's bodies take any k); decode dv in
     ``flash_sfa_decode.V_HEAD_DIMS`` and d <= rtopk's ``MAX_D``. Which
     FlashSFA body runs (tensor or CUDA cores) is the wrappers' choice."""
     d = req.head_dim
@@ -330,6 +332,9 @@ def kernel_shape_reason(req: AttentionRequest) -> Optional[str]:
         max_d = min(_RTOPK_MAX_D, _SFA_MAX_D)
         if d > max_d:
             return f"head dim {d}: the CUDA top-k and FlashSFA kernels take d <= {max_d}"
+        if req.mode == "full" and req.backward and dv not in _SFA_BWD_DV:
+            return (f"v head dim {dv}: the CUDA FlashSFA backward takes dv in "
+                    f"{_SFA_BWD_DV}")
         if (req.mode == "full" and req.backward and req.sfa_k is not None
                 and min(req.sfa_k, d) > _SFA_BWD_MAX_K):
             return (f"sfa_k {req.sfa_k}: the CUDA FlashSFA backward takes k <= "

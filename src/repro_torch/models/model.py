@@ -18,15 +18,24 @@ whose forward keeps no codes runs "full" instead, and the loop records why
 (``core.remat.remat_reports``).
 
 Entry points take the ``Model`` (a ``ParamTree``) where the JAX functions
-take the param pytree. The dense and MoE families are ported: an MoE model
-is two segments, its ``first_dense`` dense layers (MLP widened to
-``max(d_ff, expert_dim · top_k)``) and then MoE layers (``models/moe.py``),
-whose load-balance loss, weighted by ``MOE_AUX_WEIGHT``, joins the aux
-term. Other families (hybrid, SSM, frontends) come with later slices.
+take the param pytree. The dense, MoE, vlm and audio families are ported:
+an MoE model is two segments, its ``first_dense`` dense layers (MLP widened
+to ``max(d_ff, expert_dim · top_k)``) and then MoE layers
+(``models/moe.py``), whose load-balance loss, weighted by
+``MOE_AUX_WEIGHT``, joins the aux term. The frontend families are one dense
+segment behind a dense ``frontend`` layer: vlm (paligemma) puts
+``dense(frontend, batch["patches"])`` in front of the scaled token
+embeddings, unscaled, and the loss gives that prefix no labels; audio
+(hubert) has no token embedding, its hidden is ``dense(frontend,
+batch["frames"])`` with no learned positions added, as in the reference
+(its ``pos.w`` is carried but never read), and an encoder-only config
+(``causal=False``) has no decode. The hybrid and SSM families come with
+later slices.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -40,8 +49,9 @@ MOE_AUX_WEIGHT = 0.01
 
 
 def segments(cfg: ModelConfig):
-    """[(kind, layers)]: the JAX package's segments, keyed on ``cfg.moe``."""
-    if cfg.family not in ("dense", "moe") or cfg.frontend is not None:
+    """[(kind, layers)]: the JAX package's segments, keyed on ``cfg.moe``
+    (the frontend families are one dense segment)."""
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
         raise NotImplementedError(
             f"family {cfg.family!r} (arch {cfg.name!r}) comes with a later slice")
     if cfg.moe is not None:
@@ -60,6 +70,13 @@ def dense_ff(cfg: ModelConfig) -> int:
 
 def _dtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _refuse_encoder_only(cfg: ModelConfig):
+    """Decode entry points and caches need a causal model (the reference's
+    ``skip_reason`` for an encoder-only config)."""
+    if not cfg.causal:
+        raise ValueError(f"{cfg.name}: encoder-only: no autoregressive decode step")
 
 
 def default_device(device):
@@ -81,7 +98,7 @@ class Model(L.ParamTree):
 
     @property
     def device(self):
-        return self.embed.w.device
+        return self.final_norm.scale.device
 
 
 def param_tree(cfg: ModelConfig, *, generator=None, device="cpu") -> dict:
@@ -104,7 +121,12 @@ def param_tree(cfg: ModelConfig, *, generator=None, device="cpu") -> dict:
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
         return torch.stack(trees)
 
-    params = {"embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, device)}
+    params = {}
+    if cfg.frontend is None or cfg.frontend.kind == "patch":
+        params["embed"] = L.embed_init(generator, cfg.vocab_size, cfg.d_model, device)
+    if cfg.frontend is not None:
+        params["frontend"] = L.dense_init(generator, cfg.frontend.input_dim, cfg.d_model,
+                                          device=device)
     if cfg.pos_embedding == "learned":
         params["pos"] = {"w": L.normal(generator, (min(cfg.max_seq_len, 65536),
                                                    cfg.d_model), 0.01, device)}
@@ -216,9 +238,17 @@ def _embed_tokens(params: Model, tokens, cfg: ModelConfig, dtype):
     return h
 
 
-def _embed_inputs(params: Model, tokens, cfg: ModelConfig, dtype):
-    """(b, n) tokens -> (b, n, d) hidden with learned positions 0..n-1."""
-    h = _embed_tokens(params, tokens, cfg, dtype)
+def _embed_inputs(params: Model, batch: dict, cfg: ModelConfig, dtype):
+    """The batch -> (b, n, d) hidden: audio ``dense(frontend, frames)``,
+    returned without learned positions, as the reference does; else the
+    (b, n) tokens embedded, a vlm's ``dense(frontend, patches)`` (b, p,
+    input_dim) in front where given, and learned positions 0..n-1."""
+    if cfg.family == "audio":
+        return L.dense(params.frontend.tree(), batch["frames"].to(dtype), dtype)
+    h = _embed_tokens(params, batch["tokens"], cfg, dtype)
+    if cfg.family == "vlm" and "patches" in batch:
+        pre = L.dense(params.frontend.tree(), batch["patches"].to(dtype), dtype)
+        h = torch.cat([pre, h], dim=1)
     if cfg.pos_embedding == "learned":
         h = h + params.pos.w[:h.shape[1]].to(dtype)[None]
     return h
@@ -242,24 +272,29 @@ def _head(params: Model, h, cfg: ModelConfig):
 
 def loss_fn(params: Model, batch, cfg: ModelConfig, *, aux_weight: float = 1.0):
     """Training loss: sequence-chunked CE over ``batch["labels"]`` (-1 = no
-    target), as the JAX package's ``loss_fn``. Returns (loss, {"ce", "aux",
+    target; a vlm's patch prefix gets -1), as the JAX package's
+    ``loss_fn``. Returns (loss, {"ce", "aux",
     "tokens"}). The aux term sums over the layers the MoE load-balance loss
     weighted by ``MOE_AUX_WEIGHT`` and the SFA distillation term weighted
     by ``cfg.sfa_distill`` (paper Eq. 8); it is zero without either."""
-    h = _embed_inputs(params, batch["tokens"], cfg, _dtype(cfg))
+    h = _embed_inputs(params, batch, cfg, _dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, aux, _ = _apply_stack(params, h, cfg, positions=positions, mode="train")
     h = L.apply_norm(params.final_norm.tree(), h, cfg.norm)
-    ce, cnt = L.chunked_cross_entropy(h, _head_weights(params, cfg),
-                                      batch["labels"], chunk=cfg.loss_chunk)
+    labels = batch["labels"]
+    if labels.shape[1] < h.shape[1]:     # vlm: no labels on the patch prefix
+        labels = F.pad(labels, (h.shape[1] - labels.shape[1], 0), value=-1)
+    ce, cnt = L.chunked_cross_entropy(h, _head_weights(params, cfg), labels,
+                                      chunk=cfg.loss_chunk)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 def forward_logits(params: Model, batch, cfg: ModelConfig, *, mode="train"):
-    """Full-sequence logits (b, n, vocab) f32."""
-    h = _embed_inputs(params, batch["tokens"], cfg, _dtype(cfg))
+    """Full-sequence logits (b, n, vocab) f32 of the batch: ``{"tokens"}``,
+    with ``"patches"`` for a vlm, or ``{"frames"}`` for audio."""
+    h = _embed_inputs(params, batch, cfg, _dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, _, _ = _apply_stack(params, h, cfg, positions=positions, mode=mode)
     return _head(params, h, cfg)
@@ -267,8 +302,9 @@ def forward_logits(params: Model, batch, cfg: ModelConfig, *, mode="train"):
 
 @torch.no_grad()
 def prefill(params: Model, batch, cfg: ModelConfig):
-    """Prefill: last-position logits (b, vocab) + layer-stacked caches."""
-    h = _embed_inputs(params, batch["tokens"], cfg, _dtype(cfg))
+    """Prefill: last-position logits (b, vocab) + layer-stacked caches of
+    the batch (``"tokens"``, and a vlm's ``"patches"`` prefix)."""
+    h = _embed_inputs(params, batch, cfg, _dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, _, caches = _apply_stack(params, h, cfg, positions=positions, mode="prefill")
     return _head(params, h[:, -1], cfg), caches
@@ -279,6 +315,7 @@ def decode_step(params: Model, token, caches, cache_len, cfg: ModelConfig):
     """One decode step. token: (b,) int; cache_len: (b,) int — tokens
     already in the cache. Writes the caches in place and returns
     (logits (b, vocab) f32, caches)."""
+    _refuse_encoder_only(cfg)
     dtype = _dtype(cfg)
     dev = params.device
     token = torch.as_tensor(token, device=dev).long()
@@ -297,6 +334,7 @@ def _chunk_hidden(params: Model, tokens, offset: int, cfg: ModelConfig):
     """(1, C) tokens at positions offset.. -> hidden (1, C, d) and positions.
     Learned positions clamp past the table, where the JAX package uses
     ``mode="clip"`` to match decode_step's clamped indexing."""
+    _refuse_encoder_only(cfg)
     dtype = _dtype(cfg)
     dev = params.device
     tokens = torch.as_tensor(tokens, device=dev).long()
@@ -341,6 +379,7 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, device=None) -> list:
     """Layer-stacked decode caches, one per segment. bf16 by default, also
     for a float32 model, as in the JAX package."""
+    _refuse_encoder_only(cfg)
     device = default_device(device)
     out = []
     for _, count in segments(cfg):
@@ -355,6 +394,7 @@ def init_paged_decode_caches(cfg: ModelConfig, *, slots: int, num_pages: int,
     """Layer-stacked paged decode caches, one per segment: a page pool per
     layer and ONE ``(slots, max_pages)`` int32 block table shared by every
     layer and segment (the engine updates it in place)."""
+    _refuse_encoder_only(cfg)
     device = default_device(device)
     bt = torch.zeros((slots, max_pages), dtype=torch.int32, device=device)
     out = []

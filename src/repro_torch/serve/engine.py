@@ -23,6 +23,11 @@ copied to its one device tensor only when it changed. Sampling is shared
 (``_SamplerMixin``): greedy at temperature <= 0, else categorical from the
 engine's own generator.
 
+A vlm's slot-engine request may carry its patches (``extra_inputs``),
+whose prefix counts toward ``max_len``; the paged and speculative engines
+take text-only prompts, as the JAX ones do. An encoder-only config has no
+decode caches, so no engine takes it.
+
 The engines run on the card unless the caller passes ``device="cpu"``.
 ``decode_backend`` in the engine configs overrides the config's decode
 backend ("cuda" kernels, "cuda_fm" feature-major kernels, "torch" oracle,
@@ -108,7 +113,12 @@ class DecodeEngine(_SamplerMixin):
         """At-rest bytes of the engine's KV caches."""
         return cache_nbytes(self.caches)
 
-    def add_request(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
+    def add_request(self, prompt: np.ndarray, max_new_tokens: int = 32,
+                    extra_inputs: Optional[dict] = None) -> int:
+        """Prefill ``prompt`` into a free slot. ``extra_inputs`` holds the
+        request's frontend inputs without the batch axis (a vlm's
+        ``"patches"`` (prefix_len, input_dim)), whose prefix counts toward
+        ``max_len``."""
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
         free = np.where(~self.live)[0]
@@ -116,13 +126,19 @@ class DecodeEngine(_SamplerMixin):
             raise RuntimeError("no free slots")
         slot = int(free[0])
         n = int(prompt.shape[0])
+        fe = self.cfg.frontend
+        if fe is not None and fe.kind == "patch" and extra_inputs and "patches" in extra_inputs:
+            n += fe.prefix_len
         if n >= self.ecfg.max_len:
             raise ValueError(
-                f"prompt is {n} tokens but max_len is {self.ecfg.max_len}: the "
-                f"engine needs at least one free cache position past the prompt")
-        tokens = torch.as_tensor(np.asarray(prompt)[None, :], dtype=torch.long,
-                                 device=self.device)
-        logits, one_caches = prefill(self.params, {"tokens": tokens}, self.cfg)
+                f"prompt is {n} tokens (patch-frontend prefix included) but max_len is "
+                f"{self.ecfg.max_len}: the engine needs at least one free cache "
+                f"position past the prompt to decode")
+        batch = {"tokens": torch.as_tensor(np.asarray(prompt)[None, :], dtype=torch.long,
+                                           device=self.device)}
+        for k, v in (extra_inputs or {}).items():
+            batch[k] = torch.as_tensor(np.asarray(v)[None], device=self.device)
+        logits, one_caches = prefill(self.params, batch, self.cfg)
         insert_slot(self.caches, one_caches, slot=slot, max_len=self._cache_len)
         tok = int(self._sample(logits)[0])
         self.lengths[slot] = n
@@ -159,9 +175,10 @@ class DecodeEngine(_SamplerMixin):
         self.last_token = toks
         return out
 
-    def generate(self, prompt: np.ndarray, max_new_tokens: int = 32) -> list[int]:
+    def generate(self, prompt: np.ndarray, max_new_tokens: int = 32,
+                 extra_inputs: Optional[dict] = None) -> list[int]:
         """Single-request convenience wrapper."""
-        slot = self.add_request(prompt, max_new_tokens)
+        slot = self.add_request(prompt, max_new_tokens, extra_inputs)
         while self.live[slot]:
             self.step()
         return self.outputs[slot]

@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainPolicy
-from repro_torch.models.model import Model, loss_fn
+from repro_torch.models.model import Model, _dtype, loss_fn
 from repro_torch.optim import OptimizerConfig, make_optimizer
 
 
@@ -27,9 +27,15 @@ def _resolve(cfg: ModelConfig, policy: Optional[TrainPolicy]) -> ModelConfig:
     return policy.apply(cfg) if policy is not None else cfg
 
 
-def to_batch(batch: dict, device) -> dict:
-    """numpy/torch {"tokens", "labels"} -> int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v, device=device).long() for k, v in batch.items()}
+def to_batch(batch: dict, device, dtype=torch.float32) -> dict:
+    """numpy/torch batch -> tensors on ``device``: integer entries
+    ("tokens", "labels") as int64, float features (a vlm's "patches", an
+    audio model's "frames") in ``dtype``."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v, device=device)
+        out[k] = t.to(dtype) if t.is_floating_point() else t.long()
+    return out
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
@@ -50,7 +56,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     def step(params: Model, opt_state, batch):
         named = dict(params.named_parameters())
         names, leaves = list(named), list(named.values())
-        batch = to_batch(batch, params.device)
+        batch = to_batch(batch, params.device, _dtype(cfg))
         if accum_steps == 1:
             loss, metrics, grads = compute_grads(names, leaves, params, batch)
         else:
@@ -82,6 +88,6 @@ def make_eval_step(cfg: ModelConfig, *, policy: Optional[TrainPolicy] = None):
 
     @torch.no_grad()
     def step(params: Model, batch):
-        loss, metrics = loss_fn(params, to_batch(batch, params.device), cfg)
+        loss, metrics = loss_fn(params, to_batch(batch, params.device, _dtype(cfg)), cfg)
         return dict(metrics, loss=loss)
     return step

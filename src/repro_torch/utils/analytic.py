@@ -4,7 +4,9 @@ The port's own copy of the JAX package's ``repro/utils/analytic.py``, over
 the port's configs, ``core.remat.normalize_remat``, ``models.model.segments``
 and ``serve.kv_cache.cache_bytes_per_token``: the same config and shape
 give the same numbers. It takes the families ``segments`` takes (dense
-and MoE blocks); for any other family ``segments`` raises, and so does this.
+and MoE blocks, and the vlm and audio frontends: no token embedding for
+audio, the frontend's input_dim × d_model for both); for any other family
+``segments`` raises, and so does this.
 
 Conventions: a (m, k) × (k, n) matmul is 2mkn FLOPs; causal attention
 halves the score and PV terms; the backward is 2× the forward; remat adds
@@ -46,9 +48,10 @@ def _moe_params(cfg: ModelConfig) -> tuple[int, int]:
 def param_count(cfg: ModelConfig) -> dict:
     """{'total': N, 'active': N_active} (they differ only for MoE)."""
     d = cfg.d_model
-    emb = cfg.vocab_size * d
+    emb = cfg.vocab_size * d if cfg.family != "audio" else 0
     head = 0 if cfg.tie_embeddings else cfg.vocab_size * d
-    total = active = emb + head
+    fe = cfg.frontend.input_dim * d if cfg.frontend else 0
+    total = active = emb + head + fe
     for kind, count in segments(cfg):
         if kind == "block_moe":
             tt, aa = _moe_params(cfg)

@@ -1003,3 +1003,101 @@ def test_moe_layer_on_card_gives_the_same_bits_twice_and_its_cpu_result(cuda):
     for got, want in zip(a, c):
         got, want = got.float().cpu(), want.float()
         torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2 * want.abs().max().item())
+
+
+# --------------------------------------------------------------------------
+# the frontend families' head dims: d = dv 80 (hubert-xlarge, bidirectional)
+# and 256 (paligemma-3b, 8 query heads over 1 kv head), CUDA-core bodies
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,n,dtype", [(80, 1000, torch.float32), (80, 1000, torch.bfloat16),
+                                       (256, 333, torch.float32), (256, 333, torch.bfloat16)])
+def test_flash_sfa_at_frontend_head_dims_on_card(cuda, d, n, dtype, causal):
+    """Row 3 at d = dv 80 and 256 (k 16, ragged n, both masks) on the
+    CUDA-core body, and row 5 (dense emit) at d = dv 80: against the plain
+    versions; the backward declines dv 256 in its wrapper."""
+    rs = np.random.RandomState(12)
+    bh, k = 6, 16
+    qv, qi = _codes(rs, bh, n, k, d)
+    kv, ki = _codes(rs, bh, n, k, d)
+    v, g = (rs.randn(bh, n, d).astype(np.float32) for _ in range(2))
+    qv_, qi_, kv_, ki_, v_, g_ = (torch.from_numpy(a).to(cuda) for a in (qv, qi, kv, ki, v, g))
+    qv_, kv_, v_, g_ = (t.to(dtype) for t in (qv_, kv_, v_, g_))
+    reset_launches()
+    ko, kl = flash_sfa(qv_, qi_, kv_, ki_, v_, d=d, causal=causal, return_residuals=True)
+    po, pl = ref.flash_sfa_ref(qv_, qi_, kv_, ki_, v_, d=d, causal=causal,
+                               return_residuals=True)
+    assert body_counts()["flash_sfa_cuda_core"] == 1
+    # f32: sums in another order, 1e-4; bf16 output: one bf16 ulp (2^-7 rel)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 0
+    torch.testing.assert_close(ko.float(), po.float(), rtol=rtol, atol=1e-4)
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+    if d == 256:
+        with pytest.raises(ValueError, match="dv in"):
+            flash_sfa_bwd(qv_, qi_, kv_, ki_, v_, po, pl, g_, d=d, causal=causal)
+        return
+    got = flash_sfa_bwd(qv_, qi_, kv_, ki_, v_, po, pl, g_, d=d, causal=causal)
+    want = ref.flash_sfa_bwd_ref(qv_, qi_, kv_, ki_, v_, po, pl, g_, d=d, causal=causal)
+    assert body_counts()["flash_sfa_bwd_cuda_core"] == 1
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_at_dv256_mqa_on_card(cuda, dtype):
+    """Rows 10-14 at paligemma's geometry (8 query heads over 1 kv head, d
+    = dv 256, k 16, pages of 128): each against its plain version with a
+    zero-length slot (0) and the past-the-table sentinel; row 11 bit-equal
+    to row 10 on the gathered view, each verify row of row 12 to row 11 at
+    its length, row 14 to row 13 on the gathered image."""
+    rs = np.random.RandomState(13)
+    slots, h, hkv, d, k, page, mp = 4, 8, 1, 256, 16, 128, 4
+    P, n = slots * mp + 1, mp * page
+    bt = torch.from_numpy(rs.permutation(np.arange(1, P))[:slots * mp]
+                          .reshape(slots, mp).astype(np.int32)).to(cuda)
+    lens = torch.tensor([0, n + 1, 129, 300], dtype=torch.int32, device=cuda)
+    kv, ki = _codes(rs, hkv * P, page, k, d)
+    g = {"kv": torch.from_numpy(kv.reshape(hkv, P, page, k)).to(cuda, dtype),
+         "ki": torch.from_numpy(ki.reshape(hkv, P, page, k)).to(cuda, torch.uint8),
+         "v": torch.from_numpy(rs.randn(hkv, P, page, d).astype(np.float32)).to(cuda, dtype),
+         "kf": torch.from_numpy(rs.randn(hkv, P, d, page).astype(np.float32)).to(cuda, dtype)}
+    q = torch.from_numpy(rs.randn(slots * h, d).astype(np.float32)).to(cuda)
+    rl = lens.repeat_interleave(h)
+    live = (rl > 0)[:, None].cpu()
+    ko = flash_sfa_decode_paged(q, g["kv"], g["ki"], g["v"], bt, lens, d=d, heads=h)
+    po = ref.flash_sfa_decode_paged_ref(q, g["kv"], g["ki"], g["v"], bt, lens, d=d, heads=h)
+    assert not ko[rl <= 0].any()
+    torch.testing.assert_close(ko.cpu() * live, po.cpu() * live, rtol=0, atol=1e-4)
+    view = [ref._pool_view(g[nm], bt).contiguous() for nm in ("kv", "ki", "v")]
+    o10 = flash_sfa_decode(q, *view, rl, d=d)
+    assert torch.equal(ko, o10)
+    torch.testing.assert_close(o10.cpu() * live, ref.flash_sfa_decode_ref(q, *view, rl, d=d)
+                               .cpu() * live, rtol=0, atol=1e-4)
+    slot, C = 3, 3
+    start = int(lens[slot]) - C
+    qm = q[:C * h]
+    lm = (start + torch.arange(C, device=cuda) + 1).repeat_interleave(h).int()
+    mo = flash_sfa_decode_multi(qm, g["kv"], g["ki"], g["v"], lm, d=d, heads=h,
+                                block_tables=bt, slot=slot)
+    torch.testing.assert_close(mo, ref.flash_sfa_decode_multi_ref(
+        qm, g["kv"], g["ki"], g["v"], lm, d=d, heads=h, block_tables=bt, slot=slot),
+        rtol=0, atol=1e-4)
+    for i in range(C):
+        li = lens.clone()
+        li[slot] = start + i + 1
+        qi_ = q.clone()
+        qi_[slot * h:(slot + 1) * h] = qm[i * h:(i + 1) * h]
+        one = flash_sfa_decode_paged(qi_, g["kv"], g["ki"], g["v"], bt, li, d=d, heads=h)
+        assert torch.equal(mo[i * h:(i + 1) * h], one[slot * h:(slot + 1) * h])
+    qv, qi = rtopk(torch.from_numpy(rs.randn(slots * h, d).astype(np.float32)).to(cuda, dtype), k)
+    fk = flash_sfa_decode_fm_paged(qv, qi, g["kf"], g["v"], bt, lens, heads=h)
+    btl = bt.long()
+    kf = g["kf"][:, btl].permute(1, 0, 3, 2, 4).reshape(-1, d, n).contiguous()
+    vv = g["v"][:, btl].transpose(0, 1).reshape(-1, n, d).contiguous()
+    fo = flash_sfa_decode_fm(qv, qi, kf, vv, rl, group=h // hkv)
+    assert torch.equal(fo, fk) and not fo[rl <= 0].any()
+    torch.testing.assert_close(fo, ref.flash_sfa_decode_fm_ref(qv, qi, kf, vv, rl, group=h // hkv),
+                               rtol=0, atol=1e-4)
+    torch.testing.assert_close(fk, ref.flash_sfa_decode_fm_paged_ref(
+        qv, qi, g["kf"], g["v"], bt, lens, heads=h), rtol=0, atol=1e-4)

@@ -155,7 +155,34 @@ Phases; any failure raises and the script exits non-zero:
                (the CUDA-core bodies), float32 with 1e-4 on the loss and on
                each leaf's relative L2 (its learned positions are never
                read: a zero gradient in both runs);
- 10. a ``kernels`` JSON line, then the result line.
+ 11. attention variants — the layers the reference's Pallas backends
+               decline (windows, protected RoPE dims, MLA), which run on the
+               torch backend in the port (no kernel lies on these paths:
+               every launch count stays 0, and with "cuda" requested every
+               fallback report names torch and the one reason): (a)
+               gemma3-4b (34 layers, d_model 2560, 8 query heads over 4 kv
+               heads of 256, k 16, window 1,024 with every 6th layer global,
+               vocab 262,144) at full width and depth, bf16, through the
+               slot engine (one prompt of 1,536 tokens, past the window; the
+               KV cache at rest = the byte model), the paged engine (whole
+               prompts; then chunked prefill of 256), streams equal to the
+               slot streams or parted at a near-tie; float32 at 2 layers,
+               the card against the port on the CPU (f32 caches, 1e-4,
+               argmax equal); (b) gemma3-4b trained at 12 of 34 layers
+               (batch 8 x 1024, bf16, AdamW, remat "full", 1 warm-up and 2
+               timed steps), and its float32 gradients at 2 layers, the card
+               against the CPU (1e-4 on the loss and each leaf's relative
+               L2; bf16 finite); (c) deepseek-v2-236b (MLA r 512 + 64, 128
+               heads, k 16 on the latent; MoE 160 experts top-6 + 2 shared)
+               at full width and 3 of 60 layers through the slot and paged
+               engines (chunked prefill and the speculative engine must
+               raise the reference's NotImplementedError), float32 at 2
+               layers against the CPU; (d) llama3.2-3b with sfa_rope_protect
+               64 at full width and 4 of 28 layers through the slot, chunked
+               paged and speculative engines, one dense-emit train step and
+               a compact request, which the seam declines with the
+               reference's reason;
+ 12. a ``kernels`` JSON line, then the result line.
 
 Phase 3 holds row 1 (rtopk, d 64, k 8, bf16 and f32, tie-heavy rows) at
 the three shapes of its main paths: a decode step's 96 rows, a prefill's
@@ -2933,13 +2960,16 @@ def phase_end_to_end(model, cfg, depth="full depth", cache_dtype=torch.bfloat16,
 # phase 6-8: the training main path
 # --------------------------------------------------------------------------
 
-def phase_train(arch, timed_steps, predicted, *, layers=None, bodies=None, **policy):
+def phase_train(arch, timed_steps, predicted, *, layers=None, bodies=None, attention=None,
+                **policy):
     """Train full-width ``arch`` in bf16 through ``Trainer``: 1 warm-up and
     ``timed_steps`` timed steps with the launch counts read over all of
     them, then one traced step. ``predicted`` maps kernel -> launches per
     step (every other kernel: none) and ``bodies`` CUDA-core body -> its
     launches per step (default: none on any); ``layers`` cuts the depth;
-    ``policy`` overrides the TrainPolicy (default remat="full"). A compact
+    ``attention`` replaces fields of the config's attention (the protected
+    RoPE dims of phase 11); ``policy`` overrides the TrainPolicy (default
+    remat="full"). A compact
     request must take the seam where proj_rtopk is predicted, and record why
     not elsewhere. Prints the step's FLOPs (``utils.analytic.step_flops``)
     and their share of the bf16 peak. Returns (launch counts, step
@@ -2959,6 +2989,8 @@ def phase_train(arch, timed_steps, predicted, *, layers=None, bodies=None, **pol
     if layers is not None:
         depth = f"{layers} of {cfg.num_layers} layers (depth cut)"
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if attention:
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, **attention))
     policy = dict({"remat": "full"}, **policy)
     batch, seq = 8, TRAIN_N
     steps = 1 + timed_steps
@@ -3440,6 +3472,308 @@ def phase_sfa_grad_bf16_end_to_end(arch="gpt2-small-sfa8", layers=None, compact=
               f"tolerance)")
 
 
+# --------------------------------------------------------------------------
+# phase 11: the attention variants (windows, MLA, protected RoPE dims)
+# --------------------------------------------------------------------------
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _requesting_cuda(cfg):
+    """``cfg`` with both attention backends asked for as "cuda" explicitly:
+    every layer of this slice's paths must decline them (as the reference's
+    pallas backends decline windows, protected RoPE dims and MLA) and record
+    why, running on the torch backend."""
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, backend="cuda", decode_backend="cuda"))
+
+
+def phase_variant_serve(model, cfg, depth, reason, *, long_prompt=None, mla=False,
+                        speculative=False, device="cuda"):
+    """Serve ``cfg`` at full width through the slot engine (8 slots,
+    max_len 2048, 8 requests of 64-1024 prompt tokens, ``long_prompt`` the
+    first one's length where given, 32 greedy tokens each, bf16), then the
+    paged engine at full residency with whole-prompt prefill, then chunked
+    prefill (256 a tick, the first 4 requests) and with ``speculative`` the
+    speculative engine
+    (draft_len 4): the latter three's streams equal the slot streams or part
+    at a near-tie. With ``mla`` the chunked and speculative engines must
+    raise the reference's NotImplementedError instead. The KV cache at rest
+    equals the byte model; no kernel launches (none lies on these paths);
+    every fallback report names torch with ``reason``; a traced window of 4
+    decode steps gives the device's busy share."""
+    from repro_torch.core.kv_cache import kv_cache_nodes
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.backends import clear_fallback_reports, fallback_reports
+    from repro_torch.serve import (
+        DecodeEngine, EngineConfig, PagedDecodeEngine, PagedEngineConfig,
+        SpeculativeDecodeEngine, SpeculativeEngineConfig, cache_bytes_per_token,
+    )
+    req = _requesting_cuda(cfg)
+    rs = np.random.RandomState(SEED)
+    lens = rs.randint(64, 1025, size=8)
+    if long_prompt is not None:
+        lens[0] = long_prompt
+    prompts = [rs.randint(0, cfg.vocab_size, size=n).astype(np.int64) for n in lens]
+    warm = DecodeEngine(model, req, EngineConfig(max_slots=1, max_len=128), device=device)
+    warm.add_request(prompts[1][:64], 3)
+    while warm.live.any():
+        warm.step()
+    del warm
+    clear_fallback_reports()
+    reset_launches()
+    eng = DecodeEngine(model, req, EngineConfig(max_slots=8, max_len=2048), device=device)
+    _sync(device)
+    t_start, prefill_ms = time.perf_counter(), []
+    for p in prompts:
+        t0 = time.perf_counter()
+        eng.add_request(p, max_new_tokens=32)
+        _sync(device)
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = []
+    while eng.live.any():
+        t0 = time.perf_counter()
+        eng.step()
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    wall = time.perf_counter() - t_start
+    outputs = [eng.outputs[s] for s in range(8)]
+    check(all(len(o) == 32 for o in outputs), "variant serve: a request did not get 32 tokens")
+    check(all(0 <= t < cfg.vocab_size for o in outputs for t in o),
+          "variant serve: token out of vocabulary")
+    model_bytes = cache_bytes_per_token(cfg)["sfa"] * 8 * eng._cache_len
+    check(eng.cache_bytes() == model_bytes, f"variant serve: kv cache {eng.cache_bytes()} bytes, "
+                                            f"the byte model {model_bytes}")
+    layouts = sorted({type(n).__name__ for n in kv_cache_nodes(eng.caches)})
+    tokens = sum(len(o) for o in outputs)
+    print(f"[variant] {cfg.name} full width bf16, {depth}, backend and decode_backend 'cuda' "
+          f"requested, 8 slots, max_len 2048, prompt lengths {lens.tolist()}")
+    print(f"[variant] slot engine: prefill ms per request {[round(x, 2) for x in prefill_ms]} "
+          f"(mean {np.mean(prefill_ms):.2f}); decode ms per step mean {np.mean(step_ms):.3f} "
+          f"p50 {np.median(step_ms):.3f} over {len(step_ms)} steps; "
+          f"{(tokens - 8) / (sum(step_ms) / 1e3):.1f} decode tokens/s, {tokens / wall:.1f} "
+          f"tokens/s overall; kv cache {eng.cache_bytes() / 2**20:.2f} MiB ({', '.join(layouts)}; "
+          f"equal to cache_bytes_per_token x 8 x {eng._cache_len}); slot 0 tokens {outputs[0]}")
+    common = dict(max_slots=8, max_len=2048, page_size=128)
+    paged = PagedDecodeEngine(model, req, PagedEngineConfig(**common), device=device)
+    p_out, p_ms, _, _ = _serve(paged, prompts, 32)
+    parted = _near_tie_divergences(model, cfg, prompts, p_out, outputs, SPEC_TIE)
+    print(f"[variant] paged engine, full residency ({paged.num_pages - 1} pages), whole-prompt "
+          f"prefill: ms per tick mean {np.mean(p_ms[1:]):.3f} (first tick, with the 8 "
+          f"prefills, {p_ms[0]:.1f}); kv cache {paged.cache_bytes() / 2**20:.2f} MiB; "
+          f"{8 - len(parted)} of 8 streams equal the slot streams, the others part at a "
+          f"near-tie (gap <= {SPEC_TIE}): {parted}")
+    del paged
+    chunked = PagedDecodeEngine(model, req, PagedEngineConfig(**common, prefill_chunk=256),
+                                device=device)
+    if mla:
+        chunked.add_request(prompts[1], 4)
+        try:
+            chunked.step()
+        except NotImplementedError as e:
+            refusal = str(e)
+        else:
+            refusal = None
+        check(refusal is not None and "whole-prompt prefill" in refusal,
+              f"variant serve: chunked prefill of MLA caches did not refuse: {refusal}")
+        try:
+            SpeculativeDecodeEngine(model, req, SpeculativeEngineConfig(**common),
+                                    device=device)
+            spec_refusal = None
+        except NotImplementedError as e:
+            spec_refusal = str(e)
+        check(spec_refusal is not None and "MLA" in spec_refusal,
+              "variant serve: the speculative engine took MLA caches")
+        print(f"[variant] chunked prefill refused: {refusal!r}; the speculative engine "
+              f"refused: {spec_refusal!r}")
+    else:
+        # the first 4 requests (the long prompt among them): chunk ticks
+        # score a chunk's queries as that many decodes, the phase's cost
+        c_out, c_ms, _, _ = _serve(chunked, prompts[:4], 32)
+        parted = _near_tie_divergences(model, cfg, prompts[:4], c_out, outputs[:4], SPEC_TIE)
+        print(f"[variant] paged engine, chunked prefill 256, the first 4 requests: {len(c_ms)} "
+              f"ticks, ms per tick mean {np.mean(c_ms):.3f} p50 {np.median(c_ms):.3f}; "
+              f"{4 - len(parted)} of 4 streams equal the slot streams, the others part at a "
+              f"near-tie: {parted}")
+    del chunked
+    if speculative:
+        spec = SpeculativeDecodeEngine(model, req, SpeculativeEngineConfig(
+            **common, draft_len=4), device=device)
+        s_out, s_ms, _, _ = _serve(spec, prompts, 32)
+        parted = _near_tie_divergences(model, cfg, prompts, s_out, outputs, SPEC_TIE)
+        st = spec.spec_stats
+        print(f"[variant] speculative engine, draft_len 4, draft_k {spec.draft_k}: "
+              f"{len(s_ms)} ticks, alpha {st['alpha']:.4f}, emitted tokens per tick "
+              f"{st['acc_per_step']:.4f}, ms per tick mean {np.mean(s_ms[1:]):.3f}; "
+              f"{8 - len(parted)} of 8 streams equal the slot streams, the others part at "
+              f"a near-tie: {parted}")
+        del spec
+    counts, reports = launch_counts(), fallback_reports()
+    check(not any(counts.values()), f"variant serve: a kernel launched on a torch path: {counts}")
+    check(reports and all(r.selected == "torch" and r.reason == reason for r in reports),
+          f"variant serve: fallback reports {reports}")
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=5)
+    _sync(device)
+    kernels, traced_ms = trace_kernels(lambda: [eng.step() for _ in range(4)])
+    busy_ms = sum(kernels.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[variant] launches: none; fallback reports {len(reports)}, all torch, all "
+          f"{reason!r}, at {sorted({r.where for r in reports})}; traced 4 decode steps "
+          f"(profiler on): wall {traced_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / max(traced_ms, 1e-9):.1f}%); top kernels: "
+          + "; ".join(f"{name[:48]} {us / 1e3:.3f} ms" for name, us in top))
+    return dict(step_ms=float(np.mean(step_ms)), cache_bytes=eng.cache_bytes())
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.detach().to(device)
+
+
+def phase_variant_end_to_end(model, cfg, depth, prompt_len, device="cuda"):
+    """The card against the port on the CPU, float32 with f32 caches: prefill
+    of a seeded ``prompt_len``-token prompt and 8 teacher-forced decode
+    steps, max |logit diff| <= 1e-4 and the argmax equal at every step.
+    These layers run on the torch backend on both, so this holds the card's
+    arithmetic to the CPU's (which the CPU tests hold to the JAX package)."""
+    from repro_torch.models import decode_step, init_decode_caches, prefill
+    from repro_torch.models.model import Model, insert_slot
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu = Model(_tree_to(model.tree(), "cpu"), cfg32)
+    rs = np.random.RandomState(SEED + 5)
+    prompt = torch.from_numpy(rs.randint(0, cfg.vocab_size, size=prompt_len))[None]
+    stream = rs.randint(0, cfg.vocab_size, size=8)
+    runs, secs = {}, {}
+    for dev, m in ((device, model), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        logits, one = prefill(m, {"tokens": prompt.to(dev)}, cfg32)
+        caches = insert_slot(init_decode_caches(cfg32, 1, prompt_len + 8, torch.float32,
+                                                device=dev), one, slot=0,
+                             max_len=prompt_len + 8)
+        steps = [logits.cpu()]
+        for i, tok in enumerate(stream):
+            lg, caches = decode_step(m, torch.tensor([int(tok)], device=dev), caches,
+                                     torch.tensor([prompt_len + i], device=dev), cfg32)
+            steps.append(lg.cpu())
+        runs[dev] = torch.cat(steps)
+        secs[dev] = time.perf_counter() - t0
+    a, b = runs[device], runs["cpu"]
+    check(bool(torch.isfinite(a).all()), "variant end to end: non-finite logits")
+    err = (a - b).abs().max().item()
+    check(err <= 1e-4, f"variant end to end: max |logit diff| {err:.3g} > 1e-4")
+    check(torch.equal(a.argmax(-1), b.argmax(-1)), "variant end to end: argmax differs")
+    print(f"[variant end-to-end] f32 {cfg.name} full width, {depth}, f32 caches: "
+          f"prefill({prompt_len}) + 8 teacher-forced decode steps, the card against the CPU "
+          f"(torch backend on both; {secs[device]:.1f} s and {secs['cpu']:.1f} s): max "
+          f"|logit diff| {err:.3g} (tol 1e-4), argmax equal at all 9 steps; max |logit| "
+          f"{b.abs().max().item():.3g}")
+
+
+def phase_variant_grads(arch, layers, device="cuda"):
+    """Loss and every parameter gradient of ``arch`` at full width and
+    ``layers`` layers, batch 1 x 512: float32 on the card against float32 on
+    the CPU, 1e-4 on the loss and on each leaf's relative L2 (the torch
+    backend on both: no second implementation runs on the card, so phase
+    9's cuda-against-torch rule has no counterpart here); then bf16 on the
+    card, finite, each leaf's relative L2 from the float32 run printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, markov_batch
+    from repro_torch.models import init, loss_fn
+    from repro_torch.models.model import Model
+    from repro_torch.train.train_step import to_batch
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = init(cfg32, device=device, seed=SEED).requires_grad_(True)
+    cpu = Model(_tree_to(model.tree(), "cpu"), cfg32).requires_grad_(True)
+    batch = markov_batch(DataConfig(cfg.vocab_size, 512, 1, seed=SEED + 4), 0)
+
+    def run(m, c, dev):
+        loss, _ = loss_fn(m, to_batch(batch, dev), c)
+        names = [n for n, _ in m.named_parameters()]
+        grads = _grads(loss, list(m.parameters()))
+        return loss.item(), {n: g.detach().float().cpu() for n, g in zip(names, grads)}
+
+    def rel(x, y):
+        return ((x - y).norm() / y.norm().clamp(min=1e-30)).item()
+
+    t0 = time.perf_counter()
+    l_card, g_card = run(model, cfg32, device)
+    l_cpu, g_cpu = run(cpu, cfg32, "cpu")
+    secs = time.perf_counter() - t0
+    check(abs(l_card - l_cpu) <= 1e-4, f"variant gradients: loss {l_card} vs CPU {l_cpu}")
+    errs = {n: rel(g_card[n], g_cpu[n]) for n in g_cpu}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    check(worst[1] <= 1e-4, f"variant gradients: d{worst[0]} relative L2 {worst[1]:.3g} > 1e-4")
+    l_bf, g_bf = run(model, cfg, device)
+    check(np.isfinite(l_bf) and all(bool(torch.isfinite(g).all()) for g in g_bf.values()),
+          "variant gradients: non-finite bf16 loss or gradient")
+    bf = {n: rel(g_bf[n], g_card[n]) for n in g_card}
+    print(f"[variant gradients] {cfg.name} full width, {layers} of {get_config(arch).num_layers} "
+          f"layers, batch 1 x 512: f32 on the card vs the CPU ({secs:.1f} s): loss {l_card:.6f} "
+          f"vs {l_cpu:.6f}, all {len(errs)} leaves within 1e-4 relative L2, worst d{worst[0]} "
+          f"{worst[1]:.3g}; bf16 on the card: loss {l_bf:.6f}, relative L2 from f32 per leaf "
+          + ", ".join(f"{n} {e:.3g}" for n, e in bf.items()))
+
+
+def phase_variants():
+    """Phases 11a-d: gemma3-4b served at full width and depth and trained at
+    12 of 34 layers; deepseek-v2-236b served at 3 of 60 layers; llama3.2-3b
+    with sfa_rope_protect 64 served and trained at 4 of 28 layers; the f32
+    checks at 2 layers. Returns nothing: no kernel lies on these paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init
+    from repro_torch.models.attention import compact_seam_reports
+    release()
+    gcfg = get_config("gemma3-4b")
+    model = init(gcfg, device="cuda", seed=SEED)
+    timed(phase_variant_serve, model, gcfg, "full depth", "windowed attention not supported",
+          long_prompt=1536)
+    del model
+    release()
+    g2 = dataclasses.replace(gcfg, num_layers=2)
+    model = init(g2, device="cuda", seed=SEED)
+    timed(phase_variant_end_to_end, model, g2, f"2 of {gcfg.num_layers} layers (depth cut)", 1100)
+    del model
+    release()
+    timed(phase_train, "gemma3-4b", 2, {}, layers=12)
+    release()
+    timed(phase_variant_grads, "gemma3-4b", 2)
+    release()
+    dcfg = get_config("deepseek-v2-236b")
+    d3 = dataclasses.replace(dcfg, num_layers=3)
+    model = init(d3, device="cuda", seed=SEED)
+    timed(phase_variant_serve, model, d3, f"3 of {dcfg.num_layers} layers (depth cut)",
+          "sfa_rope_protect dims not supported", mla=True)
+    del model
+    release()
+    d2 = dataclasses.replace(dcfg, num_layers=2)
+    model = init(d2, device="cuda", seed=SEED)
+    timed(phase_variant_end_to_end, model, d2, f"2 of {dcfg.num_layers} layers (depth cut)", 512)
+    del model
+    release()
+    lcfg = get_config("llama3.2-3b")
+    l4 = dataclasses.replace(lcfg, num_layers=4, attention=dataclasses.replace(
+        lcfg.attention, sfa_rope_protect=64))
+    model = init(l4, device="cuda", seed=SEED)
+    timed(phase_variant_serve, model, l4, f"4 of {lcfg.num_layers} layers (depth cut), "
+          f"sfa_rope_protect 64", "sfa_rope_protect dims not supported", speculative=True)
+    del model
+    release()
+    timed(phase_train, "llama3.2-3b", 1, {}, layers=4, attention={"sfa_rope_protect": 64})
+    timed(phase_train, "llama3.2-3b", 1, {}, layers=4, attention={"sfa_rope_protect": 64},
+          bwd_emit="compact")
+    seams = compact_seam_reports()
+    check([s.reason for s in seams] == ["sfa_rope_protect keeps leading dims dense outside "
+                                        "the codes"], f"variant train: compact seam {seams}")
+    release()
+
+
 def phase_launcher():
     """The slice's launcher command at full width for 2 steps."""
     release()
@@ -3605,6 +3939,7 @@ def main():
     timed(phase_grad_end_to_end, "llama3.2-3b", 2, (GRAD_RUNS[0], GRAD_RUNS[2]), True)
     timed(phase_sfa_grad_bf16_end_to_end, "hubert-xlarge", 2, False)
     timed(phase_grad_end_to_end, "hubert-xlarge", 2, GRAD_RUNS[:2], leaf_tol=1e-4)
+    timed(phase_variants)
     decode_src = "src/repro_torch/csrc/flash_sfa_decode.cu"
     fm_src = "src/repro_torch/csrc/flash_sfa_decode_fm.cu"
     # rows 3-5 run bf16 on the tensor-core bodies (f32 on flash_sfa.cu and

@@ -1,10 +1,11 @@
 """Arch registry: ``get_config(name)`` / ``--arch <id>`` resolution.
 
 The port takes the paper's own models (``gpt2-*``, ``qwen3-0.6b*``), the
-dense llama-family archs, the MoE moonshot-v1-16b-a3b and the frontend
-archs paligemma-3b (vlm) and hubert-xlarge (audio) of the JAX package's
-registry (``_ARCH_MODULES``, one module each); every other arch there
-raises ``KeyError`` naming it as not yet ported.
+dense llama-family archs, gemma3-4b (local/global windows), the MoE archs
+moonshot-v1-16b-a3b and deepseek-v2-236b (MLA) and the frontend archs
+paligemma-3b (vlm) and hubert-xlarge (audio) of the JAX package's registry
+(``_ARCH_MODULES``, one module each); every other arch there raises
+``KeyError`` naming it as not yet ported.
 """
 from __future__ import annotations
 
@@ -17,14 +18,16 @@ from repro_torch.configs.base import (
 from repro_torch.configs import paper_models
 
 # archs the JAX package registers whose model families the port has not
-# reached yet (hybrid, SSM, MLA, windows)
-NOT_YET_PORTED = ("gemma3-4b", "deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-3b")
+# reached yet (hybrid, SSM)
+NOT_YET_PORTED = ("jamba-v0.1-52b", "rwkv6-3b")
 
 # registered archs the port takes: id -> module of this package
 _ARCH_MODULES = {
     "llama3.2-3b": "llama3_2_3b",
     "llama3-8b": "llama3_8b",
     "deepseek-7b": "deepseek_7b",
+    "gemma3-4b": "gemma3_4b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "paligemma-3b": "paligemma_3b",
     "hubert-xlarge": "hubert_xlarge",

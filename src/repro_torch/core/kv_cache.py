@@ -1,28 +1,39 @@
 """Typed KV caches — the serving-side data structures.
 
-Ported from the JAX package's ``repro/core/kv_cache.py`` (non-MLA layouts):
+Ported from the JAX package's ``repro/core/kv_cache.py``:
 
   * ``DenseKV``        — dense K/V, the baseline layout.
   * ``SparseKV``       — SFA layout: top-k K values + *packed* indices
                          (uint8 for d ≤ 256, uint16 for d ≤ 65536 — the
                          paper's Appendix-J ratio ≈ 2d/(3k+4) on the K
-                         half) and dense V.
+                         half), dense V, and with ``sfa_rope_protect`` p > 0
+                         the p leading (RoPE) dims of K stored dense in
+                         ``k_protect`` (paper A.1; the codes then cover the
+                         d - p trailing dims, indices relative to them).
   * ``FeatureMajorKV`` — the ``cuda_fm`` serving layout: a persistent dense
                          ``(b, hkv, d, n)`` feature-major K image and
                          heads-major V ``(b, hkv, n, dv)``, extended one
                          column per decoded token, so the decode kernel
                          reads the k feature rows its sparse query
                          addresses straight from the cache.
+  * ``MLAKV``          — the MLA latent cache (deepseek-v2): the shared
+                         latent ``ckv`` and the RoPE key part ``kpe``,
+                         headless ``(b, n, F)``.
+  * ``MLASparseKV``    — MLA + SFA: ``MLAKV`` plus each token's top-k code
+                         of the latent, indices packed over the
+                         ``kv_lora_rank`` dims (uint16 at r = 512).
 
 and their paged counterparts (``PagedDenseKV``, ``PagedSparseKV``,
-``PagedFeatureMajorKV``): the same field layouts pooled into pages behind a
-block table, serving ``PagedDecodeEngine``. The MLA layouts and the dense
-protected RoPE dims of SFA-on-RoPE (paper A.1) come with later slices.
+``PagedFeatureMajorKV``, ``PagedMLAKV``, ``PagedMLASparseKV``): the same
+field layouts pooled into pages behind a block table, serving
+``PagedDecodeEngine``. The MLA caches have no chunk write: chunked prefill
+and the speculative engine refuse MLA, as in the JAX package.
 
 Unstacked (per-layer) leaves are ``(batch, tokens, ...)`` with the token
 axis at 1 unless the class lists the field in ``_TOKEN_AXES``
 (``FeatureMajorKV`` keeps tokens last in ``k_feat`` and at 2 in ``v``); the
-engine's layer-stacked caches add a leading layer axis. Unlike the JAX
+engine's layer-stacked caches add a leading layer axis. An optional field
+(``k_protect`` without protected dims) is None and is skipped everywhere. Unlike the JAX
 pytrees these caches are updated **in place** (``write``, ``write_chunk``,
 ``insert_slot`` and ``insert_pages`` return ``self``): a decode step touches
 one token per slot, and copying the whole cache per step, as a functional
@@ -40,7 +51,7 @@ change.
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar
+from typing import ClassVar, Optional
 
 import torch
 
@@ -77,6 +88,18 @@ def unpack_indices(idx: torch.Tensor) -> torch.Tensor:
     return idx.to(torch.int64)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` for indexing: a uint16 tensor (MLA's latent indices at r =
+    512) as its int16 view, the same bits; CUDA has no indexed read or
+    write for uint16."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def _stored(val: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """``val`` cast to ``leaf``'s dtype, viewed as ``_bits`` views the leaf."""
+    return _bits(val.to(leaf.dtype))
+
+
 # --------------------------------------------------------------------------
 # base
 # --------------------------------------------------------------------------
@@ -93,8 +116,11 @@ class KVCache:
         return ax + 1 if stacked else ax
 
     def _tensors(self):
+        """(name, tensor) of every field that holds one."""
         for f in dataclasses.fields(self):
-            yield f.name, getattr(self, f.name)
+            t = getattr(self, f.name)
+            if t is not None:
+                yield f.name, t
 
     def layer(self, i: int) -> "KVCache":
         """Views of layer ``i`` of a layer-stacked cache."""
@@ -119,13 +145,14 @@ class KVCache:
         last row exactly as the JAX engine's does.
         """
         for name, val in updates.items():
+            if val is None:
+                continue
             arr = getattr(self, name)
             ax = self.token_axis(name)
             b, n = arr.shape[0], arr.shape[ax]
             p = torch.as_tensor(pos, device=arr.device).long().clamp(0, n - 1).expand(b)
-            view = arr.movedim(ax, 1)
-            view[torch.arange(b, device=arr.device), p] = \
-                val.movedim(ax, 1)[:, 0].to(arr.dtype)
+            view = _bits(arr).movedim(ax, 1)
+            view[torch.arange(b, device=arr.device), p] = _stored(val.movedim(ax, 1)[:, 0], arr)
         return self
 
     def insert_slot(self, src: "KVCache", *, slot: int,
@@ -166,13 +193,17 @@ class DenseKV(KVCache):
 class SparseKV(KVCache):
     """SFA cache: sparse K codes + dense V.
 
-    k_vals (b, n, hkv, k)   top-k K entries (cache dtype)
-    k_idx  (b, n, hkv, k)   packed coordinate ids (uint8/uint16 at rest)
-    v      (b, n, hkv, dv)  dense values
+    k_vals    (b, n, hkv, k)   top-k K entries (cache dtype)
+    k_idx     (b, n, hkv, k)   packed coordinate ids over the non-protected
+                               dims (uint8/uint16 at rest)
+    v         (b, n, hkv, dv)  dense values
+    k_protect (b, n, hkv, p)   the protected leading RoPE dims, dense (or
+                               None)
     """
     k_vals: torch.Tensor
     k_idx: torch.Tensor
     v: torch.Tensor
+    k_protect: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -203,6 +234,32 @@ class FeatureMajorKV(KVCache):
         return super().write(pos, **updates)
 
 
+@dataclasses.dataclass
+class MLAKV(KVCache):
+    """MLA latent cache: ckv (b, n, r), kpe (b, n, rope_head_dim)."""
+    ckv: torch.Tensor
+    kpe: torch.Tensor
+
+
+@dataclasses.dataclass
+class MLASparseKV(KVCache):
+    """MLA + SFA with the latent's top-k code packed on the latent axis.
+
+    ckv         (b, n, r)  dense latent (the value aggregation reads it)
+    kpe         (b, n, dr) dense RoPE part
+    ckv_sp_vals (b, n, k)  top-k latent entries (cache dtype)
+    ckv_sp_idx  (b, n, k)  packed latent coordinate ids (uint16 at r = 512)
+
+    Codes are head-independent (one a token), so scoring gathers the query
+    at each token's k coordinates; the at-rest bytes are MLAKV's plus
+    k·(2 + idx_bytes(r)) a token, the byte model's.
+    """
+    ckv: torch.Tensor
+    kpe: torch.Tensor
+    ckv_sp_vals: torch.Tensor
+    ckv_sp_idx: torch.Tensor
+
+
 # --------------------------------------------------------------------------
 # paged layouts (block tables over the same field layouts)
 # --------------------------------------------------------------------------
@@ -214,7 +271,8 @@ class PagedKV(KVCache):
     trade the per-slot token axis for ``(pages, page_size)``: a token-major
     field ``(b, n, hkv, F)`` pools as ``(hkv, pages, page_size, F)``, the
     feature-major image ``(b, hkv, d, n)`` as ``(hkv, pages, d,
-    page_size)``. Logical page j of a slot holds its tokens ``[j·page,
+    page_size)``, and a headless MLA field ``(b, n, F)`` as ``(pages,
+    page_size, F)``. Logical page j of a slot holds its tokens ``[j·page,
     (j+1)·page)``, so the paged kernels visit tokens in the contiguous
     kernels' order and give the same bits on the same content.
 
@@ -227,9 +285,9 @@ class PagedKV(KVCache):
     """
 
     def _tensors(self):
-        for f in dataclasses.fields(self):
-            if f.name != "block_table":
-                yield f.name, getattr(self, f.name)
+        for name, t in super()._tensors():
+            if name != "block_table":
+                yield name, t
 
     # ---- coordinates ---------------------------------------------------
     def _decode_coords(self, pos):
@@ -269,13 +327,13 @@ class PagedKV(KVCache):
     def _scatter_tok(leaf, pids, offs, val):
         """Write T tokens ``val (T, hkv, F)`` at (pids, offs) of a pooled
         leaf (adjacent advanced indices: the indexed block is (hkv, T, F))."""
-        leaf[:, pids, offs] = val.transpose(0, 1).to(leaf.dtype)
+        _bits(leaf)[:, pids, offs] = _stored(val.transpose(0, 1), leaf)
 
     @staticmethod
     def _gather_tok(leaf, bt):
         """(hkv, P, page, F) pooled leaf -> (s, n, hkv, F) contiguous
         token-major view for the block tables ``bt (s, mp)``."""
-        g = leaf[:, bt.long()]                       # (hkv, s, mp, page, F)
+        g = _bits(leaf)[:, bt.long()].view(leaf.dtype)     # (hkv, s, mp, page, F)
         hkv, s, mp, page = g.shape[:4]
         return g.reshape((hkv, s, mp * page) + g.shape[4:]).movedim(0, 2)
 
@@ -290,7 +348,32 @@ class PagedKV(KVCache):
         if npg * page > n:
             s = torch.cat([s, s.new_zeros((L, npg * page - n) + s.shape[2:])], 1)
         s = s.reshape((L, npg, page, hkv) + s.shape[3:]).movedim(3, 1)
-        dst[:, :, pids] = s.to(dst.dtype)
+        _bits(dst)[:, :, pids] = _stored(s, dst)
+
+    # ---- pooled headless (P, page, F) MLA leaves ------------------------
+    @staticmethod
+    def _scatter_flat(leaf, pids, offs, val):
+        """Write T tokens ``val (T, F)`` at (pids, offs) of a headless pool."""
+        _bits(leaf)[pids, offs] = _stored(val, leaf)
+
+    @staticmethod
+    def _gather_flat(leaf, bt):
+        """(P, page, F) headless pool -> (s, n, F) contiguous view."""
+        g = _bits(leaf)[bt.long()].view(leaf.dtype)  # (s, mp, page, F)
+        s, mp, page = g.shape[:3]
+        return g.reshape((s, mp * page) + g.shape[3:])
+
+    @staticmethod
+    def _insert_flat(dst, src, pids, page: int):
+        """Land a stacked headless prefill leaf ``src (L, 1, n, F)`` into
+        whole pages ``pids`` of the stacked pool ``dst (L, P, page, F)``,
+        the last partial page zero-padded."""
+        L, _, n = src.shape[:3]
+        npg = pids.shape[0]
+        s = src[:, 0]
+        if npg * page > n:
+            s = torch.cat([s, s.new_zeros((L, npg * page - n) + s.shape[2:])], 1)
+        _bits(dst)[:, pids] = _stored(s.reshape((L, npg, page) + s.shape[2:]), dst)
 
     # ---- interface -----------------------------------------------------
     def write_chunk(self, slot, start, **updates) -> "PagedKV":
@@ -354,41 +437,46 @@ class PagedDenseKV(PagedKV):
 class PagedSparseKV(PagedKV):
     """Paged SFA cache: token-major pools, indices packed at rest.
 
-    k_vals/k_idx (hkv, pages, page_size, k); v (hkv, pages, page_size, dv).
+    k_vals/k_idx (hkv, pages, page_size, k); v (hkv, pages, page_size, dv);
+    k_protect (hkv, pages, page_size, p) or None.
     """
     k_vals: torch.Tensor
     k_idx: torch.Tensor
     v: torch.Tensor
     block_table: torch.Tensor
+    k_protect: Optional[torch.Tensor] = None
 
     @property
     def page_size(self) -> int:
         return self.v.shape[-2]
 
-    def _put(self, pids, offs, k_vals, k_idx, v):
+    def _put(self, pids, offs, k_vals, k_idx, v, k_protect):
         self._scatter_tok(self.k_vals, pids, offs, k_vals)
         self._scatter_tok(self.k_idx, pids, offs, k_idx)
         self._scatter_tok(self.v, pids, offs, v)
+        if self.k_protect is not None and k_protect is not None:
+            self._scatter_tok(self.k_protect, pids, offs, k_protect)
         return self
 
-    def write(self, pos, *, k_vals, k_idx, v, **_ignored) -> "PagedSparseKV":
+    def write(self, pos, *, k_vals, k_idx, v, k_protect=None,
+              **_ignored) -> "PagedSparseKV":
         pids, offs = self._decode_coords(pos)
-        return self._put(pids, offs, k_vals[:, 0], k_idx[:, 0], v[:, 0])
+        return self._put(pids, offs, k_vals[:, 0], k_idx[:, 0], v[:, 0],
+                         None if k_protect is None else k_protect[:, 0])
 
-    def write_chunk(self, slot, start, *, k_vals, k_idx, v,
+    def write_chunk(self, slot, start, *, k_vals, k_idx, v, k_protect=None,
                     **_ignored) -> "PagedSparseKV":
         pids, offs = self._chunk_coords(slot, start, k_vals.shape[1])
-        return self._put(pids, offs, k_vals[0], k_idx[0], v[0])
+        return self._put(pids, offs, k_vals[0], k_idx[0], v[0],
+                         None if k_protect is None else k_protect[0])
 
     def _view(self, bt) -> SparseKV:
-        return SparseKV(k_vals=self._gather_tok(self.k_vals, bt),
-                        k_idx=self._gather_tok(self.k_idx, bt),
-                        v=self._gather_tok(self.v, bt))
+        return SparseKV(**{name: self._gather_tok(t, bt) for name, t in self._tensors()})
 
     def insert_pages(self, src: SparseKV, page_ids) -> "PagedSparseKV":
         page = self.page_size
-        for name in ("k_vals", "k_idx", "v"):
-            self._insert_tok(getattr(self, name), getattr(src, name), page_ids, page)
+        for name, t in self._tensors():
+            self._insert_tok(t, getattr(src, name), page_ids, page)
         return self
 
 
@@ -452,6 +540,64 @@ class PagedFeatureMajorKV(PagedKV):
         kf = kf.reshape(L, hkv, d, npg, page).movedim(3, 2)   # (L, hkv, npg, d, page)
         self.k_feat[:, :, page_ids] = kf.to(self.k_feat.dtype)
         self.v[:, :, page_ids] = vv.reshape(L, hkv, npg, page, -1).to(self.v.dtype)
+        return self
+
+
+@dataclasses.dataclass
+class PagedMLAKV(PagedKV):
+    """Paged MLA latent cache: headless (pages, page_size, F) pools."""
+    ckv: torch.Tensor
+    kpe: torch.Tensor
+    block_table: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.ckv.shape[-2]
+
+    def write(self, pos, *, ckv, kpe, **_ignored) -> "PagedMLAKV":
+        pids, offs = self._decode_coords(pos)
+        self._scatter_flat(self.ckv, pids, offs, ckv[:, 0])
+        self._scatter_flat(self.kpe, pids, offs, kpe[:, 0])
+        return self
+
+    def _view(self, bt) -> MLAKV:
+        return MLAKV(ckv=self._gather_flat(self.ckv, bt), kpe=self._gather_flat(self.kpe, bt))
+
+    def insert_pages(self, src: MLAKV, page_ids) -> "PagedMLAKV":
+        for name, t in self._tensors():
+            self._insert_flat(t, getattr(src, name), page_ids, self.page_size)
+        return self
+
+
+@dataclasses.dataclass
+class PagedMLASparseKV(PagedKV):
+    """Paged MLA + SFA: the packed latent codes pooled beside the dense
+    latent (the same headless page layout, indices packed at rest)."""
+    ckv: torch.Tensor
+    kpe: torch.Tensor
+    ckv_sp_vals: torch.Tensor
+    ckv_sp_idx: torch.Tensor
+    block_table: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.ckv.shape[-2]
+
+    def write(self, pos, *, ckv, kpe, ckv_sp_vals=None, ckv_sp_idx=None,
+              **_ignored) -> "PagedMLASparseKV":
+        pids, offs = self._decode_coords(pos)
+        for name, val in (("ckv", ckv), ("kpe", kpe), ("ckv_sp_vals", ckv_sp_vals),
+                          ("ckv_sp_idx", ckv_sp_idx)):
+            if val is not None:
+                self._scatter_flat(getattr(self, name), pids, offs, val[:, 0])
+        return self
+
+    def _view(self, bt) -> MLASparseKV:
+        return MLASparseKV(**{name: self._gather_flat(t, bt) for name, t in self._tensors()})
+
+    def insert_pages(self, src: MLASparseKV, page_ids) -> "PagedMLASparseKV":
+        for name, t in self._tensors():
+            self._insert_flat(t, getattr(src, name), page_ids, self.page_size)
         return self
 
 

@@ -6,9 +6,14 @@ the kernels; the at-rest KV cache packs indices to uint8/uint16 — see
 ``core/kv_cache.py``). Indices ascend per row and ties keep the lowest
 index, so the codes are bit-for-bit those of the JAX package.
 
-These functions are the plain oracle (the ``"torch"`` backend). On the card
-the serving path makes its codes with the rtopk kernel instead
-(``kernels/ops.py``), under the same contract on NaN-free rows.
+These functions are the plain oracle (the ``"torch"`` backend). ``topk_mask``
+is the reference's selection in the reference's form (a 32-step bisection,
+some 200 small launches a call); ``sparsify`` and ``topk_st`` make that
+same selection with ``topk_select``'s one keyed ``torch.topk``, which keeps
+the oracle's layers (windows, protected RoPE dims, MLA) from being bound by
+launches. On the card the kernel paths make their codes with the rtopk
+kernel instead (``kernels/ops.py``), under the same contract on NaN-free
+rows.
 """
 from __future__ import annotations
 
@@ -115,8 +120,7 @@ def sparsify(x: torch.Tensor, k: int) -> SparseCode:
     """Row-wise Top-k by magnitude, keeping original values (Eq. 3-4).
     Indices come out ascending."""
     d = x.shape[-1]
-    k = min(k, d)
-    idx = mask_to_indices(topk_mask(x, k), k)
+    _, idx = topk_select(x, min(k, d))
     return SparseCode(values=x.gather(-1, idx), indices=idx, dim=d)
 
 
@@ -154,8 +158,8 @@ def topk_st(x: torch.Tensor, k: int) -> torch.Tensor:
     The mask is a constant of the product, so autograd gives the
     straight-through gradient of Eq. 6 as it is: the incoming gradient on
     the k selected coordinates and zero elsewhere (``topk_st`` of the JAX
-    package, core/sparse.py:139)."""
-    return x * topk_mask(x, k).to(x.dtype)
+    package, core/sparse.py:139), with ``topk_mask``'s selection."""
+    return x * topk_select(x, k)[0].to(x.dtype)
 
 
 def to_feature_major(code: SparseCode) -> torch.Tensor:

@@ -12,8 +12,12 @@ with min(max_seq_len, 65536) rows; a frontend model's dense
 ``pos.w`` and untied ``lm_head.w`` are carried as well, the former never
 read); an MoE layer's ``moe`` holds
 ``router.w`` (d, e), the stacked experts ``up`` / ``gate`` (e, d, f) and
-``down`` (e, f, d), and ``shared_{up,gate,down}.w``. Every JAX leaf must be consumed and
-every port parameter filled with a leaf of its shape, or this raises.
+``down`` (e, f, d), and ``shared_{up,gate,down}.w``; an MLA layer's ``attn``
+holds ``w_dq``, ``q_norm``, ``w_uq_nope``, ``w_uq_pe``, ``w_dkv``,
+``kv_norm``, ``w_kpe``, ``w_uk``, ``w_uv`` and ``w_o`` (the per-head
+up-projections packed head-major in their columns, as in JAX). Every JAX
+leaf must be consumed and every port parameter filled with a leaf of its
+shape, or this raises.
 """
 from __future__ import annotations
 

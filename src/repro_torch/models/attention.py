@@ -1,7 +1,7 @@
-"""Model-level attention: GQA, qk-norm, RoPE, SFA, KV caches.
+"""Model-level attention: GQA / MLA, qk-norm, RoPE, SFA, windows, KV caches.
 
-Ported from the JAX package's ``repro/models/attention.py`` (non-MLA).
-Call modes sharing the parameters:
+Ported from the JAX package's ``repro/models/attention.py``. Call modes
+sharing the parameters:
 
   * ``mode="train"`` / ``"eval"`` — full-sequence attention, differentiable
                          through the selected backend (the ``cuda``
@@ -26,6 +26,17 @@ prefill) and
 (``repro_torch/models/backends.py``); the cache codes come from the
 selected backend's own top-k (the rtopk kernel on the card).
 
+SFA-with-RoPE (paper A.1): ``sfa_rope_protect`` p > 0 keeps the p leading
+head dims of q and k dense beside the top-k of the d - p others; the cache
+stores them dense in ``k_protect`` and the codes over the trailing dims.
+MLA (deepseek-v2) attends in the absorbed latent space (q_eff = q_nope ·
+W_ukᵀ against the shared latent c_kv, plus the RoPE parts); SFA sparsifies
+the latent query and keys, and the cache keeps c_kv dense for the values
+beside its packed top-k code for scoring. The window, protected and MLA
+layers run on the ``torch`` backend: the ``cuda`` backends decline them,
+as the JAX ``pallas`` ones do. MLA has no chunk or verify mode: chunked
+prefill and the speculative engine refuse it, as in the JAX package.
+
 The compact training seam: a train/eval-mode SFA layer with
 ``bwd_emit="compact"|"compact2"`` that ``compact_seam_ineligible_reason``
 admits, on the ``cuda`` backend, runs its QKV projection [+ RoPE] and
@@ -48,10 +59,11 @@ import torch
 from repro_torch.configs.base import AttentionConfig, ModelConfig
 from repro_torch.core.attention import chunked_attention
 from repro_torch.core.kv_cache import (
-    DenseKV, FeatureMajorKV, KVCache, PagedDenseKV, PagedFeatureMajorKV, PagedKV,
-    PagedSparseKV, SparseKV, idx_dtype, pack_indices,
+    MLAKV, DenseKV, FeatureMajorKV, KVCache, MLASparseKV, PagedDenseKV, PagedFeatureMajorKV,
+    PagedKV, PagedMLAKV, PagedMLASparseKV, PagedSparseKV, SparseKV, idx_dtype, pack_indices,
 )
 from repro_torch.core.remat import active_stash
+from repro_torch.core.sparse import sparsify, topk_st
 from repro_torch.kernels.flash_sfa import flash_sfa
 from repro_torch.kernels.flash_sfa_bwd import MAX_K as _SEAM_MAX_K
 from repro_torch.kernels.flash_sfa_bwd import flash_sfa_bwd, pair_closure_indices
@@ -71,9 +83,21 @@ from repro_torch.models.layers import (
 
 def attention_init(gen, cfg: ModelConfig, device="cpu"):
     a = cfg.attention
-    if a.mla is not None:
-        raise NotImplementedError("MLA attention comes with a later slice")
     d = cfg.d_model
+    if a.mla is not None:
+        m, h = a.mla, a.num_heads
+        return {
+            "w_dq": dense_init(gen, d, m.q_lora_rank, device=device),
+            "q_norm": norm_init(m.q_lora_rank, device=device),
+            "w_uq_nope": dense_init(gen, m.q_lora_rank, h * m.nope_head_dim, device=device),
+            "w_uq_pe": dense_init(gen, m.q_lora_rank, h * m.rope_head_dim, device=device),
+            "w_dkv": dense_init(gen, d, m.kv_lora_rank, device=device),
+            "kv_norm": norm_init(m.kv_lora_rank, device=device),
+            "w_uk": dense_init(gen, m.kv_lora_rank, h * m.nope_head_dim, device=device),
+            "w_kpe": dense_init(gen, d, m.rope_head_dim, device=device),
+            "w_uv": dense_init(gen, m.kv_lora_rank, h * m.v_head_dim, device=device),
+            "w_o": dense_init(gen, h * m.v_head_dim, d, device=device),
+        }
     p = {
         "w_qkv": dense_init(gen, d, (a.num_heads + 2 * a.num_kv_heads) * a.head_dim,
                             device=device),
@@ -93,6 +117,7 @@ def _request(a: AttentionConfig, *, mode: str, window, paged: bool = False,
         mode=mode,
         causal=a.causal if mode == "full" else True,
         window=(window is not None) or (a.window is not None),
+        rope_protect=a.sfa_k is not None and a.sfa_rope_protect > 0,
         mla=a.mla is not None,
         sparse=a.sfa_k is not None,
         paged=paged,
@@ -102,6 +127,18 @@ def _request(a: AttentionConfig, *, mode: str, window, paged: bool = False,
         sfa_k=a.sfa_k,
         backward=backward,
     )
+
+
+def _sfa_code(backend, k, a: AttentionConfig):
+    """The cache's code of k's non-protected dims: (values, indices
+    relative to the d - p trailing dims) from the backend's top-k."""
+    return backend.code(k[..., a.sfa_rope_protect:], a.sfa_k)
+
+
+def _protected(k, a: AttentionConfig):
+    """The p leading dims the cache keeps dense (None without them)."""
+    p = a.sfa_rope_protect
+    return k[..., :p] if p else None
 
 
 def split_qkv(qkv, h: int, hkv: int, hd: int):
@@ -142,21 +179,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cpu") -> KVCache:
     """Per-layer typed decode cache (the caller stacks across layers)."""
     a = cfg.attention
-    if a.mla is not None:
-        raise NotImplementedError("MLA caches come with a later slice")
-    hkv, hd = a.num_kv_heads, a.head_dim
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
+    if a.mla is not None:
+        m = a.mla
+        ckv, kpe = zeros(batch, max_len, m.kv_lora_rank), zeros(batch, max_len, m.rope_head_dim)
+        if a.sfa_k is None:
+            return MLAKV(ckv=ckv, kpe=kpe)
+        kk = min(a.sfa_k, m.kv_lora_rank)
+        return MLASparseKV(ckv=ckv, kpe=kpe, ckv_sp_vals=zeros(batch, max_len, kk),
+                           ckv_sp_idx=zeros(batch, max_len, kk, dt=idx_dtype(m.kv_lora_rank)))
+    hkv, hd = a.num_kv_heads, a.head_dim
     if a.sfa_k is not None:
         if _decode_uses_persistent_cache(cfg):
             return FeatureMajorKV(k_feat=zeros(batch, hkv, hd, max_len),
                                   v=zeros(batch, hkv, max_len, hd))
-        kk = min(a.sfa_k, hd)
+        p = a.sfa_rope_protect
+        kk = min(a.sfa_k, hd - p)
         return SparseKV(k_vals=zeros(batch, max_len, hkv, kk),
-                        k_idx=zeros(batch, max_len, hkv, kk, dt=idx_dtype(hd)),
-                        v=zeros(batch, max_len, hkv, hd))
+                        k_idx=zeros(batch, max_len, hkv, kk, dt=idx_dtype(hd - p)),
+                        v=zeros(batch, max_len, hkv, hd),
+                        k_protect=zeros(batch, max_len, hkv, p) if p else None)
     return DenseKV(k=zeros(batch, max_len, hkv, hd), v=zeros(batch, max_len, hkv, hd))
 
 
@@ -165,25 +210,37 @@ def init_paged_cache(cfg: ModelConfig, *, num_pages: int, page_size: int,
                      device="cpu") -> PagedKV:
     """Per-layer paged decode cache: a page pool and the shared block table
     ``(slots, max_pages)``. ``num_pages`` includes the reserved trash page
-    0; the layout follows the decode backend as in ``init_cache``."""
+    0; the layout follows the decode backend as in ``init_cache`` (MLA's
+    pools are headless: (pages, page_size, F))."""
     a = cfg.attention
-    if a.mla is not None:
-        raise NotImplementedError("MLA caches come with a later slice")
-    hkv, hd = a.num_kv_heads, a.head_dim
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
+    if a.mla is not None:
+        m = a.mla
+        ckv = zeros(num_pages, page_size, m.kv_lora_rank)
+        kpe = zeros(num_pages, page_size, m.rope_head_dim)
+        if a.sfa_k is None:
+            return PagedMLAKV(ckv=ckv, kpe=kpe, block_table=block_table)
+        kk = min(a.sfa_k, m.kv_lora_rank)
+        return PagedMLASparseKV(
+            ckv=ckv, kpe=kpe, ckv_sp_vals=zeros(num_pages, page_size, kk),
+            ckv_sp_idx=zeros(num_pages, page_size, kk, dt=idx_dtype(m.kv_lora_rank)),
+            block_table=block_table)
+    hkv, hd = a.num_kv_heads, a.head_dim
     if a.sfa_k is not None:
         if _decode_uses_persistent_cache(cfg):
             return PagedFeatureMajorKV(k_feat=zeros(hkv, num_pages, hd, page_size),
                                        v=zeros(hkv, num_pages, page_size, hd),
                                        block_table=block_table)
-        kk = min(a.sfa_k, hd)
+        p = a.sfa_rope_protect
+        kk = min(a.sfa_k, hd - p)
         return PagedSparseKV(
             k_vals=zeros(hkv, num_pages, page_size, kk),
-            k_idx=zeros(hkv, num_pages, page_size, kk, dt=idx_dtype(hd)),
-            v=zeros(hkv, num_pages, page_size, hd), block_table=block_table)
+            k_idx=zeros(hkv, num_pages, page_size, kk, dt=idx_dtype(hd - p)),
+            v=zeros(hkv, num_pages, page_size, hd), block_table=block_table,
+            k_protect=zeros(hkv, num_pages, page_size, p) if p else None)
     return PagedDenseKV(k=zeros(hkv, num_pages, page_size, hd),
                         v=zeros(hkv, num_pages, page_size, hd), block_table=block_table)
 
@@ -401,21 +458,27 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
                     window=None, mode: str = "train", cache=None,
                     cache_len=None, slot=None) -> AttentionOut:
     a = cfg.attention
-    if a.mla is not None:
-        raise NotImplementedError("MLA attention comes with a later slice")
     if mode not in ("train", "eval", "prefill", "decode", "chunk", "verify"):
         raise ValueError(f"unknown attention mode {mode!r}")
-    if a.sfa_rope_protect:
-        raise NotImplementedError("sfa_rope_protect comes with a later slice (ROADMAP, "
-                                  "\"protected RoPE dims\")")
+    if mode in ("chunk", "verify") and a.mla is not None:
+        raise NotImplementedError(
+            f"{mode} mode does not cover MLA caches — serve MLA configs "
+            f"through whole-prompt prefill (insert_pages), non-speculative")
+    wants_seam = (mode in ("train", "eval") and a.sfa_k is not None
+                  and a.bwd_emit in ("compact", "compact2"))
+    if a.mla is not None:
+        if wants_seam:
+            _record_seam(f"{cfg.name}/attention", False,
+                         compact_seam_ineligible_reason(cfg, window))
+        return _mla_apply(params, x, cfg=cfg, positions=positions, mode=mode,
+                          cache=cache, cache_len=cache_len)
     if a.ring and mode in ("train", "eval"):
         raise NotImplementedError("Ring-SFA context parallelism is distribution work "
                                   "(ROADMAP, \"distribution\")")
     b, n, _ = x.shape
     h, hkv, hd = a.num_heads, a.num_kv_heads, a.head_dim
     dt = x.dtype
-    if (mode in ("train", "eval") and a.sfa_k is not None
-            and a.bwd_emit in ("compact", "compact2")):
+    if wants_seam:
         where = f"{cfg.name}/attention"
         reason = compact_seam_ineligible_reason(cfg, window)
         if reason is None:
@@ -460,12 +523,14 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
                              where=f"{cfg.name}/attention")
         # write the new token's K code and V at cache_len, then score
         if a.sfa_k is not None:
-            k_vals, k_idx = sel.backend.code(k, a.sfa_k)             # (b, 1, hkv, k)
-            cache.write(cache_len, k_vals=k_vals, k_idx=k_idx, v=v)
+            k_vals, k_idx = _sfa_code(sel.backend, k, a)             # (b, 1, hkv, k)
+            cache.write(cache_len, k_vals=k_vals, k_idx=k_idx, v=v,
+                        k_protect=_protected(k, a))
         else:
             cache.write(cache_len, k=k, v=v)
         ctx = sel.backend.decode(DecodeQuery(q=q), cache, cache_len, scale=scale,
-                                 window=window, sfa_k=a.sfa_k, draft_k=a.sfa_draft_k)
+                                 window=window, sfa_k=a.sfa_k,
+                                 rope_protect=a.sfa_rope_protect, draft_k=a.sfa_draft_k)
         o = ctx.to(dt).reshape(b, 1, h * hd)
         return AttentionOut(dense(params["w_o"], o, dt), cache)
 
@@ -482,14 +547,16 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
                                       speculative=mode == "verify"),
                              where=f"{cfg.name}/attention")
         if a.sfa_k is not None:
-            k_vals, k_idx = sel.backend.code(k, a.sfa_k)             # (1, C, hkv, k)
-            cache.write_chunk(slot, cache_len, k_vals=k_vals, k_idx=k_idx, v=v)
+            k_vals, k_idx = _sfa_code(sel.backend, k, a)             # (1, C, hkv, k)
+            cache.write_chunk(slot, cache_len, k_vals=k_vals, k_idx=k_idx, v=v,
+                              k_protect=_protected(k, a))
         else:
             cache.write_chunk(slot, cache_len, k=k, v=v)
         lens = int(cache_len) + torch.arange(n, device=x.device)      # (C,)
         scorer = sel.backend if mode == "verify" else get_backend("torch")
         ctx = scorer.verify(DecodeQuery(q=q), cache, lens, slot=slot, scale=scale,
-                            window=window, sfa_k=a.sfa_k)             # (C, h, dv)
+                            window=window, sfa_k=a.sfa_k,
+                            rope_protect=a.sfa_rope_protect)          # (C, h, dv)
         o = ctx.to(dt).reshape(1, n, h * hd)
         return AttentionOut(dense(params["w_o"], o, dt), cache)
 
@@ -499,7 +566,8 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
                                              backward=backward),
                          where=f"{cfg.name}/attention")
     o = sel.backend.full(q, k, v, num_heads=h, sfa_k=a.sfa_k, causal=a.causal,
-                         window=window, scale=scale, bwd_emit=a.bwd_emit)
+                         window=window, scale=scale, rope_protect=a.sfa_rope_protect,
+                         bwd_emit=a.bwd_emit)
     distill = None
     if mode == "train" and a.sfa_k is not None and cfg.sfa_distill > 0:
         # paper Eq. 8: pull the SFA head outputs toward stop-grad dense ones
@@ -512,7 +580,7 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
     new_cache = None
     if mode == "prefill":
         if a.sfa_k is not None:
-            k_vals, k_idx = sel.backend.code(k, a.sfa_k)
+            k_vals, k_idx = _sfa_code(sel.backend, k, a)
             if _decode_uses_persistent_cache(cfg):
                 # the persistent image (and heads-major V), built once here;
                 # decode steps extend both a column at a time
@@ -520,8 +588,96 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
                     k_feat=feature_major_prefill(k_vals.to(dt), k_idx, hd),
                     v=v.movedim(1, 2))
             else:
-                new_cache = SparseKV(k_vals=k_vals.to(dt), k_idx=pack_indices(k_idx, hd),
-                                     v=v)
+                new_cache = SparseKV(k_vals=k_vals.to(dt),
+                                     k_idx=pack_indices(k_idx, hd - a.sfa_rope_protect),
+                                     v=v, k_protect=_protected(k, a))
         else:
             new_cache = DenseKV(k=k, v=v)
     return AttentionOut(out, new_cache, distill)
+
+
+# --------------------------------------------------------------------------
+# MLA (+ SFA on the latent), the absorbed formulation
+# --------------------------------------------------------------------------
+
+def _mla_project(params, x, *, cfg: ModelConfig, positions):
+    """-> q_eff (b, n, h, r), the latent-space query q_nope · W_ukᵀ; q_pe
+    (b, n, h, dr) and kpe (b, n, 1, dr) after RoPE; the latent ckv (b, n,
+    r)."""
+    a, m = cfg.attention, cfg.attention.mla
+    b, n, _ = x.shape
+    h = a.num_heads
+    dt = x.dtype
+    cq = apply_norm(params["q_norm"], dense(params["w_dq"], x, dt))
+    q_nope = dense(params["w_uq_nope"], cq, dt).reshape(b, n, h, m.nope_head_dim)
+    q_pe = dense(params["w_uq_pe"], cq, dt).reshape(b, n, h, m.rope_head_dim)
+    ckv = apply_norm(params["kv_norm"], dense(params["w_dkv"], x, dt))
+    kpe = dense(params["w_kpe"], x, dt).reshape(b, n, 1, m.rope_head_dim)
+    if positions is None:
+        positions = torch.arange(n, device=x.device)[None, :]
+    q_pe = rope(q_pe, positions, theta=a.rope_theta)
+    kpe = rope(kpe, positions, theta=a.rope_theta)
+    w_uk = params["w_uk"]["w"].reshape(m.kv_lora_rank, h, m.nope_head_dim)
+    q_eff = torch.einsum("bnhd,rhd->bnhr", q_nope, w_uk.to(dt))
+    return q_eff, q_pe, ckv, kpe
+
+
+def _mla_out(params, o_lat, *, cfg: ModelConfig):
+    """The latent output (b, n, h, r) through W_uv per head, then w_o."""
+    m = cfg.attention.mla
+    b, n, h, _ = o_lat.shape
+    dt = o_lat.dtype
+    w_uv = params["w_uv"]["w"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    o = torch.einsum("bnhr,rhd->bnhd", o_lat, w_uv.to(dt))
+    return dense(params["w_o"], o.reshape(b, n, h * m.v_head_dim), dt)
+
+
+def _mla_apply(params, x, *, cfg: ModelConfig, positions, mode, cache,
+               cache_len) -> AttentionOut:
+    a, m = cfg.attention, cfg.attention.mla
+    b, n, _ = x.shape
+    h = a.num_heads
+    dt = x.dtype
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    q_eff, q_pe, ckv, kpe = _mla_project(params, x, cfg=cfg, positions=positions)
+
+    if mode == "decode":
+        if cache is None or cache_len is None:
+            raise ValueError("decode mode needs a cache and cache_len")
+        code = sparsify(ckv, a.sfa_k) if a.sfa_k is not None else None
+        cache.write(cache_len, ckv=ckv, kpe=kpe[:, :, 0],
+                    ckv_sp_vals=None if code is None else code.values,
+                    ckv_sp_idx=None if code is None else code.indices)
+        sel = select_backend(a.decode_backend, _request(a, mode="decode", window=None),
+                             where=f"{cfg.name}/mla")
+        o_lat = sel.backend.decode(DecodeQuery(q=q_eff, q_pe=q_pe), cache, cache_len,
+                                   scale=scale, window=None, sfa_k=a.sfa_k)
+        return AttentionOut(_mla_out(params, o_lat[:, None].to(dt), cfg=cfg), cache)
+
+    # train / eval / prefill: dense attention over the latents, sparsified
+    # here (the top-k of q_eff and of the shared latent), one latent "head"
+    # repeated to h as views: d = r + dr, dv = r
+    backward = mode == "train" or torch.is_grad_enabled()
+    sel = select_backend(a.backend, _request(a, mode="full", window=None, backward=backward),
+                         where=f"{cfg.name}/mla")
+    if a.sfa_k is not None:
+        q_eff = topk_st(q_eff, a.sfa_k)
+        ckv_s = topk_st(ckv, a.sfa_k)
+    else:
+        ckv_s = ckv
+    qcat = torch.cat([q_eff, q_pe], dim=-1)                        # (b, n, h, r + dr)
+    kcat = torch.cat([ckv_s[:, :, None], kpe], dim=-1)             # (b, n, 1, r + dr)
+    kcat = kcat.expand(b, n, h, kcat.shape[-1])
+    vlat = ckv[:, :, None].expand(b, n, h, m.kv_lora_rank)
+    o_lat = sel.backend.full(qcat, kcat, vlat, num_heads=h, sfa_k=None, causal=a.causal,
+                             window=None, scale=scale)
+    out = _mla_out(params, o_lat, cfg=cfg)
+    new_cache = None
+    if mode == "prefill":
+        if a.sfa_k is not None:
+            code = sparsify(ckv, a.sfa_k)
+            new_cache = MLASparseKV(ckv=ckv, kpe=kpe[:, :, 0], ckv_sp_vals=code.values.to(dt),
+                                    ckv_sp_idx=pack_indices(code.indices, m.kv_lora_rank))
+        else:
+            new_cache = MLAKV(ckv=ckv, kpe=kpe[:, :, 0])
+    return AttentionOut(out, new_cache)

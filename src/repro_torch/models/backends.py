@@ -18,9 +18,11 @@ Registered backends:
 
   * ``torch`` — the plain oracle (chunked online softmax, gather-scoring
                 decode, bisection top-k); runs on either device and
-                supports every layer this port serves. Paged caches are
-                read through ``gather()``; the verify pass is one
-                per-query decode over the C queries at once.
+                supports every layer this port serves: windows, the
+                protected RoPE dims of ``sfa_rope_protect`` (paper A.1) and
+                MLA's latent decode among them. Paged caches are read
+                through ``gather()``; the verify pass is one per-query
+                decode over the C queries at once.
   * ``cuda``  — the hand-written kernels: rtopk -> FlashSFA forward and
                 backward for SFA layers and FlashAttention forward and
                 backward for dense ones (train and prefill, differentiable
@@ -42,9 +44,10 @@ Registered backends:
   * ``auto``  — not a backend but a policy: ``cuda`` where it can serve
                 the request, else ``torch``, with nothing recorded.
 
-An explicitly requested backend that cannot serve a layer (window, MLA,
-dense decode, verify on ``cuda_fm``, head dims or a code width that the
-CUDA kernels do not take) falls back to ``torch`` with a
+An explicitly requested backend that cannot serve a layer (window,
+protected RoPE dims, MLA, dense decode, verify on ``cuda_fm``, head dims or
+a code width that the CUDA kernels do not take; the first three as the
+JAX ``pallas`` backends decline them) falls back to ``torch`` with a
 structured ``FallbackReport``, recorded once per (backend, request, site)
 and queryable through ``fallback_reports()``. ``set_fm_debug`` turns on the
 ``cuda_fm`` image integrity check (``--fm-debug``).
@@ -59,8 +62,8 @@ import torch
 
 from repro_torch.core.attention import NEG_INF, chunked_attention
 from repro_torch.core.kv_cache import (
-    FeatureMajorKV, KVCache, PagedFeatureMajorKV, PagedKV, PagedSparseKV, SparseKV,
-    pack_indices, unpack_indices,
+    FeatureMajorKV, KVCache, MLAKV, MLASparseKV, PagedFeatureMajorKV, PagedKV,
+    PagedSparseKV, SparseKV, pack_indices, unpack_indices,
 )
 from repro_torch.core.sparse import sparsify, sub_k, to_feature_major, topk_st
 # the kernels' shape limits, as their wrappers state them
@@ -92,6 +95,7 @@ class AttentionRequest:
     mode: str                    # "full" (prefill) | "decode"
     causal: bool = True
     window: bool = False         # sliding-window mask required
+    rope_protect: bool = False   # SFA with protected leading RoPE dims
     mla: bool = False            # latent (MLA) attention
     sparse: bool = False         # sfa_k is set
     paged: bool = False          # the cache is a paged (block-table) PagedKV
@@ -111,6 +115,7 @@ class Capabilities:
     causal: bool = True
     bidirectional: bool = False
     window: bool = False
+    rope_protect: bool = False
     mla: bool = False
     sparse: bool = True
     dense: bool = True
@@ -122,9 +127,13 @@ class Capabilities:
 
 
 class DecodeQuery(NamedTuple):
-    """Query pieces for one decode step: q (b, 1, h, d) dense post-RoPE
-    query (MLA's RoPE part joins with the MLA slice)."""
+    """Query pieces for one decode step.
+
+    q    (b, 1, h, d)  dense post-RoPE query (for MLA: the latent q_eff)
+    q_pe (b, 1, h, dr) MLA's RoPE query part (None outside MLA)
+    """
     q: torch.Tensor
+    q_pe: Optional[torch.Tensor] = None
 
 
 class AttentionBackend:
@@ -144,6 +153,8 @@ class AttentionBackend:
             return "bidirectional attention not supported"
         if req.window and not c.window:
             return "windowed attention not supported"
+        if req.rope_protect and not c.rope_protect:
+            return "sfa_rope_protect dims not supported"
         if req.mla and not c.mla:
             return "MLA latent attention not supported"
         if req.sparse and not c.sparse:
@@ -157,17 +168,18 @@ class AttentionBackend:
         return None
 
     def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale,
-             bwd_emit="dense"):
+             rope_protect=0, bwd_emit="dense"):
         """q: (b, n, h, d); k/v: (b, n, hkv, d) — the backend expands KV
-        heads itself. Differentiable in q, k and v."""
+        heads itself. Differentiable in q, k and v. ``rope_protect`` p > 0
+        keeps the p leading dims of q and k dense beside their top-k."""
         raise NotImplementedError(self.name)
 
     def decode(self, query: DecodeQuery, cache: KVCache, lengths, *,
-               scale, window, sfa_k, draft_k=None):
+               scale, window, sfa_k, rope_protect=0, draft_k=None):
         raise NotImplementedError(self.name)
 
     def verify(self, query: DecodeQuery, cache: PagedKV, lengths, *, slot,
-               scale, window, sfa_k):
+               scale, window, sfa_k, rope_protect=0):
         """Speculative verify: C queries ``query.q (1, C, h, d)`` of slot
         ``slot`` of a paged cache, query c at cache length ``lengths[c]``
         (it sees positions ``< lengths[c] + 1``, as in ``decode``). Returns
@@ -189,6 +201,15 @@ def expand_kv(t, h):
     if hkv == h:
         return t
     return t.repeat_interleave(h // hkv, dim=2)
+
+
+def _st_protect(x, sfa_k, p):
+    """Straight-through top-k keeping the p leading dims dense (paper A.1)."""
+    if sfa_k is None:
+        return x
+    if p:
+        return torch.cat([x[..., :p], topk_st(x[..., p:], sfa_k)], -1)
+    return topk_st(x, sfa_k)
 
 
 def _prefix_mask(nmax, lengths, window):
@@ -229,14 +250,14 @@ def _per_query(cache: KVCache, c: int) -> KVCache:
 class TorchBackend(AttentionBackend):
     name = "torch"
     caps = Capabilities(full=True, decode=True, causal=True,
-                        bidirectional=True, window=True, mla=False,
+                        bidirectional=True, window=True, rope_protect=True, mla=True,
                         sparse=True, dense=True, paged=True, speculative=True)
 
     def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale,
-             bwd_emit="dense"):
-        if sfa_k is not None:
-            q = topk_st(q, sfa_k)
-            k = topk_st(k, sfa_k)
+             rope_protect=0, bwd_emit="dense"):
+        # sparsify at hkv heads, before the GQA repeat
+        q = _st_protect(q, sfa_k, rope_protect)
+        k = _st_protect(k, sfa_k, rope_protect)
         k = expand_kv(k, num_heads)
         v = expand_kv(v, num_heads)
         n = q.shape[1]
@@ -244,23 +265,31 @@ class TorchBackend(AttentionBackend):
                                  scale=scale, chunk_size=min(1024, max(n, 128)))
 
     def decode(self, query: DecodeQuery, cache: KVCache, lengths, *,
-               scale, window, sfa_k, draft_k=None):
+               scale, window, sfa_k, rope_protect=0, draft_k=None):
         if isinstance(cache, PagedKV):
             # the oracle reads a paged cache through its contiguous view
             cache = cache.gather()
         h = query.q.shape[2]
         lengths = _lengths(lengths, query.q.device)
+        if isinstance(cache, (MLAKV, MLASparseKV)):
+            return self._decode_mla(query, cache, lengths, scale=scale, sfa_k=sfa_k)
         if isinstance(cache, FeatureMajorKV):
             # the image is dense: a draft narrows the query support to k'
             return self._decode_feature_major(query, cache, lengths, scale=scale,
                                               window=window, sfa_k=draft_k or sfa_k)
         if isinstance(cache, SparseKV):
-            qs = topk_st(query.q, draft_k or sfa_k)[:, 0]          # (b, h, d)
+            p = rope_protect
+            qs = _st_protect(query.q, draft_k or sfa_k, p)[:, 0]   # (b, h, d)
             kv_c, ki_c = cache.k_vals, unpack_indices(cache.k_idx)
             if draft_k:
                 # nested-k draft: the stored codes re-thresholded to k'
                 kv_c, ki_c = sub_k(kv_c, ki_c, draft_k)
-            s = _gather_score(qs, expand_kv(kv_c, h), expand_kv(ki_c, h), scale)
+            # the codes index the d - p trailing dims; the p leading ones
+            # score densely against the cache's k_protect
+            s = _gather_score(qs[..., p:], expand_kv(kv_c, h), expand_kv(ki_c, h), scale)
+            if p:
+                s = s + torch.einsum("bhp,bnhp->bnh", query.q[:, 0, :, :p].float(),
+                                     expand_kv(cache.k_protect, h).float()) * scale
             nmax = cache.v.shape[1]
         else:
             kr = expand_kv(cache.k, h)
@@ -274,12 +303,13 @@ class TorchBackend(AttentionBackend):
         return torch.einsum("bnh,bnhd->bhd", pr, vr.float())
 
     def verify(self, query: DecodeQuery, cache: PagedKV, lengths, *, slot,
-               scale, window, sfa_k):
+               scale, window, sfa_k, rope_protect=0):
         # each query is a single-token decode at its own causal length: the
         # slot's contiguous view, seen as a batch of C, in one batched pass
         g = _per_query(cache.gather_slot(slot), query.q.shape[1])
         return self.decode(DecodeQuery(q=query.q[0][:, None]), g, lengths,
-                           scale=scale, window=window, sfa_k=sfa_k)
+                           scale=scale, window=window, sfa_k=sfa_k,
+                           rope_protect=rope_protect)
 
     def _decode_feature_major(self, query, cache, lengths, *, scale, window, sfa_k):
         """Sparse q against the dense (d, n) feature-major image and the
@@ -295,6 +325,31 @@ class TorchBackend(AttentionBackend):
         pr = torch.softmax(s, dim=1)
         vr = cache.v.repeat_interleave(group, dim=1)                # (b, h, n, dv)
         return torch.einsum("bnh,bhnd->bhd", pr, vr.float())
+
+    def _decode_mla(self, query, cache, lengths, *, scale, sfa_k):
+        """Latent decode: q_eff (b, 1, h, r) against the shared latent and
+        q_pe against the RoPE part; the value is the dense latent. With the
+        packed code (MLASparseKV), the top-k query is read at each token's
+        k coordinates: one code a token serves every head, so the gather
+        reads an expanded view of the query, (b, n, h, k) out, never a
+        (b, n, h, r) copy."""
+        nmax = cache.ckv.shape[1]
+        if isinstance(cache, MLASparseKV):
+            qlat = topk_st(query.q, sfa_k)[:, 0].float()              # (b, h, r)
+            idx = unpack_indices(cache.ckv_sp_idx)                    # (b, n, k)
+            b, h, r = qlat.shape
+            kk = idx.shape[-1]
+            qg = qlat[:, None].expand(b, nmax, h, r).gather(
+                -1, idx[:, :, None].expand(b, nmax, h, kk))           # (b, n, h, k)
+            s = (qg * cache.ckv_sp_vals[:, :, None].float()).sum(-1) * scale
+        else:
+            s = torch.einsum("bqhr,bnr->bnh", query.q.float(), cache.ckv.float()) * scale
+        s = s + torch.einsum("bqhp,bnp->bnh", query.q_pe.float(),
+                             cache.kpe.float()) * scale
+        ok = _prefix_mask(nmax, lengths, None)
+        s = torch.where(ok[..., None], s, torch.full_like(s, NEG_INF))
+        pr = torch.softmax(s, dim=1)
+        return torch.einsum("bnh,bnr->bhr", pr, cache.ckv.float())
 
     def code(self, x, k: int):
         c = sparsify(x, k)
@@ -353,7 +408,7 @@ class CudaBackend(AttentionBackend):
     shapes the kernels do not take (``kernel_shape_reason``)."""
     name = "cuda"
     caps = Capabilities(full=True, decode=True, causal=True,
-                        bidirectional=True, window=False, mla=False,
+                        bidirectional=True, window=False, rope_protect=False, mla=False,
                         sparse=True, dense=True, paged=True, speculative=True)
 
     def unsupported_reason(self, req):
@@ -363,7 +418,7 @@ class CudaBackend(AttentionBackend):
         return r or kernel_shape_reason(req)
 
     def full(self, q, k, v, *, num_heads, sfa_k, causal, window, scale,
-             bwd_emit="dense"):
+             rope_protect=0, bwd_emit="dense"):
         # GQA expands before rtopk, so group members carry identical codes
         k = expand_kv(k, num_heads)
         v = expand_kv(v, num_heads)
@@ -373,7 +428,7 @@ class CudaBackend(AttentionBackend):
                                 scale=scale, bwd_emit=bwd_emit)
 
     def decode(self, query: DecodeQuery, cache: SparseKV, lengths, *,
-               scale, window, sfa_k, draft_k=None):
+               scale, window, sfa_k, rope_protect=0, draft_k=None):
         b, _, h, d = query.q.shape
         qs = topk_dense(query.q[:, 0], draft_k or sfa_k)          # (b, h, d)
         # lengths + 1: the new token is already written at cache_len
@@ -397,7 +452,7 @@ class CudaBackend(AttentionBackend):
         return o.reshape(b, h, -1)
 
     def verify(self, query: DecodeQuery, cache: PagedSparseKV, lengths, *, slot,
-               scale, window, sfa_k):
+               scale, window, sfa_k, rope_protect=0):
         # C queries of one slot in one launch, each at its own length, row c
         # bit-equal to the paged decode kernel at that length
         _, c, h, d = query.q.shape
@@ -447,7 +502,7 @@ class CudaFMBackend(AttentionBackend):
     feature rows of the persistent image to read (the JAX ``pallas_fm``)."""
     name = "cuda_fm"
     caps = Capabilities(full=False, decode=True, causal=True,
-                        bidirectional=True, window=False, mla=False,
+                        bidirectional=True, window=False, rope_protect=False, mla=False,
                         sparse=True, dense=False, persistent_cache=True,
                         paged=True)
 
@@ -455,7 +510,7 @@ class CudaFMBackend(AttentionBackend):
         return super().unsupported_reason(req) or kernel_shape_reason(req)
 
     def decode(self, query: DecodeQuery, cache: FeatureMajorKV, lengths, *,
-               scale, window, sfa_k, draft_k=None):
+               scale, window, sfa_k, rope_protect=0, draft_k=None):
         if not isinstance(cache, (FeatureMajorKV, PagedFeatureMajorKV)):
             raise TypeError(
                 f"cuda_fm serves the persistent FeatureMajorKV cache, got "

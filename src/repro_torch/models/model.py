@@ -29,8 +29,12 @@ embeddings, unscaled, and the loss gives that prefix no labels; audio
 (hubert) has no token embedding, its hidden is ``dense(frontend,
 batch["frames"])`` with no learned positions added, as in the reference
 (its ``pos.w`` is carried but never read), and an encoder-only config
-(``causal=False``) has no decode. The hybrid and SSM families come with
-later slices.
+(``causal=False``) has no decode. A config with ``attention.window`` set
+(gemma3) gives each layer its window (``_window_array``): ``window``, or
+``GLOBAL_WINDOW`` on every ``local_global_pattern + 1``-th layer counted
+across segments; every such layer requests a window, as in the reference.
+MLA (deepseek-v2) and protected RoPE dims live in ``models/attention.py``.
+The hybrid and SSM families come with later slices.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 
 MOE_AUX_WEIGHT = 0.01
+GLOBAL_WINDOW = 1 << 30  # "window" value meaning unrestricted (a global layer)
 
 
 def segments(cfg: ModelConfig):
@@ -58,6 +63,18 @@ def segments(cfg: ModelConfig):
         fd = cfg.moe.first_dense
         return ([("block_dense", fd)] if fd else []) + [("block_moe", cfg.num_layers - fd)]
     return [("block_dense", cfg.num_layers)]
+
+
+def _window_array(cfg: ModelConfig, count: int, offset: int = 0):
+    """Per-layer windows of layers ``offset .. offset + count - 1`` (the
+    gemma3 local/global interleave: every ``(pattern + 1)``-th layer is
+    global), or None for a config without windows."""
+    a = cfg.attention
+    if a is None or a.window is None:
+        return None
+    pat = a.local_global_pattern
+    return [GLOBAL_WINDOW if pat is not None and i % (pat + 1) == pat else a.window
+            for i in range(offset, offset + count)]
 
 
 def dense_ff(cfg: ModelConfig) -> int:
@@ -152,15 +169,15 @@ def init(cfg: ModelConfig, *, generator=None, device=None, seed: int = 0) -> Mod
 # block + stack
 # ==========================================================================
 
-def _tx_block(p, x, cfg: ModelConfig, kind: str = "block_dense", *, positions=None,
-              mode="train", cache=None, cache_len=None, slot=None):
+def _tx_block(p, x, cfg: ModelConfig, kind: str = "block_dense", *, window=None,
+              positions=None, mode="train", cache=None, cache_len=None, slot=None):
     """One layer: (x, its cache, its aux term or None). The aux term is the
     MoE load-balance loss x ``MOE_AUX_WEIGHT`` plus the SFA distillation
     term x ``cfg.sfa_distill`` (paper Eq. 8), each where there is one."""
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     ao = attn.attention_apply(p["attn"], h, cfg=cfg, positions=positions,
-                              mode=mode, cache=cache, cache_len=cache_len,
-                              slot=slot)
+                              window=window, mode=mode, cache=cache,
+                              cache_len=cache_len, slot=slot)
     x = x + ao.out
     h = L.apply_norm(p["ln2"], x, cfg.norm)
     aux = None
@@ -193,30 +210,38 @@ def _remat(cfg: ModelConfig, mode: str) -> str:
 
 def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
                  caches=None, cache_len=None, slot=None):
-    """The layer loop over each segment's stacked axis (the JAX scan).
-    Returns (x, the summed aux loss or None, caches)."""
+    """The layer loop over each segment's stacked axis (the JAX scan), each
+    layer with its window (``_window_array``, the layer offset carried
+    across segments). Returns (x, the summed aux loss or None, caches)."""
     tree = params.tree()
     remat = _remat(cfg, mode)
 
     aux_total = None
     new_caches = []
+    offset = 0
     for si, (kind, count) in enumerate(segments(cfg)):
-        def layer(x, p, kind=kind):
-            x, _, aux = _tx_block(p, x, cfg, kind, positions=positions, mode=mode)
-            return x, aux
+        windows = _window_array(cfg, count, offset) or [None] * count
+        offset += count
 
         seg = tree["segments"][si]
         layer_caches = []
         for i in range(count):
             p = L.tree_index(seg, i)
+            w = windows[i]
+
+            def layer(x, p, kind=kind, window=w):
+                x, _, aux = _tx_block(p, x, cfg, kind, window=window, positions=positions,
+                                      mode=mode)
+                return x, aux
+
             if remat == "full":
                 x, aux = checkpoint(layer, x, p, use_reentrant=False)
             elif remat == "codes":
                 x, aux = checkpoint_codes(layer, x, p)
             else:
                 c = caches[si].layer(i) if caches is not None else None
-                x, nc, aux = _tx_block(p, x, cfg, kind, positions=positions, mode=mode,
-                                       cache=c, cache_len=cache_len, slot=slot)
+                x, nc, aux = _tx_block(p, x, cfg, kind, window=w, positions=positions,
+                                       mode=mode, cache=c, cache_len=cache_len, slot=slot)
                 layer_caches.append(nc)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
@@ -406,7 +431,8 @@ def init_paged_decode_caches(cfg: ModelConfig, *, slots: int, num_pages: int,
 
 
 def insert_slot(caches: list, one_caches: list, *, slot: int, max_len: int):
-    """Land batch-1 prefill caches in ``slot`` of the batched caches."""
+    """Land batch-1 prefill caches in ``slot`` of the batched caches (any
+    layout: head-major, feature-major or MLA's headless latents)."""
     for dst, src in zip(caches, one_caches):
         if not isinstance(dst, KVCache):
             raise TypeError(f"expected a KVCache, got {type(dst).__name__}")

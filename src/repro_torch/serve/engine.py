@@ -26,7 +26,10 @@ engine's own generator.
 A vlm's slot-engine request may carry its patches (``extra_inputs``),
 whose prefix counts toward ``max_len``; the paged and speculative engines
 take text-only prompts, as the JAX ones do. An encoder-only config has no
-decode caches, so no engine takes it.
+decode caches, so no engine takes it. MLA caches (deepseek-v2, headless
+latent pools) land whole prompts only: chunked prefill meets the
+reference's NotImplementedError at its first chunk, as the JAX engine
+does.
 
 The engines run on the card unless the caller passes ``device="cpu"``.
 ``decode_backend`` in the engine configs overrides the config's decode

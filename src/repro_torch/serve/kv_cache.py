@@ -1,10 +1,12 @@
 """KV-cache byte accounting: the analytic per-token model and the measured
 bytes of the caches a config allocates.
 
-Ported from the JAX package's ``repro/serve/kv_cache.py`` (non-MLA):
+Ported from the JAX package's ``repro/serve/kv_cache.py``:
 ``cache_bytes_per_token`` is the paper's Figure-5 model (``dense``, packed
 ``sfa`` — uint8 indices for d <= 256 give Appendix J's 2d/(3k+4) on the K
-half — and the feature-major ``fm`` image, which stores K dense);
+half, with ``sfa_rope_protect`` p leading dims dense beside a code over the
+d - p others — and the feature-major ``fm`` image, which stores K dense;
+for MLA, the latent and its RoPE part, plus the packed latent code);
 ``realized_cache_bytes_per_token`` and ``paged_page_bytes`` measure the
 typed caches the port allocates. The JAX package measures shapes with
 ``jax.eval_shape``; the port builds the caches on the ``meta`` device, so
@@ -19,12 +21,18 @@ from repro_torch.core.kv_cache import cache_nbytes, idx_bytes
 def cache_bytes_per_token(cfg: ModelConfig) -> dict:
     """Per-token KV bytes by layout, all layers, bf16 at rest: ``dense``,
     ``sfa`` (top-k values + packed indices for K, dense V) and, for SFA
-    configs, ``fm`` (the dense feature-major K image + V)."""
+    configs other than MLA, ``fm`` (the dense feature-major K image + V).
+    MLA: ``dense`` is the latent + its RoPE part, ``sfa`` adds the packed
+    top-k code of the latent."""
     a = cfg.attention
     if a is None:
         return {"dense": 0, "sfa": 0}
     if a.mla is not None:
-        raise NotImplementedError("MLA caches come with a later slice")
+        m = a.mla
+        base = (m.kv_lora_rank + m.rope_head_dim) * 2
+        sfa = base if a.sfa_k is None else (
+            base + min(a.sfa_k, m.kv_lora_rank) * (2 + idx_bytes(m.kv_lora_rank)))
+        return {"dense": base * cfg.num_layers, "sfa": sfa * cfg.num_layers}
     hkv, hd = a.num_kv_heads, a.head_dim
     dense = 2 * hkv * hd * 2                     # K + V bf16
     if a.sfa_k is None:
@@ -41,8 +49,9 @@ def realized_cache_bytes_per_token(cfg: ModelConfig, *, max_len: int = 128,
                                    batch: int = 1) -> float:
     """Measured per-token bytes of the typed decode caches a config
     allocates (on the meta device): ``cache_bytes_per_token(cfg)["sfa"]``
-    for a token-major SFA cache, ``["fm"]`` when the decode backend keeps
-    the feature-major image."""
+    for a token-major SFA cache (protected dims and the MLA latent
+    included), ``["fm"]`` when the decode backend keeps the feature-major
+    image."""
     from repro_torch.models.model import init_decode_caches
     caches = init_decode_caches(cfg, batch, max_len, device="meta")
     return cache_nbytes(caches) / (batch * max_len)

@@ -4,7 +4,7 @@ The port's own copy of the JAX package's ``repro/utils/analytic.py``, over
 the port's configs, ``core.remat.normalize_remat``, ``models.model.segments``
 and ``serve.kv_cache.cache_bytes_per_token``: the same config and shape
 give the same numbers. It takes the families ``segments`` takes (dense
-and MoE blocks, and the vlm and audio frontends: no token embedding for
+and MoE blocks, MLA attention, and the vlm and audio frontends: no token embedding for
 audio, the frontend's input_dim × d_model for both); for any other family
 ``segments`` raises, and so does this.
 
@@ -28,7 +28,14 @@ from repro_torch.serve.kv_cache import cache_bytes_per_token
 
 def _attn_params(cfg: ModelConfig) -> int:
     a = cfg.attention
-    return cfg.d_model * a.head_dim * (a.num_heads * 2 + a.num_kv_heads * 2)
+    d = cfg.d_model
+    if a.mla is not None:
+        m, h = a.mla, a.num_heads
+        return (d * m.q_lora_rank + m.q_lora_rank * h * m.nope_head_dim
+                + m.q_lora_rank * h * m.rope_head_dim + d * m.kv_lora_rank
+                + m.kv_lora_rank * h * m.nope_head_dim + d * m.rope_head_dim
+                + m.kv_lora_rank * h * m.v_head_dim + h * m.v_head_dim * d)
+    return d * a.head_dim * (a.num_heads * 2 + a.num_kv_heads * 2)
 
 
 def _mlp_params(cfg: ModelConfig, ff: int) -> int:
@@ -65,13 +72,18 @@ def param_count(cfg: ModelConfig) -> dict:
 def _attn_flops_per_token(cfg: ModelConfig, ctx: int, layer: int) -> float:
     """Projections + scores + PV for one token of layer ``layer`` against
     ``ctx`` context (a local layer of a local/global pattern sees its
-    window)."""
+    window; MLA scores over r + dr latent dims and aggregates r)."""
     a = cfg.attention
     eff = ctx / 2 if cfg.causal else ctx
     pat = a.local_global_pattern
     if a.window is not None and not (pat is not None and layer % (pat + 1) == pat):
         eff = min(eff, a.window)
-    return 2 * _attn_params(cfg) + 4 * eff * a.num_heads * a.head_dim
+    if a.mla is not None:
+        m = a.mla
+        att = 2 * eff * a.num_heads * ((m.kv_lora_rank + m.rope_head_dim) + m.kv_lora_rank)
+    else:
+        att = 4 * eff * a.num_heads * a.head_dim
+    return 2 * _attn_params(cfg) + att
 
 
 def step_flops(cfg: ModelConfig, shape: ShapeConfig) -> dict:

@@ -231,7 +231,8 @@ def _matrix_cfgs(rope_on, qk_norm, mla, window):
 
 def test_seam_eligibility_matrix_matches_jax():
     """Every (rope, qk-norm, MLA, window) combination gets JAX's reason (or
-    None); the non-MLA ones route as the reason says, one report each."""
+    None) and routes as the reason says, one report each (an MLA layer
+    records its reason and runs its latent path)."""
     attn.clear_compact_seam_reports()
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(1, 64, 48, generator=gen)
@@ -241,8 +242,6 @@ def test_seam_eligibility_matrix_matches_jax():
         reason = attn.compact_seam_ineligible_reason(tcfg)
         assert reason == jattn.compact_seam_ineligible_reason(jcfg), tcfg.name
         assert (reason is None) == (not qk_norm and not mla and window is None)
-        if mla:
-            continue                    # MLA attention is a later slice of the port
         attn.attention_apply(attn.attention_init(gen, tcfg), x, cfg=tcfg, mode="train")
         reports = [r for r in attn.compact_seam_reports()
                    if r.where == f"{tcfg.name}/attention"]

@@ -1,5 +1,5 @@
-"""Rules of the port: no JAX and nothing of ``repro`` in ``repro_torch`` or
-``chip_smoke.py``; the package imports without JAX; entry points default
+"""Rules of the port: no JAX and nothing of ``repro`` in ``repro_torch``,
+``chip_smoke.py`` or the port's ``tools/``; the package imports without JAX; entry points default
 to the card and say so when there is none."""
 import re
 import subprocess
@@ -18,7 +18,7 @@ FORBIDDEN = re.compile(
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    return files
+    return files + sorted((ROOT / "tools").glob("*.py"))
 
 
 def test_rule_pattern_tells_repro_from_repro_torch():

@@ -70,7 +70,7 @@ Phases; any failure raises and the script exits non-zero:
                streams equal or parted at a near-tie; then the serving
                launcher with ``--no-reduced --paged --speculative`` and
                ``--decode-backend cuda_fm --paged``;
-  4e. qwen3  — qwen3-0.6b-sfa8 at full width and depth (28 layers, d_model
+  4e. qwen3  — qwen3-0.6b-sfa8 at full width and 14 of its 28 layers (d_model
                1024, 16 heads over 8 kv heads of 128, k 8, vocab 151,936),
                bf16, random weights from the seed: the same 8 requests
                through the slot engine (its KV cache at rest equal to
@@ -87,7 +87,7 @@ Phases; any failure raises and the script exits non-zero:
                identical) and cuda_fm;
   4g. paligemma — paligemma-3b (vlm: 18 layers, d_model 2048, 8 query
                heads over 1 kv head of 256, k 16, vocab 257,216) at full
-               width and depth, bf16: the slot engine with 256 seeded
+               width and 6 of its layers, bf16: the slot engine with 256 seeded
                patches in front of each prompt (``extra_inputs``; the KV
                cache at rest = the byte model), then the same prompts
                text-only, to which the paged (full residency), speculative
@@ -162,7 +162,8 @@ Phases; any failure raises and the script exits non-zero:
                fallback report names torch and the one reason): (a)
                gemma3-4b (34 layers, d_model 2560, 8 query heads over 4 kv
                heads of 256, k 16, window 1,024 with every 6th layer global,
-               vocab 262,144) at full width and depth, bf16, through the
+               vocab 262,144) at full width and 12 of 34 layers (two of
+               them global), bf16, through the
                slot engine (one prompt of 1,536 tokens, past the window; the
                KV cache at rest = the byte model), the paged engine (whole
                prompts; then chunked prefill of 256), streams equal to the
@@ -182,7 +183,29 @@ Phases; any failure raises and the script exits non-zero:
                paged and speculative engines, one dense-emit train step and
                a compact request, which the seam declines with the
                reference's reason;
- 12. a ``kernels`` JSON line, then the result line.
+ 12. recurrent families (``phase_recurrent``) — (a) rows 1, 3, 10 and 13
+               at jamba-v0.1-52b's attention shape (32 query heads over 8 kv
+               heads of 128, k 16): row 1 at its prefill (32,768 rows) and
+               decode step (256 rows), row 3 at bh 32 x 1024 causal, rows
+               10 and 13 at 8 slots, n_max 2,048, the shapes "JB" / "JB
+               decode" of each row; (b) jamba at full width and one
+               super-block (8 of 32 layers: Mamba, attention at index 4,
+               MoE 16 experts top-2 on every second sublayer; 13.3 B f32
+               parameters), bf16, through the slot engine on the cuda and
+               the cuda_fm decode backend (8 requests of 64-1024 tokens, 32
+               greedy tokens each; launches per attention layer as
+               predicted; the KV at rest = the byte model's per-layer bytes
+               x the one attention layer; the recurrent state apart; the
+               experts' cast timed), the two streams equal or parted at a
+               near-tie, the paged and speculative engines refused with the
+               reference's message, float32 cuda against torch on f32
+               caches (1e-4, argmax equal); (c) rwkv6-3b (32 layers, d_model
+               2560, attention-free: no kernel, no KV) at full width and
+               depth through the slot engine, the refusals, float32 at 2
+               layers the card against the port on the CPU (logits on f32
+               caches and every gradient, 1e-4), and trained at full width
+               (batch 8 x 1024, bf16, AdamW, remat "full");
+ 13. a ``kernels`` JSON line, then the result line.
 
 Phase 3 holds row 1 (rtopk, d 64, k 8, bf16 and f32, tie-heavy rows) at
 the three shapes of its main paths: a decode step's 96 rows, a prefill's
@@ -326,11 +349,14 @@ def trace_kernels(fn, counts=None):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
+    # the raw events: parsing them into ``prof.events()`` costs ~0.1 ms an
+    # event, tens of seconds for an rwkv training step's ~300,000 launches
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name()
+            kernels[name] = kernels.get(name, 0.0) + e.duration_ns() / 1e3
             if counts is not None:
-                counts[e.name] = counts.get(e.name, 0) + 1
+                counts[name] = counts.get(name, 0) + 1
     return kernels, wall_ms
 
 
@@ -1873,24 +1899,12 @@ def _timed_shape(results, name, label, key, what, err, bytes_moved, op_s, kernel
     _add_shape(results, name, key or label, r)
 
 
-def _sfa_train_rows(results, rs, s, label, key=None, dense=True):
-    """Rows 1, 3, 5 (and with ``dense`` 7, 6) at a model's training shape
-    ``s`` (batch b x h heads, TRAIN_N tokens, d = dv, k), bf16: each
-    against its plain version, timed beside it and its library call, the
-    bound from these inputs; recorded as the shape ``key`` (default: the
-    printed label) of each row's entry."""
-    from repro_torch.kernels import (
-        body_counts, flash_attention, flash_attention_bwd, flash_sfa, flash_sfa_bwd,
-        reset_launches, rtopk,
-    )
-    from repro_torch.kernels.ref import (
-        flash_attention_bwd_ref, flash_attention_ref, flash_sfa_bwd_ref, flash_sfa_ref,
-        rtopk_ref,
-    )
+def _rtopk_shape(results, rs, rows, d, k, label, key=None):
+    """Row 1 on ``rows`` bf16 tie-heavy rows of d, one-thread body: exact
+    against its plain version, timed beside it and topk + sort."""
+    from repro_torch.kernels import body_counts, reset_launches, rtopk
+    from repro_torch.kernels.ref import rtopk_ref
     es = 2
-    b, h, d, k = s["b"], s["h"], s["d"], s["k"]
-    bh, n, dv, scale = b * h, TRAIN_N, d, d ** -0.5
-    rows = bh * n
     x = torch.from_numpy(_tie_rows(rs, rows, d)).cuda().bfloat16()
     reset_launches()
     kv, ki = rtopk(x, k)
@@ -1907,7 +1921,24 @@ def _sfa_train_rows(results, rs, s, label, key=None, dense=True):
                  f"bit-equal; library = topk+sort", err, rows * d * es + rows * k * (es + 4),
                  rows * d / F32_FLOPS, lambda: rtopk(x, k), lambda: rtopk_ref(x, k),
                  rtopk_library)
-    del x, kv, ki
+
+
+def _sfa_train_rows(results, rs, s, label, key=None, dense=True, bwd=True):
+    """Rows 1, 3, 5 (and with ``dense`` 7, 6; without ``bwd`` rows 1 and 3
+    alone) at a model's training shape ``s`` (batch b x h heads, TRAIN_N
+    tokens, d = dv, k), bf16: each against its plain version, timed beside
+    it and its library call, the bound from these inputs; recorded as the
+    shape ``key`` (default: the printed label) of each row's entry."""
+    from repro_torch.kernels import (
+        flash_attention, flash_attention_bwd, flash_sfa, flash_sfa_bwd, reset_launches,
+    )
+    from repro_torch.kernels.ref import (
+        flash_attention_bwd_ref, flash_attention_ref, flash_sfa_bwd_ref, flash_sfa_ref,
+    )
+    es = 2
+    b, h, d, k = s["b"], s["h"], s["d"], s["k"]
+    bh, n, dv, scale = b * h, TRAIN_N, d, d ** -0.5
+    _rtopk_shape(results, rs, bh * n, d, k, label, key)
     reset_launches()
     qv, qi, kv, ki = _codes_of(rs, bh, n, d, k, torch.bfloat16)
     v, g = (torch.from_numpy(rs.randn(bh, n, dv).astype(np.float32)).cuda().bfloat16()
@@ -1918,13 +1949,15 @@ def _sfa_train_rows(results, rs, s, label, key=None, dense=True):
     err = _close(ko, po, torch.bfloat16, f"flash_sfa {label}")[0]
     torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
     args = (qv, qi, kv, ki, v, ko, kl, g)
-    got = flash_sfa_bwd(*args, d=d, scale=scale)
-    want = flash_sfa_bwd_ref(*args, d=d, scale=scale)
-    torch.cuda.synchronize()
-    berr = max(_close(a, w, torch.bfloat16, f"flash_sfa_bwd {nm} {label}")[0]
-               for nm, a, w in zip(("dq", "dk", "dv"), got, want))
+    if bwd:
+        got = flash_sfa_bwd(*args, d=d, scale=scale)
+        want = flash_sfa_bwd_ref(*args, d=d, scale=scale)
+        torch.cuda.synchronize()
+        berr = max(_close(a, w, torch.bfloat16, f"flash_sfa_bwd {nm} {label}")[0]
+                   for nm, a, w in zip(("dq", "dk", "dv"), got, want))
+        del got, want
     _tc_only(f"flash_sfa {label}")
-    del po, pl, got, want
+    del po, pl
     qd = _densify(qv, qi, d)
     kd = _densify(kv, ki, d)
     pairs = _pairs(bh, n)
@@ -1939,15 +1972,16 @@ def _sfa_train_rows(results, rs, s, label, key=None, dense=True):
                  lambda: F.scaled_dot_product_attention(
                      qd.reshape(b, h, n, d), kd.reshape(b, h, n, d), v.reshape(b, h, n, dv),
                      is_causal=True, scale=scale))
-    _timed_shape(results, "flash_sfa_bwd", label, key,
-                 f"dense emit, bh={bh} n={n} d=dv={d} k={k} bf16 (tensor-core body): max|err| "
-                 f"{berr:.3g}; library = SDPA backward (autograd) on densified Q/K", berr,
-                 2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
-                 + 2 * bh * n * d * es + bh * n * dv * es,
-                 code_product_s(6 * k * pairs, 6 * d * pairs) + 4 * dv * pairs / BF16_TC_FLOPS,
-                 lambda: flash_sfa_bwd(*args, d=d, scale=scale),
-                 lambda: flash_sfa_bwd_ref(*args, d=d, scale=scale),
-                 _sdpa_bwd(qd, kd, v, g, scale))
+    if bwd:
+        _timed_shape(results, "flash_sfa_bwd", label, key,
+                     f"dense emit, bh={bh} n={n} d=dv={d} k={k} bf16 (tensor-core body): max|err| "
+                     f"{berr:.3g}; library = SDPA backward (autograd) on densified Q/K", berr,
+                     2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
+                     + 2 * bh * n * d * es + bh * n * dv * es,
+                     code_product_s(6 * k * pairs, 6 * d * pairs) + 4 * dv * pairs / BF16_TC_FLOPS,
+                     lambda: flash_sfa_bwd(*args, d=d, scale=scale),
+                     lambda: flash_sfa_bwd_ref(*args, d=d, scale=scale),
+                     _sdpa_bwd(qd, kd, v, g, scale))
     del qd, kd, args
     if dense:
         q, kk = (torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
@@ -1982,14 +2016,14 @@ def _sfa_train_rows(results, rs, s, label, key=None, dense=True):
     torch.cuda.empty_cache()
 
 
-def _sfa_decode_rows(results, rs, s, c, label, key=None):
+def _sfa_decode_rows(results, rs, s, c, label, key=None, timed=(10, 11, 12, 13, 14)):
     """Rows 10-14 at a model's decode step: ``s``
     (b slots, h query heads over hkv kv heads, d = dv, k), ``c`` its paged
     pools (pages of c["page"], c["mp"] a slot), bf16 caches of up to 2048
     tokens a slot: each against its plain version and in its bit-equalities,
-    timed beside its plain version and SDPA on the densified cache (heads
-    expanded), the bound from these inputs; recorded as the shape ``key``
-    (default: the label)."""
+    the rows in ``timed`` timed beside their plain version and SDPA on the
+    densified cache (heads expanded), the bound from these inputs; recorded
+    as the shape ``key`` (default: the label)."""
     from repro_torch.kernels import (
         flash_sfa_decode, flash_sfa_decode_fm, flash_sfa_decode_fm_paged,
         flash_sfa_decode_multi, flash_sfa_decode_paged, rtopk, topk_dense,
@@ -2023,20 +2057,21 @@ def _sfa_decode_rows(results, rs, s, c, label, key=None):
             < torch.from_numpy(lengths).cuda()[:, None])[:, None, None, :]
     qb = q.bfloat16().reshape(b, h, 1, d)
     tokens = int(lengths.sum())
-    _timed_shape(results, "flash_sfa_decode", label, key,
-                 f"b={b} h={h} over hkv={hkv} n_max={n_max} lengths={lengths.tolist()} (and run "
-                 f"boundaries, a zero-length row 0) k={k} d=dv={d}: max|err| {err:.3g} (tol "
-                 f"1e-4); library = SDPA on the densified cache, heads expanded", err,
-                 tokens * hkv * (k * (es + 1) + dv * es) + b * h * (d + dv) * 4,
-                 code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
-                 + tokens * h * 2 * dv / F32_FLOPS,
-                 _cycle([lambda i=i: flash_sfa_decode(q, *caches[i], lens, d=d, scale=scale)
-                         for i in range(4)]),
-                 _cycle([lambda i=i: flash_sfa_decode_ref(q, *caches[i], lens, d=d, scale=scale)
-                         for i in range(4)]),
-                 _cycle([lambda i=i: F.scaled_dot_product_attention(
-                     qb, dense[i][0], dense[i][1], attn_mask=mask, scale=scale)
-                     for i in range(4)]))
+    if 10 in timed:
+        _timed_shape(results, "flash_sfa_decode", label, key,
+                     f"b={b} h={h} over hkv={hkv} n_max={n_max} lengths={lengths.tolist()} (and run "
+                     f"boundaries, a zero-length row 0) k={k} d=dv={d}: max|err| {err:.3g} (tol "
+                     f"1e-4); library = SDPA on the densified cache, heads expanded", err,
+                     tokens * hkv * (k * (es + 1) + dv * es) + b * h * (d + dv) * 4,
+                     code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
+                     + tokens * h * 2 * dv / F32_FLOPS,
+                     _cycle([lambda i=i: flash_sfa_decode(q, *caches[i], lens, d=d, scale=scale)
+                             for i in range(4)]),
+                     _cycle([lambda i=i: flash_sfa_decode_ref(q, *caches[i], lens, d=d, scale=scale)
+                             for i in range(4)]),
+                     _cycle([lambda i=i: F.scaled_dot_product_attention(
+                         qb, dense[i][0], dense[i][1], attn_mask=mask, scale=scale)
+                         for i in range(4)]))
     del caches, dense
     pools, bt, plen = _paged_pools(rs, torch.bfloat16, c=c)
     plens = torch.from_numpy(plen.astype(np.int32)).cuda()
@@ -2048,50 +2083,52 @@ def _sfa_decode_rows(results, rs, s, c, label, key=None):
     n_all = c["mp"] * c["page"]
     eff = np.minimum(plen, n_all)
     tokens = int(eff.sum())
+    mask = (torch.arange(n_all, device="cuda")[None, :]
+            < torch.from_numpy(eff).cuda()[:, None])[:, None, None, :]
     dense = []
-    for p in pools:
+    for p in (pools if 11 in timed or 12 in timed else []):
         kdn = _densify(_pool_view(p["kv"], bt), _pool_view(p["ki"], bt), d)
         dense.append((kdn.permute(0, 2, 1, 3).repeat_interleave(group, 1).contiguous(),
                       _pool_view(p["v"], bt).permute(0, 2, 1, 3).repeat_interleave(group, 1)
                       .contiguous()))
-    mask = (torch.arange(n_all, device="cuda")[None, :]
-            < torch.from_numpy(eff).cuda()[:, None])[:, None, None, :]
     qb = q.bfloat16().reshape(c["slots"], h, 1, d)
-    _timed_shape(results, "flash_sfa_decode_paged", label, key,
-                 f"slots {c['slots']} x h {h} over hkv {hkv}, pages of {c['page']}, lengths "
-                 f"{eff.tolist()}: max|err| {errs[0]:.3g}; library = SDPA on the densified "
-                 f"gathered cache, heads expanded", errs[0],
-                 tokens * hkv * (k * (es + 1) + dv * es) + c["slots"] * h * (d + dv) * 4,
-                 code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
-                 + tokens * h * 2 * dv / F32_FLOPS,
-                 _cycle([lambda p=p: flash_sfa_decode_paged(
-                     q, p["kv"], p["ki"], p["v"], bt, plens, d=d, heads=h) for p in pools]),
-                 _cycle([lambda p=p: flash_sfa_decode_paged_ref(
-                     q, p["kv"], p["ki"], p["v"], bt, plens, d=d, heads=h) for p in pools]),
-                 _cycle([lambda i=i: F.scaled_dot_product_attention(
-                     qb, dense[i][0], dense[i][1], attn_mask=mask, scale=scale)
-                     for i in range(len(pools))]))
-    # row 12: the C verify queries of one slot, against SDPA on the slot's
-    # densified view with the per-query length mask
-    L = start + C
-    smask = (torch.arange(n_all, device="cuda")[None, :] < lm[::h, None])[None, None]
-    qmb = qm.bfloat16().reshape(C, h, d).transpose(0, 1)[None]
-    _timed_shape(results, "flash_sfa_decode_multi", label, key,
-                 f"one slot, C {C} queries x {h} heads over {hkv} kv head(s) at lengths "
-                 f"{start + 1}..{L}: max|err| {errs[1]:.3g}; library = SDPA on the slot's "
-                 f"densified view, heads expanded; the bound counts the slot's cache once",
-                 errs[1], L * hkv * (k * (es + 1) + dv * es) + C * h * (d + dv) * 4,
-                 code_product_s(C * L * h * 2 * k, C * L * h * 2 * d)
-                 + C * L * h * 2 * dv / F32_FLOPS,
-                 _cycle([lambda p=p: flash_sfa_decode_multi(
-                     qm, p["kv"], p["ki"], p["v"], lm, d=d, heads=h, block_tables=bt, slot=slot)
-                     for p in pools]),
-                 _cycle([lambda p=p: flash_sfa_decode_multi_ref(
-                     qm, p["kv"], p["ki"], p["v"], lm, d=d, heads=h, block_tables=bt, slot=slot)
-                     for p in pools]),
-                 _cycle([lambda i=i: F.scaled_dot_product_attention(
-                     qmb, dense[i][0][slot:slot + 1], dense[i][1][slot:slot + 1],
-                     attn_mask=smask, scale=scale) for i in range(len(pools))]))
+    if 11 in timed:
+        _timed_shape(results, "flash_sfa_decode_paged", label, key,
+                     f"slots {c['slots']} x h {h} over hkv {hkv}, pages of {c['page']}, lengths "
+                     f"{eff.tolist()}: max|err| {errs[0]:.3g}; library = SDPA on the densified "
+                     f"gathered cache, heads expanded", errs[0],
+                     tokens * hkv * (k * (es + 1) + dv * es) + c["slots"] * h * (d + dv) * 4,
+                     code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
+                     + tokens * h * 2 * dv / F32_FLOPS,
+                     _cycle([lambda p=p: flash_sfa_decode_paged(
+                         q, p["kv"], p["ki"], p["v"], bt, plens, d=d, heads=h) for p in pools]),
+                     _cycle([lambda p=p: flash_sfa_decode_paged_ref(
+                         q, p["kv"], p["ki"], p["v"], bt, plens, d=d, heads=h) for p in pools]),
+                     _cycle([lambda i=i: F.scaled_dot_product_attention(
+                         qb, dense[i][0], dense[i][1], attn_mask=mask, scale=scale)
+                         for i in range(len(pools))]))
+    if 12 in timed:
+        # row 12: the C verify queries of one slot, against SDPA on the slot's
+        # densified view with the per-query length mask
+        L = start + C
+        smask = (torch.arange(n_all, device="cuda")[None, :] < lm[::h, None])[None, None]
+        qmb = qm.bfloat16().reshape(C, h, d).transpose(0, 1)[None]
+        _timed_shape(results, "flash_sfa_decode_multi", label, key,
+                     f"one slot, C {C} queries x {h} heads over {hkv} kv head(s) at lengths "
+                     f"{start + 1}..{L}: max|err| {errs[1]:.3g}; library = SDPA on the slot's "
+                     f"densified view, heads expanded; the bound counts the slot's cache once",
+                     errs[1], L * hkv * (k * (es + 1) + dv * es) + C * h * (d + dv) * 4,
+                     code_product_s(C * L * h * 2 * k, C * L * h * 2 * d)
+                     + C * L * h * 2 * dv / F32_FLOPS,
+                     _cycle([lambda p=p: flash_sfa_decode_multi(
+                         qm, p["kv"], p["ki"], p["v"], lm, d=d, heads=h, block_tables=bt, slot=slot)
+                         for p in pools]),
+                     _cycle([lambda p=p: flash_sfa_decode_multi_ref(
+                         qm, p["kv"], p["ki"], p["v"], lm, d=d, heads=h, block_tables=bt, slot=slot)
+                         for p in pools]),
+                     _cycle([lambda i=i: F.scaled_dot_product_attention(
+                         qmb, dense[i][0][slot:slot + 1], dense[i][1][slot:slot + 1],
+                         attn_mask=smask, scale=scale) for i in range(len(pools))]))
     del dense
     btl = bt.long()
     imgs = [(p["kf"][:, btl].permute(1, 0, 3, 2, 4).reshape(-1, d, n_all).contiguous(),
@@ -2117,23 +2154,25 @@ def _sfa_decode_rows(results, rs, s, c, label, key=None):
     fm_bytes = tokens * (h * k * es + hkv * dv * es) + c["slots"] * h * (k * 8 + dv * 4)
     fm_ops = (code_product_s(tokens * h * 2 * k, tokens * h * 2 * d)
               + tokens * h * 2 * dv / F32_FLOPS)
-    _timed_shape(results, "flash_sfa_decode_fm", label, key,
-                 f"rows {c['slots'] * h} in groups of {group}, image (rows / {group}, d {d}, n "
-                 f"{n_all}) bf16: max|err| {e13:.3g}; library = SDPA on the image's dense K, "
-                 f"heads expanded", e13, fm_bytes, fm_ops,
-                 _cycle([lambda i=i: flash_sfa_decode_fm(qv, qi, *imgs[i], rlens, group=group)
-                         for i in range(len(pools))]),
-                 _cycle([lambda i=i: flash_sfa_decode_fm_ref(qv, qi, *imgs[i], rlens,
-                                                             group=group)
-                         for i in range(len(pools))]), lib)
-    _timed_shape(results, "flash_sfa_decode_fm_paged", label, key,
-                 f"the same through (hkv {hkv}, P, d, {c['page']}) pools, heads {h}: max|err| "
-                 f"{e14:.3g}, bit-equal to flash_sfa_decode_fm on the gathered image", e14,
-                 fm_bytes, fm_ops,
-                 _cycle([lambda p=p: flash_sfa_decode_fm_paged(
-                     qv, qi, p["kf"], p["v"], bt, plens, heads=h) for p in pools]),
-                 _cycle([lambda p=p: flash_sfa_decode_fm_paged_ref(
-                     qv, qi, p["kf"], p["v"], bt, plens, heads=h) for p in pools]), lib)
+    if 13 in timed:
+        _timed_shape(results, "flash_sfa_decode_fm", label, key,
+                     f"rows {c['slots'] * h} in groups of {group}, image (rows / {group}, d {d}, n "
+                     f"{n_all}) bf16: max|err| {e13:.3g}; library = SDPA on the image's dense K, "
+                     f"heads expanded", e13, fm_bytes, fm_ops,
+                     _cycle([lambda i=i: flash_sfa_decode_fm(qv, qi, *imgs[i], rlens, group=group)
+                             for i in range(len(pools))]),
+                     _cycle([lambda i=i: flash_sfa_decode_fm_ref(qv, qi, *imgs[i], rlens,
+                                                                 group=group)
+                             for i in range(len(pools))]), lib)
+    if 14 in timed:
+        _timed_shape(results, "flash_sfa_decode_fm_paged", label, key,
+                     f"the same through (hkv {hkv}, P, d, {c['page']}) pools, heads {h}: max|err| "
+                     f"{e14:.3g}, bit-equal to flash_sfa_decode_fm on the gathered image", e14,
+                     fm_bytes, fm_ops,
+                     _cycle([lambda p=p: flash_sfa_decode_fm_paged(
+                         qv, qi, p["kf"], p["v"], bt, plens, heads=h) for p in pools]),
+                     _cycle([lambda p=p: flash_sfa_decode_fm_paged_ref(
+                         qv, qi, p["kf"], p["v"], bt, plens, heads=h) for p in pools]), lib)
     del pools, imgs, lib_in
     torch.cuda.empty_cache()
 
@@ -2510,11 +2549,19 @@ def phase_frontend_shapes(results):
 # phase 4-5: the serving main path
 # --------------------------------------------------------------------------
 
-def phase_engine(model, cfg, depth="full depth", patches=False):
+def phase_engine(model, cfg, depth="full depth", patches=False, decode_backend=None):
     """The slot engine on 8 requests (with ``patches``, each with a seeded
     patch prefix of a vlm through ``extra_inputs``, and then the same
     prompts text-only, whose streams the paged, speculative and
-    feature-major phases are held to)."""
+    feature-major phases are held to), on ``decode_backend`` (default: the
+    config's). Launches as predicted per attention layer (rtopk 3 a prefill
+    and 2 a step, FlashSFA 1 a prefill, the decode kernel 1 a step; an
+    attention-free model none), no fallback; the KV cache at rest equal to
+    the byte model's per-layer bytes x the attention layers (the same as
+    ``cache_bytes_per_token`` x 8 x capacity but for jamba, whose byte
+    model counts every layer, as the reference's does), a recurrent state
+    equal to its size; a traced window of 4 decode steps gives the device's
+    busy share; for an MoE model the expert cast's device ms."""
     from repro_torch.core.kv_cache import kv_cache_nodes
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models.backends import clear_fallback_reports, fallback_reports
@@ -2528,13 +2575,20 @@ def phase_engine(model, cfg, depth="full depth", patches=False):
         extras = [{"patches": prs.randn(fe.prefix_len, fe.input_dim).astype(np.float32)}
                   for _ in prompts]
     # warm-up on a small engine (library loading, cuBLAS handles), not counted
-    warm = DecodeEngine(model, cfg, EngineConfig(max_slots=1, max_len=128), device="cuda")
+    backend = dict(decode_backend=decode_backend)
+    warm = DecodeEngine(model, cfg, EngineConfig(max_slots=1, max_len=128, **backend),
+                        device="cuda")
     warm.add_request(prompts[0][:64], 3)
     while warm.live.any():
         warm.step()
     del warm
-    eng = DecodeEngine(model, cfg, EngineConfig(max_slots=8, max_len=2048), device="cuda")
+    eng = DecodeEngine(model, cfg, EngineConfig(max_slots=8, max_len=2048, **backend),
+                       device="cuda")
     torch.cuda.synchronize()
+    # the peak since the counter's last reset (model init, the warm-up and
+    # whatever earlier phases held since their reset), then the timed run's
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     clear_fallback_reports()
     reset_launches()
     t_start = time.perf_counter()
@@ -2544,6 +2598,7 @@ def phase_engine(model, cfg, depth="full depth", patches=False):
         eng.add_request(p, max_new_tokens=32, extra_inputs=x)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    prefill_counts = launch_counts()
     step_ms = []
     while eng.live.any():
         t0 = time.perf_counter()
@@ -2552,23 +2607,32 @@ def phase_engine(model, cfg, depth="full depth", patches=False):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     wall = time.perf_counter() - t_start
     counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     reports = fallback_reports()
     outputs = [eng.outputs[s] for s in range(8)]
     check(all(len(o) == 32 for o in outputs), "engine: a request did not get 32 tokens")
     check(all(0 <= t < cfg.vocab_size for o in outputs for t in o),
           "engine: token out of vocabulary")
     check(not reports, f"engine: backend fallbacks recorded: {reports}")
-    serving = ("rtopk", "flash_sfa", "flash_sfa_decode")
-    check(all(counts[k] > 0 for k in serving), f"engine: a kernel never launched: {counts}")
-    # every step decodes all 8 slots: one decode launch per layer and step
-    check(counts["flash_sfa_decode"] == cfg.num_layers * len(step_ms),
-          f"engine: flash_sfa_decode launches {counts['flash_sfa_decode']}, predicted "
-          f"{cfg.num_layers} layers x {len(step_ms)} steps")
-    _rtopk_bodies("engine", cfg)
+    # every step decodes all 8 slots: one decode launch per attention layer
+    # and step; rtopk codes q, k and the cache's k a prefill, q and k a step
+    la, steps = _attention_layers(cfg), len(step_ms)
+    decode_kernel = "flash_sfa_decode_fm" if decode_backend == "cuda_fm" else "flash_sfa_decode"
+    want = {name: 0 for name in counts}
+    if la:
+        want.update({"rtopk": la * (3 * 8 + 2 * steps), "flash_sfa": la * 8,
+                     decode_kernel: la * steps})
+        _rtopk_bodies("engine", cfg)
+    check(counts == want, f"engine: launches {counts}, predicted {want}")
     # the cache at rest against the byte model: 8 slots x its token capacity
-    model_bytes = cache_bytes_per_token(cfg)["sfa"] * 8 * eng._cache_len
+    layout = "fm" if decode_backend == "cuda_fm" else "sfa"
+    per_layer = (cache_bytes_per_token(dataclasses.replace(cfg, num_layers=1))[layout]
+                 if la else 0)
+    model_bytes = per_layer * la * 8 * eng._cache_len
     check(eng.cache_bytes() == model_bytes, f"engine: kv cache {eng.cache_bytes()} bytes, the "
                                             f"byte model {model_bytes}")
+    check(eng.state_bytes() == _state_bytes(cfg, 8),
+          f"engine: recurrent state {eng.state_bytes()} bytes, predicted {_state_bytes(cfg, 8)}")
     prefix = cfg.frontend.prefix_len if patches else 0
     check(all(int(eng.lengths[s]) == len(p) + prefix + 31 for s, p in enumerate(prompts)),
           f"engine: slot lengths {eng.lengths.tolist()} (the prefix is {prefix} positions)")
@@ -2578,26 +2642,33 @@ def phase_engine(model, cfg, depth="full depth", patches=False):
     torch.cuda.synchronize()
     kernels, traced_ms = trace_kernels(lambda: [eng.step() for _ in range(4)])
     busy_ms = sum(kernels.values()) / 1e3
-    # the token-major decode's kernels (split and merge), per step
+    # the decode's kernels (split and merge), per step
     decode_ms = sum(us for n, us in kernels.items()
-                    if short_name(n).startswith(("decode_split_kernel",
+                    if short_name(n).startswith(("decode_split_kernel", "decode_fm_split_kernel",
                                                  "decode_merge_kernel"))) / 1e3 / 4
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
     layouts = sorted({type(n).__name__ for n in kv_cache_nodes(eng.caches)})
     tokens = sum(len(o) for o in outputs)
     decode_tokens = tokens - len(outputs)
-    print(f"[engine] {cfg.name} full width bf16, {depth}, 8 slots, max_len 2048, prompt "
-          f"lengths {[len(p) for p in prompts]}"
+    print(f"[engine] {cfg.name} full width bf16, {depth}, 8 slots, max_len 2048"
+          + (f", decode_backend {decode_backend}" if decode_backend else "")
+          + f", prompt lengths {[len(p) for p in prompts]}"
           + (f", each behind {prefix} seeded patches (extra_inputs)" if patches else ""))
     print(f"[engine] prefill ms per request {[round(x, 2) for x in prefill_ms]} "
           f"(mean {np.mean(prefill_ms):.2f}); decode ms per step mean "
-          f"{np.mean(step_ms):.3f} p50 {np.median(step_ms):.3f} over {len(step_ms)} "
+          f"{np.mean(step_ms):.3f} p50 {np.median(step_ms):.3f} over {steps} "
           f"steps; {decode_tokens / (sum(step_ms) / 1e3):.1f} decode tokens/s, "
           f"{tokens / wall:.1f} tokens/s overall ({tokens} tokens in {wall:.2f} s)")
-    print(f"[engine] kv cache {eng.cache_bytes() / 2**20:.2f} MiB ({', '.join(layouts)}; "
-          f"equal to cache_bytes_per_token x 8 x {eng._cache_len}); "
-          f"launches {counts}; fallbacks none; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[engine] kv cache {eng.cache_bytes() / 2**20:.2f} MiB ({', '.join(layouts) or 'none'}; "
+          f"{la} attention layers x {per_layer} B a token x 8 x {eng._cache_len}; "
+          f"cache_bytes_per_token counts {cfg.num_layers} layers: "
+          f"{cache_bytes_per_token(cfg).get(layout, 0) * 8 * eng._cache_len / 2**20:.2f} MiB)"
+          + (f"; recurrent state {eng.state_bytes() / 2**20:.2f} MiB" if eng.state_bytes()
+             else "")
+          + f"; launches {({k: v for k, v in counts.items() if v})} (as predicted); fallbacks "
+          f"none; peak memory {peak / 2**30:.2f} GiB in the timed run, from the engine's "
+          f"construction on ({max(peak, peak_before) / 2**30:.2f} GiB since the counter's "
+          f"last reset, with model init and the warm-up)")
     print(f"[engine] traced 4 decode steps (profiler on): wall {traced_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms ({100 * busy_ms / traced_ms:.1f}%, idle "
           f"{100 - 100 * busy_ms / traced_ms:.1f}%); decode kernels {decode_ms:.4f} ms a "
@@ -2619,7 +2690,7 @@ def phase_engine(model, cfg, depth="full depth", patches=False):
               f"streams differ from the streams behind the patches; slot 0 tokens {text[0]}")
         outputs = text
     return counts, dict(prompts=prompts, outputs=outputs, cache_bytes=eng.cache_bytes(),
-                        step_ms=float(np.mean(step_ms)))
+                        step_ms=float(np.mean(step_ms)), prefill_counts=prefill_counts)
 
 
 def _moe_cast(model, cfg, step_ms):
@@ -2628,13 +2699,22 @@ def _moe_cast(model, cfg, step_ms):
     the reference does, and its share of a decode step."""
     from repro_torch.models import segments
     from repro_torch.models.layers import tree_index
-    p = tree_index(model.tree()["segments"][-1], 0)["moe"]
+    p = tree_index(model.tree()["segments"][-1], 0)
+    subs = p.get("subs", [p])                      # a jamba super-block's sublayers
+    p = next(sub["moe"] for sub in subs if "moe" in sub)
     names = [n for n in ("up", "gate", "down") if n in p]
-    ms = device_ms(lambda: [p[n].to(torch.bfloat16) for n in names])
-    layers = sum(count for kind, count in segments(cfg) if kind == "block_moe")
+
+    def cast():
+        # nothing kept: a jamba layer's copies take 5.6 GB a call
+        for n in names:
+            p[n].to(torch.bfloat16)
+
+    ms = device_ms(cast)
+    per = {"block_moe": 1, "jamba": sum("moe" in sub for sub in subs)}
+    layers = sum(count * per.get(kind, 0) for kind, count in segments(cfg))
     moved = sum(p[n].numel() for n in names) * 6
     if ms is None:
-        ms = event_ms(lambda: [p[n].to(torch.bfloat16) for n in names], iters=10)
+        ms = event_ms(cast, iters=10)
     print(f"[engine] MoE expert cast, one layer ({', '.join(names)}: {cfg.moe.num_experts} "
           f"experts, f32 -> bf16, {moved / 1e9:.3f} GB read + written): {ms:.4f} ms "
           f"(bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms); x {layers} MoE layers = "
@@ -3722,8 +3802,8 @@ def phase_variant_grads(arch, layers, device="cuda"):
 
 
 def phase_variants():
-    """Phases 11a-d: gemma3-4b served at full width and depth and trained at
-    12 of 34 layers; deepseek-v2-236b served at 3 of 60 layers; llama3.2-3b
+    """Phases 11a-d: gemma3-4b served and trained at full width and 12 of 34
+    layers; deepseek-v2-236b served at 3 of 60 layers; llama3.2-3b
     with sfa_rope_protect 64 served and trained at 4 of 28 layers; the f32
     checks at 2 layers. Returns nothing: no kernel lies on these paths."""
     from repro_torch.configs import get_config
@@ -3731,9 +3811,12 @@ def phase_variants():
     from repro_torch.models.attention import compact_seam_reports
     release()
     gcfg = get_config("gemma3-4b")
-    model = init(gcfg, device="cuda", seed=SEED)
-    timed(phase_variant_serve, model, gcfg, "full depth", "windowed attention not supported",
-          long_prompt=1536)
+    # 12 of 34 layers (the depth cut of phase 12's budget): layers 5 and 11
+    # are global, the other 10 local
+    g12 = dataclasses.replace(gcfg, num_layers=12)
+    model = init(g12, device="cuda", seed=SEED)
+    timed(phase_variant_serve, model, g12, f"12 of {gcfg.num_layers} layers (depth cut)",
+          "windowed attention not supported", long_prompt=1536)
     del model
     release()
     g2 = dataclasses.replace(gcfg, num_layers=2)
@@ -3774,6 +3857,128 @@ def phase_variants():
     release()
 
 
+# jamba-v0.1-52b's attention sublayer (JB): 32 query heads over 8 kv heads
+# of 128, k 16, no RoPE; its prefill of a 1,024-token prompt and its decode
+# step (8 slots, pages of 128 for the image rows 13 reads)
+JB = dict(b=1, h=32, hkv=8, d=128, k=16)
+JB_DECODE = dict(b=8, h=32, hkv=8, d=128, k=16)
+JB_PAGED = dict(slots=8, h=8, heads=32, d=128, k=16, dv=128, page=128, mp=16)
+
+
+def phase_jamba_shapes(results):
+    """Rows 1 and 3 at jamba's prefill (rtopk on the 32 heads' 32,768 rows,
+    FlashSFA bh 32 x 1024 causal), row 1 at its decode step (256 query
+    rows), rows 10 and 13 at its decode step (8 slots x 32 query heads over
+    8 kv heads, n_max 2,048), each against its plain version and recorded as
+    the shape "JB" ("JB decode" for row 1's decode) of its row's entry."""
+    rs = np.random.RandomState(SEED + 70)
+    _sfa_train_rows(results, rs, JB, "JB prefill", key="JB", dense=False, bwd=False)
+    _rtopk_shape(results, rs, JB_DECODE["b"] * JB_DECODE["h"], JB["d"], JB["k"], "JB decode",
+                 key="JB decode")
+    _sfa_decode_rows(results, rs, JB_DECODE, JB_PAGED, "JB decode", key="JB", timed=(10, 13))
+
+
+def _attention_layers(cfg):
+    """The layers that hold attention (and KV): one a jamba super-block."""
+    if cfg.attention is None:
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid_period
+    return cfg.num_layers
+
+
+def _state_bytes(cfg, slots):
+    """The recurrent state's bytes at rest, bf16 caches: per Mamba sublayer
+    the conv window (bf16) and h (f32); per rwkv layer two token-shift rows
+    (bf16) and the WKV state (f32); none for the other families."""
+    d = cfg.d_model
+    if cfg.family not in ("hybrid", "ssm"):
+        return 0
+    if cfg.family == "hybrid":
+        di, s = cfg.ssm.expand * d, cfg.ssm.state_dim
+        per = (cfg.hybrid_period - 1) * (cfg.ssm.conv_dim * di * 2 + di * s * 4)
+        return cfg.num_layers // cfg.hybrid_period * slots * per
+    dh = cfg.rwkv.head_dim
+    return cfg.num_layers * slots * (2 * d * 2 + d // dh * dh * dh * 4)
+
+
+def _recurrent_refusals(model, cfg):
+    """The paged and speculative engines refuse recurrent state as the
+    reference's do (rwkv's speculative engine first for want of SFA codes)."""
+    from repro_torch.serve import (
+        PagedDecodeEngine, PagedEngineConfig, SpeculativeDecodeEngine, SpeculativeEngineConfig,
+    )
+    said = []
+    for make in (lambda: PagedDecodeEngine(model, cfg, PagedEngineConfig(max_slots=8),
+                                           device="cuda"),
+                 lambda: SpeculativeDecodeEngine(model, cfg, SpeculativeEngineConfig(
+                     max_slots=8), device="cuda")):
+        try:
+            make()
+        except (NotImplementedError, ValueError) as e:
+            said.append(f"{type(e).__name__}: {e}")
+        else:
+            check(False, f"{cfg.name}: an engine took recurrent state")
+    check("recurrent state" in said[0], f"{cfg.name}: paged refusal {said[0]!r}")
+    print(f"[recurrent] {cfg.name}: the paged engine refused ({said[0]!r}); the speculative "
+          f"engine refused ({said[1]!r})")
+
+
+def phase_recurrent(results):
+    """Phase 12, the recurrent families. jamba-v0.1-52b at full width, one
+    super-block of 8 sublayers (13.3 B parameters, 53.2 GB f32): the JB
+    kernel shapes, the slot engine on the cuda and on the cuda_fm decode
+    backend (their streams equal or parted at a near-tie), the paged and
+    speculative refusals, the f32 end to end cuda against torch on f32
+    caches at 1e-4. rwkv6-3b at full width and depth: the slot engine (no
+    kernel, no KV), the refusals; at 2 layers the f32 end to end and the f32
+    gradients, the card against the CPU at 1e-4; trained at full width
+    through ``Trainer``. Returns the launches of the two jamba serving runs
+    by (kernel, JB shape): rtopk's split into its prefill and decode
+    launches as counted after the prefills and at the end."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init
+    release()
+    timed(phase_jamba_shapes, results)
+    jcfg = get_config("jamba-v0.1-52b")
+    j8 = dataclasses.replace(jcfg, num_layers=jcfg.hybrid_period)
+    depth = f"one super-block, {j8.num_layers} of {jcfg.num_layers} layers (depth cut)"
+    model = init(j8, device="cuda", seed=SEED)
+    c_cuda, cuda = timed(phase_engine, model, j8, depth, decode_backend="cuda")
+    c_fm, fm = timed(phase_engine, model, j8, depth, decode_backend="cuda_fm")
+    parted = _near_tie_divergences(model, j8, cuda["prompts"], fm["outputs"], cuda["outputs"],
+                                   SPEC_TIE)
+    print(f"[recurrent] {j8.name}: cuda_fm streams against the cuda streams: "
+          f"{8 - len(parted)} of 8 equal, the others part at a near-tie (gap <= {SPEC_TIE}): "
+          f"{parted}")
+    _recurrent_refusals(model, j8)
+    timed(phase_end_to_end, model, j8, depth, torch.float32, tol=1e-4)
+    del model
+    release()
+    rcfg = get_config("rwkv6-3b")
+    model = init(rcfg, device="cuda", seed=SEED)
+    timed(phase_engine, model, rcfg)
+    _recurrent_refusals(model, rcfg)
+    del model
+    release()
+    r2 = dataclasses.replace(rcfg, num_layers=2)
+    model = init(r2, device="cuda", seed=SEED)
+    timed(phase_variant_end_to_end, model, r2, f"2 of {rcfg.num_layers} layers (depth cut)",
+          512)
+    del model
+    release()
+    timed(phase_variant_grads, "rwkv6-3b", 2)
+    release()
+    timed(phase_train, "rwkv6-3b", 1, {})
+    release()
+    prefill = cuda["prefill_counts"]["rtopk"] + fm["prefill_counts"]["rtopk"]
+    return {("rtopk", "JB"): prefill,
+            ("rtopk", "JB decode"): c_cuda["rtopk"] + c_fm["rtopk"] - prefill,
+            ("flash_sfa", "JB"): c_cuda["flash_sfa"] + c_fm["flash_sfa"],
+            ("flash_sfa_decode", "JB"): c_cuda["flash_sfa_decode"],
+            ("flash_sfa_decode_fm", "JB"): c_fm["flash_sfa_decode_fm"]}
+
+
 def phase_launcher():
     """The slice's launcher command at full width for 2 steps."""
     release()
@@ -3795,7 +4000,7 @@ def phase_launcher():
 
 def main():
     t_start = time.perf_counter()
-    name, count = timed(phase_device)
+    device_name, count = timed(phase_device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timed(phase_build)
@@ -3826,13 +4031,15 @@ def main():
     timed(phase_end_to_end, model, cfg)
     del model
     timed(phase_serve_launcher)
-    # qwen3-0.6b-sfa8 at full width and depth: the slot, paged (full
-    # residency) and cuda_fm engines on the same 8 requests (GQA, d 128)
+    # qwen3-0.6b-sfa8 at full width and 14 of its 28 layers (the depth cut
+    # of phase 12's budget): the slot, paged (full residency) and cuda_fm
+    # engines on the same 8 requests (GQA, d 128)
     qcfg = get_config("qwen3-0.6b-sfa8")
-    model = init(qcfg, device="cuda", seed=SEED)
-    _, q_slot = timed(phase_engine, model, qcfg)
-    q_paged = timed(phase_paged, model, qcfg, q_slot, preempt=False)
-    timed(phase_feature_major, model, qcfg, q_paged, q_slot["prompts"])
+    q14 = dataclasses.replace(qcfg, num_layers=14)
+    model = init(q14, device="cuda", seed=SEED)
+    _, q_slot = timed(phase_engine, model, q14, f"14 of {qcfg.num_layers} layers (depth cut)")
+    q_paged = timed(phase_paged, model, q14, q_slot, preempt=False)
+    timed(phase_feature_major, model, q14, q_paged, q_slot["prompts"])
     del model
     # its f32 end to end at full width, 4 of 28 layers
     q4 = dataclasses.replace(qcfg, num_layers=4)
@@ -3860,16 +4067,19 @@ def main():
           torch.float32)
     del model
     release()
-    # paligemma-3b at full width and depth (vlm: 256 patches in front, 8
-    # query heads over 1 kv head of 256, k 16): the slot engine with each
-    # request's patches, then text-only prompts through the paged (full
-    # residency), speculative and cuda_fm engines; rtopk on its warp body
+    # paligemma-3b at full width and 6 of its 18 layers (the depth cut of
+    # phase 12's budget; vlm: 256 patches in front, 8 query heads over 1 kv
+    # head of 256, k 16): the slot engine with each request's patches, then
+    # text-only prompts through the paged (full residency), speculative and
+    # cuda_fm engines; rtopk on its warp body
     pcfg = get_config("paligemma-3b")
-    model = init(pcfg, device="cuda", seed=SEED)
-    _, p_slot = timed(phase_engine, model, pcfg, patches=True)
-    p_paged = timed(phase_paged, model, pcfg, p_slot, preempt=False)
-    timed(phase_speculative, model, pcfg, p_paged, p_slot["prompts"])
-    timed(phase_feature_major, model, pcfg, p_paged, p_slot["prompts"])
+    p6 = dataclasses.replace(pcfg, num_layers=6)
+    model = init(p6, device="cuda", seed=SEED)
+    _, p_slot = timed(phase_engine, model, p6, f"6 of {pcfg.num_layers} layers (depth cut)",
+                      patches=True)
+    p_paged = timed(phase_paged, model, p6, p_slot, preempt=False)
+    timed(phase_speculative, model, p6, p_paged, p_slot["prompts"])
+    timed(phase_feature_major, model, p6, p_paged, p_slot["prompts"])
     del model
     release()
     # its f32 end to end at 2 layers with the patch prefix, f32 caches
@@ -3940,6 +4150,9 @@ def main():
     timed(phase_sfa_grad_bf16_end_to_end, "hubert-xlarge", 2, False)
     timed(phase_grad_end_to_end, "hubert-xlarge", 2, GRAD_RUNS[:2], leaf_tol=1e-4)
     timed(phase_variants)
+    # the JB shapes carry their launches in phase 12's two jamba serving runs
+    for (kname, key), n in timed(phase_recurrent, results).items():
+        results[kname]["shapes"][key]["launches"] = n
     decode_src = "src/repro_torch/csrc/flash_sfa_decode.cu"
     fm_src = "src/repro_torch/csrc/flash_sfa_decode_fm.cu"
     # rows 3-5 run bf16 on the tensor-core bodies (f32 on flash_sfa.cu and
@@ -3981,7 +4194,7 @@ def main():
                             **({"shapes": r["shapes"]} if "shapes" in r else {})))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": count}}))
 
 

@@ -1,11 +1,13 @@
 """Arch registry: ``get_config(name)`` / ``--arch <id>`` resolution.
 
-The port takes the paper's own models (``gpt2-*``, ``qwen3-0.6b*``), the
-dense llama-family archs, gemma3-4b (local/global windows), the MoE archs
-moonshot-v1-16b-a3b and deepseek-v2-236b (MLA) and the frontend archs
-paligemma-3b (vlm) and hubert-xlarge (audio) of the JAX package's registry
-(``_ARCH_MODULES``, one module each); every other arch there raises
-``KeyError`` naming it as not yet ported.
+The port takes the paper's own models (``gpt2-*``, ``qwen3-0.6b*``) and
+every arch of the JAX package's registry (``_ARCH_MODULES``, one module
+each): the dense llama-family archs, gemma3-4b (local/global windows), the
+MoE archs moonshot-v1-16b-a3b and deepseek-v2-236b (MLA), the frontend
+archs paligemma-3b (vlm) and hubert-xlarge (audio), and the recurrent
+families jamba-v0.1-52b (hybrid: Mamba + attention + MoE) and rwkv6-3b
+(ssm). ``NOT_YET_PORTED`` lists registered archs the port lacks; it is
+empty.
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ from repro_torch.configs.base import (
 from repro_torch.configs import paper_models
 
 # archs the JAX package registers whose model families the port has not
-# reached yet (hybrid, SSM)
-NOT_YET_PORTED = ("jamba-v0.1-52b", "rwkv6-3b")
+# reached yet
+NOT_YET_PORTED = ()
 
 # registered archs the port takes: id -> module of this package
 _ARCH_MODULES = {
@@ -31,6 +33,8 @@ _ARCH_MODULES = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "paligemma-3b": "paligemma_3b",
     "hubert-xlarge": "hubert_xlarge",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 _PORTED = "gpt2-*, qwen3-0.6b*, " + ", ".join(_ARCH_MODULES)

@@ -23,6 +23,13 @@ Ported from the JAX package's ``repro/core/kv_cache.py``:
                          of the latent, indices packed over the
                          ``kv_lora_rank`` dims (uint16 at r = 512).
 
+``RecurrentState`` is not a KV cache: it holds the recurrent state of the
+SSM layers (mamba's conv window and ssm state, rwkv's token-shift rows and
+WKV state), stacked over layers, with no token axis. ``HybridCache`` holds
+a jamba segment's KV cache beside its Mamba states. The byte counts of KV
+(``kv_cache_nodes``, ``cache_nbytes``) skip recurrent state, as the
+reference counts KVCache leaves only; ``state_nbytes`` counts it.
+
 and their paged counterparts (``PagedDenseKV``, ``PagedSparseKV``,
 ``PagedFeatureMajorKV``, ``PagedMLAKV``, ``PagedMLASparseKV``): the same
 field layouts pooled into pages behind a block table, serving
@@ -601,15 +608,114 @@ class PagedMLASparseKV(PagedKV):
         return self
 
 
-def kv_cache_nodes(tree) -> list:
-    """All KVCache nodes of a (nested list/tuple/dict) cache tree, in order."""
-    if isinstance(tree, KVCache):
+# --------------------------------------------------------------------------
+# recurrent (SSM) state
+# --------------------------------------------------------------------------
+
+def _tree_map(fn, *trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_tree_map(fn, *(t[i] for t in trees)) for i in range(len(first))]
+    return fn(*trees)
+
+
+@dataclasses.dataclass
+class RecurrentState:
+    """The recurrent state of a stack of SSM layers: ``tree`` is the nested
+    dict / list of one layer's state (``mamba_init_state``,
+    ``rwkv_init_state``, or a jamba super-block's list of mamba states),
+    each leaf with a leading layer axis and the slot axis next. Updated in
+    place like the KV caches: ``layer(i)`` gives views of layer i and
+    ``write`` copies a new state into them, cast to the stored dtype (a
+    leaf keeps its dtype, where a JAX leaf of a bf16 cache promotes to f32
+    at its first f32 decode step)."""
+    tree: object
+
+    def layer(self, i: int) -> "RecurrentState":
+        """Views of layer ``i`` of a layer-stacked state."""
+        return RecurrentState(_tree_map(lambda t: t[i], self.tree))
+
+    @classmethod
+    def stack(cls, states: list) -> "RecurrentState":
+        """Stack per-layer states (``RecurrentState`` or plain trees) along a
+        new leading layer axis."""
+        trees = [s.tree if isinstance(s, RecurrentState) else s for s in states]
+        return cls(_tree_map(lambda *ts: torch.stack(ts), *trees))
+
+    def write(self, new) -> "RecurrentState":
+        """Copy ``new`` (a tree of this one's shapes) into the state, in
+        place, cast to each leaf's dtype."""
+        _tree_map(lambda dst, src: dst.copy_(src), self.tree,
+                  new.tree if isinstance(new, RecurrentState) else new)
+        return self
+
+    def insert_slot(self, src: "RecurrentState", *, slot: int,
+                    max_len: Optional[int] = None) -> "RecurrentState":
+        """Land a layer-stacked batch-1 prefill state in ``slot``, in place,
+        cast to the destination's dtype: the reference's plain slot update
+        (``repro/serve/engine.py:_insert_cache``). There is no token axis,
+        so ``max_len`` is not read."""
+        _tree_map(lambda dst, s: dst[:, slot].copy_(s[:, 0]), self.tree, src.tree)
+        return self
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in _nodes(self.tree, torch.Tensor))
+
+
+@dataclasses.dataclass
+class HybridCache:
+    """A stack of jamba super-blocks' decode cache: the attention sublayer's
+    KV cache beside the Mamba sublayers' ``RecurrentState`` (its tree a
+    list, one state a Mamba sublayer). ``layer``, ``stack``, ``write`` and
+    ``insert_slot`` act on both halves as the KV caches' and the states' do."""
+    attn: KVCache
+    mamba: RecurrentState
+
+    def layer(self, i: int) -> "HybridCache":
+        return HybridCache(self.attn.layer(i), self.mamba.layer(i))
+
+    @classmethod
+    def stack(cls, caches: list) -> "HybridCache":
+        kv = [c.attn for c in caches]
+        return cls(type(kv[0]).stack(kv), RecurrentState.stack([c.mamba for c in caches]))
+
+    def write(self, new: "HybridCache") -> "HybridCache":
+        """Copy ``new``'s Mamba states in place (attention writes the KV in
+        place itself)."""
+        self.mamba.write(new.mamba)
+        return self
+
+    def insert_slot(self, src: "HybridCache", *, slot: int, max_len: int) -> "HybridCache":
+        self.attn.insert_slot(src.attn, slot=slot, max_len=max_len)
+        self.mamba.insert_slot(src.mamba, slot=slot)
+        return self
+
+
+def _nodes(tree, cls) -> list:
+    """All nodes of type ``cls`` of a (nested list/tuple/dict, HybridCache)
+    tree, in order."""
+    if isinstance(tree, cls):
         return [tree]
+    if isinstance(tree, HybridCache):
+        tree = [tree.attn, tree.mamba]
     if isinstance(tree, dict):
         tree = list(tree.values())
     if isinstance(tree, (list, tuple)):
-        return [n for t in tree for n in kv_cache_nodes(t)]
+        return [n for t in tree for n in _nodes(t, cls)]
     return []
+
+
+def state_nbytes(cache) -> int:
+    """Total bytes of the recurrent states of a cache tree (KV excluded)."""
+    return sum(n.nbytes() for n in _nodes(cache, RecurrentState))
+
+
+def kv_cache_nodes(tree) -> list:
+    """All KVCache nodes of a (nested list/tuple/dict) cache tree, in order
+    (recurrent states are not KV: skipped)."""
+    return _nodes(tree, KVCache)
 
 
 def cache_nbytes(cache) -> int:

@@ -15,8 +15,15 @@ read); an MoE layer's ``moe`` holds
 ``down`` (e, f, d), and ``shared_{up,gate,down}.w``; an MLA layer's ``attn``
 holds ``w_dq``, ``q_norm``, ``w_uq_nope``, ``w_uq_pe``, ``w_dkv``,
 ``kv_norm``, ``w_kpe``, ``w_uk``, ``w_uv`` and ``w_o`` (the per-head
-up-projections packed head-major in their columns, as in JAX). Every JAX
-leaf must be consumed and every port parameter filled with a leaf of its
+up-projections packed head-major in their columns, as in JAX); a jamba
+super-block's ``subs`` list (a dict per sublayer, list index as the key)
+holds ``ln1``, ``ln2``, ``attn`` or ``mamba`` (``in_proj``, ``conv_w``,
+``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``, ``a_log``, ``d_skip``,
+``out_proj``) and ``moe`` or ``mlp``; an rwkv layer holds LayerNorms
+``ln1`` and ``ln2``, the time mix ``tm`` (``mix_x``, ``w_r``, ``w_k``,
+``w_v``, ``w_g``, ``w_o``, ``w0``, ``w_lora.{a,b}``, ``u``, ``ln_out``)
+and the channel mix ``cm`` (``mix_k``, ``mix_r``, ``w_k``, ``w_v``,
+``w_r``). Every JAX leaf must be consumed and every port parameter filled with a leaf of its
 shape, or this raises.
 """
 from __future__ import annotations

@@ -31,7 +31,10 @@ top-``--draft-k`` sub-codes (default k/4), verifies them in one full-k pass
 and accepts the longest matching prefix plus the bonus token. Greedy only;
 acceptance statistics print at exit.
 
-Backend fallbacks and the at-rest cache bytes are printed at exit.
+Backend fallbacks and the at-rest cache bytes (and a recurrent family's
+state bytes) are printed at exit. The recurrent families (``--arch
+jamba-v0.1-52b``, ``rwkv6-3b``) serve through the slot engine only:
+``--paged`` and ``--speculative`` raise the reference's errors.
 """
 import argparse
 
@@ -131,6 +134,8 @@ def main(argv=None):
         print(f"{steps} batched decode steps, {total} tokens")
     layouts = sorted({type(n).__name__ for n in kv_cache_nodes(eng.caches)})
     print(f"kv cache at rest: {eng.cache_bytes() / 2**20:.2f} MiB ({', '.join(layouts)})")
+    if not paged and eng.state_bytes():
+        print(f"recurrent state: {eng.state_bytes() / 2**20:.2f} MiB")
     for rep in fallback_reports():
         print(f"backend fallback: {rep.requested} -> {rep.selected} "
               f"({rep.reason}) at {rep.where}")

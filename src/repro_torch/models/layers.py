@@ -55,9 +55,12 @@ class ParamTree(nn.Module):
 
 
 def tree_index(tree, i):
-    """Slice every leaf of a nested dict of stacked tensors at index i."""
+    """Slice every leaf of a nested dict / list of stacked tensors at index
+    i (a jamba super-block's ``{"subs": [8 dicts]}``)."""
     if isinstance(tree, dict):
         return {k: tree_index(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_index(v, i) for v in tree]
     return tree[i]
 
 

@@ -34,7 +34,18 @@ batch["frames"])`` with no learned positions added, as in the reference
 ``GLOBAL_WINDOW`` on every ``local_global_pattern + 1``-th layer counted
 across segments; every such layer requests a window, as in the reference.
 MLA (deepseek-v2) and protected RoPE dims live in ``models/attention.py``.
-The hybrid and SSM families come with later slices.
+The recurrent families: hybrid (jamba) is one segment of super-blocks of
+``hybrid_period`` sublayers (``params.segments[0]["subs"]``, a list),
+attention at ``hybrid_attn_index`` and Mamba (``models/mamba.py``)
+elsewhere, MoE in place of the MLP (of width ``d_ff``) on every
+``moe.every``-th; ssm (rwkv) is one segment of RWKV-6 layers
+(``models/rwkv.py``). Remat wraps a whole super-block, as the reference's
+scan body. Their decode caches carry recurrent state
+(``core.kv_cache.RecurrentState``, no token axis): an rwkv segment's is
+one ``RecurrentState``, a jamba segment's a ``HybridCache`` (its KVCache
+beside the super-block's list of Mamba states). A layer updates its
+state in place, as attention does its KV; the paged caches refuse both,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -43,22 +54,26 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.kv_cache import KVCache
+from repro_torch.core.kv_cache import HybridCache, KVCache, RecurrentState
 from repro_torch.core.remat import checkpoint_codes, normalize_remat, record_remat
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rk
 
 MOE_AUX_WEIGHT = 0.01
 GLOBAL_WINDOW = 1 << 30  # "window" value meaning unrestricted (a global layer)
 
 
 def segments(cfg: ModelConfig):
-    """[(kind, layers)]: the JAX package's segments, keyed on ``cfg.moe``
+    """[(kind, count)]: the JAX package's segments. hybrid -> one segment
+    of super-blocks, ssm -> one of rwkv layers, else keyed on ``cfg.moe``
     (the frontend families are one dense segment)."""
-    if cfg.family not in ("dense", "moe", "vlm", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} (arch {cfg.name!r}) comes with a later slice")
+    if cfg.family == "hybrid":
+        return [("jamba", cfg.num_layers // cfg.hybrid_period)]
+    if cfg.family == "ssm":
+        return [("rwkv", cfg.num_layers)]
     if cfg.moe is not None:
         fd = cfg.moe.first_dense
         return ([("block_dense", fd)] if fd else []) + [("block_moe", cfg.num_layers - fd)]
@@ -122,6 +137,13 @@ def param_tree(cfg: ModelConfig, *, generator=None, device="cpu") -> dict:
     """The parameter tree with fresh values (shapes and scales of the JAX
     ``init``; its RNG's values are not reproduced)."""
     def block(kind):
+        if kind == "rwkv":
+            return {"ln1": L.norm_init(cfg.d_model, "layernorm", device),
+                    "tm": rk.rwkv_tm_init(generator, cfg.d_model, cfg.rwkv, device),
+                    "ln2": L.norm_init(cfg.d_model, "layernorm", device),
+                    "cm": rk.rwkv_cm_init(generator, cfg.d_model, cfg.d_ff, device)}
+        if kind == "jamba":
+            return {"subs": [jamba_sub(i) for i in range(cfg.hybrid_period)]}
         p = {"ln1": L.norm_init(cfg.d_model, cfg.norm, device),
              "attn": attn.attention_init(generator, cfg, device),
              "ln2": L.norm_init(cfg.d_model, cfg.norm, device)}
@@ -133,10 +155,32 @@ def param_tree(cfg: ModelConfig, *, generator=None, device="cpu") -> dict:
                                   device=device)
         return p
 
+    def jamba_sub(i):
+        """Sublayer i of a super-block: attention or Mamba, then MoE or an
+        MLP of width ``d_ff`` (not ``dense_ff``: the reference does not
+        widen it)."""
+        sub = {"ln1": L.norm_init(cfg.d_model, cfg.norm, device),
+               "ln2": L.norm_init(cfg.d_model, cfg.norm, device)}
+        if i == cfg.hybrid_attn_index:
+            sub["attn"] = attn.attention_init(generator, cfg, device)
+        else:
+            sub["mamba"] = mb.mamba_init(generator, cfg.d_model, cfg.ssm, device)
+        if i % cfg.moe.every == cfg.moe.every - 1:
+            sub["moe"] = moe_lib.moe_init(generator, cfg.d_model, cfg.moe, glu=cfg.glu,
+                                          device=device)
+        else:
+            sub["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff, glu=cfg.glu,
+                                    device=device)
+        return sub
+
     def stack(trees):
         if isinstance(trees[0], dict):
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return torch.stack(trees)
+        if isinstance(trees[0], list):
+            return [stack([t[j] for t in trees]) for j in range(len(trees[0]))]
+        # one layer: a view, so a segment of one jamba super-block (53 GB
+        # f32) is not held twice while it is stacked
+        return trees[0][None] if len(trees) == 1 else torch.stack(trees)
 
     params = {}
     if cfg.frontend is None or cfg.frontend.kind == "patch":
@@ -169,6 +213,16 @@ def init(cfg: ModelConfig, *, generator=None, device=None, seed: int = 0) -> Mod
 # block + stack
 # ==========================================================================
 
+def _moe_or_mlp(p, h, cfg: ModelConfig, mode: str):
+    """The feed-forward half: (out, the MoE aux term x ``MOE_AUX_WEIGHT``
+    in train and eval, else None)."""
+    if "moe" in p:
+        mo, aux = moe_lib.moe_apply(p["moe"], h, cfg.moe, act=cfg.act, glu=cfg.glu,
+                                    with_aux=mode in ("train", "eval"))
+        return mo, None if aux is None else MOE_AUX_WEIGHT * aux
+    return L.mlp(p["mlp"], h, act=cfg.act, glu=cfg.glu), None
+
+
 def _tx_block(p, x, cfg: ModelConfig, kind: str = "block_dense", *, window=None,
               positions=None, mode="train", cache=None, cache_len=None, slot=None):
     """One layer: (x, its cache, its aux term or None). The aux term is the
@@ -180,17 +234,76 @@ def _tx_block(p, x, cfg: ModelConfig, kind: str = "block_dense", *, window=None,
                               cache_len=cache_len, slot=slot)
     x = x + ao.out
     h = L.apply_norm(p["ln2"], x, cfg.norm)
-    aux = None
-    if kind == "block_moe":
-        mo, aux = moe_lib.moe_apply(p["moe"], h, cfg.moe, act=cfg.act, glu=cfg.glu,
-                                    with_aux=mode in ("train", "eval"))
-        aux = None if aux is None else MOE_AUX_WEIGHT * aux
-    else:
-        mo = L.mlp(p["mlp"], h, act=cfg.act, glu=cfg.glu)
+    mo, aux = _moe_or_mlp(p, h, cfg, mode)
     if ao.distill is not None:
         distill = cfg.sfa_distill * ao.distill
         aux = distill if aux is None else aux + distill
     return x + mo, ao.cache, aux
+
+
+def _rwkv_block(p, x, cfg: ModelConfig, *, mode="train", state=None):
+    """One RWKV-6 layer: (x, its state: ``state`` updated in place in
+    decode, a new one in prefill, else None). ``state``: a
+    ``RecurrentState`` of {"tm": {"x_prev", "s"}, "cm": {"x_prev"}}."""
+    tree = None if state is None else state.tree
+    h = L.apply_norm(p["ln1"], x, "layernorm")
+    o, st_tm = rk.rwkv_time_mix(p["tm"], h, cfg.rwkv, mode=mode,
+                                state=None if tree is None else tree["tm"])
+    x = x + o
+    h = L.apply_norm(p["ln2"], x, "layernorm")
+    o, st_cm = rk.rwkv_channel_mix(p["cm"], h, mode=mode,
+                                   state=None if tree is None else tree["cm"])
+    if st_tm is None:
+        return x + o, None
+    new = {"tm": st_tm, "cm": st_cm}
+    return x + o, (RecurrentState(new) if state is None else state.write(new))
+
+
+def _jamba_super(p, x, cfg: ModelConfig, *, positions=None, mode="train", cache=None,
+                 cache_len=None):
+    """One jamba super-block of ``hybrid_period`` sublayers. ``cache``: a
+    ``HybridCache`` of the attention layer's KVCache and a state per Mamba
+    sublayer. Returns (x, the cache: ``cache`` updated in place in decode,
+    a new one in prefill, None in train and eval; the summed MoE aux term
+    or None)."""
+    kv, states = None, []
+    aux_total = None
+    for i, sub in enumerate(p["subs"]):
+        h = L.apply_norm(sub["ln1"], x, cfg.norm)
+        if i == cfg.hybrid_attn_index:
+            ao = attn.attention_apply(sub["attn"], h, cfg=cfg, positions=positions, mode=mode,
+                                      cache=None if cache is None else cache.attn,
+                                      cache_len=cache_len)
+            x = x + ao.out
+            kv = ao.cache
+        else:
+            o, st = mb.mamba_apply(sub["mamba"], h, cfg.ssm, mode=mode,
+                                   state=None if cache is None else cache.mamba.tree[len(states)])
+            x = x + o
+            states.append(st)
+        h = L.apply_norm(sub["ln2"], x, cfg.norm)
+        mo, aux = _moe_or_mlp(sub, h, cfg, mode)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+        x = x + mo
+    if mode in ("train", "eval"):
+        return x, None, aux_total
+    new = HybridCache(kv, RecurrentState(states))
+    return x, (new if cache is None else cache.write(new)), aux_total
+
+
+def _block(p, x, cfg: ModelConfig, kind: str, *, window, positions, mode, cache=None,
+           cache_len=None, slot=None):
+    """One layer of segment kind ``kind`` (a super-block for jamba): (x,
+    its new cache or state, its aux term or None)."""
+    if kind == "rwkv":
+        x, st = _rwkv_block(p, x, cfg, mode=mode, state=cache)
+        return x, st, None
+    if kind == "jamba":
+        return _jamba_super(p, x, cfg, positions=positions, mode=mode, cache=cache,
+                            cache_len=cache_len)
+    return _tx_block(p, x, cfg, kind, window=window, positions=positions, mode=mode,
+                     cache=cache, cache_len=cache_len, slot=slot)
 
 
 def _remat(cfg: ModelConfig, mode: str) -> str:
@@ -230,8 +343,8 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
             w = windows[i]
 
             def layer(x, p, kind=kind, window=w):
-                x, _, aux = _tx_block(p, x, cfg, kind, window=window, positions=positions,
-                                      mode=mode)
+                x, _, aux = _block(p, x, cfg, kind, window=window, positions=positions,
+                                   mode=mode)
                 return x, aux
 
             if remat == "full":
@@ -240,8 +353,8 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
                 x, aux = checkpoint_codes(layer, x, p)
             else:
                 c = caches[si].layer(i) if caches is not None else None
-                x, nc, aux = _tx_block(p, x, cfg, kind, window=w, positions=positions,
-                                       mode=mode, cache=c, cache_len=cache_len, slot=slot)
+                x, nc, aux = _block(p, x, cfg, kind, window=w, positions=positions,
+                                    mode=mode, cache=c, cache_len=cache_len, slot=slot)
                 layer_caches.append(nc)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
@@ -407,9 +520,18 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
     _refuse_encoder_only(cfg)
     device = default_device(device)
     out = []
-    for _, count in segments(cfg):
+    for kind, count in segments(cfg):
+        if kind == "rwkv":
+            out.append(RecurrentState.stack(
+                [rk.rwkv_init_state(batch, cfg.d_model, cfg.rwkv, dtype, device)] * count))
+            continue
         one = attn.init_cache(cfg, batch, max_len, dtype, device)
-        out.append(type(one).stack([one] * count))
+        kv = type(one).stack([one] * count)
+        if kind == "jamba":
+            mamba = [mb.mamba_init_state(batch, cfg.d_model, cfg.ssm, dtype, device)
+                     for _ in range(cfg.hybrid_period - 1)]
+            kv = HybridCache(kv, RecurrentState.stack([mamba] * count))
+        out.append(kv)
     return out
 
 
@@ -418,7 +540,12 @@ def init_paged_decode_caches(cfg: ModelConfig, *, slots: int, num_pages: int,
                              device=None) -> list:
     """Layer-stacked paged decode caches, one per segment: a page pool per
     layer and ONE ``(slots, max_pages)`` int32 block table shared by every
-    layer and segment (the engine updates it in place)."""
+    layer and segment (the engine updates it in place). The recurrent
+    families raise, as in the reference: pages hold attention KV only."""
+    if any(kind in ("rwkv", "jamba") for kind, _ in segments(cfg)):
+        raise NotImplementedError(
+            f"paged decode caches cover attention KV caches only; "
+            f"family={cfg.family!r} carries recurrent state")
     _refuse_encoder_only(cfg)
     device = default_device(device)
     bt = torch.zeros((slots, max_pages), dtype=torch.int32, device=device)
@@ -432,9 +559,12 @@ def init_paged_decode_caches(cfg: ModelConfig, *, slots: int, num_pages: int,
 
 def insert_slot(caches: list, one_caches: list, *, slot: int, max_len: int):
     """Land batch-1 prefill caches in ``slot`` of the batched caches (any
-    layout: head-major, feature-major or MLA's headless latents)."""
+    KV layout: head-major, feature-major or MLA's headless latents; a
+    recurrent state, which has no token axis, by a plain slot update cast to
+    the destination's dtype; a ``HybridCache`` both)."""
     for dst, src in zip(caches, one_caches):
-        if not isinstance(dst, KVCache):
-            raise TypeError(f"expected a KVCache, got {type(dst).__name__}")
+        if not isinstance(dst, (KVCache, RecurrentState, HybridCache)):
+            raise TypeError(f"expected a KVCache, RecurrentState or HybridCache, got "
+                            f"{type(dst).__name__}")
         dst.insert_slot(src, slot=slot, max_len=max_len)
     return caches

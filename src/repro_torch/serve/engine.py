@@ -29,7 +29,11 @@ take text-only prompts, as the JAX ones do. An encoder-only config has no
 decode caches, so no engine takes it. MLA caches (deepseek-v2, headless
 latent pools) land whole prompts only: chunked prefill meets the
 reference's NotImplementedError at its first chunk, as the JAX engine
-does.
+does. The recurrent families (jamba, rwkv) serve through the slot engine,
+each slot carrying its recurrent state (``core.kv_cache.RecurrentState``,
+landed by a plain slot update cast to the cache's dtype, and decoded for
+every slot, dead ones included); the paged and speculative engines refuse
+them through ``init_paged_decode_caches``, as the reference's do.
 
 The engines run on the card unless the caller passes ``device="cpu"``.
 ``decode_backend`` in the engine configs overrides the config's decode
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.kv_cache import cache_nbytes, kv_cache_nodes
+from repro_torch.core.kv_cache import cache_nbytes, kv_cache_nodes, state_nbytes
 from repro_torch.models.attention import decode_cache_token_multiple
 from repro_torch.models.model import (
     Model, decode_step, default_device, init_decode_caches, init_paged_decode_caches,
@@ -113,8 +117,12 @@ class DecodeEngine(_SamplerMixin):
         self._gen = torch.Generator(device=self.device).manual_seed(ecfg.seed)
 
     def cache_bytes(self) -> int:
-        """At-rest bytes of the engine's KV caches."""
+        """At-rest bytes of the engine's KV caches (recurrent state apart)."""
         return cache_nbytes(self.caches)
+
+    def state_bytes(self) -> int:
+        """Bytes of the recurrent (SSM) state the slots carry (0 without)."""
+        return state_nbytes(self.caches)
 
     def add_request(self, prompt: np.ndarray, max_new_tokens: int = 32,
                     extra_inputs: Optional[dict] = None) -> int:

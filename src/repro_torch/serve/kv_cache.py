@@ -19,7 +19,10 @@ from repro_torch.core.kv_cache import cache_nbytes, idx_bytes
 
 
 def cache_bytes_per_token(cfg: ModelConfig) -> dict:
-    """Per-token KV bytes by layout, all layers, bf16 at rest: ``dense``,
+    """Per-token KV bytes by layout, all ``num_layers`` layers (as the
+    reference counts them: for jamba, whose attention is one sublayer in
+    ``hybrid_period``, that is ``hybrid_period`` x what its caches hold; an
+    attention-free model has {"dense": 0, "sfa": 0}), bf16 at rest: ``dense``,
     ``sfa`` (top-k values + packed indices for K, dense V) and, for SFA
     configs other than MLA, ``fm`` (the dense feature-major K image + V).
     MLA: ``dense`` is the latent + its RoPE part, ``sfa`` adds the packed
@@ -48,7 +51,8 @@ def cache_bytes_per_token(cfg: ModelConfig) -> dict:
 def realized_cache_bytes_per_token(cfg: ModelConfig, *, max_len: int = 128,
                                    batch: int = 1) -> float:
     """Measured per-token bytes of the typed decode caches a config
-    allocates (on the meta device): ``cache_bytes_per_token(cfg)["sfa"]``
+    allocates (on the meta device; KV caches only, a recurrent state is
+    not KV): ``cache_bytes_per_token(cfg)["sfa"]``
     for a token-major SFA cache (protected dims and the MLA latent
     included), ``["fm"]`` when the decode backend keeps the feature-major
     image."""

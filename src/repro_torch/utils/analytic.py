@@ -3,10 +3,12 @@
 The port's own copy of the JAX package's ``repro/utils/analytic.py``, over
 the port's configs, ``core.remat.normalize_remat``, ``models.model.segments``
 and ``serve.kv_cache.cache_bytes_per_token``: the same config and shape
-give the same numbers. It takes the families ``segments`` takes (dense
-and MoE blocks, MLA attention, and the vlm and audio frontends: no token embedding for
-audio, the frontend's input_dim × d_model for both); for any other family
-``segments`` raises, and so does this.
+give the same numbers, for every family ``segments`` takes: dense and MoE
+blocks, MLA attention, the vlm and audio frontends (no token embedding for
+audio, the frontend's input_dim × d_model for both), jamba's super-blocks
+(Mamba or attention, then MoE or an MLP of width ``d_ff``; a Mamba sublayer
+adds 8 · d_inner · d_state FLOPs a token for its scan) and rwkv layers
+(3 · d · head_dim FLOPs a token for the WKV recurrence).
 
 Conventions: a (m, k) × (k, n) matmul is 2mkn FLOPs; causal attention
 halves the score and PV terms; the backward is 2× the forward; remat adds
@@ -52,6 +54,38 @@ def _moe_params(cfg: ModelConfig) -> tuple[int, int]:
             m.top_k * per_exp + shared + router)
 
 
+def _mamba_params(cfg: ModelConfig) -> int:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    dtr = s.dt_rank or -(-d // 16)
+    return (d * 2 * di + s.conv_dim * di + di * (dtr + 2 * s.state_dim)
+            + dtr * di + di * s.state_dim + di * d + 2 * di)
+
+
+def _rwkv_params(cfg: ModelConfig) -> int:
+    d = cfg.d_model
+    r = cfg.rwkv
+    tm = 5 * d * d + d * r.decay_lora * 2 + d    # r, k, v, g, o + decay LoRA + w0
+    cm = 2 * d * cfg.d_ff + d * d
+    return tm + cm
+
+
+def _jamba_moe(cfg: ModelConfig, i: int) -> bool:
+    """Whether sublayer i of a jamba super-block has MoE (else an MLP)."""
+    return i % cfg.moe.every == cfg.moe.every - 1
+
+
+def _jamba_sub(cfg: ModelConfig, i: int) -> tuple[int, int, int]:
+    """Sublayer i of a super-block: (mixer params, feed-forward total
+    params, feed-forward active params)."""
+    mixer = _attn_params(cfg) if i == cfg.hybrid_attn_index else _mamba_params(cfg)
+    if _jamba_moe(cfg, i):
+        return (mixer,) + _moe_params(cfg)
+    ff = _mlp_params(cfg, cfg.d_ff)
+    return mixer, ff, ff
+
+
 def param_count(cfg: ModelConfig) -> dict:
     """{'total': N, 'active': N_active} (they differ only for MoE)."""
     d = cfg.d_model
@@ -60,6 +94,16 @@ def param_count(cfg: ModelConfig) -> dict:
     fe = cfg.frontend.input_dim * d if cfg.frontend else 0
     total = active = emb + head + fe
     for kind, count in segments(cfg):
+        if kind == "rwkv":
+            total += count * _rwkv_params(cfg)
+            active += count * _rwkv_params(cfg)
+            continue
+        if kind == "jamba":
+            for i in range(cfg.hybrid_period):
+                mixer, tt, aa = _jamba_sub(cfg, i)
+                total += count * (mixer + tt)
+                active += count * (mixer + aa)
+            continue
         if kind == "block_moe":
             tt, aa = _moe_params(cfg)
         else:
@@ -92,11 +136,28 @@ def step_flops(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     b, n = shape.global_batch, shape.seq_len
     pc = param_count(cfg)
     tokens = b if shape.kind == "decode" else b * n     # decode: one new token each
+    m = cfg.moe
+    dispatch = (4 * m.capacity_factor * m.top_k * min(GROUP, n) * cfg.d_model
+                if m is not None else 0)
     fwd, li = 0.0, 0
     for kind, count in segments(cfg):
+        if kind == "rwkv":
+            for _ in range(count):
+                fwd += (2 * _rwkv_params(cfg) + 3 * cfg.d_model * cfg.rwkv.head_dim) * tokens
+            li += count
+            continue
+        if kind == "jamba":
+            scan = 8 * cfg.ssm.expand * cfg.d_model * cfg.ssm.state_dim
+            for _ in range(count):
+                for i in range(cfg.hybrid_period):
+                    f = (_attn_flops_per_token(cfg, n, li + i) if i == cfg.hybrid_attn_index
+                         else 2 * _mamba_params(cfg) + scan)
+                    f += (2 * _jamba_sub(cfg, i)[2] + dispatch if _jamba_moe(cfg, i)
+                          else 2 * _mlp_params(cfg, cfg.d_ff))
+                    fwd += f * tokens
+                li += cfg.hybrid_period
+            continue
         if kind == "block_moe":
-            m = cfg.moe
-            dispatch = 4 * m.capacity_factor * m.top_k * min(GROUP, n) * cfg.d_model
             mlp = 2 * _moe_params(cfg)[1] + dispatch
         else:
             mlp = 2 * _mlp_params(cfg, dense_ff(cfg))

@@ -71,11 +71,23 @@ def test_moonshot_counts_total_and_active_as_the_reference():
         assert got["model_flops"] < got["total_flops"]
 
 
-def test_unported_families_raise_as_segments_does():
-    for family in ("ssm", "hybrid", "rwkv"):
-        cfg = dataclasses.replace(get_config("gpt2-small").reduced(), family=family)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            analytic.param_count(cfg)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            analytic.step_flops(cfg, LM_SHAPES[0])
-    assert "rwkv6-3b" in NOT_YET_PORTED
+@pytest.mark.parametrize("arch,total,active", [
+    ("jamba-v0.1-52b", 51_569_819_648, 12_109_807_616),
+    ("rwkv6-3b", 3_072_409_600, 3_072_409_600)])
+def test_recurrent_families_count_as_the_reference(arch, total, active):
+    """jamba's super-blocks (Mamba or attention, MoE or an MLP of d_ff) and
+    rwkv's layers: total and active parameters, the step FLOPs (the Mamba
+    scan and WKV terms) and HBM bytes at every LM shape equal the JAX
+    package's; one jamba super-block holds 13,295,108,096 parameters."""
+    jc, tc = jax_get_config(arch), get_config(arch)
+    pc = analytic.param_count(tc)
+    assert pc == jax_analytic.param_count(jc) == {"total": total, "active": active}
+    if arch.startswith("jamba"):
+        one = dataclasses.replace(tc, num_layers=tc.hybrid_period)
+        assert analytic.param_count(one)["total"] == 13_295_108_096
+    for js, ts in zip(JAX_SHAPES, LM_SHAPES):
+        assert analytic.step_flops(tc, ts) == jax_analytic.step_flops(jc, js), ts.name
+        for ndev in (1, 4):
+            assert (analytic.step_hbm_bytes(tc, ts, ndev)
+                    == jax_analytic.step_hbm_bytes(jc, js, ndev)), (ts.name, ndev)
+    assert arch not in NOT_YET_PORTED

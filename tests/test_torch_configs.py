@@ -10,8 +10,11 @@ import dataclasses
 
 import pytest
 
+from repro.configs import ASSIGNED_ARCHS
 from repro.configs import get_config as jax_get_config
+from repro.models.model import segments as jax_segments
 from repro_torch.configs import NOT_YET_PORTED, get_config
+from repro_torch.models import segments
 
 NAMES = ["gpt2-small", "gpt2-small-sfa8", "gpt2-medium-sfa16",
          "qwen3-0.6b-sfa8", "moonshot-v1-16b-a3b"]
@@ -48,11 +51,25 @@ def test_variant_names_match(name):
     assert td == jd
 
 
-@pytest.mark.parametrize("name", NOT_YET_PORTED)
-def test_unported_arch_raises_key_error(name):
-    jax_get_config(name)                      # registered in the JAX package
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_config(name)
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "rwkv6-3b"])
+def test_recurrent_archs_equal_the_reference(name, reduced):
+    """The hybrid and SSM archs resolve, equal to the JAX package's (rwkv6-3b
+    has no attention, so no backend fields); no registered arch is left
+    unported."""
+    jc, tc = jax_get_config(name), get_config(name)
+    if reduced:
+        jc, tc = jc.reduced(), tc.reduced()
+    jd, _ = _split_backends(dataclasses.asdict(jc))
+    td, _ = _split_backends(dataclasses.asdict(tc))
+    assert td == jd
+    assert NOT_YET_PORTED == ()
+
+
+@pytest.mark.parametrize("name", ASSIGNED_ARCHS)
+def test_segments_equal_the_reference_for_every_registered_arch(name):
+    jc, tc = jax_get_config(name), get_config(name)
+    assert [tuple(s) for s in segments(tc)] == [tuple(s) for s in jax_segments(jc)]
 
 
 def test_remat_validation_and_bool_alias():

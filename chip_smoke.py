@@ -11,9 +11,11 @@ Phases; any failure raises and the script exits non-zero:
   3. kernels — first the wgmma layout probe of the tensor-core kernels (one
                SS and one RS chain on exact {-1, 0, 1} matrices, d 32, 64
                and 128, equal to torch.matmul bit for bit; then the same
-               chains on tiles densified from top-k codes in shared memory)
-               and the count of HGMMA instructions in the flash_attention
-               and flash_sfa_tc libraries (cuobjdump -sass; 0 fails); then
+               chains on tiles densified from top-k codes in shared memory,
+               also at d 80 (a 96-column tile) and 256 (two 128-column
+               halves)) and the count of HGMMA instructions in the
+               flash_attention, flash_sfa_tc and flash_sfa_tc_wide
+               libraries (cuobjdump -sass; 0 fails); then
                each kernel against its
                plain PyTorch version on the card at
                the main paths' shapes (the training ones at bh 96 = batch
@@ -34,16 +36,18 @@ Phases; any failure raises and the script exits non-zero:
                128, k 16) and 10-14 at its decode shape (8 slots x 16
                heads, MHA), the shape "MS" of each row; then
                (``phase_frontend_shapes``) the instantiations the frontend
-               families add, on the CUDA-core bodies and rtopk's warp
-               body, each in f32 and bf16 against its plain version: rows
-               1, 3, 5 at hubert-xlarge's training shape (bh 8 x 16, n
-               1024, d = dv 80, k 16, bidirectional; row 3 causal too),
-               rows 1, 3 at paligemma-3b's prefill (8 heads, n 1024, d =
-               dv 256, k 16) and rows 10-14 at its decode step (8 slots x
-               8 query heads over 1 kv head, dv 256; run boundaries, a
+               families add, on rtopk's warp body and FlashSFA's
+               tensor-core bodies in bf16 (flash_sfa_tc_wide.cu), its
+               CUDA-core bodies in f32, each against its plain version:
+               rows 1, 3, 5 at hubert-xlarge's training shape (bh 8 x 16,
+               n 1024, d = dv 80, k 16, bidirectional; row 3 causal too;
+               row 5 in bf16 with every emit), rows 1, 3, 5 at
+               paligemma-3b's prefill (8 heads, n 1024, d = dv 256, k 16;
+               row 5 bf16 only) and rows 10-14 at its decode step (8 slots
+               x 8 query heads over 1 kv head, dv 256; run boundaries, a
                zero-length slot, the bit-equalities), the shapes "HB" and
                "PG" of each row, after the new instantiations' ptxas
-               registers;
+               registers, spills and shared memory;
   4. engine  — the serving main path at full width: gpt2-small-sfa8
                (12 layers, d_model 768, 12 heads of 64, SFA k=8, vocab
                50,257), bf16, random weights from a seed, through
@@ -133,8 +137,12 @@ Phases; any failure raises and the script exits non-zero:
                bidirectional, d 80) at full width and depth through
                ``make_train_step`` on seeded frame batches of 8 x 1024
                (``phase_train_frames``: rtopk on its warp body, FlashSFA
-               forward and backward on the CUDA-core bodies, launches as
-               predicted); each train phase prints its step FLOPs
+               forward and backward on the tensor-core bodies, launches as
+               predicted); paligemma-3b (d 256, 8 query heads over 1 kv
+               head) at full width and 6 of 18 layers through ``Trainer``
+               on text batches of 8 x 1024 (dense emit, remat "full",
+               FlashSFA on the tensor-core bodies, rtopk on its warp body);
+               each train phase prints its step FLOPs
                (``utils.analytic.step_flops``) and their share of the bf16
                peak;
   9. gradients end to end — float32 gpt2-small-sfa8 at full width, batch 1
@@ -152,9 +160,11 @@ Phases; any failure raises and the script exits non-zero:
                layers in float32 through the compact seam against the torch
                backend (1e-4 on the loss, 1e-3 relative L2 a leaf); then
                hubert-xlarge at 2 layers on frames: bf16 by the rule above
-               (the CUDA-core bodies), float32 with 1e-4 on the loss and on
-               each leaf's relative L2 (its learned positions are never
-               read: a zero gradient in both runs);
+               (the tensor-core bodies at d 80), float32 (the CUDA-core
+               bodies) with 1e-4 on the loss and on each leaf's relative L2
+               (its learned positions are never read: a zero gradient in
+               both runs); paligemma-3b at 2 layers in bf16 by the same
+               rule (the tensor-core bodies at d 256);
  11. attention variants — the layers the reference's Pallas backends
                decline (windows, protected RoPE dims, MLA), which run on the
                torch backend in the port (no kernel lies on these paths:
@@ -223,7 +233,8 @@ CUDA-core ones: both are held against the plain versions, the tensor-core
 bodies also at d 32 and 128, causal and not, ragged n (the backward with
 every emit, the compact emit equal to the dense one gathered, two calls
 equal bit for bit). Phases 6, 8 and 9's bf16 gpt2-small-sfa8 runs must
-launch no CUDA-core body (proj_rtopk, FlashSFA, code_grad_dx, code_grad_dw).
+launch no CUDA-core body (proj_rtopk, FlashSFA, code_grad_dx, code_grad_dw);
+hubert's and paligemma's bf16 training phases no CUDA-core FlashSFA body.
 
 Phase 3 also holds the paged, multi-query and feature-major decode
 kernels (rows 11-14) at the serving path's shapes: 8 slots x 12 heads of
@@ -533,11 +544,15 @@ def phase_wgmma_probe():
     bf16(S)·C fed from S's accumulator registers, on (64, d) tiles that TMA
     loads as the attention kernels load theirs. Entries are in {-1, 0, 1},
     so every product and sum is exact: S and O must equal torch.matmul in
-    f32 bit for bit. Then the count of HGMMA instructions that cuobjdump
-    finds in the flash_attention library: 0, or no cuobjdump, fails."""
+    f32 bit for bit; then the same chains on tiles densified from codes, at
+    the FlashSFA tensor-core bodies' widths (80 in a 96-column tile, 256 in
+    two 128-column halves of O). Then the count of HGMMA instructions that
+    cuobjdump finds in the tensor-core libraries: 0, or no cuobjdump,
+    fails."""
     import ctypes
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_sfa import TC_DIMS, tc_library
     rs = np.random.RandomState(SEED + 5)
     fn = _build.entry("flash_attention", "wgmma_probe_launch",
                       [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
@@ -565,11 +580,11 @@ def phase_wgmma_probe():
     # (the FlashSFA tensor-core bodies' layout): A, B, C from codes with
     # values in {-1, 1} at distinct indices, one row of each with a
     # duplicated index (the densify sums it), one all-padding row
-    probe = _build.entry("flash_sfa_tc", "densify_probe_launch",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                         + [ctypes.c_int, ctypes.c_void_p])
     k = 8
-    for d in (32, 64, 128):
+    for d in TC_DIMS:
+        probe = _build.entry(tc_library(d), "densify_probe_launch",
+                             [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                             + [ctypes.c_int, ctypes.c_void_p])
         idx = np.stack([np.sort(rs.permutation(d)[:k]) for _ in range(3 * 64)]).reshape(3, 64, k)
         vals = rs.choice([-1.0, 1.0], size=(3, 64, k)).astype(np.float32)
         idx[:, 5, 1] = idx[:, 5, 0]
@@ -581,7 +596,7 @@ def phase_wgmma_probe():
         o_out = torch.empty(64, d, device="cuda")
         err = probe(vals_t.data_ptr(), idx_t.data_ptr(), packed.data_ptr(), k, s_out.data_ptr(),
                     o_out.data_ptr(), d, _build.stream_ptr(vals_t))
-        _build.check("flash_sfa_tc", err, "densify probe launch")
+        _build.check(tc_library(d), err, "densify probe launch")
         torch.cuda.synchronize()
         dense = torch.zeros(3, 64, d, device="cuda").scatter_add_(-1, idx_t.long(),
                                                                   vals_t.float())
@@ -598,7 +613,7 @@ def phase_wgmma_probe():
               f"memory equal torch.matmul on the densified matrices exactly")
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     check(cuobjdump.exists(), f"cuobjdump not found beside nvcc ({cuobjdump})")
-    for lib in ("flash_attention", "flash_sfa_tc"):
+    for lib in ("flash_attention", "flash_sfa_tc", "flash_sfa_tc_wide"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(lib))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         hgmma = sum("HGMMA" in line for line in sass.splitlines())
@@ -2333,16 +2348,20 @@ PG_DECODE = dict(b=8, h=8, hkv=1, d=256, k=16)
 PG_PAGED = dict(slots=8, h=1, heads=8, d=256, k=16, dv=256, page=128, mp=16)
 
 
-def _cuda_core_rows(results, rs, s, label, key, *, causal, bwd):
+def _frontend_rows(results, rs, s, label, key, *, causal, bwd):
     """Rows 1, 3 (and with ``bwd`` 5) at a frontend model's shape ``s`` (b x
     h heads, s["n"] tokens, d = dv, k), where rtopk runs its warp body and
-    FlashSFA its CUDA-core bodies: each in f32 and bf16 against its plain
-    version (row 3 with the other mask too), the bf16 calls timed beside
-    their plain versions and library calls with the bound from these
-    inputs, recorded as the shape ``key`` of each row's entry."""
+    FlashSFA its tensor-core bodies in bf16 (d 80 in 96-column tiles, d 256
+    with two warpgroups a block) and its CUDA-core bodies in f32: each in
+    f32 and bf16 against its plain version (row 3 with the other mask too;
+    row 5 in bf16 with every emit, in f32 the dense emit where the
+    CUDA-core body takes dv: not at 256), the bf16 calls timed beside their
+    plain versions and library calls with the bound from these inputs,
+    recorded as the shape ``key`` of each row's entry."""
     from repro_torch.kernels import (
         body_counts, flash_sfa, flash_sfa_bwd, reset_launches, rtopk,
     )
+    from repro_torch.kernels.flash_sfa_bwd import CUDA_CORE_V_HEAD_DIMS
     from repro_torch.kernels.ref import flash_sfa_bwd_ref, flash_sfa_ref, rtopk_ref
     b, h, d, k, n = s["b"], s["h"], s["d"], s["k"], s["n"]
     bh, dv, scale = b * h, d, d ** -0.5
@@ -2351,6 +2370,8 @@ def _cuda_core_rows(results, rs, s, label, key, *, causal, bwd):
     mask = "causal" if causal else "bidirectional"
     for dtype in (torch.float32, torch.bfloat16):
         es = 2 if dtype == torch.bfloat16 else 4
+        tc = dtype == torch.bfloat16
+        body = "tensor-core body" if tc else "CUDA-core body"
         x = torch.from_numpy(_tie_rows(rs, rows, d)).cuda().to(dtype)
         reset_launches()
         kv, ki = rtopk(x, k)
@@ -2384,28 +2405,32 @@ def _cuda_core_rows(results, rs, s, label, key, *, causal, bwd):
         err = _close(ko, po, dtype, f"flash_sfa {label} {dtype}")[0]
         torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
         oerr = _close(oo, op, dtype, f"flash_sfa {label} {dtype} (the other mask)")[0]
-        check(body_counts()["flash_sfa_cuda_core"] == 2,
-              f"flash_sfa {label} {dtype}: not the CUDA-core body {body_counts()}")
-        print(f"[flash_sfa] {label} {dtype} bh={bh} n={n} d=dv={d} k={k} (CUDA-core body): "
+        check(body_counts()["flash_sfa_cuda_core"] == (0 if tc else 2),
+              f"flash_sfa {label} {dtype}: not the {body} {body_counts()}")
+        print(f"[flash_sfa] {label} {dtype} bh={bh} n={n} d=dv={d} k={k} ({body}): "
               f"{mask} max|err| {err:.3g}, LSE within 1e-5 + 1e-4; the other mask max|err| "
               f"{oerr:.3g}")
         del oo, op, po, pl
-        if bwd:
-            args = (qv, qi, kv, ki, v, ko, kl, g)
-            got = flash_sfa_bwd(*args, d=d, scale=scale, causal=causal)
-            want = flash_sfa_bwd_ref(*args, d=d, scale=scale, causal=causal)
-            torch.cuda.synchronize()
-            berr = max(_close(a, w, dtype, f"flash_sfa_bwd {nm} {label} {dtype}")[0]
-                       for nm, a, w in zip(("dq", "dk", "dv"), got, want))
-            check(body_counts()["flash_sfa_bwd_cuda_core"] == 1,
-                  f"flash_sfa_bwd {label} {dtype}: not the CUDA-core body {body_counts()}")
-            print(f"[flash_sfa_bwd] {label} {dtype} dense emit, {mask} (CUDA-core body): "
-                  f"max|err| {berr:.3g}")
-            del got, want
+        args = (qv, qi, kv, ki, v, ko, kl, g)
+        if bwd and (tc or dv in CUDA_CORE_V_HEAD_DIMS):
+            for emit in ("dense", "compact", "compact2") if tc else ("dense",):
+                reset_launches()
+                got = flash_sfa_bwd(*args, d=d, scale=scale, causal=causal, emit=emit)
+                want = flash_sfa_bwd_ref(*args, d=d, scale=scale, causal=causal, emit=emit)
+                torch.cuda.synchronize()
+                e = max(_close(a, w, dtype, f"flash_sfa_bwd {emit} {nm} {label} {dtype}")[0]
+                        for nm, a, w in zip(("dq", "dk", "dv"), got, want))
+                check(body_counts()["flash_sfa_bwd_cuda_core"] == (0 if tc else 1),
+                      f"flash_sfa_bwd {label} {dtype}: not the {body} {body_counts()}")
+                print(f"[flash_sfa_bwd] {label} {dtype} {emit} emit, {mask} ({body}): "
+                      f"max|err| {e:.3g}")
+                if emit == "dense":
+                    berr = e
+                del got, want
         if dtype == torch.bfloat16:
             qd, kd = _densify(qv, qi, d), _densify(kv, ki, d)
             _timed_shape(results, "flash_sfa", label, key,
-                         f"bh={bh} n={n} d=dv={d} k={k} {mask} bf16 (CUDA-core body): "
+                         f"bh={bh} n={n} d=dv={d} k={k} {mask} bf16 ({body}): "
                          f"max|err| {err:.3g}; library = SDPA on densified Q/K", err,
                          2 * bh * n * k * (es + 4) + 2 * bh * n * dv * es + bh * n * 4,
                          code_product_s(2 * k * pairs, 2 * d * pairs)
@@ -2419,8 +2444,8 @@ def _cuda_core_rows(results, rs, s, label, key, *, causal, bwd):
                              v.reshape(b, h, n, dv), is_causal=causal, scale=scale))
             if bwd:
                 _timed_shape(results, "flash_sfa_bwd", label, key,
-                             f"dense emit, bh={bh} n={n} d=dv={d} k={k} {mask} bf16 (CUDA-core "
-                             f"body): max|err| {berr:.3g}; library = SDPA backward (autograd) "
+                             f"dense emit, bh={bh} n={n} d=dv={d} k={k} {mask} bf16 ({body}): "
+                             f"max|err| {berr:.3g}; library = SDPA backward (autograd) "
                              f"on densified Q/K", berr,
                              2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
                              + 2 * bh * n * d * es + bh * n * dv * es,
@@ -2430,7 +2455,7 @@ def _cuda_core_rows(results, rs, s, label, key, *, causal, bwd):
                              lambda: flash_sfa_bwd_ref(*args, d=d, scale=scale, causal=causal),
                              _sdpa_bwd(qd, kd, v, g, scale, causal))
             del qd, kd
-        del qv, qi, kv, ki, v, g, ko, kl
+        del qv, qi, kv, ki, v, g, ko, kl, args
         torch.cuda.empty_cache()
 
 
@@ -2519,14 +2544,31 @@ def _kernel_label(mangled):
     return f"{m.group(1)}<{', '.join(out)}>"
 
 
+def _wide_smem(label, k=32, n=TRAIN_N):
+    """The dynamic shared memory (bytes) a launch of the tensor-core
+    FlashSFA kernel ``label`` (``_kernel_label``) at d 80 or 256 asks for,
+    at code width k and n keys (csrc/flash_sfa_tc.cuh's launchers; the
+    static part is ptxas's)."""
+    d = int(label.split("<")[1].split(",")[0].rstrip(">"))
+    w = 96 if d == 80 else d
+    tile, codes = 64 * w * 2, 4 * 64 * (k + 1)
+    if label.startswith("flash_attention_tc_fwd_kernel"):
+        qrows = 64 if d == 256 else 128
+        return 1024 + qrows * w * 2 + 4 * tile + codes + 2 * -(-n // 64)
+    return 1024 + 6 * tile + codes           # either backward kernel
+
+
 def phase_frontend_shapes(results):
     """The instantiations the frontend families add, each against its plain
     version in f32 and bf16: rows 1, 3, 5 at hubert-xlarge's training shape
-    (d = dv 80, bidirectional; row 3 causal too), rows 1, 3 at paligemma-3b's
-    prefill (d = dv 256, causal) and rows 10-14 at its decode step (dv 256,
-    8 query heads over 1 kv head), the bf16 calls timed and recorded as
-    the shapes "HB" and "PG" of their rows. The new instantiations' ptxas
-    registers and spills first."""
+    (d = dv 80, bidirectional; row 3 causal too), rows 1, 3, 5 at
+    paligemma-3b's prefill (d = dv 256, causal; row 5 in bf16 only: the f32
+    backward declines dv 256) and rows 10-14 at its decode step (dv 256, 8
+    query heads over 1 kv head), the bf16 calls timed and recorded as the
+    shapes "HB" and "PG" of their rows; rows 3 and 5 run bf16 on the
+    tensor-core bodies of flash_sfa_tc_wide.cu, f32 on the CUDA-core ones.
+    The new instantiations' ptxas registers, spills and shared memory first
+    (each tensor-core one <= 255 registers, no spill, <= 227 KB)."""
     for lib in ("flash_sfa", "flash_sfa_bwd", "flash_sfa_decode", "flash_sfa_decode_fm"):
         regs = {fn: r for fn, r in ptxas_kernels(lib).items() if "Li80E" in fn or "Li256E" in fn}
         check(regs, f"ptxas {lib}: no dv 80 or 256 instantiation in the build log")
@@ -2534,9 +2576,22 @@ def phase_frontend_shapes(results):
             f"{_kernel_label(fn)} {r} regs" + ("" if sp.startswith("0 bytes stack frame, 0 ")
                                                or not sp else f" ({sp})")
             for fn, (r, sp) in regs.items()))
+    wide = []
+    for fn, (r, sp) in ptxas_kernels("flash_sfa_tc_wide").items():
+        label = _kernel_label(fn)
+        if "<" not in label or label.startswith("densify_probe"):
+            continue                              # the pack kernel, phase 3's probe
+        smem = _wide_smem(label)
+        check(r <= 255 and sp.startswith("0 bytes stack frame, 0 bytes spill stores")
+              and smem <= 232_448, f"ptxas flash_sfa_tc_wide {label}: {r} regs, {sp}, "
+                                   f"{smem} B dynamic shared memory")
+        wide.append(f"{label} {r} regs, 0 spill, {smem} B dynamic shared memory")
+    check(len(wide) == 6, f"ptxas flash_sfa_tc_wide: {wide}")
+    print("[ptxas] flash_sfa_tc_wide (the tensor-core bodies at d 80 / 256; shared memory "
+          "at k 32, n 1024, plus ptxas's static bytes): " + "; ".join(wide))
     rs = np.random.RandomState(SEED + 50)
-    _cuda_core_rows(results, rs, HB, "HB training", "HB", causal=False, bwd=True)
-    _cuda_core_rows(results, rs, PG, "PG prefill", "PG", causal=True, bwd=False)
+    _frontend_rows(results, rs, HB, "HB training", "HB", causal=False, bwd=True)
+    _frontend_rows(results, rs, PG, "PG prefill", "PG", causal=True, bwd=True)
     _sfa_decode_rows(results, rs, PG_DECODE, PG_PAGED, "PG decode", key="PG")
     errs = _decode_boundaries(rs, PG_PAGED, "PG decode")
     names = ("flash_sfa_decode", "flash_sfa_decode_paged", "flash_sfa_decode_multi",
@@ -3467,11 +3522,13 @@ def phase_sfa_grad_bf16_end_to_end(arch="gpt2-small-sfa8", layers=None, compact=
     "codes") against the torch backend. Top-k at bf16 flips near-ties
     wherever two runs round differently, so the tolerance is the torch
     backend's own distance, at these weights and this batch, from the
-    float32 run of the same weights. Where the shape has no tensor-core
-    body (hubert's d 80) the CUDA-core bodies must run instead."""
+    float32 run of the same weights. Every FlashSFA launch must take the
+    tensor-core body (hubert's d 80 and paligemma's d 256 too); where a
+    shape had none, the CUDA-core bodies would have to run instead."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import body_counts, launch_counts, reset_launches
     from repro_torch.kernels.flash_sfa import tensor_core_body
+    from repro_torch.kernels.rtopk import one_thread_body
     from repro_torch.models import init, loss_fn
     cfg = get_config(arch)
     depth = f"{cfg.num_layers} layers"
@@ -3519,7 +3576,12 @@ def phase_sfa_grad_bf16_end_to_end(arch="gpt2-small-sfa8", layers=None, compact=
         check(all(counts[r] > 0 for r in rows),
               f"sfa bf16 gradients end to end ({label}): kernels not launched {counts}")
         if on_tc:
-            _tc_only(f"sfa bf16 gradients end to end ({label})")
+            # no CUDA-core body; rtopk's warp body only where the head is
+            # wider than its one-thread body takes (hubert's 80, paligemma's 256)
+            bc = body_counts()
+            warp = 0 if one_thread_body(a.head_dim, a.sfa_k) else counts["rtopk"]
+            check(bc == dict({name: 0 for name in bc}, rtopk_warp=warp),
+                  f"sfa bf16 gradients end to end ({label}): bodies {bc}, launches {counts}")
         else:
             bc = body_counts()
             check(bc["flash_sfa_cuda_core"] == counts["flash_sfa"]
@@ -4133,13 +4195,22 @@ def main():
           {"rtopk": 4 * ml, "flash_sfa": 2 * ml, "flash_sfa_bwd": ml}, layers=ml)
     release()
     # hubert-xlarge at full width and depth on seeded frames: bidirectional,
-    # d = dv 80, so rtopk's warp body and FlashSFA's CUDA-core bodies (the
-    # same per-layer launches as gpt2's dense emit under remat "full")
+    # d = dv 80, so rtopk's warp body and FlashSFA's tensor-core bodies on
+    # 96-column tiles (the same per-layer launches as gpt2's dense emit
+    # under remat "full")
     hl = get_config("hubert-xlarge").num_layers
-    timed(phase_train_frames, "hubert-xlarge", 2,
-          {"rtopk": 4 * hl, "flash_sfa": 2 * hl, "flash_sfa_bwd": hl},
-          bodies={"rtopk_warp": 4 * hl, "flash_sfa_cuda_core": 2 * hl,
-                  "flash_sfa_bwd_cuda_core": hl})
+    hubert, _ = timed(phase_train_frames, "hubert-xlarge", 2,
+                      {"rtopk": 4 * hl, "flash_sfa": 2 * hl, "flash_sfa_bwd": hl},
+                      bodies={"rtopk_warp": 4 * hl})
+    release()
+    # paligemma-3b at full width and 6 of 18 layers (its serving depth) on
+    # text batches, as the launchers build them: d = dv 256 (K and V
+    # repeated to the 8 query heads before rtopk), rtopk's warp body,
+    # FlashSFA's tensor-core bodies with two warpgroups a block
+    pl_ = 6
+    timed(phase_train, "paligemma-3b", 2,
+          {"rtopk": 4 * pl_, "flash_sfa": 2 * pl_, "flash_sfa_bwd": pl_}, layers=pl_,
+          bodies={"rtopk_warp": 4 * pl_})
     release()
     timed(phase_grad_end_to_end)
     timed(phase_dense_grad_end_to_end)
@@ -4149,6 +4220,7 @@ def main():
     timed(phase_grad_end_to_end, "llama3.2-3b", 2, (GRAD_RUNS[0], GRAD_RUNS[2]), True)
     timed(phase_sfa_grad_bf16_end_to_end, "hubert-xlarge", 2, False)
     timed(phase_grad_end_to_end, "hubert-xlarge", 2, GRAD_RUNS[:2], leaf_tol=1e-4)
+    timed(phase_sfa_grad_bf16_end_to_end, "paligemma-3b", 2, False)
     timed(phase_variants)
     # the JB shapes carry their launches in phase 12's two jamba serving runs
     for (kname, key), n in timed(phase_recurrent, results).items():

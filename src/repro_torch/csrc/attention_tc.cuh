@@ -46,6 +46,22 @@
 // async proxy: fence.proxy.async, then a barrier, before the first wgmma
 // that reads the tile.
 //
+// Head widths (Width<D>). The dense kernels take D in {32, 64, 128}, the
+// sparse ones also 80 and 256:
+//  * 80: tiles of 96 columns (hopper::tile_width; three 64-byte swizzle
+//    spans), whose columns 80-95 hold zeros (TMA's fill past V's and dO's
+//    real width, the densify's zeroing). S and dP run 5 k-steps over the
+//    real columns; P.V, dQ, dK and dV run at N = 96 (Mma<96>) and every
+//    store writes the 80 real columns.
+//  * 256: two warpgroups of a block own the same 64 rows, each one
+//    128-column half of every output accumulator (O; dQ; dK and dV), so
+//    each holds the d 128 body's accumulators (one warpgroup holding all
+//    256 columns would need 128 more registers for O alone, past 255). Each
+//    computes the whole S (and dP) itself over 16 k-steps, with no exchange
+//    between the two: the scores are computed twice, ~1.5x the forward's
+//    ideal operations. The forward walks 64-query blocks, the backward's
+//    blocks have 256 threads, and the densify gives a row 4 lanes.
+//
 // Sparse extras:
 //  * block skip (forward): a level map (bh, ceil(nq/64), ceil(nk/64)) at the
 //    warpgroup's 64-row tile; each warpgroup reads its own level, uniform
@@ -99,13 +115,32 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// The shapes of a head of D columns: its tiles' width W, the SPLIT
+// warpgroups that share a block's rows and the N columns of every output
+// accumulator each owns (the header comment).
+template <int D>
+struct Width {
+  static constexpr int W = hopper::tile_width(D);
+  static constexpr int SPLIT = W > 128 ? 2 : 1;
+  static constexpr int N = W / SPLIT;
+  static constexpr int COLS = N < D ? N : D;        // of them, real columns
+  static constexpr int THREADS = SPLIT * kWG;       // a backward block
+  // the block-skip schedule (a level map per 64-row warpgroup) has a
+  // tensor-core body at the unpadded one-warpgroup widths only
+  static constexpr bool SKIP = W == D && SPLIT == 1;
+  static constexpr int LANES = THREADS / kTile;     // densify lanes of a 64-row tile
+  static constexpr int LANE_BITS = LANES == 2 ? 1 : 2;
+};
+
 // S (64 x 64 f32) = A rows [a_r0, a_r0 + 64) of tile A . B^T (B's 64 rows),
-// both K-major over D: the SS form, D / 16 k-steps.
+// both K-major over the D real columns of their W-wide tiles: the SS form,
+// D / 16 k-steps.
 template <int D, int ROWS_A>
 __device__ __forceinline__ void mma_abt(float (&s)[32], uint32_t a, int a_r0, uint32_t b) {
+  constexpr int W = Width<D>::W;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    Mma<64>::ss(s, Tile<D, ROWS_A>::kmajor(a, a_r0, kk), Tile<D, kTile>::kmajor(b, 0, kk),
+    Mma<64>::ss(s, Tile<W, ROWS_A>::kmajor(a, a_r0, kk), Tile<W, kTile>::kmajor(b, 0, kk),
                 kk > 0);
 }
 
@@ -117,29 +152,32 @@ struct Split {
   }
 };
 
-// C (64 x D) += X . B = X_hi . B + X_lo . B, with B a (64, D) tile as the
-// MN-major operand: the RS form, 8 k16 steps.
-template <int D>
-__device__ __forceinline__ void mma_xb(float (&c)[D / 2], const Split& x, uint32_t b) {
+// C (64 x N) += X . B = X_hi . B + X_lo . B, with B the N columns of a
+// (64, W) tile from `b` (Tile::column) on as the MN-major operand: the RS
+// form, 8 k16 steps.
+template <int W, int N>
+__device__ __forceinline__ void mma_xb(float (&c)[N / 2], const Split& x, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = Tile<D, kTile>::mnmajor(b, kk);
-    Mma<D>::rs(c, x.hi[kk], db, 1);
-    Mma<D>::rs(c, x.lo[kk], db, 1);
+    const uint64_t db = Tile<W, kTile>::mnmajor(b, kk);
+    Mma<N>::rs(c, x.hi[kk], db, 1);
+    Mma<N>::rs(c, x.lo[kk], db, 1);
   }
 }
 
-// Store a warpgroup's 64 x D accumulator (times per-row factors) as bf16
-// rows r0 + (0..63) of a (.., D) matrix, rows < n only.
+// Store a warpgroup's 64 x N accumulator of columns [c0, c0 + N) (times
+// per-row factors) as bf16 rows r0 + (0..63) of a (.., D) matrix: rows < n
+// and the real columns (< D) only.
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 2], size_t row_base,
-                                           int r0, int n, float f0, float f1) {
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[Width<D>::N / 2],
+                                           size_t row_base, int r0, int n, int c0, float f0,
+                                           float f1) {
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < Width<D>::COLS / 2; i += 2) {
     const int r = r0 + acc_row(i);
     if (r < n) {
       const float f = (i % 4) < 2 ? f0 : f1;
-      *reinterpret_cast<__nv_bfloat162*>(out + (row_base + r) * D + acc_col(i)) =
+      *reinterpret_cast<__nv_bfloat162*>(out + (row_base + r) * D + c0 + acc_col(i)) =
           __floats2bfloat162_rn(acc[i] * f, acc[i + 1] * f);
     }
   }
@@ -283,20 +321,23 @@ __device__ __forceinline__ void keep(const Split& x) {
     for (int r = 0; r < 4; ++r) asm volatile("" ::"r"(x.hi[kk][r]), "r"(x.lo[kk][r]));
 }
 
-// dQ or dK of one warpgroup's rows [r0, r0 + 64) from its f32 accumulator
-// (the TPU's _unpack). emit 0: dense rows, zero off each row's stored
-// coordinates (_support_mask); 1: compact (n, k), the value at each stored
-// index (_gather_support; 0 for an index outside [0, D)); 2: compact2
-// (n, 2k) on the pair closure below rot_dim (_pair_closure_gather). idx:
-// the head's (n, k) indices at head_row0. The compact emits stage the
-// accumulator in `scratch` (64 x (D + 1) f32 of shared memory that no one
-// reads any more) and must be called by the whole (one-warpgroup) block.
+// dQ or dK of one warpgroup's rows [r0, r0 + 64) and columns [c0, c0 + N)
+// from its f32 accumulator (the TPU's _unpack). emit 0: dense rows, zero off
+// each row's stored coordinates (_support_mask); 1: compact (n, k), the
+// value at each stored index (_gather_support; 0 for an index outside [0,
+// D)); 2: compact2 (n, 2k) on the pair closure below rot_dim
+// (_pair_closure_gather). idx: the head's (n, k) indices at head_row0. The
+// compact emits stage the accumulators of the block's warpgroups (their
+// column halves, at d 256) in `scratch` (64 x (W + 1) f32 of shared memory
+// that no one reads any more) and must be called by the whole block.
 template <int D>
-__device__ void emit_grad(bf16* out, const float (&acc)[D / 2], size_t head_row0, int r0, int n,
-                          const int32_t* idx, int k, int emit, int rot_dim, float* scratch) {
+__device__ void emit_grad(bf16* out, const float (&acc)[Width<D>::N / 2], size_t head_row0,
+                          int r0, int n, int c0, const int32_t* idx, int k, int emit, int rot_dim,
+                          float* scratch) {
+  constexpr int N = Width<D>::N;
   if (emit == 0) {
     // the stored coordinates of this thread's two rows as bits: columns
-    // [0, 64) and [64, 128)
+    // c0 + [0, 64) and c0 + [64, N)
     uint64_t lo[2], hi[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -307,32 +348,33 @@ __device__ void emit_grad(bf16* out, const float (&acc)[D / 2], size_t head_row0
 #pragma unroll 1
         for (int u = 0; u < k; ++u) {
           const int id = ids[u];
-          if (id >= 0 && id < 64 && id < D) lo[h] |= 1ull << id;
-          if (id >= 64 && id < D) hi[h] |= 1ull << (id - 64);
+          const int c = id - c0;
+          if (c >= 0 && c < 64 && id < D) lo[h] |= 1ull << c;
+          if (c >= 64 && c < N && id < D) hi[h] |= 1ull << (c - 64);
         }
       }
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
+    for (int i = 0; i < Width<D>::COLS / 2; i += 2) {
       const int r = r0 + acc_row(i);
       if (r < n) {
         const int c = acc_col(i);                       // even: c and c + 1 share a word
         const uint64_t word = 8 * (i / 4) < 64 ? lo[(i % 4) / 2] : hi[(i % 4) / 2];
         const float x0 = (word >> (c & 63)) & 1ull ? acc[i] : 0.0f;
         const float x1 = (word >> ((c + 1) & 63)) & 1ull ? acc[i + 1] : 0.0f;
-        *reinterpret_cast<__nv_bfloat162*>(out + (head_row0 + r) * D + c) =
+        *reinterpret_cast<__nv_bfloat162*>(out + (head_row0 + r) * D + c0 + c) =
             __floats2bfloat162_rn(x0, x1);
       }
     }
     return;
   }
-  constexpr int LD = D + 1;
+  constexpr int LD = Width<D>::W + 1;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) scratch[acc_row(i) * LD + acc_col(i)] = acc[i];
+  for (int i = 0; i < N / 2; ++i) scratch[acc_row(i) * LD + c0 + acc_col(i)] = acc[i];
   __syncthreads();
   const int width = emit == 1 ? k : 2 * k;
 #pragma unroll 1
-  for (int t = threadIdx.x; t < kTile * k; t += kWG) {
+  for (int t = threadIdx.x; t < kTile * k; t += Width<D>::THREADS) {
     const int rr = t / k, u = t % k;
     const int r = r0 + rr;
     if (r >= n) continue;
@@ -353,8 +395,8 @@ __device__ void emit_grad(bf16* out, const float (&acc)[D / 2], size_t head_row0
 // the online-softmax update has the closed form m' = max(m, 0),
 // o' = o e^(m - m') + e^(-m') vsum, l' = l e^(m - m') + 64 e^(-m') (log2
 // units here; each of a row's 4 threads holds a quarter of l).
-template <int D>
-__device__ __forceinline__ void closed_form(float (&o)[D / 2], float (&m)[2], float (&l)[2],
+template <int N>
+__device__ __forceinline__ void closed_form(float (&o)[N / 2], float (&m)[2], float (&l)[2],
                                             const float* vsum_row) {
   float corr[2], e[2];
 #pragma unroll
@@ -366,7 +408,7 @@ __device__ __forceinline__ void closed_form(float (&o)[D / 2], float (&m)[2], fl
     l[h] = l[h] * corr[h] + (kTile / 4) * e[h];
   }
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i)
+  for (int i = 0; i < N / 2; ++i)
     o[i] = o[i] * corr[(i % 4) / 2] + e[(i % 4) / 2] * vsum_row[acc_col(i)];
 }
 
@@ -374,7 +416,8 @@ __device__ __forceinline__ void closed_form(float (&o)[D / 2], float (&m)[2], fl
 
 // SPARSE at d <= 64 asks for two blocks an SM (at most 128 registers a
 // thread): one block's densify then overlaps the other's products
-// (PERF.md, PR 16)
+// (PERF.md, PR 16). A block: two warpgroups over 128 query rows, 64 each;
+// at d 256 over 64 rows, a column half of O each (Width).
 template <int D, bool SPARSE>
 __global__ void __launch_bounds__(2 * kWG, (SPARSE && D <= 64) ? 2 : 1)
 flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -383,8 +426,15 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                               const int32_t* __restrict__ level, const float* __restrict__ vsum,
                               bf16* __restrict__ out, float* __restrict__ lse, int nq, int nk,
                               float scale, int causal) {
-  using TQ = Tile<D, 2 * kTile>;
-  using TK = Tile<D, kTile>;
+  constexpr int W = Width<D>::W, N = Width<D>::N, SPLIT = Width<D>::SPLIT;
+  constexpr int QROWS = 2 * kTile / SPLIT;   // the block's query rows
+  constexpr int QL = 2 * kWG / QROWS;        // SPARSE: lanes densifying a Q row (2 or 4)
+  constexpr int QL_BITS = QL == 2 ? 1 : 2;
+  // the block-skip map: the d 32 / 64 / 128 bodies only (the wrapper keeps
+  // the schedule of 80 and 256 on the CUDA-core body)
+  if constexpr (!(SPARSE && Width<D>::SKIP)) level = nullptr;
+  using TQ = Tile<W, QROWS>;
+  using TK = Tile<W, kTile>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar[3];   // Q; K/V stage 0, 1 (SPARSE: V only)
   uint8_t* qs = align1024(smem_raw);
@@ -397,17 +447,19 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   const int tid = threadIdx.x;
   const int wg = tid / kWG;
   const int bh = blockIdx.x;
-  const int tiles = (nq + 2 * kTile - 1) / (2 * kTile);
-  const int q0 = (causal ? tiles - 1 - static_cast<int>(blockIdx.y) : blockIdx.y) * 2 * kTile;
-  const int r0 = q0 + wg * kTile;            // this warpgroup's first row
-  const int k_end = causal ? min(nk, q0 + 2 * kTile) : nk;
+  const int tiles = (nq + QROWS - 1) / QROWS;
+  const int q0 = (causal ? tiles - 1 - static_cast<int>(blockIdx.y) : blockIdx.y) * QROWS;
+  const int wrow = SPLIT == 1 ? kTile : 0;   // row offset from one warpgroup to the next
+  const int r0 = q0 + wg * wrow;             // this warpgroup's first row
+  const int c0 = SPLIT == 1 ? 0 : wg * N;    // and first column of O
+  const int k_end = causal ? min(nk, q0 + QROWS) : nk;
   const int ntiles = (k_end + kTile - 1) / kTile;
   const int wg_tiles = ((causal ? min(nk, r0 + kTile) : nk) + kTile - 1) / kTile;
 
   // SPARSE: warpgroup w's level of key tile t, uniform over its threads
   const int nqb = (nq + kTile - 1) / kTile, nkb = (nk + kTile - 1) / kTile;
   auto level_of = [&](int w, int t) {
-    const int rw = q0 + w * kTile;
+    const int rw = q0 + w * wrow;
     if (t * kTile >= (causal ? min(nk, rw + kTile) : nk)) return 0;
     return level == nullptr ? 2 : static_cast<int>(lv[w * nkb + t]);
   };
@@ -450,13 +502,14 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       stage_row<4>(cs, kc.packed, static_cast<size_t>(bh) * nk, t_next * kTile + krow, nk,
                    kc.k, krow, kpart);
     }
-    // Q: two lanes a row, straight from the codes
-    densify_part<D, 2 * kTile, 2>(qs, tid >> 1, tid & 1,
-                                  qc.packed + (static_cast<size_t>(bh) * nq + q0 + (tid >> 1)) * qc.k,
-                                  qc.k, q0 + (tid >> 1) < nq);
+    // Q: QL lanes a row, straight from the codes
+    const int qrow = tid >> QL_BITS;
+    densify_part<W, QROWS, QL>(qs, qrow, tid & (QL - 1),
+                               qc.packed + (static_cast<size_t>(bh) * nq + q0 + qrow) * qc.k,
+                               qc.k, q0 + qrow < nq);
     if (t_next < ntiles) {
       staged_wait();
-      densify_part<D, kTile, 4>(ks, krow, kpart, staged_row(cs, krow, kc.k), kc.k,
+      densify_part<W, kTile, 4>(ks, krow, kpart, staged_row(cs, krow, kc.k), kc.k,
                                 t_next * kTile + krow < nk);
     }
     fence_proxy_async();
@@ -464,9 +517,9 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   const float sl2 = scale * kLog2e;
-  float o[D / 2];
+  float o[N / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < N / 2; ++i) o[i] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY};    // running max (log2 units), rows h = 0, 1
   float l[2] = {0.0f, 0.0f};              // this thread's share of the row sums
   const uint32_t qa = hopper::smem_u32(qs);
@@ -479,7 +532,7 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       lvl = level_of(wg, t);
       const float* vsum_row = vsum + (static_cast<size_t>(bh) * nkb + t) * D;
       if (t != t_next) {                    // no warpgroup computes this tile: nothing loads
-        if (lvl == 1) closed_form<D>(o, m, l, vsum_row);
+        if (lvl == 1) closed_form<N>(o, m, l, vsum_row);
         continue;
       }
       st = loaded & 1;
@@ -494,7 +547,7 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         stage_row<4>(cs, kc.packed, static_cast<size_t>(bh) * nk, t_next * kTile + krow, nk,
                      kc.k, krow, kpart);
       }
-      if (lvl == 1) closed_form<D>(o, m, l, vsum_row);
+      if (lvl == 1) closed_form<N>(o, m, l, vsum_row);
     } else {
       st = t & 1;
       use = t;
@@ -511,7 +564,7 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     auto densify_next = [&]() {
       if (t_next < ntiles) {
         staged_wait();
-        densify_part<D, kTile, 4>(ks + (st ^ 1) * TK::BYTES, krow, kpart,
+        densify_part<W, kTile, 4>(ks + (st ^ 1) * TK::BYTES, krow, kpart,
                                   staged_row(cs, krow, kc.k), kc.k, t_next * kTile + krow < nk);
         fence_proxy_async();
       }
@@ -522,7 +575,7 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
 
       float s[32];
       hopper::wgmma_fence();
-      mma_abt<D, 2 * kTile>(s, qa, wg * kTile, hopper::smem_u32(ks + st * TK::BYTES));
+      mma_abt<D, QROWS>(s, qa, wg * wrow, hopper::smem_u32(ks + st * TK::BYTES));
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(s);
@@ -555,11 +608,11 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       hopper::fence_regs(o);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i % 4) / 2];
+      for (int i = 0; i < N / 2; ++i) o[i] *= corr[(i % 4) / 2];
 
       const Split p(s);
       hopper::wgmma_fence();
-      mma_xb<D>(o, p, hopper::smem_u32(vs + st * TK::BYTES));
+      mma_xb<W, N>(o, p, hopper::smem_u32(vs + st * TK::BYTES) + TK::column(c0));
       hopper::wgmma_commit();
       if constexpr (SPARSE) densify_next();
       hopper::wgmma_wait<0>();
@@ -577,19 +630,19 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     const float sum = fmaxf(quad_sum(l[h]), 1e-30f);
     inv[h] = 1.0f / sum;
     const int r = r0 + acc_row(2 * h);
-    if (lse != nullptr && tid % 4 == 0 && r < nq)
+    if (lse != nullptr && c0 == 0 && tid % 4 == 0 && r < nq)
       lse[static_cast<size_t>(bh) * nq + r] = (m[h] + log2f(sum)) * kLn2;
   }
-  store_rows<D>(out, o, static_cast<size_t>(bh) * nq, r0, nq, inv[0], inv[1]);
+  store_rows<D>(out, o, static_cast<size_t>(bh) * nq, r0, nq, c0, inv[0], inv[1]);
 }
 
 // ---- the backward ------------------------------------------------------------
 
 // dQ: one warpgroup per (bh, 64-query tile), over the key tiles up to the
-// causal edge. Shared: Q, dO, then K and V in two stages (SPARSE: and one
-// key tile's codes).
+// causal edge (at d 256 two, a column half of dQ each). Shared: Q, dO, then
+// K and V in two stages (SPARSE: and one key tile's codes).
 template <int D, bool SPARSE>
-__global__ void __launch_bounds__(kWG, 1)
+__global__ void __launch_bounds__(Width<D>::THREADS, 1)
 attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
@@ -597,7 +650,8 @@ attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            bf16* __restrict__ dq, int nq, int nk, float scale, int causal,
                            int emit, int rot_dim) {
-  using T = Tile<D, kTile>;
+  constexpr int W = Width<D>::W, N = Width<D>::N, RL = Width<D>::LANES;
+  using T = Tile<W, kTile>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar[3];   // Q + dO; K/V stage 0, 1 (SPARSE: dO; V)
   uint8_t* qs = align1024(smem_raw);
@@ -613,7 +667,9 @@ attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const int k_end = causal ? min(nk, q0 + kTile) : nk;
   const int ntiles = (k_end + kTile - 1) / kTile;
   constexpr int LOADS = SPARSE ? 1 : 2;      // TMA tiles per barrier
-  const int row = tid >> 1, part = tid & 1;  // SPARSE: 2 lanes densify a row
+  // SPARSE: RL lanes (2, 4 at d 256) densify a row
+  const int row = tid >> Width<D>::LANE_BITS, part = tid & (RL - 1);
+  const int c0 = Width<D>::SPLIT == 1 ? 0 : (tid / kWG) * N;   // the warpgroup's first column
 
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
@@ -629,12 +685,12 @@ attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     T::load(vs, &vmap, &bar[1], 0, bh);
   }
   if constexpr (SPARSE) {
-    stage_row<2>(cs, kc.packed, static_cast<size_t>(bh) * nk, row, nk, kc.k, row, part);
-    densify_part<D, kTile, 2>(qs, row, part,
-                              qc.packed + (static_cast<size_t>(bh) * nq + q0 + row) * qc.k, qc.k,
-                              q0 + row < nq);
+    stage_row<RL>(cs, kc.packed, static_cast<size_t>(bh) * nk, row, nk, kc.k, row, part);
+    densify_part<W, kTile, RL>(qs, row, part,
+                               qc.packed + (static_cast<size_t>(bh) * nq + q0 + row) * qc.k,
+                               qc.k, q0 + row < nq);
     staged_wait();
-    densify_part<D, kTile, 2>(ks, row, part, staged_row(cs, row, kc.k), kc.k, row < nk);
+    densify_part<W, kTile, RL>(ks, row, part, staged_row(cs, row, kc.k), kc.k, row < nk);
     fence_proxy_async();
     __syncthreads();
   }
@@ -648,9 +704,9 @@ attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     lse2[h] = lse[at] * kLog2e;
     dl[h] = delta[at];
   }
-  float acc[D / 2];
+  float acc[N / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
   const uint32_t qa = hopper::smem_u32(qs), da = hopper::smem_u32(dos);
   hopper::mbar_wait(&bar[0], 0);
 
@@ -664,8 +720,8 @@ attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     if constexpr (SPARSE) {
       if (t + 1 < ntiles)
-        stage_row<2>(cs, kc.packed, static_cast<size_t>(bh) * nk, (t + 1) * kTile + row, nk,
-                     kc.k, row, part);
+        stage_row<RL>(cs, kc.packed, static_cast<size_t>(bh) * nk, (t + 1) * kTile + row, nk,
+                      kc.k, row, part);
     }
     hopper::mbar_wait(&bar[1 + st], (t >> 1) & 1);
     const int k0 = t * kTile;
@@ -694,13 +750,13 @@ attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const Split ds(s);
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
-    mma_xb<D>(acc, ds, ka);
+    mma_xb<W, N>(acc, ds, ka + T::column(c0));
     hopper::wgmma_commit();
     if constexpr (SPARSE) {
       if (t + 1 < ntiles) {                  // the next key tile, while dQ's products run
         staged_wait();
-        densify_part<D, kTile, 2>(ks + (st ^ 1) * T::BYTES, row, part, staged_row(cs, row, kc.k),
-                                  kc.k, (t + 1) * kTile + row < nk);
+        densify_part<W, kTile, RL>(ks + (st ^ 1) * T::BYTES, row, part,
+                                   staged_row(cs, row, kc.k), kc.k, (t + 1) * kTile + row < nk);
         fence_proxy_async();
       }
     }
@@ -710,18 +766,19 @@ attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   if constexpr (SPARSE) {
     __syncthreads();                         // every product is done: K/V stages are scratch
-    emit_grad<D>(dq, acc, static_cast<size_t>(bh) * nq, q0, nq, qc.idx, qc.k, emit, rot_dim,
-                 reinterpret_cast<float*>(ks));
+    emit_grad<D>(dq, acc, static_cast<size_t>(bh) * nq, q0, nq, c0, qc.idx, qc.k, emit,
+                 rot_dim, reinterpret_cast<float*>(ks));
   } else {
-    store_rows<D>(dq, acc, static_cast<size_t>(bh) * nq, q0, nq, 1.0f, 1.0f);
+    store_rows<D>(dq, acc, static_cast<size_t>(bh) * nq, q0, nq, c0, 1.0f, 1.0f);
   }
 }
 
 // dK/dV: one warpgroup per (bh, 64-key tile), over the query tiles from the
-// causal diagonal. Shared: K, V, then Q and dO in two stages (SPARSE: and
-// one query tile's codes), and each query tile's LSE and D.
+// causal diagonal (at d 256 two, a column half of dK and dV each). Shared:
+// K, V, then Q and dO in two stages (SPARSE: and one query tile's codes),
+// and each query tile's LSE and D.
 template <int D, bool SPARSE>
-__global__ void __launch_bounds__(kWG, 1)
+__global__ void __launch_bounds__(Width<D>::THREADS, 1)
 attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
@@ -729,7 +786,8 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             bf16* __restrict__ dk, bf16* __restrict__ dv, int nq, int nk,
                             float scale, int causal, int emit, int rot_dim) {
-  using T = Tile<D, kTile>;
+  constexpr int W = Width<D>::W, N = Width<D>::N, RL = Width<D>::LANES;
+  using T = Tile<W, kTile>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar[3];   // K + V; Q/dO stage 0, 1 (SPARSE: V; dO)
   __shared__ float lse_s[2][kTile], dl_s[2][kTile];
@@ -745,7 +803,9 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const int q_first = causal ? k0 : 0;
   const int ntiles = q_first < nq ? (nq - q_first + kTile - 1) / kTile : 0;
   constexpr int LOADS = SPARSE ? 1 : 2;      // TMA tiles per barrier
-  const int row = tid >> 1, part = tid & 1;  // SPARSE: 2 lanes densify a row
+  // SPARSE: RL lanes (2, 4 at d 256) densify a row
+  const int row = tid >> Width<D>::LANE_BITS, part = tid & (RL - 1);
+  const int c0 = Width<D>::SPLIT == 1 ? 0 : (tid / kWG) * N;   // the warpgroup's first column
 
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
@@ -764,15 +824,15 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   if constexpr (SPARSE) {
     if (ntiles > 0)
-      stage_row<2>(cs, qc.packed, static_cast<size_t>(bh) * nq, q_first + row, nq, qc.k, row,
-                   part);
-    densify_part<D, kTile, 2>(ks, row, part,
-                              kc.packed + (static_cast<size_t>(bh) * nk + k0 + row) * kc.k, kc.k,
-                              k0 + row < nk);
+      stage_row<RL>(cs, qc.packed, static_cast<size_t>(bh) * nq, q_first + row, nq, qc.k, row,
+                    part);
+    densify_part<W, kTile, RL>(ks, row, part,
+                               kc.packed + (static_cast<size_t>(bh) * nk + k0 + row) * kc.k,
+                               kc.k, k0 + row < nk);
     if (ntiles > 0) {
       staged_wait();
-      densify_part<D, kTile, 2>(qs, row, part, staged_row(cs, row, qc.k), qc.k,
-                                q_first + row < nq);
+      densify_part<W, kTile, RL>(qs, row, part, staged_row(cs, row, qc.k), qc.k,
+                                 q_first + row < nq);
     }
     fence_proxy_async();
     __syncthreads();
@@ -787,9 +847,9 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   const float sl2 = scale * kLog2e;
-  float dka[D / 2], dva[D / 2];
+  float dka[N / 2], dva[N / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.0f;
+  for (int i = 0; i < N / 2; ++i) dka[i] = dva[i] = 0.0f;
   const uint32_t ka = hopper::smem_u32(ks), va = hopper::smem_u32(vs);
   hopper::mbar_wait(&bar[0], 0);
 
@@ -808,8 +868,8 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     if constexpr (SPARSE) {
       if (t + 1 < ntiles)
-        stage_row<2>(cs, qc.packed, static_cast<size_t>(bh) * nq, q0 + kTile + row, nq, qc.k,
-                     row, part);
+        stage_row<RL>(cs, qc.packed, static_cast<size_t>(bh) * nq, q0 + kTile + row, nq, qc.k,
+                      row, part);
     }
     if (tid < kTile && t + 1 < ntiles && q0 + kTile + tid < nq) {
       lse_next = lse[stat0 + q0 + kTile + tid] * kLog2e;
@@ -844,8 +904,8 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::fence_regs(dva);
     hopper::fence_regs(dka);
     hopper::wgmma_fence();
-    mma_xb<D>(dva, pt, da);
-    mma_xb<D>(dka, dst, qa);
+    mma_xb<W, N>(dva, pt, da + T::column(c0));
+    mma_xb<W, N>(dka, dst, qa + T::column(c0));
     hopper::wgmma_commit();
     // SPARSE: densify the next query tile into the free stage, while the
     // products run where the registers allow (at d 128 the two accumulators
@@ -853,8 +913,8 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     auto densify_next = [&]() {
       if (t + 1 < ntiles) {
         staged_wait();
-        densify_part<D, kTile, 2>(qs + (st ^ 1) * T::BYTES, row, part, staged_row(cs, row, qc.k),
-                                  qc.k, q0 + kTile + row < nq);
+        densify_part<W, kTile, RL>(qs + (st ^ 1) * T::BYTES, row, part,
+                                   staged_row(cs, row, qc.k), qc.k, q0 + kTile + row < nq);
         fence_proxy_async();
       }
     };
@@ -870,13 +930,13 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if constexpr (SPARSE && !kOverlap) densify_next();
   }
   const size_t rows = static_cast<size_t>(bh) * nk;
-  store_rows<D>(dv, dva, rows, k0, nk, 1.0f, 1.0f);
+  store_rows<D>(dv, dva, rows, k0, nk, c0, 1.0f, 1.0f);
   if constexpr (SPARSE) {
     __syncthreads();                         // every product is done: Q/dO stages are scratch
-    emit_grad<D>(dk, dka, rows, k0, nk, kc.idx, kc.k, emit, rot_dim,
+    emit_grad<D>(dk, dka, rows, k0, nk, c0, kc.idx, kc.k, emit, rot_dim,
                  reinterpret_cast<float*>(qs));
   } else {
-    store_rows<D>(dk, dka, rows, k0, nk, 1.0f, 1.0f);
+    store_rows<D>(dk, dka, rows, k0, nk, c0, 1.0f, 1.0f);
   }
 }
 

@@ -9,8 +9,9 @@
 //
 // Tile layout. A (ROWS, D) bf16 tile of a row-major (bh, n, D) tensor is
 // loaded by TMA in column chunks of one swizzle span each: 128-byte rows
-// (64 columns) with the 128-byte swizzle for D = 64 and 128, 64-byte rows
-// (32 columns) with the 64-byte swizzle for D = 32. Chunk c holds columns
+// (64 columns) with the 128-byte swizzle for D a multiple of 64 (64, 128,
+// 256), 64-byte rows (32 columns) with the 64-byte swizzle for D = 32 and
+// 96 (the tile of a head of 80: tile_width). Chunk c holds columns
 // [c * CHUNK, (c + 1) * CHUNK) of every row, at c * ROWS * SW bytes. Tiles
 // sit on 1024-byte boundaries, since the swizzle is a function of the
 // absolute shared address. Such a tile is a wgmma operand two ways:
@@ -116,10 +117,19 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
+// The tile width that holds a head of d columns: d itself, but 80 padded to
+// 96, three 64-byte swizzle spans of 32 columns (20 % of the columns idle;
+// 128 would leave 60 % idle). The padding columns hold zeros: TMA fills
+// what lies past the tensor's d, the densify zeroes every column it owns.
+__host__ __device__ constexpr int tile_width(int d) { return d == 80 ? 96 : d; }
+// the swizzle span (bytes) of a tile of w columns
+__host__ __device__ constexpr int tile_swizzle(int w) { return w % 64 == 0 ? 128 : 64; }
+
 template <int D, int ROWS>
 struct Tile {
-  static_assert(D == 32 || D == 64 || D == 128, "D in {32, 64, 128}");
-  static constexpr int SW = D >= 64 ? 128 : 64;     // swizzle span, bytes
+  static_assert(D == 32 || D == 64 || D == 96 || D == 128 || D == 256,
+                "D in {32, 64, 96, 128, 256}");
+  static constexpr int SW = tile_swizzle(D);        // swizzle span, bytes
   static constexpr int CHUNK = SW / 2;              // bf16 columns per chunk
   static constexpr int CHUNKS = D / CHUNK;
   static constexpr int BYTES = ROWS * D * 2;
@@ -137,10 +147,14 @@ struct Tile {
     const int byte = kk * 32;
     return make_desc(base + (byte / SW) * ROWS * SW + r0 * SW + byte % SW, 16, 8 * SW, LAYOUT);
   }
-  // MN-major operand: tile rows [16kk, 16kk + 16) as K, all D columns as N
+  // MN-major operand: tile rows [16kk, 16kk + 16) as K, the columns from
+  // `base`'s chunk on as N (LBO steps from chunk to chunk)
   static __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int kk) {
     return make_desc(base + kk * 16 * SW, ROWS * SW, 8 * SW, LAYOUT);
   }
+  // byte offset of column c0 (a multiple of CHUNK): where an MN-major
+  // operand of the columns [c0, ..) starts
+  static __device__ __forceinline__ uint32_t column(int c0) { return (c0 / CHUNK) * ROWS * SW; }
 };
 
 // ---- wgmma ----------------------------------------------------------------
@@ -208,6 +222,20 @@ template <> struct Mma<64> {
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
         "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
+
+template <> struct Mma<96> {
+  // D(64x96) += A(64x16, registers) . B(16x96, smem, MN-major): P.V, dS.K,
+  // P^T.dO and dS^T.Q on the 96-column tile of a head of 80
+  static __device__ __forceinline__ void rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
   }
 };
@@ -320,11 +348,12 @@ inline int map_3d(CUtensorMap* map, const void* ptr, long long cols, long long r
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The map of a contiguous (bh, n, d) bf16 tensor for Tile<d, box_rows>:
-// boxes of (CHUNK columns, box_rows rows, 1 head), swizzled as the tile
-// expects, rows past n zero-filled. Returns a cudaError_t value.
+// The map of a contiguous (bh, n, d) bf16 tensor for Tile<tile_width(d),
+// box_rows>: boxes of (CHUNK columns, box_rows rows, 1 head), swizzled as
+// the tile expects; rows past n and columns past d (a head of 80 in its 96
+// columns) zero-filled. Returns a cudaError_t value.
 inline int make_map(CUtensorMap* map, const void* ptr, int d, int n, int bh, int box_rows) {
-  const int sw = d >= 64 ? 128 : 64;
+  const int sw = tile_swizzle(tile_width(d));
   return map_3d(map, ptr, d, n, d, bh, static_cast<long long>(n) * d, sw / 2, box_rows, sw);
 }
 

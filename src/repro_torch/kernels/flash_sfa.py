@@ -6,18 +6,23 @@ schedules (``block_skip=False``: Pallas body ``_flash_sfa_kernel``, helpers
 ``_flash_sfa_skip_kernel`` with its XLA pre-pass ``_tile_occupancy`` /
 ``_block_maps``), with two CUDA bodies chosen by dtype and shape:
 
-* bf16 with d = dv in {32, 64, 128} and k <= 32 — the tensor-core body
-  (``csrc/flash_sfa_tc.cu`` on ``csrc/attention_tc.cuh``, the dense bf16
-  forward's schedule): one block of two warpgroups per (bh, 128-query
-  tile); the query codes densified once into a swizzled shared-memory tile,
-  each 64-key tile's codes staged one tile ahead (cp.async, beside V's TMA
-  load) and densified the same way, as the TPU densifies in VMEM; S = Q̃·K̃ᵀ
-  and P·V as ``wgmma`` with the online softmax in registers and P split
-  into bf16 hi + lo. A pack kernel first turns each code into one 32-bit
-  word. Bound on the H100: operations, now on the tensor cores (4·d flops
-  per (query, key) pair, 6·d with the split).
-* f32, and bf16 shapes outside that set (d ≠ dv, k > 32, dv 80 or 256) — the
-  CUDA-core body of
+* bf16 with d = dv in {32, 64, 80, 128, 256} and k <= 32 (the block-skip
+  schedule at 32, 64 and 128) — the tensor-core body
+  (``csrc/flash_sfa_tc.cuh`` on ``csrc/attention_tc.cuh``, the dense bf16
+  forward's schedule; built from ``flash_sfa_tc.cu``, and at 80 and 256
+  from ``flash_sfa_tc_wide.cu``): one block of two warpgroups per (bh,
+  128-query tile); the query codes densified once into a swizzled
+  shared-memory tile, each 64-key tile's codes staged one tile ahead
+  (cp.async, beside V's TMA load) and densified the same way, as the TPU
+  densifies in VMEM; S = Q̃·K̃ᵀ and P·V as ``wgmma`` with the online softmax
+  in registers and P split into bf16 hi + lo. A pack kernel first turns
+  each code into one 32-bit word. At d 80 the tiles are 96 columns wide
+  (zeros past 80); at d 256 a block's two warpgroups share 64 query rows,
+  each computing the whole S and one 128-column half of O. Bound on the
+  H100: operations, now on the tensor cores (4·d flops per (query, key)
+  pair, 6·d with the split).
+* f32, and bf16 shapes outside that set (d ≠ dv, k > 32, block skip at 80
+  or 256) — the CUDA-core body of
   ``csrc/flash_sfa.cu``: one block per (bh, 64-query tile), each key tile
   densified into shared memory as (64 × d) f32, scores gathered at each
   query's own k coordinates (k multiply-adds per score), online softmax
@@ -65,17 +70,29 @@ _TC_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
             + [ctypes.c_int] + [ctypes.c_void_p])
 BLOCK = 64          # the kernels' level-map tile (csrc/flash_sfa.cu kBQ = kBK; a warpgroup)
 # the shapes the forward's bodies take (models/backends.py reads them)
-V_HEAD_DIMS = (32, 64, 80, 128, 256)  # dv, either body (80, 256: the CUDA-core one)
+V_HEAD_DIMS = (32, 64, 80, 128, 256)  # dv, either body
 MAX_D = 256                   # d, either body
-TC_DIMS = (32, 64, 128)       # d = dv of the tensor-core bodies
+TC_DIMS = (32, 64, 80, 128, 256)  # d = dv of the tensor-core bodies
+# their widths built apart (csrc/flash_sfa_tc_wide.cu); the block-skip
+# schedule has no tensor-core body at them
+WIDE_DIMS = (80, 256)
 TC_MAX_K = 32                 # their largest code width
 
 
-def tensor_core_body(dtype, d: int, dv: int, kq: int, kk: int) -> bool:
+def tensor_core_body(dtype, d: int, dv: int, kq: int, kk: int,
+                     block_skip: bool = False) -> bool:
     """Whether a call on the card runs the tensor-core body (forward and
-    backward alike): bf16 with d = dv in {32, 64, 128} and k <= 32."""
+    backward alike): bf16 with d = dv in ``TC_DIMS`` and k <= 32, the
+    block-skip schedule not at the wide widths (80, 256)."""
     return (dtype == torch.bfloat16 and d == dv and dv in TC_DIMS
-            and 0 < kq <= TC_MAX_K and 0 < kk <= TC_MAX_K)
+            and 0 < kq <= TC_MAX_K and 0 < kk <= TC_MAX_K
+            and not (block_skip and dv in WIDE_DIMS))
+
+
+def tc_library(d: int) -> str:
+    """The source (``csrc/<name>.cu``) whose library holds the tensor-core
+    body at d."""
+    return "flash_sfa_tc_wide" if d in WIDE_DIMS else "flash_sfa_tc"
 
 
 def packed_scratch(bh: int, nq: int, kq: int, nk: int, kk: int, device):
@@ -161,8 +178,9 @@ def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
     Exactly softmax(densify(Q̃)·densify(K̃)ᵀ·scale + causal)·V, with either
     schedule (``block_skip``: skip dead and zero-overlap tiles). On the card
     the code values and v share one dtype (f32 or bf16), indices are int32,
-    d <= 256 and dv is in ``V_HEAD_DIMS``. bf16 with d = dv in {32, 64, 128}
-    and k <= 32 runs the tensor-core body, everything else the CUDA-core body.
+    d <= 256 and dv is in ``V_HEAD_DIMS``. bf16 with d = dv in ``TC_DIMS``
+    and k <= 32 runs the tensor-core body (block skip: not at 80 or 256),
+    everything else the CUDA-core body.
     """
     scale = float(scale if scale is not None else d ** -0.5)
     _build.refuse_grad("flash_sfa", q_vals, k_vals, v)
@@ -200,16 +218,17 @@ def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
     ptrs = (lse.data_ptr() if lse is not None else None,
             level.data_ptr() if level is not None else None,
             vsum.data_ptr() if vsum is not None else None)
-    if tensor_core_body(dt, d, dv, kq, kk):
+    if tensor_core_body(dt, d, dv, kq, kk, block_skip):
         v = _build.tma_operand(v)
         packed = packed_scratch(bh, nq, kq, nk, kk, v.device)
-        fn = _build.entry("flash_sfa_tc", "flash_sfa_tc_fwd_launch", _TC_ARGS)
+        lib = tc_library(d)
+        fn = _build.entry(lib, "flash_sfa_tc_fwd_launch", _TC_ARGS)
         with torch.cuda.device(v.device):
             err = fn(q_vals.data_ptr(), q_idx.data_ptr(), k_vals.data_ptr(),
                      k_idx.data_ptr(), v.data_ptr(), out.data_ptr(), *ptrs,
                      packed.data_ptr(), bh, nq, nk, kq, kk, d, scale, int(causal),
                      _build.stream_ptr(v))
-        _build.check("flash_sfa_tc", err, "flash_sfa launch")
+        _build.check(lib, err, "flash_sfa launch")
     else:
         fn = _build.entry("flash_sfa", "flash_sfa_fwd_launch", _ARGS)
         with torch.cuda.device(v.device):

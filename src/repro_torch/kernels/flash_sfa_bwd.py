@@ -15,9 +15,12 @@ reduction outside the kernels, as the JAX package computes it in XLA.
 ``flash_sfa_bwd`` chooses its body by dtype and shape, as the forward does
 (``flash_sfa.tensor_core_body``):
 
-* bf16 with d = dv in {32, 64, 128} and k <= 32 — the tensor-core body
-  (``csrc/flash_sfa_tc.cu`` on ``csrc/attention_tc.cuh``, the dense bf16
-  backward's schedule): each Q̃ and K̃ tile is densified from the codes
+* bf16 with d = dv in {32, 64, 80, 128, 256} and k <= 32 — the tensor-core
+  body (``csrc/flash_sfa_tc.cuh`` on ``csrc/attention_tc.cuh``, the dense
+  bf16 backward's schedule; 80 and 256 built from ``flash_sfa_tc_wide.cu``,
+  80 in tiles of 96 columns, 256 with two warpgroups a block each owning a
+  128-column half of dQ, or of dK and dV, and each computing the whole S
+  and dP): each Q̃ and K̃ tile is densified from the codes
   (packed into 32-bit words by a pack kernel, the streamed side staged one
   tile ahead by cp.async) into the swizzled shared-memory layout TMA would
   write; S, dP, dV, dK and dQ run as ``wgmma`` with P and dS split into
@@ -32,7 +35,9 @@ reduction outside the kernels, as the JAX package computes it in XLA.
   shared memory and dQ/dK accumulated only on each row's k stored
   coordinates (k multiply-adds per pair), the compact emits written
   straight from those k-wide accumulators. Exact in f32; f32 on the tensor
-  cores would be TF32, which fails f32's 1e-4 check.
+  cores would be TF32, which fails f32's 1e-4 check. It takes dv up to 128:
+  at 256 its f32 tiles (~197 KB) do not fit beside the rest, so the
+  wrapper declines f32 at dv 256.
 
 The emit decides what is written: dense rows that are zero off the support
 (the straight-through gradient of paper Eq. 6), the values at the stored
@@ -59,17 +64,18 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import HEAD_DIMS as _DENSE_DIMS
-from repro_torch.kernels.flash_sfa import MAX_D, packed_scratch, tensor_core_body
+from repro_torch.kernels.flash_sfa import MAX_D, packed_scratch, tc_library, tensor_core_body
 from repro_torch.kernels.ref import flash_attention_bwd_ref as flash_attention_bwd_plain
 from repro_torch.kernels.ref import flash_sfa_bwd_ref as flash_sfa_bwd_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_K = 32          # the largest code width either backward body takes (d: as the
                     # forward's, flash_sfa.MAX_D)
-# dv of the backward's bodies (80: the CUDA-core one). The forward's list
-# also has 256, which no backward body takes: models/backends.py checks a
-# layer that trains against this list.
-V_HEAD_DIMS = (32, 64, 80, 128)
+# dv of the backward's bodies: the tensor-core body takes every one (bf16,
+# d = dv), the CUDA-core body all but 256. models/backends.py checks a layer
+# that trains against the list of its dtype.
+V_HEAD_DIMS = (32, 64, 80, 128, 256)
+CUDA_CORE_V_HEAD_DIMS = (32, 64, 80, 128)
 
 _SFA_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -120,8 +126,9 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
 
     On the card the code values, v, o and g share one dtype (f32 or bf16),
     indices are int32, k <= 32, d <= 256 and dv is in ``V_HEAD_DIMS``. bf16 with
-    d = dv in {32, 64, 128} runs the tensor-core body, everything else the
-    CUDA-core body (``flash_sfa.tensor_core_body``).
+    d = dv in ``flash_sfa.TC_DIMS`` runs the tensor-core body, everything else
+    the CUDA-core body (``flash_sfa.tensor_core_body``), which takes dv in
+    ``CUDA_CORE_V_HEAD_DIMS``.
     """
     if emit not in _EMITS:
         raise ValueError(f"emit={emit!r}; expected 'dense', 'compact' or 'compact2'")
@@ -142,6 +149,11 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
         raise ValueError(f"flash_sfa_bwd kernel takes f32/bf16, dv in {V_HEAD_DIMS}, "
                          f"d <= {MAX_D} and k <= {MAX_K}; got {dt}, dv={dv}, d={d}, "
                          f"k={kq}/{kk}")
+    on_tc = tensor_core_body(dt, d, dv, kq, kk)
+    if not on_tc and dv not in CUDA_CORE_V_HEAD_DIMS:
+        raise ValueError(f"flash_sfa_bwd: the CUDA-core body takes dv in "
+                         f"{CUDA_CORE_V_HEAD_DIMS} (dv {dv} only on the tensor-core body: "
+                         f"bf16, d = dv, k <= {MAX_K}); got {dt}, dv={dv}, d={d}")
     what = "flash_sfa_bwd"
     _check(what, "q_idx", q_idx, (bh, nq, kq), torch.int32, dev)
     _check(what, "k_vals", k_vals, (bh, nk, kk), dt, dev)
@@ -158,17 +170,18 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
     dq = torch.empty((bh, nq, wq), dtype=dt, device=dev)
     dk = torch.empty((bh, nk, wk), dtype=dt, device=dev)
     dvo = torch.empty((bh, nk, dv), dtype=dt, device=dev)
-    if tensor_core_body(dt, d, dv, kq, kk):
+    if on_tc:
         v, g = _build.tma_operand(v), _build.tma_operand(g)
         packed = packed_scratch(bh, nq, kq, nk, kk, dev)
-        fn = _build.entry("flash_sfa_tc", "flash_sfa_tc_bwd_launch", _TC_ARGS)
+        lib = tc_library(d)
+        fn = _build.entry(lib, "flash_sfa_tc_bwd_launch", _TC_ARGS)
         with torch.cuda.device(dev):
             err = fn(q_vals.data_ptr(), q_idx.data_ptr(), k_vals.data_ptr(),
                      k_idx.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                      delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvo.data_ptr(),
                      packed.data_ptr(), bh, nq, nk, kq, kk, d, scale, int(causal),
                      _EMITS[emit], rot, _build.stream_ptr(v))
-        _build.check("flash_sfa_tc", err, "flash_sfa_bwd launch")
+        _build.check(lib, err, "flash_sfa_bwd launch")
     else:
         fn = _build.entry("flash_sfa_bwd", "flash_sfa_bwd_launch", _SFA_ARGS)
         with torch.cuda.device(dev):

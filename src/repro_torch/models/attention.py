@@ -110,9 +110,10 @@ def attention_init(gen, cfg: ModelConfig, device="cpu"):
 
 
 def _request(a: AttentionConfig, *, mode: str, window, paged: bool = False,
-             speculative: bool = False, backward: bool = True) -> AttentionRequest:
+             speculative: bool = False, backward: bool = True,
+             dtype: Optional[torch.dtype] = None) -> AttentionRequest:
     """Static backend request for this layer (``backward``: whether the
-    "full" call may be differentiated)."""
+    "full" call may be differentiated; ``dtype``: the activations')."""
     return AttentionRequest(
         mode=mode,
         causal=a.causal if mode == "full" else True,
@@ -126,6 +127,7 @@ def _request(a: AttentionConfig, *, mode: str, window, paged: bool = False,
         v_head_dim=a.head_dim,
         sfa_k=a.sfa_k,
         backward=backward,
+        dtype=None if dtype is None else str(dtype).removeprefix("torch."),
     )
 
 
@@ -298,7 +300,8 @@ def remat_codes_ineligible_reason(cfg: ModelConfig) -> Optional[str]:
         return "not an SFA stack (sfa_k unset): no codes to keep"
     if a.mla is not None:
         return "MLA latent attention bypasses the code-keeping q/k paths"
-    resolved = resolve_backend_name(a.backend, _request(a, mode="full", window=None))
+    resolved = resolve_backend_name(a.backend, _request(a, mode="full", window=None,
+                                                        dtype=getattr(torch, cfg.dtype)))
     if resolved != "cuda":
         return (f"backend {a.backend!r} resolves to {resolved!r} for train "
                 f"forwards: only the cuda kernel paths keep the codes")
@@ -482,7 +485,7 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
         where = f"{cfg.name}/attention"
         reason = compact_seam_ineligible_reason(cfg, window)
         if reason is None:
-            sel = select_backend(a.backend, _request(a, mode="full", window=window),
+            sel = select_backend(a.backend, _request(a, mode="full", window=window, dtype=dt),
                                  where=where)
             if sel.backend.name != "cuda":
                 reason = (f"backend resolved to {sel.backend.name!r}; the seam "
@@ -563,7 +566,7 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
     # a prefill or eval under no_grad runs the forward alone
     backward = mode == "train" or torch.is_grad_enabled()
     sel = select_backend(a.backend, _request(a, mode="full", window=window,
-                                             backward=backward),
+                                             backward=backward, dtype=q.dtype),
                          where=f"{cfg.name}/attention")
     o = sel.backend.full(q, k, v, num_heads=h, sfa_k=a.sfa_k, causal=a.causal,
                          window=window, scale=scale, rope_protect=a.sfa_rope_protect,

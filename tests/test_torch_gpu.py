@@ -196,13 +196,14 @@ def test_wrappers_refuse_grad_outside_their_function(cuda):
 
 
 @pytest.mark.parametrize("arch", ["gpt2-small-sfa8", "gpt2-small", "qwen3-0.6b-sfa8",
-                                  "qwen3-0.6b", "llama3.2-3b"])
+                                  "qwen3-0.6b", "llama3.2-3b", "paligemma-3b"])
 def test_trainer_runs_the_backward_kernels(cuda, arch):
     """Three steps of reduced ``arch`` (qwen3 and llama with GQA, 2 kv
-    heads): the forward and backward kernels launch as the layer count
-    predicts. llama takes the compact seam (RoPE, remat "codes") at its own
-    sfa_k 16, so its codes are 2k = 32 wide and code_grad runs its CUDA-core
-    bodies."""
+    heads; paligemma held at its head dim of 256, MQA): the forward and
+    backward kernels launch as the layer count predicts, paligemma's bf16
+    FlashSFA on the tensor-core bodies. llama takes the compact seam (RoPE,
+    remat "codes") at its own sfa_k 16, so its codes are 2k = 32 wide and
+    code_grad runs its CUDA-core bodies."""
     import dataclasses
 
     from repro_torch.configs.base import TrainPolicy
@@ -211,7 +212,10 @@ def test_trainer_runs_the_backward_kernels(cuda, arch):
     from repro_torch.optim import OptimizerConfig
     from repro_torch.train import Trainer, TrainerConfig
     cfg, full = get_config(arch).reduced(), get_config(arch).attention
-    if full.rope:                        # GQA, and the model's own k
+    if arch == "paligemma-3b":           # its own head dim (reduced() caps it at 32)
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, head_dim=full.head_dim))
+    elif full.rope:                      # GQA, and the model's own k
         cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
             cfg.attention, num_kv_heads=2, sfa_k=full.sfa_k))
     seam = arch.startswith("llama")
@@ -241,7 +245,10 @@ def test_trainer_runs_the_backward_kernels(cuda, arch):
     # remat="full": each layer's forward runs twice per step, its backward once
     assert counts[fwd] == 2 * counts[bwd] == 2 * L
     if cfg.attention.sfa_k:
-        assert counts["rtopk"] == 4 * L and bodies["rtopk_warp"] == 0
+        # rtopk's one-thread body takes d <= 128; d 256 runs its warp body
+        wide = cfg.attention.head_dim > 128
+        assert counts["rtopk"] == 4 * L and bodies["rtopk_warp"] == (4 * L if wide else 0)
+        assert bodies["flash_sfa_cuda_core"] == bodies["flash_sfa_bwd_cuda_core"] == 0
 
 
 def test_engine_launches_every_kernel(cuda):
@@ -1007,16 +1014,18 @@ def test_moe_layer_on_card_gives_the_same_bits_twice_and_its_cpu_result(cuda):
 
 # --------------------------------------------------------------------------
 # the frontend families' head dims: d = dv 80 (hubert-xlarge, bidirectional)
-# and 256 (paligemma-3b, 8 query heads over 1 kv head), CUDA-core bodies
+# and 256 (paligemma-3b, 8 query heads over 1 kv head): bf16 on the
+# tensor-core bodies (flash_sfa_tc_wide.cu), f32 on the CUDA-core ones
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d,n,dtype", [(80, 1000, torch.float32), (80, 1000, torch.bfloat16),
                                        (256, 333, torch.float32), (256, 333, torch.bfloat16)])
 def test_flash_sfa_at_frontend_head_dims_on_card(cuda, d, n, dtype, causal):
-    """Row 3 at d = dv 80 and 256 (k 16, ragged n, both masks) on the
-    CUDA-core body, and row 5 (dense emit) at d = dv 80: against the plain
-    versions; the backward declines dv 256 in its wrapper."""
+    """Rows 3 and 5 at d = dv 80 and 256 (k 16, ragged n, both masks)
+    against the plain versions: bf16 on the tensor-core bodies (no
+    CUDA-core launch), the backward with every emit; f32 on the CUDA-core
+    bodies, whose backward declines dv 256 in its wrapper."""
     rs = np.random.RandomState(12)
     bh, k = 6, 16
     qv, qi = _codes(rs, bh, n, k, d)
@@ -1024,24 +1033,28 @@ def test_flash_sfa_at_frontend_head_dims_on_card(cuda, d, n, dtype, causal):
     v, g = (rs.randn(bh, n, d).astype(np.float32) for _ in range(2))
     qv_, qi_, kv_, ki_, v_, g_ = (torch.from_numpy(a).to(cuda) for a in (qv, qi, kv, ki, v, g))
     qv_, kv_, v_, g_ = (t.to(dtype) for t in (qv_, kv_, v_, g_))
+    tc = dtype == torch.bfloat16
     reset_launches()
     ko, kl = flash_sfa(qv_, qi_, kv_, ki_, v_, d=d, causal=causal, return_residuals=True)
     po, pl = ref.flash_sfa_ref(qv_, qi_, kv_, ki_, v_, d=d, causal=causal,
                                return_residuals=True)
-    assert body_counts()["flash_sfa_cuda_core"] == 1
+    assert body_counts()["flash_sfa_cuda_core"] == (0 if tc else 1)
     # f32: sums in another order, 1e-4; bf16 output: one bf16 ulp (2^-7 rel)
-    rtol = 2 ** -7 if dtype == torch.bfloat16 else 0
+    rtol = 2 ** -7 if tc else 0
     torch.testing.assert_close(ko.float(), po.float(), rtol=rtol, atol=1e-4)
     torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
-    if d == 256:
+    if d == 256 and not tc:
         with pytest.raises(ValueError, match="dv in"):
             flash_sfa_bwd(qv_, qi_, kv_, ki_, v_, po, pl, g_, d=d, causal=causal)
         return
-    got = flash_sfa_bwd(qv_, qi_, kv_, ki_, v_, po, pl, g_, d=d, causal=causal)
-    want = ref.flash_sfa_bwd_ref(qv_, qi_, kv_, ki_, v_, po, pl, g_, d=d, causal=causal)
-    assert body_counts()["flash_sfa_bwd_cuda_core"] == 1
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-4, msg=name)
+    for emit in ("dense", "compact", "compact2") if tc else ("dense",):
+        got = flash_sfa_bwd(qv_, qi_, kv_, ki_, v_, po, pl, g_, d=d, causal=causal, emit=emit)
+        want = ref.flash_sfa_bwd_ref(qv_, qi_, kv_, ki_, v_, po, pl, g_, d=d, causal=causal,
+                                     emit=emit)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-4,
+                                       msg=f"{emit} {name}")
+    assert body_counts()["flash_sfa_bwd_cuda_core"] == (0 if tc else 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

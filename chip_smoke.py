@@ -29,7 +29,8 @@ Phases; any failure raises and the script exits non-zero:
                8 x 16, n 1024, d 128, k 8), rows 10-14 at its decode
                shape (8 slots, 16 query heads over 8 kv heads, d 128; row
                12 one slot, C 5), rows 2, 4, 8, 9 at llama3.2-3b's
-               seam shape (24 heads, d 128, k 16, code width 32, m 3072),
+               seam shape (24 heads, d 128, k 16, code width 32, m 3072;
+               rows 8 and 9 on their tensor-core bodies at width 32),
                each an extra shape of its entry in the ``kernels`` line;
                then (``phase_moonshot_shapes``) rows 1, 3, 5 at
                moonshot-v1-16b-a3b's training shape (bh 8 x 16, n 1024, d
@@ -130,10 +131,12 @@ Phases; any failure raises and the script exits non-zero:
                says why and the op-level compact emit runs) and the dense
                qwen3-0.6b, full width and depth, batch 8 x 1024, bf16;
                llama3.2-3b at full width and 4 of 28 layers through the RoPE
-               compact seam (compact2, remat "codes"; code width 32, so
-               code_grad dx and dW on their CUDA-core bodies, 2L a step
-               each, as predicted); moonshot at full width and 4 of 48
-               layers (dense emit, remat "full"); hubert-xlarge (audio,
+               compact seam (compact2, remat "codes"; code width 32, code_grad
+               dx and dW on their tensor-core bodies, no CUDA-core body);
+               moonshot at full width and 4 of 48 layers (dense emit, remat
+               "full"; then through the RoPE compact seam, compact2, remat
+               "codes", launches as llama's, no CUDA-core body);
+               hubert-xlarge (audio,
                bidirectional, d 80) at full width and depth through
                ``make_train_step`` on seeded frame batches of 8 x 1024
                (``phase_train_frames``: rtopk on its warp body, FlashSFA
@@ -155,8 +158,10 @@ Phases; any failure raises and the script exits non-zero:
                bf16 (dense emit, remat="full"; compact seam,
                remat="codes") through the tensor-core FlashSFA bodies,
                held to the torch backend's own bf16 distance from float32;
-               then qwen3-0.6b-sfa8 and moonshot at full width and 2 layers
-               in bf16 (dense emit) by the same rule, and llama3.2-3b at full width and 2
+               then qwen3-0.6b-sfa8 (dense emit) and moonshot (dense emit,
+               then the compact seam: code width 32 on code_grad's
+               tensor-core bodies) at full width and 2 layers in bf16 by the
+               same rule, and llama3.2-3b at full width and 2
                layers in float32 through the compact seam against the torch
                backend (1e-4 on the loss, 1e-3 relative L2 a leaf); then
                hubert-xlarge at 2 layers on frames: bf16 by the rule above
@@ -232,7 +237,9 @@ their tensor-core bodies (codes densified in shared memory) and f32 on the
 CUDA-core ones: both are held against the plain versions, the tensor-core
 bodies also at d 32 and 128, causal and not, ragged n (the backward with
 every emit, the compact emit equal to the dense one gathered, two calls
-equal bit for bit). Phases 6, 8 and 9's bf16 gpt2-small-sfa8 runs must
+equal bit for bit). Phases 6, 8 and 9's bf16 gpt2-small-sfa8 runs, and
+phase 8b's llama and moonshot seam runs and phase 9's bf16 moonshot seam
+run (code width 32), must
 launch no CUDA-core body (proj_rtopk, FlashSFA, code_grad_dx, code_grad_dw);
 hubert's and paligemma's bf16 training phases no CUDA-core FlashSFA body.
 
@@ -261,9 +268,10 @@ random inputs (rows whose index sets differ must have a near-tie; with
 RoPE the codes bit-equal to RoPE and selection of the kernel's own y,
 which is within one ulp of the plain y), timed beside bf16 w in place and
 the CUDA-core body on the same bf16 inputs; code_grad_dx/dw (12 heads x
-8,192 tokens, k 8 and the 2k pair closure; bf16 codes on the tensor-core
-bodies, also against the CUDA-core bodies on the same inputs, bit-equal to
-the plain version on inputs whose sums are exact at d 32, 64 and 128, dx
+8,192 tokens, k 8, the 2k pair closure and code width 32 at d 64 and 128;
+bf16 codes on the tensor-core bodies, also against the CUDA-core bodies on
+the same inputs, bit-equal to the plain version on inputs whose sums are
+exact at d 32, 64 and 128 and widths 8, 16 and 32, dx
 with an f32 w in multiples of 1/16 or 2^-12 and a bf16 w, and dW with one
 token split, which must agree and is timed beside the default; the
 tensor-core kernels' ptxas registers and spills); block-skip flash_sfa on the training
@@ -1610,12 +1618,13 @@ def _bit_equal(got, want, what):
 
 def phase_code_grad(rs):
     """code_grad_dx/dw at the training path's shapes: 12 heads x 8,192
-    tokens of bf16 codes, k 8 (and the pair closure's 2k), m 768. bf16
-    codes run the tensor-core bodies, f32 the CUDA-core ones; each
-    tensor-core body is also held against its CUDA-core body on the same
-    bf16 inputs, bit for bit against the plain version on inputs whose sums
-    are exact (the layout check: d 32, 64 and 128, ragged n and m), and dW
-    with one token split."""
+    tokens of bf16 codes, k 8 (and the pair closure's 2k; and code width 32,
+    a k-16 RoPE model's, at d 64 and 128), m 768. bf16 codes run the
+    tensor-core bodies, f32 the CUDA-core ones; each tensor-core body is
+    also held against its CUDA-core body on the same bf16 inputs, bit for
+    bit against the plain version on inputs whose sums are exact (the
+    layout check: d 32, 64 and 128, widths 8, 16 and 32, ragged n and m),
+    and dW with one token split."""
     from repro_torch.kernels import body_counts, code_grad_dw, code_grad_dx, reset_launches
     from repro_torch.kernels.code_grad import tensor_core_body
     from repro_torch.kernels.ops import head_blocks
@@ -1623,43 +1632,51 @@ def phase_code_grad(rs):
     cg = sys.modules["repro_torch.kernels.code_grad"]
     h, ntok, m, d = HEADS, TRAIN_B * TRAIN_N, D_MODEL, HD
     for fn, (regs, spill) in ptxas_kernels("code_grad").items():
-        if "tc_kernel" in fn or "w_heads_bf16" in fn:
+        if "tc_kernel" in fn or "w_heads_bf16" in fn or "pack_dw_codes" in fn:
             print(f"[code_grad] ptxas: {fn}: {regs} registers; {spill}")
     w = torch.from_numpy((0.04 * rs.randn(m, 3 * h * d)).astype(np.float32)).cuda()
     wq = head_blocks(w, 0, h, d)
+    # d 128's weights from a stream of their own: the timed gpt2 inputs
+    # below stay the draws they were before width 32 was added
+    w128 = np.random.RandomState(SEED + 27).randn(m, h * 128).astype(np.float32)
+    wq_of = {d: wq, 128: head_blocks(torch.from_numpy(0.04 * w128).cuda(), 0, h, 128)}
     x = torch.from_numpy(rs.randn(ntok, m).astype(np.float32)).cuda()
     errs = {"dx": [], "dw": []}
-    for kw, dtype in ((SFA_K, torch.bfloat16), (SFA_K, torch.float32),
-                      (2 * SFA_K, torch.bfloat16)):
+    # width 32 (the pair closure of a k-16 RoPE model) at d 128, the
+    # llama / moonshot head, and at d 64
+    for kw, dtype, dd in ((SFA_K, torch.bfloat16, d), (SFA_K, torch.float32, d),
+                          (2 * SFA_K, torch.bfloat16, d), (4 * SFA_K, torch.bfloat16, 128),
+                          (4 * SFA_K, torch.bfloat16, d)):
         vals = torch.from_numpy(rs.randn(h, ntok, kw).astype(np.float32)).cuda().to(dtype)
-        idx = torch.from_numpy(np.sort(np.argsort(rs.rand(h, ntok, d), -1)[..., :kw], -1)
+        idx = torch.from_numpy(np.sort(np.argsort(rs.rand(h, ntok, dd), -1)[..., :kw], -1)
                                .astype(np.int32)).cuda()
         idx[:, 3::7, 1] = idx[:, 3::7, 0]          # duplicates sum (pair closures)
-        xx = x.to(dtype)
+        xx, wd = x.to(dtype), wq_of[dd]
         reset_launches()
-        got = (code_grad_dx(vals, idx, wq, d=d), code_grad_dw(xx, vals, idx, d=d))
-        tc = tensor_core_body(dtype, d, kw, m)
+        got = (code_grad_dx(vals, idx, wd, d=dd), code_grad_dw(xx, vals, idx, d=dd))
+        tc = tensor_core_body(dtype, dd, kw, m)
         check(body_counts()["code_grad_dx_cuda_core"] == body_counts()["code_grad_dw_cuda_core"]
-              == (0 if tc else 1), f"code_grad kw={kw} {dtype}: body launches {body_counts()}")
-        want = (code_grad_dx_ref(vals, idx, wq, d=d), code_grad_dw_ref(xx, vals, idx, d=d))
+              == (0 if tc else 1), f"code_grad kw={kw} d={dd} {dtype}: body launches "
+                                   f"{body_counts()}")
+        want = (code_grad_dx_ref(vals, idx, wd, d=dd), code_grad_dw_ref(xx, vals, idx, d=dd))
         torch.cuda.synchronize()
-        # f32 outputs, sums of up to 12·16 (dx) or 8,192·16 (dW) terms in
+        # f32 outputs, sums of up to 12·32 (dx) or 8,192·32 (dW) terms in
         # another order, each summed duplicate and (dx) each f32 weight kept
         # to ~16 bits (hi + lo) on the tensor cores: 1e-4 of the output's
         # largest magnitude
         for name, a, bb in zip(("dx", "dw"), got, want):
             scale_ = bb.abs().max().item()
             torch.testing.assert_close(a, bb, rtol=1e-4, atol=1e-4 * scale_,
-                                       msg=f"code_grad {name} kw={kw} {dtype}")
+                                       msg=f"code_grad {name} kw={kw} d={dd} {dtype}")
             errs[name].append((a - bb).abs().max().item())
-        line = (f"[code_grad] kw={kw} {dtype}: max|err| dx {errs['dx'][-1]:.3g}, dW "
+        line = (f"[code_grad] kw={kw} d={dd} {dtype}: max|err| dx {errs['dx'][-1]:.3g}, dW "
                 f"{errs['dw'][-1]:.3g} ({'tensor-core' if tc else 'CUDA-core'} bodies; max "
                 f"|dx| {want[0].abs().max().item():.3g}, |dW| {want[1].abs().max().item():.3g})")
         if tc:   # the same inputs through the CUDA-core bodies
-            core = (cg._dx_cuda_core(vals, idx, wq, d), cg._dw_cuda_core(xx, vals, idx, d))
+            core = (cg._dx_cuda_core(vals, idx, wd, dd), cg._dw_cuda_core(xx, vals, idx, dd))
             for name, a, c, bb in zip(("dx", "dw"), got, core, want):
                 torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4 * bb.abs().max().item(),
-                                           msg=f"code_grad {name} kw={kw}: tensor-core vs "
+                                           msg=f"code_grad {name} kw={kw} d={dd}: tensor-core vs "
                                                f"CUDA-core body")
             line += (f"; against the CUDA-core bodies dx {(got[0] - core[0]).abs().max().item():.3g}"
                      f", dW {(got[1] - core[1]).abs().max().item():.3g}")
@@ -1677,7 +1694,11 @@ def phase_code_grad(rs):
                                      (5, 1000, 200, 32, SFA_K, True),
                                      (3, 777, 136, 128, 2 * SFA_K, True),
                                      (4, 1000, 200, 128, SFA_K, False),
-                                     (5, 333, 72, 32, 2 * SFA_K, False)):
+                                     (5, 333, 72, 32, 2 * SFA_K, False),
+                                     (h, ntok, m, 128, 4 * SFA_K, True),
+                                     (h, ntok, m, 128, 4 * SFA_K, False),
+                                     (3, 777, 136, 64, 4 * SFA_K, True),
+                                     (5, 333, 72, 64, 4 * SFA_K, False)):
         vals, idx = _exact_codes(rs, hh, n_, d_, kw, dups)
         xe = torch.from_numpy(rs.randint(-1, 2, (n_, m_)).astype(np.float32)).cuda().bfloat16()
         check(tensor_core_body(torch.bfloat16, d_, kw, m_), "exact inputs: not the tensor cores")
@@ -2195,7 +2216,7 @@ def _sfa_decode_rows(results, rs, s, c, label, key=None, timed=(10, 11, 12, 13, 
 def phase_qwen3_llama_shapes(results):
     """Rows 1, 3, 5, 6, 7 at qwen3's training shape, rows 10-14 at its
     decode shape (GQA, a group of 2), rows 2, 4, 8, 9 at llama's seam shape
-    (k 16: code width 32, code_grad on its CUDA-core bodies): each against
+    (k 16: code width 32, code_grad on its tensor-core bodies): each against
     its plain version with the tolerance of its gpt2 check, timed beside
     its plain version and its library call, and the bound from these
     inputs. The d 128 kernels' ptxas registers first."""
@@ -2298,8 +2319,8 @@ def phase_qwen3_llama_shapes(results):
     xx = xb.reshape(ntok, m)
     reset_launches()
     got = (code_grad_dx(vals, idx, wq, d=d), code_grad_dw(xx, vals, idx, d=d))
-    check(body_counts()["code_grad_dx_cuda_core"] == body_counts()["code_grad_dw_cuda_core"] == 1,
-          f"code_grad {label} (width {kw}): not the CUDA-core bodies {body_counts()}")
+    check(body_counts()["code_grad_dx_cuda_core"] == body_counts()["code_grad_dw_cuda_core"] == 0,
+          f"code_grad {label} (width {kw}): not the tensor-core bodies {body_counts()}")
     want = (code_grad_dx_ref(vals, idx, wq, d=d), code_grad_dw_ref(xx, vals, idx, d=d))
     torch.cuda.synchronize()
     cerr = {}
@@ -2311,7 +2332,7 @@ def phase_qwen3_llama_shapes(results):
     ops_s = code_product_s(2 * ntok * m * h * kw, 2 * ntok * m * h * d)
     codes = h * ntok * kw * (es + 4)
     _timed_shape(results, "code_grad_dx", label, None,
-                 f"bf16 codes {h} x {ntok} x {kw}, m {m}, d {d} (CUDA-core body, width {kw}): "
+                 f"bf16 codes {h} x {ntok} x {kw}, m {m}, d {d} (tensor-core body, width {kw}): "
                  f"max|err| {cerr['dx']:.3g}; library = scatter_code_grads + torch.einsum",
                  cerr["dx"], codes + h * m * d * 4 + ntok * m * 4, ops_s,
                  lambda: code_grad_dx(vals, idx, wq, d=d),
@@ -2319,7 +2340,7 @@ def phase_qwen3_llama_shapes(results):
                  lambda: torch.einsum("hnd,hmd->nm", scatter_code_grads(vals, idx, d).float(),
                                       wq))
     _timed_shape(results, "code_grad_dw", label, None,
-                 f"the same codes, x ({ntok}, {m}) bf16 (CUDA-core body): max|err| "
+                 f"the same codes, x ({ntok}, {m}) bf16 (tensor-core body): max|err| "
                  f"{cerr['dw']:.3g}; library = scatter_code_grads + torch.einsum", cerr["dw"],
                  codes + ntok * m * es + h * m * d * 4, ops_s,
                  lambda: code_grad_dw(xx, vals, idx, d=d),
@@ -3157,7 +3178,7 @@ def phase_train(arch, timed_steps, predicted, *, layers=None, bodies=None, atten
     check(counts == want, f"train {arch}: launches {counts}, predicted {want}")
     # bf16 at d = dv in {64, 128}, k <= 16: every FlashSFA launch and the
     # compact seam's proj_rtopk on the tensor-core bodies, code_grad dx and
-    # dW on theirs at code width 8 or 16 (on the CUDA-core ones at 32)
+    # dW on theirs at code width 8, 16 or 32
     want_bodies = {name: (bodies or {}).get(name, 0) * steps for name in body_counts()}
     check(body_counts() == want_bodies,
           f"train {arch}: body launches {body_counts()}, predicted {want_bodies}")
@@ -4180,19 +4201,22 @@ def main():
           bwd_emit="compact", fwd_fuse=True)
     timed(phase_train, "qwen3-0.6b", 2, {"flash_attention": 2 * ql, "flash_attention_bwd": ql})
     # llama3.2-3b at full width, 4 layers, through the RoPE compact seam:
-    # k 16 gives codes 2k = 32 wide, outside code_grad's tensor-core widths,
-    # so dx and dW run their CUDA-core bodies (2L a step each)
+    # k 16 gives codes 2k = 32 wide, which code_grad's tensor-core bodies
+    # take at d 128 (no CUDA-core body)
     ll = 4
-    timed(phase_train, "llama3.2-3b", 2,
-          {"proj_rtopk": 2 * ll, "flash_sfa_block_skip": 2 * ll, "flash_sfa_bwd_compact": ll,
-           "code_grad_dx": 2 * ll, "code_grad_dw": 2 * ll},
-          layers=ll, bodies={"code_grad_dx_cuda_core": 2 * ll, "code_grad_dw_cuda_core": 2 * ll},
-          bwd_emit="compact2", fwd_fuse=True, remat="codes")
+    seam = {"proj_rtopk": 2, "flash_sfa_block_skip": 2, "flash_sfa_bwd_compact": 1,
+            "code_grad_dx": 2, "code_grad_dw": 2}
+    timed(phase_train, "llama3.2-3b", 2, {name: n * ll for name, n in seam.items()},
+          layers=ll, bwd_emit="compact2", fwd_fuse=True, remat="codes")
     # moonshot-v1-16b-a3b at full width, 4 of 48 layers (1 dense + 3 MoE),
-    # dense emit, remat "full"
+    # dense emit, remat "full"; then the same model through the RoPE compact
+    # seam (MHA, d 128, k 16: code width 32), launches as llama's
     ml = 4
     timed(phase_train, "moonshot-v1-16b-a3b", 2,
           {"rtopk": 4 * ml, "flash_sfa": 2 * ml, "flash_sfa_bwd": ml}, layers=ml)
+    release()
+    timed(phase_train, "moonshot-v1-16b-a3b", 2, {name: n * ml for name, n in seam.items()},
+          layers=ml, bwd_emit="compact2", fwd_fuse=True, remat="codes")
     release()
     # hubert-xlarge at full width and depth on seeded frames: bidirectional,
     # d = dv 80, so rtopk's warp body and FlashSFA's tensor-core bodies on
@@ -4216,7 +4240,7 @@ def main():
     timed(phase_dense_grad_end_to_end)
     timed(phase_sfa_grad_bf16_end_to_end)
     timed(phase_sfa_grad_bf16_end_to_end, "qwen3-0.6b-sfa8", 2, False)
-    timed(phase_sfa_grad_bf16_end_to_end, "moonshot-v1-16b-a3b", 2, False)
+    timed(phase_sfa_grad_bf16_end_to_end, "moonshot-v1-16b-a3b", 2)
     timed(phase_grad_end_to_end, "llama3.2-3b", 2, (GRAD_RUNS[0], GRAD_RUNS[2]), True)
     timed(phase_sfa_grad_bf16_end_to_end, "hubert-xlarge", 2, False)
     timed(phase_grad_end_to_end, "hubert-xlarge", 2, GRAD_RUNS[:2], leaf_tol=1e-4)

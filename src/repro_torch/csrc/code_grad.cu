@@ -13,7 +13,8 @@
 // (N, d) gradient is never formed in device memory.
 //
 // Two kinds of body. With bf16 codes, d in {32, 64, 128}, kw in {8, 16}
-// and m a multiple of 8, dx and dW run on the tensor cores
+// (and 32, the RoPE pair closure at k 16, at d 64 and 128: tc_shape) and m
+// a multiple of 8, dx and dW run on the tensor cores
 // (code_grad_dx_tc_launch, code_grad_dw_tc_launch, below): the TPU's
 // counterpart, each code tile densified in shared memory and fed to a
 // d-wide product. f32 codes (on the tensor cores f32 would be TF32, which
@@ -213,7 +214,9 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, float* __restr
 //    fence.proxy.async, one barrier. So the products of c run while c + 1
 //    is densified, and c + 1's are issued before c's are done.
 // x is read once per feature tile (6 times for gpt2-small's 12 heads of
-// 64), from L2 after the first. Each split writes its partial, and
+// 64), from L2 after the first. At kw 32 a chunk's packed rows are twice
+// kw 16's (12,288 bytes a stage at d 128, 24,576 at d 64: 181,280 and
+// 230,432 bytes of shared memory in all). Each split writes its partial, and
 // sum_splits_kernel adds the splits in order: no atomics, a deterministic
 // result.
 // Bound on the H100: operations, 2 d flops per (token, column, head) on the
@@ -228,6 +231,15 @@ constexpr int kTcThreads = 256;
 constexpr uint32_t kNoIndex = 0xFFFF0000u;   // a packed word that stores nothing
 using STile = hopper::Tile<kTcTok, kTcRows>;   // S^T chunk: feature rows x token columns
 using XTile = hopper::Tile<kTcCols, kTcTok>;   // x chunk: token rows x 128 columns of m
+
+// The (d, kw) the tensor-core bodies take: d in {32, 64, 128} with kw in
+// {8, 16}, and kw 32 (the RoPE pair closure at k 16) at d 64 and 128. At d
+// 32 a dW chunk holds 256 packed rows, and four stages of 32-wide rows with
+// the S^T and x tiles need 328,736 bytes of shared memory, over the 232,448
+// a block may use: that shape runs the CUDA-core bodies.
+constexpr bool tc_shape(int d, int kw) {
+  return (d == 32 || d == 64 || d == 128) && (kw == 8 || kw == 16 || (kw == 32 && d != 32));
+}
 
 __device__ __forceinline__ void sts_u16(uint32_t addr, unsigned short bits) {
   asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"(bits));
@@ -535,6 +547,16 @@ code_grad_dw_tc_kernel(const __grid_constant__ CUtensorMap xmap,
 //    of step s + 2 are issued (TMA; cp.async, each row's 16-byte pieces
 //    shared by its threads); step s + 1 is densified into the zeroed stage;
 //    fence.proxy.async, one barrier.
+//  * A head's packed rows are staged once, with its first step, and serve
+//    its d / F steps (d 128: two), so each code row is read once per block.
+//    The rows of the head of step s + 2 land while step s + 1's are
+//    densified, and those of the head two heads back were densified before
+//    the barrier that precedes the load: two stages of rows suffice. Widths
+//    8 and 16 keep three (the layout they were tuned in); width 32 takes two
+//    (kDxCodeStages), since three stages of 128 x 32 packed rows with the S
+//    and w tiles need 238,616 bytes at F = 64, over the 232,448 a block may
+//    use (two: 214,040). The w tiles keep three stages: the products of
+//    step s read theirs while s + 1's arrive and s + 2's are issued.
 // Three other schedules ran slower on an H100 SXM (700 W) at gpt2-small's
 // shapes (this kernel 0.0619-0.0626 ms): A = S built in each thread's
 // registers from the codes for wgmma's RS form, no S tile (0.1137 ms; 240-255
@@ -547,7 +569,11 @@ code_grad_dw_tc_kernel(const __grid_constant__ CUtensorMap xmap,
 
 constexpr int kDxTcTok = 128;      // tokens of a block: two warpgroups of 64
 constexpr int kDxTcCols = 128;     // columns of m of a block: the wgmma N
-constexpr int kDxTcStages = 3;     // w tiles and packed rows: steps s .. s + 2
+constexpr int kDxTcStages = 3;     // w tiles (and packed rows below kw 32): steps s .. s + 2
+
+// stages of packed rows of the dx body at code width KW (see above)
+template <int KW>
+constexpr int kDxCodeStages = KW > 16 ? 2 : kDxTcStages;
 
 template <int D, int KW, bool W_LO>
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -563,6 +589,7 @@ code_grad_dx_tc_kernel(const __grid_constant__ CUtensorMap hi_map,
   constexpr int U = KW / P;                      // words of a thread's share
   constexpr int PIECES = KW / 8 + KW / 4;        // 16-byte pieces of a row: lo, words
   constexpr int CSTAGE = kDxTcTok * KW * 6;      // bytes of a step's packed rows
+  constexpr int CST = kDxCodeStages<KW>;         // stages of packed rows
   static_assert(KW % 8 == 0 && KW % P == 0 && T::CHUNKS == 1, "one swizzle span a row");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
@@ -571,19 +598,20 @@ code_grad_dx_tc_kernel(const __grid_constant__ CUtensorMap hi_map,
   uint8_t* s_lo = s_hi + 2 * T::BYTES;                   // 2 stages of S, lo
   uint8_t* w_hi = s_lo + 2 * T::BYTES;                   // kDxTcStages w tiles, hi
   uint8_t* w_lo = w_hi + kDxTcStages * T::BYTES;         // kDxTcStages w tiles, lo
-  uint8_t* codes = w_lo + kDxTcStages * T::BYTES;        // kDxTcStages x (128, KW) lo, words
-  uint64_t* bar = reinterpret_cast<uint64_t*>(codes + kDxTcStages * CSTAGE);
+  uint8_t* codes = w_lo + kDxTcStages * T::BYTES;        // CST x (128, KW) lo, words
+  uint64_t* bar = reinterpret_cast<uint64_t*>(codes + CST * CSTAGE);
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
   const int t0 = blockIdx.x * kDxTcTok;
   const int m0 = blockIdx.y * kDxTcCols;
   const int steps = nh * HALVES;
-  // packed row r = token t0 + r, share sh of its words
+  // packed row r = token t0 + r, share sh of its words; a head's rows are
+  // staged once, with its first step, and serve its HALVES steps
   const int r = tid % kDxTcTok;
   const int sh = tid / kDxTcTok;
   auto live = [&](int s) { return s < steps && t0 + r < ntok; };
-  auto codes_of = [&](int s) { return codes + (s % kDxTcStages) * CSTAGE; };
+  auto codes_of = [&](int s) { return codes + ((s / HALVES) % CST) * CSTAGE; };
 
   for (int o = tid * 16; o < 4 * T::BYTES; o += kTcThreads * 16)
     sts_zero16(hopper::smem_u32(s_hi) + o);
@@ -593,8 +621,9 @@ code_grad_dx_tc_kernel(const __grid_constant__ CUtensorMap hi_map,
   }
   __syncthreads();
 
-  // step s's w tiles (thread 0) and packed rows (a row's threads share its
-  // pieces); one commit group per step and thread, empty or not
+  // step s's w tiles (thread 0) and, at a head's first step, its packed
+  // rows (a row's threads share their pieces); one commit group per step
+  // and thread, empty or not
   auto load = [&](int s) {
     if (tid == 0 && s < steps) {
       const int st = s % kDxTcStages;
@@ -604,7 +633,7 @@ code_grad_dx_tc_kernel(const __grid_constant__ CUtensorMap hi_map,
       if constexpr (W_LO)
         hopper::tma_load_3d(w_lo + st * T::BYTES, &lo_map, b, (s % HALVES) * F, m0, s / HALVES);
     }
-    if (live(s)) {
+    if (live(s) && s % HALVES == 0) {
       const size_t row = (static_cast<size_t>(s / HALVES) * ntok + t0 + r) * KW;
       const uint32_t cs = hopper::smem_u32(codes_of(s));
       for (int q = sh; q < PIECES; q += P) {
@@ -797,7 +826,10 @@ int launch_dw_tc_kw(const CUtensorMap& map, const void* vals, const void* idx, u
   const int e = pack_codes<KW>(vals, idx, words, lo, lo_any, nh, ntok, d, stream);
   if (e != 0) return e;
   switch (d) {
-    case 32: return launch_dw_tc<32, KW>(map, words, lo, lo_any, dst, nh, ntok, m, splits, split_len, stream);
+    case 32:
+      if constexpr (tc_shape(32, KW))
+        return launch_dw_tc<32, KW>(map, words, lo, lo_any, dst, nh, ntok, m, splits, split_len, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 64: return launch_dw_tc<64, KW>(map, words, lo, lo_any, dst, nh, ntok, m, splits, split_len, stream);
     default: return launch_dw_tc<128, KW>(map, words, lo, lo_any, dst, nh, ntok, m, splits, split_len, stream);
   }
@@ -809,7 +841,7 @@ int launch_dx_tc(const CUtensorMap& hi, const CUtensorMap& lo, const uint32_t* w
                  cudaStream_t stream) {
   using T = hopper::Tile<(D < 64 ? D : 64), kDxTcTok>;
   const size_t smem = 1024 + (4 + 2 * kDxTcStages) * T::BYTES +
-                      static_cast<size_t>(kDxTcStages) * kDxTcTok * KW * 6 +
+                      static_cast<size_t>(kDxCodeStages<KW>) * kDxTcTok * KW * 6 +
                       kDxTcStages * sizeof(uint64_t);
   auto kernel = code_grad_dx_tc_kernel<D, KW, W_LO>;
   cudaError_t e = prepare(kernel, smem);
@@ -824,7 +856,10 @@ int launch_dx_tc_d(int d, const CUtensorMap& hi, const CUtensorMap& lo, const ui
                    const uint16_t* lo_bits, const int* lo_any, float* out, int nh, int ntok,
                    int m, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch_dx_tc<32, KW, W_LO>(hi, lo, words, lo_bits, lo_any, out, nh, ntok, m, stream);
+    case 32:
+      if constexpr (tc_shape(32, KW))
+        return launch_dx_tc<32, KW, W_LO>(hi, lo, words, lo_bits, lo_any, out, nh, ntok, m, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 64: return launch_dx_tc<64, KW, W_LO>(hi, lo, words, lo_bits, lo_any, out, nh, ntok, m, stream);
     default: return launch_dx_tc<128, KW, W_LO>(hi, lo, words, lo_bits, lo_any, out, nh, ntok, m, stream);
   }
@@ -875,8 +910,9 @@ extern "C" int code_grad_dw_launch(const void* x, const void* vals, const void* 
 }
 
 // The tensor-core body: x (ntok, m), vals (nh, ntok, kw) bf16 and idx
-// (nh, ntok, kw) int32, contiguous and 16-byte aligned; kw in {8, 16}, d in
-// {32, 64, 128}, m a multiple of 8; out (nh, m, d) f32; part (splits, nh,
+// (nh, ntok, kw) int32, contiguous and 16-byte aligned; (d, kw) a tc_shape
+// (d in {32, 64, 128}, kw in {8, 16}, or kw 32 at d 64 and 128), m a
+// multiple of 8; out (nh, m, d) f32; part (splits, nh,
 // m, d) f32 scratch, unused when splits == 1; packed: scratch of nh * ntok
 // * kw * 6 + 16 bytes, 16-byte aligned (the pack kernel's words, its lo
 // bits, then the flag of a nonzero lo).
@@ -891,9 +927,8 @@ extern "C" int code_grad_dw_tc_launch(const void* x, const void* vals, const voi
   cudaGetLastError();
   if (nh <= 0 || m <= 0) return 0;
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (ntok <= 0 || (kw != 8 && kw != 16) || (d != 32 && d != 64 && d != 128) || m % 8 != 0 ||
-      (m + kTcCols - 1) / kTcCols > 65535 || splits <= 0 || splits > 65535 ||
-      split_len <= 0 || split_len % kTcTok != 0 ||
+  if (ntok <= 0 || !tc_shape(d, kw) || m % 8 != 0 || (m + kTcCols - 1) / kTcCols > 65535 ||
+      splits <= 0 || splits > 65535 || split_len <= 0 || split_len % kTcTok != 0 ||
       static_cast<long long>(splits) * split_len < ntok ||
       static_cast<long long>(splits - 1) * split_len >= ntok || misaligned(x) ||
       misaligned(vals) || misaligned(idx) || misaligned(packed) ||
@@ -910,10 +945,12 @@ extern "C" int code_grad_dw_tc_launch(const void* x, const void* vals, const voi
   int* lo_any = reinterpret_cast<int*>(lo + static_cast<size_t>(nh) * ntok * kw);
   float* dst = static_cast<float*>(splits == 1 ? out : part);
   const int err =
-      kw == 8 ? launch_dw_tc_kw<8>(map, vals, idx, words, lo, lo_any, dst, nh, ntok, m, d, splits,
-                                   split_len, s)
-              : launch_dw_tc_kw<16>(map, vals, idx, words, lo, lo_any, dst, nh, ntok, m, d,
-                                    splits, split_len, s);
+      kw == 8    ? launch_dw_tc_kw<8>(map, vals, idx, words, lo, lo_any, dst, nh, ntok, m, d,
+                                      splits, split_len, s)
+      : kw == 16 ? launch_dw_tc_kw<16>(map, vals, idx, words, lo, lo_any, dst, nh, ntok, m, d,
+                                       splits, split_len, s)
+                 : launch_dw_tc_kw<32>(map, vals, idx, words, lo, lo_any, dst, nh, ntok, m, d,
+                                       splits, split_len, s);
   if (err != 0 || splits == 1) return err;
   const size_t count = static_cast<size_t>(nh) * m * d;
   sum_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, s>>>(
@@ -922,8 +959,8 @@ extern "C" int code_grad_dw_tc_launch(const void* x, const void* vals, const voi
 }
 
 // The tensor-core dx body: vals (nh, ntok, kw) bf16 and idx (nh, ntok, kw)
-// int32, contiguous and 16-byte aligned; kw in {8, 16}, d in {32, 64, 128},
-// m a multiple of 8; w heads (nh, m, d) in f32|bf16 at element strides
+// int32, contiguous and 16-byte aligned; (d, kw) a tc_shape, m a multiple of
+// 8; w heads (nh, m, d) in f32|bf16 at element strides
 // (w_sh, w_sm, 1); out (ntok, m) f32. packed: scratch as for
 // code_grad_dw_tc_launch (nh * ntok * kw * 6 + 16 bytes); wsplit: scratch
 // of nh * m * d bf16 (bf16 w) or twice that (f32 w: hi, then lo), 16-byte
@@ -936,8 +973,7 @@ extern "C" int code_grad_dx_tc_launch(const void* vals, const void* idx, const v
   cudaGetLastError();
   if (ntok <= 0 || m <= 0) return 0;
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (nh <= 0 || (kw != 8 && kw != 16) || (d != 32 && d != 64 && d != 128) || m % 8 != 0 ||
-      (m + kDxTcCols - 1) / kDxTcCols > 65535 ||
+  if (nh <= 0 || !tc_shape(d, kw) || m % 8 != 0 || (m + kDxTcCols - 1) / kDxTcCols > 65535 ||
       static_cast<long long>(nh) * m * d >= (1LL << 31) || misaligned(vals) ||
       misaligned(idx) || misaligned(packed) || misaligned(wsplit))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -945,8 +981,9 @@ extern "C" int code_grad_dx_tc_launch(const void* vals, const void* idx, const v
   uint32_t* words = static_cast<uint32_t*>(packed);
   uint16_t* lo = reinterpret_cast<uint16_t*>(words + static_cast<size_t>(nh) * ntok * kw);
   int* lo_any = reinterpret_cast<int*>(lo + static_cast<size_t>(nh) * ntok * kw);
-  int e = kw == 8 ? pack_codes<8>(vals, idx, words, lo, lo_any, nh, ntok, d, s)
-                  : pack_codes<16>(vals, idx, words, lo, lo_any, nh, ntok, d, s);
+  int e = kw == 8    ? pack_codes<8>(vals, idx, words, lo, lo_any, nh, ntok, d, s)
+          : kw == 16 ? pack_codes<16>(vals, idx, words, lo, lo_any, nh, ntok, d, s)
+                     : pack_codes<32>(vals, idx, words, lo, lo_any, nh, ntok, d, s);
   if (e != 0) return e;
   const long long count = static_cast<long long>(nh) * m * d;
   __nv_bfloat16* w_hi = static_cast<__nv_bfloat16*>(wsplit);
@@ -961,6 +998,9 @@ extern "C" int code_grad_dx_tc_launch(const void* vals, const void* idx, const v
   if (kw == 8)
     return w_bf16 ? launch_dx_tc_d<8, false>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s)
                   : launch_dx_tc_d<8, true>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s);
-  return w_bf16 ? launch_dx_tc_d<16, false>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s)
-                : launch_dx_tc_d<16, true>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s);
+  if (kw == 16)
+    return w_bf16 ? launch_dx_tc_d<16, false>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s)
+                  : launch_dx_tc_d<16, true>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s);
+  return w_bf16 ? launch_dx_tc_d<32, false>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s)
+                : launch_dx_tc_d<32, true>(d, hi_map, lo_map, words, lo, lo_any, o, nh, ntok, m, s);
 }

@@ -18,9 +18,10 @@ memory.
 Both pick their body by dtype and shape alone (``tensor_core_body``: the
 codes' dtype, d, kw and m):
 
-  * bf16 with d in ``TC_HEAD_DIMS``, kw in ``TC_KW`` and m a multiple of 8
-    — the tensor cores, as the TPU densified each code tile in VMEM for its
-    matrix unit: a pack kernel resolves each code row's repeated indices
+  * bf16 with d in ``TC_HEAD_DIMS``, kw in ``TC_KW`` (8, 16, and 32: the
+    RoPE pair closure at k 16) and m a multiple of 8, but for the (d, kw)
+    in ``CUDA_CORE_SHAPES`` (width 32 at d 32) — the tensor cores, as the
+    TPU densified each code tile in VMEM for its matrix unit: a pack kernel resolves each code row's repeated indices
     once (a repeated index's f32 sum kept as bf16 hi + lo, the lo products
     run only when some sum needs them). dW: dWᵀ = Sᵀ·x as one GEMM over
     the token axis, each block 128 feature rows (128/d heads) × 128 columns
@@ -30,7 +31,9 @@ codes' dtype, d, kw and m):
     each block 128 tokens × 128 columns of m walking the heads in order,
     each head's S tile densified in shared memory, w split once per call
     into contiguous bf16 hi + lo (an f32 w rounded to bf16 alone fails
-    1e-4) and read by TMA;
+    1e-4) and read by TMA. Width 32 runs the same bodies with twice the
+    packed rows a stage (dx stages them twice rather than three times, to
+    stay within a block's shared memory);
   * f32 codes (on the tensor cores f32 would be TF32, which fails 1e-4) and
     the other bf16 shapes — the CUDA-core bodies: dx one block per
     (128-token tile, 64-column tile), the heads summed inside the block; dW
@@ -78,7 +81,12 @@ _DW_TC_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DW_SPLIT_TOKENS = 1024     # CUDA-core dW: tokens per split of the contraction
 _DW_MAX_SPLITS = 8          # either dW body: most token splits
 TC_HEAD_DIMS = (32, 64, 128)   # d of the tensor-core bodies
-TC_KW = (8, 16)                # their code widths
+TC_KW = (8, 16, 32)            # their code widths
+# (d, kw) of those that run the CUDA-core bodies (csrc tc_shape): at d 32 a
+# dW chunk holds 256 packed rows, and four stages of 32-wide ones need
+# 328,736 bytes of shared memory, over the 232,448 a block may use. No full
+# config emits width 32 at d 32 (every k-16 RoPE config has d 128).
+CUDA_CORE_SHAPES = ((32, 32),)
 _TC_TILE = 128                 # its block: feature rows and columns of m (csrc kTcRows, kTcCols)
 _TC_TOK = 64                   # its chunk of tokens (csrc kTcTok)
 _TC_MIN_CHUNKS = 4             # chunks a token split walks at least
@@ -87,9 +95,11 @@ _TC_MIN_CHUNKS = 4             # chunks a token split walks at least
 def tensor_core_body(dtype, d: int, kw: int, m: int) -> bool:
     """Do ``code_grad_dx`` and ``code_grad_dw`` run their tensor-core
     bodies for codes of this dtype and this shape? (bf16, d in
-    TC_HEAD_DIMS, kw in TC_KW, m a multiple of 8: the rows of x, and of the
-    w tiles, that a TMA tile reads sit on 16 bytes.)"""
-    return dtype == torch.bfloat16 and d in TC_HEAD_DIMS and kw in TC_KW and m % 8 == 0
+    TC_HEAD_DIMS, kw in TC_KW, (d, kw) not in CUDA_CORE_SHAPES, m a multiple
+    of 8: the rows of x, and of the w tiles, that a TMA tile reads sit on
+    16 bytes.)"""
+    return (dtype == torch.bfloat16 and d in TC_HEAD_DIMS and kw in TC_KW
+            and (d, kw) not in CUDA_CORE_SHAPES and m % 8 == 0)
 
 
 def tc_splits(n: int, nh: int, d: int, m: int, sms: int):
@@ -262,5 +272,5 @@ def code_grad_dw(x, vals, idx, *, d: int):
 code_grad_dw.launches = 0             # either body
 code_grad_dw.cuda_core_launches = 0   # the CUDA-core body
 
-__all__ = ["TC_HEAD_DIMS", "TC_KW", "code_grad_dw", "code_grad_dx", "scatter_code_grads",
+__all__ = ["CUDA_CORE_SHAPES", "TC_HEAD_DIMS", "TC_KW", "code_grad_dw", "code_grad_dx", "scatter_code_grads",
            "tc_splits", "tensor_core_body"]

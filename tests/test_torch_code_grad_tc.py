@@ -11,14 +11,18 @@ Its dx body computes dx = S·Wᵀ as one GEMM over the head-feature axis from
 the same hi and lo tiles and w split into bf16 hi + lo = bf16(w − hi):
 per head in order, per step of min(d, 64) features, S_hi·W_hiᵀ +
 S_hi·W_loᵀ + S_lo·W_hiᵀ into an f32 accumulator (S_lo·W_loᵀ, below 2^-16
-of a product, is left out; a bf16 w has no lo). The emulations below do the
-same in plain torch and are held against the port's plain versions (the
+of a product, is left out; a bf16 w has no lo). At code width 32 (a k-16
+RoPE model's pair closure) the bodies are the same, with twice the packed
+rows a stage; the dx body stages them twice rather than three times, which
+moves no product and no sum, so one emulation serves every width. The
+emulations below do the same in plain torch and are held against the port's plain versions (the
 wrappers on CPU tensors) and the JAX package's Pallas ``code_grad_dw`` /
 ``code_grad_dx`` in interpret mode at the card's tolerance, rtol 1e-4 and
 atol 1e-4·max (f32 sums in another order; ~16 bits of each summed
 duplicate and of each f32 weight). Inputs are bf16 codes (and x), as on the
 compact seam, with duplicates planted on every 7th row, padding rows,
-indices outside [0, d), and the 2k pair closure of RoPE; n, m and the head
+indices outside [0, d), and the 2k pair closure of RoPE at k 8 and 16 (code
+widths 16 and 32, the latter at d 64 and 128); n, m and the head
 count ragged to the bodies' 64-token chunks, 128-token and 128-column
 blocks; w f32 (a strided per-head view of a packed weight) and bf16. On
 exact inputs (codes in {-1, 1} with a 1 + 2^-9 duplicate and a w whose lo
@@ -40,7 +44,7 @@ from repro_torch.kernels import (
     body_counts, code_grad_dw, code_grad_dx, launch_counts, reset_launches,
 )
 from repro_torch.kernels.code_grad import (
-    TC_HEAD_DIMS, TC_KW, _DW_MAX_SPLITS, tc_splits, tensor_core_body,
+    CUDA_CORE_SHAPES, TC_HEAD_DIMS, TC_KW, _DW_MAX_SPLITS, tc_splits, tensor_core_body,
 )
 from repro_torch.kernels.flash_sfa_bwd import pair_closure_indices
 from repro_torch.kernels.ops import head_blocks
@@ -108,7 +112,8 @@ def _close(got, want):
 
 
 CASES = [(3, 300, 200, 64, 8, False), (3, 300, 200, 64, 8, True), (5, 257, 136, 32, 8, True),
-         (2, 190, 264, 128, 8, False), (2, 130, 128, 128, 8, True), (4, 64, 64, 32, 8, False)]
+         (2, 190, 264, 128, 8, False), (2, 130, 128, 128, 8, True), (4, 64, 64, 32, 8, False),
+         (2, 200, 136, 128, 16, True), (3, 130, 264, 64, 16, True)]
 
 
 @pytest.mark.parametrize("nh,n,m,d,k,closure", CASES)
@@ -150,17 +155,25 @@ def test_duplicates_need_the_lo_tile():
 
 
 def test_body_routing_by_dtype_and_shape():
-    """bf16 with d in {32, 64, 128}, kw in {8, 16} and m a multiple of 8 takes
-    the tensor cores; f32 and every other shape the CUDA-core body."""
-    assert TC_HEAD_DIMS == (32, 64, 128) and TC_KW == (8, 16)
+    """bf16 with d in {32, 64, 128}, kw in {8, 16, 32} and m a multiple of 8
+    takes the tensor cores, but for width 32 at d 32 (CUDA_CORE_SHAPES: dW's
+    staged rows would not fit a block's shared memory); f32 and every other
+    shape the CUDA-core body."""
+    assert TC_HEAD_DIMS == (32, 64, 128) and TC_KW == (8, 16, 32)
+    assert CUDA_CORE_SHAPES == ((32, 32),)
     assert tensor_core_body(torch.bfloat16, 64, 8, 768)       # the compact seam
     assert tensor_core_body(torch.bfloat16, 64, 16, 768)      # its pair closure
+    assert tensor_core_body(torch.bfloat16, 128, 32, 3072)    # llama3.2-3b's, k 16
+    assert tensor_core_body(torch.bfloat16, 128, 32, 2048)    # moonshot's
+    for m in range(8, 4097, 8):
+        assert tensor_core_body(torch.bfloat16, 128, 32, m)
     for d in TC_HEAD_DIMS:
         for kw in TC_KW:
-            assert tensor_core_body(torch.bfloat16, d, kw, 136)
+            assert tensor_core_body(torch.bfloat16, d, kw, 136) == ((d, kw) != (32, 32))
             assert not tensor_core_body(torch.float32, d, kw, 768)
             assert not tensor_core_body(torch.bfloat16, d, kw, 130)
-    for d, kw in ((16, 8), (96, 8), (256, 16), (64, 4), (64, 32), (64, 64), (32, 12)):
+    for d, kw in ((16, 8), (96, 8), (256, 16), (64, 4), (32, 32), (256, 32), (64, 64),
+                  (32, 12), (128, 24)):
         assert not tensor_core_body(torch.bfloat16, d, kw, 768)
 
 
@@ -234,7 +247,8 @@ def _weights(rs, nh, m, d, bf16):
 DX_CASES = [(3, 300, 200, 64, 8, False, False), (3, 300, 200, 64, 8, True, False),
             (12, 130, 768, 64, 8, False, False), (5, 257, 136, 32, 8, True, True),
             (2, 190, 264, 128, 8, False, True), (2, 130, 128, 128, 8, True, False),
-            (4, 64, 64, 32, 8, False, False)]
+            (4, 64, 64, 32, 8, False, False), (3, 200, 136, 128, 16, True, False),
+            (2, 190, 264, 64, 16, True, True)]
 
 
 @pytest.mark.parametrize("nh,n,m,d,k,closure,bf16_w", DX_CASES)
@@ -255,7 +269,8 @@ def test_tensor_core_dx_emulation_matches_plain_and_pallas(nh, n, m, d, k, closu
 
 
 @pytest.mark.parametrize("d,kw,dups", [(64, 8, True), (64, 8, False), (32, 16, True),
-                                       (128, 16, False), (128, 8, True)])
+                                       (128, 16, False), (128, 8, True), (128, 32, True),
+                                       (64, 32, False)])
 def test_tensor_core_dx_emulation_is_exact_on_exact_inputs(d, kw, dups):
     """Codes in {-1, 1} (with dups every 7th row repeats its first index
     with 2^-9: a summed duplicate 1 + 2^-9 through the lo tile) against w in
@@ -314,11 +329,15 @@ def test_dx_duplicates_need_the_s_lo_products():
 
 def test_dx_body_routing_by_dtype_and_shape():
     """dx takes the tensor cores on the same rule as dW — bf16 codes, d in
-    {32, 64, 128}, kw in {8, 16}, m a multiple of 8 — whatever w's dtype;
-    f32 codes and every other shape take the CUDA-core body. On the CPU the
-    wrapper counts neither body."""
+    {32, 64, 128}, kw in {8, 16, 32} (not 32 at d 32), m a multiple of 8 —
+    whatever w's dtype; f32 codes and every other shape take the CUDA-core
+    body. On the CPU the wrapper counts neither body."""
     assert tensor_core_body(torch.bfloat16, 64, 8, 768)       # the compact seam's dx
     assert tensor_core_body(torch.bfloat16, 64, 16, 768)      # the pair closure's
+    assert tensor_core_body(torch.bfloat16, 128, 32, 3072)    # llama3.2-3b's, k 16
+    assert tensor_core_body(torch.bfloat16, 64, 32, 768)
+    assert not tensor_core_body(torch.bfloat16, 32, 32, 64)   # the reduced llama's
+    assert not tensor_core_body(torch.float32, 128, 32, 3072)
     assert not tensor_core_body(torch.float32, 64, 8, 768)
     assert not tensor_core_body(torch.bfloat16, 64, 8, 772)
     assert not tensor_core_body(torch.bfloat16, 48, 8, 768)

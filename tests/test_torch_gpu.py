@@ -18,6 +18,7 @@ from repro_torch.kernels import (
     reset_launches, rtopk,
 )
 from repro_torch.kernels import ref
+from repro_torch.kernels.code_grad import tensor_core_body as code_grad_tc
 from repro_torch.models.layers import rope
 
 pytestmark = pytest.mark.gpu
@@ -202,8 +203,10 @@ def test_trainer_runs_the_backward_kernels(cuda, arch):
     heads; paligemma held at its head dim of 256, MQA): the forward and
     backward kernels launch as the layer count predicts, paligemma's bf16
     FlashSFA on the tensor-core bodies. llama takes the compact seam (RoPE,
-    remat "codes") at its own sfa_k 16, so its codes are 2k = 32 wide and
-    code_grad runs its CUDA-core bodies."""
+    remat "codes") at its own sfa_k 16, so its codes are 2k = 32 wide; at
+    the reduced head dim of 32 that width stays on code_grad's CUDA-core
+    bodies (``code_grad.CUDA_CORE_SHAPES``; at d 128:
+    ``test_llama_seam_at_its_own_head_dim_runs_no_cuda_core_body``)."""
     import dataclasses
 
     from repro_torch.configs.base import TrainPolicy
@@ -236,7 +239,10 @@ def test_trainer_runs_the_backward_kernels(cuda, arch):
         for name in ("proj_rtopk", "flash_sfa_block_skip", "code_grad_dx", "code_grad_dw"):
             assert counts[name] == 2 * L, (name, counts)
         assert counts["flash_sfa_bwd_compact"] == L and counts["rtopk"] == 0
-        # width 2k = 32 is outside the tensor-core widths (8, 16)
+        # width 2k = 32 at d 32 is the one (d, kw) of the tensor-core widths
+        # and head dims that runs the CUDA-core bodies
+        assert cfg.attention.head_dim == 32
+        assert not code_grad_tc(torch.bfloat16, 32, 32, cfg.d_model)
         assert bodies["code_grad_dx_cuda_core"] == bodies["code_grad_dw_cuda_core"] == 2 * L
         assert bodies["rtopk_warp"] == 0
         return
@@ -465,6 +471,46 @@ def test_trainer_runs_the_compact_seam_kernels(cuda, sfa_k):
     if not tc:
         want_body.update(code_grad_dx_cuda_core=2 * per, code_grad_dw_cuda_core=2 * per)
     assert body_counts() == want_body
+
+
+def test_llama_seam_at_its_own_head_dim_runs_no_cuda_core_body(cuda):
+    """llama3.2-3b's RoPE compact seam at its own head dim 128 and sfa_k
+    16 (reduced otherwise: 2 layers, 4 query heads over 2 kv heads, d_model
+    64; batch 2 x 100, bf16, remat "codes"): its 2k = 32 wide codes run
+    code_grad dx and dW on their tensor-core bodies, launches as the layer
+    count predicts, no CUDA-core body of any kernel."""
+    import dataclasses
+
+    from repro_torch.configs.base import TrainPolicy
+    from repro_torch.data import DataConfig
+    from repro_torch.models.attention import clear_compact_seam_reports, compact_seam_reports
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    full = get_config("llama3.2-3b")
+    cfg = full.reduced()
+    cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, num_kv_heads=2, head_dim=full.attention.head_dim,
+        sfa_k=full.attention.sfa_k))
+    assert cfg.num_layers == 2 and cfg.dtype == "bfloat16"
+    assert (cfg.attention.head_dim, cfg.attention.sfa_k) == (128, 16)
+    assert code_grad_tc(torch.bfloat16, 128, 32, cfg.d_model)
+    steps = 3
+    tr = Trainer(cfg, OptimizerConfig(warmup_steps=2, total_steps=4),
+                 DataConfig(vocab_size=cfg.vocab_size, seq_len=100, global_batch=2),
+                 TrainerConfig(total_steps=steps, policy=TrainPolicy.from_model(
+                     cfg, remat="codes", bwd_emit="compact2", fwd_fuse=True,
+                     backend="cuda")), device=cuda)
+    clear_compact_seam_reports()
+    reset_launches()
+    hist = tr.train()
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert [r.taken for r in compact_seam_reports()] == [True]
+    per = steps * cfg.num_layers
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(proj_rtopk=2 * per, flash_sfa_block_skip=2 * per,
+                flash_sfa_bwd_compact=per, code_grad_dx=2 * per, code_grad_dw=2 * per)
+    assert launch_counts() == want
+    assert body_counts() == dict.fromkeys(body_counts(), 0)
 
 
 # --------------------------------------------------------------------------
@@ -723,9 +769,11 @@ def test_short_embedding_model_runs_on_the_card_under_auto(cuda):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dups", [True, False])
-@pytest.mark.parametrize("kw", [8, 16])
-@pytest.mark.parametrize("nh,n,m,d", [(12, 2048, 768, 64), (5, 1000, 200, 32),
-                                      (3, 777, 136, 128), (2, 70, 64, 64), (2, 30, 40, 64)])
+@pytest.mark.parametrize("nh,n,m,d,kw", [
+    (nh, n, m, d, kw) for nh, n, m, d in ((12, 2048, 768, 64), (5, 1000, 200, 32),
+                                          (3, 777, 136, 128), (2, 70, 64, 64), (2, 30, 40, 64))
+    for kw in (8, 16)] + [(8, 2048, 768, 128, 32), (3, 777, 136, 128, 32),
+                          (3, 1000, 200, 64, 32), (2, 30, 40, 64, 32)])
 def test_code_grad_dw_tensor_core_body_on_card(cuda, nh, n, m, d, kw, dups):
     """bf16 dW on the tensor cores against its plain version and against the
     CUDA-core body on the same inputs (rtol 1e-4, atol 1e-4 max|dW|: f32
@@ -736,7 +784,8 @@ def test_code_grad_dw_tensor_core_body_on_card(cuda, nh, n, m, d, kw, dups):
     {-1, 1}, x in {-1, 0, 1}, a duplicate 1 + 2^-9 through the lo tile)
     equal to the plain version bit for bit; body_counts() shows the body.
     Without duplicates (as rtopk's codes: padding rows repeat a zero) the
-    body runs no lo products."""
+    body runs no lo products. Widths 8 and 16 at d 32, 64 and 128, width 32
+    (a k-16 RoPE model's pair closure) at d 64 and 128."""
     import repro_torch.kernels.code_grad as cg
     rs = np.random.RandomState(17)
     vals, idx = _codes(rs, nh, n, kw, d)
@@ -769,9 +818,11 @@ def test_code_grad_dw_tensor_core_body_on_card(cuda, nh, n, m, d, kw, dups):
 
 def test_code_grad_dw_routes_other_shapes_to_cuda_cores(cuda):
     """bf16 at a code width or head dim the tensor-core body does not take
-    runs the CUDA-core body, against its plain version."""
+    (width 32 at d 32 among them) runs the CUDA-core body, against its plain
+    version."""
     rs = np.random.RandomState(18)
-    for nh, n, m, d, kw in ((3, 200, 96, 64, 4), (2, 130, 130, 64, 8), (2, 100, 64, 48, 8)):
+    for nh, n, m, d, kw in ((3, 200, 96, 64, 4), (2, 130, 130, 64, 8), (2, 100, 64, 48, 8),
+                            (2, 100, 64, 32, 32)):
         vals, idx = _codes(rs, nh, n, kw, d)
         tv = torch.from_numpy(vals).to(cuda).bfloat16()
         ti = torch.from_numpy(idx).to(cuda)
@@ -853,7 +904,9 @@ def test_proj_rtopk_tensor_core_body_random_on_card(cuda):
 
 @pytest.mark.parametrize("nh,n,m,d,kw", [(12, 2048, 768, 64, 8), (12, 1000, 768, 64, 16),
                                          (5, 1000, 200, 32, 8), (3, 777, 136, 128, 16),
-                                         (4, 300, 72, 128, 8), (2, 30, 40, 32, 16)])
+                                         (4, 300, 72, 128, 8), (2, 30, 40, 32, 16),
+                                         (8, 2048, 768, 128, 32), (3, 777, 136, 128, 32),
+                                         (3, 1000, 200, 64, 32), (2, 30, 40, 64, 32)])
 def test_code_grad_dx_tensor_core_body_on_card(cuda, nh, n, m, d, kw):
     """bf16 codes on the tensor cores: random codes (duplicates, padding
     rows, indices outside [0, d)) against the plain version and the
@@ -863,7 +916,8 @@ def test_code_grad_dx_tensor_core_body_on_card(cuda, nh, n, m, d, kw):
     in {-1, 1} with a 1 + 2^-9 duplicate against w in multiples of 1/16, or
     no duplicate against w in multiples of 2^-12 with a nonzero lo part,
     or a bf16 w: the body leaves out S_lo.W_lo); two calls equal;
-    body_counts() 0, and 1 for f32 codes."""
+    body_counts() 0, and 1 for f32 codes. Widths 8 and 16 at d 32, 64 and
+    128, width 32 at d 64 and 128."""
     import repro_torch.kernels.code_grad as cg
     from repro_torch.kernels.ops import head_blocks
     rs = np.random.RandomState(22)
@@ -904,9 +958,11 @@ def test_code_grad_dx_tensor_core_body_on_card(cuda, nh, n, m, d, kw):
 
 def test_code_grad_dx_routes_other_shapes_to_cuda_cores(cuda):
     """bf16 codes at a code width, head dim or m the tensor-core body does
-    not take run the CUDA-core body, against its plain version."""
+    not take (width 32 at d 32 among them) run the CUDA-core body, against
+    its plain version."""
     rs = np.random.RandomState(23)
-    for nh, n, m, d, kw in ((3, 200, 96, 64, 4), (2, 130, 130, 64, 8), (2, 100, 64, 48, 8)):
+    for nh, n, m, d, kw in ((3, 200, 96, 64, 4), (2, 130, 130, 64, 8), (2, 100, 64, 48, 8),
+                            (2, 100, 64, 32, 32)):
         vals, idx = _codes(rs, nh, n, kw, d)
         tv = torch.from_numpy(vals).to(cuda).bfloat16()
         ti = torch.from_numpy(idx).to(cuda)

@@ -35,7 +35,10 @@ Phases; any failure raises and the script exits non-zero:
                then (``phase_moonshot_shapes``) rows 1, 3, 5 at
                moonshot-v1-16b-a3b's training shape (bh 8 x 16, n 1024, d
                128, k 16) and 10-14 at its decode shape (8 slots x 16
-               heads, MHA), the shape "MS" of each row; then
+               heads, MHA), the shape "MS" of each row, and rows 2, 4, 5
+               (compact2), 8 and 9 at its RoPE compact seam (x 8 x 1024 x
+               2048, 16 heads, d 128, k 16, code width 32), the shape
+               "MSs"; then
                (``phase_frontend_shapes``) the instantiations the frontend
                families add, on rtopk's warp body and FlashSFA's
                tensor-core bodies in bf16 (flash_sfa_tc_wide.cu), its
@@ -126,6 +129,17 @@ Phases; any failure raises and the script exits non-zero:
                applied;
                then the launcher ``python -m repro_torch.launch.train
                --no-reduced --bwd-emit compact --remat codes`` for 2 steps;
+  8c. checkpoint — gpt2-small-sfa8 at full width (batch 8 x 1024, bf16,
+               remat full, dense emit, cuda) through ``Trainer.train``
+               under the Supervisor: run A checkpoints every 2 steps and
+               takes an injected fault before step 3 (restore of step 2,
+               replay), run B none; one restart, A equal to B bit for bit
+               (metrics, parameters, m, v), the launches of the 13 steps
+               as predicted, ``elastic_remesh`` onto CPU tensors equal to
+               the card's state, no fallback in ``collect_reports()``; the
+               checkpoint's bytes, the save's blocking ms, the writer's and
+               restore's seconds, step ms with and without a write in
+               flight, the straggler events;
   8b. qwen3 train — qwen3-0.6b-sfa8 (dense emit, remat "full"; then a
                compact request, which qk-norm sends off the seam: the report
                says why and the op-level compact emit runs) and the dense
@@ -1905,13 +1919,17 @@ SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms")
 # qwen3-0.6b-sfa8's training step (batch 8 x 16 heads, 1024 tokens, d 128,
 # k 8) and decode step (8 slots, 16 query heads over 8 kv heads, d 128);
 # llama3.2-3b's compact seam (24 query heads, d 128, k 16, code width 32,
-# m 3072)
-Q3, LL = dict(b=8, h=16, hkv=8, d=128, k=8), dict(b=8, h=24, hkv=8, d=128, k=16, m=3072)
+# m 3072, RoPE theta 500,000)
+Q3 = dict(b=8, h=16, hkv=8, d=128, k=8)
+LL = dict(b=8, h=24, hkv=8, d=128, k=16, m=3072, theta=500_000.0)
 Q3_PAGED = dict(slots=8, h=8, heads=16, d=128, k=8, dv=128, page=128, mp=16)
 # moonshot-v1-16b-a3b's training step (batch 8 x 16 heads, MHA, 1024
 # tokens, d 128, k 16) and decode step (8 slots x 16 heads, MHA, d 128, k 16)
 MS = dict(b=8, h=16, hkv=16, d=128, k=16)
 MS_PAGED = dict(slots=8, h=16, heads=16, d=128, k=16, dv=128, page=128, mp=16)
+# its RoPE compact seam (x 8 x 1024 x 2048, 16 heads, MHA, d 128, k 16: code
+# width 32; RoPE theta 50,000)
+MSS = dict(b=8, h=16, hkv=16, d=128, k=16, m=2048, theta=50_000.0)
 
 
 def _add_shape(results, name, label, r):
@@ -2220,14 +2238,6 @@ def phase_qwen3_llama_shapes(results):
     its plain version with the tolerance of its gpt2 check, timed beside
     its plain version and its library call, and the bound from these
     inputs. The d 128 kernels' ptxas registers first."""
-    from repro_torch.kernels import (
-        body_counts, code_grad_dw, code_grad_dx, flash_sfa, proj_rtopk, reset_launches,
-    )
-    from repro_torch.kernels.flash_sfa import BLOCK, _skip_schedule
-    from repro_torch.kernels.ops import head_blocks
-    from repro_torch.kernels.ref import (
-        code_grad_dw_ref, code_grad_dx_ref, flash_sfa_ref, proj_rtopk_ref, scatter_code_grads,
-    )
     for lib in ("flash_attention", "flash_sfa_tc", "flash_sfa_bwd", "proj_rtopk", "code_grad"):
         regs = ptxas_kernels(lib)
         print(f"[ptxas] {lib}: " + "; ".join(
@@ -2236,12 +2246,31 @@ def phase_qwen3_llama_shapes(results):
     rs = np.random.RandomState(SEED + 30)
     _sfa_train_rows(results, rs, Q3, "qwen3 training")
     _sfa_decode_rows(results, rs, Q3, Q3_PAGED, "qwen3 decode")
+    _seam_rows(results, rs, LL, "llama seam")
+
+
+def _seam_rows(results, rs, s, label, key=None, compact2=False):
+    """Rows 2, 4, 8, 9 (with ``compact2`` also row 5's compact2 emit) at a
+    model's RoPE compact seam ``s`` (batch b x n TRAIN_N tokens of width m,
+    h query heads over hkv kv heads of d, k, RoPE theta; code width 2k),
+    bf16 on the tensor-core bodies: each against its plain version (row 2
+    also bit-equal on dyadic inputs, bf16 and f32), timed beside its plain
+    version and its library call, the bound from these inputs; recorded as
+    the shape ``key`` (default: ``label``) of each row's entry."""
+    from repro_torch.kernels import (
+        body_counts, code_grad_dw, code_grad_dx, flash_sfa, flash_sfa_bwd, proj_rtopk,
+        reset_launches,
+    )
+    from repro_torch.kernels.flash_sfa import BLOCK, _skip_schedule
+    from repro_torch.kernels.ops import head_blocks
+    from repro_torch.kernels.ref import (
+        code_grad_dw_ref, code_grad_dx_ref, flash_sfa_bwd_ref, flash_sfa_ref, proj_rtopk_ref,
+        scatter_code_grads,
+    )
     es, n = 2, TRAIN_N
-    # ---- llama3.2-3b's compact seam: rows 2, 4, 8, 9 ----
-    label = "llama seam"
-    b, h, hkv, d, k, m = LL["b"], LL["h"], LL["hkv"], LL["d"], LL["k"], LL["m"]
+    b, h, hkv, d, k, m = s["b"], s["h"], s["hkv"], s["d"], s["k"], s["m"]
     bh, kw, scale = b * h, 2 * k, d ** -0.5
-    spec = (500_000.0, d)
+    spec = (s["theta"], d)
     pos = torch.arange(n, device="cuda")[None, :].expand(b, n)
     x, w = _dyadic_proj(rs, b, n, m, (h + 2 * hkv) * d)
     wq = head_blocks(w, 0, h, d)
@@ -2260,7 +2289,7 @@ def phase_qwen3_llama_shapes(results):
     check(body_counts()["proj_rtopk_cuda_core"] == 1, f"proj_rtopk {label} f32: {body_counts()}")
     check(torch.equal(ki, pi) and torch.equal(kv.view(torch.int32), pv.view(torch.int32)),
           f"proj_rtopk {label} f32: dyadic inputs with RoPE not bit-equal to the plain version")
-    print(f"[proj_rtopk] {label}: dyadic x (8, {n}, {m}) bf16 (tensor-core body) and (2, {n}, "
+    print(f"[proj_rtopk] {label}: dyadic x ({b}, {n}, {m}) bf16 (tensor-core body) and (2, {n}, "
           f"{m}) f32 (CUDA-core body), {h} heads of {d}, RoPE theta {spec[0]:g}, k {k}: "
           f"indices equal, values bit-equal to the plain version")
     del x, w, x2, kv, ki, pv, pi
@@ -2274,7 +2303,7 @@ def phase_qwen3_llama_shapes(results):
         _, i = torch.topk(y.abs(), k, dim=-1)
         return i
 
-    _timed_shape(results, "proj_rtopk", label, None,
+    _timed_shape(results, "proj_rtopk", label, key,
                  f"bf16 x {tuple(xb.shape)}, {h} heads of {d}, RoPE theta {spec[0]:g}, k={k} "
                  f"(tensor-core body; dyadic inputs bit-equal to the plain version); library = "
                  f"torch.matmul + torch.topk", 0.0,
@@ -2296,7 +2325,7 @@ def phase_qwen3_llama_shapes(results):
     level = _skip_schedule(qv, qi, kv, ki, d=d, causal=True, block_q=BLOCK, block_k=BLOCK)
     pairs, closed = _skip_work(level)
     qd, kd = _densify(qv, qi, d), _densify(kv, ki, d)
-    _timed_shape(results, "flash_sfa_block_skip", label, None,
+    _timed_shape(results, "flash_sfa_block_skip", label, key,
                  f"rtopk codes bh={bh} n={n} d=dv={d} k={k} bf16: max|err| {err:.3g}; {pairs} "
                  f"computed pairs, {closed} closed-form tiles; library = SDPA on densified Q/K",
                  err, 2 * bh * n * k * (es + 4) + 2 * bh * n * d * es + bh * n * 4,
@@ -2309,6 +2338,30 @@ def phase_qwen3_llama_shapes(results):
                  lambda: F.scaled_dot_product_attention(
                      qd.reshape(b, h, n, d), kd.reshape(b, h, n, d), v.reshape(b, h, n, d),
                      is_causal=True, scale=scale))
+    if compact2:
+        g = torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
+        args = (qv, qi, kv, ki, v, ko, kl, g)
+        reset_launches()
+        got = flash_sfa_bwd(*args, d=d, scale=scale, emit="compact2", rot_dim=d)
+        want = flash_sfa_bwd_ref(*args, d=d, scale=scale, emit="compact2", rot_dim=d)
+        torch.cuda.synchronize()
+        berr = max(_close(a, w_, torch.bfloat16, f"flash_sfa_bwd compact2 {nm} {label}")[0]
+                   for nm, a, w_ in zip(("dq", "dk", "dv"), got, want))
+        _tc_only(f"flash_sfa_bwd compact2 {label}")
+        del got, want
+        pairs = _pairs(bh, n)
+        _timed_shape(results, "flash_sfa_bwd_compact", label, key,
+                     f"compact2 emit (rot_dim {d}: code width {kw}), bh={bh} n={n} d=dv={d} "
+                     f"k={k} bf16, on the block-skip forward's output (tensor-core body): "
+                     f"max|err| {berr:.3g}; library = SDPA backward (autograd) on densified Q/K",
+                     berr, 2 * bh * n * k * (es + 4) + 3 * bh * n * d * es + bh * n * 4
+                     + 2 * bh * n * kw * es + bh * n * d * es,
+                     code_product_s(6 * k * pairs, 6 * d * pairs) + 4 * d * pairs / BF16_TC_FLOPS,
+                     lambda: flash_sfa_bwd(*args, d=d, scale=scale, emit="compact2", rot_dim=d),
+                     lambda: flash_sfa_bwd_ref(*args, d=d, scale=scale, emit="compact2",
+                                               rot_dim=d),
+                     _sdpa_bwd(qd, kd, v, g, scale))
+        del g, args
     del qv, qi, kv, ki, v, qd, kd, level
     torch.cuda.empty_cache()
     ntok = b * n
@@ -2331,7 +2384,7 @@ def phase_qwen3_llama_shapes(results):
     del got, want
     ops_s = code_product_s(2 * ntok * m * h * kw, 2 * ntok * m * h * d)
     codes = h * ntok * kw * (es + 4)
-    _timed_shape(results, "code_grad_dx", label, None,
+    _timed_shape(results, "code_grad_dx", label, key,
                  f"bf16 codes {h} x {ntok} x {kw}, m {m}, d {d} (tensor-core body, width {kw}): "
                  f"max|err| {cerr['dx']:.3g}; library = scatter_code_grads + torch.einsum",
                  cerr["dx"], codes + h * m * d * 4 + ntok * m * 4, ops_s,
@@ -2339,7 +2392,7 @@ def phase_qwen3_llama_shapes(results):
                  lambda: code_grad_dx_ref(vals, idx, wq, d=d),
                  lambda: torch.einsum("hnd,hmd->nm", scatter_code_grads(vals, idx, d).float(),
                                       wq))
-    _timed_shape(results, "code_grad_dw", label, None,
+    _timed_shape(results, "code_grad_dw", label, key,
                  f"the same codes, x ({ntok}, {m}) bf16 (tensor-core body): max|err| "
                  f"{cerr['dw']:.3g}; library = scatter_code_grads + torch.einsum", cerr["dw"],
                  codes + ntok * m * es + h * m * d * 4, ops_s,
@@ -2353,10 +2406,12 @@ def phase_qwen3_llama_shapes(results):
 def phase_moonshot_shapes(results):
     """Rows 1, 3, 5 at moonshot-v1-16b-a3b's training shape and rows 10-14
     at its decode shape (MHA, k 16), each recorded as the shape "MS" of its
-    row's entry."""
+    row's entry; then rows 2, 4, 5 (compact2), 8 and 9 at its RoPE compact
+    seam, the shape "MSs"."""
     rs = np.random.RandomState(SEED + 40)
     _sfa_train_rows(results, rs, MS, "MS training", key="MS", dense=False)
     _sfa_decode_rows(results, rs, MS, MS_PAGED, "MS decode", key="MS")
+    _seam_rows(results, rs, MSS, "MSs seam", key="MSs", compact2=True)
 
 
 # hubert-xlarge's training step (batch 8 x 16 heads, 1024 frames, d = dv 80,
@@ -4081,6 +4136,231 @@ def phase_launcher():
           + " | ".join(out[-3:]))
 
 
+
+# --------------------------------------------------------------------------
+# phase 8c: checkpointing and fault tolerance at full width
+# --------------------------------------------------------------------------
+
+CKPT_STEPS, CKPT_FAULT = 6, 3
+
+
+def phase_checkpoint():
+    """Full-width gpt2-small-sfa8 through ``Trainer.train`` on the card in the
+    training phases' setting (batch 8 x 1024, bf16 compute, f32 parameters,
+    dense emit, remat full, the cuda backend: rows 1, 3 and 5). Run A
+    checkpoints every 2 steps (keep 2, max_restarts 1) over 6 steps with a
+    fault injected before step 3, so the Supervisor restores step 2 and
+    replays steps 2-5; run B, a fresh Trainer from the same seed, runs the 6
+    steps without a fault and checkpoints only at the end. Checks: one
+    restart; A's replayed step 2 equal to its first; A's metrics by step and
+    final parameters, m and v equal to B's (bit for bit; else each within
+    ``_close``'s bf16 tolerance, the leaves that differ printed); the
+    launches of rows 1, 3 and 5 over the 13 steps run as predicted, no
+    CUDA-core body; ``elastic_remesh`` restores A's step-6 checkpoint onto
+    CPU tensors equal bit for bit to the card's state copied to the host;
+    ``collect_reports()`` holds no fallback and nothing ineligible. Prints
+    the checkpoint's bytes on disk against the state's array bytes, the ms
+    the loop blocks in each save (its wait for the previous write, then the
+    host copy), the writer's and restore's seconds, the step ms of steps
+    that overlapped a write against those that did not, and the straggler
+    events. The checkpoint directories are temporary."""
+    import tempfile
+    from unittest import mock
+
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainPolicy
+    from repro_torch.core.reports import clear_reports, collect_reports
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import body_counts, launch_counts, reset_launches
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import FTConfig, Trainer, TrainerConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import fault_tolerance as ft
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.train_step import make_train_step
+    release()
+    cfg = get_config("gpt2-small-sfa8")
+    layers = cfg.num_layers
+    policy = TrainPolicy.from_model(cfg, backend="cuda", remat="full", bwd_emit="dense")
+    ocfg = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=CKPT_STEPS + 1)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_N, global_batch=8, seed=SEED)
+    stats = {"save": [], "write": [], "restore": [], "steps": []}
+    sups = []
+    write, restore = ckpt.save, ckpt.restore
+
+    class TimedCheckpointer(ckpt.AsyncCheckpointer):
+        def save(self, step, tree, extra=None):
+            t0 = time.perf_counter()
+            self.wait()
+            t1 = time.perf_counter()
+            super().save(step, tree, extra)
+            stats["save"].append((step, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+
+    class RecordedSupervisor(ft.Supervisor):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.ckptr = TimedCheckpointer(self.cfg.ckpt_dir, keep=self.cfg.keep)
+            sups.append(self)
+
+    def timed_write(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = write(*args, **kwargs)
+        stats["write"].append((t0, time.perf_counter()))
+        return out
+
+    def timed_restore(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = restore(*args, **kwargs)
+        torch.cuda.synchronize()
+        stats["restore"].append(time.perf_counter() - t0)
+        return out
+
+    def trainer(ckpt_dir, every):
+        tr = Trainer(cfg, ocfg, dcfg, TrainerConfig(
+            total_steps=CKPT_STEPS, log_every=CKPT_STEPS, seed=SEED, policy=policy,
+            ft=FTConfig(ckpt_dir=ckpt_dir, ckpt_every=every, keep=2, max_restarts=1)),
+            device="cuda")
+        run_step = tr.run_step
+
+        def timed_step(step):
+            t0 = time.perf_counter()
+            out = run_step(step)          # ends reading the metrics: synchronized
+            stats["steps"].append((step, t0, time.perf_counter()))
+            return out
+
+        tr.run_step = timed_step
+        return tr
+
+    fired = []
+
+    def injector(step):
+        if step == CKPT_FAULT and not fired:
+            fired.append(step)
+            raise RuntimeError(f"injected fault before step {step}")
+
+    def split(key):
+        out, stats[key] = stats[key], []
+        return out
+
+    def differing_leaves(xs, ys):
+        return [i for i, (x, y) in enumerate(zip(xs, ys)) if not (
+            torch.equal(x, y) if torch.is_tensor(x) else np.array_equal(x, y))]
+
+    clear_reports()
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root, \
+            mock.patch.object(trainer_mod, "Supervisor", RecordedSupervisor), \
+            mock.patch.object(ckpt, "save", timed_write), \
+            mock.patch.object(ckpt, "restore", timed_restore):
+        dir_a, dir_b = os.path.join(root, "a"), os.path.join(root, "b")
+        t0 = time.perf_counter()
+        tr_a = trainer(dir_a, 2)
+        logs_a = tr_a.train(injector)
+        run_a_s = time.perf_counter() - t0
+        steps_a, writes_a, saves_a = split("steps"), split("write"), split("save")
+        step_dir = os.path.join(dir_a, f"step_{CKPT_STEPS:09d}")
+        disk = {name: os.path.getsize(os.path.join(step_dir, name))
+                for name in os.listdir(step_dir)}
+        state_a = ckpt.tree_leaves(tr_a._save_state())
+        array_bytes = sum(x.numel() * x.element_size() if torch.is_tensor(x) else x.nbytes
+                          for x in state_a)
+        # the card's state copied to the host, against elastic_remesh onto CPU tensors
+        host = [x.cpu() if torch.is_tensor(x) else x for x in state_a]
+        like = tree_map(lambda x: torch.zeros_like(x, device="cpu") if torch.is_tensor(x)
+                        else np.zeros_like(x), tr_a._save_state())
+        step_fn, state_cpu, remesh_step = ft.elastic_remesh(
+            lambda device: make_train_step(cfg, ocfg, policy=policy), torch.device("cpu"),
+            dir_a, like)
+        remesh = ckpt.tree_leaves(state_cpu)
+        check(callable(step_fn) and remesh_step == CKPT_STEPS,
+              f"checkpoint: elastic_remesh gave step {remesh_step}")
+        check(all(x.device.type == "cpu" and x.dtype == y.dtype for x, y in zip(remesh, host)
+                  if torch.is_tensor(x)) and not differing_leaves(remesh, host),
+              "checkpoint: elastic_remesh's CPU state is not the card's state bit for bit")
+        del like, state_cpu, remesh, host
+        t0 = time.perf_counter()
+        tr_b = trainer(dir_b, 100)
+        logs_b = tr_b.train()
+        run_b_s = time.perf_counter() - t0
+        steps_b, writes_b, saves_b = split("steps"), split("write"), split("save")
+    counts, bodies, reports = launch_counts(), body_counts(), collect_reports()
+    restarts = [e for e in logs_a if "event" in e]
+    runs_a = [e for e in logs_a if "event" not in e]
+    check(len(restarts) == 1 and restarts[0]["step"] == CKPT_FAULT - 1
+          and sups[0].restarts == 1,
+          f"checkpoint: restarts {restarts}, predicted one at step {CKPT_FAULT - 1}")
+    ran = [e["step"] for e in runs_a]
+    check(ran == [0, 1, 2, 2, 3, 4, 5], f"checkpoint: run A's steps {ran}")
+    n_steps = len(runs_a) + len(logs_b)
+    want = {name: 0 for name in counts}
+    want.update(rtopk=4 * layers * n_steps, flash_sfa=2 * layers * n_steps,
+                flash_sfa_bwd=layers * n_steps)
+    check(n_steps == 13 and counts == want,
+          f"checkpoint: launches {counts} over {n_steps} steps, predicted {want}")
+    check(not any(bodies.values()), f"checkpoint: a CUDA-core body launched: {bodies}")
+    check(not any(r.component == "backend" or not r.eligible for r in reports),
+          f"checkpoint: routing {reports}")
+    check(all(np.isfinite(e["loss"]) for e in runs_a + logs_b),
+          f"checkpoint: non-finite loss {runs_a} {logs_b}")
+    # A against B: bit for bit, else within the bf16 tolerance, naming the leaves
+    last_a = {e["step"]: e for e in runs_a}
+    state_b = ckpt.tree_leaves(tr_b._save_state())
+    differ = differing_leaves(state_a, state_b)
+    metrics_equal = [last_a[s] for s in range(CKPT_STEPS)] == logs_b
+    replay_equal = runs_a[2] == runs_a[3]
+    if differ or not metrics_equal or not replay_equal:
+        for i in differ:
+            _close(state_a[i], state_b[i], torch.bfloat16, f"checkpoint: leaf {i}")
+        for a, b in zip([last_a[s] for s in range(CKPT_STEPS)] + [runs_a[2]],
+                        logs_b + [runs_a[3]]):
+            check(abs(a["loss"] - b["loss"]) <= 2 ** -7 * abs(b["loss"]) + 1e-4,
+                  f"checkpoint: losses {a} against {b}")
+        print(f"[checkpoint] A against B NOT bit for bit: metrics equal {metrics_equal}, "
+              f"replayed step equal {replay_equal}; leaves that differ (within the bf16 "
+              f"tolerance): {[(i, tuple(state_a[i].shape)) for i in differ]}")
+    else:
+        print(f"[checkpoint] A (faulted, replayed) and B equal bit for bit: the metrics of "
+              f"all {CKPT_STEPS} steps, the replayed step {CKPT_FAULT - 1} against its first "
+              f"run, and all {len(state_a)} state leaves (parameters, m, v, step)")
+
+    def step_ms(steps, writes):
+        """(ms of steps overlapping a write, ms of the others), the first
+        step of a run (its warm-up) left out."""
+        over, clear = [], []
+        for i, (_, t0, t1) in enumerate(steps):
+            if i == 0:
+                continue
+            hit = any(t0 < w1 and t1 > w0 for w0, w1 in writes)
+            (over if hit else clear).append(round((t1 - t0) * 1e3, 2))
+        return over, clear
+
+    over, clear = step_ms(steps_a, writes_a)
+    _, clear_b = step_ms(steps_b, writes_b)
+    print(f"[checkpoint] gpt2-small-sfa8 full width, batch 8 x {TRAIN_N}, bf16, remat full, "
+          f"dense emit, cuda: run A {run_a_s:.1f} s ({len(runs_a)} steps, a fault before step "
+          f"{CKPT_FAULT}, restored step {restarts[0]['step']}), run B {run_b_s:.1f} s; losses "
+          f"{[round(e['loss'], 4) for e in logs_b]}; launches {counts} (predicted)")
+    print(f"[checkpoint] step {CKPT_STEPS}: {sum(disk.values())} B on disk ({disk}) for "
+          f"{array_bytes} B of array data in {len(state_a)} leaves")
+    print(f"[checkpoint] saves (step, ms waiting for the previous write, ms blocking on the "
+          f"host copy): A {[(st, round(w, 1), round(b, 1)) for st, w, b in saves_a]}, "
+          f"B {[(st, round(w, 1), round(b, 1)) for st, w, b in saves_b]}")
+    print(f"[checkpoint] writer s per checkpoint: A "
+          f"{[round(w1 - w0, 2) for w0, w1 in writes_a]}, B "
+          f"{[round(w1 - w0, 2) for w0, w1 in writes_b]}; restore s (the Supervisor's, "
+          f"then elastic_remesh onto CPU tensors): {[round(x, 2) for x in stats['restore']]}")
+    print(f"[checkpoint] step ms overlapping a write: {over} (mean "
+          f"{np.mean(over) if over else float('nan'):.2f}); the others in A: {clear} (mean "
+          f"{np.mean(clear) if clear else float('nan'):.2f}), in B: {clear_b} (mean "
+          f"{np.mean(clear_b):.2f}); straggler events A {sups[0].monitor.events}, "
+          f"B {sups[1].monitor.events}")
+    print(f"[checkpoint] routing (collect_reports): {list(reports) or 'nothing recorded'} "
+          f"(no fallback; remat full is not recorded, a codes request is)")
+    del tr_a, tr_b, state_a, state_b
+    release()
+
 def main():
     t_start = time.perf_counter()
     device_name, count = timed(phase_device)
@@ -4190,6 +4470,7 @@ def main():
          "code_grad_dw": 2 * layers},
         bwd_emit="compact", fwd_fuse=True, remat="codes")
     timed(phase_launcher)
+    timed(phase_checkpoint)
     # qwen3 at full width and depth: the dense emit; a compact request,
     # which qk-norm sends off the seam (the op-level compact emit runs:
     # flash_sfa_bwd_compact); the dense qwen3-0.6b

@@ -36,6 +36,8 @@ from typing import Optional
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from repro_torch.core import reports
+
 REMAT_POLICIES = ("none", "full", "codes")
 
 # What the "codes" policy keeps per SFA layer besides the layer input: the
@@ -185,3 +187,13 @@ def remat_reports() -> tuple:
 
 def clear_remat_reports() -> None:
     _REMAT_REPORTS.clear()
+
+
+# the "remat" component of core/reports.py: a read-only view
+def _collect_remat_reports():
+    return tuple(reports.make_report("remat", r.where, eligible=r.eligible, reason=r.reason,
+                                     details={"requested": r.requested, "applied": r.applied})
+                 for r in remat_reports())
+
+
+reports.register_provider("remat", _collect_remat_reports, clear_remat_reports)

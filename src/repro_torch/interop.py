@@ -48,11 +48,13 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def _fill(spec, flat, prefix=""):
+def fill_tree(spec, flat, prefix=""):
+    """``spec``'s nested dicts and lists with each leaf replaced by
+    ``flat[<its dotted name>]`` (the names of ``Model.named_parameters``)."""
     if isinstance(spec, dict):
-        return {k: _fill(v, flat, f"{prefix}{k}.") for k, v in spec.items()}
+        return {k: fill_tree(v, flat, f"{prefix}{k}.") for k, v in spec.items()}
     if isinstance(spec, list):
-        return [_fill(v, flat, f"{prefix}{i}.") for i, v in enumerate(spec)]
+        return [fill_tree(v, flat, f"{prefix}{i}.") for i, v in enumerate(spec)]
     return flat[prefix[:-1]]
 
 
@@ -75,4 +77,4 @@ def from_jax(tree, cfg: ModelConfig, *, device=None) -> Model:
                              f"port expects {shape}")
         flat[name] = torch.as_tensor(np.array(arr, dtype=np.float32),
                                      device=device)
-    return Model(_fill(spec, flat), cfg)
+    return Model(fill_tree(spec, flat), cfg)

@@ -57,6 +57,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import AttentionConfig, ModelConfig
+from repro_torch.core import reports as _reports
 from repro_torch.core.attention import chunked_attention
 from repro_torch.core.kv_cache import (
     MLAKV, DenseKV, FeatureMajorKV, KVCache, MLASparseKV, PagedDenseKV, PagedFeatureMajorKV,
@@ -327,6 +328,19 @@ def compact_seam_reports() -> tuple:
 
 def clear_compact_seam_reports() -> None:
     _SEAM_REPORTS.clear()
+
+
+# the "compact_seam" and "ring" components of core/reports.py (read-only
+# views). Ring-SFA is distribution work and raises in the port, so "ring"
+# has no records yet.
+def _collect_seam_reports():
+    return tuple(_reports.make_report("compact_seam", r.where, eligible=r.taken,
+                                      reason=r.reason, details={"fused_fwd": r.fused_fwd})
+                 for r in compact_seam_reports())
+
+
+_reports.register_provider("compact_seam", _collect_seam_reports, clear_compact_seam_reports)
+_reports.register_provider("ring", tuple, lambda: None)
 
 
 def _record_seam(where: str, taken: bool, reason: Optional[str],

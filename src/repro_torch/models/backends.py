@@ -60,6 +60,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import reports as _reports
 from repro_torch.core.attention import NEG_INF, chunked_attention
 from repro_torch.core.kv_cache import (
     FeatureMajorKV, KVCache, MLAKV, MLASparseKV, PagedFeatureMajorKV, PagedKV,
@@ -653,3 +654,16 @@ def select_backend(name: str, req: AttentionRequest, *,
                      "[mode=%s%s]", name, fallback.name, reason, req.mode,
                      f", at {where}" if where else "")
     return BackendSelection(fallback, name, reason)
+
+
+# the "backend" component of core/reports.py: every FallbackReport is a
+# not-eligible routing decision (a read-only view)
+def _collect_backend_reports():
+    return tuple(
+        _reports.make_report("backend", f.where, eligible=False, reason=f.reason,
+                             details={"requested": f.requested, "selected": f.selected,
+                                      "mode": f.request.mode})
+        for f in fallback_reports())
+
+
+_reports.register_provider("backend", _collect_backend_reports, clear_fallback_reports)

@@ -306,17 +306,19 @@ def _block(p, x, cfg: ModelConfig, kind: str, *, window, positions, mode, cache=
                      cache=cache, cache_len=cache_len, slot=slot)
 
 
-def _remat(cfg: ModelConfig, mode: str) -> str:
-    """The policy the layer loop applies: ``cfg.remat`` on the train and
-    eval forwards ("none" in the serving modes). "codes" on a stack that
-    keeps no codes is applied as "full", and recorded with the reason."""
+def _remat(cfg: ModelConfig, mode: str, kind: str) -> str:
+    """The policy the layer loop applies to a segment of ``kind``:
+    ``cfg.remat`` on the train and eval forwards ("none" in the serving
+    modes). A "codes" request is recorded at the segment, as the reference's
+    scan records it; on a stack that keeps no codes it is applied as "full",
+    with the reason."""
     rm = normalize_remat(cfg.remat)
     if mode not in ("train", "eval") or rm == "none":
         return "none"
     if rm == "codes":
         reason = attn.remat_codes_ineligible_reason(cfg)
         applied = "full" if reason is not None else "codes"
-        record_remat(f"{cfg.name}/layers", rm, applied, reason)
+        record_remat(f"{cfg.name}/scan[{kind}]", rm, applied, reason)
         return applied
     return rm
 
@@ -327,14 +329,13 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
     layer with its window (``_window_array``, the layer offset carried
     across segments). Returns (x, the summed aux loss or None, caches)."""
     tree = params.tree()
-    remat = _remat(cfg, mode)
-
     aux_total = None
     new_caches = []
     offset = 0
     for si, (kind, count) in enumerate(segments(cfg)):
         windows = _window_array(cfg, count, offset) or [None] * count
         offset += count
+        remat = _remat(cfg, mode, kind)
 
         seg = tree["segments"][si]
         layer_caches = []

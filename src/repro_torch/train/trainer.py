@@ -1,24 +1,34 @@
-"""High-level trainer: data, train step and the loop, as in the JAX
-package's ``repro/train/trainer.py``.
+"""High-level trainer: data, train step, checkpointing and fault tolerance,
+as in the JAX package's ``repro/train/trainer.py``.
 
 ``Trainer`` runs on the card unless it is given ``device="cpu"``. It keeps
 the parameters in f32 and computes in ``cfg.dtype`` (the JAX package's
 ``param_dtype = "float32"``); its weights are random from ``tcfg.seed``, or
 the ``params`` it is given (e.g. ``interop.from_jax`` of a JAX trainer's).
-The step runs a plain loop. The fault-tolerance ``Supervisor`` and
-checkpointing of the JAX trainer are the ROADMAP item "checkpointing";
-gradient compression is the item "distribution".
+``train`` runs the steps under the ``Supervisor`` (``tcfg.ft``):
+checkpoints every ``ckpt_every`` steps and at the last, and on a fault a
+restore of the newest one and a replay. ``_save_state`` gives the state in
+the JAX Trainer's layout, ``{"params", "opt": OptState(step, m, v)}`` with
+the moments nested as the parameters and the step an int32 scalar, so a
+checkpoint crosses between the two packages. Gradient compression (and its
+``"err"`` state) is the ROADMAP item "distribution".
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
+import torch
+
 from repro_torch.configs.base import ModelConfig, TrainPolicy
 from repro_torch.data import DataConfig, copy_batch, markov_batch
+from repro_torch.interop import fill_tree
 from repro_torch.models.model import Model, default_device
 from repro_torch.models.model import init as model_init
-from repro_torch.optim import OptimizerConfig, init_opt_state
+from repro_torch.optim import OptimizerConfig, OptState, init_opt_state
+from repro_torch.train.checkpoint import tree_leaves
+from repro_torch.train.fault_tolerance import FTConfig, Supervisor
 from repro_torch.train.train_step import make_train_step
 
 
@@ -33,6 +43,7 @@ class TrainerConfig:
     # One validated bundle for every execution-policy axis (configs/base.py
     # TrainPolicy). None = run the ModelConfig exactly as configured.
     policy: Optional[TrainPolicy] = None
+    ft: FTConfig = dataclasses.field(default_factory=FTConfig)
 
 
 class Trainer:
@@ -56,18 +67,49 @@ class Trainer:
             grad_compression=tcfg.grad_compression, policy=tcfg.policy)
         self._batch_fn = markov_batch if tcfg.data_kind == "markov" else copy_batch
 
+    # --- FT state plumbing -------------------------------------------------
+    def _save_state(self):
+        """The live state in the JAX Trainer's layout (the parameters and
+        moments are the live tensors; a checkpoint copies them)."""
+        params = self.params.tree()
+        opt = self.opt_state
+        return {"params": params,
+                "opt": OptState(np.asarray(opt.step, np.int32), fill_tree(params, opt.m),
+                                fill_tree(params, opt.v))}
+
+    def _load_state(self, state):
+        """Copy ``state`` (as ``_save_state`` lays it out) into the live
+        parameters and moments in place, and set the step."""
+        live = self._save_state()
+        dst = tree_leaves([live["params"], live["opt"].m, live["opt"].v])
+        src = tree_leaves([state["params"], state["opt"].m, state["opt"].v])
+        with torch.no_grad():
+            for d, s in zip(dst, src, strict=True):
+                d.copy_(s)
+        self.opt_state = self.opt_state._replace(step=int(state["opt"].step))
+
+    # --- loop ----------------------------------------------------------------
     def run_step(self, step: int) -> dict:
         batch = self._batch_fn(self.data_cfg, step)
         self.params, self.opt_state, metrics = self.step_fn(
             self.params, self.opt_state, batch)
         return {k: float(v) for k, v in metrics.items()}
 
-    def train(self) -> list[dict]:
-        history = []
-        for step in range(self.tcfg.total_steps):
+    def train(self, fault_injector=None) -> list[dict]:
+        """``total_steps`` steps under the Supervisor: its logs, one
+        ``{"step", **metrics}`` a step run and one ``{"step", "event":
+        "restart", "error"}`` a fault. ``fault_injector(step)`` runs before
+        each step (tests raise from it)."""
+        sup = Supervisor(self.tcfg.ft, save_state=self._save_state,
+                         load_state=self._load_state)
+
+        def step_fn(step):
+            if fault_injector is not None:
+                fault_injector(step)
             m = self.run_step(step)
             if step % self.tcfg.log_every == 0:
                 print(f"step {step:5d} loss {m['loss']:.4f} aux {m['aux']:.4g} "
                       f"gnorm {m['grad_norm']:.3f} lr {m['lr']:.2e}")
-            history.append({"step": step, **m})
-        return history
+            return m
+
+        return sup.run(step_fn, self.tcfg.total_steps)

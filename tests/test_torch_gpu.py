@@ -198,7 +198,7 @@ def test_wrappers_refuse_grad_outside_their_function(cuda):
 
 @pytest.mark.parametrize("arch", ["gpt2-small-sfa8", "gpt2-small", "qwen3-0.6b-sfa8",
                                   "qwen3-0.6b", "llama3.2-3b", "paligemma-3b"])
-def test_trainer_runs_the_backward_kernels(cuda, arch):
+def test_trainer_runs_the_backward_kernels(cuda, arch, tmp_path):
     """Three steps of reduced ``arch`` (qwen3 and llama with GQA, 2 kv
     heads; paligemma held at its head dim of 256, MQA): the forward and
     backward kernels launch as the layer count predicts, paligemma's bf16
@@ -213,7 +213,7 @@ def test_trainer_runs_the_backward_kernels(cuda, arch):
     from repro_torch.data import DataConfig
     from repro_torch.models.attention import clear_compact_seam_reports, compact_seam_reports
     from repro_torch.optim import OptimizerConfig
-    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import FTConfig, Trainer, TrainerConfig
     cfg, full = get_config(arch).reduced(), get_config(arch).attention
     if arch == "paligemma-3b":           # its own head dim (reduced() caps it at 32)
         cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
@@ -227,7 +227,8 @@ def test_trainer_runs_the_backward_kernels(cuda, arch):
     tr = Trainer(cfg, OptimizerConfig(warmup_steps=2, total_steps=4),
                  DataConfig(vocab_size=cfg.vocab_size, seq_len=100, global_batch=2),
                  TrainerConfig(total_steps=3, policy=TrainPolicy.from_model(
-                     cfg, backend="cuda", **policy)), device=cuda)
+                     cfg, backend="cuda", **policy), ft=FTConfig(ckpt_dir=str(tmp_path))),
+                 device=cuda)
     clear_compact_seam_reports()
     reset_launches()
     hist = tr.train()
@@ -432,7 +433,7 @@ def test_flash_sfa_bwd_compact_emits_on_card(cuda, emit, rot, dtype):
 
 
 @pytest.mark.parametrize("sfa_k", [4, 8])
-def test_trainer_runs_the_compact_seam_kernels(cuda, sfa_k):
+def test_trainer_runs_the_compact_seam_kernels(cuda, sfa_k, tmp_path):
     """TrainPolicy(bwd_emit="compact", fwd_fuse=True, remat="codes"): per
     step and layer proj_rtopk 2 (q, k), block-skip FlashSFA 2 (forward and
     the backward's rerun), the compact backward 1, code_grad dx and dW 2
@@ -447,7 +448,7 @@ def test_trainer_runs_the_compact_seam_kernels(cuda, sfa_k):
     from repro_torch.configs.base import TrainPolicy
     from repro_torch.data import DataConfig
     from repro_torch.optim import OptimizerConfig
-    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import FTConfig, Trainer, TrainerConfig
     cfg = get_config("gpt2-small-sfa8").reduced()
     cfg = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, sfa_k=sfa_k))
     assert cfg.dtype == "bfloat16"
@@ -456,7 +457,7 @@ def test_trainer_runs_the_compact_seam_kernels(cuda, sfa_k):
                  DataConfig(vocab_size=cfg.vocab_size, seq_len=100, global_batch=2),
                  TrainerConfig(total_steps=steps, policy=TrainPolicy.from_model(
                      cfg, remat="codes", bwd_emit="compact", fwd_fuse=True,
-                     backend="cuda")), device=cuda)
+                     backend="cuda"), ft=FTConfig(ckpt_dir=str(tmp_path))), device=cuda)
     reset_launches()
     hist = tr.train()
     assert all(np.isfinite(h["loss"]) for h in hist)
@@ -473,7 +474,7 @@ def test_trainer_runs_the_compact_seam_kernels(cuda, sfa_k):
     assert body_counts() == want_body
 
 
-def test_llama_seam_at_its_own_head_dim_runs_no_cuda_core_body(cuda):
+def test_llama_seam_at_its_own_head_dim_runs_no_cuda_core_body(cuda, tmp_path):
     """llama3.2-3b's RoPE compact seam at its own head dim 128 and sfa_k
     16 (reduced otherwise: 2 layers, 4 query heads over 2 kv heads, d_model
     64; batch 2 x 100, bf16, remat "codes"): its 2k = 32 wide codes run
@@ -485,7 +486,7 @@ def test_llama_seam_at_its_own_head_dim_runs_no_cuda_core_body(cuda):
     from repro_torch.data import DataConfig
     from repro_torch.models.attention import clear_compact_seam_reports, compact_seam_reports
     from repro_torch.optim import OptimizerConfig
-    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import FTConfig, Trainer, TrainerConfig
     full = get_config("llama3.2-3b")
     cfg = full.reduced()
     cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
@@ -499,7 +500,7 @@ def test_llama_seam_at_its_own_head_dim_runs_no_cuda_core_body(cuda):
                  DataConfig(vocab_size=cfg.vocab_size, seq_len=100, global_batch=2),
                  TrainerConfig(total_steps=steps, policy=TrainPolicy.from_model(
                      cfg, remat="codes", bwd_emit="compact2", fwd_fuse=True,
-                     backend="cuda")), device=cuda)
+                     backend="cuda"), ft=FTConfig(ckpt_dir=str(tmp_path))), device=cuda)
     clear_compact_seam_reports()
     reset_launches()
     hist = tr.train()

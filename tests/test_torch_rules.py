@@ -1,4 +1,4 @@
-"""Rules of the port: no JAX and nothing of ``repro`` in ``repro_torch``,
+"""Rules of the port: no JAX, no ml_dtypes and nothing of ``repro`` in ``repro_torch``,
 ``chip_smoke.py`` or the port's ``tools/``; the package imports without JAX; entry points default
 to the card and say so when there is none."""
 import re
@@ -11,8 +11,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro\.|"
-    r"from\s+repro\s+import\b)", re.MULTILINE)
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+ml_dtypes\b|from\s+ml_dtypes\b|"
+    r"import\s+repro\b(?!_)|from\s+repro\.|from\s+repro\s+import\b)", re.MULTILINE)
 
 
 def _port_files():
@@ -24,7 +24,8 @@ def _port_files():
 def test_rule_pattern_tells_repro_from_repro_torch():
     for line in ("import jax", "from jax import numpy", "import jax.numpy as jnp",
                  "import repro", "from repro.core import sparse",
-                 "from repro import kernels", "  import repro.models"):
+                 "from repro import kernels", "  import repro.models", "import ml_dtypes",
+                 "from ml_dtypes import bfloat16"):
         assert FORBIDDEN.search(line), line
     for line in ("import repro_torch", "from repro_torch.core import sparse",
                  "import jaxlike", "# import jax", "import torch"):
@@ -39,13 +40,15 @@ def test_no_jax_or_repro_imports(path):
 
 
 def test_package_imports_without_jax():
-    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
+            "sys.modules['ml_dtypes'] = None\n"
             "import repro_torch, repro_torch.kernels, repro_torch.serve, "
             "repro_torch.interop, repro_torch.launch.serve, repro_torch.train, "
             "repro_torch.optim, repro_torch.data, repro_torch.launch.train, "
             "repro_torch.core.remat, repro_torch.kernels.code_grad, "
             "repro_torch.models.attention, repro_torch.serve.speculative, "
-            "repro_torch.serve.kv_cache, repro_torch.kernels.flash_sfa_decode\n"
+            "repro_torch.serve.kv_cache, repro_torch.kernels.flash_sfa_decode, "
+            "repro_torch.core.reports, repro_torch.train.checkpoint\n"
             "from repro_torch.kernels import _build\n"
             "assert not _build._LIBS\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

@@ -234,7 +234,26 @@ Phases; any failure raises and the script exits non-zero:
                layers the card against the port on the CPU (logits on f32
                caches and every gradient, 1e-4), and trained at full width
                (batch 8 x 1024, bf16, AdamW, remat "full");
- 13. a ``kernels`` JSON line, then the result line.
+ 14. distribution (``phase_distributed``) — rows 3 and 5 at the ring's hop
+               shape (one rank's shard on the ring of 4: bh 24, 1,024 x
+               1,024, d 64, k 8, non-causal; row 5's compact emit), the
+               shape "RING" of each row; then 4 ranks on the one card
+               (``launch.mesh.spawn``, gloo; the ring's hops through pinned
+               host memory: gloo's send refuses device memory) on three
+               meshes: (a)
+               a ring of 4 (``make_debug_mesh(seq=4)``): full-width
+               gpt2-small-sfa8 at global batch 2 x 4,096, bf16, remat full,
+               its gradients and 3 steps' losses held to one process by
+               phase 9's bf16 rule, each rank's ring bytes equal to the
+               byte model and its launches of rows 1, 3 and 5 to the
+               prediction, a 2-layer f32 model at 1e-4, the code-level
+               ``ring_sfa`` against flash_sfa + its compact backward
+               (random and banded codes, f32 at 1e-4; bf16); (b) TP 2 x DP 2
+               through the compact seam at 8 x 1,024 (rows 2, 4, 5, 8, 9 on
+               each rank's 6 heads); (c) DP 4 with top-5% gradient
+               compression, a 2-layer f32 model, against one process;
+               replicas equal, ms per step per rank, peak memory per mesh;
+ 15. a ``kernels`` JSON line, then the result line.
 
 Phase 3 holds row 1 (rtopk, d 64, k 8, bf16 and f32, tie-heavy rows) at
 the three shapes of its main paths: a decode step's 96 rows, a prefill's
@@ -4361,6 +4380,604 @@ def phase_checkpoint():
     del tr_a, tr_b, state_a, state_b
     release()
 
+# --------------------------------------------------------------------------
+# phase 14: distribution on 4 ranks of the one card
+# --------------------------------------------------------------------------
+
+DIST_WORLD = 4
+# the seq-4 mesh's step: full-width gpt2-small-sfa8, global batch 2 x 4096,
+# so each rank's shard is 1024 tokens and the folded batch bh = 2 x 12
+RING_B, RING_N, RING_STEPS = 2, 4096, 3
+# the TP (model 2 x data 2) and DP (data 4) meshes' global batch, and their
+# steps: TP's cut to 1 (the script's time cap), DP's 2 carry a residual
+MESH_B, MESH_N, TP_STEPS, DP_STEPS = 8, 1024, 1, 2
+COMPRESSION = 0.05
+# bytes one rank sends per layer on the ring of 4 at the port's widths
+# (bf16 code values and V, int32 indices, f32 accumulators): the byte model
+# of distributed/ring.py (Motivation's figures, PERF.md section 6)
+RING_HOP_BYTES = 4_325_376
+RING_FWD_BYTES = 12_976_128
+RING_BWD_BYTES = 41_287_680
+
+
+def _ring_hop_rows(results, rs):
+    """Rows 3 and 5 at the ring's hop shape: one rank's shard of
+    gpt2-small-sfa8 on the ring of 4 (bh 24, 1,024 queries against 1,024
+    keys, d = dv 64, k 8, bf16), non-causal (a fully-past hop), row 5 with
+    the compact emit the ring runs; each against its plain version, timed
+    beside it and SDPA on the densified Q/K, the bound from these inputs;
+    the shape "RING" of each row."""
+    from repro_torch.kernels import flash_sfa, flash_sfa_bwd, reset_launches
+    from repro_torch.kernels.ref import flash_sfa_bwd_ref, flash_sfa_ref
+    es, bh, n, d, k = 2, RING_B * 12, RING_N // DIST_WORLD, 64, 8
+    dv, scale = d, d ** -0.5
+    reset_launches()
+    qv, qi, kv, ki = _codes_of(rs, bh, n, d, k, torch.bfloat16)
+    v, g = (torch.from_numpy(rs.randn(bh, n, dv).astype(np.float32)).cuda().bfloat16()
+            for _ in range(2))
+    kw = dict(d=d, scale=scale, causal=False)
+    ko, kl = flash_sfa(qv, qi, kv, ki, v, return_residuals=True, **kw)
+    po, pl = flash_sfa_ref(qv, qi, kv, ki, v, return_residuals=True, **kw)
+    torch.cuda.synchronize()
+    err = _close(ko, po, torch.bfloat16, "flash_sfa ring hop")[0]
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+    args = (qv, qi, kv, ki, v, ko, kl, g)
+    got = flash_sfa_bwd(*args, emit="compact", **kw)
+    want = flash_sfa_bwd_ref(*args, emit="compact", **kw)
+    torch.cuda.synchronize()
+    berr = max(_close(a, w, torch.bfloat16, f"flash_sfa_bwd compact ring hop {nm}")[0]
+               for nm, a, w in zip(("dq", "dk", "dv"), got, want))
+    _tc_only("ring hop rows")
+    del got, want, po, pl
+    qd, kd = _densify(qv, qi, d), _densify(kv, ki, d)
+    pairs = bh * n * n                   # no mask: every (query, key) pair
+    _timed_shape(results, "flash_sfa", "ring hop", "RING",
+                 f"bh={bh} n={n}x{n} d=dv={d} k={k} bf16 non-causal (tensor-core body): max|err| "
+                 f"{err:.3g}; library = SDPA on densified Q/K", err,
+                 2 * bh * n * k * (es + 4) + 2 * bh * n * dv * es + bh * n * 4,
+                 code_product_s(2 * k * pairs, 2 * d * pairs) + 2 * dv * pairs / BF16_TC_FLOPS,
+                 lambda: flash_sfa(qv, qi, kv, ki, v, return_residuals=True, **kw),
+                 lambda: flash_sfa_ref(qv, qi, kv, ki, v, return_residuals=True, **kw),
+                 lambda: F.scaled_dot_product_attention(
+                     qd.reshape(RING_B, 12, n, d), kd.reshape(RING_B, 12, n, d),
+                     v.reshape(RING_B, 12, n, dv), scale=scale))
+    _timed_shape(results, "flash_sfa_bwd_compact", "ring hop", "RING",
+                 f"compact emit, bh={bh} n={n}x{n} d=dv={d} k={k} bf16 non-causal (tensor-core "
+                 f"body): max|err| {berr:.3g}; library = SDPA backward (autograd) on densified "
+                 f"Q/K", berr,
+                 2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
+                 + 2 * bh * n * k * es + bh * n * dv * es,
+                 code_product_s(6 * k * pairs, 6 * d * pairs) + 4 * dv * pairs / BF16_TC_FLOPS,
+                 lambda: flash_sfa_bwd(*args, emit="compact", **kw),
+                 lambda: flash_sfa_bwd_ref(*args, emit="compact", **kw),
+                 _sdpa_bwd(qd, kd, v, g, scale, causal=False))
+    del qd, kd, args, v, g, ko, kl
+    torch.cuda.empty_cache()
+
+
+def _dist_cfgs():
+    """(the seq-4 mesh's bf16 model and policy, its f32 2-layer model, the
+    TP mesh's compact-seam policy, the DP mesh's f32 2-layer model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainPolicy
+    cfg = get_config("gpt2-small-sfa8")
+    ring = TrainPolicy.from_model(cfg, backend="cuda", remat="full", bwd_emit="dense",
+                                  ring=True).apply(cfg)
+    ring32 = dataclasses.replace(ring, num_layers=2, dtype="float32")
+    seam = TrainPolicy.from_model(cfg, backend="cuda", remat="codes", bwd_emit="compact",
+                                  fwd_fuse=True).apply(cfg)
+    dp32 = dataclasses.replace(TrainPolicy.from_model(
+        cfg, backend="cuda", remat="full", bwd_emit="dense").apply(cfg),
+        num_layers=2, dtype="float32")
+    return ring, ring32, seam, dp32
+
+
+def _dist_batches(cfg, b, n, steps):
+    from repro_torch.data import DataConfig, markov_batch
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=n, global_batch=b, seed=SEED)
+    return [markov_batch(dcfg, s) for s in range(steps)]
+
+
+def _host(tree):
+    return {k: v.detach().float().cpu() for k, v in tree.items() if v is not None}
+
+
+def _dist_grads(cfg, batch):
+    """Loss and every gradient of a fresh ``init(cfg, seed)`` model on the
+    global ``batch`` through the train step's ``loss_and_grads`` (under
+    the active mesh, if any), gradients on the host in f32."""
+    from repro_torch.models import init
+    from repro_torch.train.train_step import loss_and_grads
+    model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
+    loss, _, grads = loss_and_grads(model, batch, cfg)
+    out = float(loss.detach()), _host(grads)
+    del model, grads
+    return out
+
+
+def _dist_steps(cfg, batches, compression=None, mesh=None):
+    """``len(batches)`` steps of ``make_train_step`` (AdamW, lr 3e-4) from
+    ``init(cfg, seed)``; -> (losses, step ms, the model, its residuals)."""
+    from repro_torch.distributed.compression import init_error_state
+    from repro_torch.models import init
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
+    opt = init_opt_state(dict(model.named_parameters()))
+    err = init_error_state(model) if compression else None
+    step = make_train_step(cfg, OptimizerConfig(lr=3e-4, warmup_steps=1,
+                                                total_steps=len(batches) + 1),
+                           grad_compression=compression)
+    losses, ms = [], []
+    for batch in batches:
+        if mesh is not None:
+            mesh.barrier()            # the ranks start each timed step together
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(model, opt, batch) if err is None else step(model, opt, batch, err)
+        model, opt, m = out[:3]
+        if err is not None:
+            err = out[3]
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, model, err
+
+
+def _dist_compressed(cfg, batch):
+    """The compressed gradient and residual of the first step of ``cfg``
+    from ``init(cfg, seed)`` (the step's ``loss_and_grads`` under the
+    active mesh, then ``compress_tree`` from zero residuals), on the host."""
+    from repro_torch.distributed.compression import compress_tree, init_error_state
+    from repro_torch.models import init
+    from repro_torch.train.train_step import loss_and_grads
+    model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
+    _, _, grads = loss_and_grads(model, batch, cfg)
+    comp, err = compress_tree(grads, init_error_state(model), fraction=COMPRESSION)
+    out = _host(comp), _host(err)
+    del model, grads, comp, err
+    return out
+
+
+def _compressed_gap(got, want):
+    """(entries whose selection differs, the largest relative L2 of a leaf's
+    kept values on the entries both runs kept, or of its residual on those
+    both dropped) of two (compressed gradient, residual) pairs."""
+    flips, worst = 0, (0.0, "")
+    for name, b in want[0].items():
+        a = got[0][name]
+        ka, kb = a != 0, b != 0
+        flips += int((ka != kb).sum())
+        both, neither = ka & kb, ~(ka | kb)
+        worst = max(worst, (_rel(a[both], b[both]), name),
+                    (_rel(got[1][name][neither], want[1][name][neither]), name))
+    return flips, worst
+
+
+def _noise(cfg, batch):
+    """The torch backend's loss and per-leaf gradients in bf16 against
+    float32 on the same weights and batch (remat "full"): the tolerance
+    scale of ``phase_sfa_grad_bf16_end_to_end``, at this batch."""
+    from repro_torch.configs.base import TrainPolicy
+    base = TrainPolicy.from_model(cfg, backend="torch", remat="full", bwd_emit="dense",
+                                  ring=False).apply(cfg)
+    l16, g16 = _dist_grads(base, batch)
+    l32, g32 = _dist_grads(dataclasses.replace(base, dtype="float32"), batch)
+    return abs(l16 - l32), {k: _rel(g16[k], g32[k]) for k in g32}
+
+
+def _rel(a, b):
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def _dist_rank():
+    """One of the 4 ranks on the card: the three meshes in turn (the
+    module's phase 14 docstring). Returns this rank's counts, times and
+    peaks, checksums of what every rank must hold alike, and on rank 0 the
+    gradients and states the parent holds to its single-process runs."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import ring as R
+    from repro_torch.distributed.sharding import axis_rules
+    from repro_torch.kernels import body_counts, launch_counts, reset_launches
+    from repro_torch.kernels import flash_sfa, flash_sfa_bwd, rtopk
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.attention import clear_ring_reports, ring_reports
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    ring_cfg, ring32, seam_cfg, dp32 = _dist_cfgs()
+    out = {"rank": rank, "device": torch.cuda.get_device_name(), "backend": dist.get_backend()}
+
+    def sums(tree):
+        return {k: (v.double().sum().item(), v.double().abs().sum().item())
+                for k, v in tree.items()}
+
+    def counted(fn):
+        reset_launches()
+        R.STATS.reset()
+        mesh.reset_counts()
+        res = fn()
+        return res, launch_counts(), body_counts(), dataclasses.asdict(R.STATS), dict(mesh.sent)
+
+    # (a) the ring of 4
+    mesh = make_debug_mesh(seq=DIST_WORLD)
+    torch.cuda.reset_peak_memory_stats()
+    batches = _dist_batches(ring_cfg, RING_B, RING_N, RING_STEPS)
+    with axis_rules(mesh):
+        clear_ring_reports()
+        (loss, grads), *_ = counted(lambda: _dist_grads(ring_cfg, batches[0]))
+        out["ring_loss"], out["ring_sums"] = loss, sums(grads)
+        if rank == 0:
+            out["ring_grads"] = grads
+        del grads
+        (losses, ms, model, _), counts, bodies, stats, sent = counted(
+            lambda: _dist_steps(ring_cfg, batches, mesh=mesh))
+        out["ring_steps"] = dict(losses=losses, ms=ms, counts=counts, bodies=bodies,
+                                 stats=stats, sent=sent, transports=dict(mesh.transports),
+                                 device=str(next(model.parameters()).device),
+                                 params=sums(dict(model.named_parameters())))
+        out["ring_reports"] = [dataclasses.asdict(r) for r in ring_reports()]
+        del model
+        release()
+        out["ring_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        # the same mesh on a 2-layer f32 model (CUDA-core bodies)
+        loss32, g32 = _dist_grads(ring32, batches[0])
+        out["ring32_loss"] = loss32
+        if rank == 0:
+            out["ring32_grads"] = g32
+        del g32
+        # the code-level op at bh 24 x 4096, d 64, k 8, f32: random codes,
+        # then banded ones whose fully-past hops close in form; bf16 once
+        gen = torch.Generator().manual_seed(SEED + 40)
+        bh, n, d, k = RING_B * 12, RING_N, 64, 8
+        out["code"] = {}
+        for case in ("random", "banded", "random bf16"):
+            dt = torch.bfloat16 if case.endswith("bf16") else torch.float32
+            q, kk, v, g = (torch.randn(bh, n, d, generator=gen).cuda().to(dt) for _ in range(4))
+            qv, qi = rtopk(q, k)
+            kv, ki = rtopk(kk, k)
+            if case == "banded":
+                # Q on features [0, 8), K shard s on [8s, 8s + 8): rank r's
+                # hops from shards 1 .. r - 1 close in form
+                band = torch.arange(n) // (n // DIST_WORLD) * 8
+                qi = torch.sort(torch.randint(0, 8, (bh, n, k), generator=gen), -1)[0]
+                ki = torch.sort(torch.randint(0, 8, (bh, n, k), generator=gen), -1)[0] \
+                    + band[None, :, None]
+                qi, ki = qi.int().cuda(), ki.int().cuda()
+            want_o, lse = flash_sfa(qv, qi, kv, ki, v, d=d, return_residuals=True)
+            want = (want_o, *flash_sfa_bwd(qv, qi, kv, ki, v, want_o, lse, g, d=d,
+                                           emit="compact"))
+            leaves = [t.detach().requires_grad_() for t in (qv, kv, v)]
+
+            def ring_and_grads():
+                o = R.ring_sfa(leaves[0], qi, leaves[1], ki, leaves[2], d=d)
+                return (o.detach(), *torch.autograd.grad(o, leaves, g))
+
+            got, _, _, stats, sent = counted(ring_and_grads)
+            out["code"][case] = dict(
+                err=[(x.float() - y.float()).abs().max().item() for x, y in zip(got, want)],
+                close=[bool(torch.allclose(x.float(), y.float(), rtol=1e-4, atol=1e-4))
+                       for x, y in zip(got, want)],
+                stats=stats, sent=sent, vmax=v.float().abs().max().item())
+            del got, want, leaves
+    release()
+    # (b) tensor parallelism: model 2 x data 2, the compact seam
+    mesh = make_debug_mesh(model=2, data=2)
+    torch.cuda.reset_peak_memory_stats()
+    batches = _dist_batches(seam_cfg, MESH_B, MESH_N, TP_STEPS)
+    with axis_rules(mesh):
+        (loss, grads), *_ = counted(lambda: _dist_grads(seam_cfg, batches[0]))
+        out["tp_loss"], out["tp_sums"] = loss, sums(grads)
+        if rank == 0:
+            out["tp_grads"] = grads
+        del grads
+        (losses, ms, model, _), counts, bodies, stats, sent = counted(
+            lambda: _dist_steps(seam_cfg, batches, mesh=mesh))
+        out["tp_steps"] = dict(losses=losses, ms=ms, counts=counts, bodies=bodies, sent=sent,
+                               transports=dict(mesh.transports),
+                               params=sums(dict(model.named_parameters())),
+                               numel=sum(p.numel() for p in model.parameters()))
+        del model
+    release()
+    out["tp_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # (c) data parallelism over 4 with top-5% compression, f32, 2 layers:
+    # the first step's compressed gradient and residual, then 2 steps
+    mesh = make_debug_mesh(data=DIST_WORLD)
+    torch.cuda.reset_peak_memory_stats()
+    batches = _dist_batches(dp32, MESH_B, MESH_N, DP_STEPS)
+    with axis_rules(mesh):
+        comp, err = _dist_compressed(dp32, batches[0])
+        if rank == 0:
+            out["dp_comp"], out["dp_err"] = comp, err
+        del comp, err
+        (losses, ms, model, err), counts, bodies, stats, sent = counted(
+            lambda: _dist_steps(dp32, batches, COMPRESSION, mesh=mesh))
+        out["dp_steps"] = dict(losses=losses, ms=ms, sent=sent, transports=dict(mesh.transports),
+                               params=sums(dict(model.named_parameters())), err=sums(err),
+                               numel=sum(p.numel() for p in model.parameters()))
+        if rank == 0:
+            out["dp_params"] = _host(dict(model.named_parameters()))
+        del model, err
+    release()
+    out["dp_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _replica_gap(got, want):
+    """The largest relative gap between two ranks' per-leaf (sum, |sum|)
+    checksums (0: equal bit for bit, as far as the sums show)."""
+    return max(abs(a - b) / max(abs(b), 1e-30)
+               for k in want for a, b in zip(got[k], want[k]))
+
+
+def _held(what, got, want, loss_tol, leaf_tol):
+    """The loss within ``loss_tol`` and each gradient leaf's relative L2
+    within ``leaf_tol[name]``; -> (|loss diff|, worst leaf (share of its
+    tolerance, name, error))."""
+    (lg, gg), (lw, gw) = got, want
+    check(np.isfinite(lg) and abs(lg - lw) <= loss_tol,
+          f"{what}: loss {lg} vs {lw} (tol {loss_tol:.3g})")
+    check(set(gg) == set(gw), f"{what}: leaves {sorted(set(gg) ^ set(gw))}")
+    worst = (0.0, "", 0.0)
+    for name in gw:
+        check(bool(torch.isfinite(gg[name]).all()), f"{what}: non-finite d{name}")
+        e, t = _rel(gg[name], gw[name]), leaf_tol[name]
+        check(e <= t, f"{what}: d{name} relative L2 {e:.3g} > {t:.3g}")
+        worst = max(worst, (e / t, name, e))
+    return abs(lg - lw), worst
+
+
+def phase_distributed(results):
+    """Phase 14 — distribution on 4 ranks of the one card (gloo: NCCL
+    refuses two ranks on one device; the kernels run on the card in every
+    rank, the ring's hops staged through pinned host memory, since gloo's
+    send refuses device memory; ``tools/gloo_cuda_probe.py``). First rows 3 and 5 at the ring's hop shape, then the parent's
+    single-process references on the card, then one ``launch.mesh.spawn`` of
+    4 ranks running three meshes in turn:
+
+      (a) ``make_debug_mesh(seq=4)``: full-width gpt2-small-sfa8, global
+          batch 2 x 4,096, bf16, dense emit, remat full, cuda: the loss and
+          every gradient of the first batch held to the single-process step
+          by phase 9's bf16 rule (the torch backend's bf16-from-f32
+          distance at this batch, twice, + 1e-2), then 3 steps (losses by
+          the same loss rule), each rank's ring bytes equal to the byte
+          model (Motivation's figures) and its launches of rows 1, 3 and 5
+          equal to the prediction (rank r: rtopk 48, FlashSFA 24 (r + 1) and
+          the compact backward 12 (r + 1) a step), the ring report taken
+          with its transport; a 2-layer f32 model on the same mesh held to
+          one process at 1e-4 (loss, and each leaf's relative L2); the
+          code-level ``ring_sfa`` at bh 24 x 4,096, d 64, k 8 held to
+          flash_sfa + flash_sfa_bwd(compact) on the card in f32 (random
+          codes; banded codes whose fully-past hops close in form) at 1e-4,
+          and in bf16 within 2^-7 max|v| (each hop's partial rounds once);
+      (b) ``make_debug_mesh(model=2, data=2)``: the compact seam (remat
+          codes) at batch 8 x 1,024, each rank running rows 2, 4, 5, 8 and 9
+          on its 6 heads and 4 rows: gradients by the bf16 rule, 1 step
+          (cut from 2 for the script's time cap);
+      (c) ``make_debug_mesh(data=4)``: a 2-layer f32 model with top-5%
+          gradient compression at batch 8 x 1,024: the first step's
+          compressed gradient and residual held to one process (phase 9's
+          f32 leaf rule; selection flips at a threshold counted, below
+          1e-5 of the entries), then 2 steps (the second carries the
+          residual) with their losses held at 1e-4.
+
+    Every rank must hold the same parameters (checksums within 1e-6) and
+    run on the card; the bytes each rank passes to the TP and DP
+    all-reduces equal their count from the shapes. Prints the bytes per hop against the model, the hops per
+    rank, each collective's transport, ms per step per rank (4 ranks share
+    one card: no measure of context-parallel speed) and each mesh's peak
+    memory."""
+    from repro_torch.distributed.ring import (
+        ring_bwd_wire_bytes, ring_bytes_per_hop, ring_fwd_wire_bytes,
+    )
+    from repro_torch.launch.mesh import spawn
+    rs = np.random.RandomState(SEED + 50)
+    _ring_hop_rows(results, rs)
+    widths = dict(val_bytes=2, idx_bytes=4, v_bytes=2)
+    bh, nl = RING_B * 12, RING_N // DIST_WORLD
+    model_bytes = (ring_bytes_per_hop(bh, nl, 8, 64, **widths),
+                   ring_fwd_wire_bytes(DIST_WORLD, bh, nl, 8, 64, **widths),
+                   ring_bwd_wire_bytes(DIST_WORLD, bh, nl, 8, 64, grad_bytes=4, **widths))
+    check(model_bytes == (RING_HOP_BYTES, RING_FWD_BYTES, RING_BWD_BYTES),
+          f"distributed: the byte model gives {model_bytes}")
+    # the single-process references, on the card, before the ranks start
+    ring_cfg, ring32, seam_cfg, dp32 = _dist_cfgs()
+    t0 = time.perf_counter()
+    ring_batches = _dist_batches(ring_cfg, RING_B, RING_N, RING_STEPS)
+    ref_ring = _dist_grads(ring_cfg, ring_batches[0])
+    ring_noise = _noise(ring_cfg, ring_batches[0])
+    ref_ring_losses = _dist_steps(ring_cfg, ring_batches)[0]
+    ref_ring32 = _dist_grads(ring32, ring_batches[0])
+    mesh_batches = _dist_batches(seam_cfg, MESH_B, MESH_N, DP_STEPS)
+    ref_tp = _dist_grads(seam_cfg, mesh_batches[0])
+    tp_noise = _noise(seam_cfg, mesh_batches[0])
+    ref_tp_losses = _dist_steps(seam_cfg, mesh_batches[:TP_STEPS])[0]
+    ref_comp = _dist_compressed(dp32, mesh_batches[0])
+    dp_losses, _, dp_model, _ = _dist_steps(dp32, mesh_batches, COMPRESSION)
+    ref_dp = (dp_losses, _host(dict(dp_model.named_parameters())))
+    del dp_model
+    release()
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn(_dist_rank, DIST_WORLD, device="cuda", seed=SEED, timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    for r in ranks:
+        check(r["device"] == torch.cuda.get_device_name(0) and r["backend"] == "gloo"
+              and r["ring_steps"]["device"].startswith("cuda"),
+              f"distributed: rank {r['rank']} ran on {r['device']} / "
+              f"{r['ring_steps']['device']} over {r['backend']}")
+    r0 = ranks[0]
+    # (a) the ring: gradients and losses against one process
+    dl, worst = _held("distributed ring-4 gradients", (r0["ring_loss"], r0["ring_grads"]),
+                      ref_ring, 2 * ring_noise[0] + 1e-2,
+                      {k: 2 * e + 1e-2 for k, e in ring_noise[1].items()})
+    for s, (a, b) in enumerate(zip(r0["ring_steps"]["losses"], ref_ring_losses)):
+        check(abs(a - b) <= 2 * ring_noise[0] + 1e-2,
+              f"distributed ring-4: step {s} loss {a} vs one process {b}")
+    layers = ring_cfg.num_layers
+    per_step = RING_STEPS * layers
+    replicas = {}
+    for r in ranks:
+        rk, st = r["rank"], r["ring_steps"]
+        want = {name: 0 for name in st["counts"]}
+        want.update(rtopk=4 * per_step, flash_sfa=2 * per_step * (rk + 1),
+                    flash_sfa_bwd_compact=per_step * (rk + 1))
+        check(st["counts"] == want, f"distributed ring-4 rank {rk}: launches {st['counts']}, "
+                                    f"predicted {want}")
+        check(not any(st["bodies"].values()), f"distributed ring-4 rank {rk}: bodies "
+                                              f"{st['bodies']}")
+        s = st["stats"]
+        check(s["fwd_bytes"] == 2 * per_step * RING_FWD_BYTES
+              and s["bwd_bytes"] == per_step * RING_BWD_BYTES
+              and st["sent"]["ring"] == s["fwd_bytes"] + s["bwd_bytes"]
+              and st["sent"]["ring"] == RING_STEPS * 806_879_232,
+              f"distributed ring-4 rank {rk}: sent {st['sent']}, stats {s}")
+        check((s["fwd_computed"], s["fwd_closed"], s["fwd_skipped"])
+              == (2 * per_step * (rk + 1), 0, 2 * per_step * (DIST_WORLD - 1 - rk))
+              and (s["bwd_computed"], s["bwd_closed"], s["bwd_skipped"])
+              == (per_step * (rk + 1), 0, per_step * (DIST_WORLD - 1 - rk)),
+              f"distributed ring-4 rank {rk}: hops {s}")
+        check([(x["taken"], x["transport"]) for x in r["ring_reports"]]
+              == [(True, "gloo, pinned host")],
+              f"distributed ring-4 rank {rk}: ring reports {r['ring_reports']}")
+        for what, got, want in (("ring gradients", r["ring_sums"], r0["ring_sums"]),
+                                ("TP gradients", r["tp_sums"], r0["tp_sums"]),
+                                *((f"{key} parameters", r[key]["params"], r0[key]["params"])
+                                  for key in ("ring_steps", "tp_steps", "dp_steps"))):
+            apart = _replica_gap(got, want)
+            replicas.setdefault(what, []).append(apart)
+            check(apart <= 1e-6, f"distributed: rank {rk}'s {what} differ from rank 0's by "
+                                 f"{apart:.3g} (relative, a leaf's sum or |sum|)")
+    dl32, worst32 = _held("distributed ring-4 f32 2 layers", (r0["ring32_loss"],
+                                                               r0["ring32_grads"]),
+                          ref_ring32, 1e-4, {k: 1e-4 for k in ref_ring32[1]})
+    for r in ranks:
+        rk = r["rank"]
+        for case, c in r["code"].items():
+            if case.endswith("bf16"):
+                check(c["err"][0] <= 2 ** -7 * c["vmax"],
+                      f"distributed code-level ring_sfa {case} rank {rk}: o off by {c['err'][0]}")
+            else:
+                check(all(c["close"]), f"distributed code-level ring_sfa {case} rank {rk}: "
+                                       f"max|err| o, dqv, dkv, dv {c['err']}")
+            closed = max(0, rk - 1) if case == "banded" else 0
+            check(c["stats"]["fwd_closed"] == closed == c["stats"]["bwd_closed"]
+                  and c["stats"]["fwd_computed"] == rk + 1 - closed,
+                  f"distributed code-level ring_sfa {case} rank {rk}: hops {c['stats']}")
+    # (b) tensor parallelism
+    dtp, worst_tp = _held("distributed TP-2 x DP-2 seam gradients", (r0["tp_loss"],
+                                                                    r0["tp_grads"]),
+                          ref_tp, 2 * tp_noise[0] + 1e-2,
+                          {k: 2 * e + 1e-2 for k, e in tp_noise[1].items()})
+    for s, (a, b) in enumerate(zip(r0["tp_steps"]["losses"], ref_tp_losses)):
+        check(abs(a - b) <= 2 * tp_noise[0] + 1e-2,
+              f"distributed TP-2 x DP-2: step {s} loss {a} vs one process {b}")
+    per_tp = TP_STEPS * layers
+    # all-reduce bytes a rank and step: the token count (4 B), every
+    # gradient over data, the (ce, aux) pair (8 B), and on the TP mesh the
+    # seam's dx over model, q and k each layer (4 x 1,024 rows x 768, f32):
+    # the backward ran split, so its regions summed their partials
+    m = seam_cfg.d_model
+    tp_reduce = TP_STEPS * (12 + 4 * r0["tp_steps"]["numel"]
+                              + 2 * layers * (MESH_B // 2) * MESH_N * m * 4)
+    dp_reduce = DP_STEPS * (12 + 4 * r0["dp_steps"]["numel"])
+    for r in ranks:
+        check(r["tp_steps"]["sent"]["all_reduce"] == tp_reduce
+              and r["tp_steps"]["sent"]["all_gather"] > 0
+              and r["dp_steps"]["sent"] == {"all_reduce": dp_reduce},
+              f"distributed rank {r['rank']}: TP bytes {r['tp_steps']['sent']} (all-reduce "
+              f"predicted {tp_reduce}), DP bytes {r['dp_steps']['sent']} (predicted "
+              f"{dp_reduce})")
+        st = r["tp_steps"]
+        want = {name: 0 for name in st["counts"]}
+        want.update(proj_rtopk=2 * per_tp, flash_sfa_block_skip=2 * per_tp,
+                    flash_sfa_bwd_compact=per_tp, code_grad_dx=2 * per_tp,
+                    code_grad_dw=2 * per_tp)
+        check(st["counts"] == want and not any(st["bodies"].values()),
+              f"distributed TP-2 x DP-2 rank {r['rank']}: launches {st['counts']}, predicted "
+              f"{want}; bodies {st['bodies']}")
+    # (c) data parallelism with compression, against one process
+    for s, (a, b) in enumerate(zip(r0["dp_steps"]["losses"], ref_dp[0])):
+        check(abs(a - b) <= 1e-4, f"distributed DP-4 compressed: step {s} loss {a} vs {b}")
+    # the first step's compressed gradient and residual against one
+    # process, each leaf's kept values and residual by phase 9's float32
+    # leaf rule (1e-3 relative L2: 4 data shards sum in another order than
+    # one). An entry within that distance of its leaf's top-5% threshold
+    # can land on either side, moving its whole value between the two:
+    # about (distance x threshold x density there) of the entries, below
+    # 1e-5 of them; such flips are counted apart
+    flips, comp_worst = _compressed_gap((r0["dp_comp"], r0["dp_err"]), ref_comp)
+    n_comp = sum(t.numel() for t in ref_comp[0].values())
+    check(flips <= 1e-5 * n_comp and comp_worst[0] <= 1e-3,
+          f"distributed DP-4 compressed: {flips} selection flips of {n_comp}, worst leaf "
+          f"{comp_worst}")
+    # after AdamW the parameters are reported, not held: the update
+    # normalizes each entry, so a near-zero gradient entry whose sign the
+    # two summation orders differ on moves that entry by 2 lr
+    dp_worst = max((_rel(r0["dp_params"][k], ref_dp[1][k]), k) for k in ref_dp[1])
+    # the printed record
+    print(f"[distributed] 4 ranks on one {torch.cuda.get_device_name(0)}, gloo; references in "
+          f"one process {ref_s:.1f} s, the ranks' run {ranks_s:.1f} s (process start "
+          f"included)")
+    print(f"[distributed] ring-4 byte model at bf16 codes / int32 indices / bf16 V / f32 "
+          f"accumulators: {model_bytes[0]} B a hop, forward {model_bytes[1]} B, backward "
+          f"{model_bytes[2]} B a layer; K-payload ratio against a dense ring "
+          f"{64 * 2 / (8 * 6):.3f}x; a step under remat full sends "
+          f"{layers * (2 * model_bytes[1] + model_bytes[2])} B a rank; sent per rank over "
+          f"{RING_STEPS} steps: " + ", ".join(
+              f"rank {r['rank']} {r['ring_steps']['sent']}" for r in ranks))
+    print("[distributed] ring-4 hops over the steps (computed / closed / skipped, forward | "
+          "backward): " + "; ".join(
+              f"rank {r['rank']} {s['fwd_computed']}/{s['fwd_closed']}/{s['fwd_skipped']} | "
+              f"{s['bwd_computed']}/{s['bwd_closed']}/{s['bwd_skipped']}"
+              for r in ranks for s in [r["ring_steps"]["stats"]]))
+    print("[distributed] replicas (largest relative gap of a leaf's sum or |sum| from rank "
+          "0's, ranks 0-3): " + "; ".join(f"{what} {[f'{x:.3g}' for x in gaps]}"
+                                          for what, gaps in replicas.items()))
+    print("[distributed] transports: " + "; ".join(
+        f"{mesh} {ranks[0][key]['transports']}" for mesh, key in
+        (("ring-4", "ring_steps"), ("TP-2 x DP-2", "tp_steps"), ("DP-4", "dp_steps"))))
+    print("[distributed] ms per step per rank (4 ranks share one card and the host: no "
+          "measure of context-parallel speed): " + "; ".join(
+              f"{mesh} " + ", ".join(f"rank {r['rank']} {[round(x, 1) for x in r[key]['ms']]}"
+                                     for r in ranks)
+              for mesh, key in (("ring-4", "ring_steps"), ("TP-2 x DP-2", "tp_steps"),
+                                ("DP-4", "dp_steps"))))
+    print("[distributed] peak memory a rank (GiB): " + "; ".join(
+        f"{mesh} {[round(r[key], 2) for r in ranks]}" for mesh, key in
+        (("ring-4", "ring_peak_gib"), ("TP-2 x DP-2", "tp_peak_gib"), ("DP-4", "dp_peak_gib"))))
+    print(f"[distributed] ring-4 gpt2-small-sfa8 bf16 batch {RING_B} x {RING_N}: loss "
+          f"{r0['ring_loss']:.6f} vs one process {ref_ring[0]:.6f} (|diff| {dl:.3g}, tol "
+          f"{2 * ring_noise[0] + 1e-2:.3g}); every gradient within the bf16 rule, nearest to "
+          f"it d{worst[1]} at {worst[2]:.3g} ({100 * worst[0]:.1f}% of its tolerance); step "
+          f"losses {[round(x, 5) for x in r0['ring_steps']['losses']]} vs "
+          f"{[round(x, 5) for x in ref_ring_losses]}; launches per rank "
+          + "; ".join(f"rank {r['rank']} {({k: v for k, v in r['ring_steps']['counts'].items() if v})}"
+                      for r in ranks))
+    print(f"[distributed] ring-4 f32 2 layers: loss |diff| {dl32:.3g}, worst leaf "
+          f"d{worst32[1]} relative L2 {worst32[2]:.3g} (tol 1e-4); code-level ring_sfa bh "
+          f"{bh} x {RING_N}, d 64, k 8 against flash_sfa + flash_sfa_bwd(compact), max|err| "
+          "(o, dqv, dkv, dv): " + "; ".join(
+              f"{case} " + ", ".join(f"rank {r['rank']} {[f'{e:.3g}' for e in r['code'][case]['err']]}"
+                                     for r in ranks) for case in r0["code"]))
+    print(f"[distributed] TP-2 x DP-2 compact seam, batch {MESH_B} x {MESH_N}: loss |diff| "
+          f"{dtp:.3g}, nearest leaf d{worst_tp[1]} at {worst_tp[2]:.3g} "
+          f"({100 * worst_tp[0]:.1f}% of its tolerance); step losses "
+          f"{[round(x, 5) for x in r0['tp_steps']['losses']]} vs "
+          f"{[round(x, 5) for x in ref_tp_losses]}; launches a rank "
+          f"{({k: v for k, v in r0['tp_steps']['counts'].items() if v})}; bytes a rank "
+          f"{r0['tp_steps']['sent']}")
+    print(f"[distributed] DP-4 f32 2 layers, top-{100 * COMPRESSION:.0f}% compression: the "
+          f"first step's compressed gradient against one process: {flips} selection flips of "
+          f"{n_comp} entries, kept values and residuals within {comp_worst[0]:.3g} (worst "
+          f"{comp_worst[1]}); losses {r0['dp_steps']['losses']} vs {ref_dp[0]}; parameters "
+          f"after {DP_STEPS} steps (AdamW) worst relative L2 {dp_worst[0]:.3g} "
+          f"({dp_worst[1]}); bytes a rank {r0['dp_steps']['sent']}")
+    return {name: sum(r["ring_steps"]["counts"][name] for r in ranks)
+            for name in ("rtopk", "flash_sfa", "flash_sfa_bwd_compact")}
+
+
 def main():
     t_start = time.perf_counter()
     device_name, count = timed(phase_device)
@@ -4530,6 +5147,10 @@ def main():
     # the JB shapes carry their launches in phase 12's two jamba serving runs
     for (kname, key), n in timed(phase_recurrent, results).items():
         results[kname]["shapes"][key]["launches"] = n
+    # the RING shapes carry the launches of phase 14's ring-4 steps, all ranks
+    for kname, n in timed(phase_distributed, results).items():
+        if kname != "rtopk":
+            results[kname]["shapes"]["RING"]["launches"] = n
     decode_src = "src/repro_torch/csrc/flash_sfa_decode.cu"
     fm_src = "src/repro_torch/csrc/flash_sfa_decode_fm.cu"
     # rows 3-5 run bf16 on the tensor-core bodies (f32 on flash_sfa.cu and

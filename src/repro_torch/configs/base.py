@@ -64,7 +64,8 @@ class AttentionConfig:
     # (n, k) code gradients straight into the code_grad kernels; elsewhere
     # the compact emit runs at the op level (kernels/ops.py scatters once).
     # ``fwd_fuse`` runs the seam's forward as proj_rtopk -> block-skip
-    # FlashSFA. ``ring`` is distribution work (ROADMAP, "distribution").
+    # FlashSFA. ``ring`` takes Ring-SFA on a mesh with a "seq" axis
+    # (distributed/ring.py); outside one it is inert.
     bwd_emit: str = "dense"          # "dense" | "compact" | "compact2"
     fwd_fuse: bool = True
     ring: bool = False
@@ -208,9 +209,10 @@ class TrainPolicy:
                        "compact2".
       * ``fwd_fuse`` — fused projection -> top-k forward with block-skip
                        FlashSFA on seam-eligible layers.
-      * ``ring``     — Ring-SFA context parallelism (ROADMAP, "distribution").
-      * ``tp``       — intended tensor-parallel degree (ROADMAP, "distribution"), for
-                       the divisibility check.
+      * ``ring``     — Ring-SFA context parallelism over the mesh's "seq"
+                       axis (distributed/ring.py).
+      * ``tp``       — intended tensor-parallel degree (the mesh's "model"
+                       axis, distributed/shard.py), for the divisibility check.
       * ``backend``  — optional attention-backend override in this
                        package's registry names: "torch" | "cuda" | "auto"
                        (None = keep ``cfg.attention.backend``).

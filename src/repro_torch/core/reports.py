@@ -1,11 +1,13 @@
 """One query for every routing decision, as in the JAX package's
 ``repro/core/reports.py``.
 
-The port keeps three registries of trace-time routing decisions apart —
+The port keeps four registries of trace-time routing decisions apart —
 ``models.backends.fallback_reports`` (a requested backend could not serve
 a request), ``models.attention.compact_seam_reports`` (the compact seam
-taken or not) and ``core.remat.remat_reports`` (the remat policy applied
-for the one requested). This module is the protocol they all speak:
+taken or not), ``models.attention.ring_reports`` (Ring-SFA taken or not,
+and its transport) and ``core.remat.remat_reports`` (the remat policy
+applied for the one requested). This module is the protocol they all
+speak:
 
   * ``Report`` — the normalized record: ``component`` (which subsystem made
     the decision), ``where`` (the site, e.g. ``"llama3.2-3b/attention"``),
@@ -20,9 +22,8 @@ for the one requested). This module is the protocol they all speak:
   * ``clear_reports(component=None)`` — reset between runs and tests.
 
 The components are the reference's four: "backend", "compact_seam",
-"remat" and "ring". Ring-SFA is distribution work (ROADMAP A.8) and the
-port raises on it, so "ring" has no records yet. The native accessors
-(``fallback_reports()`` etc.) keep working.
+"remat" and "ring". The native accessors (``fallback_reports()`` etc.)
+keep working.
 """
 from __future__ import annotations
 

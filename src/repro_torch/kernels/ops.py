@@ -27,19 +27,23 @@ same.
 
 Every function here runs the kernels' plain versions on CPU tensors (the
 wrappers decide by the tensor's device), so the Functions' forward and
-backward seam is the same on both devices.
+backward seam is the same on both devices. Under a mesh with a ``model``
+axis the kernels run as tensor-parallel regions
+(``distributed/shard.py``): rtopk and FlashSFA on this rank's slice of the
+folded (b·h) axis, proj_rtopk on its slice of the heads, the outputs
+gathered over the axis; outside one they are the plain calls.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.core.remat import active_stash
+from repro_torch.distributed.shard import run_tp, tp_flash_sfa, tp_flash_sfa_bwd
 from repro_torch.kernels.code_grad import scatter_code_grads
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_sfa import flash_sfa
-from repro_torch.kernels.flash_sfa_bwd import (
-    flash_attention_bwd, flash_sfa_bwd, pair_closure_indices,
-)
+from repro_torch.kernels.flash_sfa_bwd import flash_attention_bwd, pair_closure_indices
 from repro_torch.kernels.rtopk import proj_rtopk, rtopk
 
 
@@ -59,6 +63,12 @@ def sfa_code(x, k: int):
     """Top-k code of the rows of x (..., d): (values in x.dtype, int32
     indices ascending), through the rtopk kernel."""
     return rtopk(x, min(k, x.shape[-1]))
+
+
+def tp_sfa_code(x, k: int):
+    """``sfa_code`` of folded (b·h, n, d) rows with the (b·h) axis split
+    over the model axis (rtopk is row-wise)."""
+    return run_tp(lambda t: sfa_code(t, k), (x,), (0,), (0, 0))
 
 
 def topk_dense(x, k: int):
@@ -94,10 +104,11 @@ def fused_qk_codes(x, w, positions, *, h, hkv, hd, sfa_k, rope_spec=None):
     heads (``repeat_heads`` expands them, so group members carry identical
     indices, as the unfused repeat-KV -> rtopk composition gives)."""
     b, n, _ = x.shape
-    qv, qi = proj_rtopk(x, head_blocks(w, 0, h, hd), positions, k=sfa_k,
-                        rope_spec=rope_spec)
-    kv, ki = proj_rtopk(x, head_blocks(w, h, hkv, hd), positions, k=sfa_k,
-                        rope_spec=rope_spec)
+    # distributed/shard.py::tp_proj_rtopk's region (w's heads and the codes'
+    # axis 1 split over the model axis) around this module's proj_rtopk
+    proj = functools.partial(proj_rtopk, k=sfa_k, rope_spec=rope_spec)
+    qv, qi = run_tp(proj, (x, head_blocks(w, 0, h, hd), positions), (None, 0, None), (1, 1))
+    kv, ki = run_tp(proj, (x, head_blocks(w, h, hkv, hd), positions), (None, 0, None), (1, 1))
     return (qv.reshape(b * h, n, sfa_k), qi.reshape(b * h, n, sfa_k),
             kv.reshape(b * hkv, n, sfa_k), ki.reshape(b * hkv, n, sfa_k))
 
@@ -114,13 +125,13 @@ class _SFAAttention(torch.autograd.Function):
         if stash is not None and stash.replay:
             qv, qi, kv, ki = stash.take("sfa_q_code_vals", "sfa_q_code_idx",
                                         "sfa_k_code_vals", "sfa_k_code_idx")
-            out = flash_sfa(qv, qi, kv, ki, vf, d=d, causal=causal, scale=scale)
+            out = tp_flash_sfa(qv, qi, kv, ki, vf, d=d, causal=causal, scale=scale)
             lse, = stash.take("sfa_lse")
         else:
-            qv, qi = sfa_code(fold_heads(q), sfa_k)
-            kv, ki = sfa_code(fold_heads(k), sfa_k)
-            out, lse = flash_sfa(qv, qi, kv, ki, vf, d=d, causal=causal,
-                                 scale=scale, return_residuals=True)
+            qv, qi = tp_sfa_code(fold_heads(q), sfa_k)
+            kv, ki = tp_sfa_code(fold_heads(k), sfa_k)
+            out, lse = tp_flash_sfa(qv, qi, kv, ki, vf, d=d, causal=causal,
+                                    scale=scale, return_residuals=True)
             if stash is not None:
                 stash.put(sfa_q_code_vals=qv, sfa_q_code_idx=qi,
                           sfa_k_code_vals=kv, sfa_k_code_idx=ki, sfa_lse=lse)
@@ -132,9 +143,9 @@ class _SFAAttention(torch.autograd.Function):
     def backward(ctx, g):
         qv, qi, kv, ki, vf, out, lse = ctx.saved_tensors
         b, h, d, causal, scale, emit, qdt, kdt, vdt = ctx.meta
-        dq, dk, dv = flash_sfa_bwd(qv, qi, kv, ki, vf, out, lse,
-                                   fold_heads(g.to(vf.dtype)), d=d,
-                                   causal=causal, scale=scale, emit=emit)
+        dq, dk, dv = tp_flash_sfa_bwd(qv, qi, kv, ki, vf, out, lse,
+                                      fold_heads(g.to(vf.dtype)), d=d,
+                                      causal=causal, scale=scale, emit=emit)
         if emit != "dense":
             # the kernel wrote codes; the op owes dense cotangents
             if emit == "compact2":

@@ -1,7 +1,8 @@
 """Training launcher: train a model on the synthetic Markov stream.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small-sfa8 \
-        --steps 20 [--reduced | --no-reduced] [--attn-backend cuda]
+        --steps 20 [--reduced | --no-reduced] [--attn-backend cuda] \
+        [--ring P] [--tp T]
 
 Runs on the card (``--device cpu`` for the CPU). ``--reduced`` (the
 default) trains the tiny same-family config; ``--no-reduced`` (or
@@ -21,27 +22,39 @@ block-skip FlashSFA. The slice's policy:
     python -m repro_torch.launch.train --arch gpt2-small-sfa8 --no-reduced \
         --batch 8 --seq-len 1024 --bwd-emit compact --remat codes
 
-The run is supervised (``Trainer.train``): it checkpoints into a fresh
-temporary directory, removed at exit, every 50 steps and at the last, and
-replays from the newest checkpoint after a fault. Backend fallbacks,
-compact-seam routing and remat degrades (``core.reports``) are printed at
-exit.
+``--ring P`` / ``--tp T`` train on the debug mesh (``launch/mesh.py``)
+with a "seq" axis of P (Ring-SFA, ``distributed/ring.py``) and a "model"
+axis of T (tensor-parallel kernel regions, ``distributed/shard.py``);
+started as one process, the launcher spawns the P x T ranks itself
+(``launch.mesh.spawn``: NCCL where each rank has a card, else gloo, ranks
+sharing one card). ``--mesh single-pod`` / ``multi-pod`` build the
+production meshes, which need a process group of 256 / 512 ranks started
+around this launcher.
 
-Not ported yet, and refused with the ROADMAP item that brings them: the
-production meshes and ``--tp``/``--ring`` > 1 ("distribution").
+The run is supervised (``Trainer.train``): it checkpoints into a fresh
+temporary directory, removed at exit, every 50 steps and at the last (rank
+0 writes it under a mesh), and replays from the newest checkpoint after a
+fault. Backend fallbacks, compact-seam and ring routing and remat degrades
+(``core.reports``) are printed at exit.
 """
 import argparse
+import contextlib
+import io
 import tempfile
+
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import TrainPolicy
 from repro_torch.core.reports import collect_reports
 from repro_torch.data import DataConfig
+from repro_torch.distributed.sharding import axis_rules
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh, spawn
 from repro_torch.optim import OptimizerConfig
 from repro_torch.train import FTConfig, Trainer, TrainerConfig
 
 
-def main(argv=None):
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt2-small-sfa8")
     ap.add_argument("--steps", type=int, default=20)
@@ -54,8 +67,12 @@ def main(argv=None):
                     help="the same as --no-reduced")
     ap.add_argument("--mesh", default="debug",
                     choices=["debug", "single-pod", "multi-pod"])
-    ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--ring", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree of the debug mesh's model axis "
+                         "(distributed/shard.py)")
+    ap.add_argument("--ring", type=int, default=1,
+                    help="ring degree of the debug mesh's seq axis: > 1 takes Ring-SFA "
+                         "on eligible SFA layers (distributed/ring.py)")
     ap.add_argument("--attn-backend", default=None, choices=["torch", "cuda", "auto"],
                     help="override cfg.attention.backend for the step")
     ap.add_argument("--bwd-emit", default=None, choices=["dense", "compact", "compact2"],
@@ -70,30 +87,10 @@ def main(argv=None):
                          "codes = keep the SFA codes too and recompute the rest")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-    if args.mesh != "debug" or args.tp > 1 or args.ring > 1:
-        raise NotImplementedError("production meshes and --tp/--ring > 1 are "
-                                  "distribution work (ROADMAP, \"distribution\")")
+    return ap
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    overrides = {"backend": args.attn_backend}
-    for key in ("remat", "bwd_emit", "fwd_fuse"):
-        if getattr(args, key) is not None:
-            overrides[key] = getattr(args, key)
-    policy = TrainPolicy.from_model(cfg, **overrides)
-    ocfg = OptimizerConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 2),
-                           total_steps=args.steps)
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
-                      global_batch=args.batch, seed=args.seed)
-    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as ckpt_dir:
-        trainer = Trainer(cfg, ocfg, dcfg, TrainerConfig(
-            total_steps=args.steps, log_every=max(args.steps // 10, 1),
-            seed=args.seed, policy=policy, ft=FTConfig(ckpt_dir=ckpt_dir)),
-            device=args.device)
-        history = trainer.train()
-    print(f"done: final loss {history[-1]['loss']:.4f}")
+
+def _print_reports():
     for rep in collect_reports():
         if rep.component == "backend":
             print(f"backend fallback: {rep.detail('requested')} -> {rep.detail('selected')} "
@@ -102,9 +99,66 @@ def main(argv=None):
             print(f"compact seam at {rep.where}: "
                   + (f"taken (fused forward: {rep.detail('fused_fwd')})" if rep.eligible
                      else f"not taken ({rep.reason})"))
+        elif rep.component == "ring":
+            print(f"ring at {rep.where}: "
+                  + (f"taken ({rep.detail('transport')})" if rep.eligible
+                     else f"not taken ({rep.reason})"))
         elif rep.component == "remat" and not rep.eligible:
             print(f"remat {rep.detail('requested')} applied as {rep.detail('applied')} at "
                   f"{rep.where} ({rep.reason})")
+
+
+def _train(args, ckpt_dir):
+    """Build the mesh (if any) and run the supervised loop; rank 0 prints."""
+    if args.mesh != "debug":
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi-pod")
+    elif dist.is_available() and dist.is_initialized():
+        mesh = make_debug_mesh(model=args.tp, seq=args.ring)
+    else:
+        mesh = None
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    overrides = {"backend": args.attn_backend, "tp": args.tp}
+    for key in ("remat", "bwd_emit", "fwd_fuse"):
+        if getattr(args, key) is not None:
+            overrides[key] = getattr(args, key)
+    if args.ring > 1:
+        overrides["ring"] = True
+    policy = TrainPolicy.from_model(cfg, **overrides)
+    ocfg = OptimizerConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 2),
+                           total_steps=args.steps)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                      global_batch=args.batch, seed=args.seed)
+    tcfg = TrainerConfig(total_steps=args.steps, log_every=max(args.steps // 10, 1),
+                         seed=args.seed, policy=policy, ft=FTConfig(ckpt_dir=ckpt_dir))
+    lead = mesh is None or mesh.rank == 0
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            stack.enter_context(axis_rules(mesh))
+        if not lead:             # one log: rank 0's
+            stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+        history = Trainer(cfg, ocfg, dcfg, tcfg, device=args.device).train()
+    if lead:
+        print(f"done: final loss {history[-1]['loss']:.4f}"
+              + ("" if mesh is None else f" (mesh {mesh.shape})"))
+        _print_reports()
+    return history
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    if args.mesh != "debug" and (args.tp > 1 or args.ring > 1):
+        raise SystemExit("--tp/--ring shape the debug mesh only; production meshes fix "
+                         "their own axes (launch/mesh.py)")
+    world = args.tp * args.ring
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as ckpt_dir:
+        if args.mesh == "debug" and world > 1 and not (dist.is_available()
+                                                       and dist.is_initialized()):
+            device = "cpu" if args.device == "cpu" else "cuda"
+            return spawn(_train, world, device=device, args=(args, ckpt_dir),
+                         seed=args.seed)[0]
+        return _train(args, ckpt_dir)
 
 
 if __name__ == "__main__":

@@ -47,7 +47,11 @@ backward's compact code gradients through [the pair closure and
 dense dQ/dK exists anywhere on it. Each routing decision is recorded once
 as a ``CompactSeamReport``. The port's ``cuda`` backend is the counterpart
 of the JAX ``pallas`` one, on either device: on CPU tensors the kernel
-wrappers run their plain versions.
+wrappers run their plain versions. Under a mesh (``distributed/``) the
+seam's kernels run as tensor-parallel regions over the "model" axis, and a
+train/eval SFA layer with ``ring=True`` that ``ring_ineligible_reason``
+admits runs Ring-SFA over the "seq" axis (``ring_sfa_op``); each ring
+routing decision is recorded once as a ``RingReport``.
 """
 from __future__ import annotations
 
@@ -65,13 +69,15 @@ from repro_torch.core.kv_cache import (
 )
 from repro_torch.core.remat import active_stash
 from repro_torch.core.sparse import sparsify, topk_st
-from repro_torch.kernels.flash_sfa import flash_sfa
+from repro_torch.distributed.ring import ring_degree, ring_sfa_op
+from repro_torch.distributed.shard import tp_flash_sfa, tp_flash_sfa_bwd
+from repro_torch.distributed.sharding import axis_size, current_mesh
 from repro_torch.kernels.flash_sfa_bwd import MAX_K as _SEAM_MAX_K
-from repro_torch.kernels.flash_sfa_bwd import flash_sfa_bwd, pair_closure_indices
+from repro_torch.kernels.flash_sfa_bwd import pair_closure_indices
 from repro_torch.kernels.flash_sfa_decode import feature_major_prefill
 from repro_torch.kernels.rtopk import PROJ_HEAD_DIMS as _SEAM_HEAD_DIMS
 from repro_torch.kernels.ops import (
-    fold_heads, fused_qk_codes, head_blocks, repeat_heads, sfa_code, unfold_heads,
+    fold_heads, fused_qk_codes, head_blocks, repeat_heads, tp_sfa_code, unfold_heads,
 )
 from repro_torch.models.backends import (
     AttentionRequest, DecodeQuery, expand_kv, get_backend, resolve_backend_name,
@@ -259,8 +265,9 @@ def compact_seam_ineligible_reason(cfg: ModelConfig, window=None) -> Optional[st
     the backward compact); everything else between the projection and the
     kernels must be the identity: qk-norm rescales the cotangent by per-row
     statistics off the stored support, and windows, rope-protect, MLA and
-    distillation need the dense q/k/v outside the seam. Ring and tensor
-    parallelism (the JAX package's other two reasons) are not ported."""
+    distillation need the dense q/k/v outside the seam. Under a ring the
+    layer goes to Ring-SFA instead; under tensor parallelism both head
+    counts must divide the degree, so each rank runs whole heads."""
     a = cfg.attention
     if a is None or a.sfa_k is None:
         return "not an SFA layer (sfa_k unset)"
@@ -282,6 +289,14 @@ def compact_seam_ineligible_reason(cfg: ModelConfig, window=None) -> Optional[st
         return "sfa_rope_protect keeps leading dims dense outside the codes"
     if cfg.sfa_distill > 0:
         return "distill needs the dense q/k/v for the stop-grad teacher"
+    if a.ring and ring_degree() > 1:
+        return ("ring context parallelism routes through the op-level ring "
+                "path (distributed/ring.py), not the projection seam")
+    tp = axis_size("model")
+    if tp > 1 and (a.num_heads % tp or a.num_kv_heads % tp):
+        return (f"heads {a.num_heads}/{a.num_kv_heads} do not divide the TP "
+                f"degree {tp}: the shard_map'd seam needs whole per-device "
+                f"head slices to keep dQ/dK code grads reduction-free")
     return None
 
 
@@ -330,17 +345,76 @@ def clear_compact_seam_reports() -> None:
     _SEAM_REPORTS.clear()
 
 
+def ring_ineligible_reason(cfg: ModelConfig, window=None,
+                           n: Optional[int] = None) -> Optional[str]:
+    """None when a train-mode layer with ``ring=True`` can take Ring-SFA
+    (``distributed/ring.py``), else why not. The ring shards the sequence,
+    so whatever is row-wise (projection, qk-norm, RoPE) is free; the hop
+    schedule asks for causal SFA with fully sparse codes and a sequence the
+    ring degree divides."""
+    a = cfg.attention
+    if a is None or a.sfa_k is None:
+        return "not an SFA layer (sfa_k unset)"
+    if not a.causal:
+        return "ring hop schedule is the causal triangle"
+    if a.mla is not None:
+        return "MLA latent attention has no ring path"
+    if window is not None or a.window is not None:
+        return "windowed layers mask outside the ring hop schedule"
+    if a.sfa_rope_protect > 0:
+        return "rope-protected dims make the hop payload dense"
+    p = ring_degree()
+    if p <= 1:
+        return "no seq mesh axis of size > 1 in the active context"
+    if n is not None and n % p:
+        return f"sequence {n} does not divide the ring degree {p}"
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class RingReport:
+    """One Ring-SFA routing decision: taken or not, why not, and how the
+    ring's hops reach the wire (``launch.mesh.transport``)."""
+    where: str
+    taken: bool
+    reason: Optional[str] = None
+    transport: Optional[str] = None
+
+
+_RING_REPORTS: dict = {}
+
+
+def ring_reports() -> tuple:
+    return tuple(_RING_REPORTS.values())
+
+
+def clear_ring_reports() -> None:
+    _RING_REPORTS.clear()
+
+
+def _record_ring(where: str, taken: bool, reason: Optional[str],
+                 wire: Optional[str] = None) -> None:
+    key = (where, taken, reason, wire)
+    if key not in _RING_REPORTS:
+        _RING_REPORTS[key] = RingReport(where, taken, reason, wire)
+
+
 # the "compact_seam" and "ring" components of core/reports.py (read-only
-# views). Ring-SFA is distribution work and raises in the port, so "ring"
-# has no records yet.
+# views)
 def _collect_seam_reports():
     return tuple(_reports.make_report("compact_seam", r.where, eligible=r.taken,
                                       reason=r.reason, details={"fused_fwd": r.fused_fwd})
                  for r in compact_seam_reports())
 
 
+def _collect_ring_reports():
+    return tuple(_reports.make_report("ring", r.where, eligible=r.taken, reason=r.reason,
+                                      details={"transport": r.transport} if r.taken else None)
+                 for r in ring_reports())
+
+
 _reports.register_provider("compact_seam", _collect_seam_reports, clear_compact_seam_reports)
-_reports.register_provider("ring", tuple, lambda: None)
+_reports.register_provider("ring", _collect_ring_reports, clear_ring_reports)
 
 
 def _record_seam(where: str, taken: bool, reason: Optional[str],
@@ -378,16 +452,16 @@ def _sfa_proj_attend_fwd_impl(w, x, positions, h, hkv, hd, sfa_k, causal,
             theta, rot = rope_spec
             q = rope(q, positions, theta=theta, rot_dim=rot)
             k = rope(k, positions, theta=theta, rot_dim=rot)
-        qv, qi = sfa_code(fold_heads(q), sfa_k)
-        kv, ki = sfa_code(fold_heads(expand_kv(k, h)), sfa_k)
+        qv, qi = tp_sfa_code(fold_heads(q), sfa_k)
+        kv, ki = tp_sfa_code(fold_heads(expand_kv(k, h)), sfa_k)
     kv_h, ki_h = repeat_heads(kv, b, h), repeat_heads(ki, b, h)
     if stash is not None and stash.replay:
-        out = flash_sfa(qv, qi, kv_h, ki_h, vf, d=hd, causal=causal, scale=scale,
-                        block_skip=fwd_fuse)
+        out = tp_flash_sfa(qv, qi, kv_h, ki_h, vf, d=hd, causal=causal, scale=scale,
+                           block_skip=fwd_fuse)
         lse, = stash.take("sfa_lse")
     else:
-        out, lse = flash_sfa(qv, qi, kv_h, ki_h, vf, d=hd, causal=causal,
-                             scale=scale, return_residuals=True, block_skip=fwd_fuse)
+        out, lse = tp_flash_sfa(qv, qi, kv_h, ki_h, vf, d=hd, causal=causal,
+                                scale=scale, return_residuals=True, block_skip=fwd_fuse)
         if stash is not None:
             stash.put(sfa_q_code_vals=qv, sfa_q_code_idx=qi, sfa_k_code_vals=kv,
                       sfa_k_code_idx=ki, sfa_lse=lse)
@@ -424,7 +498,7 @@ class _SFAProjAttendCompact(torch.autograd.Function):
         group = h // hkv
         pair_widen = rope_spec is not None or req_emit == "compact2"
         rot = hd if rope_spec is None else rope_spec[1]
-        dqc, dkc, dvf = flash_sfa_bwd(
+        dqc, dkc, dvf = tp_flash_sfa_bwd(
             qv, qi, kv, ki, vf, out, lse, fold_heads(g.to(vf.dtype)).contiguous(),
             d=hd, causal=causal, scale=scale,
             emit="compact2" if pair_widen else "compact", rot_dim=rot)
@@ -489,9 +563,6 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
                          compact_seam_ineligible_reason(cfg, window))
         return _mla_apply(params, x, cfg=cfg, positions=positions, mode=mode,
                           cache=cache, cache_len=cache_len)
-    if a.ring and mode in ("train", "eval"):
-        raise NotImplementedError("Ring-SFA context parallelism is distribution work "
-                                  "(ROADMAP, \"distribution\")")
     b, n, _ = x.shape
     h, hkv, hd = a.num_heads, a.num_kv_heads, a.head_dim
     dt = x.dtype
@@ -577,14 +648,28 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
         o = ctx.to(dt).reshape(1, n, h * hd)
         return AttentionOut(dense(params["w_o"], o, dt), cache)
 
-    # a prefill or eval under no_grad runs the forward alone
-    backward = mode == "train" or torch.is_grad_enabled()
-    sel = select_backend(a.backend, _request(a, mode="full", window=window,
-                                             backward=backward, dtype=q.dtype),
-                         where=f"{cfg.name}/attention")
-    o = sel.backend.full(q, k, v, num_heads=h, sfa_k=a.sfa_k, causal=a.causal,
-                         window=window, scale=scale, rope_protect=a.sfa_rope_protect,
-                         bwd_emit=a.bwd_emit)
+    o = None
+    if mode in ("train", "eval") and a.sfa_k is not None and a.ring:
+        # Ring-SFA (distributed/ring.py): the RoPE'd dense q/k fold and
+        # shard over the seq axis; rtopk and the hop loop run per shard,
+        # rotating (n/P, k) K codes. GQA expands before rtopk, so group
+        # members carry identical codes, as the single-device composition
+        reason = ring_ineligible_reason(cfg, window, n=n)
+        wire = None if reason is not None else current_mesh().wire("send", x.device)
+        _record_ring(f"{cfg.name}/attention", reason is None, reason, wire)
+        if reason is None:
+            o = unfold_heads(ring_sfa_op(fold_heads(q), fold_heads(expand_kv(k, h)),
+                                         fold_heads(expand_kv(v, h)), sfa_k=a.sfa_k,
+                                         scale=scale), b, h)
+    if o is None:
+        # a prefill or eval under no_grad runs the forward alone
+        backward = mode == "train" or torch.is_grad_enabled()
+        sel = select_backend(a.backend, _request(a, mode="full", window=window,
+                                                 backward=backward, dtype=q.dtype),
+                             where=f"{cfg.name}/attention")
+        o = sel.backend.full(q, k, v, num_heads=h, sfa_k=a.sfa_k, causal=a.causal,
+                             window=window, scale=scale, rope_protect=a.sfa_rope_protect,
+                             bwd_emit=a.bwd_emit)
     distill = None
     if mode == "train" and a.sfa_k is not None and cfg.sfa_distill > 0:
         # paper Eq. 8: pull the SFA head outputs toward stop-grad dense ones

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.shard import run_tp
 from repro_torch.kernels.code_grad import code_grad_dw, code_grad_dx
 
 
@@ -89,9 +90,17 @@ def sparse_proj_bwd(x, w_heads, g_vals, g_idx, *, d: int):
     cotangent arrives as compact code gradients: x (n, m), w_heads
     (H, m, d), g_vals/g_idx (H, n, kw) -> dx = Σ_h scatter(g_h) @ w_hᵀ
     (n, m) and dw_h = xᵀ @ scatter(g_h) (H, m, d), both f32, through the
-    code_grad kernels: the dense (n, d) gradient is never formed."""
-    return (code_grad_dx(g_vals, g_idx, w_heads, d=d),
-            code_grad_dw(x, g_vals, g_idx, d=d))
+    code_grad kernels: the dense (n, d) gradient is never formed.
+
+    Under tensor parallelism the head axis splits over the model mesh axis
+    (``distributed/shard.py``): dW stays per head slice (column-parallel)
+    and dx, the one reduction of the seam's backward, sums its per-rank
+    partials over the axis."""
+    def fn(xx, ww, gv, gi):
+        return code_grad_dx(gv, gi, ww, d=d), code_grad_dw(xx, gv, gi, d=d)
+
+    return run_tp(fn, (x, w_heads, g_vals, g_idx), in_axes=(None, 0, 0, 0),
+                  out_axes=(None, 0), reduce_out=(0,))
 
 
 def norm_init(dim: int, kind: str = "rmsnorm", device="cpu"):

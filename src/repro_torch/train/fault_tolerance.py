@@ -9,13 +9,17 @@ steps). The pieces:
   restores the last committed checkpoint and replays. Batches are a function
   of (seed, step), so the replay follows the optimizer trajectory of an
   uninterrupted run. A fault before the first checkpoint resumes at step 0
-  without resetting the state, as in the reference.
+  without resetting the state, as in the reference. Under a mesh
+  (``distributed.sharding.axis_rules``) the ranks hold one state, so rank 0
+  alone writes each checkpoint, after a barrier, and every rank restores
+  (after rank 0's write has landed).
 * ``StragglerMonitor`` — a step slower than ``straggler_factor`` times the
   median of the last 50 steps is an event (and calls ``on_straggler``).
 * ``elastic_remesh`` — rebuilds the step for a new placement and restores
-  the state onto it from the last checkpoint, which is stored unsharded.
-  On one card the placement is a device: ``state_like``'s tensors carry it
-  (meshes come with distribution, ROADMAP A.8).
+  the state onto it from the last checkpoint, which is stored unsharded:
+  on a new mesh every rank restores the whole state onto ``state_like``'s
+  tensors (their devices and dtypes), after a barrier; on one process the
+  placement is a device.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import dataclasses
 import time
 from typing import Any, Callable, Optional
 
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.train import checkpoint as ckpt_lib
 
 
@@ -67,11 +72,23 @@ class Supervisor:
         self.restarts = 0
 
     def _restore_latest(self) -> int:
+        mesh = current_mesh()
+        if mesh is not None:
+            mesh.barrier()               # rank 0's last write has landed
         step = ckpt_lib.latest_step(self.cfg.ckpt_dir)
         if step is None:
             return 0
         self.load_state(ckpt_lib.restore(self.cfg.ckpt_dir, step, self.save_state()))
         return step
+
+    def _save(self, step: int) -> None:
+        mesh = current_mesh()
+        if mesh is None:
+            self.ckptr.save(step, self.save_state())
+            return
+        mesh.barrier()
+        if mesh.rank == 0:
+            self.ckptr.save(step, self.save_state())
 
     def run(self, step_fn: Callable[[int], dict], total_steps: int,
             start_step: int = 0) -> list[dict]:
@@ -86,7 +103,7 @@ class Supervisor:
                 logs.append({"step": step, **metrics})
                 step += 1
                 if step % self.cfg.ckpt_every == 0 or step == total_steps:
-                    self.ckptr.save(step, self.save_state())
+                    self._save(step)
             except KeyboardInterrupt:
                 raise
             except Exception as e:                       # noqa: BLE001
@@ -105,7 +122,11 @@ def elastic_remesh(make_step_for_mesh: Callable[[Any], Callable], new_mesh,
                    ckpt_dir: str, state_like: Any):
     """Rebuild the step for ``new_mesh`` and restore the last checkpoint
     onto ``state_like``'s placement (its tensors' devices and dtypes) ->
-    (step function, state, step)."""
+    (step function, state, step). ``new_mesh`` is a ``launch.mesh.Mesh``
+    (every rank of it calls this and restores the whole state) or, on one
+    process, a device."""
+    if hasattr(new_mesh, "barrier"):
+        new_mesh.barrier()
     step = ckpt_lib.latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError("no checkpoint to re-mesh from")

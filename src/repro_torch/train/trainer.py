@@ -9,9 +9,12 @@ the ``params`` it is given (e.g. ``interop.from_jax`` of a JAX trainer's).
 checkpoints every ``ckpt_every`` steps and at the last, and on a fault a
 restore of the newest one and a replay. ``_save_state`` gives the state in
 the JAX Trainer's layout, ``{"params", "opt": OptState(step, m, v)}`` with
-the moments nested as the parameters and the step an int32 scalar, so a
-checkpoint crosses between the two packages. Gradient compression (and its
-``"err"`` state) is the ROADMAP item "distribution".
+the moments nested as the parameters and the step an int32 scalar, and with
+``grad_compression`` the residuals as ``"err"``, nested as the parameters
+(it sorts before ``"opt"`` in jax.tree_util's order), so a checkpoint
+crosses between the two packages. Under a mesh (``axis_rules``) every rank
+runs the loop; the Supervisor writes checkpoints from rank 0 only, and
+every rank restores.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainPolicy
 from repro_torch.data import DataConfig, copy_batch, markov_batch
+from repro_torch.distributed.compression import init_error_state
 from repro_torch.interop import fill_tree
 from repro_torch.models.model import Model, default_device
 from repro_torch.models.model import init as model_init
@@ -62,6 +66,7 @@ class Trainer:
                              f"on {device}")
         self.params = params.requires_grad_(True)
         self.opt_state = init_opt_state(dict(self.params.named_parameters()))
+        self.err_state = init_error_state(self.params) if tcfg.grad_compression else None
         self.step_fn = make_train_step(
             cfg, opt_cfg, accum_steps=tcfg.accum_steps,
             grad_compression=tcfg.grad_compression, policy=tcfg.policy)
@@ -73,16 +78,20 @@ class Trainer:
         moments are the live tensors; a checkpoint copies them)."""
         params = self.params.tree()
         opt = self.opt_state
-        return {"params": params,
-                "opt": OptState(np.asarray(opt.step, np.int32), fill_tree(params, opt.m),
-                                fill_tree(params, opt.v))}
+        state = {"params": params,
+                 "opt": OptState(np.asarray(opt.step, np.int32), fill_tree(params, opt.m),
+                                 fill_tree(params, opt.v))}
+        if self.err_state is not None:
+            state["err"] = fill_tree(params, self.err_state)
+        return state
 
     def _load_state(self, state):
         """Copy ``state`` (as ``_save_state`` lays it out) into the live
-        parameters and moments in place, and set the step."""
+        parameters, moments and residuals in place, and set the step."""
         live = self._save_state()
-        dst = tree_leaves([live["params"], live["opt"].m, live["opt"].v])
-        src = tree_leaves([state["params"], state["opt"].m, state["opt"].v])
+        keys = ("params", "err") if "err" in live else ("params",)
+        dst = tree_leaves([*(live[k] for k in keys), live["opt"].m, live["opt"].v])
+        src = tree_leaves([*(state[k] for k in keys), state["opt"].m, state["opt"].v])
         with torch.no_grad():
             for d, s in zip(dst, src, strict=True):
                 d.copy_(s)
@@ -91,8 +100,12 @@ class Trainer:
     # --- loop ----------------------------------------------------------------
     def run_step(self, step: int) -> dict:
         batch = self._batch_fn(self.data_cfg, step)
-        self.params, self.opt_state, metrics = self.step_fn(
-            self.params, self.opt_state, batch)
+        if self.err_state is not None:
+            self.params, self.opt_state, metrics, self.err_state = self.step_fn(
+                self.params, self.opt_state, batch, self.err_state)
+        else:
+            self.params, self.opt_state, metrics = self.step_fn(
+                self.params, self.opt_state, batch)
         return {k: float(v) for k, v in metrics.items()}
 
     def train(self, fault_injector=None) -> list[dict]:

@@ -1171,3 +1171,22 @@ def test_decode_kernels_at_dv256_mqa_on_card(cuda, dtype):
                                rtol=0, atol=1e-4)
     torch.testing.assert_close(fk, ref.flash_sfa_decode_fm_paged_ref(
         qv, qi, g["kf"], g["v"], bt, lens, heads=h), rtol=0, atol=1e-4)
+
+
+def test_ring_sfa_on_two_ranks_of_the_card(cuda):
+    """Two gloo ranks on the card (NCCL refuses two ranks on one device):
+    bf16 Ring-SFA of gpt2-small-sfa8's training shape (bh 24, n 1024, d 64,
+    k 8) against flash_sfa of the same codes. Each hop's bf16 partial
+    rounds once before the f32 merge: within 3 bf16 roundings of max|v|
+    (2^-7 max|v|). Rank r launches r + 1 FlashSFA hops (plus its own
+    reference call); the ring's hops go through pinned host memory (gloo's
+    send refuses device memory), the all-gather takes the CUDA tensor."""
+    from torch_dist_workers import ring_on_card
+
+    from repro_torch.launch.mesh import spawn
+    out = spawn(ring_on_card, 2, device="cuda", args=(0, 24, 1024, 64, 8), timeout_s=300)
+    for rank, r in enumerate(out):
+        assert r["device"].startswith("cuda"), r
+        assert r["err"] <= 2 ** -7 * r["vmax"], r
+        assert r["flash_sfa"] == rank + 1, r
+        assert r["wire"] == {"ring": "gloo, pinned host", "all_gather": "gloo, device"}, r

@@ -240,19 +240,25 @@ Phases; any failure raises and the script exits non-zero:
                shape "RING" of each row; then 4 ranks on the one card
                (``launch.mesh.spawn``, gloo; the ring's hops through pinned
                host memory: gloo's send refuses device memory) on three
-               meshes: (a)
-               a ring of 4 (``make_debug_mesh(seq=4)``): full-width
+               meshes, the state sharded by the launcher's specs
+               (``launch.specs.param_specs``): (a)
+               a ring of 4 (``make_debug_mesh(seq=4)``, nothing split):
+               full-width
                gpt2-small-sfa8 at global batch 2 x 4,096, bf16, remat full,
-               its gradients and 3 steps' losses held to one process by
+               its gradients and 2 steps' losses held to one process by
                phase 9's bf16 rule, each rank's ring bytes equal to the
                byte model and its launches of rows 1, 3 and 5 to the
                prediction, a 2-layer f32 model at 1e-4, the code-level
                ``ring_sfa`` against flash_sfa + its compact backward
                (random and banded codes, f32 at 1e-4; bf16); (b) TP 2 x DP 2
                through the compact seam at 8 x 1,024 (rows 2, 4, 5, 8, 9 on
-               each rank's 6 heads); (c) DP 4 with top-5% gradient
-               compression, a 2-layer f32 model, against one process;
-               replicas equal, ms per step per rank, peak memory per mesh;
+               each rank's 6 heads), 637,843,968 B of state a rank, a
+               sharded checkpoint byte for byte the replicated one; (c) DP 4
+               with top-5% gradient compression, a 2-layer f32 model,
+               against one process; the state bytes a rank equal to the
+               specs' and the bytes a rank by collective to their
+               prediction on (b) and (c); replicas equal, ms per step per
+               rank, peak memory per mesh;
  15. a ``kernels`` JSON line, then the result line.
 
 Phase 3 holds row 1 (rtopk, d 64, k 8, bf16 and f32, tie-heavy rows) at
@@ -333,10 +339,11 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12          # CUDA cores, outside the tensor cores
-BF16_TC_FLOPS = 989e12     # tensor cores
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): the
+# port's one source, utils/roofline.py
+from repro_torch.utils.roofline import H100_SXM_BF16_FLOPS as BF16_TC_FLOPS  # noqa: E402
+from repro_torch.utils.roofline import H100_SXM_F32_FLOPS as F32_FLOPS  # noqa: E402
+from repro_torch.utils.roofline import H100_SXM_HBM_BW as HBM_BYTES_PER_S  # noqa: E402
 
 SEED = 0
 
@@ -3959,7 +3966,7 @@ def phase_variant_grads(arch, layers, device="cuda"):
 
 
 def phase_variants():
-    """Phases 11a-d: gemma3-4b served and trained at full width and 12 of 34
+    """Phases 11a-d: gemma3-4b served and trained at full width and 6 of 34
     layers; deepseek-v2-236b served at 3 of 60 layers; llama3.2-3b
     with sfa_rope_protect 64 served and trained at 4 of 28 layers; the f32
     checks at 2 layers. Returns nothing: no kernel lies on these paths."""
@@ -3968,11 +3975,11 @@ def phase_variants():
     from repro_torch.models.attention import compact_seam_reports
     release()
     gcfg = get_config("gemma3-4b")
-    # 12 of 34 layers (the depth cut of phase 12's budget): layers 5 and 11
-    # are global, the other 10 local
-    g12 = dataclasses.replace(gcfg, num_layers=12)
-    model = init(g12, device="cuda", seed=SEED)
-    timed(phase_variant_serve, model, g12, f"12 of {gcfg.num_layers} layers (depth cut)",
+    # 6 of 34 layers (the depth cut of the script's time budget): layer 5
+    # is global, the other 5 local
+    g6 = dataclasses.replace(gcfg, num_layers=6)
+    model = init(g6, device="cuda", seed=SEED)
+    timed(phase_variant_serve, model, g6, f"6 of {gcfg.num_layers} layers (depth cut)",
           "windowed attention not supported", long_prompt=1536)
     del model
     release()
@@ -3981,7 +3988,7 @@ def phase_variants():
     timed(phase_variant_end_to_end, model, g2, f"2 of {gcfg.num_layers} layers (depth cut)", 1100)
     del model
     release()
-    timed(phase_train, "gemma3-4b", 2, {}, layers=12)
+    timed(phase_train, "gemma3-4b", 2, {}, layers=6)
     release()
     timed(phase_variant_grads, "gemma3-4b", 2)
     release()
@@ -4014,6 +4021,8 @@ def phase_variants():
     release()
 
 
+# rwkv6-3b's serving and training depth (the script's time budget)
+RWKV_LAYERS = 8
 # jamba-v0.1-52b's attention sublayer (JB): 32 query heads over 8 kv heads
 # of 128, k 16, no RoPE; its prefill of a 1,024-token prompt and its decode
 # step (8 slots, pages of 128 for the image rows 13 reads)
@@ -4087,10 +4096,10 @@ def phase_recurrent(results):
     kernel shapes, the slot engine on the cuda and on the cuda_fm decode
     backend (their streams equal or parted at a near-tie), the paged and
     speculative refusals, the f32 end to end cuda against torch on f32
-    caches at 1e-4. rwkv6-3b at full width and depth: the slot engine (no
-    kernel, no KV), the refusals; at 2 layers the f32 end to end and the f32
-    gradients, the card against the CPU at 1e-4; trained at full width
-    through ``Trainer``. Returns the launches of the two jamba serving runs
+    caches at 1e-4. rwkv6-3b at full width and 8 of 32 layers: the slot
+    engine (no kernel, no KV), the refusals; at 2 layers the f32 end to end
+    and the f32 gradients, the card against the CPU at 1e-4; trained at full
+    width and 8 layers. Returns the launches of the two jamba serving runs
     by (kernel, JB shape): rtopk's split into its prefill and decode
     launches as counted after the prefills and at the end."""
     from repro_torch.configs import get_config
@@ -4113,9 +4122,11 @@ def phase_recurrent(results):
     del model
     release()
     rcfg = get_config("rwkv6-3b")
-    model = init(rcfg, device="cuda", seed=SEED)
-    timed(phase_engine, model, rcfg)
-    _recurrent_refusals(model, rcfg)
+    # 8 of 32 layers: the depth cut of the script's time budget
+    r8 = dataclasses.replace(rcfg, num_layers=RWKV_LAYERS)
+    model = init(r8, device="cuda", seed=SEED)
+    timed(phase_engine, model, r8, f"{RWKV_LAYERS} of {rcfg.num_layers} layers (depth cut)")
+    _recurrent_refusals(model, r8)
     del model
     release()
     r2 = dataclasses.replace(rcfg, num_layers=2)
@@ -4126,7 +4137,7 @@ def phase_recurrent(results):
     release()
     timed(phase_variant_grads, "rwkv6-3b", 2)
     release()
-    timed(phase_train, "rwkv6-3b", 1, {})
+    timed(phase_train, "rwkv6-3b", 1, {}, layers=RWKV_LAYERS)
     release()
     prefill = cuda["prefill_counts"]["rtopk"] + fm["prefill_counts"]["rtopk"]
     return {("rtopk", "JB"): prefill,
@@ -4387,7 +4398,7 @@ def phase_checkpoint():
 DIST_WORLD = 4
 # the seq-4 mesh's step: full-width gpt2-small-sfa8, global batch 2 x 4096,
 # so each rank's shard is 1024 tokens and the folded batch bh = 2 x 12
-RING_B, RING_N, RING_STEPS = 2, 4096, 3
+RING_B, RING_N, RING_STEPS = 2, 4096, 2
 # the TP (model 2 x data 2) and DP (data 4) meshes' global batch, and their
 # steps: TP's cut to 1 (the script's time cap), DP's 2 carry a residual
 MESH_B, MESH_N, TP_STEPS, DP_STEPS = 8, 1024, 1, 2
@@ -4482,28 +4493,58 @@ def _host(tree):
     return {k: v.detach().float().cpu() for k, v in tree.items() if v is not None}
 
 
-def _dist_grads(cfg, batch):
-    """Loss and every gradient of a fresh ``init(cfg, seed)`` model on the
-    global ``batch`` through the train step's ``loss_and_grads`` (under
-    the active mesh, if any), gradients on the host in f32."""
+def _state_specs(cfg, mesh):
+    """The training state's specs on ``mesh``, as the launcher places it:
+    ``launch.specs.param_specs(..., mode="tp")`` of the parameters."""
+    from repro_torch.launch import specs as S
+    from repro_torch.models.model import param_tree
+    return S.param_specs(param_tree(cfg, device="meta"), cfg, mesh, mode="tp")
+
+
+def _whole(model, tree=None):
+    """Each tensor of ``tree`` (default: the parameters; else a flat dict of
+    gradients, moments or residuals by parameter name) gathered whole by its
+    parameter's spec (every rank of the mesh must call this)."""
+    from repro_torch.distributed.shard import gather_full, spec_of
+    named = dict(model.named_parameters())
+    tree = named if tree is None else tree
+    return {k: gather_full(t.detach(), spec_of(named[k])) for k, t in tree.items()
+            if t is not None}
+
+
+def _dist_grads(cfg, batch, specs=None):
+    """Loss and every gradient of a fresh ``init(cfg, seed)`` model (its
+    state sharded by ``specs``, if given) on the global ``batch`` through
+    the train step's ``loss_and_grads`` (under the active mesh, if any),
+    gradients gathered whole, on the host in f32."""
     from repro_torch.models import init
     from repro_torch.train.train_step import loss_and_grads
-    model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
+    model = init(cfg, device="cuda", seed=SEED, specs=specs).requires_grad_(True)
     loss, _, grads = loss_and_grads(model, batch, cfg)
-    out = float(loss.detach()), _host(grads)
+    out = float(loss.detach()), _host(_whole(model, grads))
     del model, grads
     return out
 
 
-def _dist_steps(cfg, batches, compression=None, mesh=None):
+def _dist_steps(cfg, batches, compression=None, mesh=None, specs=None):
     """``len(batches)`` steps of ``make_train_step`` (AdamW, lr 3e-4) from
-    ``init(cfg, seed)``; -> (losses, step ms, the model, its residuals)."""
+    ``init(cfg, seed)``, the state sharded by ``specs`` if given; -> (losses,
+    step ms, the model, its optimizer state, its residuals, the state's
+    bytes: the parameters' and both moments' as ``memory_allocated`` rose
+    over their init, as their tensors hold, and how many tensors)."""
     from repro_torch.distributed.compression import init_error_state
     from repro_torch.models import init
     from repro_torch.optim import OptimizerConfig, init_opt_state
     from repro_torch.train.train_step import make_train_step
-    model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = init(cfg, device="cuda", seed=SEED, specs=specs).requires_grad_(True)
     opt = init_opt_state(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    sizes = [t.numel() * t.element_size()
+             for t in [*model.parameters(), *opt.m.values(), *opt.v.values()]]
+    state = dict(allocated=torch.cuda.memory_allocated() - before, tensors=sum(sizes),
+                 count=len(sizes))
     err = init_error_state(model) if compression else None
     step = make_train_step(cfg, OptimizerConfig(lr=3e-4, warmup_steps=1,
                                                 total_steps=len(batches) + 1),
@@ -4521,20 +4562,23 @@ def _dist_steps(cfg, batches, compression=None, mesh=None):
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    return losses, ms, model, err
+    return losses, ms, model, opt, err, state
 
 
-def _dist_compressed(cfg, batch):
+def _dist_compressed(cfg, batch, specs=None):
     """The compressed gradient and residual of the first step of ``cfg``
     from ``init(cfg, seed)`` (the step's ``loss_and_grads`` under the
-    active mesh, then ``compress_tree`` from zero residuals), on the host."""
+    active mesh, then ``compress_tree`` from zero residuals; the state
+    sharded by ``specs`` if given), gathered whole, on the host."""
     from repro_torch.distributed.compression import compress_tree, init_error_state
+    from repro_torch.distributed.shard import spec_of
     from repro_torch.models import init
     from repro_torch.train.train_step import loss_and_grads
-    model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
+    model = init(cfg, device="cuda", seed=SEED, specs=specs).requires_grad_(True)
     _, _, grads = loss_and_grads(model, batch, cfg)
-    comp, err = compress_tree(grads, init_error_state(model), fraction=COMPRESSION)
-    out = _host(comp), _host(err)
+    comp, err = compress_tree(grads, init_error_state(model), fraction=COMPRESSION,
+                              specs={k: spec_of(p) for k, p in model.named_parameters()})
+    out = _host(_whole(model, comp)), _host(_whole(model, err))
     del model, grads, comp, err
     return out
 
@@ -4570,14 +4614,68 @@ def _rel(a, b):
     return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
 
 
+def _checkpoint_pair(cfg, model, opt, step):
+    """The sharded state's checkpoint against the same state's replicated
+    one: every rank gathers the state into a ``Trainer``'s layout and rank
+    0 writes it (the Supervisor's path); rank 0 then restores that file
+    into a replicated ``Trainer`` and writes it again. -> on rank 0 whether
+    the two directories hold the same manifest and arrays, byte for byte
+    (the npz's zip headers carry the write time, so its members are
+    compared), the leaves and the bytes; None elsewhere."""
+    import tempfile
+    import zipfile
+
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import checkpoint as ckpt
+
+    def trainer(params=None):
+        return Trainer(cfg, OptimizerConfig(), DataConfig(cfg.vocab_size, MESH_N, MESH_B),
+                       TrainerConfig(seed=SEED), device=model.device, params=params)
+
+    def members(path):
+        with zipfile.ZipFile(path) as z:
+            return {name: z.read(name) for name in z.namelist()}
+
+    tr = trainer(model)
+    tr.opt_state = opt
+    state = tr._save_state()               # every rank: the sharded leaves gathered
+    del tr
+    if torch.distributed.get_rank() != 0:
+        torch.distributed.barrier()
+        return None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        a, b = os.path.join(tmp, "sharded"), os.path.join(tmp, "replicated")
+        ckpt.save(a, step, state)
+        del state
+        rep = trainer()                    # replicated: the whole tree on this rank
+        rep._load_state(ckpt.restore(a, step, rep._save_state()))
+        ckpt.save(b, step, rep._save_state())
+        del rep
+        da, db = (os.path.join(d, f"step_{step:09d}") for d in (a, b))
+        same = (open(os.path.join(da, "manifest.json"), "rb").read()
+                == open(os.path.join(db, "manifest.json"), "rb").read()
+                and members(os.path.join(da, "arrays.npz"))
+                == members(os.path.join(db, "arrays.npz")))
+        nbytes = os.path.getsize(os.path.join(da, "arrays.npz"))
+        leaves = len(members(os.path.join(da, "arrays.npz")))
+    release()
+    torch.distributed.barrier()
+    return {"same": same, "bytes": nbytes, "leaves": leaves}
+
+
 def _dist_rank():
     """One of the 4 ranks on the card: the three meshes in turn (the
-    module's phase 14 docstring). Returns this rank's counts, times and
-    peaks, checksums of what every rank must hold alike, and on rank 0 the
-    gradients and states the parent holds to its single-process runs."""
+    module's phase 14 docstring), the state sharded by the launcher's specs
+    on each. Returns this rank's counts, times, state bytes and peaks,
+    checksums of what every rank must hold alike (the gathered
+    parameters), and on rank 0 the gradients and states the parent holds to
+    its single-process runs."""
     import torch.distributed as dist
 
     from repro_torch.distributed import ring as R
+    from repro_torch.distributed.shard import named_leaves, split_axes
     from repro_torch.distributed.sharding import axis_rules
     from repro_torch.kernels import body_counts, launch_counts, reset_launches
     from repro_torch.kernels import flash_sfa, flash_sfa_bwd, rtopk
@@ -4600,23 +4698,28 @@ def _dist_rank():
         res = fn()
         return res, launch_counts(), body_counts(), dataclasses.asdict(R.STATS), dict(mesh.sent)
 
-    # (a) the ring of 4
+    def split(specs):
+        return sum(bool(split_axes(s, mesh)) for _, s in named_leaves(specs))
+
+    # (a) the ring of 4: data 1, so the specs split nothing
     mesh = make_debug_mesh(seq=DIST_WORLD)
     torch.cuda.reset_peak_memory_stats()
     batches = _dist_batches(ring_cfg, RING_B, RING_N, RING_STEPS)
     with axis_rules(mesh):
+        specs = _state_specs(ring_cfg, mesh)
+        out["ring_split"] = split(specs)
         clear_ring_reports()
-        (loss, grads), *_ = counted(lambda: _dist_grads(ring_cfg, batches[0]))
+        (loss, grads), *_ = counted(lambda: _dist_grads(ring_cfg, batches[0], specs))
         out["ring_loss"], out["ring_sums"] = loss, sums(grads)
         if rank == 0:
             out["ring_grads"] = grads
         del grads
-        (losses, ms, model, _), counts, bodies, stats, sent = counted(
-            lambda: _dist_steps(ring_cfg, batches, mesh=mesh))
+        (losses, ms, model, _, _, state), counts, bodies, stats, sent = counted(
+            lambda: _dist_steps(ring_cfg, batches, mesh=mesh, specs=specs))
         out["ring_steps"] = dict(losses=losses, ms=ms, counts=counts, bodies=bodies,
                                  stats=stats, sent=sent, transports=dict(mesh.transports),
-                                 device=str(next(model.parameters()).device),
-                                 params=sums(dict(model.named_parameters())))
+                                 device=str(next(model.parameters()).device), state=state,
+                                 params=sums(_whole(model)))
         out["ring_reports"] = [dataclasses.asdict(r) for r in ring_reports()]
         del model
         release()
@@ -4662,46 +4765,133 @@ def _dist_rank():
                 stats=stats, sent=sent, vmax=v.float().abs().max().item())
             del got, want, leaves
     release()
-    # (b) tensor parallelism: model 2 x data 2, the compact seam
+    # (b) tensor parallelism: model 2 x data 2, the compact seam, the state
+    # sharded (FSDP over data, TP over model)
     mesh = make_debug_mesh(model=2, data=2)
     torch.cuda.reset_peak_memory_stats()
     batches = _dist_batches(seam_cfg, MESH_B, MESH_N, TP_STEPS)
     with axis_rules(mesh):
-        (loss, grads), *_ = counted(lambda: _dist_grads(seam_cfg, batches[0]))
+        specs = _state_specs(seam_cfg, mesh)
+        out["tp_split"] = split(specs)
+        (loss, grads), *_ = counted(lambda: _dist_grads(seam_cfg, batches[0], specs))
         out["tp_loss"], out["tp_sums"] = loss, sums(grads)
         if rank == 0:
             out["tp_grads"] = grads
         del grads
-        (losses, ms, model, _), counts, bodies, stats, sent = counted(
-            lambda: _dist_steps(seam_cfg, batches, mesh=mesh))
+        (losses, ms, model, opt, _, state), counts, bodies, stats, sent = counted(
+            lambda: _dist_steps(seam_cfg, batches, mesh=mesh, specs=specs))
         out["tp_steps"] = dict(losses=losses, ms=ms, counts=counts, bodies=bodies, sent=sent,
-                               transports=dict(mesh.transports),
-                               params=sums(dict(model.named_parameters())),
-                               numel=sum(p.numel() for p in model.parameters()))
-        del model
+                               transports=dict(mesh.transports), state=state,
+                               params=sums(_whole(model)))
+        out["tp_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        out["tp_ckpt"] = _checkpoint_pair(seam_cfg, model, opt, TP_STEPS)
+        out["tp_ckpt_s"] = time.perf_counter() - t0
+        del model, opt
     release()
-    out["tp_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    # (c) data parallelism over 4 with top-5% compression, f32, 2 layers:
-    # the first step's compressed gradient and residual, then 2 steps
+    # (c) data parallelism over 4 with top-5% compression, f32, 2 layers,
+    # the state sharded over data: the first step's compressed gradient and
+    # residual, then 2 steps
     mesh = make_debug_mesh(data=DIST_WORLD)
     torch.cuda.reset_peak_memory_stats()
     batches = _dist_batches(dp32, MESH_B, MESH_N, DP_STEPS)
     with axis_rules(mesh):
-        comp, err = _dist_compressed(dp32, batches[0])
+        specs = _state_specs(dp32, mesh)
+        out["dp_split"] = split(specs)
+        comp, err = _dist_compressed(dp32, batches[0], specs)
         if rank == 0:
             out["dp_comp"], out["dp_err"] = comp, err
         del comp, err
-        (losses, ms, model, err), counts, bodies, stats, sent = counted(
-            lambda: _dist_steps(dp32, batches, COMPRESSION, mesh=mesh))
+        (losses, ms, model, _, err, state), counts, bodies, stats, sent = counted(
+            lambda: _dist_steps(dp32, batches, COMPRESSION, mesh=mesh, specs=specs))
+        params = _whole(model)
         out["dp_steps"] = dict(losses=losses, ms=ms, sent=sent, transports=dict(mesh.transports),
-                               params=sums(dict(model.named_parameters())), err=sums(err),
-                               numel=sum(p.numel() for p in model.parameters()))
+                               state=state, params=sums(params), err=sums(_whole(model, err)))
         if rank == 0:
-            out["dp_params"] = _host(dict(model.named_parameters()))
-        del model, err
+            out["dp_params"] = _host(params)
+        del model, err, params
     release()
     out["dp_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
+
+
+def _sharded_state_bytes(cfg, shape) -> int:
+    """The f32 parameters and both AdamW moments a rank holds on a mesh of
+    ``shape`` by the launcher's specs: 12 B a parameter of its shards."""
+    import math
+
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.models.model import param_tree
+    mesh = ShapeMesh(shape)
+    params = param_tree(cfg, device="meta")
+    shards = S.shardings_of(params, S.param_specs(params, cfg, mesh), mesh)
+    return 12 * sum(math.prod(s) for _, s in S.named_leaves(shards))
+
+
+def _predicted_sent(cfg, shape, *, steps, rows, n, compression=False):
+    """Bytes a rank passes to each collective over ``steps`` training steps
+    on a mesh of ``shape`` (``rows`` of the batch a data rank, ``n``
+    tokens), from the launcher's specs and the remat policy:
+
+      * each leaf a spec splits is all-gathered over its split axes, the
+        later dim's axis first, at every use: the leaves outside the layer
+        stack once a step, a layer's once in its forward and again in the
+        backward's rerun under remat "full" or "codes"; with compression its
+        gradient and residual are gathered too;
+      * its gradient is cut to its model slice and reduce-scattered over
+        data; a leaf that data does not split is all-reduced over data, with
+        the token count (4 B), the (ce, aux) pair (8 B) and one 4-byte sum of
+        squares per axis of each set of split axes for the global norm;
+      * under a model axis, the compact seam's regions (``shard.run_tp``,
+        heads split): per layer the q and k codes of proj_rtopk (values in
+        the model's dtype, int32 indices), FlashSFA's output and LSE and its
+        rerun's output, the backward's q / k code gradients and dV, the q
+        and k blocks of dW (f32), all-gathered; the seam's dx for q and k
+        (f32) all-reduced over model."""
+    import math
+
+    from repro_torch.distributed.shard import named_leaves, split_axes
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.models.model import param_tree
+    mesh = ShapeMesh(shape)
+    params = param_tree(cfg, device="meta")
+    specs = S.param_specs(params, cfg, mesh)
+    reruns = 2 if cfg.remat in ("full", "codes") else 1
+    sent = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 12}
+    norm_groups = set()
+    for (path, leaf), (_, spec) in zip(named_leaves(params), named_leaves(specs)):
+        axes = split_axes(spec, mesh)
+        shard = size = 4 * math.prod(S.shard_shape(leaf.shape, spec, mesh))
+        if axes:
+            norm_groups.add(frozenset(a for _, a in axes))
+        chain = 0
+        for _, axis in reversed(axes):
+            chain += size
+            size *= mesh.size(axis)
+        uses = reruns if path[0] == "segments" else 1
+        sent["all_gather"] += (uses + (2 if compression else 0)) * chain
+        if any(a == "data" for _, a in axes):
+            size //= math.prod(mesh.size(a) for _, a in axes if a != "data")
+            sent["reduce_scatter"] += size
+        else:
+            sent["all_reduce"] += shard
+    sent["all_reduce"] += 4 * sum(len(g) for g in norm_groups)
+    tp = mesh.size("model")
+    if tp > 1:
+        a = cfg.attention
+        h, hkv, d, k, m = a.num_heads // tp, a.num_kv_heads // tp, a.head_dim, a.sfa_k, \
+            cfg.d_model
+        es = 2 if cfg.dtype == "bfloat16" else 4
+        tok = rows * n
+        sent["all_gather"] += cfg.num_layers * (
+            tok * (h + hkv) * k * (es + 4)              # proj_rtopk's q and k codes
+            + tok * h * (d * es + 4) + tok * h * d * es  # FlashSFA out + LSE, its rerun
+            + tok * h * (2 * k * es + d * es)            # dq, dk codes, dV
+            + (h + hkv) * m * d * 4)                     # dW's q and k blocks
+        sent["all_reduce"] += cfg.num_layers * 2 * tok * m * 4
+    return {key: steps * v for key, v in sent.items()}
 
 
 def _replica_gap(got, want):
@@ -4734,13 +4924,17 @@ def phase_distributed(results):
     rank, the ring's hops staged through pinned host memory, since gloo's
     send refuses device memory; ``tools/gloo_cuda_probe.py``). First rows 3 and 5 at the ring's hop shape, then the parent's
     single-process references on the card, then one ``launch.mesh.spawn`` of
-    4 ranks running three meshes in turn:
+    4 ranks running three meshes in turn, each with the training state
+    placed as the launcher places it (``launch.specs.param_specs``, mode
+    "tp": FSDP over data, TP over model; each rank holds its shards and the
+    model gathers a leaf at use, ``distributed/shard.py``):
 
       (a) ``make_debug_mesh(seq=4)``: full-width gpt2-small-sfa8, global
-          batch 2 x 4,096, bf16, dense emit, remat full, cuda: the loss and
+          batch 2 x 4,096, bf16, dense emit, remat full, cuda (data 1: the
+          specs split nothing): the loss and
           every gradient of the first batch held to the single-process step
           by phase 9's bf16 rule (the torch backend's bf16-from-f32
-          distance at this batch, twice, + 1e-2), then 3 steps (losses by
+          distance at this batch, twice, + 1e-2), then 2 steps (losses by
           the same loss rule), each rank's ring bytes equal to the byte
           model (Motivation's figures) and its launches of rows 1, 3 and 5
           equal to the prediction (rank r: rtopk 48, FlashSFA 24 (r + 1) and
@@ -4753,21 +4947,29 @@ def phase_distributed(results):
           and in bf16 within 2^-7 max|v| (each hop's partial rounds once);
       (b) ``make_debug_mesh(model=2, data=2)``: the compact seam (remat
           codes) at batch 8 x 1,024, each rank running rows 2, 4, 5, 8 and 9
-          on its 6 heads and 4 rows: gradients by the bf16 rule, 1 step
-          (cut from 2 for the script's time cap);
+          on its 6 heads and 4 rows, six of the 12 leaves sharded: gathered
+          gradients by the bf16 rule, 1 step; then the state's checkpoint
+          (every rank gathers, rank 0 writes) against the same state
+          restored into a replicated Trainer and written again, byte for
+          byte (``_checkpoint_pair``);
       (c) ``make_debug_mesh(data=4)``: a 2-layer f32 model with top-5%
-          gradient compression at batch 8 x 1,024: the first step's
+          gradient compression at batch 8 x 1,024, the state sharded over
+          data: the first step's
           compressed gradient and residual held to one process (phase 9's
           f32 leaf rule; selection flips at a threshold counted, below
           1e-5 of the entries), then 2 steps (the second carries the
           residual) with their losses held at 1e-4.
 
-    Every rank must hold the same parameters (checksums within 1e-6) and
-    run on the card; the bytes each rank passes to the TP and DP
-    all-reduces equal their count from the shapes. Prints the bytes per hop against the model, the hops per
-    rank, each collective's transport, ms per step per rank (4 ranks share
-    one card: no measure of context-parallel speed) and each mesh's peak
-    memory."""
+    Every rank must hold the same gathered parameters (checksums within
+    1e-6) and run on the card; on (b) and (c) the parameter and moment
+    bytes each rank holds equal the specs' count (``_sharded_state_bytes``: the
+    tensors' bytes exactly; ``memory_allocated`` over the init within the
+    allocator's rounding, under 1 MiB a tensor) and the bytes it
+    passes to each collective equal ``_predicted_sent``. Prints the state
+    bytes a rank, the bytes by collective against their prediction, the
+    bytes per hop against the model, the hops per rank, each collective's
+    transport, ms per step per rank (4 ranks share one card: no measure of
+    context-parallel speed) and each mesh's peak memory."""
     from repro_torch.distributed.ring import (
         ring_bwd_wire_bytes, ring_bytes_per_hop, ring_fwd_wire_bytes,
     )
@@ -4794,7 +4996,7 @@ def phase_distributed(results):
     tp_noise = _noise(seam_cfg, mesh_batches[0])
     ref_tp_losses = _dist_steps(seam_cfg, mesh_batches[:TP_STEPS])[0]
     ref_comp = _dist_compressed(dp32, mesh_batches[0])
-    dp_losses, _, dp_model, _ = _dist_steps(dp32, mesh_batches, COMPRESSION)
+    dp_losses, _, dp_model, _, _, _ = _dist_steps(dp32, mesh_batches, COMPRESSION)
     ref_dp = (dp_losses, _host(dict(dp_model.named_parameters())))
     del dp_model
     release()
@@ -4874,21 +5076,35 @@ def phase_distributed(results):
         check(abs(a - b) <= 2 * tp_noise[0] + 1e-2,
               f"distributed TP-2 x DP-2: step {s} loss {a} vs one process {b}")
     per_tp = TP_STEPS * layers
-    # all-reduce bytes a rank and step: the token count (4 B), every
-    # gradient over data, the (ce, aux) pair (8 B), and on the TP mesh the
-    # seam's dx over model, q and k each layer (4 x 1,024 rows x 768, f32):
-    # the backward ran split, so its regions summed their partials
-    m = seam_cfg.d_model
-    tp_reduce = TP_STEPS * (12 + 4 * r0["tp_steps"]["numel"]
-                              + 2 * layers * (MESH_B // 2) * MESH_N * m * 4)
-    dp_reduce = DP_STEPS * (12 + 4 * r0["dp_steps"]["numel"])
+    # the state a rank holds and the bytes it passes to each collective,
+    # against the specs and the remat policy (``_sharded_state_bytes``,
+    # ``_predicted_sent``); the ring splits nothing
+    tp_shape, dp_shape = {"data": 2, "model": 2}, {"data": DIST_WORLD, "model": 1}
+    want_state = {"tp_steps": _sharded_state_bytes(seam_cfg, tp_shape),
+                  "dp_steps": _sharded_state_bytes(dp32, dp_shape)}
+    want_sent = {"tp_steps": _predicted_sent(seam_cfg, tp_shape, steps=TP_STEPS,
+                                             rows=MESH_B // 2, n=MESH_N),
+                 "dp_steps": _predicted_sent(dp32, dp_shape, steps=DP_STEPS,
+                                             rows=MESH_B // DIST_WORLD, n=MESH_N,
+                                             compression=True)}
+    check(want_state["tp_steps"] == 637_843_968,
+          f"distributed: the specs give {want_state['tp_steps']} B of TP-2 x DP-2 state")
     for r in ranks:
-        check(r["tp_steps"]["sent"]["all_reduce"] == tp_reduce
-              and r["tp_steps"]["sent"]["all_gather"] > 0
-              and r["dp_steps"]["sent"] == {"all_reduce": dp_reduce},
-              f"distributed rank {r['rank']}: TP bytes {r['tp_steps']['sent']} (all-reduce "
-              f"predicted {tp_reduce}), DP bytes {r['dp_steps']['sent']} (predicted "
-              f"{dp_reduce})")
+        check(r["ring_split"] == 0 and r["tp_split"] == 6 and r["dp_split"] == 6,
+              f"distributed rank {r['rank']}: leaves split ring / TP / DP "
+              f"{r['ring_split']} / {r['tp_split']} / {r['dp_split']}")
+        for key in ("tp_steps", "dp_steps"):
+            st = r[key]["state"]
+            # the allocator rounds a block to 512 B and keeps a remainder
+            # below 1 MiB in it: memory_allocated exceeds the tensors' bytes
+            # by less than 1 MiB a tensor (the whole leaves freed)
+            check(st["tensors"] == want_state[key]
+                  and 0 <= st["allocated"] - st["tensors"] < st["count"] * 2**20,
+                  f"distributed rank {r['rank']} {key}: state {st}, the specs' "
+                  f"{want_state[key]} B")
+            check(r[key]["sent"] == want_sent[key],
+                  f"distributed rank {r['rank']} {key}: bytes {r[key]['sent']}, predicted "
+                  f"{want_sent[key]}")
         st = r["tp_steps"]
         want = {name: 0 for name in st["counts"]}
         want.update(proj_rtopk=2 * per_tp, flash_sfa_block_skip=2 * per_tp,
@@ -4897,6 +5113,10 @@ def phase_distributed(results):
         check(st["counts"] == want and not any(st["bodies"].values()),
               f"distributed TP-2 x DP-2 rank {r['rank']}: launches {st['counts']}, predicted "
               f"{want}; bodies {st['bodies']}")
+    ck = r0["tp_ckpt"]
+    check(ck["same"] and ck["leaves"] == 37,
+          f"distributed TP-2 x DP-2: the sharded checkpoint differs from the replicated one "
+          f"({ck})")
     # (c) data parallelism with compression, against one process
     for s, (a, b) in enumerate(zip(r0["dp_steps"]["losses"], ref_dp[0])):
         check(abs(a - b) <= 1e-4, f"distributed DP-4 compressed: step {s} loss {a} vs {b}")
@@ -4920,6 +5140,22 @@ def phase_distributed(results):
     print(f"[distributed] 4 ranks on one {torch.cuda.get_device_name(0)}, gloo; references in "
           f"one process {ref_s:.1f} s, the ranks' run {ranks_s:.1f} s (process start "
           f"included)")
+    replicated = _sharded_state_bytes(seam_cfg, {"data": 1, "model": 1})
+    print("[distributed] state a rank (f32 parameters + AdamW m, v by the launcher's specs; "
+          "tensors / memory_allocated over the init, B): " + "; ".join(
+              f"{mesh} " + ", ".join(
+                  f"rank {r['rank']} {r[key]['state']['tensors']} / "
+                  f"{r[key]['state']['allocated']}"
+                  for r in ranks) for mesh, key in
+              (("ring-4", "ring_steps"), ("TP-2 x DP-2", "tp_steps"), ("DP-4", "dp_steps")))
+          + f"; specs: TP-2 x DP-2 {want_state['tp_steps']}, DP-4 (2 layers) "
+          f"{want_state['dp_steps']}, replicated {replicated}")
+    print("[distributed] bytes a rank by collective, measured (rank 0) against predicted: "
+          + "; ".join(f"{mesh} {r0[key]['sent']} vs {want_sent[key]}" for mesh, key in
+                      (("TP-2 x DP-2", "tp_steps"), ("DP-4", "dp_steps"))))
+    print(f"[distributed] TP-2 x DP-2 checkpoint at step {TP_STEPS}: sharded (gathered, rank 0 "
+          f"writes) and replicated (restored, written again) identical, {ck['leaves']} "
+          f"arrays, {ck['bytes']} B of arrays.npz; {r0['tp_ckpt_s']:.1f} s")
     print(f"[distributed] ring-4 byte model at bf16 codes / int32 indices / bf16 V / f32 "
           f"accumulators: {model_bytes[0]} B a hop, forward {model_bytes[1]} B, backward "
           f"{model_bytes[2]} B a layer; K-payload ratio against a dense ring "

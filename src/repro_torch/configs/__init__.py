@@ -16,6 +16,7 @@ import importlib
 from repro_torch.configs.base import (
     LM_SHAPES, AttentionConfig, FrontendConfig, MLAConfig, MoEConfig, ModelConfig,
     REMAT_POLICIES, RWKVConfig, ShapeConfig, SSMConfig, TrainPolicy, shape_by_name,
+    skip_reason,
 )
 from repro_torch.configs import paper_models
 
@@ -36,6 +37,11 @@ _ARCH_MODULES = {
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "rwkv6-3b": "rwkv6_3b",
 }
+
+# the reference's assigned archs, in its order: the dry run's cells
+ASSIGNED_ARCHS = ("gemma3-4b", "llama3.2-3b", "llama3-8b", "deepseek-7b",
+                  "moonshot-v1-16b-a3b", "deepseek-v2-236b", "jamba-v0.1-52b",
+                  "paligemma-3b", "rwkv6-3b", "hubert-xlarge")
 
 _PORTED = "gpt2-*, qwen3-0.6b*, " + ", ".join(_ARCH_MODULES)
 
@@ -70,8 +76,8 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = [
-    "AttentionConfig", "FrontendConfig", "LM_SHAPES", "MLAConfig", "MoEConfig",
+    "ASSIGNED_ARCHS", "AttentionConfig", "FrontendConfig", "LM_SHAPES", "MLAConfig", "MoEConfig",
     "ModelConfig", "NOT_YET_PORTED", "REMAT_POLICIES", "RWKVConfig",
     "SSMConfig", "ShapeConfig", "TrainPolicy", "get_config", "paper_models",
-    "shape_by_name",
+    "shape_by_name", "skip_reason",
 ]

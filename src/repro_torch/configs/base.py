@@ -312,6 +312,22 @@ LM_SHAPES: Tuple[ShapeConfig, ...] = (
 )
 
 
+def skip_reason(model: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """Why the (model, shape) cell does not run, as the JAX package's
+    ``skip_reason`` says (None: it runs)."""
+    if not model.causal and shape.kind == "decode":
+        return "encoder-only: no autoregressive decode step"
+    if shape.name == "long_500k":
+        sub_quadratic = (
+            model.family in ("ssm", "hybrid")
+            or (model.attention is not None
+                and model.attention.local_global_pattern is not None)
+        )
+        if not sub_quadratic:
+            return "pure full-attention arch: long_500k needs sub-quadratic attention"
+    return None
+
+
 def shape_by_name(name: str) -> ShapeConfig:
     for s in LM_SHAPES:
         if s.name == name:

@@ -7,7 +7,10 @@ reference's bisection, so the same entries) after adding the residual the
 last step left; what it drops is the next residual (Stich et al.: the
 compression is unbiased over time). Smaller leaves pass through. The train
 step compresses the data-summed gradient, as the reference compresses the
-global one, so every rank keeps the same residual.
+global one, so every rank keeps the same residual. A leaf held as this
+rank's shard (``specs``) is gathered with its residual, selected whole, as
+the reference selects on the logical leaf under pjit, and cut back to the
+shard.
 
     comp, new_err = compress_tree(grads, err, fraction=0.05)
 
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.sparse import topk_mask
+from repro_torch.distributed.shard import gather_full, shard_leaf
 
 
 def compress_leaf(g, err, fraction: float):
@@ -70,13 +74,20 @@ def _split(pairs, i):
     return tuple(_split(v, i) for v in pairs)
 
 
-def compress_tree(grads, err_state, fraction: float = 0.05, min_size: int = 4096):
+def compress_tree(grads, err_state, fraction: float = 0.05, min_size: int = 4096,
+                  specs=None):
     """-> (compressed grads, new residuals), both shaped as ``grads``;
     leaves below ``min_size`` elements (or None) pass through with their
-    residual."""
-    def one(g, e):
-        if g is None or g.numel() < min_size:
+    residual. ``specs`` (a tree of specs or None, shaped as ``grads``):
+    the leaves are shards on the active mesh; the size and the selection
+    are the whole leaf's."""
+    def one(g, e, spec=None):
+        if g is None:
             return _Pair((g, e))
-        return _Pair(compress_leaf(g, e, fraction))
-    pairs = _map(one, grads, err_state)
+        full = gather_full(g, spec)
+        if full.numel() < min_size:
+            return _Pair((g, e))
+        comp, err = compress_leaf(full, None if e is None else gather_full(e, spec), fraction)
+        return _Pair((shard_leaf(comp, spec), shard_leaf(err, spec)))
+    pairs = _map(one, grads, err_state) if specs is None else _map(one, grads, err_state, specs)
     return _split(pairs, 0), _split(pairs, 1)

@@ -40,7 +40,7 @@ import torch.distributed as dist
 # the collectives gloo runs on CUDA tensors itself (its CUDA support
 # differs by collective); every other one is staged through pinned host
 # memory on a gloo group
-GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather"})
+GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather", "reduce_scatter"})
 
 
 def transport(op: str, backend: str, device: torch.device) -> str:
@@ -57,8 +57,10 @@ class Mesh:
 
     ``shape`` maps axis names, in order, to sizes whose product is the
     world size. ``sent`` counts the bytes this rank passed to each kind of
-    collective, ``transports`` how each kind moved ("gloo, pinned host",
-    ...). A mesh of one rank needs no process group."""
+    collective, ``census`` the calls and bytes of each (kind, group size)
+    (``utils.roofline.from_mesh`` turns it into wire bytes), ``transports``
+    how each kind moved ("gloo, pinned host", ...). A mesh of one rank
+    needs no process group."""
 
     def __init__(self, shape: dict):
         self.axis_names = tuple(shape)
@@ -90,6 +92,7 @@ class Mesh:
                 if self.rank in ranks:
                     self._lines[name], self._groups[name] = ranks, group
         self.sent: dict = {}
+        self.census: dict = {}
         self.transports: dict = {}
 
     def __repr__(self):
@@ -110,8 +113,10 @@ class Mesh:
         tensors."""
         return f"{self.backend}, {transport(op, self.backend, torch.device(device))}"
 
-    def _count(self, op: str, nbytes: int, how: str) -> None:
+    def _count(self, op: str, nbytes: int, how: str, group: int) -> None:
         self.sent[op] = self.sent.get(op, 0) + nbytes
+        calls, total = self.census.get((op, group), (0, 0))
+        self.census[(op, group)] = (calls + 1, total + nbytes)
         self.transports[op] = f"{self.backend}, {how}"
 
     def _stage(self, op: str, x: torch.Tensor) -> tuple:
@@ -132,7 +137,7 @@ class Mesh:
         dist.all_reduce(buf, group=self._groups[axis])
         if buf is not x:
             x.copy_(buf)
-        self._count("all_reduce", x.numel() * x.element_size(), how)
+        self._count("all_reduce", x.numel() * x.element_size(), how, self.size(axis))
         return x
 
     def all_reduce_many(self, tensors: Sequence[torch.Tensor], axis: str) -> None:
@@ -157,8 +162,25 @@ class Mesh:
         parts = [torch.empty_like(buf) for _ in range(p)]
         dist.all_gather(parts, buf, group=self._groups[axis])
         out = torch.cat(parts, dim=dim)
-        self._count("all_gather", x.numel() * x.element_size(), how)
+        self._count("all_gather", x.numel() * x.element_size(), how, p)
         return out.to(x.device, non_blocking=False) if out.device != x.device else out
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """The sum of ``x`` over the ``axis`` line, cut into the line's
+        size along ``dim``: this rank's part (its index on the line)."""
+        p = self.size(axis)
+        if p == 1:
+            return x
+        if x.shape[dim] % p:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not divide "
+                             f"the {axis} axis of {p}")
+        # the parts are contiguous blocks of a tensor whose first dim is the cut one
+        buf, how = self._stage("reduce_scatter", x.movedim(dim, 0))
+        out = torch.empty((buf.shape[0] // p, *buf.shape[1:]), dtype=buf.dtype,
+                          device=buf.device, pin_memory=how == "pinned host")
+        dist.reduce_scatter_tensor(out, buf, group=self._groups[axis])
+        self._count("reduce_scatter", x.numel() * x.element_size(), how, p)
+        return out.to(x.device).movedim(0, dim).contiguous()
 
     def shift(self, tensors: Sequence[torch.Tensor], axis: str, op: str = "ring") -> tuple:
         """One ring hop along ``axis``: send ``tensors`` to the next rank of
@@ -177,7 +199,7 @@ class Mesh:
             req.wait()
         if recv.device != flat.device:
             recv = recv.to(flat.device)
-        self._count(op, flat.numel(), how)
+        self._count(op, flat.numel(), how, p)
         out, start = [], 0
         for t in tensors:
             nbytes = t.numel() * t.element_size()
@@ -191,17 +213,42 @@ class Mesh:
 
     def reset_counts(self) -> None:
         self.sent.clear()
+        self.census.clear()
+
+
+class ShapeMesh:
+    """A mesh of axis sizes alone, with no ranks: the counterpart of JAX's
+    ``AbstractMesh``. ``launch/specs.py`` and ``launch/dryrun.py`` read
+    only its ``shape``, so the production meshes are planned in one
+    process."""
+
+    def __init__(self, shape: dict):
+        self.axis_names = tuple(shape)
+        self.shape = {name: int(size) for name, size in shape.items()}
+
+    def __repr__(self):
+        return f"ShapeMesh({self.shape})"
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
 
 
 def _world() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def production_shape(*, multi_pod: bool = False) -> dict:
     """The reference's 16 x 16 (data, model) mesh, or 2 x 16 x 16 (pod,
-    data, model): over 256 or 512 ranks, and nowhere else."""
-    shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
-             else {"data": 16, "model": 16})
+    data, model)."""
+    return ({"pod": 2, "data": 16, "model": 16} if multi_pod
+            else {"data": 16, "model": 16})
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh (``production_shape``) over 256 or 512 ranks,
+    and nowhere else (``ShapeMesh(production_shape(...))`` plans it in one
+    process)."""
+    shape = production_shape(multi_pod=multi_pod)
     want = math.prod(shape.values())
     if _world() != want:
         raise ValueError(f"the {'multi' if multi_pod else 'single'}-pod production mesh "

@@ -29,7 +29,10 @@ started as one process, the launcher spawns the P x T ranks itself
 (``launch.mesh.spawn``: NCCL where each rank has a card, else gloo, ranks
 sharing one card). ``--mesh single-pod`` / ``multi-pod`` build the
 production meshes, which need a process group of 256 / 512 ranks started
-around this launcher.
+around this launcher. Under a mesh the parameters and both AdamW moments
+are sharded by ``launch.specs.param_specs(..., mode="tp")``, as the JAX
+launcher places them (``distributed/shard.py``: each rank holds its shard
+and gathers a leaf at use); rank 0 prints the state bytes a rank.
 
 The run is supervised (``Trainer.train``): it checkpoints into a fresh
 temporary directory, removed at exit, every 50 steps and at the last (rank
@@ -40,6 +43,7 @@ fault. Backend fallbacks, compact-seam and ring routing and remat degrades
 import argparse
 import contextlib
 import io
+import math
 import tempfile
 
 import torch.distributed as dist
@@ -49,7 +53,10 @@ from repro_torch.configs.base import TrainPolicy
 from repro_torch.core.reports import collect_reports
 from repro_torch.data import DataConfig
 from repro_torch.distributed.sharding import axis_rules
+from repro_torch.distributed.shard import named_leaves
+from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh, spawn
+from repro_torch.models.model import param_tree
 from repro_torch.optim import OptimizerConfig
 from repro_torch.train import FTConfig, Trainer, TrainerConfig
 
@@ -133,12 +140,21 @@ def _train(args, ckpt_dir):
     tcfg = TrainerConfig(total_steps=args.steps, log_every=max(args.steps // 10, 1),
                          seed=args.seed, policy=policy, ft=FTConfig(ckpt_dir=ckpt_dir))
     lead = mesh is None or mesh.rank == 0
+    specs = None
+    if mesh is not None:
+        shapes = param_tree(cfg, device="meta")
+        specs = S.param_specs(shapes, cfg, mesh, mode="tp")
+        state = 12 * sum(math.prod(s) for _, s in named_leaves(
+            S.shardings_of(shapes, specs, mesh)))
+        if lead:
+            print(f"state a rank (f32 parameters + AdamW m, v, by param_specs 'tp' on "
+                  f"{mesh.shape}): {state} B")
     with contextlib.ExitStack() as stack:
         if mesh is not None:
             stack.enter_context(axis_rules(mesh))
         if not lead:             # one log: rank 0's
             stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
-        history = Trainer(cfg, ocfg, dcfg, tcfg, device=args.device).train()
+        history = Trainer(cfg, ocfg, dcfg, tcfg, device=args.device, specs=specs).train()
     if lead:
         print(f"done: final loss {history[-1]['loss']:.4f}"
               + ("" if mesh is None else f" (mesh {mesh.shape})"))

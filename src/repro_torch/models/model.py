@@ -34,6 +34,12 @@ batch["frames"])`` with no learned positions added, as in the reference
 ``GLOBAL_WINDOW`` on every ``local_global_pattern + 1``-th layer counted
 across segments; every such layer requests a window, as in the reference.
 MLA (deepseek-v2) and protected RoPE dims live in ``models/attention.py``.
+A model built with ``specs`` (``launch.specs.param_specs`` on the active
+mesh) holds this rank's shard of each leaf (``distributed/shard.py``) and
+gathers a leaf where it reads it: a layer's leaves inside the function that
+remat checkpoints, so the recompute gathers again and no layer's whole
+weights outlive its use; the embedding, positions, frontend, final norm
+and LM head once an entry point (``_outer``).
 The recurrent families: hybrid (jamba) is one segment of super-blocks of
 ``hybrid_period`` sublayers (``params.segments[0]["subs"]``, a list),
 attention at ``hybrid_attn_index`` and Mamba (``models/mamba.py``)
@@ -56,6 +62,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_cache import HybridCache, KVCache, RecurrentState
 from repro_torch.core.remat import checkpoint_codes, normalize_remat, record_remat
+from repro_torch.distributed.shard import (
+    gather_tree, layer_specs, map_tree, mark_specs, shard_leaf, spec_of,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mb
@@ -132,10 +141,24 @@ class Model(L.ParamTree):
     def device(self):
         return self.final_norm.scale.device
 
+    def shard(self, specs) -> "Model":
+        """Keep this rank's shard of every leaf placed by ``specs`` (a spec
+        tree of ``tree()``, on the active mesh), in place."""
+        def one(p, spec):
+            p.data = shard_leaf(p.data, spec)
+        map_tree(one, self.tree(), specs)
+        mark_specs(self.tree(), specs)
+        return self
 
-def param_tree(cfg: ModelConfig, *, generator=None, device="cpu") -> dict:
+
+def param_tree(cfg: ModelConfig, *, generator=None, device="cpu", place=None) -> dict:
     """The parameter tree with fresh values (shapes and scales of the JAX
-    ``init``; its RNG's values are not reproduced)."""
+    ``init``; its RNG's values are not reproduced). ``place(path, sub)``
+    takes each top-level entry (path ``(key,)``) and each layer's tree
+    (path ``("segments", si)``) as it is made and returns what to keep of
+    it (``init`` keeps this rank's shards)."""
+    place = place or (lambda path, sub: sub)
+
     def block(kind):
         if kind == "rwkv":
             return {"ln1": L.norm_init(cfg.d_model, "layernorm", device),
@@ -184,29 +207,47 @@ def param_tree(cfg: ModelConfig, *, generator=None, device="cpu") -> dict:
 
     params = {}
     if cfg.frontend is None or cfg.frontend.kind == "patch":
-        params["embed"] = L.embed_init(generator, cfg.vocab_size, cfg.d_model, device)
+        params["embed"] = place(("embed",), L.embed_init(generator, cfg.vocab_size,
+                                                         cfg.d_model, device))
     if cfg.frontend is not None:
-        params["frontend"] = L.dense_init(generator, cfg.frontend.input_dim, cfg.d_model,
-                                          device=device)
+        params["frontend"] = place(("frontend",), L.dense_init(
+            generator, cfg.frontend.input_dim, cfg.d_model, device=device))
     if cfg.pos_embedding == "learned":
-        params["pos"] = {"w": L.normal(generator, (min(cfg.max_seq_len, 65536),
-                                                   cfg.d_model), 0.01, device)}
-    params["final_norm"] = L.norm_init(cfg.d_model, cfg.norm, device)
+        params["pos"] = place(("pos",), {"w": L.normal(
+            generator, (min(cfg.max_seq_len, 65536), cfg.d_model), 0.01, device)})
+    params["final_norm"] = place(("final_norm",), L.norm_init(cfg.d_model, cfg.norm, device))
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.vocab_size,
-                                         device=device)
-    params["segments"] = [stack([block(kind) for _ in range(count)])
-                          for kind, count in segments(cfg)]
+        params["lm_head"] = place(("lm_head",), L.dense_init(
+            generator, cfg.d_model, cfg.vocab_size, device=device))
+    params["segments"] = [stack([place(("segments", si), block(kind)) for _ in range(count)])
+                          for si, (kind, count) in enumerate(segments(cfg))]
     return params
 
 
-def init(cfg: ModelConfig, *, generator=None, device=None, seed: int = 0) -> Model:
+def init(cfg: ModelConfig, *, generator=None, device=None, seed: int = 0,
+         specs=None) -> Model:
     """Random weights from ``generator`` (or a new one seeded with ``seed``)
-    on ``device`` (default: the card)."""
+    on ``device`` (default: the card). With ``specs`` (a spec tree of the
+    parameters on the active mesh) each leaf is cut to this rank's shard as
+    it is made, so no rank holds the whole tree; the values are those of
+    the unsharded ``init``."""
     device = default_device(device)
     if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(seed)
-    return Model(param_tree(cfg, generator=generator, device=device), cfg)
+    if specs is None:
+        return Model(param_tree(cfg, generator=generator, device=device), cfg)
+
+    def place(path, sub):
+        spec = specs
+        for key in path:
+            spec = spec[key]
+        if path[0] == "segments":          # one layer of a stacked segment
+            spec = map_tree(lambda s: s[1:], spec)
+        return map_tree(shard_leaf, sub, spec)
+
+    model = Model(param_tree(cfg, generator=generator, device=device, place=place), cfg)
+    mark_specs(model.tree(), specs)
+    return model
 
 
 # ==========================================================================
@@ -338,14 +379,16 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
         remat = _remat(cfg, mode, kind)
 
         seg = tree["segments"][si]
+        specs = layer_specs(seg)
         layer_caches = []
         for i in range(count):
             p = L.tree_index(seg, i)
             w = windows[i]
 
             def layer(x, p, kind=kind, window=w):
-                x, _, aux = _block(p, x, cfg, kind, window=window, positions=positions,
-                                   mode=mode)
+                # gathered here, so remat's rerun gathers again
+                x, _, aux = _block(gather_tree(p, specs), x, cfg, kind, window=window,
+                                   positions=positions, mode=mode)
                 return x, aux
 
             if remat == "full":
@@ -354,8 +397,9 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
                 x, aux = checkpoint_codes(layer, x, p)
             else:
                 c = caches[si].layer(i) if caches is not None else None
-                x, nc, aux = _block(p, x, cfg, kind, window=w, positions=positions,
-                                    mode=mode, cache=c, cache_len=cache_len, slot=slot)
+                x, nc, aux = _block(gather_tree(p, specs), x, cfg, kind, window=w,
+                                    positions=positions, mode=mode, cache=c,
+                                    cache_len=cache_len, slot=slot)
                 layer_caches.append(nc)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
@@ -370,39 +414,46 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
 # embedding / head
 # ==========================================================================
 
-def _embed_tokens(params: Model, tokens, cfg: ModelConfig, dtype):
-    h = L.embed(params.embed.tree(), tokens, dtype)
+def _outer(params: Model) -> dict:
+    """The leaves outside the layer stack (``{"embed": {"w": ...}, ...}``),
+    each gathered whole where this rank holds a shard of it."""
+    return {k: gather_tree(v, map_tree(spec_of, v))
+            for k, v in params.tree().items() if k != "segments"}
+
+
+def _embed_tokens(top: dict, tokens, cfg: ModelConfig, dtype):
+    h = L.embed(top["embed"], tokens, dtype)
     if cfg.norm == "rmsnorm":
         h = h * cfg.d_model ** 0.5
     return h
 
 
-def _embed_inputs(params: Model, batch: dict, cfg: ModelConfig, dtype):
+def _embed_inputs(top: dict, batch: dict, cfg: ModelConfig, dtype):
     """The batch -> (b, n, d) hidden: audio ``dense(frontend, frames)``,
     returned without learned positions, as the reference does; else the
     (b, n) tokens embedded, a vlm's ``dense(frontend, patches)`` (b, p,
     input_dim) in front where given, and learned positions 0..n-1."""
     if cfg.family == "audio":
-        return L.dense(params.frontend.tree(), batch["frames"].to(dtype), dtype)
-    h = _embed_tokens(params, batch["tokens"], cfg, dtype)
+        return L.dense(top["frontend"], batch["frames"].to(dtype), dtype)
+    h = _embed_tokens(top, batch["tokens"], cfg, dtype)
     if cfg.family == "vlm" and "patches" in batch:
-        pre = L.dense(params.frontend.tree(), batch["patches"].to(dtype), dtype)
+        pre = L.dense(top["frontend"], batch["patches"].to(dtype), dtype)
         h = torch.cat([pre, h], dim=1)
     if cfg.pos_embedding == "learned":
-        h = h + params.pos.w[:h.shape[1]].to(dtype)[None]
+        h = h + top["pos"]["w"][:h.shape[1]].to(dtype)[None]
     return h
 
 
-def _head_weights(params: Model, cfg: ModelConfig):
+def _head_weights(top: dict, cfg: ModelConfig):
     """(vocab, d): the tied embedding, or the LM head transposed."""
-    return params.embed.w if cfg.tie_embeddings else params.lm_head.w.T
+    return top["embed"]["w"] if cfg.tie_embeddings else top["lm_head"]["w"].T
 
 
-def _head(params: Model, h, cfg: ModelConfig):
+def _head(top: dict, h, cfg: ModelConfig):
     """Final norm, then f32 logits against the tied embedding (or the LM
     head)."""
-    h = L.apply_norm(params.final_norm.tree(), h, cfg.norm)
-    return h.float() @ _head_weights(params, cfg).float().T
+    h = L.apply_norm(top["final_norm"], h, cfg.norm)
+    return h.float() @ _head_weights(top, cfg).float().T
 
 
 # ==========================================================================
@@ -416,14 +467,15 @@ def loss_fn(params: Model, batch, cfg: ModelConfig, *, aux_weight: float = 1.0):
     "tokens"}). The aux term sums over the layers the MoE load-balance loss
     weighted by ``MOE_AUX_WEIGHT`` and the SFA distillation term weighted
     by ``cfg.sfa_distill`` (paper Eq. 8); it is zero without either."""
-    h = _embed_inputs(params, batch, cfg, _dtype(cfg))
+    top = _outer(params)
+    h = _embed_inputs(top, batch, cfg, _dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, aux, _ = _apply_stack(params, h, cfg, positions=positions, mode="train")
-    h = L.apply_norm(params.final_norm.tree(), h, cfg.norm)
+    h = L.apply_norm(top["final_norm"], h, cfg.norm)
     labels = batch["labels"]
     if labels.shape[1] < h.shape[1]:     # vlm: no labels on the patch prefix
         labels = F.pad(labels, (h.shape[1] - labels.shape[1], 0), value=-1)
-    ce, cnt = L.chunked_cross_entropy(h, _head_weights(params, cfg), labels,
+    ce, cnt = L.chunked_cross_entropy(h, _head_weights(top, cfg), labels,
                                       chunk=cfg.loss_chunk)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -433,20 +485,22 @@ def loss_fn(params: Model, batch, cfg: ModelConfig, *, aux_weight: float = 1.0):
 def forward_logits(params: Model, batch, cfg: ModelConfig, *, mode="train"):
     """Full-sequence logits (b, n, vocab) f32 of the batch: ``{"tokens"}``,
     with ``"patches"`` for a vlm, or ``{"frames"}`` for audio."""
-    h = _embed_inputs(params, batch, cfg, _dtype(cfg))
+    top = _outer(params)
+    h = _embed_inputs(top, batch, cfg, _dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, _, _ = _apply_stack(params, h, cfg, positions=positions, mode=mode)
-    return _head(params, h, cfg)
+    return _head(top, h, cfg)
 
 
 @torch.no_grad()
 def prefill(params: Model, batch, cfg: ModelConfig):
     """Prefill: last-position logits (b, vocab) + layer-stacked caches of
     the batch (``"tokens"``, and a vlm's ``"patches"`` prefix)."""
-    h = _embed_inputs(params, batch, cfg, _dtype(cfg))
+    top = _outer(params)
+    h = _embed_inputs(top, batch, cfg, _dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, _, caches = _apply_stack(params, h, cfg, positions=positions, mode="prefill")
-    return _head(params, h[:, -1], cfg), caches
+    return _head(top, h[:, -1], cfg), caches
 
 
 @torch.no_grad()
@@ -459,17 +513,18 @@ def decode_step(params: Model, token, caches, cache_len, cfg: ModelConfig):
     dev = params.device
     token = torch.as_tensor(token, device=dev).long()
     cache_len = torch.as_tensor(cache_len, device=dev).long()
-    h = _embed_tokens(params, token[:, None], cfg, dtype)
+    top = _outer(params)
+    h = _embed_tokens(top, token[:, None], cfg, dtype)
     if cfg.pos_embedding == "learned":
         # JAX clamps an out-of-range gather; clamp explicitly here
-        rows = params.pos.w.shape[0]
-        h = h + params.pos.w[cache_len.clamp(0, rows - 1)].to(dtype)[:, None]
+        pos = top["pos"]["w"]
+        h = h + pos[cache_len.clamp(0, pos.shape[0] - 1)].to(dtype)[:, None]
     h, _, caches = _apply_stack(params, h, cfg, positions=cache_len[:, None],
                              mode="decode", caches=caches, cache_len=cache_len)
-    return _head(params, h[:, 0], cfg), caches
+    return _head(top, h[:, 0], cfg), caches
 
 
-def _chunk_hidden(params: Model, tokens, offset: int, cfg: ModelConfig):
+def _chunk_hidden(params: Model, top: dict, tokens, offset: int, cfg: ModelConfig):
     """(1, C) tokens at positions offset.. -> hidden (1, C, d) and positions.
     Learned positions clamp past the table, where the JAX package uses
     ``mode="clip"`` to match decode_step's clamped indexing."""
@@ -478,10 +533,10 @@ def _chunk_hidden(params: Model, tokens, offset: int, cfg: ModelConfig):
     dev = params.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     positions = int(offset) + torch.arange(tokens.shape[1], device=dev)[None, :]
-    h = _embed_tokens(params, tokens, cfg, dtype)
+    h = _embed_tokens(top, tokens, cfg, dtype)
     if cfg.pos_embedding == "learned":
-        rows = params.pos.w.shape[0]
-        h = h + params.pos.w[positions[0].clamp(0, rows - 1)].to(dtype)[None]
+        pos = top["pos"]["w"]
+        h = h + pos[positions[0].clamp(0, pos.shape[0] - 1)].to(dtype)[None]
     return h, positions
 
 
@@ -494,10 +549,11 @@ def prefill_chunk(params: Model, tokens, caches, offset: int, valid: int, slot: 
     C``; trailing pad tokens are written but masked or overwritten before
     any read). Each query is scored as a single-token oracle decode at its
     own prefix length, so chunk boundaries never change what it sees."""
-    h, positions = _chunk_hidden(params, tokens, offset, cfg)
+    top = _outer(params)
+    h, positions = _chunk_hidden(params, top, tokens, offset, cfg)
     h, _, caches = _apply_stack(params, h, cfg, positions=positions, mode="chunk",
                              caches=caches, cache_len=int(offset), slot=int(slot))
-    return _head(params, h[0, int(valid) - 1], cfg), caches
+    return _head(top, h[0, int(valid) - 1], cfg), caches
 
 
 @torch.no_grad()
@@ -508,10 +564,11 @@ def verify_step(params: Model, tokens, caches, offset: int, slot: int,
     full-k pass through the decode backend's ``verify``, writing their full-k
     codes over the draft pass's. Returns logits (C, vocab) at every
     position and the caches."""
-    h, positions = _chunk_hidden(params, tokens, offset, cfg)
+    top = _outer(params)
+    h, positions = _chunk_hidden(params, top, tokens, offset, cfg)
     h, _, caches = _apply_stack(params, h, cfg, positions=positions, mode="verify",
                              caches=caches, cache_len=int(offset), slot=int(slot))
-    return _head(params, h[0], cfg), caches
+    return _head(top, h[0], cfg), caches
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,

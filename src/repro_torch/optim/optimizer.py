@@ -10,6 +10,12 @@ stacked per-layer norm scales and biases, (num_layers, d_model).
 Where the JAX functions return new arrays, these update the parameters and
 the moments in place (under ``torch.no_grad()``), which saves a copy of
 each; they return them all the same, so the call reads as in JAX.
+
+A parameter held as this rank's shard (``distributed/shard.py``: it
+carries its spec) has shard-shaped gradients and moments. The update is
+elementwise and runs on the shards unchanged; the global norm sums each
+leaf's squares over the axes that split it, and counts a leaf that no axis
+splits once, so it is one process's norm on every rank.
 """
 from __future__ import annotations
 
@@ -18,6 +24,9 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch.distributed.shard import spec_of, split_axes
+from repro_torch.distributed.sharding import current_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,15 +66,27 @@ def schedule_lr(cfg: OptimizerConfig, step: int) -> float:
     return cfg.lr * warm * decay
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.values()))
+def global_norm(tree: dict, specs: dict | None = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32. ``specs`` (name ->
+    spec or None): the leaves are this rank's shards on the active mesh;
+    each leaf's squares are summed over the axes that split it."""
+    mesh = current_mesh()
+    groups: dict = {}           # the axes that split a leaf -> its squares' sum
+    for k, g in tree.items():
+        axes = tuple(sorted({a for _, a in split_axes((specs or {}).get(k), mesh)}))
+        groups[axes] = groups.get(axes, 0) + torch.sum(torch.square(g.float()))
+    total = 0
+    for axes, part in groups.items():
+        for axis in axes:
+            part = mesh.all_reduce(part.reshape(1), axis)[0]
+        total = total + part
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree: dict, max_norm: float):
+def clip_by_global_norm(tree: dict, max_norm: float, specs: dict | None = None):
     """(tree scaled so its global norm is at most ``max_norm``, the norm
     before scaling)."""
-    norm = global_norm(tree)
+    norm = global_norm(tree, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: g * scale for k, g in tree.items()}, norm
 
@@ -89,7 +110,8 @@ def _grads(grads: dict, params: dict) -> dict:
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, grads: dict, state: OptState, params: dict):
     """One AdamW step -> (params, state, {"lr", "grad_norm"})."""
-    grads, gnorm = clip_by_global_norm(_grads(grads, params), cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(_grads(grads, params), cfg.grad_clip,
+                                       {k: spec_of(p) for k, p in params.items()})
     step = state.step + 1
     lr = schedule_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -109,7 +131,8 @@ def adamw_update(cfg: OptimizerConfig, grads: dict, state: OptState, params: dic
 @torch.no_grad()
 def lion_update(cfg: OptimizerConfig, grads: dict, state: OptState, params: dict):
     """One Lion step -> (params, state, {"lr", "grad_norm"})."""
-    grads, gnorm = clip_by_global_norm(_grads(grads, params), cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(_grads(grads, params), cfg.grad_clip,
+                                       {k: spec_of(p) for k, p in params.items()})
     step = state.step + 1
     lr = schedule_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -18,8 +18,13 @@ steps). The pieces:
 * ``elastic_remesh`` — rebuilds the step for a new placement and restores
   the state onto it from the last checkpoint, which is stored unsharded:
   on a new mesh every rank restores the whole state onto ``state_like``'s
-  tensors (their devices and dtypes), after a barrier; on one process the
-  placement is a device.
+  tensors (their devices and dtypes), after a barrier, and given the
+  parameters' specs on the new mesh keeps this rank's shard of every
+  parameter, moment and residual; on one process the placement is a
+  device.
+
+A sharded state is gathered whole for a checkpoint (``save_state`` runs on
+every rank), so rank 0 writes what a replicated run writes.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import dataclasses
 import time
 from typing import Any, Callable, Optional
 
+from repro_torch.distributed.shard import map_tree, shard_leaf
 from repro_torch.distributed.sharding import current_mesh
 from repro_torch.train import checkpoint as ckpt_lib
 
@@ -86,9 +92,10 @@ class Supervisor:
         if mesh is None:
             self.ckptr.save(step, self.save_state())
             return
+        state = self.save_state()        # every rank: a sharded leaf is gathered
         mesh.barrier()
         if mesh.rank == 0:
-            self.ckptr.save(step, self.save_state())
+            self.ckptr.save(step, state)
 
     def run(self, step_fn: Callable[[int], dict], total_steps: int,
             start_step: int = 0) -> list[dict]:
@@ -119,16 +126,26 @@ class Supervisor:
 
 
 def elastic_remesh(make_step_for_mesh: Callable[[Any], Callable], new_mesh,
-                   ckpt_dir: str, state_like: Any):
+                   ckpt_dir: str, state_like: Any, specs=None):
     """Rebuild the step for ``new_mesh`` and restore the last checkpoint
-    onto ``state_like``'s placement (its tensors' devices and dtypes) ->
-    (step function, state, step). ``new_mesh`` is a ``launch.mesh.Mesh``
-    (every rank of it calls this and restores the whole state) or, on one
-    process, a device."""
+    onto ``state_like``'s placement (its tensors' devices and dtypes, whole
+    shapes) -> (step function, state, step). ``new_mesh`` is a
+    ``launch.mesh.Mesh`` (every rank of it calls this and restores the
+    whole state) or, on one process, a device. ``specs``: the parameters'
+    spec tree re-derived for ``new_mesh`` (``launch.specs.param_specs``);
+    the parameters, the moments and the residuals of the state are then
+    this rank's shards on it."""
     if hasattr(new_mesh, "barrier"):
         new_mesh.barrier()
     step = ckpt_lib.latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError("no checkpoint to re-mesh from")
     state = ckpt_lib.restore(ckpt_dir, step, state_like)
+    if specs is not None:
+        def cut(tree):
+            return map_tree(lambda t, s: shard_leaf(t, s, new_mesh), tree, specs)
+        state = dict(state, params=cut(state["params"]),
+                     opt=state["opt"]._replace(m=cut(state["opt"].m), v=cut(state["opt"].v)))
+        if "err" in state:
+            state["err"] = cut(state["err"])
     return make_step_for_mesh(new_mesh), state, step

@@ -20,7 +20,12 @@ differentiates is its tokens' summed CE over the global token count (plus
 the aux terms over the data degree), and the gradients are summed over
 ``data`` before the update, so the step is the single-process step on the
 global batch (the MoE aux terms and routing groups are per data shard). The
-metrics are the global ones on every rank.
+metrics are the global ones on every rank. A parameter held as shards
+(``distributed/shard.py``) gets its gradient from its gather's backward
+already summed over ``data`` and cut to this rank's shard, so only the
+others are summed here; compression gathers a sharded leaf's gradient and
+residual, selects on the whole leaf, as one process does, and keeps the
+shard.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainPolicy
 from repro_torch.distributed import compression
+from repro_torch.distributed.shard import spec_of, sums_over_data
 from repro_torch.distributed.sharding import current_mesh
 from repro_torch.models.model import Model, _dtype, loss_fn
 from repro_torch.optim import OptimizerConfig, make_optimizer
@@ -84,7 +90,8 @@ def _loss_and_grads(params: Model, batch: dict, cfg: ModelConfig, mesh):
     part = metrics["ce"] * (cnt[0] / total.clamp(min=1.0))
     grads = torch.autograd.grad(part + metrics["aux"] / dp, list(named.values()),
                                 allow_unused=True)
-    mesh.all_reduce_many([g for g in grads if g is not None], "data")
+    mesh.all_reduce_many([g for g, p in zip(grads, named.values())
+                          if g is not None and not sums_over_data(p, mesh)], "data")
     ce, aux = mesh.all_reduce(torch.stack([part.detach(), metrics["aux"].detach() / dp]),
                               "data")
     return ce + aux, dict(metrics, ce=ce, aux=aux, tokens=total), dict(zip(named, grads))
@@ -129,8 +136,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
             metrics = {"ce": torch.stack(ces).mean(), "aux": torch.stack(auxes).mean(),
                        "tokens": torch.zeros((), device=loss.device)}
         if grad_compression is not None:
-            grads, err_state = compression.compress_tree(grads, err_state,
-                                                         fraction=grad_compression)
+            grads, err_state = compression.compress_tree(
+                grads, err_state, fraction=grad_compression,
+                specs={k: spec_of(p) for k, p in named.items()})
         _, opt_state, opt_metrics = update(opt_cfg, grads, opt_state, named)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         out = (params, opt_state, {k: v.detach() if torch.is_tensor(v) else v

@@ -15,6 +15,15 @@ the moments nested as the parameters and the step an int32 scalar, and with
 crosses between the two packages. Under a mesh (``axis_rules``) every rank
 runs the loop; the Supervisor writes checkpoints from rank 0 only, and
 every rank restores.
+
+A Trainer given ``specs`` (``launch.specs.param_specs`` of the parameters
+on the active mesh) holds this rank's shard of every parameter, and so of
+both moments and the residuals: ``init`` cuts each leaf as it is made, so no
+rank holds the whole tree, and given ``params`` it keeps their shards.
+``_save_state`` then gathers each leaf whole (every rank must call it), so
+rank 0 writes the file a replicated run writes, byte for byte;
+``_load_state`` takes whole leaves (a restore) or this rank's shards
+(``elastic_remesh``) and keeps this rank's.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainPolicy
 from repro_torch.data import DataConfig, copy_batch, markov_batch
 from repro_torch.distributed.compression import init_error_state
+from repro_torch.distributed.shard import gather_full, map_tree, shard_leaf, spec_of
 from repro_torch.interop import fill_tree
 from repro_torch.models.model import Model, default_device
 from repro_torch.models.model import init as model_init
@@ -53,17 +63,19 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ModelConfig, opt_cfg: OptimizerConfig,
                  data_cfg: DataConfig, tcfg: TrainerConfig, *, device=None,
-                 params: Optional[Model] = None):
+                 params: Optional[Model] = None, specs=None):
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.data_cfg = data_cfg
         self.tcfg = tcfg
         device = default_device(device)
         if params is None:
-            params = model_init(cfg, device=device, seed=tcfg.seed)
+            params = model_init(cfg, device=device, seed=tcfg.seed, specs=specs)
         elif params.device != device:
             raise ValueError(f"params are on {params.device}, the trainer runs "
                              f"on {device}")
+        elif specs is not None:
+            params.shard(specs)
         self.params = params.requires_grad_(True)
         self.opt_state = init_opt_state(dict(self.params.named_parameters()))
         self.err_state = init_error_state(self.params) if tcfg.grad_compression else None
@@ -73,9 +85,9 @@ class Trainer:
         self._batch_fn = markov_batch if tcfg.data_kind == "markov" else copy_batch
 
     # --- FT state plumbing -------------------------------------------------
-    def _save_state(self):
-        """The live state in the JAX Trainer's layout (the parameters and
-        moments are the live tensors; a checkpoint copies them)."""
+    def _live_state(self):
+        """The live state in the JAX Trainer's layout: the parameters,
+        moments and residuals themselves (this rank's shards, if sharded)."""
         params = self.params.tree()
         opt = self.opt_state
         state = {"params": params,
@@ -85,16 +97,34 @@ class Trainer:
             state["err"] = fill_tree(params, self.err_state)
         return state
 
+    def _save_state(self):
+        """The state in the JAX Trainer's layout, each leaf whole: the live
+        tensors (a checkpoint copies them), or where a parameter is sharded
+        its leaves gathered (every rank must call this)."""
+        state = self._live_state()
+        params = state["params"]
+
+        def whole(tree):
+            return map_tree(lambda t, p: gather_full(t.detach(), spec_of(p)), tree, params)
+        out = {"params": whole(params),
+               "opt": state["opt"]._replace(m=whole(state["opt"].m), v=whole(state["opt"].v))}
+        if "err" in state:
+            out["err"] = whole(state["err"])
+        return out
+
     def _load_state(self, state):
-        """Copy ``state`` (as ``_save_state`` lays it out) into the live
-        parameters, moments and residuals in place, and set the step."""
-        live = self._save_state()
+        """Copy ``state`` (as ``_save_state`` lays it out; each leaf whole,
+        or already this rank's shard) into the live parameters, moments and
+        residuals in place, and set the step."""
+        live = self._live_state()
         keys = ("params", "err") if "err" in live else ("params",)
         dst = tree_leaves([*(live[k] for k in keys), live["opt"].m, live["opt"].v])
         src = tree_leaves([*(state[k] for k in keys), state["opt"].m, state["opt"].v])
+        specs = [spec_of(p) for p in tree_leaves(live["params"])] * (len(keys) + 2)
         with torch.no_grad():
-            for d, s in zip(dst, src, strict=True):
-                d.copy_(s)
+            for d, s, spec in zip(dst, src, specs, strict=True):
+                s = torch.as_tensor(s, device=d.device)
+                d.copy_(s if s.shape == d.shape else shard_leaf(s, spec))
         self.opt_state = self.opt_state._replace(step=int(state["opt"].step))
 
     # --- loop ----------------------------------------------------------------

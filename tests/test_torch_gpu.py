@@ -1190,3 +1190,35 @@ def test_ring_sfa_on_two_ranks_of_the_card(cuda):
         assert r["err"] <= 2 ** -7 * r["vmax"], r
         assert r["flash_sfa"] == rank + 1, r
         assert r["wire"] == {"ring": "gloo, pinned host", "all_gather": "gloo, device"}, r
+
+
+def test_sharded_steps_on_two_ranks_of_the_card(cuda):
+    """Two gloo ranks of the card on data 2: two f32 steps of the reduced
+    gpt2-small-sfa8 with the parameters and moments sharded by the
+    launcher's specs (each rank gathers at use, its gradients come back
+    reduce-scattered) against the same two steps replicated: loss,
+    grad_norm, the gathered parameters and both moments within 1e-6
+    relative (the global norm sums in another order); every collective
+    takes the CUDA tensors."""
+    import dataclasses
+
+    from torch_dist_workers import sharded_steps_on_card
+
+    from repro_torch.launch.mesh import spawn
+    cfg = dataclasses.replace(get_config("gpt2-small-sfa8").reduced(), dtype="float32")
+    rs = np.random.RandomState(0)
+    batches = [{k: rs.randint(0, cfg.vocab_size, (4, 64)) for k in ("tokens", "labels")}
+               for _ in range(2)]
+    out = spawn(sharded_steps_on_card, 2, device="cuda", args=(cfg, batches), timeout_s=300)
+    for r in out:
+        assert r["split"] >= 5
+        assert set(r["sent"]) == {"all_gather", "reduce_scatter", "all_reduce"}
+        assert set(r["wire"].values()) == {"gloo, device"}, r["wire"]
+        got, want = r["sharded"], r["replicated"]
+        for (lg, ng), (lw, nw) in zip(got["metrics"], want["metrics"]):
+            assert abs(lg - lw) <= 1e-6 * abs(lw) and abs(ng - nw) <= 1e-6 * abs(nw)
+        for key in ("params", "m", "v"):
+            for name, t in want[key].items():
+                g = got[key][name]
+                assert g.device.type == "cpu" and g.shape == t.shape
+                assert float((g - t).norm() / t.norm().clamp(min=1e-30)) <= 1e-6, (key, name)

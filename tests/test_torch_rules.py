@@ -1,5 +1,6 @@
 """Rules of the port: no JAX, no ml_dtypes and nothing of ``repro`` in ``repro_torch``,
-``chip_smoke.py`` or the port's ``tools/``; the package imports without JAX; entry points default
+``chip_smoke.py``, the port's ``tools/`` or the rank functions the spawned test ranks import
+(``tests/torch_dist_workers.py``); the package imports without JAX; entry points default
 to the card and say so when there is none."""
 import re
 import subprocess
@@ -17,7 +18,7 @@ FORBIDDEN = re.compile(
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_workers.py"]
     return files + sorted((ROOT / "tools").glob("*.py"))
 
 
@@ -48,7 +49,8 @@ def test_package_imports_without_jax():
             "repro_torch.core.remat, repro_torch.kernels.code_grad, "
             "repro_torch.models.attention, repro_torch.serve.speculative, "
             "repro_torch.serve.kv_cache, repro_torch.kernels.flash_sfa_decode, "
-            "repro_torch.core.reports, repro_torch.train.checkpoint\n"
+            "repro_torch.core.reports, repro_torch.train.checkpoint, "
+            "repro_torch.launch.specs, repro_torch.launch.dryrun, repro_torch.utils.roofline\n"
             "from repro_torch.kernels import _build\n"
             "assert not _build._LIBS\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

@@ -1,5 +1,6 @@
 """Rank functions for the port's multi-rank CPU tests (tests/test_torch_ring.py,
-tests/test_torch_distribution.py), run by ``repro_torch.launch.mesh.spawn``.
+tests/test_torch_distribution.py, tests/test_torch_sharded_state.py), run by
+``repro_torch.launch.mesh.spawn``.
 
 The ranks start from a fresh interpreter and import this module by name, so
 it imports neither JAX nor the JAX package: the tests compute their JAX
@@ -236,6 +237,119 @@ def distribution_worker(cfg, params, batch, fraction, cbatches, ckpt_dir, tiny):
 
 
 # --------------------------------------------------------------------------
+# tests/test_torch_sharded_state.py
+# --------------------------------------------------------------------------
+
+def _gathered(named, tree):
+    """Each tensor of the flat dict ``tree`` (a parameter's, or its
+    gradient or moment) gathered whole by its parameter's spec."""
+    from repro_torch.distributed.shard import gather_full, spec_of
+    return {k: gather_full(t.detach(), spec_of(named[k])) for k, t in tree.items()}
+
+
+def placed_steps(cfg, params, batches, specs, fraction=None, device="cpu"):
+    """``len(batches)`` steps of ``make_train_step`` (AdamW, its default
+    clip) from the JAX ``params`` (None: ``init`` on ``device``, seed 0),
+    the state sharded by ``specs`` (None: replicated) on the active mesh:
+    per step the loss and grad_norm, and after the last the parameters,
+    moments and residuals gathered whole."""
+    from repro_torch.distributed.compression import init_error_state
+    from repro_torch.models.model import init
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    model = (_model(cfg, params) if params is not None
+             else init(cfg, device=device, seed=0).requires_grad_(True))
+    if specs is not None:
+        model.shard(specs)
+    named = dict(model.named_parameters())
+    opt = init_opt_state(named)
+    err = init_error_state(model) if fraction else None
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-2, warmup_steps=1, total_steps=4),
+                           grad_compression=fraction, policy=TrainPolicy.from_model(cfg))
+    metrics = []
+    for batch in batches:
+        out = step(model, opt, batch) if err is None else step(model, opt, batch, err)
+        model, opt, m = out[:3]
+        err = out[3] if err is not None else None
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return {"metrics": metrics, "params": _gathered(named, named),
+            "m": _gathered(named, opt.m), "v": _gathered(named, opt.v),
+            "err": None if err is None else _gathered(named, err)}
+
+
+def _sharded_trainer(cfg, ckpt_dir, specs, grad_clip):
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import FTConfig, Trainer, TrainerConfig
+    return Trainer(cfg, OptimizerConfig(lr=3e-3, warmup_steps=2, total_steps=10,
+                                        grad_clip=grad_clip),
+                   DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4),
+                   TrainerConfig(total_steps=2, seed=5, log_every=10,
+                                 policy=TrainPolicy.from_model(cfg),
+                                 ft=FTConfig(ckpt_dir=ckpt_dir, ckpt_every=2)),
+                   device="cpu", specs=specs)
+
+
+def sharded_state_worker(cfg, params, batches, cbatches, fraction, ckpt_root):
+    """Every check of tests/test_torch_sharded_state.py on 4 ranks (data 2 x
+    model 2; the re-mesh on data 4): shard shapes, the first step's loss and
+    gathered gradients, two steps sharded and replicated, two compressed
+    steps sharded, the Trainer's checkpoints sharded and replicated (clip
+    off: the two runs then hold the same bits), and ``elastic_remesh`` of
+    the sharded checkpoint onto data 4, one step there."""
+    import os
+
+    from repro_torch.distributed.shard import spec_of
+    from repro_torch.launch import specs as S
+    from repro_torch.models.model import param_tree
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault_tolerance import elastic_remesh
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    rank = torch.distributed.get_rank()
+    shapes = param_tree(cfg, device="meta")
+    mesh = make_debug_mesh(model=2, data=2)
+    out = {"rank": rank}
+    with axis_rules(mesh):
+        specs = S.param_specs(shapes, cfg, mesh)
+        want = {".".join(p): s for p, s in S.named_leaves(S.shardings_of(shapes, specs, mesh))}
+        model = _model(cfg, params).shard(specs)
+        named = dict(model.named_parameters())
+        out["shapes"] = ({k: tuple(p.shape) for k, p in named.items()}, want)
+        out["specs"] = {k: spec_of(p) for k, p in named.items()}
+        mesh.reset_counts()
+        loss, _, grads = loss_and_grads(model, batches[0], cfg)
+        out["first"] = (float(loss.detach()), _gathered(named, grads))
+        out["first_sent"] = dict(mesh.sent)
+        out["replicated"] = placed_steps(cfg, params, batches, None)
+        out["sharded"] = placed_steps(cfg, params, batches, specs)
+        out["compressed"] = placed_steps(cfg, params, cbatches, specs, fraction)
+        # the Trainer's checkpoints, replicated and sharded, clip off
+        dirs = {k: os.path.join(ckpt_root, k) for k in ("replicated", "sharded")}
+        for key, sp in (("replicated", None), ("sharded", specs)):
+            tr = _sharded_trainer(cfg, dirs[key], sp, grad_clip=1e30)
+            out[f"train_{key}"] = [e["loss"] for e in tr.train()]
+    # elastic re-mesh of the sharded checkpoint onto data 4
+    mesh4 = make_debug_mesh(data=4)
+    with axis_rules(mesh4):
+        specs4 = S.param_specs(shapes, cfg, mesh4)
+        tr = _sharded_trainer(cfg, os.path.join(ckpt_root, "unused"), specs4, grad_clip=1e30)
+        step_fn, state, step = elastic_remesh(
+            lambda m: make_train_step(cfg, tr.opt_cfg, policy=tr.tcfg.policy), mesh4,
+            dirs["sharded"], tr._save_state(), specs=specs4)
+        tr._load_state(state)
+        named = dict(tr.params.named_parameters())
+        out["remesh"] = {"step": step,
+                         "shapes": {k: tuple(p.shape) for k, p in named.items()},
+                         "want": {".".join(p): s for p, s in S.named_leaves(
+                             S.shardings_of(shapes, specs4, mesh4))},
+                         "leaves": [x.clone() if torch.is_tensor(x) else np.asarray(x)
+                                    for x in ckpt.tree_leaves(tr._save_state())]}
+        tr.step_fn = step_fn
+        out["remesh"]["loss"] = tr.run_step(step)["loss"]
+    return out
+
+
+# --------------------------------------------------------------------------
 # tests/test_torch_gpu.py
 # --------------------------------------------------------------------------
 
@@ -257,3 +371,22 @@ def ring_on_card(seed, bh, n, d, k):
     return {"err": (got.float() - want.float()).abs().max().item(),
             "vmax": v.float().abs().max().item(), "device": str(got.device),
             "wire": dict(mesh.transports), "flash_sfa": launch_counts()["flash_sfa"]}
+
+
+def sharded_steps_on_card(cfg, batches):
+    """On data 2 over 2 ranks of the card: two steps with the state sharded
+    by the launcher's specs and the same two replicated."""
+    from repro_torch.distributed.shard import named_leaves, split_axes
+    from repro_torch.launch import specs as S
+    from repro_torch.models.model import param_tree
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_debug_mesh(data=2)
+    with axis_rules(mesh):
+        specs = S.param_specs(param_tree(cfg, device="meta"), cfg, mesh)
+        out = {"replicated": placed_steps(cfg, None, batches, None, device=dev)}
+        mesh.reset_counts()
+        out["sharded"] = placed_steps(cfg, None, batches, specs, device=dev)
+    out["split"] = sum(bool(split_axes(s, mesh)) for _, s in named_leaves(specs))
+    out["wire"] = dict(mesh.transports)
+    out["sent"] = dict(mesh.sent)
+    return out

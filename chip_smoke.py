@@ -51,7 +51,16 @@ Phases; any failure raises and the script exits non-zero:
                x 8 query heads over 1 kv head, dv 256; run boundaries, a
                zero-length slot, the bit-equalities), the shapes "HB" and
                "PG" of each row, after the new instantiations' ptxas
-               registers, spills and shared memory;
+               registers, spills and shared memory; then
+               (``phase_wide_seam_shapes``) rows 2, 4, 8 and 9 at
+               hubert-xlarge's compact seam (x 8 x 1024 x 1280, 16 + 16
+               heads of 80, k 16, width 16, bidirectional) and
+               paligemma-3b's (x 8 x 1024 x 2048, 8 + 1 heads of 256, k 16,
+               RoPE, width 32, causal): bf16 on the tensor-core bodies of
+               proj_rtopk_wide.cu, flash_sfa_tc_wide.cu (block skip) and
+               code_grad_wide.cu, f32 on the CUDA-core ones, each against
+               its plain version, the shapes "HBs" and "PGs", after those
+               sources' ptxas registers, spills and shared memory;
   4. engine  — the serving main path at full width: gpt2-small-sfa8
                (12 layers, d_model 768, 12 heads of 64, SFA k=8, vocab
                50,257), bf16, random weights from a seed, through
@@ -155,10 +164,15 @@ Phases; any failure raises and the script exits non-zero:
                ``make_train_step`` on seeded frame batches of 8 x 1024
                (``phase_train_frames``: rtopk on its warp body, FlashSFA
                forward and backward on the tensor-core bodies, launches as
-               predicted); paligemma-3b (d 256, 8 query heads over 1 kv
-               head) at full width and 6 of 18 layers through ``Trainer``
-               on text batches of 8 x 1024 (dense emit, remat "full",
-               FlashSFA on the tensor-core bodies, rtopk on its warp body);
+               predicted; then through the compact seam, remat "codes",
+               launches as llama's, no CUDA-core body, collect_reports()
+               saying the seam was taken); paligemma-3b (d 256, 8 query
+               heads over 1 kv head) at full width and 6 of 18 layers
+               through ``Trainer`` on text batches of 8 x 1024 (dense emit,
+               remat "full", FlashSFA on the tensor-core bodies, rtopk on
+               its warp body; then through the RoPE compact seam, compact2,
+               remat "codes"), each seam run's step, peak memory and busy
+               share printed beside its dense-emit run's;
                each train phase prints its step FLOPs
                (``utils.analytic.step_flops``) and their share of the bf16
                peak;
@@ -179,11 +193,13 @@ Phases; any failure raises and the script exits non-zero:
                layers in float32 through the compact seam against the torch
                backend (1e-4 on the loss, 1e-3 relative L2 a leaf); then
                hubert-xlarge at 2 layers on frames: bf16 by the rule above
-               (the tensor-core bodies at d 80), float32 (the CUDA-core
-               bodies) with 1e-4 on the loss and on each leaf's relative L2
-               (its learned positions are never read: a zero gradient in
-               both runs); paligemma-3b at 2 layers in bf16 by the same
-               rule (the tensor-core bodies at d 256);
+               (the tensor-core bodies at d 80; dense emit and the compact
+               seam), float32 (the CUDA-core bodies) with 1e-4 on the loss
+               and on each leaf's relative L2 (its learned positions are
+               never read: a zero gradient in both runs), and its float32
+               compact seam (1e-4 on the loss, 1e-3 a leaf); paligemma-3b
+               at 2 layers in bf16 by the same rule (the tensor-core bodies
+               at d 256; dense emit and the compact seam);
  11. attention variants — the layers the reference's Pallas backends
                decline (windows, protected RoPE dims, MLA), which run on the
                torch backend in the port (no kernel lies on these paths:
@@ -278,9 +294,10 @@ bodies also at d 32 and 128, causal and not, ragged n (the backward with
 every emit, the compact emit equal to the dense one gathered, two calls
 equal bit for bit). Phases 6, 8 and 9's bf16 gpt2-small-sfa8 runs, and
 phase 8b's llama and moonshot seam runs and phase 9's bf16 moonshot seam
-run (code width 32), must
-launch no CUDA-core body (proj_rtopk, FlashSFA, code_grad_dx, code_grad_dw);
-hubert's and paligemma's bf16 training phases no CUDA-core FlashSFA body.
+run (code width 32), and hubert's and paligemma's seam runs (d 80 and 256)
+must launch no CUDA-core body (proj_rtopk, FlashSFA, code_grad_dx,
+code_grad_dw); hubert's and paligemma's bf16 training phases no CUDA-core
+FlashSFA body.
 
 Phase 3 also holds the paged, multi-query and feature-major decode
 kernels (rows 11-14) at the serving path's shapes: 8 slots x 12 heads of
@@ -1596,7 +1613,7 @@ def phase_proj_rtopk(rs):
     def run_core():
         vals = torch.empty((b, h, n, k), dtype=xb.dtype, device="cuda")
         idx = torch.empty((b, h, n, k), dtype=torch.int32, device="cuda")
-        rt._proj_cuda_core(xb, wq, None, k, 0.0, 0, vals, idx)
+        rt._proj_cuda_core(xb, wq, None, k, None, 0, vals, idx)
         return vals, idx
     for name, fn in (("bf16 w in place", lambda: proj_rtopk(xb, wqb, k=k)),
                      ("CUDA-core body", run_core)):
@@ -2277,12 +2294,15 @@ def phase_qwen3_llama_shapes(results):
 
 def _seam_rows(results, rs, s, label, key=None, compact2=False):
     """Rows 2, 4, 8, 9 (with ``compact2`` also row 5's compact2 emit) at a
-    model's RoPE compact seam ``s`` (batch b x n TRAIN_N tokens of width m,
-    h query heads over hkv kv heads of d, k, RoPE theta; code width 2k),
-    bf16 on the tensor-core bodies: each against its plain version (row 2
-    also bit-equal on dyadic inputs, bf16 and f32), timed beside its plain
-    version and its library call, the bound from these inputs; recorded as
-    the shape ``key`` (default: ``label``) of each row's entry."""
+    model's compact seam ``s`` (batch b x n TRAIN_N tokens of width m, h
+    query heads over hkv kv heads of d, k; RoPE at theta where ``s`` has
+    one; causal unless ``s["causal"]`` is False; code width ``s["kw"]``,
+    default the RoPE pair closure's 2k), bf16 on the tensor-core bodies:
+    each against its plain version (row 2 also bit-equal on dyadic inputs,
+    bf16 and f32, for the query and the key heads), timed beside its plain
+    version and its library call, the bound from these inputs; rows 4, 8
+    and 9 also in f32 (their CUDA-core bodies) on a slice; recorded as the
+    shape ``key`` (default: ``label``) of each row's entry."""
     from repro_torch.kernels import (
         body_counts, code_grad_dw, code_grad_dx, flash_sfa, flash_sfa_bwd, proj_rtopk,
         reset_launches,
@@ -2295,29 +2315,35 @@ def _seam_rows(results, rs, s, label, key=None, compact2=False):
     )
     es, n = 2, TRAIN_N
     b, h, hkv, d, k, m = s["b"], s["h"], s["hkv"], s["d"], s["k"], s["m"]
-    bh, kw, scale = b * h, 2 * k, d ** -0.5
-    spec = (s["theta"], d)
-    pos = torch.arange(n, device="cuda")[None, :].expand(b, n)
+    causal, kw = s.get("causal", True), s.get("kw", 2 * k)
+    bh, scale = b * h, d ** -0.5
+    spec = (s["theta"], d) if "theta" in s else None
+    rope_txt = f"RoPE theta {spec[0]:g}" if spec else "no RoPE"
+    pos = torch.arange(n, device="cuda")[None, :].expand(b, n) if spec else None
     x, w = _dyadic_proj(rs, b, n, m, (h + 2 * hkv) * d)
-    wq = head_blocks(w, 0, h, d)
-    reset_launches()
-    kv, ki = proj_rtopk(x.bfloat16(), wq, pos, k=k, rope_spec=spec)
-    pv, pi = proj_rtopk_ref(x.bfloat16(), wq, pos, k=k, rope_spec=spec)
-    torch.cuda.synchronize()
-    check(body_counts()["proj_rtopk_cuda_core"] == 0, f"proj_rtopk {label}: {body_counts()}")
-    check(torch.equal(ki, pi) and torch.equal(kv.view(torch.int16), pv.view(torch.int16)),
-          f"proj_rtopk {label}: dyadic inputs with RoPE not bit-equal to the plain version")
-    # f32 x (the CUDA-core body, which the f32 gradient check runs), 2 of the 8 rows
-    x2, p2 = x[:2].contiguous(), pos[:2]
-    kv, ki = proj_rtopk(x2, wq, p2, k=k, rope_spec=spec)
-    pv, pi = proj_rtopk_ref(x2, wq, p2, k=k, rope_spec=spec)
-    torch.cuda.synchronize()
-    check(body_counts()["proj_rtopk_cuda_core"] == 1, f"proj_rtopk {label} f32: {body_counts()}")
-    check(torch.equal(ki, pi) and torch.equal(kv.view(torch.int32), pv.view(torch.int32)),
-          f"proj_rtopk {label} f32: dyadic inputs with RoPE not bit-equal to the plain version")
+    for heads, wh in (("query", head_blocks(w, 0, h, d)), ("key", head_blocks(w, h, hkv, d))):
+        reset_launches()
+        kv, ki = proj_rtopk(x.bfloat16(), wh, pos, k=k, rope_spec=spec)
+        pv, pi = proj_rtopk_ref(x.bfloat16(), wh, pos, k=k, rope_spec=spec)
+        torch.cuda.synchronize()
+        check(body_counts()["proj_rtopk_cuda_core"] == 0,
+              f"proj_rtopk {label} {heads}: {body_counts()}")
+        check(torch.equal(ki, pi) and torch.equal(kv.view(torch.int16), pv.view(torch.int16)),
+              f"proj_rtopk {label} {heads}: dyadic inputs ({rope_txt}) not bit-equal to the "
+              f"plain version")
+        # f32 x (the CUDA-core body, which the f32 gradient check runs), 2 of the 8 rows
+        x2, p2 = x[:2].contiguous(), None if pos is None else pos[:2]
+        kv, ki = proj_rtopk(x2, wh, p2, k=k, rope_spec=spec)
+        pv, pi = proj_rtopk_ref(x2, wh, p2, k=k, rope_spec=spec)
+        torch.cuda.synchronize()
+        check(body_counts()["proj_rtopk_cuda_core"] == 1,
+              f"proj_rtopk {label} {heads} f32: {body_counts()}")
+        check(torch.equal(ki, pi) and torch.equal(kv.view(torch.int32), pv.view(torch.int32)),
+              f"proj_rtopk {label} {heads} f32: dyadic inputs ({rope_txt}) not bit-equal to "
+              f"the plain version")
     print(f"[proj_rtopk] {label}: dyadic x ({b}, {n}, {m}) bf16 (tensor-core body) and (2, {n}, "
-          f"{m}) f32 (CUDA-core body), {h} heads of {d}, RoPE theta {spec[0]:g}, k {k}: "
-          f"indices equal, values bit-equal to the plain version")
+          f"{m}) f32 (CUDA-core body), {h} query and {hkv} key heads of {d}, {rope_txt}, k "
+          f"{k}: indices equal, values bit-equal to the plain version")
     del x, w, x2, kv, ki, pv, pi
     w = (0.02 * torch.from_numpy(rs.randn(m, (h + 2 * hkv) * d).astype(np.float32))).cuda()
     wq = head_blocks(w, 0, h, d)
@@ -2330,7 +2356,7 @@ def _seam_rows(results, rs, s, label, key=None, compact2=False):
         return i
 
     _timed_shape(results, "proj_rtopk", label, key,
-                 f"bf16 x {tuple(xb.shape)}, {h} heads of {d}, RoPE theta {spec[0]:g}, k={k} "
+                 f"bf16 x {tuple(xb.shape)}, {h} heads of {d}, {rope_txt}, k={k} "
                  f"(tensor-core body; dyadic inputs bit-equal to the plain version); library = "
                  f"torch.matmul + torch.topk", 0.0,
                  b * n * m * es + m * h * d * 4 + rows * k * (es + 4),
@@ -2340,30 +2366,46 @@ def _seam_rows(results, rs, s, label, key=None, compact2=False):
     qv, qi, kv, ki = _codes_of(rs, bh, n, d, k, torch.bfloat16)
     v = torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
     reset_launches()
-    ko, kl = flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True,
-                       block_skip=True)
-    po, pl = flash_sfa_ref(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True)
+    ko, kl = flash_sfa(qv, qi, kv, ki, v, d=d, causal=causal, scale=scale,
+                       return_residuals=True, block_skip=True)
+    po, pl = flash_sfa_ref(qv, qi, kv, ki, v, d=d, causal=causal, scale=scale,
+                           return_residuals=True)
     torch.cuda.synchronize()
     err = _close(ko, po, torch.bfloat16, f"flash_sfa block_skip {label}")[0]
     torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
     _tc_only(f"flash_sfa block_skip {label}")
     del po, pl
-    level = _skip_schedule(qv, qi, kv, ki, d=d, causal=True, block_q=BLOCK, block_k=BLOCK)
-    pairs, closed = _skip_work(level)
+    # f32 on the CUDA-core body, 2 of the batch's rows of heads
+    f32 = [t[:2 * h].float() if t.is_floating_point() else t[:2 * h]
+           for t in (qv, qi, kv, ki, v)]
+    reset_launches()
+    fo, fl = flash_sfa(*f32, d=d, causal=causal, scale=scale, return_residuals=True,
+                       block_skip=True)
+    po, pl = flash_sfa_ref(*f32, d=d, causal=causal, scale=scale, return_residuals=True)
+    torch.cuda.synchronize()
+    check(body_counts()["flash_sfa_cuda_core"] == 1, f"flash_sfa block_skip {label} f32: "
+                                                     f"{body_counts()}")
+    ferr = _close(fo, po, torch.float32, f"flash_sfa block_skip {label} f32")[0]
+    torch.testing.assert_close(fl, pl, rtol=1e-5, atol=1e-4)
+    del f32, fo, fl, po, pl
+    level = _skip_schedule(qv, qi, kv, ki, d=d, causal=causal, block_q=BLOCK, block_k=BLOCK)
+    pairs, closed = _skip_work(level, causal)
     qd, kd = _densify(qv, qi, d), _densify(kv, ki, d)
     _timed_shape(results, "flash_sfa_block_skip", label, key,
-                 f"rtopk codes bh={bh} n={n} d=dv={d} k={k} bf16: max|err| {err:.3g}; {pairs} "
-                 f"computed pairs, {closed} closed-form tiles; library = SDPA on densified Q/K",
+                 f"rtopk codes bh={bh} n={n} d=dv={d} k={k} bf16, "
+                 f"{'causal' if causal else 'bidirectional'}: max|err| {err:.3g} (f32 on the "
+                 f"CUDA-core body, bh {2 * h}: {ferr:.3g}); {pairs} computed pairs, {closed} "
+                 f"closed-form tiles; library = SDPA on densified Q/K",
                  err, 2 * bh * n * k * (es + 4) + 2 * bh * n * d * es + bh * n * 4,
                  code_product_s(2 * k * pairs, 2 * d * pairs) + 2 * d * pairs / BF16_TC_FLOPS
                  + 2 * d * BLOCK * closed / F32_FLOPS,
-                 lambda: flash_sfa(qv, qi, kv, ki, v, d=d, scale=scale, return_residuals=True,
-                                   block_skip=True),
-                 lambda: flash_sfa_ref(qv, qi, kv, ki, v, d=d, scale=scale,
+                 lambda: flash_sfa(qv, qi, kv, ki, v, d=d, causal=causal, scale=scale,
+                                   return_residuals=True, block_skip=True),
+                 lambda: flash_sfa_ref(qv, qi, kv, ki, v, d=d, causal=causal, scale=scale,
                                        return_residuals=True),
                  lambda: F.scaled_dot_product_attention(
                      qd.reshape(b, h, n, d), kd.reshape(b, h, n, d), v.reshape(b, h, n, d),
-                     is_causal=True, scale=scale))
+                     is_causal=causal, scale=scale))
     if compact2:
         g = torch.from_numpy(rs.randn(bh, n, d).astype(np.float32)).cuda().bfloat16()
         args = (qv, qi, kv, ki, v, ko, kl, g)
@@ -2377,11 +2419,11 @@ def _seam_rows(results, rs, s, label, key=None, compact2=False):
         del got, want
         pairs = _pairs(bh, n)
         _timed_shape(results, "flash_sfa_bwd_compact", label, key,
-                     f"compact2 emit (rot_dim {d}: code width {kw}), bh={bh} n={n} d=dv={d} "
+                     f"compact2 emit (rot_dim {d}: code width {2 * k}), bh={bh} n={n} d=dv={d} "
                      f"k={k} bf16, on the block-skip forward's output (tensor-core body): "
                      f"max|err| {berr:.3g}; library = SDPA backward (autograd) on densified Q/K",
                      berr, 2 * bh * n * k * (es + 4) + 3 * bh * n * d * es + bh * n * 4
-                     + 2 * bh * n * kw * es + bh * n * d * es,
+                     + 2 * bh * n * 2 * k * es + bh * n * d * es,
                      code_product_s(6 * k * pairs, 6 * d * pairs) + 4 * d * pairs / BF16_TC_FLOPS,
                      lambda: flash_sfa_bwd(*args, d=d, scale=scale, emit="compact2", rot_dim=d),
                      lambda: flash_sfa_bwd_ref(*args, d=d, scale=scale, emit="compact2",
@@ -2408,11 +2450,24 @@ def _seam_rows(results, rs, s, label, key=None, compact2=False):
                                    msg=f"code_grad {nm} {label}")
         cerr[nm] = (a - bb).abs().max().item()
     del got, want
+    # f32 codes (the CUDA-core bodies), the first 2,048 tokens
+    v32, i32, x32 = vals[:, :2048].float(), idx[:, :2048].contiguous(), xx[:2048].float()
+    reset_launches()
+    got = (code_grad_dx(v32, i32, wq, d=d), code_grad_dw(x32, v32, i32, d=d))
+    check(body_counts()["code_grad_dx_cuda_core"] == body_counts()["code_grad_dw_cuda_core"] == 1,
+          f"code_grad {label} f32: not the CUDA-core bodies {body_counts()}")
+    want = (code_grad_dx_ref(v32, i32, wq, d=d), code_grad_dw_ref(x32, v32, i32, d=d))
+    torch.cuda.synchronize()
+    for nm, a, bb in zip(("dx", "dw"), got, want):
+        torch.testing.assert_close(a, bb, rtol=1e-4, atol=1e-4 * bb.abs().max().item(),
+                                   msg=f"code_grad {nm} {label} f32")
+    del got, want, v32, i32, x32
     ops_s = code_product_s(2 * ntok * m * h * kw, 2 * ntok * m * h * d)
     codes = h * ntok * kw * (es + 4)
     _timed_shape(results, "code_grad_dx", label, key,
-                 f"bf16 codes {h} x {ntok} x {kw}, m {m}, d {d} (tensor-core body, width {kw}): "
-                 f"max|err| {cerr['dx']:.3g}; library = scatter_code_grads + torch.einsum",
+                 f"bf16 codes {h} x {ntok} x {kw}, m {m}, d {d} (tensor-core body, width {kw}; "
+                 f"f32 codes on the CUDA-core body within 1e-4): max|err| {cerr['dx']:.3g}; "
+                 f"library = scatter_code_grads + torch.einsum",
                  cerr["dx"], codes + h * m * d * 4 + ntok * m * 4, ops_s,
                  lambda: code_grad_dx(vals, idx, wq, d=d),
                  lambda: code_grad_dx_ref(vals, idx, wq, d=d),
@@ -2700,6 +2755,71 @@ def phase_frontend_shapes(results):
              "flash_sfa_decode_fm", "flash_sfa_decode_fm_paged")
     for name, row in zip(names, (10, 11, 12, 13, 14)):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], errs[row])
+
+
+# hubert-xlarge's and paligemma-3b's compact seams: x 8 x 1024 tokens of
+# d_model; hubert 16 + 16 heads of 80, k 16, code width 16, bidirectional,
+# no RoPE; paligemma 8 query heads over 1 kv head of 256, k 16, RoPE theta
+# 10,000, code width 32 (the pair closure), causal
+HBS = dict(b=8, h=16, hkv=16, d=80, k=16, m=1280, causal=False, kw=16)
+PGS = dict(b=8, h=8, hkv=1, d=256, k=16, m=2048, theta=10_000.0, kw=32)
+
+
+def _wide_seam_smem(label):
+    """The dynamic shared memory (bytes) a launch of the wide seam's
+    tensor-core kernel ``label`` (``_kernel_label``) asks for: the launchers
+    of csrc/proj_rtopk_wide.cu and csrc/code_grad_tc.cuh (the static part
+    is ptxas's); None for a kernel without such a launcher."""
+    args = label.split("<")[1].rstrip(">").split(", ")
+    if label.startswith("proj_rtopk_wide_tc_kernel"):
+        nc = 160 if int(args[0]) == 80 else int(args[0])   # a block's columns: whole heads
+        return 1024 + 3 * (128 * 64 * 2 + nc * 64 * 2) + 3 * 8
+    if not label.startswith(("code_grad_dw_tc_kernel", "code_grad_dx_tc_kernel")):
+        return None
+    d, kw = int(args[0]), int(args[1])
+    if label.startswith("code_grad_dw_tc_kernel"):
+        # one head (of 80) or half a head (of 256) a block: 64 packed rows a chunk
+        return 1024 + 4 * 64 * 128 * 2 + 4 * 128 * 64 * 2 + 4 * 64 * kw * 6 + 4 * 8
+    if label.startswith("code_grad_dx_tc_kernel"):
+        f = 64 if d % 64 == 0 else 32              # features of a step
+        return 1024 + (4 + 2 * 3) * 128 * f * 2 + (2 if kw > 16 else 3) * 128 * kw * 6 + 3 * 8
+    return None
+
+
+def phase_wide_seam_shapes(results):
+    """Rows 2, 4, 8 and 9 at hubert-xlarge's compact seam (``HBS``: d 80,
+    width 16, bidirectional) and paligemma-3b's (``PGS``: d 256, MQA,
+    RoPE, width 32), bf16 on the tensor-core bodies of proj_rtopk_wide.cu,
+    flash_sfa_tc_wide.cu (the block-skip schedule) and code_grad_wide.cu,
+    f32 on the CUDA-core bodies, each against its plain version
+    (``_seam_rows``), the bf16 calls timed and recorded as the shapes "HBs"
+    and "PGs" of their rows. The new instantiations' ptxas registers,
+    spills and shared memory first (each <= 255 registers, no spill, <= 227
+    KB; proj_rtopk's bodies keep RoPE's double cos / sin in a 40-byte stack
+    frame, as at d 32, 64 and 128)."""
+    for lib, keep in (("proj_rtopk_wide", "_kernel<"), ("code_grad_wide", "_tc_kernel<"),
+                      ("flash_sfa_tc_wide", "flash_attention_tc_fwd_kernel<")):
+        lines = []
+        for fn, (r, sp) in ptxas_kernels(lib).items():
+            label = _kernel_label(fn)
+            if keep not in label:
+                continue
+            smem = (_wide_smem(label) if lib == "flash_sfa_tc_wide"
+                    else _wide_seam_smem(label))
+            # a stack frame without spills is RoPE's double cos / sin
+            check(r <= 255 and " 0 bytes spill stores" in sp
+                  and (smem is None or smem <= 232_448),
+                  f"ptxas {lib} {label}: {r} regs, {sp}, {smem} B dynamic shared memory")
+            frame = sp.split(" bytes stack frame")[0]
+            lines.append(f"{label} {r} regs, 0 spill"
+                         + (f" ({frame} B stack frame)" if frame != "0" else "")
+                         + (f", {smem} B dynamic shared memory" if smem else ""))
+        check(lines, f"ptxas {lib}: no kernel in the build log")
+        print(f"[ptxas] {lib} (the wide seam's bodies; shared memory plus ptxas's static "
+              f"bytes): " + "; ".join(lines))
+    rs = np.random.RandomState(SEED + 60)
+    _seam_rows(results, rs, HBS, "HBs seam", key="HBs")
+    _seam_rows(results, rs, PGS, "PGs seam", key="PGs")
 
 
 # --------------------------------------------------------------------------
@@ -3324,16 +3444,20 @@ def _frame_batch(cfg, batch, seq, seed):
             "labels": rs.randint(0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)}
 
 
-def phase_train_frames(arch, timed_steps, predicted, *, layers=None, bodies=None):
+def phase_train_frames(arch, timed_steps, predicted, *, layers=None, bodies=None, **policy):
     """Train full-width audio ``arch`` in bf16 through ``make_train_step``
-    (AdamW, dense emit, remat "full") on seeded frame batches of 8 x 1024:
-    1 warm-up and ``timed_steps`` timed steps with the launch counts read
-    over all of them (``predicted`` per step; ``bodies``: the CUDA-core and
-    warp bodies per step), then one traced step. Prints step ms, peak
-    memory and the step's FLOPs (``utils.analytic.step_flops``) as a share
-    of the bf16 peak. Returns (launch counts, step summary)."""
+    (AdamW; ``policy`` overrides the TrainPolicy, default dense emit, remat
+    "full") on seeded frame batches of 8 x 1024: 1 warm-up and
+    ``timed_steps`` timed steps with the launch counts read over all of
+    them (``predicted`` per step; ``bodies``: the CUDA-core and warp bodies
+    per step), then one traced step. A compact request must take the seam
+    at every layer where proj_rtopk is predicted, and "codes" must be kept.
+    Prints step ms, peak memory, the busy share and the step's FLOPs
+    (``utils.analytic.step_flops``) as a share of the bf16 peak. Returns
+    (launch counts, step summary)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig, TrainPolicy
+    from repro_torch.core.reports import clear_reports, collect_reports
     from repro_torch.kernels import body_counts, launch_counts, reset_launches
     from repro_torch.models import init
     from repro_torch.models.backends import clear_fallback_reports, fallback_reports
@@ -3347,15 +3471,16 @@ def phase_train_frames(arch, timed_steps, predicted, *, layers=None, bodies=None
         cfg = dataclasses.replace(cfg, num_layers=layers)
     batch, seq = 8, TRAIN_N
     steps = 1 + timed_steps
-    policy = TrainPolicy.from_model(cfg, remat="full", bwd_emit="dense")
+    policy = dict({"remat": "full", "bwd_emit": "dense"}, **policy)
     opt = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=steps + 1)
-    step = make_train_step(cfg, opt, policy=policy)
+    step = make_train_step(cfg, opt, policy=TrainPolicy.from_model(cfg, **policy))
     model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
     state = init_opt_state(dict(model.named_parameters()))
     data = [_frame_batch(cfg, batch, seq, SEED + 70 + i) for i in range(steps + 1)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     clear_fallback_reports()
+    clear_reports()
     reset_launches()
     hist, step_ms = [], []
     for i in range(steps):
@@ -3365,9 +3490,16 @@ def phase_train_frames(arch, timed_steps, predicted, *, layers=None, bodies=None
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts, reports = launch_counts(), fallback_reports()
+    routes = collect_reports()
     peak = torch.cuda.max_memory_allocated()
     want = {name: predicted.get(name, 0) * steps for name in counts}
     want_bodies = {name: (bodies or {}).get(name, 0) * steps for name in body_counts()}
+    seams = [r for r in routes if r.component == "compact_seam"]
+    remats = [r for r in routes if r.component == "remat"]
+    if policy["bwd_emit"] in ("compact", "compact2"):
+        check(seams and all(r.eligible for r in seams) and "proj_rtopk" in predicted,
+              f"train {arch}: compact seam {seams}")
+    check(all(r.eligible for r in remats), f"train {arch}: remat degraded: {remats}")
     check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
           f"train {arch}: non-finite loss or gradient norm: {hist}")
     check(not reports, f"train {arch}: backend fallbacks recorded: {reports}")
@@ -3379,9 +3511,10 @@ def phase_train_frames(arch, timed_steps, predicted, *, layers=None, bodies=None
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     timed_ms = step_ms[1:]
     tokens = batch * seq
-    fl = step_flops(dataclasses.replace(cfg, remat="full"),
+    fl = step_flops(dataclasses.replace(cfg, remat=policy["remat"]),
                     ShapeConfig("chip", seq, batch, "train"))
     step_s = np.mean(timed_ms) / 1e3
+    label = ", ".join(f"{k} {v}" for k, v in policy.items())
     ours = sorted(((name.split("::", 1)[1], us) for name, us in kernels.items()
                    if name.startswith("void (anonymous namespace)::")), key=lambda kv: -kv[1])
     print(f"[train] {arch}: step FLOPs (utils.analytic.step_flops) total "
@@ -3389,7 +3522,7 @@ def phase_train_frames(arch, timed_steps, predicted, *, layers=None, bodies=None
           f"{100 * fl['total_flops'] / step_s / BF16_TC_FLOPS:.2f}% of the bf16 peak "
           f"(model FLOPs {100 * fl['model_flops'] / step_s / BF16_TC_FLOPS:.2f}%)")
     print(f"[train] {arch} full width bf16, {depth}, batch {batch} x {seq} seeded frames "
-          f"({cfg.frontend.input_dim} features), bidirectional, dense emit, remat full, AdamW; "
+          f"({cfg.frontend.input_dim} features), bidirectional, {label}, AdamW; "
           f"losses {[round(h['loss'], 4) for h in hist]}, grad norms "
           f"{[round(h['grad_norm'], 3) for h in hist]}")
     print(f"[train] {arch}: warm-up step {step_ms[0]:.1f} ms; timed steps ms "
@@ -3404,6 +3537,10 @@ def phase_train_frames(arch, timed_steps, predicted, *, layers=None, bodies=None
     print(f"[train] {arch}: kernels of anonymous namespaces in the traced step (the port's, "
           f"a few of torch's): " + "; ".join(f"{name[:56]} {us / 1e3:.2f} ms"
                                               for name, us in ours))
+    if seams:
+        print(f"[train] {arch}: collect_reports(): compact_seam taken at {len(seams)} "
+              f"site(s) (every layer of the stack), {[r.where for r in seams]}; remat "
+              f"{[(r.where, r.reason) for r in remats] or 'as requested'}")
     del model, state
     return counts, dict(step_ms=float(np.mean(timed_ms)), peak_gib=peak / 2**30,
                         busy=busy_ms / traced_ms)
@@ -5238,6 +5375,7 @@ def main():
     timed(phase_qwen3_llama_shapes, results)
     timed(phase_moonshot_shapes, results)
     timed(phase_frontend_shapes, results)
+    timed(phase_wide_seam_shapes, results)
     cfg = get_config("gpt2-small-sfa8")
     model = init(cfg, device="cuda", seed=SEED)
     counts, slot_run = timed(phase_engine, model, cfg)
@@ -5357,28 +5495,49 @@ def main():
     # 96-column tiles (the same per-layer launches as gpt2's dense emit
     # under remat "full")
     hl = get_config("hubert-xlarge").num_layers
-    hubert, _ = timed(phase_train_frames, "hubert-xlarge", 2,
-                      {"rtopk": 4 * hl, "flash_sfa": 2 * hl, "flash_sfa_bwd": hl},
-                      bodies={"rtopk_warp": 4 * hl})
+    hubert, hubert_dense = timed(phase_train_frames, "hubert-xlarge", 2,
+                                 {"rtopk": 4 * hl, "flash_sfa": 2 * hl, "flash_sfa_bwd": hl},
+                                 bodies={"rtopk_warp": 4 * hl})
+    release()
+    # the same through the compact seam under remat "codes" (width 16, no
+    # RoPE): proj_rtopk, block-skip FlashSFA and code_grad on the wide
+    # tensor-core bodies, launches as llama's seam, no CUDA-core or warp body
+    _, hubert_seam = timed(phase_train_frames, "hubert-xlarge", 2,
+                           {name: n * hl for name, n in seam.items()},
+                           bwd_emit="compact", fwd_fuse=True, remat="codes")
     release()
     # paligemma-3b at full width and 6 of 18 layers (its serving depth) on
     # text batches, as the launchers build them: d = dv 256 (K and V
     # repeated to the 8 query heads before rtopk), rtopk's warp body,
     # FlashSFA's tensor-core bodies with two warpgroups a block
     pl_ = 6
-    timed(phase_train, "paligemma-3b", 2,
-          {"rtopk": 4 * pl_, "flash_sfa": 2 * pl_, "flash_sfa_bwd": pl_}, layers=pl_,
-          bodies={"rtopk_warp": 4 * pl_})
+    _, pali_dense = timed(phase_train, "paligemma-3b", 2,
+                          {"rtopk": 4 * pl_, "flash_sfa": 2 * pl_, "flash_sfa_bwd": pl_},
+                          layers=pl_, bodies={"rtopk_warp": 4 * pl_})
     release()
+    # the same through the RoPE compact seam (compact2: code width 32 at d
+    # 256) under remat "codes", launches as llama's seam
+    _, pali_seam = timed(phase_train, "paligemma-3b", 2,
+                         {name: n * pl_ for name, n in seam.items()}, layers=pl_,
+                         bwd_emit="compact2", fwd_fuse=True, remat="codes")
+    release()
+    for arch, sm, dn in (("hubert-xlarge", hubert_seam, hubert_dense),
+                         ("paligemma-3b", pali_seam, pali_dense)):
+        print(f"[train] {arch}: compact seam, remat codes against the dense emit, remat full: "
+              f"step {sm['step_ms']:.2f} vs {dn['step_ms']:.2f} ms, peak {sm['peak_gib']:.2f} "
+              f"vs {dn['peak_gib']:.2f} GiB, device busy {100 * sm['busy']:.1f}% vs "
+              f"{100 * dn['busy']:.1f}% of the traced step")
     timed(phase_grad_end_to_end)
     timed(phase_dense_grad_end_to_end)
     timed(phase_sfa_grad_bf16_end_to_end)
     timed(phase_sfa_grad_bf16_end_to_end, "qwen3-0.6b-sfa8", 2, False)
     timed(phase_sfa_grad_bf16_end_to_end, "moonshot-v1-16b-a3b", 2)
     timed(phase_grad_end_to_end, "llama3.2-3b", 2, (GRAD_RUNS[0], GRAD_RUNS[2]), True)
-    timed(phase_sfa_grad_bf16_end_to_end, "hubert-xlarge", 2, False)
+    timed(phase_sfa_grad_bf16_end_to_end, "hubert-xlarge", 2)
     timed(phase_grad_end_to_end, "hubert-xlarge", 2, GRAD_RUNS[:2], leaf_tol=1e-4)
-    timed(phase_sfa_grad_bf16_end_to_end, "paligemma-3b", 2, False)
+    # hubert's f32 seam (the CUDA-core bodies at d 80) against the torch run
+    timed(phase_grad_end_to_end, "hubert-xlarge", 2, (GRAD_RUNS[0], GRAD_RUNS[2]))
+    timed(phase_sfa_grad_bf16_end_to_end, "paligemma-3b", 2)
     timed(phase_variants)
     # the JB shapes carry their launches in phase 12's two jamba serving runs
     for (kname, key), n in timed(phase_recurrent, results).items():

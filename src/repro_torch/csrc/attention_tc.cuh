@@ -64,8 +64,9 @@
 //
 // Sparse extras:
 //  * block skip (forward): a level map (bh, ceil(nq/64), ceil(nk/64)) at the
-//    warpgroup's 64-row tile; each warpgroup reads its own level, uniform
-//    over its threads, so wgmma never diverges: 0 skip, 1 the closed form of
+//    warpgroup's 64-row tile; each warpgroup reads the level of its rows
+//    (at d 256 both warpgroups of a block share one row of the map),
+//    uniform over its threads, so wgmma never diverges: 0 skip, 1 the closed form of
 //    a zero-overlap tile from the tile's V row sum (scores all exactly 0),
 //    2 compute. A key tile is loaded and densified only when some warpgroup
 //    of the block computes it. A null map computes every tile.
@@ -125,9 +126,6 @@ struct Width {
   static constexpr int N = W / SPLIT;
   static constexpr int COLS = N < D ? N : D;        // of them, real columns
   static constexpr int THREADS = SPLIT * kWG;       // a backward block
-  // the block-skip schedule (a level map per 64-row warpgroup) has a
-  // tensor-core body at the unpadded one-warpgroup widths only
-  static constexpr bool SKIP = W == D && SPLIT == 1;
   static constexpr int LANES = THREADS / kTile;     // densify lanes of a 64-row tile
   static constexpr int LANE_BITS = LANES == 2 ? 1 : 2;
 };
@@ -394,10 +392,12 @@ __device__ void emit_grad(bf16* out, const float (&acc)[Width<D>::N / 2], size_t
 // Level 1 of the block-skip map: the key tile's scores are all exactly 0, so
 // the online-softmax update has the closed form m' = max(m, 0),
 // o' = o e^(m - m') + e^(-m') vsum, l' = l e^(m - m') + 64 e^(-m') (log2
-// units here; each of a row's 4 threads holds a quarter of l).
-template <int N>
+// units here; each of a row's 4 threads holds a quarter of l). The
+// accumulator holds columns [c0, c0 + N) of O (d 256: a warpgroup's half);
+// a padding column (at or past D: d 80's 80-95) reads no vsum.
+template <int D, int N>
 __device__ __forceinline__ void closed_form(float (&o)[N / 2], float (&m)[2], float (&l)[2],
-                                            const float* vsum_row) {
+                                            const float* vsum_row, int c0) {
   float corr[2], e[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -408,8 +408,11 @@ __device__ __forceinline__ void closed_form(float (&o)[N / 2], float (&m)[2], fl
     l[h] = l[h] * corr[h] + (kTile / 4) * e[h];
   }
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i)
-    o[i] = o[i] * corr[(i % 4) / 2] + e[(i % 4) / 2] * vsum_row[acc_col(i)];
+  for (int i = 0; i < N / 2; ++i) {
+    const int c = c0 + acc_col(i);
+    const float v = (Width<D>::W == D || c < D) ? vsum_row[c] : 0.0f;
+    o[i] = o[i] * corr[(i % 4) / 2] + e[(i % 4) / 2] * v;
+  }
 }
 
 // ---- the forward --------------------------------------------------------------
@@ -430,9 +433,8 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int QROWS = 2 * kTile / SPLIT;   // the block's query rows
   constexpr int QL = 2 * kWG / QROWS;        // SPARSE: lanes densifying a Q row (2 or 4)
   constexpr int QL_BITS = QL == 2 ? 1 : 2;
-  // the block-skip map: the d 32 / 64 / 128 bodies only (the wrapper keeps
-  // the schedule of 80 and 256 on the CUDA-core body)
-  if constexpr (!(SPARSE && Width<D>::SKIP)) level = nullptr;
+  // the block-skip map: FlashSFA's alone
+  if constexpr (!SPARSE) level = nullptr;
   using TQ = Tile<W, QROWS>;
   using TK = Tile<W, kTile>;
   extern __shared__ uint8_t smem_raw[];
@@ -457,11 +459,12 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg_tiles = ((causal ? min(nk, r0 + kTile) : nk) + kTile - 1) / kTile;
 
   // SPARSE: warpgroup w's level of key tile t, uniform over its threads
+  // (its rows' row of the map: w at one warpgroup a row tile, 0 at d 256)
   const int nqb = (nq + kTile - 1) / kTile, nkb = (nk + kTile - 1) / kTile;
   auto level_of = [&](int w, int t) {
     const int rw = q0 + w * wrow;
     if (t * kTile >= (causal ? min(nk, rw + kTile) : nk)) return 0;
-    return level == nullptr ? 2 : static_cast<int>(lv[w * nkb + t]);
+    return level == nullptr ? 2 : static_cast<int>(lv[(w * wrow / kTile) * nkb + t]);
   };
   if (SPARSE && level != nullptr) {          // the block's two rows of the map, into shared memory
     for (int i = tid; i < 2 * nkb; i += 2 * kWG) {
@@ -532,7 +535,7 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       lvl = level_of(wg, t);
       const float* vsum_row = vsum + (static_cast<size_t>(bh) * nkb + t) * D;
       if (t != t_next) {                    // no warpgroup computes this tile: nothing loads
-        if (lvl == 1) closed_form<N>(o, m, l, vsum_row);
+        if (lvl == 1) closed_form<D, N>(o, m, l, vsum_row, c0);
         continue;
       }
       st = loaded & 1;
@@ -547,7 +550,7 @@ flash_attention_tc_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         stage_row<4>(cs, kc.packed, static_cast<size_t>(bh) * nk, t_next * kTile + krow, nk,
                      kc.k, krow, kpart);
       }
-      if (lvl == 1) closed_form<N>(o, m, l, vsum_row);
+      if (lvl == 1) closed_form<D, N>(o, m, l, vsum_row, c0);
     } else {
       st = t & 1;
       use = t;

@@ -5,8 +5,8 @@
 // parallel: flash_sfa_tc.cu at d = dv in {32, 64, 128}, flash_sfa_tc_wide.cu
 // at 80 and 256.
 //
-// Replaces, for bf16 with d = dv in {32, 64, 80, 128, 256} and k <= 32 (the
-// block-skip schedule at 32, 64 and 128 only), the TPU kernels
+// Replaces, for bf16 with d = dv in {32, 64, 80, 128, 256} and k <= 32 (both
+// forward schedules), the TPU kernels
 // repro/kernels/flash_sfa.py::flash_sfa (block_skip=False: Pallas body
 // _flash_sfa_kernel; block_skip=True: _flash_sfa_skip_kernel, both on
 // _densify_block) and repro/kernels/flash_sfa_bwd.py::flash_sfa_bwd
@@ -97,7 +97,6 @@ int launch_fwd(const void* v, Codes qc, Codes kc, void* out, void* lse, const vo
                const void* vsum, int bh, int nq, int nk, float scale, int causal,
                cudaStream_t stream) {
   using Wd = Width<D>;
-  if (level != nullptr && !Wd::SKIP) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int QROWS = 2 * kTile / Wd::SPLIT;   // a block's query rows
   CUtensorMap vm;
   const int e = hopper::make_map(&vm, v, D, nk, bh, kTile);
@@ -217,8 +216,7 @@ extern "C" const char* sfa_error_string(int err) {
 // bf16 codes (bh, nq, kq) / (bh, nk, kk) values + int32 ids, kq, kk <= 32;
 // v (bh, nk, d) and out (bh, nq, d) bf16 with d in SFA_TC_DIMS; lse (bh, nq)
 // f32 or null; level (bh, ceil(nq/64), ceil(nk/64)) int32 and vsum (bh,
-// ceil(nk/64), d) f32, both null without block skip (which d 80 and 256
-// refuse); packed: scratch of bh * (nq * kq + nk * kk) words. All
+// ceil(nk/64), d) f32, both null without block skip; packed: scratch of bh * (nq * kq + nk * kk) words. All
 // contiguous, v 16-byte aligned. Returns the last launch's
 // cudaGetLastError().
 extern "C" int flash_sfa_tc_fwd_launch(const void* qv, const void* qi, const void* kv,

@@ -48,172 +48,22 @@
 // chunk by broadcast. The rounded (64 x D) tile then goes to shared memory
 // (aliasing the chunk buffers) for the epilogue.
 //
+// The parts both sources share (the CUDA-core body, RoPE, the epilogue)
+// are in proj_rtopk.cuh; the head dims 80 and 256 are built apart, in
+// proj_rtopk_wide.cu (its own note), so that the two compile in parallel.
+//
 // Bound on the H100: operations. The projection is 2 m d flops per row and
 // head (tensor cores for bf16); the top-k is about d compares a row; the
 // bytes are x and w once and k values + k int32 indices per row.
 
-#include "hopper.cuh"
-#include "topk_select.cuh"
+#include "proj_rtopk.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // tokens per block
-constexpr int kThreads = 256;
-constexpr int kChunk = 32;     // m per staged chunk
-constexpr int kXP = kChunk + 1;
-
-using hopper::to_f;
-// round an f32 to T's precision and back (identity for f32)
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// RoPE on the pair (p[0], p[1]) = dims (2 jp, 2 jp + 1) at this position,
-// in place: the op sequence of models.layers.rope (cos and sin of the f32
-// angle evaluated in double and rounded to f32), each product and sum
-// rounded on its own (no FMA), then rounded to T
-template <typename T>
-__device__ __forceinline__ void rope_pair(float* p, int position, int jp, float theta,
-                                          int rot_dim) {
-  const float freq = powf(theta, -static_cast<float>(2 * jp) / static_cast<float>(rot_dim));
-  const float ang = static_cast<float>(position) * freq;
-  const float cs = static_cast<float>(cos(static_cast<double>(ang)));
-  const float sn = static_cast<float>(sin(static_cast<double>(ang)));
-  const float x1 = p[0], x2 = p[1];
-  p[0] = round_to(__fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn)), T());
-  p[1] = round_to(__fadd_rn(__fmul_rn(x2, cs), __fmul_rn(x1, sn)), T());
-}
-
-// ---- the CUDA-core body -------------------------------------------------------
-
-template <int D, typename T, typename TW>
-__global__ void __launch_bounds__(kThreads)
-proj_rtopk_kernel(const T* __restrict__ x, const TW* __restrict__ w,
-                  const int32_t* __restrict__ pos, T* __restrict__ vals,
-                  int32_t* __restrict__ idx, int n, int m, int nh,
-                  long long w_sh, long long w_sm, int k, float theta,
-                  int rot_dim) {
-  constexpr int TN = D / 16;  // columns per thread
-  constexpr int TM = 4;       // rows per thread
-  constexpr int YP = D + 1;
-  extern __shared__ float smem[];
-  float* xs = smem;                 // (kRows, kXP)
-  float* ws = xs + kRows * kXP;     // (kChunk, D)
-  float* ys = smem;                 // (kRows, YP), after the product
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4;          // 0..15
-  const int cg = tid & 15;          // 0..15
-  const int n0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int rows_left = n - n0;
-  const T* xb = x + (static_cast<size_t>(b) * n + n0) * m;
-  const TW* wh = w + static_cast<size_t>(h) * w_sh;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int m0 = 0; m0 < m; m0 += kChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int t = tid; t < kRows * kChunk; t += kThreads) {
-      const int r = t / kChunk, c = t % kChunk;
-      xs[r * kXP + c] = (r < rows_left && m0 + c < m)
-                            ? to_f(xb[static_cast<size_t>(r) * m + m0 + c]) : 0.0f;
-    }
-    for (int t = tid; t < kChunk * D; t += kThreads) {
-      const int r = t / D, c = t % D;
-      ws[t] = m0 + r < m
-                  ? round_to(to_f(wh[static_cast<size_t>(m0 + r) * w_sm + c]), T())
-                  : 0.0f;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kChunk; ++kk) {
-      float xr[TM], wr[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) xr[i] = xs[(rg + 16 * i) * kXP + kk];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) wr[j] = ws[kk * D + cg + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += xr[i] * wr[j];
-    }
-  }
-  __syncthreads();  // the chunk buffers become the y tile
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      ys[(rg + 16 * i) * YP + cg + 16 * j] = round_to(acc[i][j], T());
-  __syncthreads();
-
-  if (pos != nullptr) {  // RoPE on the leading rot_dim dims, in place
-    const int half = rot_dim / 2;
-    for (int t = tid; t < kRows * half; t += kThreads) {
-      const int r = t / half, jp = t % half;
-      if (r >= rows_left) continue;
-      rope_pair<T>(ys + r * YP + 2 * jp, pos[static_cast<size_t>(b) * n + n0 + r], jp, theta,
-                   rot_dim);
-    }
-    __syncthreads();
-  }
-
-  // top-|k| per row: one warp per row, 8 rows per warp
-  const int lane = tid & 31;
-  for (int r = tid >> 5; r < kRows && r < rows_left; r += kThreads / 32) {
-    const size_t orow = ((static_cast<size_t>(b) * nh + h) * n + n0 + r) * k;
-    topk::select_row<D / 32>(ys + r * YP, vals + orow, idx + orow, D, k, lane);
-  }
-}
-
-template <int D, typename T, typename TW>
-int launch(const void* x, const void* w, const void* pos, void* vals, void* idx,
-           int b, int n, int m, int nh, long long w_sh, long long w_sm, int k,
-           float theta, int rot_dim, cudaStream_t stream) {
-  const size_t chunk = sizeof(float) * (kRows * kXP + kChunk * D);
-  const size_t tile = sizeof(float) * kRows * (D + 1);
-  const size_t smem = chunk > tile ? chunk : tile;
-  auto kernel = proj_rtopk_kernel<D, T, TW>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((n + kRows - 1) / kRows, nh, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const TW*>(w),
-      static_cast<const int32_t*>(pos), static_cast<T*>(vals),
-      static_cast<int32_t*>(idx), n, m, nh, w_sh, w_sm, k, theta, rot_dim);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int by_dtype(const void* x, const void* w, const void* pos, void* vals, void* idx,
-             int b, int n, int m, int nh, long long w_sh, long long w_sm, int k,
-             float theta, int rot_dim, int x_bf16, int w_bf16, cudaStream_t s) {
-  if (x_bf16 && w_bf16)
-    return launch<D, __nv_bfloat16, __nv_bfloat16>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, theta, rot_dim, s);
-  if (x_bf16)
-    return launch<D, __nv_bfloat16, float>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, theta, rot_dim, s);
-  if (w_bf16)
-    return launch<D, float, __nv_bfloat16>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, theta, rot_dim, s);
-  return launch<D, float, float>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, theta, rot_dim, s);
-}
-
 // ---- the tensor-core body (bf16 x) ------------------------------------------
 
-constexpr int kTcTok = 128;      // tokens of a block: two warpgroups of 64
 constexpr int kTcCols = 128;     // columns of Y (heads x d) of a block: the wgmma N
-constexpr int kTcK = 64;         // m of a chunk: four k16 steps
-constexpr int kTcStages = 3;     // x and w tiles: chunks c .. c + 2
-constexpr int kTcThreads = 256;
 constexpr int kYP = kTcCols + 1; // row stride of the f32 y tile
-using XTile = hopper::Tile<kTcK, kTcTok>;    // x chunk: 128 token rows x 64 of m (K-major)
 using WTile = hopper::Tile<kTcCols, kTcK>;   // w chunk: 64 rows of m x 128 columns (MN-major)
 static_assert(kTcTok * kYP * 4 <= kTcStages * (XTile::BYTES + WTile::BYTES),
               "the y tile fits over the stages");
@@ -223,7 +73,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 proj_rtopk_tc_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap wmap, const int32_t* __restrict__ pos,
                      __nv_bfloat16* __restrict__ vals, int32_t* __restrict__ idx, int n, int m,
-                     int nh, int k, float theta, int rot_dim) {
+                     int nh, int k, const float* __restrict__ freqs, int rot_dim) {
   constexpr int HEADS = kTcCols / D;   // heads of a block
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
@@ -291,45 +141,12 @@ proj_rtopk_tc_kernel(const __grid_constant__ CUtensorMap xmap,
         round_to(acc[i], __nv_bfloat16());
   __syncthreads();
 
-  if (pos != nullptr) {  // RoPE on each head's leading rot_dim dims, in place
-    const int half = rot_dim / 2;
-    for (int t = tid; t < kTcTok * HEADS * half; t += kTcThreads) {
-      const int r = t / (HEADS * half), hs = (t / half) % HEADS, jp = t % half;
-      if (n0 + r >= n) continue;
-      rope_pair<__nv_bfloat16>(ys + r * kYP + hs * D + 2 * jp,
-                               pos[static_cast<size_t>(b) * n + n0 + r], jp, theta, rot_dim);
-    }
-    __syncthreads();
-  }
-
-  // top-|k| per (token, head) row: one thread a row for k <= 16 (the warp
-  // reads 32 rows' entries column by column: kYP keeps them on 32 banks),
-  // else one warp a row
-  if (k <= 16) {
-    for (int row = tid; row < kTcTok * HEADS; row += kTcThreads) {
-      const int r = row % kTcTok, hs = row / kTcTok;
-      const int h = col0 / D + hs;
-      if (h >= nh || n0 + r >= n) continue;
-      const size_t orow = ((static_cast<size_t>(b) * nh + h) * n + n0 + r) * k;
-      if (k <= 8)
-        topk::select_row_thread<D, 8>(ys + r * kYP + hs * D, vals + orow, idx + orow, k);
-      else
-        topk::select_row_thread<D, 16>(ys + r * kYP + hs * D, vals + orow, idx + orow, k);
-    }
-    return;
-  }
-  for (int row = tid / 32; row < kTcTok * HEADS; row += kTcThreads / 32) {
-    const int r = row % kTcTok, hs = row / kTcTok;
-    const int h = col0 / D + hs;
-    if (h >= nh || n0 + r >= n) continue;
-    const size_t orow = ((static_cast<size_t>(b) * nh + h) * n + n0 + r) * k;
-    topk::select_row<D / 32>(ys + r * kYP + hs * D, vals + orow, idx + orow, D, k, lane);
-  }
+  tc_epilogue<D, HEADS, kYP>(ys, pos, vals, idx, b, n0, n, nh, col0 / D, k, freqs, rot_dim);
 }
 
 template <int D>
 int launch_tc(const CUtensorMap& xmap, const CUtensorMap& wmap, const void* pos, void* vals,
-              void* idx, int b, int n, int m, int nh, int k, float theta, int rot_dim,
+              void* idx, int b, int n, int m, int nh, int k, const float* freqs, int rot_dim,
               cudaStream_t stream) {
   const size_t smem = 1024 + kTcStages * (XTile::BYTES + WTile::BYTES) +
                       kTcStages * sizeof(uint64_t);
@@ -340,14 +157,9 @@ int launch_tc(const CUtensorMap& xmap, const CUtensorMap& wmap, const void* pos,
   const dim3 grid((n + kTcTok - 1) / kTcTok, (nh * D + kTcCols - 1) / kTcCols, b);
   kernel<<<grid, kTcThreads, smem, stream>>>(xmap, wmap, static_cast<const int32_t*>(pos),
                                              static_cast<__nv_bfloat16*>(vals),
-                                             static_cast<int32_t*>(idx), n, m, nh, k, theta,
+                                             static_cast<int32_t*>(idx), n, m, nh, k, freqs,
                                              rot_dim);
   return static_cast<int>(cudaGetLastError());
-}
-
-bool bad_args(int b, int n, int m, int nh, int d, int k, const void* pos, int rot_dim) {
-  return m <= 0 || k <= 0 || k > d || nh > 65535 || b > 65535 ||
-         (pos != nullptr && (rot_dim <= 0 || rot_dim > d || rot_dim % 2));
 }
 
 }  // namespace
@@ -358,27 +170,28 @@ extern "C" const char* sfa_error_string(int err) {
 
 // x (b, n, m) contiguous, f32|bf16; w heads (nh, m, d) in f32|bf16 at
 // element strides (w_sh, w_sm, 1); pos (b, n) int32 contiguous, or null for
-// no RoPE (then theta and rot_dim are unused); out vals (b, nh, n, k) in x's
+// no RoPE (then freqs and rot_dim are unused); freqs (rot_dim / 2) f32, the
+// pairs' frequencies (kernels/ref.py::rope_freqs); out vals (b, nh, n, k) in x's
 // dtype and idx (b, nh, n, k) int32. d in {32, 64, 128}, 0 < k <= d, even
 // rot_dim <= d. Returns the launch's cudaGetLastError().
 extern "C" int proj_rtopk_launch(const void* x, const void* w, const void* pos,
                                  void* vals, void* idx, int b, int n, int m, int nh,
                                  int d, long long w_sh, long long w_sm, int k,
-                                 float theta, int rot_dim, int x_bf16, int w_bf16,
+                                 const float* freqs, int rot_dim, int x_bf16, int w_bf16,
                                  void* stream) {
   cudaGetLastError();
   if (b <= 0 || n <= 0 || nh <= 0) return 0;
-  if (bad_args(b, n, m, nh, d, k, pos, rot_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(b, n, m, nh, d, k, pos, freqs, rot_dim)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 32) return by_dtype<32>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, theta, rot_dim, x_bf16, w_bf16, s);
-  if (d == 64) return by_dtype<64>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, theta, rot_dim, x_bf16, w_bf16, s);
-  if (d == 128) return by_dtype<128>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, theta, rot_dim, x_bf16, w_bf16, s);
+  if (d == 32) return by_dtype<32>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, freqs, rot_dim, x_bf16, w_bf16, s);
+  if (d == 64) return by_dtype<64>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, freqs, rot_dim, x_bf16, w_bf16, s);
+  if (d == 128) return by_dtype<128>(x, w, pos, vals, idx, b, n, m, nh, w_sh, w_sm, k, freqs, rot_dim, x_bf16, w_bf16, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The tensor-core body: x (b, n, m) bf16 contiguous and 16-byte aligned, m
 // a multiple of 8; w heads (nh, m, d) in f32|bf16 at element strides
-// (w_sh, w_sm, 1); pos, vals, idx, k, theta and rot_dim as for
+// (w_sh, w_sm, 1); pos, vals, idx, k, freqs and rot_dim as for
 // proj_rtopk_launch (vals bf16), d in {32, 64, 128}. wpack: scratch of
 // m * nh * d bf16, 16-byte aligned, where the pack kernel writes w as
 // (m, nh * d); null to read a bf16 w in place, which needs w_sh == d,
@@ -387,12 +200,12 @@ extern "C" int proj_rtopk_launch(const void* x, const void* w, const void* pos,
 // cudaGetLastError().
 extern "C" int proj_rtopk_tc_launch(const void* x, const void* w, const void* pos, void* vals,
                                     void* idx, void* wpack, int b, int n, int m, int nh, int d,
-                                    long long w_sh, long long w_sm, int k, float theta,
+                                    long long w_sh, long long w_sm, int k, const float* freqs,
                                     int rot_dim, int w_bf16, void* stream) {
   cudaGetLastError();
   if (b <= 0 || n <= 0 || nh <= 0) return 0;
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (bad_args(b, n, m, nh, d, k, pos, rot_dim) || (d != 32 && d != 64 && d != 128) ||
+  if (bad_args(b, n, m, nh, d, k, pos, freqs, rot_dim) || (d != 32 && d != 64 && d != 128) ||
       m % 8 != 0 || static_cast<long long>(nh) * d * m >= (1LL << 31) || misaligned(x) ||
       (wpack != nullptr && misaligned(wpack)) ||
       (wpack == nullptr && (!w_bf16 || w_sh != d || w_sm % 8 != 0 || misaligned(w))))
@@ -413,7 +226,7 @@ extern "C" int proj_rtopk_tc_launch(const void* x, const void* w, const void* po
   int e = hopper::map_3d(&xmap, x, m, n, m, b, static_cast<long long>(n) * m, kTcK, kTcTok);
   if (e == 0) e = hopper::map_3d(&wmap, wt, cols, m, w_row, 1, w_row * m, WTile::CHUNK, kTcK);
   if (e != 0) return e;
-  if (d == 32) return launch_tc<32>(xmap, wmap, pos, vals, idx, b, n, m, nh, k, theta, rot_dim, s);
-  if (d == 64) return launch_tc<64>(xmap, wmap, pos, vals, idx, b, n, m, nh, k, theta, rot_dim, s);
-  return launch_tc<128>(xmap, wmap, pos, vals, idx, b, n, m, nh, k, theta, rot_dim, s);
+  if (d == 32) return launch_tc<32>(xmap, wmap, pos, vals, idx, b, n, m, nh, k, freqs, rot_dim, s);
+  if (d == 64) return launch_tc<64>(xmap, wmap, pos, vals, idx, b, n, m, nh, k, freqs, rot_dim, s);
+  return launch_tc<128>(xmap, wmap, pos, vals, idx, b, n, m, nh, k, freqs, rot_dim, s);
 }

@@ -26,7 +26,8 @@ code_grad        — dx and dW of the Q/K projection from compact code
                    cores
 ops              — head folding, the SFA and dense attention autograd
                    Functions, the fused q/k codes, top-k helpers
-ref              — the plain PyTorch versions of the kernels
+ref              — the plain PyTorch versions of the kernels (and RoPE's
+                   frequency table, which proj_rtopk's kernels read)
 _build           — nvcc build of csrc/*.cu and ctypes binding
 
 Each kernel wrapper runs its CUDA kernel for a CUDA tensor and its plain

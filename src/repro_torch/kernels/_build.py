@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("rtopk", "flash_sfa", "flash_sfa_decode", "flash_sfa_decode_fm",
            "flash_sfa_bwd", "flash_attention", "flash_sfa_tc", "flash_sfa_tc_wide",
-           "proj_rtopk", "code_grad")
+           "proj_rtopk", "proj_rtopk_wide", "code_grad", "code_grad_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 

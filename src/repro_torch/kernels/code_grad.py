@@ -10,7 +10,10 @@ are:
 
 Replaces the TPU kernels ``repro/kernels/code_grad.py::code_grad_dx``
 (Pallas body ``_dx_kernel``) and ``::code_grad_dw`` (``_dw_kernel``) with the
-CUDA kernels in ``csrc/code_grad.cu``. Each code entry adds its own term,
+CUDA kernels in ``csrc/code_grad.cu`` (the CUDA-core bodies, and the
+tensor-core ones at d 32, 64, 128) and ``csrc/code_grad_wide.cu`` (the
+tensor-core ones at d in ``WIDE_HEAD_DIMS``: 80, 256; both from
+``csrc/code_grad_tc.cuh``). Each code entry adds its own term,
 so duplicate indices sum, as ``_densify_block`` makes them, and an index
 outside [0, d) adds nothing. The dense (n, d) gradient never reaches device
 memory.
@@ -24,12 +27,13 @@ codes' dtype, d, kw and m):
     TPU densified each code tile in VMEM for its matrix unit: a pack kernel resolves each code row's repeated indices
     once (a repeated index's f32 sum kept as bf16 hi + lo, the lo products
     run only when some sum needs them). dW: dWᵀ = Sᵀ·x as one GEMM over
-    the token axis, each block 128 feature rows (128/d heads) × 128 columns
-    of m, the chunk's Sᵀ hi and lo tiles densified in shared memory, x by
+    the token axis, each block 128 feature rows (128/d heads; a head of 80
+    padded to 128, a head of 256 in two blocks) × 128 columns of m, the chunk's Sᵀ hi and lo tiles densified in shared memory, x by
     TMA; the token axis split so the blocks fill the card, then a
     fixed-order sum. dx: dx = S·Wᵀ as one GEMM over the head-feature axis,
-    each block 128 tokens × 128 columns of m walking the heads in order,
-    each head's S tile densified in shared memory, w split once per call
+    each block 128 tokens × 128 columns of m walking the heads in order in
+    steps of 64 features (32 at d 32 and 80, the last step of a head of 80
+    half zero), each step's S tile densified in shared memory, w split once per call
     into contiguous bf16 hi + lo (an f32 w rounded to bf16 alone fails
     1e-4) and read by TMA. Width 32 runs the same bodies with twice the
     packed rows a stage (dx stages them twice rather than three times, to
@@ -80,12 +84,13 @@ _DW_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DW_TC_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DW_SPLIT_TOKENS = 1024     # CUDA-core dW: tokens per split of the contraction
 _DW_MAX_SPLITS = 8          # either dW body: most token splits
-TC_HEAD_DIMS = (32, 64, 128)   # d of the tensor-core bodies
+TC_HEAD_DIMS = (32, 64, 80, 128, 256)   # d of the tensor-core bodies
+WIDE_HEAD_DIMS = (80, 256)     # of them, those built apart (csrc/code_grad_wide.cu)
 TC_KW = (8, 16, 32)            # their code widths
 # (d, kw) of those that run the CUDA-core bodies (csrc tc_shape): at d 32 a
 # dW chunk holds 256 packed rows, and four stages of 32-wide ones need
 # 328,736 bytes of shared memory, over the 232,448 a block may use. No full
-# config emits width 32 at d 32 (every k-16 RoPE config has d 128).
+# config emits width 32 at d 32 (the k-16 RoPE configs have d 128 or 256).
 CUDA_CORE_SHAPES = ((32, 32),)
 _TC_TILE = 128                 # its block: feature rows and columns of m (csrc kTcRows, kTcCols)
 _TC_TOK = 64                   # its chunk of tokens (csrc kTcTok)
@@ -102,12 +107,27 @@ def tensor_core_body(dtype, d: int, kw: int, m: int) -> bool:
             and (d, kw) not in CUDA_CORE_SHAPES and m % 8 == 0)
 
 
+def library(d: int) -> str:
+    """The source (``csrc/<name>.cu``) whose library holds the tensor-core
+    bodies at head dim d (the CUDA-core ones are ``code_grad``'s)."""
+    return "code_grad_wide" if d in WIDE_HEAD_DIMS else "code_grad"
+
+
+def dw_feature_blocks(nh: int, d: int) -> int:
+    """The tensor-core dW body's blocks along the head-feature axis (csrc
+    DwRows): 128 feature rows each, whole heads of 32, 64 or 128; one head
+    of 80 (rows 80-127 zero); half a head of 256."""
+    if d <= _TC_TILE and _TC_TILE % d == 0:
+        return -(-nh * d // _TC_TILE)
+    return nh * -(-d // _TC_TILE)
+
+
 def tc_splits(n: int, nh: int, d: int, m: int, sms: int):
     """(splits, split_len) of the tensor-core dW body: as many token splits
     as keep every block of one wave on its own SM (at most _DW_MAX_SPLITS,
     each at least _TC_MIN_CHUNKS chunks), split_len a whole number of
     chunks and no split empty."""
-    tiles = -(-nh * d // _TC_TILE) * -(-m // _TC_TILE)
+    tiles = dw_feature_blocks(nh, d) * -(-m // _TC_TILE)
     chunks = -(-n // _TC_TOK)
     splits = max(1, min(sms // tiles, chunks // _TC_MIN_CHUNKS, _DW_MAX_SPLITS))
     split_len = -(-chunks // splits) * _TC_TOK
@@ -151,12 +171,13 @@ def _dx_tensor_core(vals, idx, w, d):
     # w as contiguous bf16 hi (and, for f32 w, lo) heads
     wsplit = torch.empty((1 if w.dtype == torch.bfloat16 else 2) * nh * m * d,
                          dtype=torch.bfloat16, device=vals.device)
-    fn = _build.entry("code_grad", "code_grad_dx_tc_launch", _DX_TC_ARGS)
+    lib = library(d)
+    fn = _build.entry(lib, "code_grad_dx_tc_launch", _DX_TC_ARGS)
     with torch.cuda.device(vals.device):
         err = fn(vals.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
                  packed.data_ptr(), wsplit.data_ptr(), nh, n, kw, m, d, w.stride(0),
                  w.stride(1), _DTYPES[w.dtype], _build.stream_ptr(vals))
-    _build.check("code_grad", err, "code_grad_dx (tensor cores) launch")
+    _build.check(lib, err, "code_grad_dx (tensor cores) launch")
     return out
 
 
@@ -215,12 +236,13 @@ def _dw_tensor_core(x, vals, idx, d):
     part = (torch.empty((splits, nh, m, d), dtype=torch.float32, device=vals.device)
             if splits > 1 else None)
     packed = _packed_codes(vals)
-    fn = _build.entry("code_grad", "code_grad_dw_tc_launch", _DW_TC_ARGS)
+    lib = library(d)
+    fn = _build.entry(lib, "code_grad_dw_tc_launch", _DW_TC_ARGS)
     with torch.cuda.device(vals.device):
         err = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
                  part.data_ptr() if part is not None else None, packed.data_ptr(), nh, n, kw,
                  m, d, splits, split_len, _build.stream_ptr(vals))
-    _build.check("code_grad", err, "code_grad_dw (tensor cores) launch")
+    _build.check(lib, err, "code_grad_dw (tensor cores) launch")
     return out
 
 
@@ -272,5 +294,6 @@ def code_grad_dw(x, vals, idx, *, d: int):
 code_grad_dw.launches = 0             # either body
 code_grad_dw.cuda_core_launches = 0   # the CUDA-core body
 
-__all__ = ["CUDA_CORE_SHAPES", "TC_HEAD_DIMS", "TC_KW", "code_grad_dw", "code_grad_dx", "scatter_code_grads",
-           "tc_splits", "tensor_core_body"]
+__all__ = ["CUDA_CORE_SHAPES", "TC_HEAD_DIMS", "TC_KW", "WIDE_HEAD_DIMS", "code_grad_dw",
+           "code_grad_dx", "dw_feature_blocks", "library", "scatter_code_grads", "tc_splits",
+           "tensor_core_body"]

@@ -6,8 +6,8 @@ schedules (``block_skip=False``: Pallas body ``_flash_sfa_kernel``, helpers
 ``_flash_sfa_skip_kernel`` with its XLA pre-pass ``_tile_occupancy`` /
 ``_block_maps``), with two CUDA bodies chosen by dtype and shape:
 
-* bf16 with d = dv in {32, 64, 80, 128, 256} and k <= 32 (the block-skip
-  schedule at 32, 64 and 128) — the tensor-core body
+* bf16 with d = dv in {32, 64, 80, 128, 256} and k <= 32, either
+  schedule — the tensor-core body
   (``csrc/flash_sfa_tc.cuh`` on ``csrc/attention_tc.cuh``, the dense bf16
   forward's schedule; built from ``flash_sfa_tc.cu``, and at 80 and 256
   from ``flash_sfa_tc_wide.cu``): one block of two warpgroups per (bh,
@@ -21,8 +21,8 @@ schedules (``block_skip=False``: Pallas body ``_flash_sfa_kernel``, helpers
   each computing the whole S and one 128-column half of O. Bound on the
   H100: operations, now on the tensor cores (4·d flops per (query, key)
   pair, 6·d with the split).
-* f32, and bf16 shapes outside that set (d ≠ dv, k > 32, block skip at 80
-  or 256) — the CUDA-core body of
+* f32, and bf16 shapes outside that set (d ≠ dv, k > 32) — the CUDA-core
+  body of
   ``csrc/flash_sfa.cu``: one block per (bh, 64-query tile), each key tile
   densified into shared memory as (64 × d) f32, scores gathered at each
   query's own k coordinates (k multiply-adds per score), online softmax
@@ -73,20 +73,17 @@ BLOCK = 64          # the kernels' level-map tile (csrc/flash_sfa.cu kBQ = kBK; 
 V_HEAD_DIMS = (32, 64, 80, 128, 256)  # dv, either body
 MAX_D = 256                   # d, either body
 TC_DIMS = (32, 64, 80, 128, 256)  # d = dv of the tensor-core bodies
-# their widths built apart (csrc/flash_sfa_tc_wide.cu); the block-skip
-# schedule has no tensor-core body at them
+# their widths built apart (csrc/flash_sfa_tc_wide.cu)
 WIDE_DIMS = (80, 256)
 TC_MAX_K = 32                 # their largest code width
 
 
-def tensor_core_body(dtype, d: int, dv: int, kq: int, kk: int,
-                     block_skip: bool = False) -> bool:
-    """Whether a call on the card runs the tensor-core body (forward and
-    backward alike): bf16 with d = dv in ``TC_DIMS`` and k <= 32, the
-    block-skip schedule not at the wide widths (80, 256)."""
+def tensor_core_body(dtype, d: int, dv: int, kq: int, kk: int) -> bool:
+    """Whether a call on the card runs the tensor-core body (the forward,
+    either schedule, and the backward alike): bf16 with d = dv in
+    ``TC_DIMS`` and k <= 32."""
     return (dtype == torch.bfloat16 and d == dv and dv in TC_DIMS
-            and 0 < kq <= TC_MAX_K and 0 < kk <= TC_MAX_K
-            and not (block_skip and dv in WIDE_DIMS))
+            and 0 < kq <= TC_MAX_K and 0 < kk <= TC_MAX_K)
 
 
 def tc_library(d: int) -> str:
@@ -179,8 +176,8 @@ def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
     schedule (``block_skip``: skip dead and zero-overlap tiles). On the card
     the code values and v share one dtype (f32 or bf16), indices are int32,
     d <= 256 and dv is in ``V_HEAD_DIMS``. bf16 with d = dv in ``TC_DIMS``
-    and k <= 32 runs the tensor-core body (block skip: not at 80 or 256),
-    everything else the CUDA-core body.
+    and k <= 32 runs the tensor-core body (either schedule), everything
+    else the CUDA-core body.
     """
     scale = float(scale if scale is not None else d ** -0.5)
     _build.refuse_grad("flash_sfa", q_vals, k_vals, v)
@@ -218,7 +215,7 @@ def flash_sfa(q_vals, q_idx, k_vals, k_idx, v, *, d: int, causal: bool = True,
     ptrs = (lse.data_ptr() if lse is not None else None,
             level.data_ptr() if level is not None else None,
             vsum.data_ptr() if vsum is not None else None)
-    if tensor_core_body(dt, d, dv, kq, kk, block_skip):
+    if tensor_core_body(dt, d, dv, kq, kk):
         v = _build.tma_operand(v)
         packed = packed_scratch(bh, nq, kq, nk, kk, v.device)
         lib = tc_library(d)

@@ -356,6 +356,13 @@ def code_grad_dw_ref(x, vals, idx, *, d: int):
     return torch.einsum("nm,hnd->hmd", x.float(), s)
 
 
+def rope_freqs(theta: float, rot_dim: int, device=None):
+    """RoPE's pair frequencies theta^(-2j / rot_dim), j < rot_dim / 2, f32:
+    the table ``models.layers.rope`` turns by and the one the proj_rtopk
+    kernels read, so both carry the same bits on one device."""
+    return theta ** (-torch.arange(0, rot_dim, 2, dtype=torch.float32, device=device) / rot_dim)
+
+
 def proj_rtopk_ref(x, w_heads, positions=None, *, k: int, rope_spec=None):
     """Fused head projection -> [RoPE] -> top-k: x (b, n, m), w_heads
     (H, m, d) -> (values (b, H, n, k) in x.dtype, int32 indices ascending).

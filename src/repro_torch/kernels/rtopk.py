@@ -29,14 +29,17 @@ indices are written).
 
 ``proj_rtopk`` replaces the TPU kernel ``repro/kernels/rtopk.py::proj_rtopk``
 (Pallas body ``_proj_rtopk_kernel``, ``_rope_tile``) with the CUDA kernels
-in ``csrc/proj_rtopk.cu``, which pick their body by dtype and shape alone
-(``tensor_core_body``):
+in ``csrc/proj_rtopk.cu`` (d 32, 64, 128) and ``csrc/proj_rtopk_wide.cu``
+(d in ``WIDE_HEAD_DIMS``: 80, 256; ``library`` names the source), which
+pick their body by dtype and shape alone (``tensor_core_body``):
 
   * bf16 x with d in ``PROJ_HEAD_DIMS`` and m a multiple of 8 — the tensor
     cores: Y = X·W as one GEMM on wgmma, a block owning 128 tokens × 128
     columns (128/d heads), x and w by TMA in chunks of 64 of m; w rounded
     to bf16 as contiguous (m, H·d) by a pack kernel once per call (a bf16
-    w with adjacent heads and 16-byte rows goes to TMA in place);
+    w with adjacent heads and 16-byte rows goes to TMA in place). At d 80
+    and 256 a block owns whole heads, 160 or 256 columns, and the pack
+    kernel writes wᵀ as (H·d, m) rows, which wgmma reads K-major;
   * f32 (on the tensor cores f32 would be TF32, which fails 1e-4) and the
     other shapes — the CUDA-core body: one block per (64-token tile, head,
     batch row), the (64, d) product in f32 registers, w read in place
@@ -63,6 +66,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import proj_rtopk_ref as proj_rtopk_plain
+from repro_torch.kernels.ref import rope_freqs
 from repro_torch.kernels.ref import rtopk_ref as rtopk_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,7 +75,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 256                    # rtopk's largest row width
 THREAD_HEAD_DIMS = (32, 64, 128)  # the row widths of rtopk's one-thread body
 THREAD_MAX_K = 16                 # and its largest k
-PROJ_HEAD_DIMS = (32, 64, 128)  # proj_rtopk's head dims d
+PROJ_HEAD_DIMS = (32, 64, 80, 128, 256)  # proj_rtopk's head dims d, either body
+WIDE_HEAD_DIMS = (80, 256)      # of them, those built apart (csrc/proj_rtopk_wide.cu)
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -120,10 +125,10 @@ rtopk.warp_body_launches = 0   # the warp body
 
 
 _PROJ_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
-              + [ctypes.c_int] + [ctypes.c_float] + [ctypes.c_int] * 3
+              + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 3
               + [ctypes.c_void_p])
 _PROJ_TC_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
-                 + [ctypes.c_int] + [ctypes.c_float] + [ctypes.c_int] * 2
+                 + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 2
                  + [ctypes.c_void_p])
 
 
@@ -132,6 +137,12 @@ def tensor_core_body(dtype, d: int, m: int) -> bool:
     this shape? (bf16, d in PROJ_HEAD_DIMS, m a multiple of 8: the rows of
     x and w that a TMA tile reads sit on 16 bytes.)"""
     return dtype == torch.bfloat16 and d in PROJ_HEAD_DIMS and m % 8 == 0
+
+
+def library(d: int) -> str:
+    """The source (``csrc/<name>.cu``) whose library holds proj_rtopk's
+    bodies at head dim d."""
+    return "proj_rtopk_wide" if d in WIDE_HEAD_DIMS else "proj_rtopk"
 
 
 def w_in_place(w_heads: torch.Tensor) -> bool:
@@ -144,47 +155,56 @@ def w_in_place(w_heads: torch.Tensor) -> bool:
 
 
 def _rope_args(positions, rope_spec, b, n, d, device):
+    """(positions (b, n) int32, the pairs' frequency table, rot_dim): the
+    table ``models.layers.rope`` turns by (``ref.rope_freqs``), computed on
+    the card, so the kernels' angles carry the plain version's bits."""
     if rope_spec is None:
-        return None, 0.0, 0
+        return None, None, 0
     if positions is None:
         raise ValueError("proj_rtopk: rope_spec needs positions")
     theta, rot = float(rope_spec[0]), int(rope_spec[1])
     if rot <= 0 or rot > d or rot % 2:
         raise ValueError(f"proj_rtopk: rot_dim {rot} must be even and <= d={d}")
     pos = torch.as_tensor(positions, device=device).expand(b, n).to(torch.int32).contiguous()
-    return pos, theta, rot
+    return pos, rope_freqs(theta, rot, device), rot
 
 
-def _proj_tensor_core(x, w_heads, pos, k, theta, rot, vals, idx):
+def _proj_tensor_core(x, w_heads, pos, k, freqs, rot, vals, idx):
     """The tensor-core body on checked bf16 x."""
     b, n, m = x.shape
     nh, _, d = w_heads.shape
     x = _build.tma_operand(x)
-    wpack = (None if w_in_place(w_heads) else
-             torch.empty((m, nh * d), dtype=torch.bfloat16, device=x.device))
-    fn = _build.entry("proj_rtopk", "proj_rtopk_tc_launch", _PROJ_TC_ARGS)
+    lib = library(d)
+    # the wide body always packs (wᵀ, (nh·d, m)); the other packs (m, nh·d)
+    # unless TMA reads w as it lies
+    wpack = (None if lib == "proj_rtopk" and w_in_place(w_heads) else
+             torch.empty((m * nh * d,), dtype=torch.bfloat16, device=x.device))
+    fn = _build.entry(lib, "proj_rtopk_tc_launch", _PROJ_TC_ARGS)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w_heads.data_ptr(),
                  pos.data_ptr() if pos is not None else None, vals.data_ptr(),
                  idx.data_ptr(), wpack.data_ptr() if wpack is not None else None, b, n, m,
-                 nh, d, w_heads.stride(0), w_heads.stride(1), k, theta, rot,
+                 nh, d, w_heads.stride(0), w_heads.stride(1), k,
+                 freqs.data_ptr() if freqs is not None else None, rot,
                  _DTYPES[w_heads.dtype], _build.stream_ptr(x))
-    _build.check("proj_rtopk", err, "proj_rtopk (tensor cores) launch")
+    _build.check(lib, err, "proj_rtopk (tensor cores) launch")
 
 
-def _proj_cuda_core(x, w_heads, pos, k, theta, rot, vals, idx):
+def _proj_cuda_core(x, w_heads, pos, k, freqs, rot, vals, idx):
     """The CUDA-core body on checked inputs."""
     b, n, m = x.shape
     nh, _, d = w_heads.shape
     x = x.contiguous()
-    fn = _build.entry("proj_rtopk", "proj_rtopk_launch", _PROJ_ARGS)
+    lib = library(d)
+    fn = _build.entry(lib, "proj_rtopk_launch", _PROJ_ARGS)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w_heads.data_ptr(),
                  pos.data_ptr() if pos is not None else None, vals.data_ptr(),
                  idx.data_ptr(), b, n, m, nh, d, w_heads.stride(0), w_heads.stride(1),
-                 k, theta, rot, _DTYPES[x.dtype], _DTYPES[w_heads.dtype],
+                 k, freqs.data_ptr() if freqs is not None else None, rot,
+                 _DTYPES[x.dtype], _DTYPES[w_heads.dtype],
                  _build.stream_ptr(x))
-    _build.check("proj_rtopk", err, "proj_rtopk launch")
+    _build.check(lib, err, "proj_rtopk launch")
 
 
 def proj_rtopk(x: torch.Tensor, w_heads: torch.Tensor, positions=None, *, k: int,
@@ -198,7 +218,7 @@ def proj_rtopk(x: torch.Tensor, w_heads: torch.Tensor, positions=None, *, k: int
     Returns (values (b, H, n, k) in x.dtype, indices (b, H, n, k) int32
     ascending) = rtopk of rope(x @ w_h.to(x.dtype)), the product summed in
     f32 and rounded to x.dtype. On the card x and w are f32 or bf16 and d
-    is 32, 64 or 128; the dtype and shape pick the body
+    is in ``PROJ_HEAD_DIMS``; the dtype and shape pick the body
     (``tensor_core_body``).
     """
     _build.refuse_grad("proj_rtopk", x, w_heads)
@@ -216,13 +236,13 @@ def proj_rtopk(x: torch.Tensor, w_heads: torch.Tensor, positions=None, *, k: int
                          f"and 0 < k <= d; got x {tuple(x.shape)} {x.dtype}, w "
                          f"{tuple(w_heads.shape)} {w_heads.dtype} strides "
                          f"{w_heads.stride()}, k={k}")
-    pos, theta, rot = _rope_args(positions, rope_spec, b, n, d, x.device)
+    pos, freqs, rot = _rope_args(positions, rope_spec, b, n, d, x.device)
     vals = torch.empty((b, nh, n, k), dtype=x.dtype, device=x.device)
     idx = torch.empty((b, nh, n, k), dtype=torch.int32, device=x.device)
     if tensor_core_body(x.dtype, d, m):
-        _proj_tensor_core(x, w_heads, pos, k, theta, rot, vals, idx)
+        _proj_tensor_core(x, w_heads, pos, k, freqs, rot, vals, idx)
     else:
-        _proj_cuda_core(x, w_heads, pos, k, theta, rot, vals, idx)
+        _proj_cuda_core(x, w_heads, pos, k, freqs, rot, vals, idx)
         proj_rtopk.cuda_core_launches += 1
     proj_rtopk.launches += 1
     return vals, idx

@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.shard import run_tp
 from repro_torch.kernels.code_grad import code_grad_dw, code_grad_dx
+from repro_torch.kernels.ref import rope_freqs
 
 
 class ParamTree(nn.Module):
@@ -173,8 +174,7 @@ def rope(x, positions, *, theta: float = 10_000.0, rot_dim: int | None = None):
     If rot_dim < head_dim only the leading rot_dim dims rotate."""
     d = x.shape[-1]
     rot = rot_dim or d
-    freqs = theta ** (-torch.arange(0, rot, 2, dtype=torch.float32,
-                                    device=x.device) / rot)
+    freqs = rope_freqs(theta, rot, x.device)
     ang = positions[..., None].float() * freqs                 # (..., s, rot/2)
     cos, sin = _cos_sin(ang)
     cos, sin = cos[..., None, :], sin[..., None, :]             # (..., s, 1, rot/2)

@@ -100,11 +100,12 @@ def test_cuda_fm_declines_the_same_decode_shapes():
 
 
 @pytest.mark.parametrize("shape,reason", [
-    (dict(head_dim=16), "proj_rtopk"), (dict(head_dim=256), "proj_rtopk"),
+    (dict(head_dim=16), "proj_rtopk"), (dict(head_dim=256), None),
     (dict(sfa_k=40), "k <= 32")])
 def test_compact_seam_declines_shapes_its_kernels_do_not_take(shape, reason):
     cfg = _with(get_config("gpt2-small-sfa8"), bwd_emit="compact", **shape)
-    assert reason in attn.compact_seam_ineligible_reason(cfg)
+    got = attn.compact_seam_ineligible_reason(cfg)
+    assert got is None if reason is None else reason in got
     assert attn.compact_seam_ineligible_reason(
         _with(get_config("gpt2-small-sfa8"), bwd_emit="compact")) is None
 

@@ -9,7 +9,7 @@ each chunk of 64 tokens adds its bf16 products hi·x and lo·x into an f32
 accumulator, each token split keeps its own, and the splits add in order.
 Its dx body computes dx = S·Wᵀ as one GEMM over the head-feature axis from
 the same hi and lo tiles and w split into bf16 hi + lo = bf16(w − hi):
-per head in order, per step of min(d, 64) features, S_hi·W_hiᵀ +
+per head in order, per step of 64 features (32 at d 32 and 80), S_hi·W_hiᵀ +
 S_hi·W_loᵀ + S_lo·W_hiᵀ into an f32 accumulator (S_lo·W_loᵀ, below 2^-16
 of a product, is left out; a bf16 w has no lo). At code width 32 (a k-16
 RoPE model's pair closure) the bodies are the same, with twice the packed
@@ -22,7 +22,8 @@ atol 1e-4·max (f32 sums in another order; ~16 bits of each summed
 duplicate and of each f32 weight). Inputs are bf16 codes (and x), as on the
 compact seam, with duplicates planted on every 7th row, padding rows,
 indices outside [0, d), and the 2k pair closure of RoPE at k 8 and 16 (code
-widths 16 and 32, the latter at d 64 and 128); n, m and the head
+widths 16 and 32, the latter at d 64 and 128), at d 32, 64, 80, 128 and 256;
+n, m and the head
 count ragged to the bodies' 64-token chunks, 128-token and 128-column
 blocks; w f32 (a strided per-head view of a packed weight) and bf16. On
 exact inputs (codes in {-1, 1} with a 1 + 2^-9 duplicate and a w whose lo
@@ -44,7 +45,8 @@ from repro_torch.kernels import (
     body_counts, code_grad_dw, code_grad_dx, launch_counts, reset_launches,
 )
 from repro_torch.kernels.code_grad import (
-    CUDA_CORE_SHAPES, TC_HEAD_DIMS, TC_KW, _DW_MAX_SPLITS, tc_splits, tensor_core_body,
+    CUDA_CORE_SHAPES, TC_HEAD_DIMS, TC_KW, _DW_MAX_SPLITS, dw_feature_blocks, library,
+    tc_splits, tensor_core_body,
 )
 from repro_torch.kernels.flash_sfa_bwd import pair_closure_indices
 from repro_torch.kernels.ops import head_blocks
@@ -113,7 +115,8 @@ def _close(got, want):
 
 CASES = [(3, 300, 200, 64, 8, False), (3, 300, 200, 64, 8, True), (5, 257, 136, 32, 8, True),
          (2, 190, 264, 128, 8, False), (2, 130, 128, 128, 8, True), (4, 64, 64, 32, 8, False),
-         (2, 200, 136, 128, 16, True), (3, 130, 264, 64, 16, True)]
+         (2, 200, 136, 128, 16, True), (3, 130, 264, 64, 16, True), (3, 130, 136, 80, 8, False),
+         (2, 130, 136, 256, 16, True)]
 
 
 @pytest.mark.parametrize("nh,n,m,d,k,closure", CASES)
@@ -155,11 +158,16 @@ def test_duplicates_need_the_lo_tile():
 
 
 def test_body_routing_by_dtype_and_shape():
-    """bf16 with d in {32, 64, 128}, kw in {8, 16, 32} and m a multiple of 8
-    takes the tensor cores, but for width 32 at d 32 (CUDA_CORE_SHAPES: dW's
-    staged rows would not fit a block's shared memory); f32 and every other
-    shape the CUDA-core body."""
-    assert TC_HEAD_DIMS == (32, 64, 128) and TC_KW == (8, 16, 32)
+    """bf16 with d in {32, 64, 80, 128, 256}, kw in {8, 16, 32} and m a
+    multiple of 8 takes the tensor cores (80 and 256 from the wide source),
+    but for width 32 at d 32 (CUDA_CORE_SHAPES: dW's staged rows would not
+    fit a block's shared memory); f32 and every other shape the CUDA-core
+    body."""
+    assert TC_HEAD_DIMS == (32, 64, 80, 128, 256) and TC_KW == (8, 16, 32)
+    for d in TC_HEAD_DIMS:
+        assert library(d) == ("code_grad_wide" if d in (80, 256) else "code_grad")
+    assert tensor_core_body(torch.bfloat16, 80, 16, 1280)     # hubert-xlarge's seam
+    assert tensor_core_body(torch.bfloat16, 256, 32, 2048)    # paligemma-3b's, compact2
     assert CUDA_CORE_SHAPES == ((32, 32),)
     assert tensor_core_body(torch.bfloat16, 64, 8, 768)       # the compact seam
     assert tensor_core_body(torch.bfloat16, 64, 16, 768)      # its pair closure
@@ -172,20 +180,21 @@ def test_body_routing_by_dtype_and_shape():
             assert tensor_core_body(torch.bfloat16, d, kw, 136) == ((d, kw) != (32, 32))
             assert not tensor_core_body(torch.float32, d, kw, 768)
             assert not tensor_core_body(torch.bfloat16, d, kw, 130)
-    for d, kw in ((16, 8), (96, 8), (256, 16), (64, 4), (32, 32), (256, 32), (64, 64),
-                  (32, 12), (128, 24)):
+    for d, kw in ((16, 8), (96, 8), (48, 16), (64, 4), (32, 32), (192, 32), (64, 64),
+                  (32, 12), (128, 24), (80, 24), (256, 64)):
         assert not tensor_core_body(torch.bfloat16, d, kw, 768)
 
 
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 255, 256, 1000, 8191, 8192, 65536])
-@pytest.mark.parametrize("nh,d,m", [(12, 64, 768), (3, 32, 200), (16, 128, 2048)])
+@pytest.mark.parametrize("nh,d,m", [(12, 64, 768), (3, 32, 200), (16, 128, 2048),
+                                    (16, 80, 1280), (1, 256, 2048)])
 def test_token_splits_cover_every_token_once(n, nh, d, m):
     """Whole 64-token chunks per split, none empty, every token in one
     split, and one wave of blocks on the H100's 132 SMs."""
     splits, split_len = tc_splits(n, nh, d, m, H100_SMS)
     assert split_len % TOK == 0 and 1 <= splits <= _DW_MAX_SPLITS
     assert (splits - 1) * split_len < n <= splits * split_len
-    tiles = -(-nh * d // 128) * -(-m // 128)
+    tiles = dw_feature_blocks(nh, d) * -(-m // 128)
     assert splits == 1 or splits * tiles <= H100_SMS
     assert splits == 1 or split_len >= 4 * TOK
 
@@ -209,7 +218,10 @@ def test_main_path_split_and_the_cuda_core_counter():
 # dx
 # --------------------------------------------------------------------------
 
-STEP = 64         # features of the dx body's step (csrc: F = min(d, 64))
+def dx_step(d):
+    """Features of the dx body's step (csrc DxSteps): 64 where 64 divides d,
+    else 32 (d 80: three steps, the last half zero)."""
+    return 64 if d % 64 == 0 else 32
 
 
 def split_w(w):
@@ -220,14 +232,15 @@ def split_w(w):
 
 
 def emulate_dx(vals, idx, w, d, lo_products=True, w_lo_products=True):
-    """The dx body: per head in order, per step of min(d, 64) features,
+    """The dx body: per head in order, per step of ``dx_step(d)`` features,
     acc += S_hi·W_hiᵀ (+ S_hi·W_loᵀ) (+ S_lo·W_hiᵀ), f32 -> (n, m)."""
     hi, lo = densify_hi_lo(vals, idx, d)
     whi, wlo = split_w(w)
     acc = torch.zeros(vals.shape[1], w.shape[1])
+    step = dx_step(d)
     for h in range(vals.shape[0]):
-        for f0 in range(0, d, STEP):
-            f = slice(f0, f0 + STEP)
+        for f0 in range(0, d, step):
+            f = slice(f0, f0 + step)
             acc = acc + hi[h][:, f] @ whi[h][:, f].T
             if w_lo_products:
                 acc = acc + hi[h][:, f] @ wlo[h][:, f].T
@@ -248,7 +261,8 @@ DX_CASES = [(3, 300, 200, 64, 8, False, False), (3, 300, 200, 64, 8, True, False
             (12, 130, 768, 64, 8, False, False), (5, 257, 136, 32, 8, True, True),
             (2, 190, 264, 128, 8, False, True), (2, 130, 128, 128, 8, True, False),
             (4, 64, 64, 32, 8, False, False), (3, 200, 136, 128, 16, True, False),
-            (2, 190, 264, 64, 16, True, True)]
+            (2, 190, 264, 64, 16, True, True), (3, 130, 136, 80, 8, False, False),
+            (2, 130, 264, 256, 16, True, True)]
 
 
 @pytest.mark.parametrize("nh,n,m,d,k,closure,bf16_w", DX_CASES)
@@ -329,13 +343,16 @@ def test_dx_duplicates_need_the_s_lo_products():
 
 def test_dx_body_routing_by_dtype_and_shape():
     """dx takes the tensor cores on the same rule as dW — bf16 codes, d in
-    {32, 64, 128}, kw in {8, 16, 32} (not 32 at d 32), m a multiple of 8 —
+    {32, 64, 80, 128, 256}, kw in {8, 16, 32} (not 32 at d 32), m a
+    multiple of 8 —
     whatever w's dtype; f32 codes and every other shape take the CUDA-core
     body. On the CPU the wrapper counts neither body."""
     assert tensor_core_body(torch.bfloat16, 64, 8, 768)       # the compact seam's dx
     assert tensor_core_body(torch.bfloat16, 64, 16, 768)      # the pair closure's
     assert tensor_core_body(torch.bfloat16, 128, 32, 3072)    # llama3.2-3b's, k 16
     assert tensor_core_body(torch.bfloat16, 64, 32, 768)
+    assert tensor_core_body(torch.bfloat16, 80, 16, 1280)     # hubert-xlarge's
+    assert tensor_core_body(torch.bfloat16, 256, 32, 2048)    # paligemma-3b's pair closure
     assert not tensor_core_body(torch.bfloat16, 32, 32, 64)   # the reduced llama's
     assert not tensor_core_body(torch.float32, 128, 32, 3072)
     assert not tensor_core_body(torch.float32, 64, 8, 768)

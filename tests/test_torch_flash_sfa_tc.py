@@ -176,8 +176,6 @@ def test_the_main_path_shape_takes_the_tensor_core_body():
     assert not tensor_core_body(torch.float32, 64, 64, 8, 8)       # exact CUDA-core f32
     assert not tensor_core_body(torch.bfloat16, 64, 128, 8, 8)     # d != dv
     assert tensor_core_body(torch.bfloat16, 256, 256, 8, 8)        # two warpgroups a block
-    assert tensor_core_body(torch.bfloat16, 64, 64, 8, 8, block_skip=True)
-    assert not tensor_core_body(torch.bfloat16, 256, 256, 8, 8, block_skip=True)
     assert not tensor_core_body(torch.bfloat16, 64, 64, 33, 8)
 
 

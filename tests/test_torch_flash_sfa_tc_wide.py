@@ -173,12 +173,10 @@ def test_wide_widths_take_the_tensor_core_bodies_in_bf16_only():
         assert tensor_core_body(torch.bfloat16, d, d, 32, 32)
         assert tc_library(d) == "flash_sfa_tc_wide"
         assert not tensor_core_body(torch.float32, d, d, 16, 16)       # exact CUDA-core f32
-        # the block-skip schedule stays on the CUDA-core body at these widths
-        assert not tensor_core_body(torch.bfloat16, d, d, 16, 16, block_skip=True)
         assert not tensor_core_body(torch.bfloat16, d, d, 33, 16)
     assert not tensor_core_body(torch.bfloat16, 256, 80, 16, 16)       # d != dv
     for d in (32, 64, 128):
-        assert tensor_core_body(torch.bfloat16, d, d, 8, 8, block_skip=True)
+        assert tensor_core_body(torch.bfloat16, d, d, 8, 8)
         assert tc_library(d) == "flash_sfa_tc"
 
 

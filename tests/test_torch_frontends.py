@@ -216,10 +216,10 @@ def test_cuda_backend_declares_bidirectional_and_hubert_resolves_to_it():
     a = get_config("hubert-xlarge").attention
     req = attn._request(a, mode="full", window=None)
     assert req.causal is False and resolve_backend_name("auto", req) == "cuda"
-    # no RoPE and head dim 80: the compact seam declines, hubert trains on the dense emit
+    # no RoPE and head dim 80: a compact request takes the seam, as in the reference
     c = dataclasses.replace(get_config("hubert-xlarge"), attention=dataclasses.replace(
         a, bwd_emit="compact"))
-    assert "proj_rtopk" in attn.compact_seam_ineligible_reason(c)
+    assert attn.compact_seam_ineligible_reason(c) is None
 
 
 def _codes(rs, bh, n, k, d):

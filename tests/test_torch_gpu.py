@@ -314,7 +314,8 @@ def test_proj_rtopk_kernel_on_card_exact_inputs(cuda, d, rope_on):
     """Dyadic f32 inputs: every sum is exact in any order, so indices are
     equal and values bit-equal (ties planted by the small integer grid).
     With RoPE the angle pos·θ^(-2j/d) carries about one ulp of itself
-    (pos·2^-24) from the card's powf against the CPU's pow, so rotated
+    (pos·2^-24) from the frequency table's pow on the card against the
+    CPU's (``ref.rope_freqs`` on each device), so rotated
     values may differ by about n·2^-23 relative, and rows may change index
     only at a near-tie of that size."""
     rs = np.random.RandomState(12)
@@ -406,6 +407,34 @@ def test_flash_sfa_block_skip_kernel_on_card(cuda, causal, banded):
     ko, kl = flash_sfa(*args, d=d, causal=causal, return_residuals=True, block_skip=True)
     po, pl = ref.flash_sfa_ref(*args, d=d, causal=causal, return_residuals=True)
     torch.testing.assert_close(ko, po, rtol=0, atol=1e-4)
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [80, 256])
+def test_flash_sfa_block_skip_closed_form_at_wide_dims_on_card(cuda, d, causal):
+    """The block-skip schedule on the wide tensor-core bodies (d 80: the
+    closed form leaves the padding columns 80-95 alone; d 256: both
+    warpgroups of a block read the one level of their shared rows, each
+    its column half of vsum) on banded bf16 codes, k 16, which send most
+    live tile pairs down the closed form, against the plain version."""
+    from repro_torch.kernels import block_skip_stats
+    rs = np.random.RandomState(16)
+    bh, n, k = 4, 1000, 16
+    band = (np.arange(n) // 64) % (d // k)
+    qi = np.broadcast_to((band[:, None] * k + np.arange(k)).astype(np.int32), (bh, n, k))
+    qv, kv = rs.randn(bh, n, k).astype(np.float32), rs.randn(bh, n, k).astype(np.float32)
+    v = rs.randn(bh, n, d).astype(np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (qv, qi, kv, qi, v)]
+    for i in (0, 2, 4):
+        args[i] = args[i].bfloat16()
+    s0, s1, _ = block_skip_stats(*args[:4], d=d, causal=causal)
+    assert s1 > 0.5 * (1 - s0)
+    reset_launches()
+    ko, kl = flash_sfa(*args, d=d, causal=causal, return_residuals=True, block_skip=True)
+    assert body_counts()["flash_sfa_cuda_core"] == 0
+    po, pl = ref.flash_sfa_ref(*args, d=d, causal=causal, return_residuals=True)
+    torch.testing.assert_close(ko.float(), po.float(), rtol=2 ** -7, atol=1e-4)
     torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
 
 
@@ -774,7 +803,9 @@ def test_short_embedding_model_runs_on_the_card_under_auto(cuda):
     (nh, n, m, d, kw) for nh, n, m, d in ((12, 2048, 768, 64), (5, 1000, 200, 32),
                                           (3, 777, 136, 128), (2, 70, 64, 64), (2, 30, 40, 64))
     for kw in (8, 16)] + [(8, 2048, 768, 128, 32), (3, 777, 136, 128, 32),
-                          (3, 1000, 200, 64, 32), (2, 30, 40, 64, 32)])
+                          (3, 1000, 200, 64, 32), (2, 30, 40, 64, 32),
+                          (16, 1000, 1280, 80, 16), (3, 777, 136, 80, 8), (2, 300, 200, 80, 32),
+                          (1, 1000, 2048, 256, 32), (3, 777, 136, 256, 16), (2, 30, 40, 256, 8)])
 def test_code_grad_dw_tensor_core_body_on_card(cuda, nh, n, m, d, kw, dups):
     """bf16 dW on the tensor cores against its plain version and against the
     CUDA-core body on the same inputs (rtol 1e-4, atol 1e-4 max|dW|: f32
@@ -785,8 +816,10 @@ def test_code_grad_dw_tensor_core_body_on_card(cuda, nh, n, m, d, kw, dups):
     {-1, 1}, x in {-1, 0, 1}, a duplicate 1 + 2^-9 through the lo tile)
     equal to the plain version bit for bit; body_counts() shows the body.
     Without duplicates (as rtopk's codes: padding rows repeat a zero) the
-    body runs no lo products. Widths 8 and 16 at d 32, 64 and 128, width 32
-    (a k-16 RoPE model's pair closure) at d 64 and 128."""
+    body runs no lo products. Widths 8 and 16 at d 32, 64, 80, 128 and 256,
+    width 32 (a k-16 RoPE model's pair closure) at d 64, 80, 128 and 256
+    (80 and 256 from code_grad_wide.cu: hubert-xlarge's and paligemma-3b's
+    seams)."""
     import repro_torch.kernels.code_grad as cg
     rs = np.random.RandomState(17)
     vals, idx = _codes(rs, nh, n, kw, d)
@@ -840,7 +873,9 @@ def test_code_grad_dw_routes_other_shapes_to_cuda_cores(cuda):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("b,n,m,nh,d", [(2, 1000, 200, 3, 64), (2, 300, 768, 12, 64),
-                                        (1, 777, 200, 5, 32), (1, 260, 136, 3, 128)])
+                                        (1, 777, 200, 5, 32), (1, 260, 136, 3, 128),
+                                        (2, 300, 1280, 16, 80), (1, 200, 136, 3, 80),
+                                        (1, 260, 2048, 8, 256), (2, 200, 136, 1, 256)])
 @pytest.mark.parametrize("rot", [None, "d", "half"])
 @pytest.mark.parametrize("k", [8, 16, 24])
 def test_proj_rtopk_tensor_core_body_on_card(cuda, b, n, m, nh, d, rot, k):
@@ -848,8 +883,10 @@ def test_proj_rtopk_tensor_core_body_on_card(cuda, b, n, m, nh, d, rot, k):
     any order) indices equal and values bit-equal to the plain version on
     the card, with and without RoPE, k 8 and 16 (one thread selects a row)
     and 24 (one warp a row), for the strided f32 view of a packed w (the
-    pack kernel), its bf16 view (TMA in place) and a contiguous bf16 w
-    (packed); two calls equal; body_counts() 0, and 1 for f32 x."""
+    pack kernel), its bf16 view (TMA in place; at d 80 and 256, whose
+    blocks read wᵀ, packed too) and a contiguous bf16 w (packed); two calls
+    equal; body_counts() 0, and 1 for f32 x (the CUDA-core body, also at
+    80 and 256)."""
     from repro_torch.kernels.ops import head_blocks
     from repro_torch.kernels.rtopk import tensor_core_body, w_in_place
     rs = np.random.RandomState(20)
@@ -862,7 +899,8 @@ def test_proj_rtopk_tensor_core_body_on_card(cuda, b, n, m, nh, d, rot, k):
     assert tensor_core_body(torch.bfloat16, d, m)
     views = (head_blocks(w, 1, nh, d), head_blocks(w.bfloat16(), 0, nh, d),
              head_blocks(w, 0, nh, d).bfloat16().contiguous())
-    assert [w_in_place(v) for v in views] == [False, True, False]
+    # a single head's contiguous copy has the in-place layout too
+    assert [w_in_place(v) for v in views] == [False, True, nh == 1]
     for wh in views:
         reset_launches()
         kv, ki = proj_rtopk(xb, wh, p, k=k, rope_spec=spec)
@@ -894,7 +932,7 @@ def test_proj_rtopk_tensor_core_body_random_on_card(cuda):
     pv, pi = ref.proj_rtopk_ref(x, wh, k=k)
     cv = torch.empty_like(kv)
     ci = torch.empty_like(ki)
-    rt._proj_cuda_core(x, wh, None, k, 0.0, 0, cv, ci)
+    rt._proj_cuda_core(x, wh, None, k, None, 0, cv, ci)
     y = torch.einsum("bnm,hmd->bhnd", x.float(), wh.bfloat16().float()).bfloat16()
     for vals, idx in ((pv, pi), (cv, ci)):
         diff, tie = near_tie_rows(y, ki, idx, k, 2.0 ** -6)
@@ -907,7 +945,9 @@ def test_proj_rtopk_tensor_core_body_random_on_card(cuda):
                                          (5, 1000, 200, 32, 8), (3, 777, 136, 128, 16),
                                          (4, 300, 72, 128, 8), (2, 30, 40, 32, 16),
                                          (8, 2048, 768, 128, 32), (3, 777, 136, 128, 32),
-                                         (3, 1000, 200, 64, 32), (2, 30, 40, 64, 32)])
+                                         (3, 1000, 200, 64, 32), (2, 30, 40, 64, 32),
+                                         (16, 1000, 1280, 80, 16), (3, 300, 136, 80, 32),
+                                         (1, 1000, 2048, 256, 32), (2, 300, 136, 256, 16)])
 def test_code_grad_dx_tensor_core_body_on_card(cuda, nh, n, m, d, kw):
     """bf16 codes on the tensor cores: random codes (duplicates, padding
     rows, indices outside [0, d)) against the plain version and the
@@ -918,7 +958,8 @@ def test_code_grad_dx_tensor_core_body_on_card(cuda, nh, n, m, d, kw):
     no duplicate against w in multiples of 2^-12 with a nonzero lo part,
     or a bf16 w: the body leaves out S_lo.W_lo); two calls equal;
     body_counts() 0, and 1 for f32 codes. Widths 8 and 16 at d 32, 64 and
-    128, width 32 at d 64 and 128."""
+    128, width 32 at d 64 and 128; at d 80 (steps of 32 features, the last
+    half zero) and 256 (four steps of 64), widths 16 and 32."""
     import repro_torch.kernels.code_grad as cg
     from repro_torch.kernels.ops import head_blocks
     rs = np.random.RandomState(22)
@@ -1075,14 +1116,16 @@ def test_moe_layer_on_card_gives_the_same_bits_twice_and_its_cpu_result(cuda):
 # tensor-core bodies (flash_sfa_tc_wide.cu), f32 on the CUDA-core ones
 # --------------------------------------------------------------------------
 
+@pytest.mark.parametrize("block_skip", [False, True])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d,n,dtype", [(80, 1000, torch.float32), (80, 1000, torch.bfloat16),
                                        (256, 333, torch.float32), (256, 333, torch.bfloat16)])
-def test_flash_sfa_at_frontend_head_dims_on_card(cuda, d, n, dtype, causal):
-    """Rows 3 and 5 at d = dv 80 and 256 (k 16, ragged n, both masks)
-    against the plain versions: bf16 on the tensor-core bodies (no
-    CUDA-core launch), the backward with every emit; f32 on the CUDA-core
-    bodies, whose backward declines dv 256 in its wrapper."""
+def test_flash_sfa_at_frontend_head_dims_on_card(cuda, d, n, dtype, causal, block_skip):
+    """Rows 3 (both schedules: row 4 is the block-skip one) and 5 at d = dv
+    80 and 256 (k 16, ragged n, both masks) against the plain versions:
+    bf16 on the tensor-core bodies (no CUDA-core launch), the backward with
+    every emit; f32 on the CUDA-core bodies, whose backward declines dv 256
+    in its wrapper."""
     rs = np.random.RandomState(12)
     bh, k = 6, 16
     qv, qi = _codes(rs, bh, n, k, d)
@@ -1092,10 +1135,12 @@ def test_flash_sfa_at_frontend_head_dims_on_card(cuda, d, n, dtype, causal):
     qv_, kv_, v_, g_ = (t.to(dtype) for t in (qv_, kv_, v_, g_))
     tc = dtype == torch.bfloat16
     reset_launches()
-    ko, kl = flash_sfa(qv_, qi_, kv_, ki_, v_, d=d, causal=causal, return_residuals=True)
+    ko, kl = flash_sfa(qv_, qi_, kv_, ki_, v_, d=d, causal=causal, return_residuals=True,
+                       block_skip=block_skip)
     po, pl = ref.flash_sfa_ref(qv_, qi_, kv_, ki_, v_, d=d, causal=causal,
                                return_residuals=True)
     assert body_counts()["flash_sfa_cuda_core"] == (0 if tc else 1)
+    assert launch_counts()["flash_sfa_block_skip"] == int(block_skip)
     # f32: sums in another order, 1e-4; bf16 output: one bf16 ulp (2^-7 rel)
     rtol = 2 ** -7 if tc else 0
     torch.testing.assert_close(ko.float(), po.float(), rtol=rtol, atol=1e-4)

@@ -14,7 +14,9 @@ indices equal and values bit-equal; on random inputs a row may pick
 another index set only at a near-tie of two bf16 roundings (2^-6 relative
 between its k-th and (k+1)-th magnitudes), the other rows' values within
 one bf16 ulp. n, m and the head count are ragged to the body's 128-token
-and 128-column blocks and 64-wide chunks.
+and 128-column blocks and 64-wide chunks; d 80 and 256 (``csrc/
+proj_rtopk_wide.cu``: blocks of whole heads, the same 64-wide chunks of m)
+as well.
 
 The routing (which body a dtype and shape take, whether TMA reads a bf16
 w in place) is pure Python and checked here too; the bodies themselves run
@@ -29,7 +31,9 @@ from repro.kernels.rtopk import proj_rtopk as jax_proj_rtopk
 from repro_torch.kernels import body_counts, launch_counts, proj_rtopk, reset_launches
 from repro_torch.kernels.ops import head_blocks
 from repro_torch.kernels.ref import proj_rtopk_ref, rtopk_ref
-from repro_torch.kernels.rtopk import PROJ_HEAD_DIMS, tensor_core_body, w_in_place
+from repro_torch.kernels.rtopk import (
+    PROJ_HEAD_DIMS, WIDE_HEAD_DIMS, library, tensor_core_body, w_in_place,
+)
 from repro_torch.models.layers import rope
 
 CHUNK = 64        # m of the body's chunk (csrc kTcK)
@@ -93,7 +97,8 @@ def _near_ties_only(y, got, want, k):
 
 
 CASES = [(2, 200, 200, 3, 64), (1, 128, 128, 2, 64), (2, 130, 136, 5, 32),
-         (1, 77, 256, 3, 128), (1, 300, 72, 2, 128)]
+         (1, 77, 256, 3, 128), (1, 300, 72, 2, 128), (1, 130, 136, 3, 80),
+         (1, 96, 200, 1, 256)]
 
 
 @pytest.mark.parametrize("b,n,m,nh,d", CASES)
@@ -144,9 +149,12 @@ def test_chunked_sum_changes_rows_only_at_near_ties_at_gpt2_width():
 
 
 def test_body_routing_by_dtype_and_shape():
-    """bf16 x with d in {32, 64, 128} and m a multiple of 8 takes the tensor
-    cores; f32 and every other shape the CUDA-core body."""
-    assert PROJ_HEAD_DIMS == (32, 64, 128)
+    """bf16 x with d in {32, 64, 80, 128, 256} and m a multiple of 8 takes
+    the tensor cores (80 and 256 from the wide source); f32 and every other
+    shape the CUDA-core body."""
+    assert PROJ_HEAD_DIMS == (32, 64, 80, 128, 256) and WIDE_HEAD_DIMS == (80, 256)
+    for d in PROJ_HEAD_DIMS:
+        assert library(d) == ("proj_rtopk_wide" if d in (80, 256) else "proj_rtopk")
     assert tensor_core_body(torch.bfloat16, 64, 768)          # gpt2's compact seam
     for d in PROJ_HEAD_DIMS:
         assert tensor_core_body(torch.bfloat16, d, 200)
@@ -154,7 +162,9 @@ def test_body_routing_by_dtype_and_shape():
         assert not tensor_core_body(torch.float32, d, 768)
         assert not tensor_core_body(torch.bfloat16, d, 196)
         assert not tensor_core_body(torch.float16, d, 768)
-    for d in (16, 48, 96, 256):
+    assert tensor_core_body(torch.bfloat16, 80, 1280)         # hubert-xlarge's seam
+    assert tensor_core_body(torch.bfloat16, 256, 2048)        # paligemma-3b's
+    for d in (16, 48, 96, 192):
         assert not tensor_core_body(torch.bfloat16, d, 768)
 
 

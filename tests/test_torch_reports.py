@@ -22,6 +22,7 @@ from repro.models import loss_fn as jax_loss_fn
 from repro_torch.configs import get_config
 from repro_torch.core import reports
 from repro_torch.core.remat import remat_reports
+from repro_torch.kernels.rtopk import PROJ_HEAD_DIMS
 from repro_torch.models.attention import compact_seam_reports
 from repro_torch.models.backends import fallback_reports
 from repro_torch.models.model import init, loss_fn, param_tree
@@ -106,19 +107,23 @@ def test_collect_reports_match_the_reference(arch, remat, attention, what):
     reports.clear_reports()
 
 
-def test_head_dim_the_port_declines_is_reported_where_pallas_takes_it():
-    """paligemma at its head dim of 256: Pallas's fused seam takes any d, the
-    port's ``proj_rtopk`` d in {32, 64, 128} only (ROADMAP B.1 item 4), so
-    here the port's compact-seam record differs from the reference's: not
-    eligible, with the head dim as its reason."""
-    full = get_config("paligemma-3b").attention.head_dim
-    attention = dict(backend="pallas", bwd_emit="compact", head_dim=full)
+@pytest.mark.parametrize("head_dim", [256, 96])
+def test_head_dim_the_port_declines_is_reported_where_pallas_takes_it(head_dim):
+    """Pallas's fused seam takes any d. The port's seam kernels take d in
+    ``PROJ_HEAD_DIMS`` (32, 64, 80, 128, 256): at paligemma's own head dim
+    of 256 both packages record the seam taken; at 96, which no CUDA body
+    takes (a port limit, ROADMAP B.1), the port's record differs from the
+    reference's: not eligible, with the head dim as its reason."""
+    taken = head_dim in PROJ_HEAD_DIMS
+    assert taken == (head_dim == get_config("paligemma-3b").attention.head_dim)
+    attention = dict(backend="pallas", bwd_emit="compact", head_dim=head_dim)
     (jseam,) = [r for r in _jax_reports("paligemma-3b", "full", attention)
                 if r.component == "compact_seam"]
     (tseam,) = [r for r in _torch_reports("paligemma-3b", "full", attention)
                 if r.component == "compact_seam"]
     assert jseam.eligible and jseam.where == tseam.where
-    assert not tseam.eligible and str(full) in tseam.reason
+    assert tseam.eligible == taken
+    assert taken or str(head_dim) in tseam.reason
     reports.clear_reports()
 
 

@@ -256,7 +256,10 @@ def test_one_thread_body_is_the_instantiated_shapes():
         assert not rtopk_module.one_thread_body(d, 17)
     assert not any(rtopk_module.one_thread_body(d, 8) for d in (20, 48, 96, 256))
     assert '#include "topk_select.cuh"' in src
-    assert '#include "topk_select.cuh"' in (CSRC / "proj_rtopk.cu").read_text()
+    # proj_rtopk's two sources share the selection through their common header
+    assert '#include "topk_select.cuh"' in (CSRC / "proj_rtopk.cuh").read_text()
+    for name in ("proj_rtopk.cu", "proj_rtopk_wide.cu"):
+        assert '#include "proj_rtopk.cuh"' in (CSRC / name).read_text()
 
 
 def test_warp_body_counter_is_a_body_counter():

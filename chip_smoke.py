@@ -45,9 +45,11 @@ Phases; any failure raises and the script exits non-zero:
                CUDA-core bodies in f32, each against its plain version:
                rows 1, 3, 5 at hubert-xlarge's training shape (bh 8 x 16,
                n 1024, d = dv 80, k 16, bidirectional; row 3 causal too;
-               row 5 in bf16 with every emit), rows 1, 3, 5 at
+               row 5 in bf16 and f32 with every emit), rows 1, 3, 5 at
                paligemma-3b's prefill (8 heads, n 1024, d = dv 256, k 16;
-               row 5 bf16 only) and rows 10-14 at its decode step (8 slots
+               row 5 in f32 on the CUDA-core body's 32-row tiles too, every
+               emit, timed as the shape "PG f32") and rows 10-14 at its
+               decode step (8 slots
                x 8 query heads over 1 kv head, dv 256; run boundaries, a
                zero-length slot, the bit-equalities), the shapes "HB" and
                "PG" of each row, after the new instantiations' ptxas
@@ -60,7 +62,12 @@ Phases; any failure raises and the script exits non-zero:
                proj_rtopk_wide.cu, flash_sfa_tc_wide.cu (block skip) and
                code_grad_wide.cu, f32 on the CUDA-core ones, each against
                its plain version, the shapes "HBs" and "PGs", after those
-               sources' ptxas registers, spills and shared memory;
+               sources' ptxas registers, spills and shared memory; then
+               (``phase_llama8b_deepseek_shapes``) rows 2, 4, 8 and 9 at
+               llama3-8b's RoPE compact seam (x 8 x 1024 x 4096, 32 query
+               heads over 8 kv heads of 128, k 16, width 32) and rows 1, 3
+               and 5 at deepseek-7b's training shape (bh 8 x 32, n 1024, d
+               128, k 16), the shapes "L8" and "D7";
   4. engine  — the serving main path at full width: gpt2-small-sfa8
                (12 layers, d_model 768, 12 heads of 64, SFA k=8, vocab
                50,257), bf16, random weights from a seed, through
@@ -87,7 +94,7 @@ Phases; any failure raises and the script exits non-zero:
                streams equal or parted at a near-tie; then the serving
                launcher with ``--no-reduced --paged --speculative`` and
                ``--decode-backend cuda_fm --paged``;
-  4e. qwen3  — qwen3-0.6b-sfa8 at full width and 14 of its 28 layers (d_model
+  4e. qwen3  — qwen3-0.6b-sfa8 at full width and 7 of its 28 layers (d_model
                1024, 16 heads over 8 kv heads of 128, k 8, vocab 151,936),
                bf16, random weights from the seed: the same 8 requests
                through the slot engine (its KV cache at rest equal to
@@ -101,7 +108,8 @@ Phases; any failure raises and the script exits non-zero:
                fit), bf16: the slot engine (decode launches = layers x
                steps, the KV cache at rest = the byte model, the experts'
                f32 -> bf16 cast timed a layer), the paged engine (streams
-               identical) and cuda_fm;
+               identical), the speculative engine (rows 11 and 12 as
+               predicted, streams by the near-tie rule) and cuda_fm;
   4g. paligemma — paligemma-3b (vlm: 18 layers, d_model 2048, 8 query
                heads over 1 kv head of 256, k 16, vocab 257,216) at full
                width and 6 of its layers, bf16: the slot engine with 256 seeded
@@ -110,13 +118,23 @@ Phases; any failure raises and the script exits non-zero:
                text-only, to which the paged (full residency), speculative
                and cuda_fm engines' streams are held; rtopk on its warp body
                (d 256) throughout;
+  4h. llama3-8b, deepseek-7b — llama3-8b (32 layers, d_model 4096, 32
+               query heads over 8 kv heads of 128, k 16, RoPE theta
+               500,000, vocab 128,256, untied) at full width and
+               ``LLAMA8B_SERVE_LAYERS`` of its layers, bf16: the slot,
+               paged (full residency), speculative and cuda_fm engines on
+               the same 8 requests, launches as predicted; deepseek-7b (30
+               layers, d_model 4096, MHA 32 of 128, k 16, vocab 102,400,
+               untied) at full width and depth through the slot engine;
   5. end to end — gpt2-small-sfa8 in float32, prefill logits and 8
                teacher-forced decode steps through the "cuda" (kernels) and
                "torch" (plain) backends, held to a stated tolerance with the
                argmax equal at every step; then qwen3-0.6b-sfa8 the same way
                at full width and 4 of its 28 layers, moonshot at 2 of
                its 48 layers on f32 caches, and paligemma at 2 of its 18
-               layers with the patch prefix on f32 caches (tolerance 1e-4);
+               layers with the patch prefix on f32 caches (tolerance 1e-4),
+               and llama3-8b at 2 of its 32 layers on f32 caches
+               (tolerance 1e-4);
   6. train   — the training main path at full width: gpt2-small-sfa8 in
                bf16 through ``Trainer`` (AdamW, remat="full", Markov data),
                batch 8 x seq 1024, 1 warm-up and 5 timed steps; step ms,
@@ -138,7 +156,8 @@ Phases; any failure raises and the script exits non-zero:
                applied;
                then the launcher ``python -m repro_torch.launch.train
                --no-reduced --bwd-emit compact --remat codes`` for 2 steps;
-  8c. checkpoint — gpt2-small-sfa8 at full width (batch 8 x 1024, bf16,
+  8c. checkpoint — gpt2-small-sfa8 at full width and 6 of 12 layers
+               (``CKPT_LAYERS``; batch 8 x 1024, bf16,
                remat full, dense emit, cuda) through ``Trainer.train``
                under the Supervisor: run A checkpoints every 2 steps and
                takes an injected fault before step 3 (restore of step 2,
@@ -172,7 +191,14 @@ Phases; any failure raises and the script exits non-zero:
                remat "full", FlashSFA on the tensor-core bodies, rtopk on
                its warp body; then through the RoPE compact seam, compact2,
                remat "codes"), each seam run's step, peak memory and busy
-               share printed beside its dense-emit run's;
+               share printed beside its dense-emit run's; llama3-8b at 4
+               of 32 layers through the RoPE compact seam (compact2, remat
+               "codes", launches as llama3.2-3b's); deepseek-7b at 4 of 30
+               layers (dense emit, remat "full"); gpt2-small-sfa8 at full
+               width and depth with sfa_distill 0.1 (paper Eq. 8: the
+               aux term positive at every step; the teacher plain chunked
+               attention), dense emit, then a compact request, which the
+               seam declines with the reference's reason (collect_reports());
                each train phase prints its step FLOPs
                (``utils.analytic.step_flops``) and their share of the bf16
                peak;
@@ -199,7 +225,12 @@ Phases; any failure raises and the script exits non-zero:
                never read: a zero gradient in both runs), and its float32
                compact seam (1e-4 on the loss, 1e-3 a leaf); paligemma-3b
                at 2 layers in bf16 by the same rule (the tensor-core bodies
-               at d 256; dense emit and the compact seam);
+               at d 256; dense emit and the compact seam), then in float32
+               (the CUDA-core backward at dv 256; dense emit and the
+               compact2 seam under remat "codes"), and gpt2-small-sfa8 at 2
+               layers in float32 with sfa_distill 0.1 (loss, aux and every
+               leaf); every cuda run's launches as predicted a layer and no
+               fallback recorded;
  11. attention variants — the layers the reference's Pallas backends
                decline (windows, protected RoPE dims, MLA), which run on the
                torch backend in the port (no kernel lies on these paths:
@@ -207,16 +238,17 @@ Phases; any failure raises and the script exits non-zero:
                fallback report names torch and the one reason): (a)
                gemma3-4b (34 layers, d_model 2560, 8 query heads over 4 kv
                heads of 256, k 16, window 1,024 with every 6th layer global,
-               vocab 262,144) at full width and 12 of 34 layers (two of
-               them global), bf16, through the
+               vocab 262,144) at full width and 6 of 34 layers (layer 5
+               global), bf16, through the
                slot engine (one prompt of 1,536 tokens, past the window; the
                KV cache at rest = the byte model), the paged engine (whole
-               prompts; then chunked prefill of 256), streams equal to the
-               slot streams or parted at a near-tie; float32 at 2 layers,
+               prompts; then chunked prefill of 256) and the speculative
+               engine, streams equal to the slot streams or parted at a
+               near-tie; float32 at 2 layers,
                the card against the port on the CPU (f32 caches, 1e-4,
-               argmax equal); (b) gemma3-4b trained at 12 of 34 layers
+               argmax equal); (b) gemma3-4b trained at 6 of 34 layers
                (batch 8 x 1024, bf16, AdamW, remat "full", 1 warm-up and 2
-               timed steps), and its float32 gradients at 2 layers, the card
+               timed steps), and its float32 gradients at 1 layer, the card
                against the CPU (1e-4 on the loss and each leaf's relative
                L2; bf16 finite); (c) deepseek-v2-236b (MLA r 512 + 64, 128
                heads, k 16 on the latent; MoE 160 experts top-6 + 2 shared)
@@ -246,9 +278,10 @@ Phases; any failure raises and the script exits non-zero:
                reference's message, float32 cuda against torch on f32
                caches (1e-4, argmax equal); (c) rwkv6-3b (32 layers, d_model
                2560, attention-free: no kernel, no KV) at full width and
-               depth through the slot engine, the refusals, float32 at 2
-               layers the card against the port on the CPU (logits on f32
-               caches and every gradient, 1e-4), and trained at full width
+               ``RWKV_LAYERS`` of its layers through the slot engine, the
+               refusals, float32 the card against the port on the CPU
+               (logits on f32 caches at 2 layers and every gradient at 1,
+               1e-4), and trained at full width and ``RWKV_LAYERS`` layers
                (batch 8 x 1024, bf16, AdamW, remat "full");
  14. distribution (``phase_distributed``) — rows 3 and 5 at the ring's hop
                shape (one rank's shard on the ring of 4: bh 24, 1,024 x
@@ -1973,6 +2006,12 @@ MS_PAGED = dict(slots=8, h=16, heads=16, d=128, k=16, dv=128, page=128, mp=16)
 # its RoPE compact seam (x 8 x 1024 x 2048, 16 heads, MHA, d 128, k 16: code
 # width 32; RoPE theta 50,000)
 MSS = dict(b=8, h=16, hkv=16, d=128, k=16, m=2048, theta=50_000.0)
+# llama3-8b's RoPE compact seam (x 8 x 1024 x 4096, 32 query heads over 8
+# kv heads of 128, k 16: code width 32; RoPE theta 500,000) and
+# deepseek-7b's training step (batch 8 x 32 heads, MHA, 1024 tokens, d 128,
+# k 16)
+L8 = dict(b=8, h=32, hkv=8, d=128, k=16, m=4096, theta=500_000.0)
+D7 = dict(b=8, h=32, hkv=32, d=128, k=16)
 
 
 def _add_shape(results, name, label, r):
@@ -2495,6 +2534,17 @@ def phase_moonshot_shapes(results):
     _seam_rows(results, rs, MSS, "MSs seam", key="MSs", compact2=True)
 
 
+def phase_llama8b_deepseek_shapes(results):
+    """Rows 2, 4, 8 and 9 at llama3-8b's RoPE compact seam (``L8``: code
+    width 32, code_grad on its tensor-core bodies) and rows 1, 3 and 5 at
+    deepseek-7b's training shape (``D7``: bh 8 x 32, d 128, k 16), each
+    against its plain version, timed beside it and its library call, the
+    bound from these inputs; the shapes "L8" and "D7" of their rows."""
+    rs = np.random.RandomState(SEED + 70)
+    _seam_rows(results, rs, L8, "L8 seam", key="L8")
+    _sfa_train_rows(results, rs, D7, "D7 training", key="D7", dense=False)
+
+
 # hubert-xlarge's training step (batch 8 x 16 heads, 1024 frames, d = dv 80,
 # k 16, bidirectional); paligemma-3b's prefill (8 query heads over 1 kv head,
 # 256 patches + 768 prompt tokens, d = dv 256, k 16) and decode step (8 slots
@@ -2505,20 +2555,21 @@ PG_DECODE = dict(b=8, h=8, hkv=1, d=256, k=16)
 PG_PAGED = dict(slots=8, h=1, heads=8, d=256, k=16, dv=256, page=128, mp=16)
 
 
-def _frontend_rows(results, rs, s, label, key, *, causal, bwd):
+def _frontend_rows(results, rs, s, label, key, *, causal, bwd, f32_key=None):
     """Rows 1, 3 (and with ``bwd`` 5) at a frontend model's shape ``s`` (b x
     h heads, s["n"] tokens, d = dv, k), where rtopk runs its warp body and
     FlashSFA its tensor-core bodies in bf16 (d 80 in 96-column tiles, d 256
-    with two warpgroups a block) and its CUDA-core bodies in f32: each in
-    f32 and bf16 against its plain version (row 3 with the other mask too;
-    row 5 in bf16 with every emit, in f32 the dense emit where the
-    CUDA-core body takes dv: not at 256), the bf16 calls timed beside their
-    plain versions and library calls with the bound from these inputs,
-    recorded as the shape ``key`` of each row's entry."""
+    with two warpgroups a block) and its CUDA-core bodies in f32 (the
+    backward at dv 256 on 32-row tiles): each in f32 and bf16 against its
+    plain version (row 3 with the other mask too; row 5 with every emit),
+    the bf16 calls timed beside their plain versions and library calls with
+    the bound from these inputs, recorded as the shape ``key`` of each
+    row's entry; with ``f32_key`` row 5's f32 dense emit too, under that
+    key, its bound the f32 operations on the CUDA cores (f32 on the tensor
+    cores would be TF32) and its library call SDPA's f32 backward."""
     from repro_torch.kernels import (
         body_counts, flash_sfa, flash_sfa_bwd, reset_launches, rtopk,
     )
-    from repro_torch.kernels.flash_sfa_bwd import CUDA_CORE_V_HEAD_DIMS
     from repro_torch.kernels.ref import flash_sfa_bwd_ref, flash_sfa_ref, rtopk_ref
     b, h, d, k, n = s["b"], s["h"], s["d"], s["k"], s["n"]
     bh, dv, scale = b * h, d, d ** -0.5
@@ -2569,8 +2620,8 @@ def _frontend_rows(results, rs, s, label, key, *, causal, bwd):
               f"{oerr:.3g}")
         del oo, op, po, pl
         args = (qv, qi, kv, ki, v, ko, kl, g)
-        if bwd and (tc or dv in CUDA_CORE_V_HEAD_DIMS):
-            for emit in ("dense", "compact", "compact2") if tc else ("dense",):
+        if bwd:
+            for emit in ("dense", "compact", "compact2"):
                 reset_launches()
                 got = flash_sfa_bwd(*args, d=d, scale=scale, causal=causal, emit=emit)
                 want = flash_sfa_bwd_ref(*args, d=d, scale=scale, causal=causal, emit=emit)
@@ -2584,6 +2635,19 @@ def _frontend_rows(results, rs, s, label, key, *, causal, bwd):
                 if emit == "dense":
                     berr = e
                 del got, want
+        if bwd and f32_key and not tc:
+            qd, kd = _densify(qv, qi, d), _densify(kv, ki, d)
+            _timed_shape(results, "flash_sfa_bwd", f"{label} f32", f32_key,
+                         f"dense emit, bh={bh} n={n} d=dv={d} k={k} {mask} f32 ({body}): "
+                         f"max|err| {berr:.3g}; library = SDPA's f32 backward (autograd) on "
+                         f"densified Q/K", berr,
+                         2 * bh * n * k * (es + 4) + 3 * bh * n * dv * es + bh * n * 4
+                         + 2 * bh * n * d * es + bh * n * dv * es,
+                         (6 * k + 4 * dv) * pairs / F32_FLOPS,
+                         lambda: flash_sfa_bwd(*args, d=d, scale=scale, causal=causal),
+                         lambda: flash_sfa_bwd_ref(*args, d=d, scale=scale, causal=causal),
+                         _sdpa_bwd(qd, kd, v, g, scale, causal))
+            del qd, kd
         if dtype == torch.bfloat16:
             qd, kd = _densify(qv, qi, d), _densify(kv, ki, d)
             _timed_shape(results, "flash_sfa", label, key,
@@ -2719,11 +2783,12 @@ def phase_frontend_shapes(results):
     """The instantiations the frontend families add, each against its plain
     version in f32 and bf16: rows 1, 3, 5 at hubert-xlarge's training shape
     (d = dv 80, bidirectional; row 3 causal too), rows 1, 3, 5 at
-    paligemma-3b's prefill (d = dv 256, causal; row 5 in bf16 only: the f32
-    backward declines dv 256) and rows 10-14 at its decode step (dv 256, 8
-    query heads over 1 kv head), the bf16 calls timed and recorded as the
-    shapes "HB" and "PG" of their rows; rows 3 and 5 run bf16 on the
-    tensor-core bodies of flash_sfa_tc_wide.cu, f32 on the CUDA-core ones.
+    paligemma-3b's prefill (d = dv 256, causal) and rows 10-14 at its
+    decode step (dv 256, 8 query heads over 1 kv head), the bf16 calls
+    timed and recorded as the shapes "HB" and "PG" of their rows, row 5's
+    f32 call at PG as "PG f32"; rows 3 and 5 run bf16 on the tensor-core
+    bodies of flash_sfa_tc_wide.cu, f32 on the CUDA-core ones (row 5 at dv
+    256 on 32-row tiles).
     The new instantiations' ptxas registers, spills and shared memory first
     (each tensor-core one <= 255 registers, no spill, <= 227 KB)."""
     for lib in ("flash_sfa", "flash_sfa_bwd", "flash_sfa_decode", "flash_sfa_decode_fm"):
@@ -2748,7 +2813,8 @@ def phase_frontend_shapes(results):
           "at k 32, n 1024, plus ptxas's static bytes): " + "; ".join(wide))
     rs = np.random.RandomState(SEED + 50)
     _frontend_rows(results, rs, HB, "HB training", "HB", causal=False, bwd=True)
-    _frontend_rows(results, rs, PG, "PG prefill", "PG", causal=True, bwd=True)
+    _frontend_rows(results, rs, PG, "PG prefill", "PG", causal=True, bwd=True,
+                   f32_key="PG f32")
     _sfa_decode_rows(results, rs, PG_DECODE, PG_PAGED, "PG decode", key="PG")
     errs = _decode_boundaries(rs, PG_PAGED, "PG decode")
     names = ("flash_sfa_decode", "flash_sfa_decode_paged", "flash_sfa_decode_multi",
@@ -3318,14 +3384,17 @@ def phase_end_to_end(model, cfg, depth="full depth", cache_dtype=torch.bfloat16,
 # --------------------------------------------------------------------------
 
 def phase_train(arch, timed_steps, predicted, *, layers=None, bodies=None, attention=None,
-                **policy):
+                distill=0.0, **policy):
     """Train full-width ``arch`` in bf16 through ``Trainer``: 1 warm-up and
     ``timed_steps`` timed steps with the launch counts read over all of
     them, then one traced step. ``predicted`` maps kernel -> launches per
     step (every other kernel: none) and ``bodies`` CUDA-core body -> its
     launches per step (default: none on any); ``layers`` cuts the depth;
     ``attention`` replaces fields of the config's attention (the protected
-    RoPE dims of phase 11); ``policy`` overrides the TrainPolicy (default
+    RoPE dims of phase 11); ``distill`` sets ``sfa_distill`` (paper Eq. 8:
+    every step's aux term must then be positive, and a compact request is
+    declined with the reference's reason, which ``collect_reports()``
+    must give); ``policy`` overrides the TrainPolicy (default
     remat="full"). A compact
     request must take the seam where proj_rtopk is predicted, and record why
     not elsewhere. Prints the step's FLOPs (``utils.analytic.step_flops``)
@@ -3348,6 +3417,8 @@ def phase_train(arch, timed_steps, predicted, *, layers=None, bodies=None, atten
         cfg = dataclasses.replace(cfg, num_layers=layers)
     if attention:
         cfg = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, **attention))
+    if distill:
+        cfg = dataclasses.replace(cfg, sfa_distill=distill)
     policy = dict({"remat": "full"}, **policy)
     batch, seq = 8, TRAIN_N
     steps = 1 + timed_steps
@@ -3388,6 +3459,16 @@ def phase_train(arch, timed_steps, predicted, *, layers=None, bodies=None, atten
         check(len(seams) == 1 and seams[0].taken == taken and (taken or seams[0].reason),
               f"train {arch}: compact seam {seams}")
     check(all(r.eligible for r in remats), f"train {arch}: remat degraded: {remats}")
+    if distill:
+        # the stop-grad teacher is plain chunked attention (the reference's
+        # is XLA's chunked_attention, not a Pallas kernel): no launch of its own
+        check(all(h["aux"] > 0 for h in hist), f"train {arch}: distill aux terms {hist}")
+        if policy.get("bwd_emit") in ("compact", "compact2"):
+            from repro_torch.core.reports import collect_reports
+            routes = collect_reports("compact_seam")
+            check([(r.eligible, r.reason) for r in routes]
+                  == [(False, "distill needs the dense q/k/v for the stop-grad teacher")],
+                  f"train {arch} (distill): compact seam routes {routes}")
     t0 = time.perf_counter()
     markov_batch(dcfg, 0)
     data_ms = (time.perf_counter() - t0) * 1e3
@@ -3407,9 +3488,12 @@ def phase_train(arch, timed_steps, predicted, *, layers=None, bodies=None, atten
           f"{fl['total_flops']:.4g} (model 6N {fl['model_flops']:.4g}); at the mean step, "
           f"{100 * fl['total_flops'] / step_s / BF16_TC_FLOPS:.2f}% of the bf16 peak "
           f"(model FLOPs {100 * fl['model_flops'] / step_s / BF16_TC_FLOPS:.2f}%){moe_note}")
-    print(f"[train] {arch} full width bf16, {depth}, batch {batch} x seq {seq}, {label}, AdamW; "
-          f"losses {[round(h['loss'], 4) for h in hist]}, grad norms "
-          f"{[round(h['grad_norm'], 3) for h in hist]}")
+    print(f"[train] {arch} full width bf16, {depth}, batch {batch} x seq {seq}, {label}"
+          + (f", sfa_distill {distill}" if distill else "") + ", AdamW; "
+          f"losses {[round(h['loss'], 4) for h in hist]}"
+          + (f" (aux, the distillation term x {distill}: "
+             f"{[round(h['aux'], 6) for h in hist]})" if distill else "")
+          + f", grad norms {[round(h['grad_norm'], 3) for h in hist]}")
     print(f"[train] {arch}: warm-up step {step_ms[0]:.1f} ms; timed steps ms "
           f"{[round(x, 2) for x in timed]} (mean {np.mean(timed):.2f}, median "
           f"{np.median(timed):.2f}); {tokens / (np.mean(timed) / 1e3):.1f} tokens/s; "
@@ -3565,7 +3649,16 @@ def _grads(loss, params):
 
 GRAD_RUNS = (("torch", "torch", "none", "dense"),
              ("cuda dense emit, remat full", "cuda", "full", "dense"),
-             ("cuda compact seam, remat codes", "cuda", "codes", "compact"))
+             ("cuda compact seam, remat codes", "cuda", "codes", "compact"),
+             ("cuda compact2 seam, remat codes", "cuda", "codes", "compact2"))
+# launches a layer of a cuda run: the dense emit under remat "full" (the
+# forward twice, rtopk for q and k each time) and the compact seam under
+# remat "codes" (the backward's rerun takes the kept codes)
+GRAD_LAUNCHES = {
+    "dense": {"rtopk": 4, "flash_sfa": 2, "flash_sfa_bwd": 1},
+    "compact": {"proj_rtopk": 2, "flash_sfa_block_skip": 2, "flash_sfa_bwd_compact": 1,
+                "code_grad_dx": 2, "code_grad_dw": 2},
+}
 
 
 def _own_y_dense(cfg):
@@ -3624,11 +3717,14 @@ def _layer0_code_flips(model, cfg, batch):
     return diff, rows
 
 
-def phase_grad_end_to_end(arch="gpt2-small-sfa8", layers=None, runs=GRAD_RUNS, own_y=False,
-                          leaf_tol=1e-3):
+def phase_grad_end_to_end(arch="gpt2-small-sfa8", layers=None, runs=GRAD_RUNS[:3], own_y=False,
+                          leaf_tol=1e-3, distill=0.0):
     """Loss and every parameter gradient, kernels against plain, float32,
     full width (``layers`` cuts the depth); ``runs``: (label, backend,
-    remat, emit), the torch run first. With ``own_y`` (the compact seam at
+    remat, emit), the torch run first. A cuda run launches as
+    ``GRAD_LAUNCHES`` predicts a layer and records no fallback; with
+    ``distill`` (``sfa_distill``, paper Eq. 8) its aux term is held to the
+    torch run's beside the loss. With ``own_y`` (the compact seam at
     a width where f32 sums of d_model terms in two orders part top-k
     near-ties): layer 0's seam codes are held to the torch path's but at
     near-ties, and the torch run takes its q and k values from
@@ -3638,7 +3734,8 @@ def phase_grad_end_to_end(arch="gpt2-small-sfa8", layers=None, runs=GRAD_RUNS, o
     from repro_torch.configs import get_config
     from repro_torch.kernels import body_counts, launch_counts, reset_launches
     from repro_torch.models import init, loss_fn
-    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    from repro_torch.models.backends import clear_fallback_reports, fallback_reports
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", sfa_distill=distill)
     depth = f"{cfg.num_layers} layers"
     if layers is not None:
         depth = f"{layers} of {cfg.num_layers} layers (depth cut)"
@@ -3646,7 +3743,7 @@ def phase_grad_end_to_end(arch="gpt2-small-sfa8", layers=None, runs=GRAD_RUNS, o
     model = init(cfg, device="cuda", seed=SEED).requires_grad_(True)
     named = dict(model.named_parameters())
     batch = _grad_batch(cfg, SEED + 2)
-    runs_out, bodies = {}, {}
+    runs_out, bodies, aux = {}, {}, {}
     if own_y:
         from repro_torch.models import attention as attn_mod
         c = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention,
@@ -3655,8 +3752,9 @@ def phase_grad_end_to_end(arch="gpt2-small-sfa8", layers=None, runs=GRAD_RUNS, o
         plain = (loss.item(), torch.autograd.grad(loss, list(named.values())))
         saved, attn_mod.dense = attn_mod.dense, _own_y_dense(cfg)
         try:
-            loss, _ = loss_fn(model, batch, c)
+            loss, metrics = loss_fn(model, batch, c)
             runs_out["torch"] = (loss.item(), torch.autograd.grad(loss, list(named.values())))
+            aux["torch"] = metrics["aux"].item()
         finally:
             attn_mod.dense = saved
         runs = [r for r in runs if r[0] != "torch"]
@@ -3667,16 +3765,22 @@ def phase_grad_end_to_end(arch="gpt2-small-sfa8", layers=None, runs=GRAD_RUNS, o
         c = dataclasses.replace(cfg, remat=remat, attention=dataclasses.replace(
             cfg.attention, backend=backend, bwd_emit=emit, fwd_fuse=True))
         reset_launches()
-        loss, _ = loss_fn(model, batch, c)
+        clear_fallback_reports()
+        loss, metrics = loss_fn(model, batch, c)
         runs_out[label] = (loss.item(), _grads(loss, list(named.values())))
+        aux[label] = metrics["aux"].item()
         counts = launch_counts()
         bodies[label] = {n_: v for n_, v in body_counts().items() if v}
-        if emit == "compact":
-            check(all(counts[k] > 0 for k in ("proj_rtopk", "flash_sfa_block_skip",
-                                              "flash_sfa_bwd_compact", "code_grad_dx",
-                                              "code_grad_dw")),
-                  f"gradients end to end: the compact seam did not run its kernels {counts}")
+        check(not fallback_reports(), f"gradients end to end ({label}): fallbacks "
+                                      f"{fallback_reports()}")
+        per = {} if backend == "torch" else GRAD_LAUNCHES[
+            "dense" if emit == "dense" else "compact"]
+        want = {n_: per.get(n_, 0) * cfg.num_layers for n_ in counts}
+        check(counts == want, f"gradients end to end ({label}): launches {counts}, predicted "
+                              f"{want}")
     lb, gb = runs_out.pop("torch")
+    if distill:
+        check(aux["torch"] > 0, f"gradients end to end: distill aux {aux}")
     for label, (la, ga) in runs_out.items():
         if own_y:
             dist = {name: ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
@@ -3691,6 +3795,8 @@ def phase_grad_end_to_end(arch="gpt2-small-sfa8", layers=None, runs=GRAD_RUNS, o
         # one row, so 1e-4 on the loss and 1e-3 relative (L2) on each leaf
         # (``leaf_tol`` 1e-4 where the caller holds a stack to that)
         check(abs(la - lb) <= 1e-4, f"gradients end to end ({label}): loss {la} vs {lb}")
+        check(abs(aux[label] - aux["torch"]) <= 1e-4 * max(1.0, abs(aux["torch"])),
+              f"gradients end to end ({label}): aux {aux[label]} vs {aux['torch']}")
         worst = (0.0, "")
         for name, a, b in zip(named, ga, gb):
             check(bool(torch.isfinite(a).all()),
@@ -3700,8 +3806,11 @@ def phase_grad_end_to_end(arch="gpt2-small-sfa8", layers=None, runs=GRAD_RUNS, o
                                    f"{rel:.3g} > {leaf_tol:g}")
             worst = max(worst, (rel, name))
         print(f"[grad end-to-end] f32 {cfg.name} full width, {depth}, batch 1 x seq 512, "
-              f"{label} (CUDA-core bodies {bodies[label]}): loss {la:.6f} vs torch {lb:.6f} "
-              f"(|diff| {abs(la - lb):.3g}, tol 1e-4); all {len(named)} parameter gradients "
+              f"{label}" + (f", sfa_distill {distill}" if distill else "")
+              + f" (CUDA-core bodies {bodies[label]}; launches as predicted, no fallback): "
+              f"loss {la:.6f} vs torch {lb:.6f} (|diff| {abs(la - lb):.3g}, tol 1e-4); "
+              + (f"aux {aux[label]:.6g} vs {aux['torch']:.6g}; " if distill else "")
+              + f"all {len(named)} parameter gradients "
               f"within {leaf_tol:g} relative L2, worst {worst[0]:.3g} ({worst[1]})"
               + (" (torch run on proj_rtopk's own y)" if own_y else ""))
 
@@ -4106,7 +4215,8 @@ def phase_variants():
     """Phases 11a-d: gemma3-4b served and trained at full width and 6 of 34
     layers; deepseek-v2-236b served at 3 of 60 layers; llama3.2-3b
     with sfa_rope_protect 64 served and trained at 4 of 28 layers; the f32
-    checks at 2 layers. Returns nothing: no kernel lies on these paths."""
+    checks at 2 layers (gemma3's gradients at 1). Returns nothing: no
+    kernel lies on these paths."""
     from repro_torch.configs import get_config
     from repro_torch.models import init
     from repro_torch.models.attention import compact_seam_reports
@@ -4117,7 +4227,7 @@ def phase_variants():
     g6 = dataclasses.replace(gcfg, num_layers=6)
     model = init(g6, device="cuda", seed=SEED)
     timed(phase_variant_serve, model, g6, f"6 of {gcfg.num_layers} layers (depth cut)",
-          "windowed attention not supported", long_prompt=1536)
+          "windowed attention not supported", long_prompt=1536, speculative=True)
     del model
     release()
     g2 = dataclasses.replace(gcfg, num_layers=2)
@@ -4127,7 +4237,8 @@ def phase_variants():
     release()
     timed(phase_train, "gemma3-4b", 2, {}, layers=6)
     release()
-    timed(phase_variant_grads, "gemma3-4b", 2)
+    # 1 of 34 layers (local, as the second would be: the global one is layer 5)
+    timed(phase_variant_grads, "gemma3-4b", 1)
     release()
     dcfg = get_config("deepseek-v2-236b")
     d3 = dataclasses.replace(dcfg, num_layers=3)
@@ -4159,7 +4270,9 @@ def phase_variants():
 
 
 # rwkv6-3b's serving and training depth (the script's time budget)
-RWKV_LAYERS = 8
+RWKV_LAYERS = 4
+# llama3-8b's serving depth (the script's time budget)
+LLAMA8B_SERVE_LAYERS = 8
 # jamba-v0.1-52b's attention sublayer (JB): 32 query heads over 8 kv heads
 # of 128, k 16, no RoPE; its prefill of a 1,024-token prompt and its decode
 # step (8 slots, pages of 128 for the image rows 13 reads)
@@ -4233,12 +4346,13 @@ def phase_recurrent(results):
     kernel shapes, the slot engine on the cuda and on the cuda_fm decode
     backend (their streams equal or parted at a near-tie), the paged and
     speculative refusals, the f32 end to end cuda against torch on f32
-    caches at 1e-4. rwkv6-3b at full width and 8 of 32 layers: the slot
-    engine (no kernel, no KV), the refusals; at 2 layers the f32 end to end
-    and the f32 gradients, the card against the CPU at 1e-4; trained at full
-    width and 8 layers. Returns the launches of the two jamba serving runs
-    by (kernel, JB shape): rtopk's split into its prefill and decode
-    launches as counted after the prefills and at the end."""
+    caches at 1e-4. rwkv6-3b at full width and ``RWKV_LAYERS`` of 32
+    layers: the slot engine (no kernel, no KV), the refusals; the f32 end
+    to end at 2 layers and the f32 gradients at 1, the card against the CPU
+    at 1e-4; trained at full width and ``RWKV_LAYERS`` layers. Returns the
+    launches of the two jamba serving runs by (kernel, JB shape): rtopk's
+    split into its prefill and decode launches as counted after the
+    prefills and at the end."""
     from repro_torch.configs import get_config
     from repro_torch.models import init
     release()
@@ -4259,11 +4373,10 @@ def phase_recurrent(results):
     del model
     release()
     rcfg = get_config("rwkv6-3b")
-    # 8 of 32 layers: the depth cut of the script's time budget
-    r8 = dataclasses.replace(rcfg, num_layers=RWKV_LAYERS)
-    model = init(r8, device="cuda", seed=SEED)
-    timed(phase_engine, model, r8, f"{RWKV_LAYERS} of {rcfg.num_layers} layers (depth cut)")
-    _recurrent_refusals(model, r8)
+    rl = dataclasses.replace(rcfg, num_layers=RWKV_LAYERS)
+    model = init(rl, device="cuda", seed=SEED)
+    timed(phase_engine, model, rl, f"{RWKV_LAYERS} of {rcfg.num_layers} layers (depth cut)")
+    _recurrent_refusals(model, rl)
     del model
     release()
     r2 = dataclasses.replace(rcfg, num_layers=2)
@@ -4272,7 +4385,7 @@ def phase_recurrent(results):
           512)
     del model
     release()
-    timed(phase_variant_grads, "rwkv6-3b", 2)
+    timed(phase_variant_grads, "rwkv6-3b", 1)
     release()
     timed(phase_train, "rwkv6-3b", 1, {}, layers=RWKV_LAYERS)
     release()
@@ -4309,12 +4422,15 @@ def phase_launcher():
 # --------------------------------------------------------------------------
 
 CKPT_STEPS, CKPT_FAULT = 6, 3
+# its depth (the script's time budget)
+CKPT_LAYERS = 6
 
 
 def phase_checkpoint():
-    """Full-width gpt2-small-sfa8 through ``Trainer.train`` on the card in the
-    training phases' setting (batch 8 x 1024, bf16 compute, f32 parameters,
-    dense emit, remat full, the cuda backend: rows 1, 3 and 5). Run A
+    """Full-width gpt2-small-sfa8 (``CKPT_LAYERS`` of its 12 layers) through
+    ``Trainer.train`` on the card in the training phases' setting (batch 8
+    x 1024, bf16 compute, f32 parameters, dense emit, remat full, the cuda
+    backend: rows 1, 3 and 5). Run A
     checkpoints every 2 steps (keep 2, max_restarts 1) over 6 steps with a
     fault injected before step 3, so the Supervisor restores step 2 and
     replays steps 2-5; run B, a fresh Trainer from the same seed, runs the 6
@@ -4348,7 +4464,7 @@ def phase_checkpoint():
     from repro_torch.train import trainer as trainer_mod
     from repro_torch.train.train_step import make_train_step
     release()
-    cfg = get_config("gpt2-small-sfa8")
+    cfg = dataclasses.replace(get_config("gpt2-small-sfa8"), num_layers=CKPT_LAYERS)
     layers = cfg.num_layers
     policy = TrainPolicy.from_model(cfg, backend="cuda", remat="full", bwd_emit="dense")
     ocfg = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=CKPT_STEPS + 1)
@@ -4505,7 +4621,8 @@ def phase_checkpoint():
 
     over, clear = step_ms(steps_a, writes_a)
     _, clear_b = step_ms(steps_b, writes_b)
-    print(f"[checkpoint] gpt2-small-sfa8 full width, batch 8 x {TRAIN_N}, bf16, remat full, "
+    print(f"[checkpoint] gpt2-small-sfa8 full width, {layers} of 12 layers (depth cut), batch 8 x "
+          f"{TRAIN_N}, bf16, remat full, "
           f"dense emit, cuda: run A {run_a_s:.1f} s ({len(runs_a)} steps, a fault before step "
           f"{CKPT_FAULT}, restored step {restarts[0]['step']}), run B {run_b_s:.1f} s; losses "
           f"{[round(e['loss'], 4) for e in logs_b]}; launches {counts} (predicted)")
@@ -5376,6 +5493,7 @@ def main():
     timed(phase_moonshot_shapes, results)
     timed(phase_frontend_shapes, results)
     timed(phase_wide_seam_shapes, results)
+    timed(phase_llama8b_deepseek_shapes, results)
     cfg = get_config("gpt2-small-sfa8")
     model = init(cfg, device="cuda", seed=SEED)
     counts, slot_run = timed(phase_engine, model, cfg)
@@ -5385,15 +5503,15 @@ def main():
     timed(phase_end_to_end, model, cfg)
     del model
     timed(phase_serve_launcher)
-    # qwen3-0.6b-sfa8 at full width and 14 of its 28 layers (the depth cut
-    # of phase 12's budget): the slot, paged (full residency) and cuda_fm
+    # qwen3-0.6b-sfa8 at full width and 7 of its 28 layers (the depth cut
+    # of the script's budget): the slot, paged (full residency) and cuda_fm
     # engines on the same 8 requests (GQA, d 128)
     qcfg = get_config("qwen3-0.6b-sfa8")
-    q14 = dataclasses.replace(qcfg, num_layers=14)
-    model = init(q14, device="cuda", seed=SEED)
-    _, q_slot = timed(phase_engine, model, q14, f"14 of {qcfg.num_layers} layers (depth cut)")
-    q_paged = timed(phase_paged, model, q14, q_slot, preempt=False)
-    timed(phase_feature_major, model, q14, q_paged, q_slot["prompts"])
+    q7 = dataclasses.replace(qcfg, num_layers=7)
+    model = init(q7, device="cuda", seed=SEED)
+    _, q_slot = timed(phase_engine, model, q7, f"7 of {qcfg.num_layers} layers (depth cut)")
+    q_paged = timed(phase_paged, model, q7, q_slot, preempt=False)
+    timed(phase_feature_major, model, q7, q_paged, q_slot["prompts"])
     del model
     # its f32 end to end at full width, 4 of 28 layers
     q4 = dataclasses.replace(qcfg, num_layers=4)
@@ -5409,6 +5527,7 @@ def main():
     model = init(m12, device="cuda", seed=SEED)
     _, m_slot = timed(phase_engine, model, m12, f"12 of {mcfg.num_layers} layers (depth cut)")
     m_paged = timed(phase_paged, model, m12, m_slot, preempt=False)
+    timed(phase_speculative, model, m12, m_paged, m_slot["prompts"])
     timed(phase_feature_major, model, m12, m_paged, m_slot["prompts"])
     del model
     release()
@@ -5441,6 +5560,37 @@ def main():
     model = init(p2, device="cuda", seed=SEED)
     timed(phase_end_to_end, model, p2, f"2 of {pcfg.num_layers} layers (depth cut)",
           torch.float32, patches=True, tol=1e-4)
+    del model
+    release()
+    # llama3-8b at full width and LLAMA8B_SERVE_LAYERS of its 32 layers (GQA
+    # 32 over 8 kv heads of 128, k 16, RoPE theta 500,000, vocab 128,256,
+    # untied): the slot, paged (full residency), speculative and cuda_fm
+    # engines on the same 8 requests
+    l8cfg = get_config("llama3-8b")
+    l8 = dataclasses.replace(l8cfg, num_layers=LLAMA8B_SERVE_LAYERS)
+    l8_depth = (f"{l8.num_layers} of {l8cfg.num_layers} layers (depth cut)"
+                if l8.num_layers < l8cfg.num_layers else "full depth")
+    model = init(l8, device="cuda", seed=SEED)
+    _, l_slot = timed(phase_engine, model, l8, l8_depth)
+    l_paged = timed(phase_paged, model, l8, l_slot, preempt=False)
+    timed(phase_speculative, model, l8, l_paged, l_slot["prompts"])
+    timed(phase_feature_major, model, l8, l_paged, l_slot["prompts"])
+    del model
+    release()
+    # its f32 logits at 2 layers on f32 caches, cuda against torch on the card
+    # (against the port on the CPU the two machines' projection sums part
+    # top-k near-ties: 4.86e-4 on the H100)
+    l2 = dataclasses.replace(l8cfg, num_layers=2)
+    model = init(l2, device="cuda", seed=SEED)
+    timed(phase_end_to_end, model, l2, f"2 of {l8cfg.num_layers} layers (depth cut)",
+          torch.float32, tol=1e-4)
+    del model
+    release()
+    # deepseek-7b at full width and depth (30 layers, MHA 32 of 128, k 16,
+    # vocab 102,400, untied; 27.6 GB of f32 weights): the slot engine
+    d7cfg = get_config("deepseek-7b")
+    model = init(d7cfg, device="cuda", seed=SEED)
+    timed(phase_engine, model, d7cfg)
     del model
     release()
     layers = cfg.num_layers
@@ -5490,6 +5640,26 @@ def main():
     timed(phase_train, "moonshot-v1-16b-a3b", 2, {name: n * ml for name, n in seam.items()},
           layers=ml, bwd_emit="compact2", fwd_fuse=True, remat="codes")
     release()
+    # llama3-8b at full width, 4 of 32 layers, through the RoPE compact seam
+    # (GQA 32 / 8, k 16: code width 32), launches as llama3.2-3b's
+    timed(phase_train, "llama3-8b", 2, {name: n * ll for name, n in seam.items()},
+          layers=ll, bwd_emit="compact2", fwd_fuse=True, remat="codes")
+    release()
+    # deepseek-7b at full width, 4 of 30 layers: the dense emit, remat "full"
+    dl = 4
+    timed(phase_train, "deepseek-7b", 2,
+          {"rtopk": 4 * dl, "flash_sfa": 2 * dl, "flash_sfa_bwd": dl}, layers=dl)
+    release()
+    # SFA distillation (paper Eq. 8) at full width and depth, sfa_distill 0.1:
+    # the dense emit (the teacher, plain chunked attention, launches nothing),
+    # then a compact request, which the seam declines with the reference's
+    # reason (the op-level compact emit runs)
+    timed(phase_train, "gpt2-small-sfa8", 2,
+          {"rtopk": 4 * layers, "flash_sfa": 2 * layers, "flash_sfa_bwd": layers},
+          distill=0.1)
+    timed(phase_train, "gpt2-small-sfa8", 1,
+          {"rtopk": 4 * layers, "flash_sfa": 2 * layers, "flash_sfa_bwd_compact": layers},
+          distill=0.1, bwd_emit="compact", fwd_fuse=True)
     # hubert-xlarge at full width and depth on seeded frames: bidirectional,
     # d = dv 80, so rtopk's warp body and FlashSFA's tensor-core bodies on
     # 96-column tiles (the same per-layer launches as gpt2's dense emit
@@ -5538,6 +5708,11 @@ def main():
     # hubert's f32 seam (the CUDA-core bodies at d 80) against the torch run
     timed(phase_grad_end_to_end, "hubert-xlarge", 2, (GRAD_RUNS[0], GRAD_RUNS[2]))
     timed(phase_sfa_grad_bf16_end_to_end, "paligemma-3b", 2)
+    # paligemma's f32 gradients: the CUDA-core backward at dv 256 (32-row
+    # tiles), dense emit and the compact2 seam under remat "codes"
+    timed(phase_grad_end_to_end, "paligemma-3b", 2, (GRAD_RUNS[0], GRAD_RUNS[1], GRAD_RUNS[3]))
+    # gpt2-small-sfa8's f32 gradients with sfa_distill 0.1: loss, aux, leaves
+    timed(phase_grad_end_to_end, "gpt2-small-sfa8", 2, GRAD_RUNS[:2], distill=0.1)
     timed(phase_variants)
     # the JB shapes carry their launches in phase 12's two jamba serving runs
     for (kname, key), n in timed(phase_recurrent, results).items():

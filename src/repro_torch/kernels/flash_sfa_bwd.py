@@ -6,8 +6,8 @@ Replaces the TPU kernels ``repro/kernels/flash_sfa_bwd.py::flash_sfa_bwd``
 ``::flash_attention_bwd`` (both ``_bwd_impl``: Pallas bodies
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, emits ``_support_mask``,
 ``_gather_support`` and ``_pair_closure_gather``). Each call launches two
-kernels: dQ (one owner per 64-query tile, walking the key tiles up to the
-causal edge) and dK/dV (one owner per 64-key tile, walking the query tiles
+kernels: dQ (one owner per query tile, walking the key tiles up to the
+causal edge) and dK/dV (one owner per key tile, walking the query tiles
 from the diagonal): no atomics, a deterministic result. Probabilities are
 recomputed from the forward's LSE; D_i = Σ(dO_i ∘ O_i) is one torch
 reduction outside the kernels, as the JAX package computes it in XLA.
@@ -35,9 +35,10 @@ reduction outside the kernels, as the JAX package computes it in XLA.
   shared memory and dQ/dK accumulated only on each row's k stored
   coordinates (k multiply-adds per pair), the compact emits written
   straight from those k-wide accumulators. Exact in f32; f32 on the tensor
-  cores would be TF32, which fails f32's 1e-4 check. It takes dv up to 128:
-  at 256 its f32 tiles (~197 KB) do not fit beside the rest, so the
-  wrapper declines f32 at dv 256.
+  cores would be TF32, which fails f32's 1e-4 check. Tiles of 64 rows, and
+  of 32 at dv 256, where 64 f32 rows of 256 columns do not fit in shared
+  memory beside the rest; dv 256 is built for f32 only (bf16 at d = dv 256
+  runs the tensor-core body).
 
 The emit decides what is written: dense rows that are zero off the support
 (the straight-through gradient of paper Eq. 6), the values at the stored
@@ -71,11 +72,8 @@ from repro_torch.kernels.ref import flash_sfa_bwd_ref as flash_sfa_bwd_plain
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_K = 32          # the largest code width either backward body takes (d: as the
                     # forward's, flash_sfa.MAX_D)
-# dv of the backward's bodies: the tensor-core body takes every one (bf16,
-# d = dv), the CUDA-core body all but 256. models/backends.py checks a layer
-# that trains against the list of its dtype.
+# dv of the backward, either body (the CUDA-core body at 256 in f32 only)
 V_HEAD_DIMS = (32, 64, 80, 128, 256)
-CUDA_CORE_V_HEAD_DIMS = (32, 64, 80, 128)
 
 _SFA_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -127,8 +125,8 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
     On the card the code values, v, o and g share one dtype (f32 or bf16),
     indices are int32, k <= 32, d <= 256 and dv is in ``V_HEAD_DIMS``. bf16 with
     d = dv in ``flash_sfa.TC_DIMS`` runs the tensor-core body, everything else
-    the CUDA-core body (``flash_sfa.tensor_core_body``), which takes dv in
-    ``CUDA_CORE_V_HEAD_DIMS``.
+    the CUDA-core body (``flash_sfa.tensor_core_body``), which takes dv 256 in
+    f32 only.
     """
     if emit not in _EMITS:
         raise ValueError(f"emit={emit!r}; expected 'dense', 'compact' or 'compact2'")
@@ -150,10 +148,9 @@ def flash_sfa_bwd(q_vals, q_idx, k_vals, k_idx, v, o, lse, g, *, d: int,
                          f"d <= {MAX_D} and k <= {MAX_K}; got {dt}, dv={dv}, d={d}, "
                          f"k={kq}/{kk}")
     on_tc = tensor_core_body(dt, d, dv, kq, kk)
-    if not on_tc and dv not in CUDA_CORE_V_HEAD_DIMS:
-        raise ValueError(f"flash_sfa_bwd: the CUDA-core body takes dv in "
-                         f"{CUDA_CORE_V_HEAD_DIMS} (dv {dv} only on the tensor-core body: "
-                         f"bf16, d = dv, k <= {MAX_K}); got {dt}, dv={dv}, d={d}")
+    if not on_tc and dv == 256 and dt != torch.float32:
+        raise ValueError(f"flash_sfa_bwd: the CUDA-core body takes dv 256 in f32 only (bf16 "
+                         f"on the tensor-core body: d = dv, k <= {MAX_K}); got {dt}, d={d}")
     what = "flash_sfa_bwd"
     _check(what, "q_idx", q_idx, (bh, nq, kq), torch.int32, dev)
     _check(what, "k_vals", k_vals, (bh, nk, kk), dt, dev)

@@ -72,7 +72,6 @@ from repro_torch.core.sparse import sparsify, topk_st
 from repro_torch.distributed.ring import ring_degree, ring_sfa_op
 from repro_torch.distributed.shard import tp_flash_sfa, tp_flash_sfa_bwd
 from repro_torch.distributed.sharding import axis_size, current_mesh
-from repro_torch.kernels.flash_sfa_bwd import CUDA_CORE_V_HEAD_DIMS as _SEAM_F32_BWD_DIMS
 from repro_torch.kernels.flash_sfa_bwd import MAX_K as _SEAM_MAX_K
 from repro_torch.kernels.flash_sfa_bwd import pair_closure_indices
 from repro_torch.kernels.flash_sfa_decode import feature_major_prefill
@@ -118,10 +117,9 @@ def attention_init(gen, cfg: ModelConfig, device="cpu"):
 
 
 def _request(a: AttentionConfig, *, mode: str, window, paged: bool = False,
-             speculative: bool = False, backward: bool = True,
-             dtype: Optional[torch.dtype] = None) -> AttentionRequest:
+             speculative: bool = False, backward: bool = True) -> AttentionRequest:
     """Static backend request for this layer (``backward``: whether the
-    "full" call may be differentiated; ``dtype``: the activations')."""
+    "full" call may be differentiated)."""
     return AttentionRequest(
         mode=mode,
         causal=a.causal if mode == "full" else True,
@@ -135,7 +133,6 @@ def _request(a: AttentionConfig, *, mode: str, window, paged: bool = False,
         v_head_dim=a.head_dim,
         sfa_k=a.sfa_k,
         backward=backward,
-        dtype=None if dtype is None else str(dtype).removeprefix("torch."),
     )
 
 
@@ -303,30 +300,13 @@ def compact_seam_ineligible_reason(cfg: ModelConfig, window=None) -> Optional[st
     return None
 
 
-def seam_body_reason(cfg: ModelConfig, dtype, device) -> Optional[str]:
-    """None when the seam's kernels have a body for this layer in ``dtype``
-    on ``device``, else why not; decided before a step, so that no backward
-    raises half-way. On CPU tensors the wrappers run their plain versions,
-    which take every shape. On the card the f32 FlashSFA backward has no
-    body at dv 256 (``flash_sfa_bwd.CUDA_CORE_V_HEAD_DIMS``): an f32
-    paligemma layer leaves the seam, and the op-level path then goes to the
-    ``torch`` backend as ``kernel_shape_reason`` decides."""
-    hd = cfg.attention.head_dim
-    if (torch.device(device).type == "cuda" and dtype != torch.bfloat16
-            and hd not in _SEAM_F32_BWD_DIMS):
-        return (f"head_dim {hd} in {str(dtype).removeprefix('torch.')} on the card: the CUDA "
-                f"FlashSFA backward has f32 bodies at dv in {_SEAM_F32_BWD_DIMS} only")
-    return None
-
-
-def _seam_backend(cfg: ModelConfig, window, dtype, *, where: Optional[str] = None) -> str:
+def _seam_backend(cfg: ModelConfig, window, *, where: Optional[str] = None) -> str:
     """The backend a seam layer's forward resolves to (the seam wraps the
     ``cuda`` kernels). Its backward is the seam's own (the compact emits and
-    code_grad), whose limits ``compact_seam_ineligible_reason`` and
-    ``seam_body_reason`` hold, so the request asks for the forward alone.
-    With ``where`` the choice is made by ``select_backend``, which records a
-    declined explicit request."""
-    req = _request(cfg.attention, mode="full", window=window, backward=False, dtype=dtype)
+    code_grad), whose limits ``compact_seam_ineligible_reason`` holds, so
+    the request asks for the forward alone. With ``where`` the choice is
+    made by ``select_backend``, which records a declined explicit request."""
+    req = _request(cfg.attention, mode="full", window=window, backward=False)
     if where is None:
         return resolve_backend_name(cfg.attention.backend, req)
     return select_backend(cfg.attention.backend, req, where=where).backend.name
@@ -337,9 +317,9 @@ def compact_train_eligible(cfg: ModelConfig, window=None) -> bool:
     return compact_seam_ineligible_reason(cfg, window) is None
 
 
-def remat_codes_ineligible_reason(cfg: ModelConfig, device="cpu") -> Optional[str]:
-    """None when the stack can honour ``remat="codes"`` on ``device``, else
-    why not: only the kernels' autograd Functions (the seam's and
+def remat_codes_ineligible_reason(cfg: ModelConfig) -> Optional[str]:
+    """None when the stack can honour ``remat="codes"``, else why not:
+    only the kernels' autograd Functions (the seam's and
     ``kernels/ops.py::_SFAAttention``) record codes, so a stack whose
     forward goes elsewhere would keep nothing, and the layer loop degrades
     it to "full" explicitly (``core.remat.record_remat``). A layer that
@@ -349,11 +329,9 @@ def remat_codes_ineligible_reason(cfg: ModelConfig, device="cpu") -> Optional[st
         return "not an SFA stack (sfa_k unset): no codes to keep"
     if a.mla is not None:
         return "MLA latent attention bypasses the code-keeping q/k paths"
-    dt = getattr(torch, cfg.dtype)
-    if (compact_seam_ineligible_reason(cfg) is None and seam_body_reason(cfg, dt, device) is None
-            and _seam_backend(cfg, None, dt) == "cuda"):
+    if compact_seam_ineligible_reason(cfg) is None and _seam_backend(cfg, None) == "cuda":
         return None
-    resolved = resolve_backend_name(a.backend, _request(a, mode="full", window=None, dtype=dt))
+    resolved = resolve_backend_name(a.backend, _request(a, mode="full", window=None))
     if resolved != "cuda":
         return (f"backend {a.backend!r} resolves to {resolved!r} for train "
                 f"forwards: only the cuda kernel paths keep the codes")
@@ -606,11 +584,9 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
         where = f"{cfg.name}/attention"
         reason = compact_seam_ineligible_reason(cfg, window)
         if reason is None:
-            name = _seam_backend(cfg, window, dt, where=where)
+            name = _seam_backend(cfg, window, where=where)
             if name != "cuda":
                 reason = f"backend resolved to {name!r}; the seam wraps the cuda kernels"
-        if reason is None:
-            reason = seam_body_reason(cfg, dt, x.device)
         if reason is None:
             _record_seam(where, True, None, fused_fwd=a.fwd_fuse)
             if a.rope:
@@ -701,7 +677,7 @@ def attention_apply(params, x, *, cfg: ModelConfig, positions=None,
         # a prefill or eval under no_grad runs the forward alone
         backward = mode == "train" or torch.is_grad_enabled()
         sel = select_backend(a.backend, _request(a, mode="full", window=window,
-                                                 backward=backward, dtype=q.dtype),
+                                                 backward=backward),
                              where=f"{cfg.name}/attention")
         o = sel.backend.full(q, k, v, num_heads=h, sfa_k=a.sfa_k, causal=a.causal,
                              window=window, scale=scale, rope_protect=a.sfa_rope_protect,

@@ -72,8 +72,6 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS as _DENSE_DIMS
 from repro_torch.kernels.flash_sfa import MAX_D as _SFA_MAX_D
 from repro_torch.kernels.flash_sfa import V_HEAD_DIMS as _SFA_DV
 from repro_torch.kernels.flash_sfa_bwd import MAX_K as _SFA_BWD_MAX_K
-from repro_torch.kernels.flash_sfa_bwd import CUDA_CORE_V_HEAD_DIMS as _SFA_BWD_CC_DV
-from repro_torch.kernels.flash_sfa_bwd import V_HEAD_DIMS as _SFA_BWD_DV
 from repro_torch.kernels.flash_sfa_decode import V_HEAD_DIMS as _DECODE_DV
 from repro_torch.kernels.rtopk import MAX_D as _RTOPK_MAX_D
 from repro_torch.kernels.flash_sfa_decode import (
@@ -108,9 +106,6 @@ class AttentionRequest:
     v_head_dim: Optional[int] = None   # v width dv (None: = head_dim)
     sfa_k: Optional[int] = None        # code width k of an SFA layer
     backward: bool = True              # a "full" call may be differentiated
-    # the activations' dtype ("float32" | "bfloat16"; None: not said, read as
-    # float32): which FlashSFA backward bodies can run
-    dtype: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -373,10 +368,7 @@ def kernel_shape_reason(req: AttentionRequest) -> Optional[str]:
     full-sequence SFA dv in ``flash_sfa.V_HEAD_DIMS``, d <=
     ``flash_sfa.MAX_D`` (and rtopk's ``MAX_D``), and where a backward can
     run (``req.backward``) also k <= ``flash_sfa_bwd.MAX_K`` (the forward's
-    bodies take any k) and dv in ``flash_sfa_bwd.V_HEAD_DIMS`` for bf16 with
-    d = dv (the tensor-core body), else in
-    ``flash_sfa_bwd.CUDA_CORE_V_HEAD_DIMS`` (f32, or a dtype not said, has
-    no backward body at dv 256); decode dv in
+    bodies take any k; the backward's dv are the forward's); decode dv in
     ``flash_sfa_decode.V_HEAD_DIMS`` and d <= rtopk's ``MAX_D``. Which
     FlashSFA body runs (tensor or CUDA cores) is the wrappers' choice."""
     d = req.head_dim
@@ -395,13 +387,6 @@ def kernel_shape_reason(req: AttentionRequest) -> Optional[str]:
         max_d = min(_RTOPK_MAX_D, _SFA_MAX_D)
         if d > max_d:
             return f"head dim {d}: the CUDA top-k and FlashSFA kernels take d <= {max_d}"
-        if req.mode == "full" and req.backward:
-            tc = req.dtype == "bfloat16" and d == dv
-            dvs = _SFA_BWD_DV if tc else _SFA_BWD_CC_DV
-            if dv not in dvs:
-                return (f"v head dim {dv}: the CUDA FlashSFA backward takes dv in {dvs} "
-                        f"in {req.dtype or 'float32'} ({_SFA_BWD_DV} in bfloat16 with "
-                        f"d = dv)")
         if (req.mode == "full" and req.backward and req.sfa_k is not None
                 and min(req.sfa_k, d) > _SFA_BWD_MAX_K):
             return (f"sfa_k {req.sfa_k}: the CUDA FlashSFA backward takes k <= "

@@ -347,17 +347,17 @@ def _block(p, x, cfg: ModelConfig, kind: str, *, window, positions, mode, cache=
                      cache=cache, cache_len=cache_len, slot=slot)
 
 
-def _remat(cfg: ModelConfig, mode: str, kind: str, device) -> str:
+def _remat(cfg: ModelConfig, mode: str, kind: str) -> str:
     """The policy the layer loop applies to a segment of ``kind``:
     ``cfg.remat`` on the train and eval forwards ("none" in the serving
     modes). A "codes" request is recorded at the segment, as the reference's
-    scan records it; on a stack that keeps no codes on ``device`` it is
-    applied as "full", with the reason."""
+    scan records it; on a stack that keeps no codes it is applied as
+    "full", with the reason."""
     rm = normalize_remat(cfg.remat)
     if mode not in ("train", "eval") or rm == "none":
         return "none"
     if rm == "codes":
-        reason = attn.remat_codes_ineligible_reason(cfg, device)
+        reason = attn.remat_codes_ineligible_reason(cfg)
         applied = "full" if reason is not None else "codes"
         record_remat(f"{cfg.name}/scan[{kind}]", rm, applied, reason)
         return applied
@@ -376,7 +376,7 @@ def _apply_stack(params: Model, x, cfg: ModelConfig, *, positions, mode,
     for si, (kind, count) in enumerate(segments(cfg)):
         windows = _window_array(cfg, count, offset) or [None] * count
         offset += count
-        remat = _remat(cfg, mode, kind, x.device)
+        remat = _remat(cfg, mode, kind)
 
         seg = tree["segments"][si]
         specs = layer_specs(seg)

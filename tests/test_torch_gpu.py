@@ -1123,9 +1123,9 @@ def test_moe_layer_on_card_gives_the_same_bits_twice_and_its_cpu_result(cuda):
 def test_flash_sfa_at_frontend_head_dims_on_card(cuda, d, n, dtype, causal, block_skip):
     """Rows 3 (both schedules: row 4 is the block-skip one) and 5 at d = dv
     80 and 256 (k 16, ragged n, both masks) against the plain versions:
-    bf16 on the tensor-core bodies (no CUDA-core launch), the backward with
-    every emit; f32 on the CUDA-core bodies, whose backward declines dv 256
-    in its wrapper."""
+    bf16 on the tensor-core bodies (no CUDA-core launch), f32 on the
+    CUDA-core ones (dv 256 on 32-row tiles), the backward with every
+    emit."""
     rs = np.random.RandomState(12)
     bh, k = 6, 16
     qv, qi = _codes(rs, bh, n, k, d)
@@ -1145,18 +1145,52 @@ def test_flash_sfa_at_frontend_head_dims_on_card(cuda, d, n, dtype, causal, bloc
     rtol = 2 ** -7 if tc else 0
     torch.testing.assert_close(ko.float(), po.float(), rtol=rtol, atol=1e-4)
     torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-4)
-    if d == 256 and not tc:
-        with pytest.raises(ValueError, match="dv in"):
-            flash_sfa_bwd(qv_, qi_, kv_, ki_, v_, po, pl, g_, d=d, causal=causal)
-        return
-    for emit in ("dense", "compact", "compact2") if tc else ("dense",):
+    emits = ("dense", "compact", "compact2")
+    for emit in emits:
         got = flash_sfa_bwd(qv_, qi_, kv_, ki_, v_, po, pl, g_, d=d, causal=causal, emit=emit)
         want = ref.flash_sfa_bwd_ref(qv_, qi_, kv_, ki_, v_, po, pl, g_, d=d, causal=causal,
                                      emit=emit)
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-4,
                                        msg=f"{emit} {name}")
-    assert body_counts()["flash_sfa_bwd_cuda_core"] == (0 if tc else 1)
+    assert body_counts()["flash_sfa_bwd_cuda_core"] == (0 if tc else len(emits))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n,k", [(1024, 16), (333, 32), (31, 16)])
+def test_flash_sfa_bwd_f32_dv256_cuda_core_body_on_card(cuda, n, k, causal):
+    """Row 5's CUDA-core body at d = dv 256 in f32 (paligemma-3b's head dim;
+    32-row tiles, 8 threads a row), at the largest code width its shared
+    memory is sized for (k 32) and a sequence shorter than one tile: every
+    emit against the plain version to f32's 1e-4, the compact emit equal
+    to the dense one gathered at the stored indices, two calls equal bit
+    for bit; bf16 at dv 256 off the tensor-core body (d != dv) raises."""
+    rs = np.random.RandomState(32 + k)
+    bh, d = 8, 256
+    qv, qi = _codes(rs, bh, n, k, d)
+    kv, ki = _codes(rs, bh, n, k, d)
+    qi[:, 3::7, 1] = qi[:, 3::7, 0]              # duplicates sum
+    ki[:, 5::11, -1] = d + 3                     # outside [0, d): adds nothing
+    v, g = (rs.randn(bh, n, d).astype(np.float32) for _ in range(2))
+    args = [torch.from_numpy(a).to(cuda) for a in (qv, qi, kv, ki, v)]
+    o, lse = ref.flash_sfa_ref(*args, d=d, causal=causal, return_residuals=True)
+    args += [o, lse, torch.from_numpy(g).to(cuda)]
+    reset_launches()
+    got = {}
+    for emit, rot in (("dense", d), ("compact", d), ("compact2", d), ("compact2", 64)):
+        got[emit] = flash_sfa_bwd(*args, d=d, causal=causal, emit=emit, rot_dim=rot)
+        want = ref.flash_sfa_bwd_ref(*args, d=d, causal=causal, emit=emit, rot_dim=rot)
+        for name, a, b in zip(("dq", "dk", "dv"), got[emit], want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=f"{emit}/{rot} {name}")
+    assert body_counts()["flash_sfa_bwd_cuda_core"] == 4
+    for a, b, idx in ((got["compact"][0], got["dense"][0], args[1]),
+                      (got["compact"][1], got["dense"][1], args[3])):
+        assert torch.equal(a, ref.gather_support(b, idx))
+    again = flash_sfa_bwd(*args, d=d, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(again, got["dense"]))
+    bf = [t.bfloat16() if t.is_floating_point() and t is not args[6] else t for t in args]
+    with pytest.raises(ValueError, match="dv 256 in f32 only"):
+        flash_sfa_bwd(*bf, d=128, causal=causal)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -21,10 +21,10 @@ does:
     the loss and every gradient within 1e-4 of JAX's seam on its pallas
     backend (one JAX compile each, a module fixture); the seam and remat
     reports say the seam and "codes" were taken;
-  * the one shape the card lacks: an f32 layer at d 256 has no FlashSFA
-    backward body there, so the seam declines it before the step with a
-    reason (``seam_body_reason``), and "codes" degrades; on CPU tensors it
-    is taken.
+  * every dtype has a body: an f32 layer at d 256 takes the seam and keeps
+    its codes under remat "codes" on a ``cuda`` request, as in bf16 (the
+    f32 FlashSFA backward runs dv 256 on 32-row tiles), and nothing in the
+    decision depends on the device.
 """
 import dataclasses
 
@@ -83,22 +83,22 @@ def test_seam_takes_80_and_256_and_declines_what_no_body_takes():
                                                                        sfa_k=40))
 
 
-@pytest.mark.parametrize("name,dtype,device,declines", [
-    ("paligemma-3b", torch.float32, "cuda", True),     # no f32 backward body at dv 256
-    ("paligemma-3b", torch.bfloat16, "cuda", False),   # the tensor-core bodies
-    ("paligemma-3b", torch.float32, "cpu", False),     # the plain versions
-    ("hubert-xlarge", torch.float32, "cuda", False),   # the CUDA-core bodies take 80
+@pytest.mark.parametrize("name,dtype", [
+    ("paligemma-3b", torch.float32),     # the CUDA-core backward's 32-row tiles at dv 256
+    ("paligemma-3b", torch.bfloat16),    # the tensor-core bodies
+    ("hubert-xlarge", torch.float32),    # the CUDA-core bodies take 80
+    ("hubert-xlarge", torch.bfloat16),
 ])
-def test_the_card_without_a_body_is_decided_before_the_step(name, dtype, device, declines):
+def test_the_card_without_a_body_is_decided_before_the_step(name, dtype):
+    """No layer of a registered arch lacks a body on the card any more: a
+    cuda request takes the seam and keeps its codes in either dtype, so
+    there is nothing left to decide before the step."""
     cfg = dataclasses.replace(_with_emit(get_config(name), SEAMS[name], backend="cuda"),
                               dtype=str(dtype).removeprefix("torch."), remat="codes")
-    reason = attn.seam_body_reason(cfg, dtype, device)
-    remat = attn.remat_codes_ineligible_reason(cfg, device)
-    if declines:
-        assert "FlashSFA backward" in reason and "256" in reason
-        assert remat is not None
-    else:
-        assert reason is None and remat is None
+    assert attn.compact_seam_ineligible_reason(cfg) is None
+    assert attn._seam_backend(cfg, None) == "cuda"
+    assert attn.remat_codes_ineligible_reason(cfg) is None
+    assert not hasattr(attn, "seam_body_reason")
 
 
 # --------------------------------------------------------------------------
